@@ -1,4 +1,4 @@
-// flash_decode: one query token per sequence against the slot KV cache.
+// flash_decode: one query token per sequence against the bf16 slot cache.
 //   q      [B, H, D]             float16 (D = 128)
 //   k, v   [rows, Smax, Hkv, D]  bfloat16 (the engine's cache dtype)
 //   slots  [B] int32 (cache row of each sequence), lengths [B] int32
@@ -10,219 +10,18 @@
 //
 // What bounds it on the H100: the KV bytes of this step,
 // sum_b lengths[b] * Hkv * D * 2 (bytes) * 2 (K and V), over 3.35 TB/s.
-//
-// Design: one block per (KV head, sequence), so the whole GQA group of
-// H / Hkv query rows shares every K/V row it reads (the grouped grid of
-// flash.py:492-496). The block walks the cache in tiles of 64 keys and
-// stops at lengths[b]: rows past the length are never read. Those rows
-// hold stale data from released slots (the engine resets only lengths),
-// so the last partial tile masks the scores to -inf and gives V zero
-// weight without touching it -- no NaN left in a stale row can reach the
-// output. Per tile: (1) two threads per key read its K row (bf16 -> f32)
-// and dot it with the group's query rows, pre-scaled into the base-2
-// domain by log2(e)/sqrt(D), while the tile's V rows are already in
-// flight; (2) one warp per query row updates the
-// online-softmax max and sum (f32) and turns scores into weights;
-// (3) each thread accumulates p * V over 8 head-dim values of every 8th
-// key with 16-byte loads (a warp reads two whole V rows), and the 8 key
-// lanes are summed once at the end. A length of 0 yields 0 (empty sum over
-// max(l, 1e-30)), not NaN. A split-KV variant for long caches is left for
-// later work.
+// The kernel and its design are in flash_decode.cuh (shared with the
+// int8 and paged variants). A split-KV variant for long caches is left
+// for later work.
 
-#include <cuda_bf16.h>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int D = 128;
-constexpr int TK = 64;          // keys per tile
-constexpr int kThreads = 128;   // == D
-constexpr int GMAX = 8;         // largest GQA group handled
-constexpr float LOG2E = 1.4426950408889634f;
-
-__global__ void __launch_bounds__(kThreads)
-    flash_decode_kernel(const half* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ kc,
-                        const __nv_bfloat16* __restrict__ vc,
-                        const int* __restrict__ slots,
-                        const int* __restrict__ lengths,
-                        half* __restrict__ out, int H, int Hkv, int Smax,
-                        float scale) {
-  __shared__ float qs[GMAX][D];
-  __shared__ float ps[GMAX][TK];
-  __shared__ float alpha_s[GMAX];
-  __shared__ float m_s[GMAX];   // running max per query row (base 2)
-  __shared__ float l_s[GMAX];   // running sum per query row
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int group = H / Hkv;
-  const int len = lengths[b];
-  const size_t row = (size_t)slots[b];
-  const size_t key_stride = (size_t)Hkv * D;
-  const __nv_bfloat16* kb = kc + row * Smax * key_stride + hk * D;
-  const __nv_bfloat16* vb = vc + row * Smax * key_stride + hk * D;
-
-  for (int i = tid; i < group * D; i += kThreads) {
-    const int gq = i / D, d = i % D;
-    qs[gq][d] = __half2float(q[((size_t)b * H + hk * group + gq) * D + d]) *
-                (scale * LOG2E);
-  }
-  if (tid < GMAX) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  // Phase (3) layout: 16 chunks of 8 head-dim values x 8 key lanes.
-  const int dc = tid % (D / 8), kl = tid / (D / 8);
-  float acc[GMAX][8];
-#pragma unroll
-  for (int gq = 0; gq < GMAX; ++gq)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[gq][j] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TK) {
-    const int nvalid = min(TK, len - t0);
-    // V rows of this tile go in flight first, so their latency overlaps
-    // the K reads and dots of phase (1) (layout of phase (3)).
-    uint4 vraw[TK / 8];
-#pragma unroll
-    for (int i = 0; i < TK / 8; ++i) {
-      const int key = kl + 8 * i;
-      vraw[i] = key < nvalid
-                    ? *reinterpret_cast<const uint4*>(
-                          vb + (size_t)(t0 + key) * key_stride + dc * 8)
-                    : make_uint4(0, 0, 0, 0);
-    }
-    // (1) scores: key = tid / 2, half the head dim each.
-    {
-      const int key = tid >> 1, part = tid & 1;
-      float dot[GMAX];
-#pragma unroll
-      for (int gq = 0; gq < GMAX; ++gq) dot[gq] = 0.f;
-      if (key < nvalid) {
-        const uint4* kp = reinterpret_cast<const uint4*>(
-            kb + (size_t)(t0 + key) * key_stride + part * (D / 2));
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          const uint4 raw = kp[c];
-          const __nv_bfloat162* k2 =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 kf = __bfloat1622float2(k2[e]);
-            const int d = part * (D / 2) + c * 8 + 2 * e;
-#pragma unroll
-            for (int gq = 0; gq < GMAX; ++gq)
-              if (gq < group)
-                dot[gq] += kf.x * qs[gq][d] + kf.y * qs[gq][d + 1];
-          }
-        }
-      }
-#pragma unroll
-      for (int gq = 0; gq < GMAX; ++gq) {
-        if (gq >= group) break;
-        const float s = dot[gq] + __shfl_xor_sync(0xffffffffu, dot[gq], 1);
-        if (part == 0) ps[gq][key] = key < nvalid ? s : -INFINITY;
-      }
-    }
-    __syncthreads();
-    // (2) online softmax, one warp per query row.
-    for (int gq = warp; gq < group; gq += kThreads / 32) {
-      const float s0 = ps[gq][lane], s1 = ps[gq][lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_old = m_s[gq], l_old = l_s[gq];
-      const float m_new = fmaxf(m_old, mx);   // finite: nvalid >= 1
-      const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      const float alpha = exp2f(m_old - m_new);
-      ps[gq][lane] = p0;
-      ps[gq][lane + 32] = p1;
-      __syncwarp();   // every lane has read m_s / l_s
-      if (lane == 0) {
-        alpha_s[gq] = alpha;
-        m_s[gq] = m_new;
-        l_s[gq] = l_old * alpha + sum;
-      }
-    }
-    __syncthreads();
-    // (3) acc[gq][j] (d = 8 dc + j) = alpha * acc + sum over this lane's
-    // keys (kl, kl + 8, ...) of p * V[key, d], from the 16-byte V loads
-    // issued at the top of the tile (a warp reads two whole V rows).
-#pragma unroll
-    for (int gq = 0; gq < GMAX; ++gq)
-      if (gq < group) {
-        const float a = alpha_s[gq];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[gq][j] *= a;
-      }
-#pragma unroll
-    for (int i = 0; i < TK / 8; ++i) {
-      const int key = kl + 8 * i;
-      if (key < nvalid) {
-        const __nv_bfloat162* v2 =
-            reinterpret_cast<const __nv_bfloat162*>(&vraw[i]);
-        float vf[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(v2[e]);
-          vf[2 * e] = f.x;
-          vf[2 * e + 1] = f.y;
-        }
-#pragma unroll
-        for (int gq = 0; gq < GMAX; ++gq)
-          if (gq < group) {
-            const float p = ps[gq][key];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[gq][j] += p * vf[j];
-          }
-      }
-    }
-    __syncthreads();   // ps / alpha_s are rewritten by the next tile
-  }
-
-  // Sum the 8 key lanes, then normalise.
-  __shared__ float red[TK / 8][GMAX][D];
-#pragma unroll
-  for (int gq = 0; gq < GMAX; ++gq)
-    if (gq < group)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[kl][gq][dc * 8 + j] = acc[gq][j];
-  __syncthreads();
-  for (int gq = 0; gq < group; ++gq) {
-    float o = 0.f;
-#pragma unroll
-    for (int k = 0; k < TK / 8; ++k) o += red[k][gq][tid];
-    const float l = len > 0 ? l_s[gq] : 0.f;
-    out[((size_t)b * H + hk * group + gq) * D + tid] =
-        __float2half_rn(o / fmaxf(l, 1e-30f));
-  }
-}
-
-}  // namespace
+#include "flash_decode.cuh"
 
 extern "C" int flash_decode(const void* q, const void* k_cache,
                             const void* v_cache, const void* slots,
                             const void* lengths, void* out, int B, int H,
                             int Hkv, int Smax, int head_dim, float scale,
                             void* stream) {
-  if (head_dim != D || B < 1 || Hkv < 1 || H % Hkv != 0 ||
-      H / Hkv > GMAX)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  flash_decode_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const half*>(q),
-      static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache),
-      static_cast<const int*>(slots), static_cast<const int*>(lengths),
-      static_cast<half*>(out), H, Hkv, Smax, scale);
-  return (int)cudaGetLastError();
+  return bbt::decode::launch<__nv_bfloat16, false>(
+      q, k_cache, v_cache, nullptr, nullptr, slots, lengths, out, B, H, Hkv,
+      Smax, 1, head_dim, scale, stream);
 }

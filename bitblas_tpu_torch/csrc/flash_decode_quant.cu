@@ -1,0 +1,34 @@
+// flash_decode_quant: one query token per sequence against the int8 slot
+// cache.
+//   q        [B, H, D]             float16 (D = 128)
+//   k, v     [rows, Smax, Hkv, D]  int8 codes
+//   k_scale, v_scale [rows, Smax, Hkv] float32 (x ~= code * scale, one
+//            symmetric scale per token and KV head)
+//   slots    [B] int32, lengths [B] int32
+//   out      [B, H, D]             float16
+//
+// Replaces bitblas_tpu/kernels/flash.py:make_flash_decode_quant
+// (pallas_call at :813) with partial_stats=False and no window. Scales
+// apply to the dot results as there: the K scale multiplies each logit
+// before the running max, the V scale folds into the softmax weight
+// before the PV product. The scales are read as stored; the TPU wrapper's
+// per-step transpose and 8-row q padding are Mosaic layout needs and have
+// no counterpart here.
+//
+// What bounds it on the H100: the live int8 bytes of this step,
+// sum_b lengths[b] * Hkv * (2 * D + 2 * 4) bytes, over 3.35 TB/s -- about
+// half of the bf16 kernel's. Design: flash_decode.cuh; K/V rows are read
+// with 16-byte loads of 16 codes each and converted in registers.
+
+#include "flash_decode.cuh"
+
+extern "C" int flash_decode_quant(const void* q, const void* k_cache,
+                                  const void* v_cache, const void* k_scale,
+                                  const void* v_scale, const void* slots,
+                                  const void* lengths, void* out, int B,
+                                  int H, int Hkv, int Smax, int head_dim,
+                                  float scale, void* stream) {
+  return bbt::decode::launch<int8_t, false>(
+      q, k_cache, v_cache, k_scale, v_scale, slots, lengths, out, B, H, Hkv,
+      Smax, 1, head_dim, scale, stream);
+}

@@ -1,22 +1,31 @@
 """Flash attention for prefill and decode (counterpart of
-bitblas_tpu/kernels/flash.py: make_flash_attention, make_flash_decode).
+bitblas_tpu/kernels/flash.py: make_flash_attention, make_flash_decode,
+make_flash_decode_quant, make_flash_decode_paged and
+make_flash_decode_paged_quant).
 
 * `flash_attention_fwd` -- causal prefill over Q [B, S, H, D] and K/V
   [B, S, Hkv, D], float16 (csrc/flash_attention.cu).
 * `flash_decode` -- one query token per sequence against the slot cache
   [rows, Smax, Hkv, D] bfloat16 through `slots` and `lengths`
   (csrc/flash_decode.cu).
+* `flash_decode_quant` -- the same against the int8 slot cache and its
+  f32 scales [rows, Smax, Hkv] (csrc/flash_decode_quant.cu).
+* `flash_decode_paged` / `flash_decode_paged_quant` -- the same against
+  the block pool [blocks, bs, Hkv, D] (bfloat16, or int8 with scale planes
+  [blocks, bs, Hkv]) through block tables [B, MB]
+  (csrc/flash_decode_paged{,_quant}.cu).
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain PyTorch
 version (`*_plain`) on CPU tensors; both take the same shapes (head dim
-128). Sliding windows, ``trans_k``, ``partial_stats`` and the quantized
-and paged caches are not ported yet and raise NotImplementedError.
+128, GQA groups up to 8). Sliding windows, ``trans_k`` and
+``partial_stats`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -29,18 +38,29 @@ MAX_GROUP = 8       # largest GQA group the decode kernel handles
 
 _PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_float, ctypes.c_void_p]
+# decode entry points: q, caches (scales), index, lengths, out, then ints
 _DECODE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_DECODE_QUANT_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_DECODE_PAGED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
-def _require(t: torch.Tensor, name: str, dtype, shape, device):
+def _require(t: torch.Tensor, name: str, dtype, shape, device,
+             align: int = 16):
+    """Type, shape, device, contiguity and alignment (16 bytes for what
+    the kernels read with 16-byte loads, 4 for scalar reads)."""
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
                          f"{t.dtype} {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name} must be contiguous and {align}-byte "
+                         f"aligned")
 
 
 # ---------------------------------------------------------------------------
@@ -100,33 +120,135 @@ flash_attention_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Decode
+# Decode: one query token per sequence against the slot cache or the block
+# pool, bf16 or int8 (csrc/flash_decode.cuh holds the one kernel body)
 # ---------------------------------------------------------------------------
+
+def _attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Length-masked decode attention in f32 with the kernels' arithmetic.
+    q [B, H, D]; k/v [B, L, Hkv, D] gathered rows; valid [B, L]; scales
+    [B, L, Hkv] for int8 codes. Rows not valid get -inf scores and zero V
+    and V scale (stale rows may hold anything, NaN included); a sequence
+    with no valid row yields 0."""
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    zero = torch.zeros((), device=q.device)
+    v = torch.where(valid[:, :, None, None], v.float(), zero)
+    qf = q.float().reshape(B, Hkv, group, D) * (LOG2E / math.sqrt(D))
+    s = torch.einsum("bhgd,blhd->bhgl", qf, k.float())
+    if k_scale is not None:
+        s = s * k_scale.float().permute(0, 2, 1)[:, :, None, :]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), float("-inf"), device=s.device))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, zero)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        vsc = torch.where(valid[..., None], v_scale.float(), zero)
+        p = p * vsc.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bhgl,blhd->bhgd", p, v) / l.clamp_min(1e-30)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _slot_rows(slots: torch.Tensor, lengths: torch.Tensor, *caches):
+    """Each cache [rows, Smax, ...] gathered to its sequences' rows
+    [B, Smax, ...], then the [B, Smax] mask of rows below each length."""
+    rows = [c[slots.long()] for c in caches]
+    Smax = caches[0].shape[1]
+    return (*rows, torch.arange(Smax, device=lengths.device)[None]
+            < lengths[:, None])
+
+
+def _page_rows(tables: torch.Tensor, lengths: torch.Tensor, *pools):
+    """Each block pool [blocks, bs, ...] gathered through tables [B, MB]
+    into [B, MB * bs, ...] (the table gather), then the mask of rows below
+    each length."""
+    B, MB = tables.shape
+    rows = [p[tables.long()].reshape(B, MB * p.shape[1], *p.shape[2:])
+            for p in pools]
+    return (*rows, torch.arange(rows[0].shape[1], device=lengths.device)[None]
+            < lengths[:, None])
+
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, lengths: torch.Tensor,
                        slots: torch.Tensor) -> torch.Tensor:
-    """Plain length-masked decode attention in f32. Rows at or past a
-    sequence's length get -inf scores and zeroed V (stale rows may hold
-    anything, NaN included); a length of 0 yields 0."""
+    """Plain decode over the bf16 slot cache (kernel `flash_decode`)."""
+    k, v, valid = _slot_rows(slots, lengths, k_cache, v_cache)
+    return _attend_plain(q, k, v, valid)
+
+
+def flash_decode_quant_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, lengths: torch.Tensor,
+                             slots: torch.Tensor) -> torch.Tensor:
+    """Plain decode over the int8 slot cache (kernel `flash_decode_quant`):
+    logits scale by the K scales, weights by the V scales."""
+    k, v, ks, vs, valid = _slot_rows(slots, lengths, k_cache, v_cache,
+                                     k_scale, v_scale)
+    return _attend_plain(q, k, v, valid, ks, vs)
+
+
+def flash_decode_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, tables: torch.Tensor,
+                             lengths: torch.Tensor) -> torch.Tensor:
+    """Plain decode over the bf16 block pool: the table gather
+    (kernel `flash_decode_paged`)."""
+    k, v, valid = _page_rows(tables, lengths, k_pool, v_pool)
+    return _attend_plain(q, k, v, valid)
+
+
+def flash_decode_paged_quant_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                   v_pool: torch.Tensor,
+                                   k_scale: torch.Tensor,
+                                   v_scale: torch.Tensor,
+                                   tables: torch.Tensor,
+                                   lengths: torch.Tensor) -> torch.Tensor:
+    """Plain decode over the int8 block pool: the table gather of codes
+    and scales (kernel `flash_decode_paged_quant`)."""
+    k, v, ks, vs, valid = _page_rows(tables, lengths, k_pool, v_pool,
+                                     k_scale, v_scale)
+    return _attend_plain(q, k, v, valid, ks, vs)
+
+
+def _check_decode(q: torch.Tensor, kv: torch.Tensor, name: str):
+    """(B, H, Hkv) for a query [B, H, D] and a cache or pool
+    [n, span, Hkv, D]; raises on what the kernels do not take."""
+    if q.dim() != 3 or kv.dim() != 4:
+        raise ValueError(f"{name}: q [B, H, D] and caches [n, L, Hkv, D], "
+                         f"got {tuple(q.shape)}, {tuple(kv.shape)}")
     B, H, D = q.shape
-    Hkv = k_cache.shape[2]
-    group = H // Hkv
-    k = k_cache[slots.long()].float()                 # [B, L, Hkv, D]
-    v = v_cache[slots.long()].float()
-    L = k.shape[1]
-    valid = torch.arange(L, device=q.device)[None] < lengths[:, None]
-    v = torch.where(valid[:, :, None, None], v, torch.zeros((), device=v.device))
-    qf = q.float().reshape(B, Hkv, group, D) * (LOG2E / math.sqrt(D))
-    s = torch.einsum("bhgd,blhd->bhgl", qf, k)
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.full((), float("-inf"), device=s.device))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
-    p = torch.exp2(s - m)
-    out = torch.einsum("bhgl,blhd->bhgd", p, v) \
-        / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(B, H, D).to(q.dtype)
+    Hkv = kv.shape[2]
+    if D != HEAD_DIM or H % Hkv or H // Hkv > MAX_GROUP:
+        raise NotImplementedError(
+            f"{name} takes head_dim {HEAD_DIM} and GQA groups up to "
+            f"{MAX_GROUP} (got D={D}, H={H}, Hkv={Hkv})")
+    return B, H, Hkv
+
+
+def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
+            tensors, ints) -> torch.Tensor:
+    """Launch csrc/<symbol>.cu's entry point on q's device: pointers of q
+    and `tensors`, then the output, the ints, 1/sqrt(D) and the stream."""
+    out = torch.empty_like(q)
+    fn = build.entry(symbol, symbol, argtypes)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in tensors),
+                 out.data_ptr(), *ints, HEAD_DIM, 1.0 / math.sqrt(HEAD_DIM),
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, symbol)
+    wrapper.launches += 1
+    return out
+
+
+def _device(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return q.device.type
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -134,35 +256,106 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  slots: torch.Tensor) -> torch.Tensor:
     """q [B, H, D] f16 against caches [rows, Smax, Hkv, D] bf16 through
     slots/lengths [B] int32 -> [B, H, D] f16."""
-    if q.dim() != 3 or k_cache.dim() != 4:
-        raise ValueError(f"q [B, H, D] and caches [rows, Smax, Hkv, D], got "
-                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}")
-    B, H, D = q.shape
-    rows, Smax, Hkv = k_cache.shape[:3]
-    if D != HEAD_DIM or H % Hkv or H // Hkv > MAX_GROUP:
-        raise NotImplementedError(
-            f"flash_decode takes head_dim {HEAD_DIM} and GQA groups up to "
-            f"{MAX_GROUP} (got D={D}, H={H}, Hkv={Hkv})")
+    B, H, Hkv = _check_decode(q, k_cache, "flash_decode")
+    rows, Smax = k_cache.shape[:2]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, D), dev)
-    _require(k_cache, "k_cache", torch.bfloat16, (rows, Smax, Hkv, D), dev)
-    _require(v_cache, "v_cache", torch.bfloat16, (rows, Smax, Hkv, D), dev)
-    _require(lengths, "lengths", torch.int32, (B,), dev)
-    _require(slots, "slots", torch.int32, (B,), dev)
-    if dev.type == "cpu":
+    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
+    _require(k_cache, "k_cache", torch.bfloat16, k_cache.shape, dev)
+    _require(v_cache, "v_cache", torch.bfloat16, k_cache.shape, dev)
+    _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
+    _require(slots, "slots", torch.int32, (B,), dev, align=4)
+    if _device(q) == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, slots)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = torch.empty_like(q)
-    fn = build.entry("flash_decode", "flash_decode", _DECODE_ARGS)
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 slots.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, H, Hkv, Smax, D, 1.0 / math.sqrt(D),
-                 torch.cuda.current_stream().cuda_stream)
-    build.check(err, "flash_decode")
-    flash_decode.launches += 1
-    return out
+    return _launch(flash_decode, "flash_decode", _DECODE_ARGS, q,
+                   (k_cache, v_cache, slots, lengths), (B, H, Hkv, Smax))
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, k_scale: torch.Tensor,
+                       v_scale: torch.Tensor, lengths: torch.Tensor,
+                       slots: torch.Tensor) -> torch.Tensor:
+    """q [B, H, D] f16 against int8 caches [rows, Smax, Hkv, D] with f32
+    scales [rows, Smax, Hkv] through slots/lengths [B] int32
+    -> [B, H, D] f16."""
+    B, H, Hkv = _check_decode(q, k_cache, "flash_decode_quant")
+    rows, Smax = k_cache.shape[:2]
+    dev = q.device
+    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
+    _require(k_cache, "k_cache", torch.int8, k_cache.shape, dev)
+    _require(v_cache, "v_cache", torch.int8, k_cache.shape, dev)
+    _require(k_scale, "k_scale", torch.float32, k_cache.shape[:3], dev,
+             align=4)
+    _require(v_scale, "v_scale", torch.float32, k_cache.shape[:3], dev,
+             align=4)
+    _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
+    _require(slots, "slots", torch.int32, (B,), dev, align=4)
+    if _device(q) == "cpu":
+        return flash_decode_quant_plain(q, k_cache, v_cache, k_scale,
+                                        v_scale, lengths, slots)
+    return _launch(flash_decode_quant, "flash_decode_quant",
+                   _DECODE_QUANT_ARGS, q,
+                   (k_cache, v_cache, k_scale, v_scale, slots, lengths),
+                   (B, H, Hkv, Smax))
+
+
+flash_decode_quant.launches = 0
+
+
+def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, tables: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """q [B, H, D] f16 against the bf16 block pool [blocks, bs, Hkv, D]
+    through tables [B, MB] and lengths [B] int32 -> [B, H, D] f16. Only
+    pages below each length are read."""
+    B, H, Hkv = _check_decode(q, k_pool, "flash_decode_paged")
+    bs = k_pool.shape[1]
+    dev = q.device
+    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
+    _require(k_pool, "k_pool", torch.bfloat16, k_pool.shape, dev)
+    _require(v_pool, "v_pool", torch.bfloat16, k_pool.shape, dev)
+    _require(tables, "tables", torch.int32, (B, tables.shape[-1]), dev,
+             align=4)
+    _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
+    if _device(q) == "cpu":
+        return flash_decode_paged_plain(q, k_pool, v_pool, tables, lengths)
+    return _launch(flash_decode_paged, "flash_decode_paged",
+                   _DECODE_PAGED_ARGS, q, (k_pool, v_pool, tables, lengths),
+                   (B, H, Hkv, bs, tables.shape[1]))
+
+
+flash_decode_paged.launches = 0
+
+
+def flash_decode_paged_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, tables: torch.Tensor,
+                             lengths: torch.Tensor) -> torch.Tensor:
+    """q [B, H, D] f16 against the int8 block pool [blocks, bs, Hkv, D]
+    and its f32 scale planes [blocks, bs, Hkv] through tables [B, MB] and
+    lengths [B] int32 -> [B, H, D] f16."""
+    B, H, Hkv = _check_decode(q, k_pool, "flash_decode_paged_quant")
+    bs = k_pool.shape[1]
+    dev = q.device
+    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
+    _require(k_pool, "k_pool", torch.int8, k_pool.shape, dev)
+    _require(v_pool, "v_pool", torch.int8, k_pool.shape, dev)
+    _require(k_scale, "k_scale", torch.float32, k_pool.shape[:3], dev,
+             align=4)
+    _require(v_scale, "v_scale", torch.float32, k_pool.shape[:3], dev,
+             align=4)
+    _require(tables, "tables", torch.int32, (B, tables.shape[-1]), dev,
+             align=4)
+    _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
+    if _device(q) == "cpu":
+        return flash_decode_paged_quant_plain(q, k_pool, v_pool, k_scale,
+                                              v_scale, tables, lengths)
+    return _launch(flash_decode_paged_quant, "flash_decode_paged_quant",
+                   _DECODE_PAGED_QUANT_ARGS, q,
+                   (k_pool, v_pool, k_scale, v_scale, tables, lengths),
+                   (B, H, Hkv, bs, tables.shape[1]))
+
+
+flash_decode_paged_quant.launches = 0

@@ -4,7 +4,8 @@ bitblas_tpu/models/quant_llama.py).
 RMSNorm + RoPE + GQA attention + SwiGLU MLP, every weight matrix a GPTQ
 W4A16 matmul (uint4 codes, group-128 float16 scales and zeros) through the
 dequant kernel; prefill attention runs the flash kernel for long prompts
-and each decode step the flash-decode kernel over the slot cache. The
+and each decode step a flash-decode kernel over the slot cache or the
+block pool, bfloat16 or int8. The
 decoder is an nn.Module whose buffers hold the device-layout weights;
 `convert.from_jax_state` carries the JAX package's weights across.
 """
@@ -226,7 +227,8 @@ def layer_forward(layer: QuantLlamaLayer, x: torch.Tensor,
 
 class DecoderServingMixin:
     """Serving hooks for a llama-topology decoder stack (`cfg`, `layers`):
-    forward, bucketed prefill and single-token slot-cache decode."""
+    forward, bucketed prefill and single-token decode against the slot
+    cache or the paged cache, float or int8."""
 
     def forward(self, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
@@ -259,19 +261,13 @@ class DecoderServingMixin:
 
         return prefill
 
-    def decode_step(self, x: torch.Tensor, caches_k: torch.Tensor,
-                    caches_v: torch.Tensor, slots: torch.Tensor,
-                    lengths: torch.Tensor, *, ring: bool = False):
-        """One-token decode across B slots.
-
-        x [B, 1, hidden]; caches_k/v [L, slots, Lmax, Hkv, D]; lengths [B]
-        tokens already in each slot's cache. The new token's K/V land at
-        position lengths[b], IN PLACE in caches_k/v. Returns (hidden
-        [B, 1, hidden], caches_k, caches_v)."""
-        from ..serving.kv_cache import append_token, decode_attention
-
-        if ring:
-            raise NotImplementedError("ring KV caches are not ported yet")
+    def _decode_layers(self, x: torch.Tensor, lengths: torch.Tensor,
+                       attend) -> torch.Tensor:
+        """The one-token layer stack shared by every decode step: x
+        [B, 1, hidden]; lengths [B] tokens already cached (the new token's
+        position). `attend(li, q, k, v)` writes layer li's new K/V [B, Hkv,
+        D] into its cache and returns the attention [B, H, D] over
+        lengths + 1 keys."""
         cfg = self.cfg
         B = x.shape[0]
         positions = lengths[:, None]
@@ -285,17 +281,101 @@ class DecoderServingMixin:
                                             cfg.head_dim)
             q = rope(q, positions, cfg.rope_arg)[:, 0].contiguous()
             k = rope(k, positions, cfg.rope_arg)[:, 0]
-            v = v[:, 0]
-            ck, cv = append_token(caches_k[li], caches_v[li], slots,
-                                  lengths, k, v)
-            attn = decode_attention(q, ck, cv, slots, lengths + 1,
-                                    num_heads=cfg.num_heads,
-                                    window=cfg.sliding_window)
-            attn = attn.reshape(B, cfg.hidden_size)
+            attn = attend(li, q, k, v[:, 0]).reshape(B, cfg.hidden_size)
             x = x + layer.proj("o", attn)[:, None, :]
             h = rmsnorm(x, layer.mlp_norm, cfg.rms_norm_eps)
             x = x + _layer_mlp(layer, h.reshape(B, cfg.hidden_size))[:, None]
-        return x, caches_k, caches_v
+        return x
+
+    def decode_step(self, x: torch.Tensor, caches_k: torch.Tensor,
+                    caches_v: torch.Tensor, slots: torch.Tensor,
+                    lengths: torch.Tensor, *, ring: bool = False):
+        """One-token decode across B slots.
+
+        x [B, 1, hidden]; caches_k/v [L, slots, Lmax, Hkv, D]; lengths [B]
+        tokens already in each slot's cache. The new token's K/V land at
+        position lengths[b], IN PLACE in caches_k/v. Returns (hidden
+        [B, 1, hidden], caches_k, caches_v)."""
+        from ..serving.kv_cache import append_token, decode_attention
+
+        if ring:
+            raise NotImplementedError("ring KV caches are not ported yet")
+
+        def attend(li, q, k, v):
+            append_token(caches_k[li], caches_v[li], slots, lengths, k, v)
+            return decode_attention(q, caches_k[li], caches_v[li], slots,
+                                    lengths + 1, num_heads=self.cfg.num_heads,
+                                    window=self.cfg.sliding_window)
+
+        return self._decode_layers(x, lengths, attend), caches_k, caches_v
+
+    def decode_step_quant(self, x: torch.Tensor, caches_k: torch.Tensor,
+                          caches_v: torch.Tensor, scales_k: torch.Tensor,
+                          scales_v: torch.Tensor, slots: torch.Tensor,
+                          lengths: torch.Tensor, *, ring: bool = False):
+        """decode_step against the int8 slot cache: caches_k/v
+        [L, slots, Lmax, Hkv, D] int8, scales_k/v [L, slots, Lmax, Hkv]
+        f32, all updated IN PLACE. Returns (hidden, caches_k, caches_v,
+        scales_k, scales_v)."""
+        from ..serving.kv_cache import (append_token_quant,
+                                        decode_attention_quant)
+
+        if ring:
+            raise NotImplementedError("ring KV caches are not ported yet")
+
+        def attend(li, q, k, v):
+            cache = (caches_k[li], caches_v[li], scales_k[li], scales_v[li])
+            append_token_quant(*cache, slots, lengths, k, v)
+            return decode_attention_quant(
+                q, *cache, slots, lengths + 1, num_heads=self.cfg.num_heads,
+                window=self.cfg.sliding_window)
+
+        return (self._decode_layers(x, lengths, attend), caches_k, caches_v,
+                scales_k, scales_v)
+
+    def decode_step_paged(self, x: torch.Tensor, caches_k: torch.Tensor,
+                          caches_v: torch.Tensor, tables: torch.Tensor,
+                          block_rows: torch.Tensor, offsets: torch.Tensor,
+                          lengths: torch.Tensor):
+        """One-token decode against the paged cache: x [B, 1, hidden];
+        caches_k/v [L, blocks, bs, Hkv, D] (updated IN PLACE); tables
+        [B, MB] physical blocks per request; block_rows/offsets [B] = where
+        the new token's K/V lands; lengths [B] = tokens already cached.
+        Returns (hidden, caches_k, caches_v)."""
+        from ..serving.kv_cache import (append_token_paged,
+                                        decode_attention_paged)
+
+        def attend(li, q, k, v):
+            append_token_paged(caches_k[li], caches_v[li], block_rows,
+                               offsets, k, v)
+            return decode_attention_paged(
+                q, caches_k[li], caches_v[li], tables, lengths + 1,
+                num_heads=self.cfg.num_heads, window=self.cfg.sliding_window)
+
+        return self._decode_layers(x, lengths, attend), caches_k, caches_v
+
+    def decode_step_paged_quant(self, x: torch.Tensor,
+                                caches_k: torch.Tensor,
+                                caches_v: torch.Tensor,
+                                scales_k: torch.Tensor,
+                                scales_v: torch.Tensor, tables: torch.Tensor,
+                                block_rows: torch.Tensor,
+                                offsets: torch.Tensor, lengths: torch.Tensor):
+        """decode_step_paged against the int8 block pool: caches_k/v
+        [L, blocks, bs, Hkv, D] int8, scales_k/v [L, blocks, bs, Hkv] f32.
+        Returns (hidden, caches_k, caches_v, scales_k, scales_v)."""
+        from ..serving.kv_cache import (append_token_paged_quant,
+                                        decode_attention_paged_quant)
+
+        def attend(li, q, k, v):
+            cache = (caches_k[li], caches_v[li], scales_k[li], scales_v[li])
+            append_token_paged_quant(*cache, block_rows, offsets, k, v)
+            return decode_attention_paged_quant(
+                q, *cache, tables, lengths + 1, num_heads=self.cfg.num_heads,
+                window=self.cfg.sliding_window)
+
+        return (self._decode_layers(x, lengths, attend), caches_k, caches_v,
+                scales_k, scales_v)
 
 
 class QuantLlama(DecoderServingMixin, nn.Module):

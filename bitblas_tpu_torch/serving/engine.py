@@ -1,23 +1,32 @@
 """Continuous-batching decode engines (counterpart of
 bitblas_tpu/serving/engine.py: Request, SlotAllocator,
-ContinuousBatchingEngine, TokenRequest, TokenContinuousBatchingEngine).
+ContinuousBatchingEngine, PagedContinuousBatchingEngine, TokenRequest,
+TokenContinuousBatchingEngine).
 
-A fixed pool of `num_slots` sequence slots backed by the slot KV cache
-(bfloat16, updated in place); host-side scheduling; each `step()` runs one
-decode step for every slot (inactive slots are masked by their length).
-Prompts are prefilled at power-of-two buckets, so prompts of 129+ tokens
-reach the flash prefill kernel. The int8 KV cache (`kv_quant`), chunked
-prefill (`prefill_chunk`) and the ring cache (`kv_ring`) are not ported
-yet and raise NotImplementedError.
+* ContinuousBatchingEngine: a fixed pool of `num_slots` sequence slots
+  backed by the slot KV cache, bfloat16 or, with `kv_quant=True`, int8
+  codes + f32 per-(token, head) scales; the token engine inherits both.
+* PagedContinuousBatchingEngine: hidden-state requests over a block pool
+  (float or int8) with prefix caching; memory follows live tokens.
+
+Caches are updated in place; scheduling is host-side; each `step()` runs
+one decode step for every slot (inactive slots are masked by their
+length). Prompts are prefilled at power-of-two buckets, so prompts of
+129+ tokens reach the flash prefill kernel. Chunked prefill
+(`prefill_chunk`) and the ring cache (`kv_ring`) are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .kv_cache import BlockAllocator, init_kv_scales, quantize_kv
 
 
 @dataclasses.dataclass
@@ -42,30 +51,80 @@ class SlotAllocator:
         self.free.append(slot)
 
 
+def _bucket(S: int) -> int:
+    """The power-of-two prefill length that holds S tokens."""
+    return 1 << (max(S - 1, 0)).bit_length() if S > 1 else 1
+
+
+def _init_caches(engine, kv_shape, kv_quant: bool) -> None:
+    """caches_k/v in bfloat16, or int8 with scales_k/v (f32, kv_shape
+    without the head dim), on the engine's device."""
+    engine.caches_k = torch.zeros(
+        kv_shape, dtype=torch.int8 if kv_quant else torch.bfloat16,
+        device=engine.device)
+    engine.caches_v = torch.zeros_like(engine.caches_k)
+    if kv_quant:
+        engine.scales_k = init_kv_scales(kv_shape, engine.device)
+        engine.scales_v = torch.zeros_like(engine.scales_k)
+
+
+def _run_prefill(engine, prompt, bucket: int):
+    """The prompt [S, hidden] zero-padded to `bucket` rows through the
+    engine's model (one prefill function per bucket, kept in
+    engine._prefills): (hidden [1, bucket, hidden], per-layer K/V lists
+    of [bucket, Hkv, D])."""
+    if bucket not in engine._prefills:
+        engine._prefills[bucket] = engine.model.make_prefill(bucket)
+    S = prompt.shape[0]
+    x = torch.zeros((1, bucket, engine.cfg.hidden_size),
+                    dtype=torch.float16, device=engine.device)
+    x[0, :S] = torch.as_tensor(prompt).to(engine.device, torch.float16)
+    positions = torch.arange(bucket, device=engine.device)[None]
+    return engine._prefills[bucket](x, positions)
+
+
+def _write_rows(engine, ks: torch.Tensor, vs: torch.Tensor,
+                index) -> None:
+    """Write stacked prompt K/V (ks/vs [L, ...rows..., Hkv, D]) into the
+    engine's caches at caches[index], in place; `index` picks those rows
+    (a slot's first positions, or whole blocks). An int8 cache gets the
+    codes and scales of quantize_kv."""
+    for cache, scales, x in (("caches_k", "scales_k", ks),
+                             ("caches_v", "scales_v", vs)):
+        dst = getattr(engine, cache)
+        if engine.kv_quant:
+            codes, sc = quantize_kv(x)
+            dst[index] = codes
+            getattr(engine, scales)[index] = sc
+        else:
+            dst[index] = x.to(dst.dtype)
+
+
 class ContinuousBatchingEngine:
-    """Drives decode steps over a slot pool on the model's device."""
+    """Drives decode steps over a slot pool on the model's device.
+    kv_quant=True stores the cache as int8 codes + per-(token, head) f32
+    scales (half the KV bytes per decode step and of the footprint); the
+    model must expose decode_step_quant."""
 
     def __init__(self, model, num_slots: int, max_seq_len: int,
                  kv_quant: bool = False, prefill_chunk: int = 0,
                  kv_ring: bool = False):
-        if kv_quant or prefill_chunk or kv_ring:
+        if prefill_chunk or kv_ring:
             raise NotImplementedError(
-                "kv_quant, prefill_chunk and kv_ring are not ported yet")
+                "prefill_chunk and kv_ring are not ported yet")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len
+        self.kv_quant = kv_quant
         self.alloc = SlotAllocator(num_slots)
         self.active: Dict[int, Request] = {}
         self.pending: List[Request] = []
         self.finished: List[Request] = []
         c = self.cfg
-        kv_shape = (c.num_layers, num_slots, max_seq_len, c.num_kv_heads,
-                    c.head_dim)
-        self.caches_k = torch.zeros(kv_shape, dtype=torch.bfloat16,
-                                    device=self.device)
-        self.caches_v = torch.zeros_like(self.caches_k)
+        _init_caches(self, (c.num_layers, num_slots, max_seq_len,
+                            c.num_kv_heads, c.head_dim), kv_quant)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.last_hidden = torch.zeros((num_slots, c.hidden_size),
                                        dtype=torch.float16,
@@ -92,27 +151,14 @@ class ContinuousBatchingEngine:
             self._prefill(req)
             self.active[slot] = req
 
-    def _prefill_fn_for(self, s_bucket: int):
-        if s_bucket not in self._prefills:
-            self._prefills[s_bucket] = self.model.make_prefill(s_bucket)
-        return self._prefills[s_bucket]
-
     def _prefill(self, req: Request):
         S = req.prompt.shape[0]
-        bucket = 1 << (max(S - 1, 0)).bit_length() if S > 1 else 1
-        bucket = min(bucket, self.max_seq_len)
-        x = torch.zeros((1, bucket, self.cfg.hidden_size),
-                        dtype=torch.float16, device=self.device)
-        x[0, :S] = torch.as_tensor(req.prompt).to(self.device,
-                                                  torch.float16)
-        positions = torch.arange(bucket, device=self.device)[None]
-        hidden, ks, vs = self._prefill_fn_for(bucket)(x, positions)
+        bucket = min(_bucket(S), self.max_seq_len)
+        hidden, ks, vs = _run_prefill(self, req.prompt, bucket)
         # The whole bucket is written; rows past S are pad K/V that the
         # length-masked decode never reads and later appends overwrite.
-        self.caches_k[:, req.slot, :bucket] = torch.stack(ks).to(
-            self.caches_k.dtype)
-        self.caches_v[:, req.slot, :bucket] = torch.stack(vs).to(
-            self.caches_v.dtype)
+        _write_rows(self, torch.stack(ks), torch.stack(vs),
+                    (slice(None), req.slot, slice(0, bucket)))
         self.lengths[req.slot] = S
         self.last_hidden[req.slot] = hidden[0, S - 1].to(
             self.last_hidden.dtype)
@@ -122,9 +168,14 @@ class ContinuousBatchingEngine:
         """One decode step over every slot; updates the caches (in place)
         and last_hidden."""
         lengths = torch.from_numpy(self.lengths).to(self.device)
-        hidden, _, _ = self.model.decode_step(
-            self.last_hidden[:, None, :], self.caches_k, self.caches_v,
-            self._slots, lengths)
+        x = self.last_hidden[:, None, :]
+        if self.kv_quant:
+            hidden = self.model.decode_step_quant(
+                x, self.caches_k, self.caches_v, self.scales_k,
+                self.scales_v, self._slots, lengths)[0]
+        else:
+            hidden = self.model.decode_step(x, self.caches_k, self.caches_v,
+                                            self._slots, lengths)[0]
         self.last_hidden = hidden[:, 0, :].to(self.last_hidden.dtype)
 
     def step(self) -> int:
@@ -151,6 +202,228 @@ class ContinuousBatchingEngine:
             # a stale hidden would grow through the residuals
             self.last_hidden[slot] = 0.0
             self.alloc.release(slot)
+        return len(self.active)
+
+    def run_to_completion(self, max_steps: int = 10_000) -> List[Request]:
+        for _ in range(max_steps):
+            self._admit()
+            if not self.active and not self.pending:
+                break
+            self.step()
+        return self.finished
+
+
+class PagedContinuousBatchingEngine:
+    """Continuous batching over a paged (block-pooled) KV cache.
+
+    Memory follows live tokens instead of num_slots * max_seq_len: the
+    host-side BlockAllocator hands fixed-size blocks to requests as their
+    sequences grow and reclaims them on completion. Admission waits while
+    the pool is short; a request that runs out of blocks mid-flight
+    finishes early. Full prompt blocks are content-addressed (a sha1 hash
+    chain over the prompt) and shared between requests through refcounts;
+    shared blocks are never written. Requests carry hidden states (the
+    JAX package's paged engine has no token loop either). kv_quant=True
+    keeps the pool as int8 codes + f32 scale planes."""
+
+    def __init__(self, model, num_slots: int, num_blocks: int,
+                 block_size: int = 16, max_blocks_per_slot: int = 64,
+                 prefix_caching: bool = True, kv_quant: bool = False):
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.num_slots = num_slots
+        self.block_size = block_size
+        self.max_blocks = max_blocks_per_slot
+        self.prefix_caching = prefix_caching
+        self.kv_quant = kv_quant
+        self.slot_alloc = SlotAllocator(num_slots)
+        # Physical block 0 is reserved: it fills unused table entries and
+        # takes the appends of inactive slots (their block_rows resolve to
+        # table[slot, 0] = 0), so it never holds live data.
+        self.block_alloc = BlockAllocator(num_blocks)
+        self.block_alloc.free.remove(0)
+        self.active: Dict[int, Request] = {}
+        self.pending: List[Request] = []
+        self.finished: List[Request] = []
+        c = self.cfg
+        _init_caches(self, (c.num_layers, num_blocks, block_size,
+                            c.num_kv_heads, c.head_dim), kv_quant)
+        self.lengths = np.zeros((num_slots,), np.int32)
+        self.tables = np.zeros((num_slots, max_blocks_per_slot), np.int32)
+        self.slot_blocks: Dict[int, List[int]] = {}
+        self.last_hidden = torch.zeros((num_slots, c.hidden_size),
+                                       dtype=torch.float16,
+                                       device=self.device)
+        self._prefills = {}
+        self.block_ref: Dict[int, int] = {}
+        self.prefix_index: Dict[bytes, int] = {}
+        self.block_key: Dict[int, bytes] = {}
+        self.prefix_hits = 0
+
+    # -- block bookkeeping ------------------------------------------------------
+    def _blocks_needed(self, tokens: int) -> int:
+        return -(-tokens // self.block_size)
+
+    def _grow_slot(self, slot: int, new_len: int) -> bool:
+        """Ensure the slot owns enough blocks for new_len tokens."""
+        have = self.slot_blocks.get(slot, [])
+        need = self._blocks_needed(new_len)
+        if need > self.max_blocks:
+            return False
+        while len(have) < need:
+            b = self.block_alloc.alloc()
+            if b is None:
+                return False
+            self.block_ref[b] = 1
+            self.tables[slot, len(have)] = b
+            have.append(b)
+        self.slot_blocks[slot] = have
+        return True
+
+    def _unref(self, b: int):
+        self.block_ref[b] -= 1
+        if self.block_ref[b] == 0:
+            del self.block_ref[b]
+            key = self.block_key.pop(b, None)
+            if key is not None:
+                self.prefix_index.pop(key, None)
+            self.block_alloc.release([b])
+
+    def _release_slot(self, slot: int):
+        for b in self.slot_blocks.pop(slot, []):
+            self._unref(b)
+        self.tables[slot, :] = 0
+        self.lengths[slot] = 0
+        self.last_hidden[slot] = 0.0
+        self.slot_alloc.release(slot)
+
+    def _finish(self, slot: int):
+        req = self.active.pop(slot)
+        req.done = True
+        req.final_hidden = self.last_hidden[slot].float().cpu().numpy()
+        self.finished.append(req)
+        self._release_slot(slot)
+
+    # -- request lifecycle -------------------------------------------------------
+    def submit(self, req: Request):
+        self.pending.append(req)
+
+    def _admit(self):
+        while self.pending:
+            req = self.pending[0]
+            S = req.prompt.shape[0]
+            if (self.block_alloc.available
+                    < self._blocks_needed(S + req.max_new)):
+                return   # pool short: wait for completions
+            slot = self.slot_alloc.alloc()
+            if slot is None:
+                return
+            self.pending.pop(0)
+            req.slot = slot
+            if not self._grow_slot(slot, S):
+                raise RuntimeError("admission check guaranteed blocks")
+            self._prefill(req)
+            self.active[slot] = req
+
+    def _prefix_keys(self, prompt) -> List[bytes]:
+        """Hash-chain keys for each FULL block of the prompt: key i covers
+        tokens [0, (i + 1) * bs), so equal prefixes give equal keys."""
+        bs = self.block_size
+        prompt = np.asarray(torch.as_tensor(prompt).cpu(), np.float16)
+        keys = []
+        h = hashlib.sha1()
+        for i in range(prompt.shape[0] // bs):
+            h.update(np.ascontiguousarray(prompt[i * bs:(i + 1) * bs])
+                     .tobytes())
+            keys.append(h.digest())
+        return keys
+
+    def _prefill(self, req: Request):
+        S = req.prompt.shape[0]
+        bs = self.block_size
+        slot = req.slot
+        # Swap shared prefix blocks in for the private ones _grow_slot
+        # handed out (shared full blocks are never written).
+        blocks = self.slot_blocks[slot]
+        write = [True] * len(blocks)
+        keys = self._prefix_keys(req.prompt) if self.prefix_caching else []
+        for i, key in enumerate(keys):
+            shared = self.prefix_index.get(key)
+            if shared is not None and shared != blocks[i]:
+                self._unref(blocks[i])
+                self.block_ref[shared] += 1
+                blocks[i] = shared
+                self.tables[slot, i] = shared
+                write[i] = False
+                self.prefix_hits += 1
+            elif self.prefix_caching and blocks[i] not in self.block_key:
+                # this (private) block becomes the prefix's owner
+                self.prefix_index[key] = blocks[i]
+                self.block_key[blocks[i]] = key
+        self.slot_blocks[slot] = blocks
+
+        hidden, ks, vs = _run_prefill(self, req.prompt, _bucket(S))
+        # Scatter the prompt K/V into the slot's private blocks, in place:
+        # rows [i * bs, (i + 1) * bs) into block blocks[i] where write[i].
+        # Rows past S in the tail block hold prompt padding (zero rows
+        # when the bucket is shorter than the blocks); decode masks them
+        # by length and appends overwrite them.
+        nb = len(blocks)
+        rows = nb * bs
+
+        def paged(x):
+            x = torch.stack(list(x))[:, :rows]
+            if x.shape[1] < rows:
+                x = torch.nn.functional.pad(
+                    x, (0, 0, 0, 0, 0, rows - x.shape[1]))
+            return x.reshape(x.shape[0], nb, bs, *x.shape[2:])
+
+        sel = [i for i in range(nb) if write[i]]
+        if sel:
+            pick = torch.tensor(sel, device=self.device)
+            dst = torch.tensor([blocks[i] for i in sel], device=self.device)
+            _write_rows(self, paged(ks)[:, pick], paged(vs)[:, pick],
+                        (slice(None), dst))
+        self.lengths[slot] = S
+        self.last_hidden[slot] = hidden[0, S - 1].to(self.last_hidden.dtype)
+
+    # -- main loop ----------------------------------------------------------------
+    def step(self) -> int:
+        self._admit()
+        if not self.active:
+            return 0
+        # blocks for this step's appends
+        for slot in list(self.active):
+            if not self._grow_slot(slot, int(self.lengths[slot]) + 1):
+                self._finish(slot)   # out of pool mid-flight: finish early
+        if not self.active:
+            return 0
+        bs = self.block_size
+        idx = np.arange(self.num_slots)
+        block_rows = self.tables[idx, self.lengths // bs]
+        offsets = self.lengths % bs
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        x = self.last_hidden[:, None, :]
+        args = (dev(self.tables), dev(block_rows), dev(offsets),
+                dev(self.lengths))
+        if self.kv_quant:
+            hidden = self.model.decode_step_paged_quant(
+                x, self.caches_k, self.caches_v, self.scales_k,
+                self.scales_v, *args)[0]
+        else:
+            hidden = self.model.decode_step_paged(
+                x, self.caches_k, self.caches_v, *args)[0]
+        self.last_hidden = hidden[:, 0, :].to(self.last_hidden.dtype)
+
+        for slot, req in list(self.active.items()):
+            self.lengths[slot] += 1
+            req.generated += 1
+            if req.generated >= req.max_new:
+                self._finish(slot)
         return len(self.active)
 
     def run_to_completion(self, max_steps: int = 10_000) -> List[Request]:

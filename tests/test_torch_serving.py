@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from bitblas_tpu.models import LlamaConfig as JaxLlamaConfig
@@ -47,6 +48,18 @@ V, H = 64, 256
 CFG = dict(hidden_size=H, intermediate_size=512, num_heads=2,
            num_kv_heads=1, num_layers=2, vocab_size=V, group_size=128)
 ATOL = 1e-2
+
+
+def _synchronous(engine):
+    """A JAX engine whose decode steps finish before they return. The JAX
+    engines hand host numpy arrays (lengths, block tables) to an
+    asynchronously dispatched step and then update those arrays in place;
+    on the CPU jnp.asarray may alias the numpy buffer, so a step still
+    queued can read the next step's lengths. Its results then moved by up
+    to 1.9e-2 between processes, depending on what ran before."""
+    step = engine._decode_step
+    engine._decode_step = lambda *a: jax.block_until_ready(step(*a))
+    return engine
 
 
 @pytest.fixture(scope="module")
@@ -142,7 +155,7 @@ def test_hidden_state_engine_matches_jax(pair):
     rng = np.random.default_rng(5)
     prompts = [(rng.standard_normal((n, H)) * 0.05).astype(np.float16)
                for n in (9, 30)]
-    je = JaxEngine(jm, num_slots=2, max_seq_len=64)
+    je = _synchronous(JaxEngine(jm, num_slots=2, max_seq_len=64))
     pe = ContinuousBatchingEngine(pm, num_slots=2, max_seq_len=64)
     for i, p in enumerate(prompts):
         je.submit(JaxRequest(uid=i, prompt=p, max_new=3))
@@ -218,11 +231,26 @@ def test_rope_matches_jax(scaled):
 
 
 def test_token_engine_greedy_tokens_match_jax(pair):
+    _token_engines_agree(pair)
+
+
+def test_token_engine_kv_quant_greedy_tokens_match_jax(pair):
+    """The int8-KV token engine (decode through flash_decode_quant's
+    plain version) against the JAX int8 token engine (its Pallas kernel
+    in interpret mode)."""
+    pe = _token_engines_agree(pair, kv_quant=True)
+    assert pe.caches_k.dtype == torch.int8
+    assert pe.scales_k.dtype == torch.float32
+
+
+def _token_engines_agree(pair, **kw):
     jm, jh, pm, ph, _ = pair
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, V, n).astype(np.int32) for n in (150, 40)]
-    je = JaxTokenEngine(jm, jh, num_slots=2, max_seq_len=512)
-    pe = TokenContinuousBatchingEngine(pm, ph, num_slots=2, max_seq_len=512)
+    je = _synchronous(JaxTokenEngine(jm, jh, num_slots=2, max_seq_len=512,
+                                     **kw))
+    pe = TokenContinuousBatchingEngine(pm, ph, num_slots=2, max_seq_len=512,
+                                       **kw)
     jr = [je.submit_tokens(uid=i, tokens=p, max_new=5)
           for i, p in enumerate(prompts)]
     pr = [pe.submit_tokens(uid=i, tokens=p, max_new=5)
@@ -232,6 +260,7 @@ def test_token_engine_greedy_tokens_match_jax(pair):
     for a, b in zip(jr, pr):
         assert b.done and len(b.out_tokens) == 5
         assert b.out_tokens == a.out_tokens, b.uid
+    return pe
 
 
 def test_generate_matches_the_engine(pair):
@@ -244,11 +273,11 @@ def test_generate_matches_the_engine(pair):
     assert req.out_tokens == list(solo[7:])
 
 
-def test_unported_engine_options_raise(pair):
+@pytest.mark.parametrize("kw", [{"prefill_chunk": 16}, {"kv_ring": True}])
+def test_unported_engine_options_raise(pair, kw):
     _, _, pm, _, _ = pair
-    for kw in ({"kv_quant": True}, {"prefill_chunk": 16}, {"kv_ring": True}):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatchingEngine(pm, num_slots=1, max_seq_len=32, **kw)
+    with pytest.raises(NotImplementedError):
+        ContinuousBatchingEngine(pm, num_slots=1, max_seq_len=32, **kw)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
