@@ -1,6 +1,7 @@
 // Small device helpers shared by the kernels of bitblas_tpu_torch:
-// cp.async copies with zero fill, and the mma.sync m16n8k16 f16 product
-// with float32 accumulation.
+// cp.async copies with zero fill, the mma.sync m16n8k16 f16 product with
+// float32 accumulation and the m16n8k32 int8 product with int32
+// accumulation.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -32,6 +33,10 @@ __device__ __forceinline__ uint32_t lds32(const half* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 __device__ __forceinline__ uint32_t pack_half2(half lo, half hi) {
   half2 h = __halves2half2(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -55,6 +60,32 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D = A (16x32, row) * B (32x8, col) + D, s8 operands, s32 accumulators.
+// Fragment ownership (g = lane / 4, t = lane % 4), four int8 a register:
+//   a[0]: (row g, k 4t..4t+3)     a[1]: (row g+8, k 4t..4t+3)
+//   a[2]: (row g, k 16+4t..)      a[3]: (row g+8, k 16+4t..)
+//   b[0]: (k 4t..4t+3, col g)     b[1]: (k 16+4t..16+4t+3, col g)
+//   d[0..1]: (row g, col 2t..2t+1)  d[2..3]: (row g+8, col 2t..2t+1)
+__device__ __forceinline__ void mma_16832_s8(int* d, const uint32_t* a,
+                                             const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four biased int2 fields (the low byte of x, LSB first) -> four int8
+// values field - 2, one per byte. Each byte of f | 0x80 is >= 0x80, so
+// subtracting 2 from every byte borrows nothing, and XOR 0x80 takes the
+// 0x80 back off: (0x80 + f - 2) ^ 0x80 = f - 2 (mod 256).
+__device__ __forceinline__ uint32_t decode_i2x4(uint32_t x) {
+  const uint32_t f = (x & 0x3u) | ((x & 0xCu) << 6) | ((x & 0x30u) << 12) |
+                     ((x & 0xC0u) << 18);
+  return ((f | 0x80808080u) - 0x02020202u) ^ 0x80808080u;
 }
 
 // Raises a kernel's dynamic shared memory cap on the current device, once:

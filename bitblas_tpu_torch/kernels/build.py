@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bitblas_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("dequant_matmul", "flash_attention", "flash_decode",
+SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
+           "weight_decode_int8", "flash_attention", "flash_decode",
            "flash_decode_quant", "flash_decode_paged",
            "flash_decode_paged_quant")
 

@@ -1,12 +1,17 @@
-"""The fused dequantize-into-matmul kernel for GPTQ W4A16 (counterpart of
-bitblas_tpu/kernels/dequant_matmul.py:make_dequant_matmul).
+"""The fused dequantize-into-matmul kernels (counterpart of
+bitblas_tpu/kernels/dequant_matmul.py:make_dequant_matmul), one per
+ported configuration, with the Hopper layout of quantization/packing.py:
 
-`dequant_matmul_u4` computes ``out[M, N] = A[M, K] @ dequant(Wq)^T`` with
-the Hopper layout of quantization/packing.py: Wq [N, K/8] int32, scales
-and zeros [K/g, N] float16, g = 128. On a CUDA tensor it launches
-csrc/dequant_matmul.cu (design and bound are written there); on a CPU
-tensor it runs `dequant_matmul_u4_plain`, which decodes the same layout
-and contracts with float32 accumulation (ops/reference.py).
+* `dequant_matmul_u4` (GPTQ W4A16): ``out[M, N] f16 = A[M, K] f16 @
+  dequant(Wq)^T``, Wq [N, K/8] int32, scales and zeros [K/g, N] float16,
+  g = 128; csrc/dequant_matmul.cu. Its plain version decodes the same
+  layout and contracts with float32 accumulation (ops/reference.py).
+* `dequant_matmul_i2` (BitNet W2A8): ``out[M, N] f32 = A[M, K] int8 @
+  (Wq - 2)^T`` with int32 accumulation, Wq [N, K/16] int32 of biased int2
+  fields; csrc/dequant_matmul_i2.cu.
+
+On a CUDA tensor each wrapper launches its kernel (design and bound are
+written in the source); on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -16,11 +21,14 @@ import ctypes
 import torch
 
 from ..ops.reference import expand_groups, matmul_dense_reference
-from ..quantization import numerics
+from ..quantization import numerics, packing
 from . import build
 
 GROUP = 128
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
+I2_MAX_K = 1 << 16
 
 
 def dequantize_hopper(qweight: torch.Tensor, scales: torch.Tensor,
@@ -29,10 +37,9 @@ def dequantize_hopper(qweight: torch.Tensor, scales: torch.Tensor,
     """Hopper-layout operands -> dense [N, K] float16, ``(q - z) * s``
     evaluated in float16 (bit-identical to ops/reference.dequantize_weight
     on the same codes)."""
-    N, KW = qweight.shape
-    K = KW * 8
-    fields = numerics.unpack_fields(qweight, 4)            # [N, K]
-    w = numerics.decode_uint_field(fields, 4, torch.float16)
+    K = qweight.shape[1] * 8
+    w = numerics.decode_uint_field(packing.unpack_k(qweight, 4), 4,
+                                   torch.float16)
     s = expand_groups(scales.T.to(torch.float16), group, K)
     z = expand_groups(zeros.T.to(torch.float16), group, K)
     return numerics.apply_scaling(w, s, z, "original").to(torch.float16)
@@ -95,3 +102,66 @@ def dequant_matmul_u4(A: torch.Tensor, qweight: torch.Tensor,
 
 
 dequant_matmul_u4.launches = 0
+
+
+def decode_i2_hopper(qweight: torch.Tensor) -> torch.Tensor:
+    """[N, K/16] int32 words of biased int2 fields -> int8 values [N, K]
+    (``field - 2``, numerics.decode_int_field)."""
+    return numerics.decode_int_field(packing.unpack_k(qweight, 2), 2,
+                                     torch.int8)
+
+
+def dequant_matmul_i2_plain(A: torch.Tensor,
+                            qweight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the W2A8 kernel (any device): the int32
+    sums (ops/reference.matmul_dense_reference), cast to float32 as the
+    kernel's epilogue does; exact while K <= I2_MAX_K."""
+    return matmul_dense_reference(A, decode_i2_hopper(qweight),
+                                  torch.float32)
+
+
+def _check_i2(A, qweight):
+    if A.dim() != 2 or qweight.dim() != 2:
+        raise ValueError(f"A must be [M, K] and qweight [N, K/16], got "
+                         f"{tuple(A.shape)} and {tuple(qweight.shape)}")
+    M, K = A.shape
+    N = qweight.shape[0]
+    if K % 64 or N % 8 or K > I2_MAX_K:
+        raise ValueError(f"K={K} must be a multiple of 64 and at most "
+                         f"{I2_MAX_K}, N={N} a multiple of 8")
+    for name, t, dt, shape in (("A", A, torch.int8, (M, K)),
+                               ("qweight", qweight, torch.int32,
+                                (N, K // 16))):
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dt} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != A.device:
+            raise ValueError(f"{name} on {t.device}, A on {A.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def dequant_matmul_i2(A: torch.Tensor, qweight: torch.Tensor) -> torch.Tensor:
+    """out [M, N] float32 (the exact int32 sums); see the module
+    docstring for the layout."""
+    _check_i2(A, qweight)
+    if A.device.type == "cpu":
+        return dequant_matmul_i2_plain(A, qweight)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    M, K = A.shape
+    N = qweight.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=A.device)
+    if M == 0:
+        return out
+    with torch.cuda.device(A.device):
+        fn = build.entry("dequant_matmul_i2", "dequant_matmul_i2",
+                         _ARGTYPES_I2)
+        err = fn(A.data_ptr(), qweight.data_ptr(), out.data_ptr(), M, N, K,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "dequant_matmul_i2")
+    dequant_matmul_i2.launches += 1
+    return out
+
+
+dequant_matmul_i2.launches = 0

@@ -1,0 +1,190 @@
+"""The two-pass "materialize" plan: decode the packed weight to a dense
+operand once, then the dense product (counterpart of
+bitblas_tpu/kernels/materialize.py).
+
+The fused kernels (kernels/dequant_matmul.py) decode every weight tile
+again for each M tile; at large M that repeated decode costs more than
+writing the decoded weight out once and running the library GEMM on it.
+`ops/matmul.Matmul` takes this route from M = 512.
+
+* `weight_decode_u4` -- kernel 2's counterpart (csrc/weight_decode.cu):
+  uint4 codes, group-128 scales, original zeros -> dense [N, K] float16,
+  bfloat16 or float32 (JAX's `mma_dtype`). float16 is bit-identical to
+  `dequantize_hopper`, the fused kernel's decoded tile; bfloat16 and
+  float32 are the float32 value (q - z) * s with one cast, as JAX computes.
+* `weight_decode_int8` -- kernel 3's counterpart
+  (csrc/weight_decode_int8.cu): 2- or 4-bit int/uint fields -> int8 codes
+  [N, K], the int family minus its bias 2^(bits-1).
+* `materialize_matmul` -- decode, then the dense product: on the card
+  `torch.matmul` (float16 in and out) or `torch._int_mm` (int8 in, int32
+  out). JAX computes both products as `lax.dot_general` outside any
+  Pallas kernel, so they stay library calls. cuBLAS may reduce split-K
+  partial sums of the float16 product in float16
+  (`torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction`,
+  left as the process has it), so the route is held to 4e-3 of the
+  largest output against the fused kernel and the plain version; the
+  error measured at the slice's shapes on an H100 was 0 (chip_smoke.py's
+  route table).
+
+The decoded weight is a per-call temporary, as in JAX: caching it would
+give up the quantized footprint. Both decoders write [N, K] where JAX
+writes [K, N], so that ``A @ W.T`` is the nt product. On a CUDA tensor
+each decoder launches its kernel; on a CPU tensor it runs its plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops.reference import expand_groups, matmul_dense_reference
+from ..quantization import numerics, packing
+from ..quantization.formats import as_torch_dtype
+from . import build
+from .dequant_matmul import GROUP, dequantize_hopper
+from .spec import KernelSpec
+
+_ARGTYPES_U4 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_I8 = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_OUT_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def supports_materialize_spec(spec: KernelSpec) -> bool:
+    """Can this spec's weight be decoded to a dense operand at all (the
+    JAX rule)? Integer activations need no zeros and at most per-channel
+    scaling; the decoded operand must be int8 codes."""
+    if spec.native:
+        return False
+    if spec.is_int_activation:
+        g = spec.group_size if spec.group_size > 0 else spec.k
+        per_channel = g >= spec.k
+        return (not spec.with_zeros
+                and (not spec.with_scaling or per_channel)
+                and spec.family in ("uint", "int") and spec.bits < 8)
+    if spec.bits < 8:
+        return spec.family in ("uint", "int", "nf", "fp")
+    return spec.family in ("int", "uint", "fp_e4m3", "fp_e5m2")
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, qweight on {device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def weight_decode_u4_plain(qweight: torch.Tensor, scales: torch.Tensor,
+                           zeros: torch.Tensor,
+                           out_dtype: torch.dtype = torch.float16
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 2 (any device)."""
+    if out_dtype == torch.float16:
+        return dequantize_hopper(qweight, scales, zeros)
+    K = qweight.shape[1] * 8
+    q = packing.unpack_k(qweight, 4).to(torch.float32)
+    s = expand_groups(scales.T.to(torch.float32), GROUP, K)
+    z = expand_groups(zeros.T.to(torch.float32), GROUP, K)
+    return ((q - z) * s).to(out_dtype)
+
+
+def weight_decode_u4(qweight: torch.Tensor, scales: torch.Tensor,
+                     zeros: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float16) -> torch.Tensor:
+    """qweight [N, K/8] int32, scales / zeros [K/128, N] float16 -> dense
+    [N, K] in `out_dtype` (float16, bfloat16 or float32)."""
+    if qweight.dim() != 2:
+        raise ValueError(f"qweight must be [N, K/8], got {qweight.shape}")
+    if out_dtype not in _OUT_CODE:
+        raise ValueError(f"out_dtype {out_dtype} (float16, bfloat16, "
+                         f"float32)")
+    N, K = qweight.shape[0], qweight.shape[1] * 8
+    if K % GROUP:
+        raise ValueError(f"K={K} must be a multiple of {GROUP}")
+    _check("qweight", qweight, torch.int32, (N, K // 8), qweight.device)
+    for name, t in (("scales", scales), ("zeros", zeros)):
+        _check(name, t, torch.float16, (K // GROUP, N), qweight.device)
+    if qweight.device.type == "cpu":
+        return weight_decode_u4_plain(qweight, scales, zeros, out_dtype)
+    if qweight.device.type != "cuda":
+        raise ValueError(f"unsupported device {qweight.device}")
+    out = torch.empty((N, K), dtype=out_dtype, device=qweight.device)
+    with torch.cuda.device(qweight.device):
+        fn = build.entry("weight_decode", "weight_decode_u4", _ARGTYPES_U4)
+        err = fn(qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                 out.data_ptr(), N, K, GROUP, _OUT_CODE[out_dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "weight_decode_u4")
+    weight_decode_u4.launches += 1
+    return out
+
+
+weight_decode_u4.launches = 0
+
+
+def weight_decode_int8_plain(qweight: torch.Tensor, bits: int = 2,
+                             family: str = "int") -> torch.Tensor:
+    """Plain PyTorch version of kernel 3 (any device)."""
+    return numerics.decode_field(packing.unpack_k(qweight, bits), family,
+                                 bits, torch.int8)
+
+
+def weight_decode_int8(qweight: torch.Tensor, bits: int = 2,
+                       family: str = "int") -> torch.Tensor:
+    """qweight [N, K*bits/32] int32 of `family` ("int" or "uint") fields
+    of `bits` (2 or 4) -> int8 codes [N, K]."""
+    if bits not in (2, 4) or family not in ("int", "uint"):
+        raise ValueError(f"int8 decode covers int/uint at 2 or 4 bits, got "
+                         f"{family}{bits}")
+    if qweight.dim() != 2:
+        raise ValueError(f"qweight must be 2-D, got {qweight.shape}")
+    N, K = qweight.shape[0], qweight.shape[1] * 32 // bits
+    _check("qweight", qweight, torch.int32, qweight.shape, qweight.device)
+    if qweight.device.type == "cpu":
+        return weight_decode_int8_plain(qweight, bits, family)
+    if qweight.device.type != "cuda":
+        raise ValueError(f"unsupported device {qweight.device}")
+    out = torch.empty((N, K), dtype=torch.int8, device=qweight.device)
+    with torch.cuda.device(qweight.device):
+        fn = build.entry("weight_decode_int8", "weight_decode_int8",
+                         _ARGTYPES_I8)
+        err = fn(qweight.data_ptr(), out.data_ptr(), N, K, bits,
+                 int(family == "int"), torch.cuda.current_stream().cuda_stream)
+    build.check(err, "weight_decode_int8")
+    weight_decode_int8.launches += 1
+    return out
+
+
+weight_decode_int8.launches = 0
+
+
+def _dense(A: torch.Tensor, W_nk: torch.Tensor,
+           out_dtype: torch.dtype) -> torch.Tensor:
+    """The dense half, A [M, K] @ W_nk^T: on the card cuBLAS, through
+    torch._int_mm for int8 (int32 sums) or torch.matmul for float16; on
+    the CPU ops/reference.matmul_dense_reference (float32 accumulation,
+    exact integer sums)."""
+    if A.device.type == "cpu":
+        return matmul_dense_reference(A, W_nk, out_dtype)
+    if A.dtype == torch.int8:
+        return numerics.saturate_cast(torch._int_mm(A, W_nk.T), out_dtype)
+    return torch.matmul(A, W_nk.T)
+
+
+def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
+                       qweight: torch.Tensor, scales=None,
+                       zeros=None) -> torch.Tensor:
+    """A [M, K] -> out [M, N] through the two-pass plan for the ported
+    configurations: W2A8 (int8 codes, int32 sums cast to float32) and
+    W4A16 (float16 weight, float16 out)."""
+    if not supports_materialize_spec(spec):
+        raise ValueError(f"materialize plan unsupported for {spec}")
+    if spec.is_int_activation:
+        W = weight_decode_int8(qweight, spec.bits, spec.family)
+    else:
+        W = weight_decode_u4(qweight, scales, zeros)
+    return _dense(A, W, as_torch_dtype(spec.out_dtype))

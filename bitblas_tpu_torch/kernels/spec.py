@@ -54,6 +54,10 @@ class KernelSpec:
         )
 
     @property
+    def is_int_activation(self) -> bool:
+        return self.a_dtype in ("int8", "uint8", "int4", "uint4")
+
+    @property
     def elems_per_word(self) -> int:
         return max(1, self.storage_bits // self.bits)
 

@@ -1,12 +1,16 @@
 """MatmulConfig: the frozen dataclass that specifies a matmul operator
 (counterpart of bitblas_tpu/ops/matmul_config.py, same fields).
 
-The port runs one configuration so far, the GPTQ W4A16 linear of the
-quantized Llama path: uint4 weights, float16 activations and outputs,
-float32 accumulation, layout "nt", group 128, scales and zeros with
-zeros_mode "original", no bias. Every other value raises
-NotImplementedError. `M` and `m_buckets` are kept for API parity:
-PyTorch runs eagerly, so the operator pads to no bucket.
+The port runs two configurations so far (`PORTED`): the GPTQ W4A16
+linear of the quantized Llama path (uint4 weights, float16 activations and
+outputs, float32 accumulation, group 128, scales and zeros with zeros_mode
+"original") and the BitNet W2A8 linear that `models/bitnet.py`
+BitLinearInference builds (int2 weights, int8 activations, int32
+accumulation, float32 outputs, no scales or zeros); both layout "nt", no
+bias. Every other configuration raises NotImplementedError; the JAX
+legalization rules then fill the derived fields. `M` and `m_buckets` are
+kept for API parity: PyTorch runs eagerly, so the operator pads to no
+bucket.
 """
 
 from __future__ import annotations
@@ -20,19 +24,31 @@ from .common import OptimizeStrategy, TransformKind
 DEFAULT_OPT_M_DECODE = (1, 16, 32, 64, 128, 256, 512, 1024)
 DEFAULT_OPT_M_BATCHED = (16, 32, 64, 128, 256, 512, 1024)
 
-# field -> the one value the port's kernels take
-PORTED = {
-    "A_dtype": "float16",
-    "W_dtype": "uint4",
-    "out_dtype": "float16",
-    "accum_dtype": "float32",
-    "layout": "nt",
-    "group_size": 128,
-    "with_scaling": True,
-    "with_zeros": True,
-    "zeros_mode": "original",
-    "with_bias": False,
-}
+# The legal configurations: field -> the one value each takes.
+_COMMON = {"layout": "nt", "zeros_mode": "original", "with_bias": False}
+PORTED = (
+    dict(A_dtype="float16", W_dtype="uint4", out_dtype="float16",
+         accum_dtype="float32", group_size=128, with_scaling=True,
+         with_zeros=True, **_COMMON),
+    dict(A_dtype="int8", W_dtype="int2", out_dtype="float32",
+         accum_dtype="int32", group_size=-1, with_scaling=False,
+         with_zeros=False, **_COMMON),
+)
+
+
+def _check_ported(cfg) -> None:
+    """Raise NotImplementedError unless `cfg` is one of PORTED, naming the
+    first field that differs from the ported configuration of its
+    activation dtype."""
+    if any(all(getattr(cfg, k) == v for k, v in p.items()) for p in PORTED):
+        return
+    near = next((p for p in PORTED if p["A_dtype"] == cfg.A_dtype),
+                PORTED[0])
+    name, want = next((k, v) for k, v in near.items()
+                      if getattr(cfg, k) != v)
+    raise NotImplementedError(
+        f"bitblas_tpu_torch runs {name}={want!r} only with "
+        f"A_dtype={near['A_dtype']!r} so far (got {getattr(cfg, name)!r})")
 
 
 @dataclass(frozen=True)
@@ -85,21 +101,28 @@ class MatmulConfig(OperatorConfig):
         if isinstance(self.M, list):
             object.__setattr__(self, "M", tuple(self.M))
 
-        for name, want in PORTED.items():
-            if getattr(self, name) != want:
-                raise NotImplementedError(
-                    f"bitblas_tpu_torch runs {name}={want!r} only so far "
-                    f"(got {getattr(self, name)!r})")
-        if self.K % self.group_size:
+        # JAX legalization of unset fields, then the ported check
+        if self.zeros_mode is None:
+            object.__setattr__(self, "zeros_mode", "original")
+        if self.group_size is None:
+            object.__setattr__(self, "group_size", -1)
+        for name in ("with_bias", "with_scaling", "with_zeros"):
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, False)
+        _check_ported(self)
+        if self.group_size > 0 and self.K % self.group_size:
             raise ValueError(f"K={self.K} not a multiple of group_size="
                              f"{self.group_size}")
-        # The Hopper layout: eight uint4 codes per int32 word along K
-        # (quantization/packing.py); no runtime activation transform.
+        # The Hopper layout: K-packed int32 words (quantization/packing.py);
+        # no runtime activation transform.
         object.__setattr__(self, "storage_dtype", "int32")
         object.__setattr__(self, "propagate_a", TransformKind.NonTransform)
         object.__setattr__(self, "propagate_b", TransformKind.NonTransform)
         if self.fast_decoding is None:
-            object.__setattr__(self, "fast_decoding", True)
+            # JAX rule: fast decoding for sub-byte int/uint weights under
+            # float activations only
+            object.__setattr__(self, "fast_decoding",
+                               self.A_dtype in ("float16", "bfloat16"))
 
     # -- derived properties -------------------------------------------------
     def is_native_compute(self) -> bool:

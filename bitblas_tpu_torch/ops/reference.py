@@ -1,5 +1,6 @@
-"""Plain reference: dequantize, then a matmul with float32 accumulation
-(counterpart of bitblas_tpu/ops/reference.py).
+"""Plain reference: dequantize, then a matmul with float32 accumulation,
+or int32 for integer activations on integer codes (counterpart of
+bitblas_tpu/ops/reference.py).
 
 Inputs use the reference checkpoint layouts of the JAX package:
 
@@ -35,12 +36,13 @@ def expand_groups(grouped: torch.Tensor, group: int, K: int) -> torch.Tensor:
 def dequantize_weight(config: MatmulConfig, qweight, scales=None,
                       zeros=None) -> torch.Tensor:
     """Decode a reference-layout packed weight to dense [N, K] in A_dtype:
-    ``(q - zeros) * scales`` evaluated in float16, as the JAX oracle does."""
+    ``(q - zeros) * scales`` evaluated in float16, or the int codes
+    ``field - 2^(bits-1)`` for the int family, as the JAX oracle does."""
     qweight = _tensor(qweight)
     adt = as_torch_dtype(config.A_dtype)
     g, K = config.effective_group_size, config.K
     fields = numerics.unpack_fields(qweight, config.bit)[..., :K]
-    w = numerics.decode_uint_field(fields, config.bit, adt)
+    w = numerics.decode_field(fields, config.source_format, config.bit, adt)
     if config.with_scaling:
         s = expand_groups(_tensor(scales, w.device).to(adt), g, K)
         z = None
@@ -50,11 +52,24 @@ def dequantize_weight(config: MatmulConfig, qweight, scales=None,
     return w.to(adt)
 
 
+def _absmax(t: torch.Tensor) -> int:
+    return max(abs(int(t.max())), abs(int(t.min()))) if t.numel() else 0
+
+
 def matmul_dense_reference(A: torch.Tensor, W_nk: torch.Tensor,
                            out_dtype: torch.dtype) -> torch.Tensor:
-    """C = A @ W^T accumulated in float32 (W_nk is [N, K]), then the
-    saturating cast to `out_dtype`."""
-    out = torch.matmul(A.to(torch.float32), W_nk.to(torch.float32).T)
+    """C = A @ W^T (W_nk is [N, K]) accumulated in float32, or in int32
+    when both operands are integer, then the saturating cast to
+    `out_dtype`. Integer sums run as a float32 product while every
+    partial sum is an integer within 2^24 (K * max|A| * max|W|), which is
+    exact in any order of summation and far faster on the CPU than an
+    int64 one; otherwise in int64."""
+    if not (A.is_floating_point() or W_nk.is_floating_point()):
+        worst = A.shape[-1] * _absmax(A) * _absmax(W_nk)
+        wide = torch.float32 if worst <= 2 ** 24 else torch.int64
+        out = torch.matmul(A.to(wide), W_nk.to(wide).T).to(torch.int32)
+    else:
+        out = torch.matmul(A.to(torch.float32), W_nk.to(torch.float32).T)
     return numerics.saturate_cast(out, out_dtype)
 
 

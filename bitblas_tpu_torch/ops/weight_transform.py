@@ -1,11 +1,13 @@
 """Reference layout <-> Hopper device layout (counterpart of
 bitblas_tpu/ops/weight_transform.py).
 
-The chain is: unpack the reference packing -> K-packed uint4 words
-(quantization/packing.pack_k_u4); scales and zeros [N, K/g] -> [K/g, N]
-float16. The TPU's slot-strided N packing, its XOR-0x80 storage and its
-[K/g, 1, N] float32 scale planes are Mosaic workarounds and have no
-counterpart here. Each transform has an inverse so tests can round-trip.
+The chain is: unpack the reference packing -> K-packed int32 words
+(quantization/packing.pack_k: eight uint4 or sixteen int2 fields per
+word); int values are clamped and biased first (`signed_weight_to_device`,
+the JAX Matmul.transform_weight rule); scales and zeros [N, K/g] ->
+[K/g, N] float16. The TPU's slot-strided N packing, its XOR-0x80 storage
+and its [K/g, 1, N] float32 scale planes are Mosaic workarounds and have
+no counterpart here. Each transform has an inverse so tests can round-trip.
 """
 
 from __future__ import annotations
@@ -23,21 +25,31 @@ from .matmul_config import MatmulConfig
 @dataclass
 class DeviceWeights:
     """Device-layout operand bundle for the dequant kernel."""
-    qweight: torch.Tensor                  # [N, K/8] int32
+    qweight: torch.Tensor                  # [N, K*bits/32] int32
     scales: Optional[torch.Tensor] = None  # [K/g, N] float16
     zeros: Optional[torch.Tensor] = None   # [K/g, N] float16
 
 
 def unpacked_weight_to_device(config: MatmulConfig,
                               w_fields_nk) -> torch.Tensor:
-    """[N, K] uint4 codes -> [N, K/8] int32 K-packed words."""
+    """[N, K] unsigned fields -> [N, K*bits/32] int32 K-packed words."""
     codes = torch.as_tensor(np.asarray(w_fields_nk)
                             if not isinstance(w_fields_nk, torch.Tensor)
                             else w_fields_nk)
     if tuple(codes.shape) != (config.N, config.K):
         raise ValueError(f"weight shape {tuple(codes.shape)} != "
                          f"(N, K) = {(config.N, config.K)}")
-    return packing.pack_k_u4(codes)
+    return packing.pack_k(codes, config.bit)
+
+
+def signed_weight_to_device(config: MatmulConfig,
+                            values_nk) -> torch.Tensor:
+    """[N, K] int values (int2: -2..1) -> biased fields -> K-packed words;
+    a tensor stays on its device."""
+    values = values_nk if isinstance(values_nk, torch.Tensor) \
+        else torch.as_tensor(np.asarray(values_nk))
+    return unpacked_weight_to_device(
+        config, packing.bias_signed_weight(values, config.bit))
 
 
 def reference_weight_to_device(config: MatmulConfig,
@@ -51,7 +63,7 @@ def reference_weight_to_device(config: MatmulConfig,
 def device_weight_to_reference(config: MatmulConfig,
                                qweight: torch.Tensor) -> np.ndarray:
     """Inverse of reference_weight_to_device."""
-    codes = packing.unpack_k_u4(qweight.cpu()).numpy()
+    codes = packing.unpack_k(qweight.cpu(), config.bit).numpy()
     return packing.general_compress(codes, config.bit)
 
 

@@ -1,4 +1,4 @@
-"""Bit-exact decode formulas for the uint family, as torch ops
+"""Bit-exact decode formulas for the uint and int families, as torch ops
 (counterpart of bitblas_tpu/quantization/numerics.py).
 
 Conventions are the JAX package's: a packed word holds
@@ -50,6 +50,24 @@ def decode_uint_field(field: torch.Tensor, bits: int,
     """uint field -> dtype (reference `_tir_packed_to_unsigned_convert`)."""
     del bits
     return field.to(dtype)
+
+
+def decode_int_field(field: torch.Tensor, bits: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """int field -> dtype: the value is stored biased by 2^(bits-1)
+    (packing.bias_signed_weight), so value = field - 2^(bits-1), taken in
+    int32 before the cast (the JAX `decode_int_field`)."""
+    return (field.to(torch.int32) - (1 << (bits - 1))).to(dtype)
+
+
+def decode_field(field: torch.Tensor, family: str, bits: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Dispatch on the source-format family (uint or int)."""
+    if family == "uint":
+        return decode_uint_field(field, bits, dtype)
+    if family == "int":
+        return decode_int_field(field, bits, dtype)
+    raise NotImplementedError(f"source format {family}{bits} is not ported")
 
 
 def fast_decode_uint_to_f16(field: torch.Tensor, bits: int) -> torch.Tensor:

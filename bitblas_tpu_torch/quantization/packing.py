@@ -2,11 +2,15 @@
 layout (read-only, to carry JAX state across) and the port's own Hopper
 layout (counterpart of bitblas_tpu/quantization/packing.py).
 
-Hopper device layout (K-packed uint4)
+Hopper device layout (K-packed words)
 -------------------------------------
 A uint4 weight [N, K] is stored as ``qweight [N, K/8] int32``: word
 ``[n, j]`` holds the codes of ``(n, k = 8j + i)`` for ``i = 0..7`` at bits
-``[4i, 4i + 4)`` (LSB first). Invariants the kernel relies on:
+``[4i, 4i + 4)`` (LSB first). An int2 weight is ``[N, K/16] int32``, 16
+fields per word at bits ``[2i, 2i + 2)``, each the value biased by 2
+(``bias_signed_weight``), so byte ``p`` of a word holds k = 4p..4p+3
+(``pack_k(fields, 2)``).
+Invariants the kernels rely on:
 
 * Packing runs along K, the contraction axis, so a block that owns output
   columns ``[n0, n0 + BN)`` and a K slab ``[k0, k0 + BK)`` reads ``BN``
@@ -101,32 +105,45 @@ def unpack_nslot(packed: np.ndarray, bits: int, tile_n: int,
 
 
 # ---------------------------------------------------------------------------
-# Hopper device layout: K-packed uint4 words (see module docstring)
+# Hopper device layout: K-packed words (see module docstring)
 # ---------------------------------------------------------------------------
 
-U4_PER_WORD = 8
+def bias_signed_weight(weight: torch.Tensor, bits: int) -> torch.Tensor:
+    """Clamp+bias a signed low-bit weight into unsigned storage fields
+    (the JAX ``bias_signed_weight``, on the weight's device): clamp to
+    [-2^(b-1), 2^(b-1)], cast int8, add 2^(b-1). Decode subtracts the same
+    bias (numerics.decode_int_field)."""
+    maxq = 1 << (bits - 1)
+    return torch.clamp(weight, -maxq, maxq).to(torch.int8) + maxq
 
 
-def pack_k_u4(codes: torch.Tensor) -> torch.Tensor:
-    """uint4 codes [N, K] (any integer dtype, values 0..15) -> [N, K/8]
-    int32 K-packed words, on the codes' device."""
+def pack_k(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Codes [N, K] (any integer dtype; the low `bits` bits are kept) ->
+    [N, K*bits/32] int32 K-packed words, LSB first, on the codes' device:
+    word ``[n, j]`` holds ``(n, k = e*j + i)`` at bits ``[bits*i,
+    bits*(i+1))``, e = 32 / bits."""
+    e = 32 // bits
     N, K = codes.shape
-    if K % U4_PER_WORD:
-        raise ValueError(f"K={K} not divisible by {U4_PER_WORD}")
-    c = (codes.to(torch.int64) & 0xF).reshape(N, K // U4_PER_WORD,
-                                              U4_PER_WORD)
-    shifts = torch.arange(U4_PER_WORD, device=codes.device,
-                          dtype=torch.int64) * 4
+    if K % e:
+        raise ValueError(f"K={K} not divisible by {e}")
+    c = (codes.to(torch.int64) & ((1 << bits) - 1)).reshape(N, K // e, e)
+    shifts = torch.arange(e, device=codes.device, dtype=torch.int64) * bits
     words = (c << shifts).sum(dim=-1)
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)
     return words.to(torch.int32)
 
 
-def unpack_k_u4(qweight: torch.Tensor) -> torch.Tensor:
-    """Inverse of pack_k_u4: [N, K/8] int32 -> uint8 codes [N, K]."""
+def _byte_fields(bits: int, device) -> torch.Tensor:
+    """[256, 8/bits] uint8: the fields of every byte value, LSB first."""
+    b = torch.arange(256, dtype=torch.int32, device=device)[:, None]
+    shifts = torch.arange(8 // bits, dtype=torch.int32, device=device) * bits
+    return ((b >> shifts) & ((1 << bits) - 1)).to(torch.uint8)
+
+
+def unpack_k(qweight: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of pack_k: [N, K*bits/32] int32 -> uint8 codes [N, K]. Each
+    byte of the (little-endian) words is looked up in a 256-entry table."""
     N, P = qweight.shape
-    w = qweight.to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.arange(U4_PER_WORD, device=qweight.device,
-                          dtype=torch.int64) * 4
-    fields = (w.unsqueeze(-1) >> shifts) & 0xF
-    return fields.reshape(N, P * U4_PER_WORD).to(torch.uint8)
+    b = qweight.contiguous().view(torch.uint8).to(torch.int32)  # [N, 4P]
+    return _byte_fields(bits, qweight.device)[b].reshape(N, P * 32 // bits)
+

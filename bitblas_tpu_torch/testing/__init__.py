@@ -62,12 +62,17 @@ class ReferenceOperands:
 
 def random_reference_operands(config: MatmulConfig, m: int,
                               seed: int = 0) -> ReferenceOperands:
-    """The JAX generator's draws for float16 activations and uint weights
-    with scales and zeros (original), in the same order."""
+    """The JAX generator's draws, in the same order, for the ported
+    configurations: float16 activations (standard normal) or int8 ones
+    (uniform in [-8, 8)); sub-byte weight fields uniform over all codes
+    (int codes are stored biased); scales and zeros (original)."""
     rng = np.random.default_rng(seed)
     N, K, bits = config.N, config.K, config.bit
     g = config.effective_group_size
-    A = rng.standard_normal((m, K)).astype(np.float16)
+    if config.A_dtype == "int8":
+        A = rng.integers(-8, 8, (m, K), dtype=np.int64).astype(np.int8)
+    else:
+        A = rng.standard_normal((m, K)).astype(np.float16)
     codes = rng.integers(0, 1 << bits, (N, K),
                          dtype=np.int64).astype(np.uint8)
     out = ReferenceOperands(A=A, qweight=packing.general_compress(codes,

@@ -4,11 +4,12 @@ CUDA kernels have no interpret mode, so every test here needs an NVIDIA
 GPU with nvcc and skips elsewhere. Run on the card with
 ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the suite's conftest imports JAX, which the GPU host need not have).
-Shapes are small but cover the edges: ragged N and M tiles, GQA groups
-1 to 8, stale NaN rows (and NaN scales) past each length and in the
-reserved block 0, a length of 0, block sizes 16 and 128 over permuted
-tables, and K amplified 20x so that a head mix-up cannot hide in a
-near-uniform softmax.
+Shapes are small but cover the edges: ragged N and M tiles, K tails of
+the W2A8 kernel (K = 4160) and its deep K (14336), every int2 code, the
+Matmul route boundary M = 511 / 512, GQA groups 1 to 8, stale NaN rows
+(and NaN scales) past each length and in the reserved block 0, a length
+of 0, block sizes 16 and 128 over permuted tables, and K amplified 20x so
+that a head mix-up cannot hide in a near-uniform softmax.
 """
 
 import math
@@ -17,12 +18,18 @@ import pytest
 import torch
 
 from bitblas_tpu_torch.kernels.dequant_matmul import (
+    decode_i2_hopper, dequant_matmul_i2, dequant_matmul_i2_plain,
     dequant_matmul_u4, dequant_matmul_u4_plain)
+from bitblas_tpu_torch.kernels.materialize import (
+    weight_decode_int8, weight_decode_int8_plain, weight_decode_u4,
+    weight_decode_u4_plain)
 from bitblas_tpu_torch.kernels.flash import (
     flash_attention_fwd, flash_attention_plain, flash_decode,
     flash_decode_paged, flash_decode_paged_plain, flash_decode_paged_quant,
     flash_decode_paged_quant_plain, flash_decode_plain, flash_decode_quant,
     flash_decode_quant_plain)
+from bitblas_tpu_torch.ops.matmul import Matmul
+from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
 from bitblas_tpu_torch.serving import kv_cache
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +60,122 @@ def test_dequant_matmul_matches_plain(dev, M, N, K):
     # same f16 dequantized weights; f32 sums in another order + 1 rounding
     tol = 4e-3 * ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _words(g, dev, rows, cols):
+    """Random int32 words: every 2- and 4-bit field value occurs."""
+    return torch.randint(-2 ** 31, 2 ** 31, (rows, cols), generator=g,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.parametrize("M", [1, 17, 511])
+@pytest.mark.parametrize("N,K", [(1024, 4160), (1024, 14336), (14336, 4160)])
+def test_dequant_matmul_i2_matches_plain(dev, M, N, K):
+    g = torch.Generator(device=dev)
+    g.manual_seed(M * 7 + N + K)
+    qw = _words(g, dev, N, K // 16)
+    assert set(decode_i2_hopper(qw).unique().tolist()) == {-2, -1, 0, 1}
+    A = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int8)
+    before = dequant_matmul_i2.launches
+    out = dequant_matmul_i2(A, qw)
+    ref = dequant_matmul_i2_plain(A, qw)
+    torch.cuda.synchronize()
+    assert dequant_matmul_i2.launches == before + 1
+    assert torch.equal(out, ref)        # integer sums, exact on both sides
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("N,K", [(1024, 4096), (136, 11008)])
+def test_weight_decode_u4_matches_plain(dev, dtype, N, K):
+    g = torch.Generator(device=dev)
+    g.manual_seed(N + K)
+    qw = _words(g, dev, N, K // 8)
+    sc = (torch.rand((K // 128, N), generator=g, device=dev) * 0.05).half()
+    zr = torch.randint(0, 16, (K // 128, N), generator=g, device=dev).half()
+    before = weight_decode_u4.launches
+    out = weight_decode_u4(qw, sc, zr, dtype)
+    ref = weight_decode_u4_plain(qw, sc, zr, dtype)
+    torch.cuda.synchronize()
+    assert weight_decode_u4.launches == before + 1
+    assert out.dtype == dtype and torch.equal(out, ref)     # bit for bit
+
+
+@pytest.mark.parametrize("bits,family", [(2, "int"), (2, "uint"), (4, "int"),
+                                         (4, "uint")])
+@pytest.mark.parametrize("N,K", [(1024, 4160), (14336, 4096)])
+def test_weight_decode_int8_matches_plain(dev, bits, family, N, K):
+    g = torch.Generator(device=dev)
+    g.manual_seed(bits + N + K)
+    qw = _words(g, dev, N, K * bits // 32)
+    before = weight_decode_int8.launches
+    out = weight_decode_int8(qw, bits, family)
+    ref = weight_decode_int8_plain(qw, bits, family)
+    torch.cuda.synchronize()
+    assert weight_decode_int8.launches == before + 1
+    assert torch.equal(out, ref)
+    lo = -(1 << (bits - 1)) if family == "int" else 0
+    assert set(out.unique().tolist()) == set(range(lo, lo + (1 << bits)))
+
+
+def test_int_mm_equals_the_int32_oracle(dev):
+    """torch._int_mm on the [N, K] int8 decode through its transpose (the
+    column-major B it takes) gives the exact int32 sums."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    A = torch.randint(-128, 128, (512, 4160), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int8)
+    W = weight_decode_int8(_words(g, dev, 1024, 4160 // 16))
+    got = torch._int_mm(A, W.T)
+    want = A.cpu().long() @ W.cpu().long().T
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().long(), want)
+
+
+@pytest.mark.parametrize("fmt", ["uint4", "int2"])
+def test_matmul_routes_at_the_boundary(dev, fmt):
+    """M = 511 launches the fused kernel, M = 512 the decode kernel (then
+    the library product); both agree with the plain fused version."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    N, K = 1024, 4096
+    if fmt == "int2":
+        pm = Matmul(MatmulConfig(N=N, K=K, A_dtype="int8", W_dtype="int2",
+                                 accum_dtype="int32", out_dtype="float32"),
+                    device=dev)
+        W, rest = _words(g, dev, N, K // 16), {}
+        fused, decode = dequant_matmul_i2, weight_decode_int8
+        A = torch.randint(-128, 128, (512, K), generator=g, device=dev,
+                          dtype=torch.int64).to(torch.int8)
+        want = dequant_matmul_i2_plain(A, W)
+    else:
+        pm = Matmul(MatmulConfig(N=N, K=K, A_dtype="float16",
+                                 W_dtype="uint4", with_scaling=True,
+                                 with_zeros=True, group_size=128,
+                                 out_dtype="float16"), device=dev)
+        W = _words(g, dev, N, K // 8)
+        rest = {"scale": (torch.rand((K // 128, N), generator=g, device=dev)
+                          * 0.01).half(),
+                "zeros": torch.randint(0, 16, (K // 128, N), generator=g,
+                                       device=dev).half()}
+        fused, decode = dequant_matmul_u4, weight_decode_u4
+        A = torch.randn((512, K), generator=g, device=dev).half()
+        want = dequant_matmul_u4_plain(A, W, rest["scale"], rest["zeros"])
+    for m, counter in ((511, fused), (512, decode)):
+        before = (fused.launches, decode.launches)
+        out = pm.forward(A[:m], W, **rest)
+        torch.cuda.synchronize()
+        after = (fused.launches, decode.launches)
+        assert after[0] - before[0] == (counter is fused)
+        assert after[1] - before[1] == (counter is decode)
+        if fmt == "int2":
+            assert torch.equal(out, want[:m])
+        else:
+            # the same f16 weights; cuBLAS may reduce split-K partial sums
+            # in f16 (allow_fp16_reduced_precision_reduction): 4e-3 of the
+            # largest output, as chip_smoke.py holds the fused kernel
+            tol = 4e-3 * want.float().abs().max().item()
+            assert (out.float() - want[:m].float()).abs().max() <= tol
 
 
 @pytest.mark.parametrize("S,H,Hkv", [(64, 2, 2), (192, 4, 2), (256, 4, 1)])

@@ -94,7 +94,7 @@ def test_hopper_layout_roundtrip():
     assert np.array_equal(pwt.device_weight_to_reference(pc, qw),
                           ops.qweight)
     codes = ppack.general_decompress(ops.qweight, 4)
-    assert np.array_equal(ppack.unpack_k_u4(qw).numpy(), codes)
+    assert np.array_equal(ppack.unpack_k(qw, 4).numpy(), codes)
     # word [n, j] holds (n, 8j + i) at bits 4i (packing.py invariant)
     w = int(qw[3, 5]) & 0xFFFFFFFF
     assert [(w >> (4 * i)) & 0xF for i in range(8)] == \
