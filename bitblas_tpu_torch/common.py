@@ -1,13 +1,28 @@
-"""Device resolution shared by every public constructor and entry point.
+"""Device resolution shared by every public constructor and entry point,
+and the hint database's default location.
 
 Devices are explicit: the default is ``"cuda"``, and only an explicit
 ``device="cpu"`` runs on the CPU. Asking for CUDA on a host without a card
 raises instead of quietly carrying on on the CPU.
+
+The hint database (cache/__init__.py) lives under
+``$BITBLAS_TPU_TORCH_CACHE_PATH``, by default ``~/.cache/bitblas_tpu_torch``:
+the port's own, never the JAX package's.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+DATABASE_PATH_ENV = "BITBLAS_TPU_TORCH_CACHE_PATH"
+
+
+def default_database_path() -> str:
+    """The hint database's root, read from the environment at each call."""
+    return os.path.expanduser(os.environ.get(
+        DATABASE_PATH_ENV, "~/.cache/bitblas_tpu_torch"))
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -1,7 +1,7 @@
 // Small device helpers shared by the kernels of bitblas_tpu_torch:
-// cp.async copies with zero fill, the mma.sync m16n8k16 f16 product with
-// float32 accumulation and the m16n8k32 int8 product with int32
-// accumulation.
+// cp.async copies with zero fill, the mma.sync m16n8k16 f16 and bf16
+// products with float32 accumulation and the m16n8k32 int8 product with
+// int32 accumulation.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -56,6 +56,17 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
                                           const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The same product with bf16 operands (same fragment ownership).
+__device__ __forceinline__ void mma_16816_bf16(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])

@@ -18,7 +18,8 @@
 // N*K/2 plus 4*N*K/g for scales and zeros, over 3.35 TB/s; at prefill M
 // (256, 512) the f16 tensor-core rate, 2*M*N*K over 989 TFLOP/s.
 //
-// Design: one kernel for every M, a tile over (M, N) and a loop over K in
+// Design: one kernel for every M, a tile over (M, N) chosen by the caller
+// from the compiled instances at the end of this file, and a loop over K in
 // group-sized steps (BK = 128 = g, so each step needs one scale and one
 // zero per column). A STAGES-deep cp.async ring keeps several K slabs of A,
 // packed weights, scales and zeros in flight -- at decode M the kernel does
@@ -219,11 +220,18 @@ cudaError_t launch(const half* A, const uint32_t* Wq, const half* s,
 
 }  // namespace
 
+// The compiled tile instances, (BM, BN, BK = 128, STAGES) with their warp
+// grid; kernels/dequant_matmul.py FUSED_TILES lists the same four and the
+// tuner (tuner/space.py) picks one per M bucket. 16x32 keeps many narrow
+// blocks with a deep ring in flight at decode M, where the weight bytes
+// bound the kernel; the taller tiles re-read the packed weight fewer
+// times as M grows. 128x128 with 3 stages takes 161.5 KB of the 227 KB.
 extern "C" int dequant_matmul_u4(const void* A, const void* Wq,
                                  const void* scales, const void* zeros,
                                  void* out, int M, int N, int K, int group,
+                                 int bm, int bn, int bk, int stages,
                                  void* stream) {
-  if (group != BK || K % BK != 0 || N % 8 != 0 || M < 1)
+  if (group != BK || bk != BK || K % BK != 0 || N % 8 != 0 || M < 1)
     return (int)cudaErrorInvalidValue;
   auto a = static_cast<const half*>(A);
   auto w = static_cast<const uint32_t*>(Wq);
@@ -231,8 +239,13 @@ extern "C" int dequant_matmul_u4(const void* A, const void* Wq,
   auto z = static_cast<const half*>(zeros);
   auto o = static_cast<half*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (M <= 16)   // decode: weight-byte bound; narrow N tiles give every
-                 // SM several blocks, and a deep ring keeps bytes in flight
+  if (bm == 16 && bn == 32 && stages == 6)
     return (int)launch<16, 32, 1, 4, 6>(a, w, s, z, o, M, N, K, st);
-  return (int)launch<64, 128, 2, 2, 3>(a, w, s, z, o, M, N, K, st);
+  if (bm == 32 && bn == 64 && stages == 4)
+    return (int)launch<32, 64, 2, 2, 4>(a, w, s, z, o, M, N, K, st);
+  if (bm == 64 && bn == 128 && stages == 3)
+    return (int)launch<64, 128, 2, 2, 3>(a, w, s, z, o, M, N, K, st);
+  if (bm == 128 && bn == 128 && stages == 3)
+    return (int)launch<128, 128, 2, 4, 3>(a, w, s, z, o, M, N, K, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,8 @@
 // 1979 TOP/s.
 //
 // Design: the structure of dequant_matmul.cu. One kernel for every M, a
-// tile over (M, N) and a loop over K in BK-sized steps; a STAGES-deep
+// tile over (M, N) chosen by the caller from the compiled instances at the
+// end of this file, and a loop over K in BK-sized steps; a STAGES-deep
 // cp.async ring keeps K slabs of A and of the packed words in flight (at
 // decode M the kernel does little arithmetic, so bytes in flight are what
 // reach the bandwidth). Each step decodes its packed slab once into a
@@ -191,16 +192,27 @@ cudaError_t launch(const int8_t* A, const uint32_t* Wq, float* out, int M,
 
 }  // namespace
 
+// The compiled tile instances, (BM, BN, BK, STAGES) with their warp grid;
+// kernels/dequant_matmul.py FUSED_TILES lists the same four and the tuner
+// (tuner/space.py) picks one per M bucket. 16x32 with 256-deep K slabs
+// keeps bytes in flight at decode M; the taller tiles re-read the packed
+// weight fewer times as M grows (128x128x128, 3 stages: 84 KB).
 extern "C" int dequant_matmul_i2(const void* A, const void* Wq, void* out,
-                                 int M, int N, int K, void* stream) {
+                                 int M, int N, int K, int bm, int bn, int bk,
+                                 int stages, void* stream) {
   if (K % 64 != 0 || K > 65536 || N % 8 != 0 || M < 1)
     return (int)cudaErrorInvalidValue;
   auto a = static_cast<const int8_t*>(A);
   auto w = static_cast<const uint32_t*>(Wq);
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (M <= 16)   // decode: weight-byte bound; narrow N tiles give every
-                 // SM several blocks, deep K slabs keep bytes in flight
+  if (bm == 16 && bn == 32 && bk == 256 && stages == 4)
     return (int)launch<16, 32, 256, 1, 4, 4>(a, w, o, M, N, K, st);
-  return (int)launch<64, 128, 128, 2, 2, 3>(a, w, o, M, N, K, st);
+  if (bm == 32 && bn == 64 && bk == 256 && stages == 4)
+    return (int)launch<32, 64, 256, 2, 2, 4>(a, w, o, M, N, K, st);
+  if (bm == 64 && bn == 128 && bk == 128 && stages == 3)
+    return (int)launch<64, 128, 128, 2, 2, 3>(a, w, o, M, N, K, st);
+  if (bm == 128 && bn == 128 && bk == 128 && stages == 3)
+    return (int)launch<128, 128, 128, 2, 4, 3>(a, w, o, M, N, K, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..common import resolve_device
+from ..ops import weight_transform as wt
 from ..models.bitnet import (BitLinearInference, activation_quant,
                              weight_quant, weight_quant_codes)
 
@@ -65,7 +66,8 @@ class BitLinearBitBLAS(nn.Module):
         """Rebuild the packed operand from the buffers (call after
         `load_state_dict`)."""
         inner = self.inner
-        inner.qweight.copy_(inner.matmul.transform_weight(self.qweight))
+        inner.qweight.copy_(wt.signed_weight_to_device(inner.config,
+                                                       self.qweight))
         inner.sw.copy_(self.sw)
         self.format = "bitblas"
 

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
            "weight_decode_int8", "flash_attention", "flash_decode",
            "flash_decode_quant", "flash_decode_paged",
-           "flash_decode_paged_quant")
+           "flash_decode_paged_quant", "dense_matmul")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, object] = {}

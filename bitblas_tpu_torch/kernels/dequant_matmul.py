@@ -10,8 +10,12 @@ ported configuration, with the Hopper layout of quantization/packing.py:
   (Wq - 2)^T`` with int32 accumulation, Wq [N, K/16] int32 of biased int2
   fields; csrc/dequant_matmul_i2.cu.
 
-On a CUDA tensor each wrapper launches its kernel (design and bound are
-written in the source); on a CPU tensor it runs the plain version.
+Each kernel is compiled for a small fixed set of tile instances
+(`FUSED_TILES`, (block_m, block_n, block_k, stages)); the caller names one
+(`tile=`, from the Matmul's hint), and `default_tile` is the choice by M
+that the Matmul makes untuned. On a CUDA tensor each wrapper launches its
+kernel (design and bound are written in the source); on a CPU tensor it
+runs the plain version, for which the tile changes nothing.
 """
 
 from __future__ import annotations
@@ -25,10 +29,46 @@ from ..quantization import numerics, packing
 from . import build
 
 GROUP = 128
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# The compiled instances of csrc/dequant_matmul.cu ("uint4") and
+# csrc/dequant_matmul_i2.cu ("int2"), (block_m, block_n, block_k, stages).
+FUSED_TILES = {
+    "uint4": ((16, 32, 128, 6), (32, 64, 128, 4), (64, 128, 128, 3),
+              (128, 128, 128, 3)),
+    "int2": ((16, 32, 256, 4), (32, 64, 256, 4), (64, 128, 128, 3),
+             (128, 128, 128, 3)),
+}
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
+
+
+def default_tile(fmt: str, m: int):
+    """The untuned instance at M = m: the narrow decode tile up to 16
+    rows, where the weight bytes bound the kernel, the 64 x 128 tile
+    above."""
+    return FUSED_TILES[fmt][0] if m <= 16 else FUSED_TILES[fmt][2]
+
+
+def fused_smem_bytes(fmt: str, tile) -> int:
+    """Dynamic shared memory one block of the instance takes (the Tile
+    structs of the two sources): STAGES slabs of A, packed W (and the
+    uint4 kernel's scale and zero rows), plus the decoded W tile."""
+    bm, bn, bk, stages = tile
+    if fmt == "uint4":
+        lda = bk + 8                      # halves
+        stage = bm * lda * 2 + bn * bk // 8 * 4 + 2 * bn * 2
+        return stages * stage + bn * lda * 2
+    lds = bk + 16                         # bytes
+    return stages * (bm * lds + bn * bk // 16 * 4) + bn * lds
+
+
+def _tile(fmt: str, m: int, tile):
+    tile = default_tile(fmt, m) if tile is None else tuple(tile)
+    if tile not in FUSED_TILES[fmt]:
+        raise ValueError(f"{fmt} tile {tile} is not compiled "
+                         f"({FUSED_TILES[fmt]})")
+    return tile
 
 
 def dequantize_hopper(qweight: torch.Tensor, scales: torch.Tensor,
@@ -79,9 +119,11 @@ def _check(A, qweight, scales, zeros, group):
 
 def dequant_matmul_u4(A: torch.Tensor, qweight: torch.Tensor,
                       scales: torch.Tensor, zeros: torch.Tensor,
-                      group: int = GROUP) -> torch.Tensor:
-    """out [M, N] float16; see the module docstring for the layout."""
+                      group: int = GROUP, tile=None) -> torch.Tensor:
+    """out [M, N] float16; see the module docstring for the layout.
+    `tile` is one of FUSED_TILES["uint4"] (default: default_tile)."""
     _check(A, qweight, scales, zeros, group)
+    tile = _tile("uint4", A.shape[0], tile)
     if A.device.type == "cpu":
         return dequant_matmul_u4_plain(A, qweight, scales, zeros, group)
     if A.device.type != "cuda":
@@ -94,7 +136,7 @@ def dequant_matmul_u4(A: torch.Tensor, qweight: torch.Tensor,
     with torch.cuda.device(A.device):
         fn = build.entry("dequant_matmul", "dequant_matmul_u4", _ARGTYPES)
         err = fn(A.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                 zeros.data_ptr(), out.data_ptr(), M, N, K, group,
+                 zeros.data_ptr(), out.data_ptr(), M, N, K, group, *tile,
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, "dequant_matmul_u4")
     dequant_matmul_u4.launches += 1
@@ -141,10 +183,13 @@ def _check_i2(A, qweight):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def dequant_matmul_i2(A: torch.Tensor, qweight: torch.Tensor) -> torch.Tensor:
+def dequant_matmul_i2(A: torch.Tensor, qweight: torch.Tensor,
+                      tile=None) -> torch.Tensor:
     """out [M, N] float32 (the exact int32 sums); see the module
-    docstring for the layout."""
+    docstring for the layout. `tile` is one of FUSED_TILES["int2"]
+    (default: default_tile)."""
     _check_i2(A, qweight)
+    tile = _tile("int2", A.shape[0], tile)
     if A.device.type == "cpu":
         return dequant_matmul_i2_plain(A, qweight)
     if A.device.type != "cuda":
@@ -158,7 +203,7 @@ def dequant_matmul_i2(A: torch.Tensor, qweight: torch.Tensor) -> torch.Tensor:
         fn = build.entry("dequant_matmul_i2", "dequant_matmul_i2",
                          _ARGTYPES_I2)
         err = fn(A.data_ptr(), qweight.data_ptr(), out.data_ptr(), M, N, K,
-                 torch.cuda.current_stream().cuda_stream)
+                 *tile, torch.cuda.current_stream().cuda_stream)
     build.check(err, "dequant_matmul_i2")
     dequant_matmul_i2.launches += 1
     return out

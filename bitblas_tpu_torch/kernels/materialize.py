@@ -5,7 +5,9 @@ bitblas_tpu/kernels/materialize.py).
 The fused kernels (kernels/dequant_matmul.py) decode every weight tile
 again for each M tile; at large M that repeated decode costs more than
 writing the decoded weight out once and running the library GEMM on it.
-`ops/matmul.Matmul` takes this route from M = 512.
+`ops/matmul.Matmul` takes this route where its hint says so: by default
+from M = 512, or in a bucket whose measured winner it is
+(tuner/space.py).
 
 * `weight_decode_u4` -- kernel 2's counterpart (csrc/weight_decode.cu):
   uint4 codes, group-128 scales, original zeros -> dense [N, K] float16,
@@ -15,11 +17,12 @@ writing the decoded weight out once and running the library GEMM on it.
 * `weight_decode_int8` -- kernel 3's counterpart
   (csrc/weight_decode_int8.cu): 2- or 4-bit int/uint fields -> int8 codes
   [N, K], the int family minus its bias 2^(bits-1).
-* `materialize_matmul` -- decode, then the dense product: on the card
-  `torch.matmul` (float16 in and out) or `torch._int_mm` (int8 in, int32
-  out). JAX computes both products as `lax.dot_general` outside any
-  Pallas kernel, so they stay library calls. cuBLAS may reduce split-K
-  partial sums of the float16 product in float16
+* `materialize_matmul` -- decode, then the dense product
+  (kernels/dense.dense_product): on the card `torch.matmul` (float16 in
+  and out) or `torch._int_mm` (int8 in, int32 out). JAX computes both
+  products as `lax.dot_general` outside any Pallas kernel, so they stay
+  library calls. cuBLAS may reduce split-K partial sums of the float16
+  product in float16
   (`torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction`,
   left as the process has it), so the route is held to 4e-3 of the
   largest output against the fused kernel and the plain version; the
@@ -39,10 +42,11 @@ import ctypes
 
 import torch
 
-from ..ops.reference import expand_groups, matmul_dense_reference
+from ..ops.reference import expand_groups
 from ..quantization import numerics, packing
 from ..quantization.formats import as_torch_dtype
 from . import build
+from .dense import dense_product
 from .dequant_matmul import GROUP, dequantize_hopper
 from .spec import KernelSpec
 
@@ -162,19 +166,6 @@ def weight_decode_int8(qweight: torch.Tensor, bits: int = 2,
 weight_decode_int8.launches = 0
 
 
-def _dense(A: torch.Tensor, W_nk: torch.Tensor,
-           out_dtype: torch.dtype) -> torch.Tensor:
-    """The dense half, A [M, K] @ W_nk^T: on the card cuBLAS, through
-    torch._int_mm for int8 (int32 sums) or torch.matmul for float16; on
-    the CPU ops/reference.matmul_dense_reference (float32 accumulation,
-    exact integer sums)."""
-    if A.device.type == "cpu":
-        return matmul_dense_reference(A, W_nk, out_dtype)
-    if A.dtype == torch.int8:
-        return numerics.saturate_cast(torch._int_mm(A, W_nk.T), out_dtype)
-    return torch.matmul(A, W_nk.T)
-
-
 def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
                        qweight: torch.Tensor, scales=None,
                        zeros=None) -> torch.Tensor:
@@ -187,4 +178,4 @@ def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
         W = weight_decode_int8(qweight, spec.bits, spec.family)
     else:
         W = weight_decode_u4(qweight, scales, zeros)
-    return _dense(A, W, as_torch_dtype(spec.out_dtype))
+    return dense_product(A, W, as_torch_dtype(spec.out_dtype))

@@ -5,10 +5,15 @@ Weights are ternarized offline to {-1, 0, 1} codes with one absmean scale
 `sw` per matrix and stored as int2 fields (ops/matmul.py, W2A8
 configuration); activations are quantized per token to int8 at run time.
 The W_INT2 x A_INT8 product accumulates in int32 -- through the fused
-kernel below M = 512 and the materialize plan from it -- and is rescaled by
-``sw * s_a`` (the reference's post_quant_process). `BitNetLlama` is a
-llama-topology stack with every projection a BitLinear, served by the
-decoder mixin of models/quant_llama.py and so by every engine.
+kernel or the materialize plan, as the operator's hint for M says -- and
+is rescaled by ``sw * s_a`` (the reference's post_quant_process). A
+BitLinearInference takes its Matmul from `cache.global_operator_cache`
+(building an untuned one on a miss), as the JAX layer does, so one
+operator per distinct (N, K) serves every layer, and hints loaded from
+the hint database (cache.load_global_ops_cache) route them all.
+`BitNetLlama` is a llama-topology stack with every projection a
+BitLinear, served by the decoder mixin of models/quant_llama.py and so
+by every engine.
 
 The training side (`bitlinear_train_forward`, the straight-through
 estimator) is not ported yet.
@@ -22,7 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..cache import global_operator_cache
 from ..common import resolve_device
+from ..ops import weight_transform as wt
 from ..ops.matmul import Matmul
 from ..ops.matmul_config import MatmulConfig
 from .quant_llama import _PROJS, DecoderServingMixin, LlamaConfig, _dim
@@ -82,8 +89,9 @@ def activation_quant_int8(x: torch.Tensor):
 
 class BitLinearInference(nn.Module):
     """W_INT2 x A_INT8 inference layer: buffers `qweight` [N, K/16] int32
-    (biased int2 fields, K-packed) and `sw` () float32. Each layer owns its
-    Matmul (the port has no operator cache yet)."""
+    (biased int2 fields, K-packed) and `sw` () float32; its Matmul comes
+    from the global operator cache. The operator runs on the device of
+    its inputs, so layers on the card and on the CPU share it."""
 
     def __init__(self, in_features: int, out_features: int,
                  opt_m: tuple = (1, 16, 32, 64, 128, 256), device="cuda"):
@@ -94,7 +102,11 @@ class BitLinearInference(nn.Module):
         self.config = MatmulConfig(
             M=list(opt_m), N=out_features, K=in_features, A_dtype="int8",
             W_dtype="int2", accum_dtype="int32", out_dtype="float32")
-        self.matmul = Matmul(self.config, device=dev)
+        op = global_operator_cache.get(self.config)
+        if op is None:
+            op = Matmul(self.config, device=dev, enable_tuning=False)
+            global_operator_cache.add(self.config, op)
+        self.matmul = op
         self.register_buffer("qweight", torch.zeros(
             self.matmul.retrieve_weight_shape(), dtype=torch.int32,
             device=dev))
@@ -107,7 +119,7 @@ class BitLinearInference(nn.Module):
         ternarized layer."""
         layer = cls(in_features=w.shape[1], out_features=w.shape[0], **kw)
         codes, sw = weight_quant_codes(w)
-        layer.qweight.copy_(layer.matmul.transform_weight(codes))
+        layer.qweight.copy_(wt.signed_weight_to_device(layer.config, codes))
         layer.sw.copy_(torch.as_tensor(sw, dtype=torch.float32))
         return layer
 

@@ -104,7 +104,8 @@ class QuantLlamaLayer(nn.Module):
     point 8 and small scales, which keep the random residual stream
     contractive as the JAX fixture's do."""
 
-    def __init__(self, cfg: LlamaConfig, seed: int = 0, device="cuda"):
+    def __init__(self, cfg: LlamaConfig, seed: int = 0, device="cuda",
+                 enable_tuning: bool = False):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
@@ -118,7 +119,8 @@ class QuantLlamaLayer(nn.Module):
                                 W_dtype="uint4", with_scaling=True,
                                 with_zeros=True, zeros_mode="original",
                                 group_size=g, out_dtype=cfg.act_dtype)
-            self.ops[name] = Matmul(mcfg, device=dev)
+            self.ops[name] = Matmul(mcfg, device=dev,
+                                    enable_tuning=enable_tuning)
             words = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8),
                                   generator=gen, device=dev,
                                   dtype=torch.int64).to(torch.int32)
@@ -382,10 +384,12 @@ class QuantLlama(DecoderServingMixin, nn.Module):
     """A stack of quantized decoder layers (no embeddings: the engines
     stream hidden states; models/hf_import.LMHead adds the ends)."""
 
-    def __init__(self, cfg: LlamaConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: LlamaConfig, device="cuda", seed: int = 0,
+                 enable_tuning: bool = False):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.layers = nn.ModuleList(
-            [QuantLlamaLayer(cfg, seed=seed + i, device=self.device)
+            [QuantLlamaLayer(cfg, seed=seed + i, device=self.device,
+                             enable_tuning=enable_tuning)
              for i in range(cfg.num_layers)])

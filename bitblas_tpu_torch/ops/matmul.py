@@ -1,40 +1,45 @@
-"""Matmul: the quantized-linear operator (counterpart of
-bitblas_tpu/ops/matmul.py).
+"""Matmul: the matmul operator (counterpart of bitblas_tpu/ops/matmul.py).
 
 `transform_weight` turns reference-layout operands into the Hopper device
 layout on the operator's device: uint4 codes [N, K] with scales and zeros
-[N, K/g] (W4A16), or int2 values [N, K] in -2..1, clamped and biased
-(W2A8). `forward(A, W, scale=, zeros=)` runs at any M. PyTorch runs
-eagerly, so there is no per-bucket compile and no bucket padding; the
-route is chosen per call:
+[N, K/g] (W4A16), int2 values [N, K] in -2..1, clamped and biased (W2A8),
+or a native weight as it is ([N, K] for ``*t`` layouts, [K, N] for
+``*n``) with its bias as float32 [1, N]. `forward(A, W, scale=, zeros=,
+bias=)` runs at any M, on the device of its inputs: PyTorch runs eagerly,
+so there is no per-bucket compile and no bucket padding, and each call
+takes the hint of its M (ops/operator.py):
 
-* M < 512: the fused kernel (kernels/dequant_matmul.py), which decodes
-  the packed weight inside the product;
-* M >= 512: the two-pass materialize plan (kernels/materialize.py):
-  decode the weight once, then the dense product.
+* "fused": the dequant-GEMM kernel with the hint's tile instance
+  (kernels/dequant_matmul.py);
+* "materialize": decode the weight once, then the library product
+  (kernels/materialize.py);
+* "dense": a native configuration's product (kernels/dense.py), every
+  layout, bias added in the output type. ``t*`` layouts take A as
+  [K, M], as JAX does.
 
-512 is the bound from which the JAX tuner offers the materialize plan
-(bitblas_tpu/tuner/space.py); the port has no tuner yet, so it fixes the
-route at that bound. A `TileHint` passed as `hint` pins one route for
-every M.
+Untuned, that is the fused kernel below M = 512 and the materialize plan
+from it (tuner/space.default_hint). With `enable_tuning` (the default) an
+operator on the card measures each bucket's candidates when it is built;
+on the CPU it keeps the defaults and measures nothing.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from ..common import resolve_device
+from ..kernels.dense import make_dense_matmul
 from ..kernels.dequant_matmul import dequant_matmul_i2, dequant_matmul_u4
 from ..kernels.materialize import materialize_matmul
 from ..kernels.spec import KernelSpec
+from ..quantization.formats import as_torch_dtype
 from ..tuner.hint import TileHint
 from .matmul_config import MatmulConfig
+from .operator import Operator
 from . import weight_transform as wt
-
-MATERIALIZE_MIN_M = 512
 
 
 def _to_tensor(x) -> torch.Tensor:
@@ -43,59 +48,141 @@ def _to_tensor(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x))
 
 
-class Matmul:
+class Matmul(Operator):
 
     def __init__(self, config: MatmulConfig, name: str = "matmul",
-                 device="cuda", hint: Optional[TileHint] = None):
-        self.config = config
-        self.name = name
-        self.device = resolve_device(device)
-        self.hint = hint
-        self.spec = KernelSpec.from_config(config, config.m_buckets[0])
+                 device="cuda", enable_tuning: bool = True,
+                 from_database: bool = False):
+        self._spec = KernelSpec.from_config(config, config.m_buckets[0])
+        super().__init__(name, config, device)
+        if not from_database:
+            self._build_default_module()
+            if enable_tuning:
+                self.hardware_aware_finetune()
 
-    def retrieve_weight_shape(self) -> Tuple[int, ...]:
-        """Device-layout packed weight shape."""
-        return self.spec.packed_shape
+    # -- Operator hooks -------------------------------------------------------
+    @property
+    def m_buckets(self) -> Tuple[int, ...]:
+        return self.config.m_buckets
 
-    def transform_weight(self, weight, scale=None, zeros=None):
-        """Reference-layout operands -> device layout: [qweight [N, K*bits/32]
-        int32, scales [K/g, N] f16, zeros [K/g, N] f16] (a single tensor
-        when only the weight is given)."""
-        w = _to_tensor(weight)
-        if self.config.source_format == "int":
-            result = [wt.signed_weight_to_device(self.config, w)]
+    def _make_spec(self, m: int) -> KernelSpec:
+        return dataclasses.replace(self._spec, m=m)
+
+    def _build_kernel(self, spec: KernelSpec, hint: TileHint):
+        """fn(A [M, K], W, *rest) with rest the scale, zeros and bias the
+        configuration takes, in that order."""
+        del spec
+        cfg = self.config
+
+        def fn(A, W, *rest):
+            it = iter(rest)
+            scale = next(it) if cfg.with_scaling else None
+            zeros = next(it) if cfg.with_zeros else None
+            bias = next(it) if cfg.with_bias else None
+            return self._run(hint, A, W, scale, zeros, bias)
+
+        return fn
+
+    def _example_input(self, m: int) -> torch.Tensor:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(m)
+        return _random((m, self.config.K), as_torch_dtype(
+            self.config.A_dtype), gen, self.device)
+
+    def _example_weights(self):
+        """Seeded random device-layout operands: every code of the packed
+        weight occurs; scales and zeros in the ranges the models use."""
+        cfg, dev = self.config, self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        if cfg.is_native_compute():
+            out = [_random(self.retrieve_weight_shape(),
+                           as_torch_dtype(cfg.W_dtype), gen, dev)]
         else:
-            result = [wt.unpacked_weight_to_device(self.config, w.cpu())]
+            out = [torch.randint(-2 ** 31, 2 ** 31,
+                                 self.retrieve_weight_shape(), generator=gen,
+                                 device=dev, dtype=torch.int64)
+                   .to(torch.int32)]
+            groups = (cfg.K // cfg.effective_group_size, cfg.N)
+            if cfg.with_scaling:
+                out.append((torch.rand(groups, generator=gen, device=dev)
+                            * 0.01 + 0.005).half())
+            if cfg.with_zeros:
+                out.append(torch.randint(0, 1 << cfg.bit, groups,
+                                         generator=gen, device=dev).half())
+        if cfg.with_bias:
+            out.append(torch.randn((1, cfg.N), generator=gen, device=dev))
+        return out
+
+    # -- weight transform ---------------------------------------------------
+    def retrieve_weight_shape(self) -> Tuple[int, ...]:
+        """Device-layout weight shape."""
+        cfg = self.config
+        if cfg.is_native_compute():
+            return (cfg.N, cfg.K) if cfg.layout[1] == "t" else (cfg.K, cfg.N)
+        return self._spec.packed_shape
+
+    def transform_weight(self, weight, scale=None, zeros=None, bias=None):
+        """Reference-layout operands -> device layout: [weight, scales
+        [K/g, N] f16, zeros [K/g, N] f16, bias [1, N] float32], those
+        given (a single tensor when only the weight is)."""
+        cfg = self.config
+        w = _to_tensor(weight)
+        if cfg.is_native_compute():
+            result = [w.to(as_torch_dtype(cfg.W_dtype))]
+        elif cfg.source_format == "int":
+            result = [wt.signed_weight_to_device(cfg, w)]
+        else:
+            result = [wt.unpacked_weight_to_device(cfg, w.cpu())]
         if scale is not None:
             result.append(wt.scales_to_device(_to_tensor(scale).cpu()))
         if zeros is not None:
             result.append(wt.scales_to_device(_to_tensor(zeros).cpu()))
+        if bias is not None:
+            result.append(_to_tensor(bias).to(torch.float32).reshape(1, -1))
         result = [t.to(self.device) for t in result]
         return result[0] if len(result) == 1 else result
 
-    def route(self, m: int) -> str:
-        """The hint's decode mode, else "fused" below MATERIALIZE_MIN_M and
-        "materialize" from it."""
-        if self.hint is not None:
-            return self.hint.decode_mode
-        return "materialize" if m >= MATERIALIZE_MIN_M else "fused"
+    # -- forward ------------------------------------------------------------
+    def _run(self, hint: TileHint, A: torch.Tensor, W: torch.Tensor,
+             scale=None, zeros=None, bias=None) -> torch.Tensor:
+        """A [M, K] -> [M, N] through the hint's plan."""
+        cfg = self.config
+        if hint.decode_mode == "dense":
+            return make_dense_matmul(self._spec, hint,
+                                     layout="n" + cfg.layout[1])(
+                A, W, bias=bias)
+        if hint.decode_mode == "materialize":
+            return materialize_matmul(self._spec, A, W, scale, zeros)
+        if cfg.source_format == "int":
+            return dequant_matmul_i2(A, W, tile=hint.tile)
+        return dequant_matmul_u4(A, W, scale, zeros, cfg.group_size,
+                                 tile=hint.tile)
 
     def forward(self, A: torch.Tensor, W: torch.Tensor, scale=None,
-                zeros=None) -> torch.Tensor:
-        """A [..., K] -> [..., N]: float16 -> float16 (W4A16), int8 ->
-        float32 (W2A8)."""
+                zeros=None, bias=None) -> torch.Tensor:
+        """A [..., K] (``t*`` layouts: [K, M]) -> [..., N]: float16 ->
+        float16 (W4A16), int8 -> float32 (W2A8), or the native out_dtype."""
         cfg = self.config
-        if cfg.with_scaling and (scale is None or zeros is None):
+        if (cfg.with_scaling and scale is None) or \
+                (cfg.with_zeros and zeros is None):
             raise ValueError("this configuration needs scale and zeros")
+        if cfg.layout[0] == "t":
+            A = A.T
         lead = A.shape[:-1]
         A2 = A.reshape(-1, cfg.K).contiguous()
-        if self.route(A2.shape[0]) == "materialize":
-            out = materialize_matmul(self.spec, A2, W, scale, zeros)
-        elif cfg.source_format == "int":
-            out = dequant_matmul_i2(A2, W)
-        else:
-            out = dequant_matmul_u4(A2, W, scale, zeros, cfg.group_size)
+        out = self._run(self.hint_for(A2.shape[0]), A2, W, scale, zeros,
+                        bias if cfg.with_bias else None)
         return out.reshape(*lead, cfg.N)
 
     def __call__(self, *args, **kwargs):
         return self.forward(*args, **kwargs)
+
+
+def _random(shape, dtype: torch.dtype, gen: torch.Generator,
+            device) -> torch.Tensor:
+    """Standard normal floats, or int8 codes over the whole range."""
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    return torch.randint(-128, 128, shape, generator=gen, device=device,
+                         dtype=torch.int64).to(dtype)

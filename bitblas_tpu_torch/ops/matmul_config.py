@@ -1,16 +1,22 @@
 """MatmulConfig: the frozen dataclass that specifies a matmul operator
 (counterpart of bitblas_tpu/ops/matmul_config.py, same fields).
 
-The port runs two configurations so far (`PORTED`): the GPTQ W4A16
-linear of the quantized Llama path (uint4 weights, float16 activations and
-outputs, float32 accumulation, group 128, scales and zeros with zeros_mode
+The port runs these configurations (`PORTED`): the GPTQ W4A16 linear of
+the quantized Llama path (uint4 weights, float16 activations and outputs,
+float32 accumulation, group 128, scales and zeros with zeros_mode
 "original") and the BitNet W2A8 linear that `models/bitnet.py`
 BitLinearInference builds (int2 weights, int8 activations, int32
-accumulation, float32 outputs, no scales or zeros); both layout "nt", no
-bias. Every other configuration raises NotImplementedError; the JAX
-legalization rules then fill the derived fields. `M` and `m_buckets` are
-kept for API parity: PyTorch runs eagerly, so the operator pads to no
-bucket.
+accumulation, float32 outputs, no scales or zeros), both layout "nt"
+without bias; and the native dense configurations, A_dtype == W_dtype in
+float16, bfloat16, float32 (out_dtype the same) or int8 (out_dtype int32
+or float32), in every layout, with or without bias. A native
+configuration accumulates in float32 for float operands and in int32 for
+int8 whatever `accum_dtype` says, as the JAX dense kernel does, and the
+field is legalized to that type. Every other configuration raises
+NotImplementedError; the JAX legalization rules then fill the derived
+fields. `M` gives the operator's M buckets (ops/operator.py). The repr
+holds field values only, so it is the same in every process: the hint
+database keys on it (cache/__init__.py).
 """
 
 from __future__ import annotations
@@ -18,37 +24,49 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Literal, Optional, Tuple, Union
 
-from ..quantization.formats import DTYPE_MAP, source_format_and_bits
+from ..quantization.formats import (DTYPE_MAP, is_native_compute,
+                                   source_format_and_bits)
 from .common import OptimizeStrategy, TransformKind
 
 DEFAULT_OPT_M_DECODE = (1, 16, 32, 64, 128, 256, 512, 1024)
 DEFAULT_OPT_M_BATCHED = (16, 32, 64, 128, 256, 512, 1024)
 
-# The legal configurations: field -> the one value each takes.
-_COMMON = {"layout": "nt", "zeros_mode": "original", "with_bias": False}
+# The legal configurations: field -> the one value each takes. Quantized
+# configurations are "nt" without bias; native ones take every layout and
+# bias (those two fields are not listed for them).
+_QUANT = {"layout": "nt", "zeros_mode": "original", "with_bias": False}
+_DENSE = {"group_size": -1, "with_scaling": False, "with_zeros": False,
+          "zeros_mode": "original"}
 PORTED = (
     dict(A_dtype="float16", W_dtype="uint4", out_dtype="float16",
          accum_dtype="float32", group_size=128, with_scaling=True,
-         with_zeros=True, **_COMMON),
+         with_zeros=True, **_QUANT),
     dict(A_dtype="int8", W_dtype="int2", out_dtype="float32",
          accum_dtype="int32", group_size=-1, with_scaling=False,
-         with_zeros=False, **_COMMON),
+         with_zeros=False, **_QUANT),
+    *(dict(A_dtype=dt, W_dtype=dt, out_dtype=dt, accum_dtype="float32",
+           **_DENSE) for dt in ("float16", "bfloat16", "float32")),
+    *(dict(A_dtype="int8", W_dtype="int8", out_dtype=out,
+           accum_dtype="int32", **_DENSE) for out in ("int32", "float32")),
 )
 
 
 def _check_ported(cfg) -> None:
     """Raise NotImplementedError unless `cfg` is one of PORTED, naming the
-    first field that differs from the ported configuration of its
-    activation dtype."""
+    first field that differs from the ported configuration nearest to it
+    (same A_dtype and W_dtype, else same A_dtype)."""
     if any(all(getattr(cfg, k) == v for k, v in p.items()) for p in PORTED):
         return
-    near = next((p for p in PORTED if p["A_dtype"] == cfg.A_dtype),
+    near = next((p for p in PORTED if (p["A_dtype"], p["W_dtype"])
+                 == (cfg.A_dtype, cfg.W_dtype)), None) \
+        or next((p for p in PORTED if p["A_dtype"] == cfg.A_dtype),
                 PORTED[0])
     name, want = next((k, v) for k, v in near.items()
                       if getattr(cfg, k) != v)
     raise NotImplementedError(
         f"bitblas_tpu_torch runs {name}={want!r} only with "
-        f"A_dtype={near['A_dtype']!r} so far (got {getattr(cfg, name)!r})")
+        f"A_dtype={near['A_dtype']!r}, W_dtype={near['W_dtype']!r} so far "
+        f"(got {getattr(cfg, name)!r})")
 
 
 @dataclass(frozen=True)
@@ -109,24 +127,32 @@ class MatmulConfig(OperatorConfig):
         for name in ("with_bias", "with_scaling", "with_zeros"):
             if getattr(self, name) is None:
                 object.__setattr__(self, name, False)
+        native = self.is_native_compute()
+        if native:
+            object.__setattr__(self, "accum_dtype",
+                               "int32" if self.A_dtype == "int8"
+                               else "float32")
         _check_ported(self)
         if self.group_size > 0 and self.K % self.group_size:
             raise ValueError(f"K={self.K} not a multiple of group_size="
                              f"{self.group_size}")
-        # The Hopper layout: K-packed int32 words (quantization/packing.py);
-        # no runtime activation transform.
-        object.__setattr__(self, "storage_dtype", "int32")
+        # The Hopper layout: K-packed int32 words (quantization/packing.py),
+        # or the weight in its own dtype for native compute (JAX rule); no
+        # runtime activation transform.
+        object.__setattr__(self, "storage_dtype",
+                           self.W_dtype if native else "int32")
         object.__setattr__(self, "propagate_a", TransformKind.NonTransform)
         object.__setattr__(self, "propagate_b", TransformKind.NonTransform)
         if self.fast_decoding is None:
             # JAX rule: fast decoding for sub-byte int/uint weights under
             # float activations only
             object.__setattr__(self, "fast_decoding",
-                               self.A_dtype in ("float16", "bfloat16"))
+                               not native and self.A_dtype in ("float16",
+                                                               "bfloat16"))
 
     # -- derived properties -------------------------------------------------
     def is_native_compute(self) -> bool:
-        return False
+        return is_native_compute(self.A_dtype, self.W_dtype)
 
     @property
     def source_format(self) -> str:

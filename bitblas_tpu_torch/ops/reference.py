@@ -63,10 +63,12 @@ def matmul_dense_reference(A: torch.Tensor, W_nk: torch.Tensor,
     `out_dtype`. Integer sums run as a float32 product while every
     partial sum is an integer within 2^24 (K * max|A| * max|W|), which is
     exact in any order of summation and far faster on the CPU than an
-    int64 one; otherwise in int64."""
+    integer one; otherwise as a float64 product, exact within 2^53 (int8
+    operands: K < 2^39), which runs on the card too (PyTorch has no CUDA
+    integer matmul)."""
     if not (A.is_floating_point() or W_nk.is_floating_point()):
         worst = A.shape[-1] * _absmax(A) * _absmax(W_nk)
-        wide = torch.float32 if worst <= 2 ** 24 else torch.int64
+        wide = torch.float32 if worst <= 2 ** 24 else torch.float64
         out = torch.matmul(A.to(wide), W_nk.to(wide).T).to(torch.int32)
     else:
         out = torch.matmul(A.to(torch.float32), W_nk.to(torch.float32).T)

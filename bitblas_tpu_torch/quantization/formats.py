@@ -5,7 +5,8 @@ Every weight dtype is a ``(source_format, bits)`` pair, as in the
 reference's ``BITBLAS_TRICK_DTYPE_MAP``. The whole map is kept so that a
 config naming a format this port does not run yet fails with
 NotImplementedError (ops/matmul_config.py) rather than "unknown dtype";
-the kernels of this package run the uint family at 4 bits.
+the kernels of this package run uint4 and int2 weights, and the dense
+route the native pairs float16, bfloat16, float32 and int8.
 """
 
 from __future__ import annotations
@@ -49,6 +50,28 @@ TORCH_DTYPES = {
     "int8": torch.int8,
     "uint8": torch.uint8,
 }
+
+
+# (A_dtype, W_dtype) pairs computed densely without a dequantize stage
+# (the JAX package's NATIVE_COMPUTE_PATTERNS).
+NATIVE_COMPUTE_PATTERNS = frozenset([
+    ("float64", "float64"),
+    ("float32", "float32"),
+    ("float16", "float16"),
+    ("bfloat16", "bfloat16"),
+    ("int8", "int8"),
+    ("uint8", "uint8"),
+    ("int4", "int4"),
+    ("uint4", "uint4"),
+    ("e4m3_float8", "e4m3_float8"),
+    ("e4m3_float8", "e5m2_float8"),
+    ("e5m2_float8", "e4m3_float8"),
+    ("e5m2_float8", "e5m2_float8"),
+])
+
+
+def is_native_compute(A_dtype: str, W_dtype: str) -> bool:
+    return (A_dtype, W_dtype) in NATIVE_COMPUTE_PATTERNS
 
 
 def source_format_and_bits(W_dtype: str) -> Tuple[str, int]:

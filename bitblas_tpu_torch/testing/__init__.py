@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..ops.matmul_config import MatmulConfig
 from ..quantization import packing
@@ -60,19 +61,45 @@ class ReferenceOperands:
     zeros: Optional[np.ndarray] = None
 
 
+def _float_draw(x: np.ndarray, dtype: str,
+                via_f16: bool = True) -> np.ndarray:
+    """float64 draws -> `dtype` as JAX casts them (activations reach
+    bfloat16 through float16, weights directly); bfloat16 comes back as
+    float32 holding the values."""
+    if dtype == "float32":
+        return x.astype(np.float32)
+    if dtype == "float16" or via_f16:
+        x = x.astype(np.float16)
+    if dtype == "bfloat16":
+        return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return x
+
+
 def random_reference_operands(config: MatmulConfig, m: int,
                               seed: int = 0) -> ReferenceOperands:
     """The JAX generator's draws, in the same order, for the ported
-    configurations: float16 activations (standard normal) or int8 ones
-    (uniform in [-8, 8)); sub-byte weight fields uniform over all codes
-    (int codes are stored biased); scales and zeros (original)."""
+    configurations: float activations (standard normal; float16 first
+    for float16 and bfloat16, as JAX draws) or int8 ones (uniform in
+    [-8, 8)); native weights drawn the same way ([N, K] for ``*t``
+    layouts, [K, N] for ``*n``); sub-byte weight fields uniform over all codes
+    (int codes are stored biased); scales and zeros (original). numpy has
+    no bfloat16: those arrays are float32 holding the bfloat16 values."""
     rng = np.random.default_rng(seed)
     N, K, bits = config.N, config.K, config.bit
     g = config.effective_group_size
     if config.A_dtype == "int8":
         A = rng.integers(-8, 8, (m, K), dtype=np.int64).astype(np.int8)
     else:
-        A = rng.standard_normal((m, K)).astype(np.float16)
+        A = _float_draw(rng.standard_normal((m, K)), config.A_dtype)
+    if config.is_native_compute():
+        if config.A_dtype == "int8":
+            W = rng.integers(-8, 8, (N, K), dtype=np.int64).astype(np.int8)
+        else:   # JAX casts the float64 draws to A's dtype directly
+            W = _float_draw(rng.standard_normal((N, K)), config.A_dtype,
+                            via_f16=False)
+        return ReferenceOperands(
+            A=A, qweight=W if config.layout[1] == "t"
+            else np.ascontiguousarray(W.T))
     codes = rng.integers(0, 1 << bits, (N, K),
                          dtype=np.int64).astype(np.uint8)
     out = ReferenceOperands(A=A, qweight=packing.general_compress(codes,

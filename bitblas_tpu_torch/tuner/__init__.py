@@ -1,6 +1,23 @@
-"""Tuning hints (counterpart of bitblas_tpu/tuner); the port has no
-measured tuner yet, only the hint that pins a Matmul route."""
+"""Tuner: device envelopes, tile hints, the tile space with its roofline,
+and the measured top-k search (counterpart of bitblas_tpu/tuner)."""
 
-from .hint import TileHint
-
-__all__ = ["TileHint"]
+from .arch import (  # noqa: F401
+    CPU,
+    H100_SXM,
+    TileDevice,
+    auto_detect_target,
+    get_arch,
+)
+from .hint import HINT_CLASSES, MATERIALIZE, TileHint  # noqa: F401
+from .space import (  # noqa: F401
+    MATERIALIZE_MIN_M,
+    default_hint,
+    enumerate_hints,
+    roofline_seconds,
+    smem_bytes,
+)
+from .tune import (  # noqa: F401
+    TuneResult,
+    fast_tune,
+    fast_tune_with_dynamic_range,
+)

@@ -4,6 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout
     python3 chip_smoke.py --bitnet-readings   # only the readings that
                                               # BITNET_LOGIT_* are set from
+    python3 chip_smoke.py --bitnet-tuned-ab   # only serve_bitnet against
+                                              # serve_bitnet_tuned, in turns
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -15,12 +17,16 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                plain_ms, library_ms (a PyTorch call computing the same
                function, timed as a yardstick only; null where none does)
                and bound_ms (the larger of bytes over 3.35 TB/s and
-               operations over 989 TFLOP/s f16 or 1979 TOP/s int8, the H100
-               SXM data-sheet peaks); the paged kernels also time the
-               table-gather path (gather_ms). Then the route table: the
-               fused kernel against the materialize plan (decode kernel +
-               library product) at M = 256 / 512 / 2048, uint4 x f16 and
-               int2 x int8.
+               operations over 989 TFLOP/s f16, 1979 TOP/s int8 or 67
+               TFLOP/s float32 FFMA, the H100 SXM data-sheet peaks); the
+               paged kernels also time the table-gather path (gather_ms).
+               Then the route table: the fused kernel against the
+               materialize plan (decode kernel + library product) at M =
+               256 / 512 / 2048, uint4 x f16 and int2 x int8. Then kernel
+               9 (dense_matmul, the tiled dense GEMM that no part of the
+               program calls) at M = 16 / 256 / 4096, N = K = 4096, every
+               operand type. Every time is bitblas_tpu_torch.utils.timing
+               .measure_kernel's: median of CUDA events, L2 flushed.
 4. reference -- a 2-layer model at Llama-2-7B widths: prefill (flash) and
                teacher-forced decode steps on the card against the same
                weights on the CPU plain path; then TokenContinuousBatching-
@@ -51,13 +57,27 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                serve_paged_quant  the same over the int8 pool;
                serve_bitnet     32 BitNet b1.58 W2A8 layers at Llama-3-8B
                                 widths behind an LMHead of vocab 128256,
-                                TokenContinuousBatchingEngine, bf16 KV.
+                                TokenContinuousBatchingEngine, bf16 KV, on
+                                untuned operators (buckets 1 ... 256).
                Prompts of 300-500 tokens prefill in bucket 512, the
                materialize route. Every request finishes, hiddens and
                logits are finite, and every kernel of the phase's path has
                a launch counter (all reset to 0 just before the phase) > 0.
                A profile of 5 decode steps follows each token-engine
                phase.
+6. tune     -- the distinct Matmul configurations of both serving models
+               at full width (W4A16: 3 shapes, buckets 1/16/256; W2A8: 4
+               shapes, buckets 1/16/32/64/128/256) tuned through the global
+               operator cache on the card: each bucket's winner, its time
+               and spread, the default's time and the roofline; the hints
+               saved into a database in a temporary directory, the cache
+               cleared and loaded back (hints equal), and each reloaded
+               operator's forward equal to the default route's bit for bit
+               at M = 4 and 256.
+7. serve_bitnet_tuned -- serve_bitnet again, on a model whose layers take
+               the operators loaded from that database; the GEMM kernels'
+               launches must equal the routes its Matmul calls took (both
+               BitNet phases record them), beside serve_bitnet's metrics.
 
 Then the kernel summary line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -66,13 +86,16 @@ Then the kernel summary line, the nvidia-smi line, and the last line
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F16_FLOPS_PER_S = 989e12       # dense f16/bf16 tensor core, data sheet
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor core, data sheet
+F32_FLOPS_PER_S = 67e12        # float32 FFMA (no tensor core), data sheet
 
 
 def emit(obj) -> None:
@@ -85,30 +108,13 @@ def bound(nbytes: float, flops: float, peak: float = F16_FLOPS_PER_S):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, iters: int, flush=None) -> float:
-    """Median per-launch device time with CUDA events; `flush` (a buffer
-    larger than the 50 MB L2) is rewritten before each launch so weights
-    come from HBM as they do on the serving path. A device-side sleep
-    queued first keeps the card busy while the host enqueues every
-    launch, so no launch waits on the host's wrapper code between its
-    two events."""
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)   # ~25 ms of clock cycles
-    events = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    ts = sorted(s.elapsed_time(e) for s, e in events)
-    return ts[len(ts) // 2]
+def time_ms(torch, fn, iters: int, flush=True) -> float:
+    """Median per-launch device time in ms: bitblas_tpu_torch.utils.timing
+    .measure_kernel (CUDA events, L2 flushed before each launch when
+    `flush`, a device sleep queued first so no launch waits on the
+    host)."""
+    from bitblas_tpu_torch.utils.timing import measure_kernel
+    return measure_kernel(fn, (), iters=iters, flush=bool(flush)) * 1e3
 
 
 def check_dequant(torch, flush):
@@ -348,6 +354,89 @@ def route_table(torch, flush):
             emit(row)
             rows.append(row)
         del W, Wd
+    return rows
+
+
+DENSE_DTYPES = ("float16", "bfloat16", "float32", "int8")
+
+
+def check_dense(torch, flush):
+    """Kernel 9 (dense_matmul: the tiled nt GEMM, no caller in the
+    program) at M = 16 / 256 / 4096, N = K = 4096, every operand type, on
+    the tile the dense hint gives that M: against its plain version
+    (int8 bit for bit; floats: the same float32 sums in another order and
+    one rounding, within 4e-3 / 1.6e-2 / 1e-5 of the largest output for
+    float16 / bfloat16 / float32), timed beside the library product
+    (torch.matmul, TF32 off; torch._int_mm for int8, which refuses M <=
+    16: there torch.matmul on float64 copies, exact)."""
+    from bitblas_tpu_torch.kernels.dense import (dense_matmul,
+                                                 dense_matmul_plain)
+    from bitblas_tpu_torch.kernels.spec import KernelSpec
+    from bitblas_tpu_torch.tuner import H100_SXM, default_hint
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    N = K = 4096
+    tols = {"float16": 4e-3, "bfloat16": 1.6e-2, "float32": 1e-5,
+            "int8": 0.0}
+    peaks = {"float16": F16_FLOPS_PER_S, "bfloat16": F16_FLOPS_PER_S,
+             "float32": F32_FLOPS_PER_S, "int8": INT8_OPS_PER_S}
+    rows = []
+    for name in DENSE_DTYPES:
+        dt = getattr(torch, name)
+        out_dt = torch.int32 if name == "int8" else dt
+        if name == "int8":
+            W = _int8(torch, gen, (N, K))
+        else:
+            W = torch.randn((N, K), generator=gen, device="cuda").to(dt)
+        for M in (16, 256, 4096):
+            A = (_int8(torch, gen, (M, K)) if name == "int8" else
+                 torch.randn((M, K), generator=gen, device="cuda").to(dt))
+            spec = KernelSpec(m=M, n=N, k=K, a_dtype=name,
+                              out_dtype="int32" if name == "int8" else name,
+                              family="int" if name == "int8" else "fp",
+                              bits=8 * W.element_size(), native=True)
+            tile = default_hint(spec, H100_SXM).tile[:3]
+            out = dense_matmul(A, W, out_dt, tile)
+            ref = dense_matmul_plain(A, W, out_dt)
+            if name == "int8" and M <= 16:
+                Ad, Wd = A.double(), W.double()
+                lib_name, lib = "torch.matmul f64", lambda: torch.matmul(
+                    Ad, Wd.T)
+            elif name == "int8":
+                lib_name, lib = "torch._int_mm", lambda: torch._int_mm(
+                    A, W.T)
+            else:
+                lib_name, lib = "torch.matmul", lambda: torch.matmul(A, W.T)
+            torch.cuda.synchronize()
+            err = (out.double() - ref.double()).abs().max().item()
+            scale = ref.double().abs().max().item()
+            tol = tols[name] * scale
+            if not (err <= tol and torch.isfinite(out.float()).all().item()
+                    and out.dtype == out_dt):
+                raise AssertionError(f"dense_matmul {name} M={M}: max abs "
+                                     f"err {err} > {tol}")
+            if name == "int8" and not torch.equal(
+                    lib().to(torch.float64), ref.double()):
+                raise AssertionError(f"{lib_name} M={M} differs from the "
+                                     f"int32 sums")
+            esize = W.element_size()
+            b_ms, b_by = bound((M + N) * K * esize
+                               + M * N * out.element_size(),
+                               2.0 * M * N * K, peaks[name])
+            row = {"phase": "kernels", "kernel": "dense_matmul",
+                   "dtype": name, "M": M, "N": N, "K": K,
+                   "tile": list(tile), "max_abs_err": err,
+                   "max_rel_err": err / max(scale, 1e-30), "tol": tol,
+                   "kernel_ms": time_ms(torch, lambda: dense_matmul(
+                       A, W, out_dt, tile), 20, flush),
+                   "plain_ms": time_ms(torch, lambda: dense_matmul_plain(
+                       A, W, out_dt), 3, flush),
+                   "library": lib_name,
+                   "library_ms": time_ms(torch, lib, 20, flush),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+        del W
     return rows
 
 
@@ -1072,7 +1161,10 @@ def serving_model(torch, family: str = "llama"):
     t0 = time.perf_counter()
     if family == "bitnet":
         cfg = bitnet_llama3_8b(32)
-        model = BitNetLlama(cfg, device="cuda", seed=0)
+        # the tuned buckets: each projection's Matmul comes from the
+        # global operator cache, one per (N, K)
+        model = BitNetLlama(cfg, opt_m=BITNET_BUCKETS, device="cuda",
+                            seed=0)
         name = "BitNet b1.58 W2A8, Llama-3-8B widths"
     else:
         cfg = llama2_7b(32)
@@ -1115,15 +1207,63 @@ SERVE_PHASES = (
 BITNET_PHASE = ("serve_bitnet", "token", {},
                 ("dequant_matmul_i2", "weight_decode_int8",
                  "flash_attention_fwd", "flash_decode"))
+# serve_bitnet_tuned's GEMM kernels are the routes the database chose
+# (checked against the recorded routes); the attention kernels are fixed
+BITNET_TUNED_PHASE = ("serve_bitnet_tuned", "token", {},
+                      ("flash_attention_fwd", "flash_decode"))
 MAX_NEW = 32
 
 
-def serve(torch, ctx, counters, phase, kind, kw, expect):
+class RouteRecorder:
+    """Counts the plan each Matmul.forward call takes (the hint of its M),
+    while installed, so a serve phase can check that the GEMM kernels
+    launched exactly as the operators' hints route: one fused-kernel
+    launch per "fused" call, one weight decode per "materialize" call."""
+
+    def __init__(self):
+        from bitblas_tpu_torch.ops.matmul import Matmul
+        self.cls, self.orig = Matmul, Matmul.forward
+        self.calls = {}
+        self.by_hint = {}
+
+    def __enter__(self):
+        orig, calls, by_hint = self.orig, self.calls, self.by_hint
+
+        def recording(op, A, W, *args, **kw):
+            hint = op.hint_for(A.numel() // A.shape[-1])
+            calls[hint.decode_mode] = calls.get(hint.decode_mode, 0) + 1
+            by_hint[hint.short_name()] = by_hint.get(hint.short_name(),
+                                                     0) + 1
+            return orig(op, A, W, *args, **kw)
+
+        self.cls.forward = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.orig
+
+    def reset(self):
+        self.calls.clear()
+        self.by_hint.clear()
+
+    def check(self, phase, launches):
+        want = {"dequant_matmul_i2": self.calls.get("fused", 0),
+                "weight_decode_int8": self.calls.get("materialize", 0)}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{phase}: GEMM launches {got} differ from "
+                                 f"the routes of the hints {self.calls}")
+        return {"routes": dict(self.calls), "hints": dict(self.by_hint)}
+
+
+def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     """One serve phase: every launch counter reset to 0, the requests
     submitted and the engine stepped to the end (a sync after each step so
     each step's wall time is its own), the counters read. Steps that
     admitted nothing give the decode metrics; steps that admitted requests
-    give prefill tokens/s (their time less one mean decode step)."""
+    give prefill tokens/s (their time less one mean decode step). With a
+    RouteRecorder `routes`, the GEMM launches must match the routes its
+    Matmul calls took."""
     import numpy as np
     from bitblas_tpu_torch.serving.engine import (
         PagedContinuousBatchingEngine, Request,
@@ -1156,6 +1296,8 @@ def serve(torch, ctx, counters, phase, kind, kw, expect):
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
+    if routes is not None:
+        routes.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = submit()
@@ -1186,6 +1328,7 @@ def serve(torch, ctx, counters, phase, kind, kw, expect):
     if min(launches[k] for k in expect) <= 0:
         raise AssertionError(f"{phase}: a kernel was not launched: "
                              f"{launches}")
+    route_row = routes.check(phase, launches) if routes is not None else {}
     pure = [(dt, n) for dt, adm, n in steps if adm == 0]
     step_s = sum(dt for dt, _ in pure) / max(len(pure), 1)
     adm = [(dt, a) for dt, a, _ in steps if a > 0]
@@ -1200,7 +1343,7 @@ def serve(torch, ctx, counters, phase, kind, kw, expect):
            / max(sum(dt for dt, _ in pure), 1e-9),
            "prefill_tok_s": sum(a for _, a in adm)
            / max(sum(dt - step_s for dt, _ in adm), 1e-9),
-           "wall_s": wall, "launches": launches,
+           "wall_s": wall, "launches": launches, **route_row,
            "peak_mem_gb": peak / 2 ** 30, "kv_bytes": kv_bytes,
            "weight_bytes": ctx["weight_bytes"]}
     if kind == "token":
@@ -1214,7 +1357,130 @@ def serve(torch, ctx, counters, phase, kind, kw, expect):
         profile_decode(torch, eng, ctx["prompts"], phase)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return row
+
+
+# The tune phase: the distinct Matmul configurations of the two serving
+# models at full width, with their M buckets.
+LLAMA_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))   # (N, K)
+LLAMA_BUCKETS = (1, 16, 256)
+BITNET_SHAPES_ALL = ((4096, 4096), (1024, 4096), (14336, 4096),
+                     (4096, 14336))
+BITNET_BUCKETS = (1, 16, 32, 64, 128, 256)
+W4A16 = dict(A_dtype="float16", W_dtype="uint4", with_scaling=True,
+             with_zeros=True, zeros_mode="original", group_size=128,
+             out_dtype="float16")
+W2A8 = dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
+            out_dtype="float32")
+
+
+def tune(torch, db_dir: str):
+    """Tune every configuration through the global operator cache
+    (Matmul with enable_tuning=True measures each bucket's candidates
+    with CUDA events and installs the winner), print each bucket's winner
+    beside the default and the roofline, save the tuned hints into a
+    database in `db_dir`, clear the cache and load it back: the hints
+    must be equal, and each reloaded operator's forward must equal the
+    default route's bit for bit at M = 4 and 256."""
+    from bitblas_tpu_torch.cache import (global_operator_cache,
+                                         load_global_ops_cache)
+    from bitblas_tpu_torch.ops.matmul import Matmul
+    from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
+    from bitblas_tpu_torch.tuner import default_hint, roofline_seconds
+
+    configs = (
+        [MatmulConfig(M=list(LLAMA_BUCKETS), N=N, K=K, **W4A16)
+         for N, K in LLAMA_SHAPES]
+        + [MatmulConfig(M=list(BITNET_BUCKETS), N=N, K=K, **W2A8)
+           for N, K in BITNET_SHAPES_ALL])
+    global_operator_cache.clear()
+    t0 = time.perf_counter()
+    rows = []
+    for cfg in configs:
+        op = Matmul(cfg, device="cuda", enable_tuning=True)
+        global_operator_cache.add(cfg, op)
+        for m, res in sorted(op.tune_results.items()):
+            spec = op._make_spec(m)
+            dflt = default_hint(spec, op.arch)
+            times = {h: (t, sp) for h, t, sp in res.candidates}
+            row = {"phase": "tune", "format": cfg.W_dtype, "N": cfg.N,
+                   "K": cfg.K, "M": m, "winner": res.hint.short_name(),
+                   "winner_ms": res.latency * 1e3,
+                   "winner_spread": times[res.hint][1],
+                   "default": dflt.short_name(),
+                   "default_ms": times[dflt][0] * 1e3,
+                   "roofline_ms": roofline_seconds(spec, res.hint,
+                                                   op.arch) * 1e3,
+                   "candidates_ms": {h.short_name(): t * 1e3
+                                     for h, (t, _) in times.items()}}
+            emit(row)
+            rows.append(row)
+    tune_s = time.perf_counter() - t0
+    hints = {cfg: global_operator_cache.get(cfg).hints for cfg in configs}
+    global_operator_cache.save_into_database(db_dir)
+    global_operator_cache.clear()
+    loaded = load_global_ops_cache(db_dir)
+    if loaded != len(configs):
+        raise AssertionError(f"tune: {loaded} of {len(configs)} operators "
+                             f"loaded from the database")
+    for cfg in configs:
+        op = global_operator_cache.get(cfg)
+        if op.hints != hints[cfg] or op.tuned_hints:
+            raise AssertionError(f"tune: reloaded hints of {cfg} differ")
+        default = Matmul(cfg, device="cuda", enable_tuning=False)
+        W = op._example_weights()
+        for m in (4, 256):
+            A = op._example_input(m)
+            a, b = op.forward(A, *W), default.forward(A, *W)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(a.float()).all() and torch.equal(a, b)):
+                err = (a.float() - b.float()).abs().max().item()
+                raise AssertionError(
+                    f"tune: {cfg.W_dtype} N={cfg.N} K={cfg.K} M={m}: "
+                    f"{op.hint_for(m).short_name()} vs the default "
+                    f"{default.hint_for(m).short_name()}: max abs err {err}")
+        del W
+    emit({"phase": "tune_summary", "configs": len(configs),
+          "buckets": len(rows), "tune_s": tune_s,
+          "database_entries": loaded, "hints_equal": True,
+          "forward_equal_default_at_M": [4, 256],
+          "chose_materialize": [f"{r['format']} N={r['N']} K={r['K']} "
+                                f"M={r['M']}" for r in rows
+                                if r["winner"] == "materialize"]})
+    return rows
+
+
+def bitnet_tuned_ab(torch, counters, rounds: int = 2):
+    """serve_bitnet (untuned operators) against serve_bitnet_tuned
+    (operators loaded from a database this run tunes), in turns --
+    untuned, tuned, tuned, untuned per round -- each on a freshly built
+    32-layer model in this one process, to set the difference between
+    the two beside the spread of each one's own runs."""
+    from bitblas_tpu_torch.cache import (global_operator_cache,
+                                         load_global_ops_cache)
+    db_dir = tempfile.mkdtemp(prefix="bitblas_tpu_torch_db_")
+    rows = {"serve_bitnet": [], "serve_bitnet_tuned": []}
+    try:
+        tune(torch, db_dir)
+        routes = RouteRecorder()
+        for tuned in (False, True, True, False) * rounds:
+            global_operator_cache.clear()
+            if tuned:
+                load_global_ops_cache(db_dir)
+            phase = BITNET_TUNED_PHASE if tuned else BITNET_PHASE
+            with routes:
+                ctx = serving_model(torch, "bitnet")
+                row = serve(torch, ctx, counters, *phase, routes=routes)
+            rows[phase[0]].append(row)
+            del ctx
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(db_dir)
+    emit({"phase": "bitnet_tuned_ab", "order": "untuned, tuned, tuned, "
+          f"untuned x {rounds}", **{
+              key: {name: [r[key] for r in rs] for name, rs in rows.items()}
+              for key in ("decode_step_ms", "decode_tok_s",
+                          "prefill_tok_s")}})
 
 
 def profile_decode(torch, eng, prompts, phase: str, steps: int = 5):
@@ -1262,6 +1528,7 @@ def main() -> int:
         return 2
     try:
         from bitblas_tpu_torch.kernels import build, flash, materialize
+        from bitblas_tpu_torch.kernels import dense as dense_mod
         from bitblas_tpu_torch.kernels.dequant_matmul import (
             dequant_matmul_i2, dequant_matmul_u4)
     except ImportError as e:
@@ -1278,8 +1545,8 @@ def main() -> int:
           "count": torch.cuda.device_count(), "python": sys.version.split()[0]})
     print(smi, flush=True)
 
-    readings = sys.argv[1:] == ["--bitnet-readings"]
-    if sys.argv[1:] and not readings:
+    mode = sys.argv[1:]
+    if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -1290,8 +1557,16 @@ def main() -> int:
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "per_source_s": {k: v["seconds"] for k, v in logs.items()},
           "ptxas": ptxas})
-    if readings:
+    if mode == ["--bitnet-readings"]:
         bitnet_readings(torch)
+        return 0
+    counters = (dequant_matmul_u4, dequant_matmul_i2,
+                materialize.weight_decode_u4, materialize.weight_decode_int8,
+                flash.flash_attention_fwd, flash.flash_decode,
+                flash.flash_decode_quant, flash.flash_decode_paged,
+                flash.flash_decode_paged_quant, dense_mod.dense_matmul)
+    if mode == ["--bitnet-tuned-ab"]:
+        bitnet_tuned_ab(torch, counters)
         return 0
 
     torch.manual_seed(0)
@@ -1300,7 +1575,7 @@ def main() -> int:
     # the first measurement
     time_ms(torch, lambda: warm @ warm, 200)
     del warm
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = True
     dq = check_dequant(torch, flush)
     di2 = check_dequant_i2(torch, flush)
     wd_u4, wd_i8 = check_weight_decode(torch, flush)
@@ -1310,24 +1585,53 @@ def main() -> int:
     fp = check_flash_decode_paged(torch, flush, quant=False)
     fpq = check_flash_decode_paged(torch, flush, quant=True)
     route_table(torch, flush)
-    del flush
-    counters = (dequant_matmul_u4, dequant_matmul_i2,
-                materialize.weight_decode_u4, materialize.weight_decode_int8,
-                flash.flash_attention_fwd, flash.flash_decode,
-                flash.flash_decode_quant, flash.flash_decode_paged,
-                flash.flash_decode_paged_quant)
+    dense = check_dense(torch, flush)
     check_reference(torch)
     check_bitnet_reference(torch, counters)
 
     launches = {c.__name__: 0 for c in counters}
-    for family, phases in (("llama", SERVE_PHASES),
-                           ("bitnet", (BITNET_PHASE,))):
-        ctx = serving_model(torch, family)
-        for phase in phases:
-            for name, n in serve(torch, ctx, counters, *phase).items():
-                launches[name] += n
+
+    def run(ctx, phase, routes=None):
+        row = serve(torch, ctx, counters, *phase, routes=routes)
+        for name, n in row["launches"].items():
+            launches[name] += n
+        return row
+
+    ctx = serving_model(torch, "llama")
+    for phase in SERVE_PHASES:
+        run(ctx, phase)
+    del ctx
+    torch.cuda.empty_cache()
+    routes = RouteRecorder()
+    with routes:
+        ctx = serving_model(torch, "bitnet")
+        default_row = run(ctx, BITNET_PHASE, routes)
+    del ctx
+    torch.cuda.empty_cache()
+    db_dir = tempfile.mkdtemp(prefix="bitblas_tpu_torch_db_")
+    try:
+        tune(torch, db_dir)
+        with routes:
+            # the layers take their operators from the global cache, which
+            # now holds the ones loaded from the database
+            ctx = serving_model(torch, "bitnet")
+            from bitblas_tpu_torch.cache import global_operator_cache
+            if not all(p.matmul is global_operator_cache.get(p.config)
+                       and not p.matmul.tuned_hints
+                       for layer in ctx["model"].layers
+                       for p in layer.projs.values()):
+                raise AssertionError("serve_bitnet_tuned: a layer's Matmul "
+                                     "is not the one loaded from the database")
+            tuned_row = run(ctx, BITNET_TUNED_PHASE, routes)
         del ctx
-        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(db_dir)
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_bitnet_tuned_vs_default", **{
+        key: {"serve_bitnet": default_row[key],
+              "serve_bitnet_tuned": tuned_row[key]}
+        for key in ("decode_tok_s", "prefill_tok_s", "decode_step_ms",
+                    "routes", "hints")}})
 
     def pick(rows, **where):
         return next(r for r in rows
@@ -1354,6 +1658,9 @@ def main() -> int:
          [fp], fp, f"B=4 H=32 bs=16 MB=64 bf16 {lens}"),
         ("flash_decode_paged_quant", "flash_decode_paged_quant.cu",
          "flash.py:1020", [fpq], fpq, f"B=4 H=32 bs=16 MB=64 int8 {lens}"),
+        # no caller in the program (nor in the JAX package): launches 0
+        ("dense_matmul", "dense_matmul.cu", "dense.py:73", dense,
+         pick(dense, dtype="float16", M=256), "M=256 N=K=4096 f16"),
     ]
     kernels = [{
         "name": name, "route": "cuda",

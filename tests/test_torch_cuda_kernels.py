@@ -5,11 +5,15 @@ GPU with nvcc and skips elsewhere. Run on the card with
 ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the suite's conftest imports JAX, which the GPU host need not have).
 Shapes are small but cover the edges: ragged N and M tiles, K tails of
-the W2A8 kernel (K = 4160) and its deep K (14336), every int2 code, the
-Matmul route boundary M = 511 / 512, GQA groups 1 to 8, stale NaN rows
-(and NaN scales) past each length and in the reserved block 0, a length
-of 0, block sizes 16 and 128 over permuted tables, and K amplified 20x so
-that a head mix-up cannot hide in a near-uniform softmax.
+the W2A8 kernel (K = 4160) and its deep K (14336), every int2 code, every
+compiled tile instance of the fused kernels and of kernel 9 (dense_matmul:
+every operand type, N and K of one tile and of several, M tails), the
+untuned Matmul route boundary M = 511 / 512, measured 2-bucket tunes of
+both quantized formats and of native Matmuls in every layout, GQA groups
+1 to 8, stale NaN rows (and NaN scales) past each length and in the
+reserved block 0, a length of 0, block sizes 16 and 128 over permuted
+tables, and K amplified 20x so that a head mix-up cannot hide in a
+near-uniform softmax.
 """
 
 import math
@@ -17,8 +21,10 @@ import math
 import pytest
 import torch
 
+from bitblas_tpu_torch.kernels.dense import (
+    DENSE_TILES, dense_matmul, dense_matmul_plain)
 from bitblas_tpu_torch.kernels.dequant_matmul import (
-    decode_i2_hopper, dequant_matmul_i2, dequant_matmul_i2_plain,
+    FUSED_TILES, decode_i2_hopper, dequant_matmul_i2, dequant_matmul_i2_plain,
     dequant_matmul_u4, dequant_matmul_u4_plain)
 from bitblas_tpu_torch.kernels.materialize import (
     weight_decode_int8, weight_decode_int8_plain, weight_decode_u4,
@@ -31,6 +37,8 @@ from bitblas_tpu_torch.kernels.flash import (
 from bitblas_tpu_torch.ops.matmul import Matmul
 from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
 from bitblas_tpu_torch.serving import kv_cache
+from bitblas_tpu_torch.tuner import H100_SXM, fast_tune
+from bitblas_tpu_torch.tuner.space import enumerate_hints
 
 pytestmark = pytest.mark.cuda
 
@@ -134,15 +142,16 @@ def test_int_mm_equals_the_int32_oracle(dev):
 
 @pytest.mark.parametrize("fmt", ["uint4", "int2"])
 def test_matmul_routes_at_the_boundary(dev, fmt):
-    """M = 511 launches the fused kernel, M = 512 the decode kernel (then
-    the library product); both agree with the plain fused version."""
+    """Untuned, M = 511 launches the fused kernel, M = 512 the decode
+    kernel (then the library product); both agree with the plain fused
+    version."""
     g = torch.Generator(device=dev)
     g.manual_seed(6)
     N, K = 1024, 4096
     if fmt == "int2":
         pm = Matmul(MatmulConfig(N=N, K=K, A_dtype="int8", W_dtype="int2",
                                  accum_dtype="int32", out_dtype="float32"),
-                    device=dev)
+                    device=dev, enable_tuning=False)
         W, rest = _words(g, dev, N, K // 16), {}
         fused, decode = dequant_matmul_i2, weight_decode_int8
         A = torch.randint(-128, 128, (512, K), generator=g, device=dev,
@@ -152,7 +161,8 @@ def test_matmul_routes_at_the_boundary(dev, fmt):
         pm = Matmul(MatmulConfig(N=N, K=K, A_dtype="float16",
                                  W_dtype="uint4", with_scaling=True,
                                  with_zeros=True, group_size=128,
-                                 out_dtype="float16"), device=dev)
+                                 out_dtype="float16"), device=dev,
+                    enable_tuning=False)
         W = _words(g, dev, N, K // 8)
         rest = {"scale": (torch.rand((K // 128, N), generator=g, device=dev)
                           * 0.01).half(),
@@ -355,3 +365,164 @@ def test_paged_routing_takes_the_kernels_on_the_card(dev):
     assert flash_decode_paged.launches == before + 1
     torch.cuda.synchronize()
     assert (out.float() - gather.float()).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.parametrize("tile", FUSED_TILES["uint4"])
+@pytest.mark.parametrize("M", [1, 33, 130])
+def test_dequant_matmul_u4_tiles_match_plain(dev, tile, M):
+    g = torch.Generator(device=dev)
+    g.manual_seed(M + tile[0])
+    N, K = 384, 512
+    qw = _words(g, dev, N, K // 8)
+    sc = (torch.rand((K // 128, N), generator=g, device=dev) * 0.05).half()
+    zr = torch.randint(0, 16, (K // 128, N), generator=g, device=dev).half()
+    A = torch.randn((M, K), generator=g, device=dev).half()
+    out = dequant_matmul_u4(A, qw, sc, zr, tile=tile)
+    ref = dequant_matmul_u4_plain(A, qw, sc, zr)
+    torch.cuda.synchronize()
+    # same f16 weights; f32 sums in another order + 1 rounding
+    tol = 4e-3 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    # every tile sums each output over K in the same order: equal
+    assert torch.equal(out, dequant_matmul_u4(A, qw, sc, zr))
+
+
+@pytest.mark.parametrize("tile", FUSED_TILES["int2"])
+@pytest.mark.parametrize("M", [1, 33, 130])
+def test_dequant_matmul_i2_tiles_match_plain(dev, tile, M):
+    g = torch.Generator(device=dev)
+    g.manual_seed(M + tile[0] + 1)
+    N, K = 384, 4160
+    qw = _words(g, dev, N, K // 16)
+    A = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int8)
+    out = dequant_matmul_i2(A, qw, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dequant_matmul_i2_plain(A, qw))
+
+
+def test_fused_kernels_refuse_an_uncompiled_tile(dev):
+    A = torch.zeros((4, 256), dtype=torch.int8, device=dev)
+    qw = torch.zeros((128, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="not compiled"):
+        dequant_matmul_i2(A, qw, tile=(16, 32, 128, 4))
+
+
+# float sums in another order, one rounding to the output type
+_DENSE_TOL = {torch.float16: 4e-3, torch.bfloat16: 1.6e-2,
+              torch.float32: 1e-5}
+_DENSE_OUT = {torch.float16: torch.float16, torch.bfloat16: torch.bfloat16,
+              torch.float32: torch.float32, torch.int8: torch.int32}
+
+
+@pytest.mark.parametrize("tile", DENSE_TILES)
+@pytest.mark.parametrize("M,N,K", [(1, 128, 128), (17, 256, 384),
+                                   (130, 384, 4096)])
+@pytest.mark.parametrize("dtype", list(_DENSE_OUT))
+def test_dense_matmul_matches_plain(dev, dtype, M, N, K, tile):
+    g = torch.Generator(device=dev)
+    g.manual_seed(M + N + K + tile[0])
+    if dtype == torch.int8:
+        A, W = (torch.randint(-128, 128, shape, generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int8)
+                for shape in ((M, K), (N, K)))
+    else:
+        A, W = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((M, K), (N, K)))
+    out_dtype = _DENSE_OUT[dtype]
+    before = dense_matmul.launches
+    out = dense_matmul(A, W, out_dtype, tile)
+    ref = dense_matmul_plain(A, W, out_dtype)
+    torch.cuda.synchronize()
+    assert dense_matmul.launches == before + 1
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+        f32 = dense_matmul(A, W, torch.float32, tile)
+        assert torch.equal(f32, ref.float())
+    else:
+        tol = _DENSE_TOL[dtype] * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_dense_matmul_refuses_ragged_tiles(dev):
+    A = torch.zeros((4, 256), dtype=torch.float16, device=dev)
+    with pytest.raises(ValueError, match="divisible"):
+        dense_matmul(A, torch.zeros((136, 256), dtype=torch.float16,
+                                    device=dev), torch.float16)
+
+
+@pytest.mark.parametrize("fmt", ["uint4", "int2"])
+def test_fast_tune_measures_and_installs_two_buckets(dev, fmt):
+    kw = (dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
+               out_dtype="float32") if fmt == "int2" else
+          dict(A_dtype="float16", W_dtype="uint4", with_scaling=True,
+               with_zeros=True, group_size=128, out_dtype="float16"))
+    pm = Matmul(MatmulConfig(M=[4, 256], N=1024, K=4096, **kw), device=dev)
+    assert set(pm.tuned_hints) == {4, 256}
+    for m in (4, 256):
+        res = pm.tune_results[m]
+        spec = pm._make_spec(m)
+        assert res.measured and res.hint == pm.hints[m]
+        assert [h for h, _, _ in res.candidates] == \
+            enumerate_hints(spec, H100_SXM)
+        assert res.latency == min(t for _, t, _ in res.candidates) > 0
+    W = pm._example_weights()
+    for m in (3, 200):
+        A = pm._example_input(m)
+        got = pm.forward(A, *W)
+        default = Matmul(pm.config, device=dev, enable_tuning=False)
+        want = default.forward(A, *W)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, pm.hint_for(m))
+
+
+def test_fast_tune_raises_when_a_candidate_fails(dev):
+    pm = Matmul(MatmulConfig(M=[4], N=1024, K=4096, A_dtype="int8",
+                             W_dtype="int2", accum_dtype="int32",
+                             out_dtype="float32"), device=dev,
+                enable_tuning=False)
+    spec = pm._make_spec(4)
+    args = (pm._example_input(4), *pm._example_weights())
+
+    def builder(hint):
+        if hint.block_m == 32:
+            return lambda *a: dequant_matmul_i2(a[0], a[1],
+                                                tile=(32, 64, 128, 4))
+        return pm._build_kernel(spec, hint)
+
+    with pytest.raises(ValueError, match="not compiled"):
+        fast_tune(spec, H100_SXM, builder, lambda h: args)
+
+
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn", "tt"])
+@pytest.mark.parametrize("dtype", list(_DENSE_OUT))
+def test_native_matmul_tunes_and_matches_plain(dev, dtype, layout):
+    """A native Matmul on the card measures its one "dense" hint per
+    bucket and runs cuBLAS in every layout, with bias: against the plain
+    product (int8 exact, also at M <= 16 where torch._int_mm's rows are
+    padded; floats within the one-rounding tolerances above, cuBLAS may
+    reduce float16 partial sums in float16)."""
+    name = str(dtype).split(".")[1]
+    out_name = "int32" if dtype == torch.int8 else name
+    cfg = MatmulConfig(M=[8, 64], N=256, K=512, A_dtype=name, W_dtype=name,
+                       out_dtype=out_name, layout=layout, with_bias=True)
+    pm = Matmul(cfg, device=dev)
+    assert set(pm.tuned_hints) == {8, 64}
+    assert all(r.measured and r.hint.decode_mode == "dense"
+               for r in pm.tune_results.values())
+    W, bias = pm._example_weights()
+    W_nk = W if layout[1] == "t" else W.T
+    for m in (5, 40):
+        A = pm._example_input(m)                      # [M, K]
+        got = pm.forward(A if layout[0] == "n" else A.T.contiguous(), W,
+                         bias=bias)
+        want = dense_matmul_plain(A, W_nk.contiguous(), _DENSE_OUT[dtype])
+        want = want + bias.to(want.dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == _DENSE_OUT[dtype] and got.shape == (m, 256)
+        if dtype == torch.int8:
+            assert torch.equal(got, want)
+        else:
+            tol = _DENSE_TOL[dtype] * want.float().abs().max().item()
+            assert (got.float() - want.float()).abs().max().item() <= tol

@@ -148,8 +148,8 @@ def test_matmul_uint4_routes_match_jax_materialize(route):
     spec = JaxKernelSpec.from_config(jc, 512)
     want = np.asarray(jmat.make_materialize_matmul(
         spec, MAT_F32, interpret=True)(jnp.asarray(A), jW, jS, jZ))
-    pm = Matmul(MatmulConfig(M=[512], **U4), device="cpu",
-                hint=TileHint(decode_mode=route))
+    pm = Matmul(MatmulConfig(M=[512], **U4), device="cpu")
+    pm.apply_hints({512: TileHint(decode_mode=route)})
     got = pm.forward(torch.from_numpy(A), pW, scale=pS, zeros=pZ)
     assert got.dtype == torch.float16 and got.shape == (512, N)
     assert_close(got, want, rtol=1e-2, atol=1.0, max_mismatched_ratio=0.0)
@@ -160,8 +160,11 @@ def test_matmul_uint4_routes_agree():
     A = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (512, K)).astype(np.float16))
     cfg = MatmulConfig(M=[512], **U4)
-    outs = [Matmul(cfg, device="cpu", hint=TileHint(decode_mode=r)).forward(
-        A, pW, scale=pS, zeros=pZ) for r in ("fused", "materialize")]
+    outs = []
+    for r in ("fused", "materialize"):
+        pm = Matmul(cfg, device="cpu")
+        pm.apply_hints({512: TileHint(decode_mode=r)})
+        outs.append(pm.forward(A, pW, scale=pS, zeros=pZ))
     assert_close(outs[1], outs[0], rtol=0.0, atol=0.25,
                  max_mismatched_ratio=0.0)
 
@@ -187,7 +190,8 @@ def test_route_boundary(monkeypatch, fmt, m):
                    zeros=pZ)
     fused = "dequant_matmul_u4" if fmt == "uint4" else "dequant_matmul_i2"
     assert calls == ([fused] if m < 512 else ["materialize_matmul"])
-    assert pm.route(m) == ("fused" if m < 512 else "materialize")
+    assert pm.hint_for(m).decode_mode == ("fused" if m < 512
+                                          else "materialize")
 
 
 @pytest.mark.parametrize("mode", ["mask", "telescope", "asplit"])
