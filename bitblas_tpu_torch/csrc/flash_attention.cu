@@ -11,21 +11,41 @@
 // (8*B*S*H*D over 3.35 TB/s); the causal half of the 4*B*H*S^2*D product
 // FLOPs over the f16 tensor-core rate takes less until S reaches ~1,200.
 //
-// Design (FlashAttention-2 form): one block of 4 warps per (batch*head,
-// 64-row q tile); each warp owns 16 q rows and keeps its online-softmax
-// state (running max m and sum l, f32) and its O accumulator in
-// registers. The block walks KV tiles of 64 keys from 0 up to the
-// diagonal only -- the GPU form of the TPU kernel's triangular walk: the
-// skip is a loop bound, so masked blocks are never loaded, and since
-// every row's first tile holds key 0 no row ever starts from an
-// all-masked tile (the exp2(-inf - (-inf)) = 1 trap of flash.py:186-192).
-// Only the diagonal tile is masked. K/V tiles stream through a two-stage
-// cp.async ring. Scores are in base 2: Q is scaled by
-// log2(e)/sqrt(D) in f32 and rounded to f16 as it is loaded (the fold of
-// flash.py:437-441), so the softmax is exp2. S = Q K^T and O += P V run
-// on mma.sync m16n8k16 with f32 accumulation; P is rounded to f16 for the
-// second product. Pad rows of a prompt bucket sit after the real rows, so
-// causality keeps them out of every real row.
+// Design (FlashAttention-3 form on wgmma and TMA). One block per (64-row q
+// tile, batch * head): a consumer warpgroup (warps 0-3) owns the 64 q rows
+// and a producer warp (warp 4) issues the copies. 64 rows a block at every
+// S, so the main path's B = 1, H = 32 prompts give 32 * S / 64 blocks
+// (128 at S = 256, 256 at S = 512; 80 KB of shared memory, two blocks an
+// SM); 128 rows would leave half the card idle at S = 256.
+//   - TMA: one thread loads Q once and K/V tiles of 64 keys into a
+//     two-stage ring, each on an mbarrier with its byte count; consumers
+//     release a stage through an "empty" mbarrier (128 arrivals). A
+//     128-byte swizzle limits a box to 64 f16 columns, so every 64 x 128
+//     tile is two 64 x 64 boxes, and the wgmma descriptors step across the
+//     two halves. The tensor maps depend on the pointers: the host encodes
+//     them per call (cuTensorMapEncodeTiled through
+//     cudaGetDriverEntryPoint, no -lcuda) and passes them as
+//     __grid_constant__ parameters.
+//   - Q is scaled in shared memory by log2(e)/sqrt(D) in f32 and rounded
+//     to f16 (the fold of flash.py:437-441), so scores are base 2.
+//   - S = Q K^T: wgmma.mma_async m64n64k16, Q and K both from shared
+//     memory, K-major, f32 accumulators in registers.
+//   - f32 online softmax in registers; only the diagonal tile is masked.
+//   - O += P V: P is the score accumulator rounded to f16 pairs, which is
+//     wgmma's A-register layout; V comes from shared memory as a
+//     transposed (MN-major) B, one m64n64k16 per 64-dim half of D.
+//   - Each tile runs S, softmax, PV in turn; two blocks an SM overlap
+//     one block's softmax with the other's products (issuing S_j ahead
+//     of the softmax of S_{j-1}, FlashAttention-3's overlap within the
+//     warpgroup, measured slower at S = 512 and 1024).
+// The causal walk runs KV tiles 0 .. qt: the skip is a loop bound, so
+// masked tiles are never loaded, and every row's first tile holds key 0
+// (no all-masked tile, the exp2(-inf - (-inf)) trap of flash.py:186-192).
+// Longest walks first: blockIdx.y = 0 takes the last q tile of every
+// head. Pad rows of a prompt bucket sit after the real rows, so causality
+// keeps them out of every real row.
+
+#include <cuda.h>   // CUtensorMap and its enums only: nothing links libcuda
 
 #include "common.cuh"
 
@@ -34,182 +54,414 @@ namespace {
 constexpr int D = 128;
 constexpr int BQ = 64;
 constexpr int BKV = 64;
-constexpr int LDK = D + 8;   // smem row stride in halves
-constexpr int kThreads = 128;
-constexpr size_t kSmemBytes = 2 /*stages*/ * 2 /*K,V*/ * BKV * LDK * 2;
+constexpr int kStages = 2;
+constexpr int kConsumers = 128;              // one warpgroup
+constexpr int kThreads = kConsumers + 32;    // + the producer warp
+constexpr int kBox = 64 * 64 * 2;            // a 64 x 64 f16 box, 8 KB
+constexpr int kTile = 2 * kBox;              // 64 rows x 128 dims
+constexpr int kSmemBytes = 1024 /* alignment */ + kTile * (1 + 2 * kStages)
+                           + 128 /* barriers */;
+
+struct Bars {
+  uint64_t q;
+  uint64_t full[kStages], empty[kStages];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of `map` at coordinates (dim, head, row) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. Both operands here
+// have one swizzle atom across their contiguous dimension (64 f16), so
+// only the stride between 8-row groups (1024 bytes) matters; it goes in
+// both offset fields, whichever the layout reads.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kGroup << 16) |
+         (kGroup << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching accumulators across an async wgmma,
+// and an A fragment's registers alive until the wgmma reading them is
+// waited for.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void keep_regs(const uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" ::"r"(a[i]) : "memory");
+}
+
+// d (64 x 64, f32) = A (64 x 16, shared, K-major) B (16 x 64, shared,
+// K-major) + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A (64 x 16, f16 registers) B (16 x 64, shared, MN-major: N
+// contiguous, so transposed).
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Online softmax over one tile's scores s (rows g and g + 8 of the warp,
+// base 2, masked entries -inf): updates the running max m and sum l,
+// returns the factors alpha that rescale O, and packs the weights rounded
+// to f16 into wgmma's A fragments: p[4 ks + i] for keys 16 ks .. 16 ks + 15
+// (the accumulators of key columns 16 ks .. are the A layout of k16).
+__device__ __forceinline__ void softmax_tile(float (&s)[32],
+                                             uint32_t (&p)[16],
+                                             float& m_lo, float& m_hi,
+                                             float& l_lo, float& l_hi,
+                                             float& alpha_lo,
+                                             float& alpha_hi) {
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int n = 0; n < BKV / 8; ++n) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, w));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, w));
+  }
+  // every row's first tile holds key 0, so mx is finite from tile 0 on
+  alpha_lo = exp2f(m_lo - mx_lo);
+  alpha_hi = exp2f(m_hi - mx_hi);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < BKV / 8; ++n) {
+    s[4 * n] = exp2f(s[4 * n] - m_lo);
+    s[4 * n + 1] = exp2f(s[4 * n + 1] - m_lo);
+    s[4 * n + 2] = exp2f(s[4 * n + 2] - m_hi);
+    s[4 * n + 3] = exp2f(s[4 * n + 3] - m_hi);
+    sum_lo += s[4 * n] + s[4 * n + 1];
+    sum_hi += s[4 * n + 2] + s[4 * n + 3];
+  }
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, w);
+    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, w);
+  }
+  l_lo = l_lo * alpha_lo + sum_lo;
+  l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    p[i] = bbt::pack_float2(s[2 * i], s[2 * i + 1]);
+}
+
+// S = Q K^T over D in 8 steps of 16: steps 0-3 in the first 64-dim box
+// (32 bytes a step within the 128-byte swizzled row), 4-7 in the second.
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_addr,
+                                         uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    wgmma_ss(s, desc_sw128(q_addr + off), desc_sw128(k_addr + off), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V in 4 steps of 16 keys, one m64n64k16 per 64-dim half of V (16
+// rows of 128 bytes = 2048 bytes a step).
+__device__ __forceinline__ void issue_pv(float (&o0)[32], float (&o1)[32],
+                                         const uint32_t (&p)[16],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int ks = 0; ks < BKV / 16; ++ks) {
+    const uint32_t a[4] = {p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],
+                           p[4 * ks + 3]};
+    wgmma_rs_t(o0, a, desc_sw128(v_addr + ks * 2048));
+    wgmma_rs_t(o1, a, desc_sw128(v_addr + kBox + ks * 2048));
+  }
+  wgmma_commit();
+}
 
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_fwd_kernel(const half* __restrict__ Q,
-                               const half* __restrict__ K,
-                               const half* __restrict__ V,
+    flash_attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
                                half* __restrict__ O, int S, int H, int Hkv,
                                float qscale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  half* Ks = reinterpret_cast<half*>(smem);   // [2][BKV][LDK]
-  half* Vs = Ks + 2 * BKV * LDK;              // [2][BKV][LDK]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;                        // 2 boxes: 64 x 128
+  unsigned char* ks = smem + kTile;                // [stage] K tile
+  unsigned char* vs = ks + kStages * kTile;        // [stage] V tile
+  Bars* bars = reinterpret_cast<Bars*>(smem + kTile * (1 + 2 * kStages));
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int nq = S / BQ;
-  const int qt = nq - 1 - blockIdx.x;   // longest walks first
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int qt = S / BQ - 1 - blockIdx.y;   // longest walks first
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = qt * BQ;
-  const size_t q_row_stride = (size_t)H * D;
-  const size_t kv_row_stride = (size_t)Hkv * D;
-  const half* Kb = K + (size_t)b * S * kv_row_stride + hk * D;
-  const half* Vb = V + (size_t)b * S * kv_row_stride + hk * D;
+  const int nkv = qt + 1;   // BQ == BKV: tiles 0..qt, the last diagonal
+  const int row0 = b * S;   // first token row of sequence b
 
-  auto load_kv = [&](int j, int stage) {
-    const int kv0 = j * BKV;
-    half* ks = Ks + stage * BKV * LDK;
-    half* vs = Vs + stage * BKV * LDK;
-    for (int c = tid; c < BKV * (D / 8); c += kThreads) {
-      const int r = c / (D / 8), cc = c % (D / 8);
-      const size_t off = (size_t)(kv0 + r) * kv_row_stride + cc * 8;
-      bbt::cp_async16(ks + r * LDK + cc * 8, Kb + off, true);
-      bbt::cp_async16(vs + r * LDK + cc * 8, Vb + off, true);
+  if (tid == 0) {
+    mbar_init(&bars->q, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&bars->full[i], 1);
+      mbar_init(&bars->empty[i], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {   // the producer warp: one thread issues
+    if (tid == kConsumers) {
+      mbar_expect_tx(&bars->q, kTile);
+      tma_load(qs, &tq, &bars->q, 0, h, row0 + q0);
+      tma_load(qs + kBox, &tq, &bars->q, 64, h, row0 + q0);
+      for (int j = 0; j < nkv; ++j) {
+        const int st = j % kStages;
+        // use u = j / kStages of a stage waits for the consumers' release
+        // of use u - 1
+        if (j >= kStages) mbar_wait(&bars->empty[st], (j / kStages - 1) & 1);
+        uint64_t* full = &bars->full[st];
+        const int row = row0 + j * BKV;
+        mbar_expect_tx(full, 2 * kTile);
+        tma_load(ks + st * kTile, &tk, full, 0, hk, row);
+        tma_load(ks + st * kTile + kBox, &tk, full, 64, hk, row);
+        tma_load(vs + st * kTile, &tv, full, 0, hk, row);
+        tma_load(vs + st * kTile + kBox, &tv, full, 64, hk, row);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup: warp w owns q rows 16 w .. 16 w + 15; a
+  // thread holds rows g and g + 8 of them (wgmma's accumulator layout:
+  // d[4 j + e] is row g + 8 (e / 2), column 8 j + 2 t + e % 2).
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+
+  mbar_wait(&bars->q, 0);
+  {   // Q -> Q * log2(e)/sqrt(D), rounded to f16, in place
+    uint4* q4 = reinterpret_cast<uint4*>(qs);
+    for (int i = tid; i < kTile / 16; i += kConsumers) {
+      uint4 x = q4[i];
+      half2* hx = reinterpret_cast<half2*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __half22float2(hx[e]);
+        hx[e] = __floats2half2_rn(f.x * qscale, f.y * qscale);
+      }
+      q4[i] = x;
+    }
+    // generic-proxy writes, then read by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  }
+  const uint32_t q_addr = smem_u32(qs);
+  const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs);
+
+  // Diagonal tile: key > row is masked.
+  auto mask = [&](float (&s)[32], int j) {
+    if (j != qt) return;
+#pragma unroll
+    for (int n = 0; n < BKV / 8; ++n) {
+      const int key = j * BKV + n * 8 + 2 * t;
+      if (key > r_lo) s[4 * n] = -INFINITY;
+      if (key + 1 > r_lo) s[4 * n + 1] = -INFINITY;
+      if (key > r_hi) s[4 * n + 2] = -INFINITY;
+      if (key + 1 > r_hi) s[4 * n + 3] = -INFINITY;
     }
   };
 
-  const int nkv = qt + 1;   // BQ == BKV: tiles 0..qt, the last is diagonal
-  load_kv(0, 0);
-  bbt::cp_async_commit();
-
-  // Q fragments for this warp's 16 rows, scaled into the base-2 domain.
-  const int r0 = q0 + warp * 16 + g;
-  const half* q_lo = Q + ((size_t)b * S + r0) * q_row_stride + h * D;
-  const half* q_hi = q_lo + 8 * q_row_stride;
-  uint32_t qf[D / 16][4];
+  float o0[32], o1[32];   // O, dims 0..63 and 64..127
+  float s[32];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int d = kk * 16 + 2 * t;
-    const float2 a0 = __half22float2(*reinterpret_cast<const half2*>(q_lo + d));
-    const float2 a1 = __half22float2(*reinterpret_cast<const half2*>(q_hi + d));
-    const float2 a2 =
-        __half22float2(*reinterpret_cast<const half2*>(q_lo + d + 8));
-    const float2 a3 =
-        __half22float2(*reinterpret_cast<const half2*>(q_hi + d + 8));
-    qf[kk][0] = bbt::pack_float2(a0.x * qscale, a0.y * qscale);
-    qf[kk][1] = bbt::pack_float2(a1.x * qscale, a1.y * qscale);
-    qf[kk][2] = bbt::pack_float2(a2.x * qscale, a2.y * qscale);
-    qf[kk][3] = bbt::pack_float2(a3.x * qscale, a3.y * qscale);
-  }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int i = 0; i < 32; ++i) o0[i] = o1[i] = s[i] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  uint32_t p[16];
 
   for (int j = 0; j < nkv; ++j) {
-    if (j + 1 < nkv) {
-      load_kv(j + 1, (j + 1) & 1);
-      bbt::cp_async_commit();
-      bbt::cp_async_wait<1>();
-    } else {
-      bbt::cp_async_wait<0>();
+    const int st = j % kStages;
+    mbar_wait(&bars->full[st], (j / kStages) & 1);
+    wgmma_fence();
+    issue_qk(s, q_addr, k_addr + st * kTile);
+    wgmma_wait<0>();
+    fence_regs(s);
+    mask(s, j);
+    float alpha_lo, alpha_hi;
+    softmax_tile(s, p, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      o0[4 * n] *= alpha_lo;
+      o0[4 * n + 1] *= alpha_lo;
+      o0[4 * n + 2] *= alpha_hi;
+      o0[4 * n + 3] *= alpha_hi;
+      o1[4 * n] *= alpha_lo;
+      o1[4 * n + 1] *= alpha_lo;
+      o1[4 * n + 2] *= alpha_hi;
+      o1[4 * n + 3] *= alpha_hi;
     }
-    __syncthreads();
-    const half* ks = Ks + (j & 1) * BKV * LDK;
-    const half* vs = Vs + (j & 1) * BKV * LDK;
-
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const half* p = ks + (n * 8 + g) * LDK + kk * 16 + 2 * t;
-        const uint32_t bfr[2] = {bbt::lds32(p), bbt::lds32(p + 8)};
-        bbt::mma_16816(s[n], qf[kk], bfr);
-      }
-    }
-    if (j == qt) {   // diagonal tile: key > row is masked
-#pragma unroll
-      for (int n = 0; n < BKV / 8; ++n) {
-        const int key = j * BKV + n * 8 + 2 * t;
-        if (key > r0) s[n][0] = -INFINITY;
-        if (key + 1 > r0) s[n][1] = -INFINITY;
-        if (key > r0 + 8) s[n][2] = -INFINITY;
-        if (key + 1 > r0 + 8) s[n][3] = -INFINITY;
-      }
-    }
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, w));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, w));
-    }
-    const float alpha_lo = exp2f(m_lo - mx_lo);
-    const float alpha_hi = exp2f(m_hi - mx_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - m_lo);
-      s[n][1] = exp2f(s[n][1] - m_lo);
-      s[n][2] = exp2f(s[n][2] - m_hi);
-      s[n][3] = exp2f(s[n][3] - m_hi);
-      sum_lo += s[n][0] + s[n][1];
-      sum_hi += s[n][2] + s[n][3];
-    }
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {
-      sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, w);
-      sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, w);
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= alpha_lo;
-      o[dn][1] *= alpha_lo;
-      o[dn][2] *= alpha_hi;
-      o[dn][3] *= alpha_hi;
-    }
-    // O += P V: the score accumulators of key tiles 2ks, 2ks+1 are the A
-    // fragment of a k16 step; V [key][d] gives B (k = key, n = d).
-#pragma unroll
-    for (int ks16 = 0; ks16 < BKV / 16; ++ks16) {
-      const uint32_t pa[4] = {
-          bbt::pack_float2(s[2 * ks16][0], s[2 * ks16][1]),
-          bbt::pack_float2(s[2 * ks16][2], s[2 * ks16][3]),
-          bbt::pack_float2(s[2 * ks16 + 1][0], s[2 * ks16 + 1][1]),
-          bbt::pack_float2(s[2 * ks16 + 1][2], s[2 * ks16 + 1][3])};
-      const half* v0 = vs + (ks16 * 16 + 2 * t) * LDK + g;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const half* p = v0 + dn * 8;
-        const uint32_t bfr[2] = {bbt::pack_half2(p[0], p[LDK]),
-                                 bbt::pack_half2(p[8 * LDK], p[9 * LDK])};
-        bbt::mma_16816(o[dn], pa, bfr);
-      }
-    }
-    __syncthreads();   // the next load overwrites this stage
+    wgmma_fence();
+    issue_pv(o0, o1, p, v_addr + st * kTile);
+    wgmma_wait<0>();
+    fence_regs(o0);
+    fence_regs(o1);
+    keep_regs(p);
+    mbar_arrive(&bars->empty[st]);   // this stage may be refilled
   }
 
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-  half* o_lo = O + ((size_t)b * S + r0) * q_row_stride + h * D;
+  const size_t q_row_stride = (size_t)H * D;
+  half* o_lo = O + ((size_t)row0 + r_lo) * q_row_stride + h * D;
   half* o_hi = o_lo + 8 * q_row_stride;
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int d = dn * 8 + 2 * t;
+  for (int n = 0; n < 8; ++n) {
+    const int d = n * 8 + 2 * t;
     *reinterpret_cast<half2*>(o_lo + d) =
-        __floats2half2_rn(o[dn][0] * inv_lo, o[dn][1] * inv_lo);
+        __floats2half2_rn(o0[4 * n] * inv_lo, o0[4 * n + 1] * inv_lo);
     *reinterpret_cast<half2*>(o_hi + d) =
-        __floats2half2_rn(o[dn][2] * inv_hi, o[dn][3] * inv_hi);
+        __floats2half2_rn(o0[4 * n + 2] * inv_hi, o0[4 * n + 3] * inv_hi);
+    *reinterpret_cast<half2*>(o_lo + 64 + d) =
+        __floats2half2_rn(o1[4 * n] * inv_lo, o1[4 * n + 1] * inv_lo);
+    *reinterpret_cast<half2*>(o_hi + 64 + d) =
+        __floats2half2_rn(o1[4 * n + 2] * inv_hi, o1[4 * n + 3] * inv_hi);
   }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so the library
+// needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [rows, heads, D] f16 (rows = B * S) in boxes of 64 rows x 1 head x 64
+// dims, 128-byte swizzle.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+              int heads, long long rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2};
+  const cuuint32_t box[3] = {64, 1, 64};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -218,16 +470,24 @@ extern "C" int flash_attention_fwd(const void* Q, const void* K,
                                    const void* V, void* O, int B, int S,
                                    int H, int Hkv, int head_dim,
                                    float qscale, void* stream) {
-  if (head_dim != D || S % BQ != 0 || B < 1 || Hkv < 1 || H % Hkv != 0)
+  if (head_dim != D || S % BQ != 0 || S < BQ || B < 1 || Hkv < 1 ||
+      H % Hkv != 0 || S / BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  const long long rows = (long long)B * S;
+  if (!make_map(encode, &tq, Q, H, rows) ||
+      !make_map(encode, &tk, K, Hkv, rows) ||
+      !make_map(encode, &tv, V, Hkv, rows))
     return (int)cudaErrorInvalidValue;
   static bool smem_set[bbt::kMaxDevices];
   cudaError_t err = bbt::set_max_smem_once(flash_attention_fwd_kernel,
-                                           (int)kSmemBytes, smem_set);
+                                           kSmemBytes, smem_set);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(S / BQ, B * H);
+  const dim3 grid(B * H, S / BQ);
   flash_attention_fwd_kernel<<<grid, kThreads, kSmemBytes,
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const half*>(Q), static_cast<const half*>(K),
-      static_cast<const half*>(V), static_cast<half*>(O), S, H, Hkv, qscale);
+      tq, tk, tv, static_cast<half*>(O), S, H, Hkv, qscale);
   return (int)cudaGetLastError();
 }

@@ -4,24 +4,26 @@
 //   slots  [B] int32 (cache row of each sequence), lengths [B] int32
 //          (valid tokens, counting the one just appended)
 //   out    [B, H, D]             float16
+//   part, count  the split-KV scratch and counters (flash_decode.cuh);
+//          chunk, splits from kernels/flash.plan_splits
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_decode (pallas_call at
 // :590) with ring=False, partial_stats=False and no window.
 //
 // What bounds it on the H100: the KV bytes of this step,
 // sum_b lengths[b] * Hkv * D * 2 (bytes) * 2 (K and V), over 3.35 TB/s.
-// The kernel and its design are in flash_decode.cuh (shared with the
-// int8 and paged variants). A split-KV variant for long caches is left
-// for later work.
+// The kernel and its design (split-KV over a cp.async ring) are in
+// flash_decode.cuh, shared with the int8 and paged variants.
 
 #include "flash_decode.cuh"
 
 extern "C" int flash_decode(const void* q, const void* k_cache,
                             const void* v_cache, const void* slots,
-                            const void* lengths, void* out, int B, int H,
-                            int Hkv, int Smax, int head_dim, float scale,
+                            const void* lengths, void* out, void* part,
+                            void* count, int B, int H, int Hkv, int Smax,
+                            int chunk, int splits, int head_dim, float scale,
                             void* stream) {
   return bbt::decode::launch<__nv_bfloat16, false>(
-      q, k_cache, v_cache, nullptr, nullptr, slots, lengths, out, B, H, Hkv,
-      Smax, 1, head_dim, scale, stream);
+      q, k_cache, v_cache, nullptr, nullptr, slots, lengths, out, part,
+      count, B, H, Hkv, Smax, 1, chunk, splits, head_dim, scale, stream);
 }

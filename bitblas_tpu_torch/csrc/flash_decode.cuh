@@ -10,31 +10,54 @@
 //          [blocks, bs, Hkv], read as stored
 //   lengths [B] int32, valid keys (counting the token just appended)
 //   out    [B, H, D]  float16
+//   part   f32 scratch [B, Hkv, splits, group, D + 2] (unnormalised
+//          accumulator, then m and l), allocated by the wrapper; unused
+//          when splits == 1
+//   count  int32 [B * Hkv], zero before the launch and zero after it
 //
 // What bounds it on the H100: the live KV bytes of the step,
 // sum_b lengths[b] * Hkv * (2 * D * sizeof(elem) + scales), over 3.35 TB/s.
 //
-// Design: one block per (KV head, sequence), so the whole GQA group of
-// H / Hkv query rows shares every K/V row it reads. The block walks keys in
-// tiles of 64 and stops at lengths[b]: rows at or past the length are never
-// read -- they hold stale data (released slots, the tail of the last page,
-// block 0 behind unused table entries), NaN included. Per tile:
-//   (1) two threads per key read its K row with 16-byte loads (8 bf16 or
-//       16 int8 codes each), convert in registers and dot it with the
-//       group's query rows, pre-scaled into the base-2 domain by
-//       log2(e)/sqrt(D); int8 scores are then multiplied by the key's K
-//       scale, before the running max. The tile's V rows are already in
-//       flight (issued first), so a tile costs one DRAM round trip.
-//   (2) one warp per query row updates the online-softmax max and sum (f32)
-//       and turns scores into weights; int8 weights are multiplied by the
-//       key's V scale after the sum (the V scale of a key past the length
-//       is 0 and never read, so a NaN scale cannot reach p * vsc).
-//   (3) each thread accumulates p * V over one 16-byte chunk of the head
-//       dim for every KL-th key; the key lanes are summed once at the end,
-//       first across the lanes of a warp, then across warps.
-// Keys past the length get score -inf and their V is never loaded nor
-// accumulated, so it counts as zero. Tile 0 always holds key 0, so the
-// running max is finite from the first tile on; a length of 0 yields 0.
+// Design (split-KV, flash-decoding). The grid is (splits, Hkv, B): the
+// keys of one (sequence, KV head) are cut into chunks of `chunk` keys (a
+// multiple of the 64-key tile), one block per chunk, and each block keeps
+// the whole GQA group of H / Hkv query rows together so that they share
+// every K/V row it reads. The host chooses `chunk` from static sizes only
+// (the span Smax or max_blocks * bs, B, Hkv and the SM count:
+// kernels/flash.plan_splits), so that B * Hkv * splits is at least about
+// twice the SM count; it never reads `lengths`, which would synchronise
+// the stream. A block whose chunk starts at or past lengths[b] exits at
+// once and reads nothing, so tile 0 of a live block holds a live key and
+// its running max is finite.
+//
+// Bytes in flight: K/V tiles of 64 keys stream through a ring of kStages
+// (3 for bf16: 98 KB, two blocks an SM; 4 for int8) in shared memory, fed
+// by 16-byte cp.async with commit / wait_group. cp.async and not TMA bulk
+// copies: every 16 bytes resolve their own row (a page of 16 rows puts
+// four pages in a tile) and rows at or past the length are zero-filled
+// without being read, with no producer warp to balance. One
+// __syncthreads a tile: it publishes the tile's copies and frees the
+// stage the next prefetch overwrites. Rows are stored with an XOR
+// swizzle of their 16-byte chunks so that the score phase reads without
+// bank conflicts.
+//
+// Per tile, each of the 8 warps owns 8 of the 64 keys and keeps its own
+// online softmax (base 2, f32), so no block barrier sits inside the tile:
+//   (1) four lanes per key dot its K row (every fourth 16-byte chunk) with
+//       the group's query rows, pre-scaled by log2(e)/sqrt(D); int8
+//       scores are multiplied by the key's K scale before the max.
+//   (2) the warp's max and sum over its 8 keys update its m and l; int8
+//       weights are then multiplied by the key's V scale (a V scale past
+//       the length is zero-filled, never read, so a NaN scale cannot
+//       reach p * vsc). Keys past the length score -inf and weigh 0.
+//   (3) lane l accumulates p * V over dims 4l .. 4l+3 of the warp's keys.
+// The warps merge by log-sum-exp at the end of the block. A sequence
+// held by one chunk writes its output there. Otherwise each live block
+// writes its partial (accumulator, m, l) to `part`, and the last block of
+// the (sequence, KV head) to finish -- found by an atomic on `count`,
+// which it resets to 0 -- merges the partials in split order 0, 1, ...:
+// the same bits whichever block finishes last, and one launch a call. A
+// sequence of length 0 has no live split: block 0 writes 0.
 // The GQA group is a template parameter (1, 2, 4 or 8 rows, the group
 // rounded up), so the accumulators of a small group take few registers.
 // Each entry point launches on the caller's stream and returns the
@@ -51,18 +74,23 @@ namespace decode {
 
 constexpr int D = 128;
 constexpr int TK = 64;          // keys per tile
-constexpr int kThreads = 128;   // == D
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int KW = TK / kWarps; // keys of a warp in a tile (8)
+constexpr int LPK = 32 / KW;    // lanes of a key in the score phase (4)
+constexpr int kMaxSplits = 1024; // the merge's weights fit the ring
 constexpr float LOG2E = 1.4426950408889634f;
 
-// 16 bytes of stored K/V -> floats.
+// Stored K/V -> floats: a 16-byte chunk (score phase) and the 4 values of
+// one lane (PV phase).
 template <typename T>
 struct Codes;
 
 template <>
 struct Codes<__nv_bfloat16> {
-  static constexpr int N = 8;   // values per 16-byte load
+  static constexpr int N = 8;          // values per 16-byte chunk
   static constexpr bool kScaled = false;
+  static constexpr int kStages = 3;
   __device__ __forceinline__ static void to_float(const uint4& raw,
                                                   float* f) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -73,12 +101,24 @@ struct Codes<__nv_bfloat16> {
       f[2 * e + 1] = x.y;
     }
   }
+  // values 4l .. 4l+3 of a row (8 bytes) at `p`
+  __device__ __forceinline__ static void four(const unsigned char* p,
+                                              float* f) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = b.x;
+    f[3] = b.y;
+  }
 };
 
 template <>
 struct Codes<int8_t> {
   static constexpr int N = 16;
   static constexpr bool kScaled = true;
+  static constexpr int kStages = 4;
   __device__ __forceinline__ static void to_float(const uint4& raw,
                                                   float* f) {
     const char4* c = reinterpret_cast<const char4*>(&raw);
@@ -90,7 +130,50 @@ struct Codes<int8_t> {
       f[4 * e + 3] = static_cast<float>(c[e].w);
     }
   }
+  __device__ __forceinline__ static void four(const unsigned char* p,
+                                              float* f) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    f[0] = static_cast<float>(c.x);
+    f[1] = static_cast<float>(c.y);
+    f[2] = static_cast<float>(c.z);
+    f[3] = static_cast<float>(c.w);
+  }
 };
+
+// 4-byte global->shared copy (a scale); zero-filled when `pred` is false.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+template <typename T>
+struct Layout {
+  static constexpr int kRowBytes = D * (int)sizeof(T);   // 256 or 128
+  static constexpr int kChunks = kRowBytes / 16;         // 16 or 8
+  static constexpr int kTileBytes = TK * kRowBytes;
+  static constexpr int kStages = Codes<T>::kStages;
+  // the ring: per stage the K tile, the V tile, K scales, V scales
+  static constexpr int kStageBytes = 2 * kTileBytes + 2 * TK * 4;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // Physical 16-byte chunk of logical chunk c of row r: c ^ (LPK r mod
+  // chunks). The LPK lanes of a key read chunks LPK j + part, and the two
+  // keys of an 8-lane phase then land on eight distinct 16-byte bank
+  // groups.
+  __device__ __forceinline__ static int swz(int r, int c) {
+    return c ^ ((r * LPK) & (kChunks - 1));
+  }
+};
+
+// Dynamic shared memory: the ring, the query rows [G][D] f32, the weights
+// of each warp [warps][G][KW]. After the walk the ring holds the warps'
+// partials, then the split weights of the merge.
+template <int G>
+constexpr int smem_bytes(int ring) {
+  return ring + G * D * 4 + kWarps * G * KW * 4;
+}
 
 // index: slots [B] (slot cache) or tables [B, max_blocks] (block pool);
 // span: Smax (slot cache) or the block size (block pool).
@@ -101,28 +184,37 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ vsc,
                   const int* __restrict__ index,
                   const int* __restrict__ lengths, half* __restrict__ out,
-                  int H, int Hkv, int span, int max_blocks, float scale) {
+                  float* __restrict__ part, int* __restrict__ count, int H,
+                  int Hkv, int span, int max_blocks, int chunk, float scale) {
   using C = Codes<T>;
-  constexpr int VEC = C::N;                  // head-dim values per load
-  constexpr int NCH = D / VEC;               // 16-byte chunks per row
-  constexpr int KL = kThreads / NCH;         // key lanes of phase (3)
-  constexpr int HALF = D / 2 / VEC;          // loads per half row, (1)
-
-  __shared__ float qs[G][D];
-  __shared__ float ps[G][TK];
-  __shared__ float vs_s[TK];    // V scales of the tile (int8 only)
-  __shared__ float alpha_s[G];
-  __shared__ float m_s[G];      // running max per query row (base 2)
-  __shared__ float l_s[G];      // running sum per query row
-  __shared__ float red[kWarps][G][D];
+  using L = Layout<T>;
+  constexpr int VEC = C::N;
+  constexpr int S = L::kStages;
+  constexpr int CPL = L::kChunks / LPK;   // K chunks a lane dots
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                                 // [S][stage]
+  float* qs = reinterpret_cast<float*>(smem + L::kRingBytes);  // [G][D]
+  float* ps = qs + G * D;                                // [warps][G][KW]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
   const int group = H / Hkv;
-  const int len = lengths[b];
-  const size_t key_stride = (size_t)Hkv * D;
-  const int* table = index + (size_t)b * max_blocks;
+  const int start = split * chunk;
+  // The slot loads beside the length, not after it.
   const size_t slot_base = kPaged ? 0 : (size_t)index[b] * span;
+  const int* table = index + (size_t)b * max_blocks;
+  const int len = lengths[b];
+  half* ob = out + ((size_t)b * H + hk * group) * D;
+  if (start >= len) {
+    if (len <= 0 && split == 0)   // no live key: the output is 0
+      for (int i = tid; i < group * D; i += kThreads)
+        ob[i] = __float2half_rn(0.f);
+    return;
+  }
+  const int end = min(start + chunk, len);
+  const int ntiles = (end - start + TK - 1) / TK;
+  const size_t key_stride = (size_t)Hkv * D;
   // Cache row of key t; only called for t < len.
   auto row_of = [&](int t) -> size_t {
     if constexpr (kPaged)
@@ -130,178 +222,293 @@ __global__ void __launch_bounds__(kThreads)
     else
       return slot_base + t;
   };
-
-  for (int i = tid; i < group * D; i += kThreads)
-    qs[i / D][i % D] =
-        __half2float(q[((size_t)b * H + hk * group) * D + i]) *
-        (scale * LOG2E);
-  if (tid < G) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  // Phase (3) layout: NCH chunks of VEC head-dim values x KL key lanes.
-  const int dc = tid % NCH, kl = tid / NCH;
-  float acc[G][VEC];
+  // Copies of tile i (keys start + 64 i ...) into stage st; rows at or
+  // past the length are zero-filled and not read.
+  auto load_tile = [&](int i, int st) {
+    unsigned char* kt = ring + st * L::kStageBytes;
+    unsigned char* vt = kt + L::kTileBytes;
+    float* kst = reinterpret_cast<float*>(vt + L::kTileBytes);
+    float* vst = kst + TK;
+    const int t0 = start + i * TK;
 #pragma unroll
-  for (int gq = 0; gq < G; ++gq)
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[gq][j] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TK) {
-    const int nvalid = min(TK, len - t0);
-    // V rows of this tile go in flight first, so their latency overlaps
-    // the K reads and dots of phase (1) (layout of phase (3)).
-    uint4 vraw[TK / KL];
-#pragma unroll
-    for (int i = 0; i < TK / KL; ++i) {
-      const int key = kl + KL * i;
-      vraw[i] = key < nvalid
-                    ? *reinterpret_cast<const uint4*>(
-                          vc + row_of(t0 + key) * key_stride + hk * D +
-                          dc * VEC)
-                    : make_uint4(0, 0, 0, 0);
+    for (int j = 0; j < TK * L::kChunks / kThreads; ++j) {
+      const int idx = tid + j * kThreads;
+      const int r = idx / L::kChunks, c = idx % L::kChunks;
+      const bool live = t0 + r < len;
+      const size_t off = live ? row_of(t0 + r) * key_stride + hk * D : 0;
+      const int dst = r * L::kRowBytes + L::swz(r, c) * 16;
+      cp_async16(kt + dst, reinterpret_cast<const unsigned char*>(kc + off)
+                               + c * 16, live);
+      cp_async16(vt + dst, reinterpret_cast<const unsigned char*>(vc + off)
+                               + c * 16, live);
     }
-    // (1) scores: key = tid / 2, half the head dim each.
-    {
-      const int key = tid >> 1, part = tid & 1;
-      float dot[G];
-#pragma unroll
-      for (int gq = 0; gq < G; ++gq) dot[gq] = 0.f;
-      float kscale = 1.f;
-      if (key < nvalid) {
-        const size_t r = row_of(t0 + key);
-        if constexpr (C::kScaled) {
-          kscale = ksc[r * Hkv + hk];
-          if (part == 0) vs_s[key] = vsc[r * Hkv + hk];
-        }
-        const uint4* kp = reinterpret_cast<const uint4*>(
-            kc + r * key_stride + hk * D + part * (D / 2));
-#pragma unroll
-        for (int c = 0; c < HALF; ++c) {
-          float kf[VEC];
-          C::to_float(kp[c], kf);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const int d = part * (D / 2) + c * VEC + e;
-#pragma unroll
-            for (int gq = 0; gq < G; ++gq)
-              if (gq < group) dot[gq] += kf[e] * qs[gq][d];
-          }
-        }
-      } else if (C::kScaled && part == 0) {
-        vs_s[key] = 0.f;
+    if constexpr (C::kScaled) {
+      if (tid < 2 * TK) {
+        const int r = tid % TK;
+        const bool live = t0 + r < len;
+        const size_t at = live ? row_of(t0 + r) * Hkv + hk : 0;
+        cp_async4((tid < TK ? kst : vst) + r, (tid < TK ? ksc : vsc) + at,
+                  live);
       }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < ntiles) load_tile(i, i);
+    cp_async_commit();
+  }
+  for (int i = tid; i < group * D; i += kThreads)
+    qs[i] = __half2float(q[((size_t)b * H + hk * group) * D + i]) *
+            (scale * LOG2E);
+
+  // Per warp: running max m (base 2) and sum l of each query row
+  // (replicated in every lane), the lane's accumulator over dims
+  // 4 lane .. 4 lane + 3.
+  float m[G], l[G], acc[G][4];
+#pragma unroll
+  for (int gq = 0; gq < G; ++gq) {
+    m[gq] = -INFINITY;
+    l[gq] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[gq][e] = 0.f;
+  }
+  const int kloc = lane / LPK, pl = lane % LPK;   // phase (1): key, part
+  const int key = warp * KW + kloc;               // key within the tile
+  float* pw = ps + warp * G * KW;
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<S - 2>();
+    __syncthreads();   // tile i visible; stage (i - 1) % S is free
+    if (i + S - 1 < ntiles) load_tile(i + S - 1, (i + S - 1) % S);
+    cp_async_commit();
+    const unsigned char* kt = ring + (i % S) * L::kStageBytes;
+    const unsigned char* vt = kt + L::kTileBytes;
+    const float* kst = reinterpret_cast<const float*>(vt + L::kTileBytes);
+    const float* vst = kst + TK;
+    const bool live = start + i * TK + key < len;
+
+    // (1) scores: this lane's CPL chunks, two sums per row for ILP
+    float s0[G], s1[G];
+#pragma unroll
+    for (int gq = 0; gq < G; ++gq) s0[gq] = s1[gq] = 0.f;
+    const unsigned char* krow = kt + key * L::kRowBytes;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int c = LPK * j + pl;
+      float kf[VEC];
+      C::to_float(*reinterpret_cast<const uint4*>(krow + L::swz(key, c) * 16),
+                  kf);
 #pragma unroll
       for (int gq = 0; gq < G; ++gq) {
         if (gq >= group) break;
-        const float s =
-            (dot[gq] + __shfl_xor_sync(0xffffffffu, dot[gq], 1)) * kscale;
-        if (part == 0) ps[gq][key] = key < nvalid ? s : -INFINITY;
+        const float4* qv = reinterpret_cast<const float4*>(qs + gq * D +
+                                                           c * VEC);
+#pragma unroll
+        for (int e4 = 0; e4 < VEC / 4; ++e4) {
+          const float4 qq = qv[e4];
+          float& acc_s = (e4 & 1) ? s1[gq] : s0[gq];
+          acc_s += kf[4 * e4] * qq.x + kf[4 * e4 + 1] * qq.y +
+                   kf[4 * e4 + 2] * qq.z + kf[4 * e4 + 3] * qq.w;
+        }
       }
     }
-    __syncthreads();
-    // (2) online softmax, one warp per query row.
-    for (int gq = warp; gq < group; gq += kWarps) {
-      const float s0 = ps[gq][lane], s1 = ps[gq][lane + 32];
-      float mx = fmaxf(s0, s1);
+    float ksc_k = 1.f, vsc_k = 1.f;
+    if constexpr (C::kScaled) {
+      ksc_k = kst[key];
+      vsc_k = vst[key];
+    }
+    // (2) the warp's online softmax over its KW keys
 #pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
+    for (int gq = 0; gq < G; ++gq) {
+      if (gq >= group) break;
+      float sc = s0[gq] + s1[gq];
+#pragma unroll
+      for (int w = 1; w < LPK; w <<= 1)
+        sc += __shfl_xor_sync(0xffffffffu, sc, w);
+      sc = live ? sc * ksc_k : -INFINITY;
+      float mx = sc;
+#pragma unroll
+      for (int w = LPK; w < 32; w <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_old = m_s[gq], l_old = l_s[gq];
-      const float m_new = fmaxf(m_old, mx);   // finite: nvalid >= 1
-      float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
-      float sum = p0 + p1;
+      const float m_new = fmaxf(m[gq], mx);
+      // a warp with no live key so far keeps m = -inf and weighs 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float p = exp2f(sc - m_use);
+      float sum = p;   // each key once among the lanes of one part
 #pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
+      for (int w = LPK; w < 32; w <<= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      const float alpha = exp2f(m_old - m_new);
-      if constexpr (C::kScaled) {   // fold the V scales into the weights
-        p0 *= vs_s[lane];
-        p1 *= vs_s[lane + 32];
-      }
-      ps[gq][lane] = p0;
-      ps[gq][lane + 32] = p1;
-      __syncwarp();   // every lane has read m_s / l_s
-      if (lane == 0) {
-        alpha_s[gq] = alpha;
-        m_s[gq] = m_new;
-        l_s[gq] = l_old * alpha + sum;
-      }
+      const float alpha = exp2f(m[gq] - m_use);
+      l[gq] = l[gq] * alpha + sum;
+      m[gq] = m_new;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[gq][e] *= alpha;
+      if (pl == 0) pw[gq * KW + kloc] = p * vsc_k;
     }
-    __syncthreads();
-    // (3) acc[gq][j] (d = VEC dc + j) = alpha * acc + sum over this lane's
-    // keys (kl, kl + KL, ...) of p * V[key, d], from the V loads issued at
-    // the top of the tile.
+    __syncwarp();
+    // (3) acc += p * V over the warp's keys, dims 4 lane .. 4 lane + 3
 #pragma unroll
-    for (int gq = 0; gq < G; ++gq)
-      if (gq < group) {
-        const float a = alpha_s[gq];
+    for (int k4 = 0; k4 < KW; k4 += 4) {
+      float4 pv[G];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[gq][j] *= a;
-      }
+      for (int gq = 0; gq < G; ++gq)
+        if (gq < group)
+          pv[gq] = *reinterpret_cast<const float4*>(pw + gq * KW + k4);
 #pragma unroll
-    for (int i = 0; i < TK / KL; ++i) {
-      const int key = kl + KL * i;
-      if (key < nvalid) {
-        float vf[VEC];
-        C::to_float(vraw[i], vf);
+      for (int kk = 0; kk < 4; ++kk) {
+        const int r = warp * KW + k4 + kk;
+        const int byte = lane * 4 * (int)sizeof(T);
+        float vf[4];
+        C::four(vt + r * L::kRowBytes + L::swz(r, byte / 16) * 16 +
+                    byte % 16,
+                vf);
 #pragma unroll
         for (int gq = 0; gq < G; ++gq)
           if (gq < group) {
-            const float p = ps[gq][key];
+            const float p = kk == 0   ? pv[gq].x
+                            : kk == 1 ? pv[gq].y
+                            : kk == 2 ? pv[gq].z
+                                      : pv[gq].w;
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) acc[gq][j] += p * vf[j];
+            for (int e = 0; e < 4; ++e) acc[gq][e] += p * vf[e];
           }
       }
     }
-    __syncthreads();   // ps / vs_s / alpha_s are rewritten by the next tile
+    __syncwarp();   // pw is rewritten by the next tile
   }
 
-  // Sum the key lanes: the lanes of a warp that hold the same chunk
-  // (lane, lane + NCH, ...), then the warps through shared memory.
+  // Merge the warps (log-sum-exp) through the freed ring.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);   // [warps][G][D]
+  float* mw = red + kWarps * G * D;              // [warps][G]
+  float* lw = mw + kWarps * G;
 #pragma unroll
   for (int gq = 0; gq < G; ++gq)
-    if (gq < group)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        float a = acc[gq][j];
-#pragma unroll
-        for (int off = NCH; off < 32; off <<= 1)
-          a += __shfl_xor_sync(0xffffffffu, a, off);
-        if (lane < NCH) red[warp][gq][dc * VEC + j] = a;
+    if (gq < group) {
+      *reinterpret_cast<float4*>(red + (warp * G + gq) * D + 4 * lane) =
+          make_float4(acc[gq][0], acc[gq][1], acc[gq][2], acc[gq][3]);
+      if (lane == 0) {
+        mw[warp * G + gq] = m[gq];
+        lw[warp * G + gq] = l[gq];
       }
+    }
   __syncthreads();
-  for (int gq = 0; gq < group; ++gq) {
-    float o = 0.f;
+  const int d = tid % D, g0 = tid / D;   // kThreads == 2 D: two rows at once
+  const int nlive = min((len + chunk - 1) / chunk, splits);
+  // partial of (b, hk, split): [group][D + 2]
+  const size_t part_stride = (size_t)group * (D + 2);
+  float* mine = part + (((size_t)b * Hkv + hk) * splits + split) *
+                           part_stride;
+  for (int gq = g0; gq < group; gq += kThreads / D) {
+    float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += red[w][gq][tid];
-    out[((size_t)b * H + hk * group + gq) * D + tid] =
-        __float2half_rn(o / fmaxf(l_s[gq], 1e-30f));
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, mw[w * G + gq]);
+    // warp 0 holds the chunk's first key, which is live: M is finite
+    float o = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(mw[w * G + gq] - M);
+      o += wt * red[(w * G + gq) * D + d];
+      lsum += wt * lw[w * G + gq];
+    }
+    if (nlive == 1) {
+      ob[gq * D + d] = __float2half_rn(o / fmaxf(lsum, 1e-30f));
+    } else {
+      mine[gq * (D + 2) + d] = o;
+      if (d == 0) {
+        mine[gq * (D + 2) + D] = M;
+        mine[gq * (D + 2) + D + 1] = lsum;
+      }
+    }
+  }
+  if (nlive == 1) return;
+
+  // The last live block of (b, hk) merges the partials in split order.
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = count + (size_t)b * Hkv + hk;
+    last = atomicAdd(cnt, 1) == nlive - 1;
+    if (last) *cnt = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* p0 = part + ((size_t)b * Hkv + hk) * splits * part_stride;
+  // Warp gq: the row's max M over the splits and the weights
+  // exp2(m_s - M) into shared memory ([G][nlive], over the ring), then
+  // sum_s w_s l_s. Every live split's m is finite.
+  float* wts = red;
+  float* lsm = wts + G * nlive;
+  if (warp < group) {
+    const int gq = warp;
+    float M = -INFINITY;
+    for (int sp = lane; sp < nlive; sp += 32) {
+      const float ms = __ldcg(p0 + sp * part_stride + gq * (D + 2) + D);
+      wts[gq * nlive + sp] = ms;
+      M = fmaxf(M, ms);
+    }
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, w));
+    float lsum = 0.f;
+    for (int sp = lane; sp < nlive; sp += 32) {
+      const float wt = exp2f(wts[gq * nlive + sp] - M);
+      wts[gq * nlive + sp] = wt;
+      lsum += wt * __ldcg(p0 + sp * part_stride + gq * (D + 2) + D + 1);
+    }
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1)
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, w);
+    if (lane == 0) lsm[gq] = fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  for (int gq = g0; gq < group; gq += kThreads / D) {
+    const float* pd = p0 + gq * (D + 2) + d;
+    float o = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < nlive; ++sp)
+      o += wts[gq * nlive + sp] * __ldcg(pd + sp * part_stride);
+    ob[gq * D + d] = __float2half_rn(o / lsm[gq]);
   }
 }
 
 // Checks the shapes the kernel takes and launches it with the GQA group
-// rounded up to 1, 2, 4 or 8.
+// rounded up to 1, 2, 4 or 8 over (splits, Hkv, B) blocks.
 template <typename T, bool kPaged>
 inline int launch(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
-                  const void* index, const void* lengths, void* out, int B,
-                  int H, int Hkv, int span, int max_blocks, int head_dim,
+                  const void* index, const void* lengths, void* out,
+                  void* part, void* count, int B, int H, int Hkv, int span,
+                  int max_blocks, int chunk, int splits, int head_dim,
                   float scale, void* stream) {
-  if (head_dim != D || B < 1 || B > 65535 || Hkv < 1 || H % Hkv != 0 ||
-      H / Hkv > 8 || span < 1 || (kPaged && max_blocks < 1))
+  if (head_dim != D || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 ||
+      H % Hkv != 0 || H / Hkv > 8 || span < 1 ||
+      (kPaged && max_blocks < 1) || chunk < TK || chunk % TK != 0 ||
+      splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && (part == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int group = H / Hkv;
-  const dim3 grid(Hkv, B);
+  const dim3 grid(splits, Hkv, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BBT_DECODE_LAUNCH(G)                                                \
-  decode_kernel<T, kPaged, G><<<grid, kThreads, 0, st>>>(                   \
-      static_cast<const half*>(q), static_cast<const T*>(k),                \
-      static_cast<const T*>(v), static_cast<const float*>(k_scale),         \
-      static_cast<const float*>(v_scale), static_cast<const int*>(index),   \
-      static_cast<const int*>(lengths), static_cast<half*>(out), H, Hkv,    \
-      span, max_blocks, scale)
+  do {                                                                      \
+    constexpr int bytes = smem_bytes<G>(Layout<T>::kRingBytes);             \
+    static bool smem_set[kMaxDevices];                                      \
+    cudaError_t e = set_max_smem_once(decode_kernel<T, kPaged, G>, bytes,   \
+                                      smem_set);                            \
+    if (e != cudaSuccess) return (int)e;                                    \
+    decode_kernel<T, kPaged, G><<<grid, kThreads, bytes, st>>>(             \
+        static_cast<const half*>(q), static_cast<const T*>(k),              \
+        static_cast<const T*>(v), static_cast<const float*>(k_scale),       \
+        static_cast<const float*>(v_scale), static_cast<const int*>(index), \
+        static_cast<const int*>(lengths), static_cast<half*>(out),          \
+        static_cast<float*>(part), static_cast<int*>(count), H, Hkv, span,  \
+        max_blocks, chunk, scale);                                          \
+  } while (0)
   if (group == 1)
     BBT_DECODE_LAUNCH(1);
   else if (group == 2)

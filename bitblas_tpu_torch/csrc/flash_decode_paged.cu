@@ -9,9 +9,10 @@
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_decode_paged
 // (pallas_call at :965). The TPU kernel walks a sequence's live pages with
-// double-buffered page DMAs; here the walk is the decode kernel's 64-key
-// tile loop, and each key resolves its own page through the table, so a
-// tile may span several pages (four at bs = 16) and any block size works.
+// double-buffered page DMAs; here each split of the decode kernel walks
+// its chunk in 64-key tiles, and each 16-byte copy resolves its own page
+// through the table, so a tile may span several pages (four at bs = 16)
+// and any block size works.
 // Only pages j < ceil(len / bs) are ever read: table entries past them
 // (0, the engine's reserved block) are never touched.
 //
@@ -23,11 +24,13 @@
 
 extern "C" int flash_decode_paged(const void* q, const void* k_pool,
                                   const void* v_pool, const void* tables,
-                                  const void* lengths, void* out, int B,
-                                  int H, int Hkv, int block_size,
-                                  int max_blocks, int head_dim, float scale,
-                                  void* stream) {
+                                  const void* lengths, void* out,
+                                  void* part, void* count, int B, int H,
+                                  int Hkv, int block_size, int max_blocks,
+                                  int chunk, int splits, int head_dim,
+                                  float scale, void* stream) {
   return bbt::decode::launch<__nv_bfloat16, true>(
-      q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, B, H, Hkv,
-      block_size, max_blocks, head_dim, scale, stream);
+      q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, part, count,
+      B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim, scale,
+      stream);
 }

@@ -22,9 +22,11 @@
 extern "C" int flash_decode_paged_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* lengths, void* out, int B, int H, int Hkv, int block_size,
-    int max_blocks, int head_dim, float scale, void* stream) {
+    const void* lengths, void* out, void* part, void* count, int B, int H,
+    int Hkv, int block_size, int max_blocks, int chunk, int splits,
+    int head_dim, float scale, void* stream) {
   return bbt::decode::launch<int8_t, true>(
-      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, B, H, Hkv,
-      block_size, max_blocks, head_dim, scale, stream);
+      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part, count,
+      B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim, scale,
+      stream);
 }

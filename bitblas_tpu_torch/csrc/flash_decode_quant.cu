@@ -17,18 +17,19 @@
 //
 // What bounds it on the H100: the live int8 bytes of this step,
 // sum_b lengths[b] * Hkv * (2 * D + 2 * 4) bytes, over 3.35 TB/s -- about
-// half of the bf16 kernel's. Design: flash_decode.cuh; K/V rows are read
-// with 16-byte loads of 16 codes each and converted in registers.
+// half of the bf16 kernel's. Design: flash_decode.cuh; K/V rows arrive in
+// 16-byte copies of 16 codes each and are converted in registers.
 
 #include "flash_decode.cuh"
 
 extern "C" int flash_decode_quant(const void* q, const void* k_cache,
                                   const void* v_cache, const void* k_scale,
                                   const void* v_scale, const void* slots,
-                                  const void* lengths, void* out, int B,
-                                  int H, int Hkv, int Smax, int head_dim,
-                                  float scale, void* stream) {
+                                  const void* lengths, void* out,
+                                  void* part, void* count, int B, int H,
+                                  int Hkv, int Smax, int chunk, int splits,
+                                  int head_dim, float scale, void* stream) {
   return bbt::decode::launch<int8_t, false>(
-      q, k_cache, v_cache, k_scale, v_scale, slots, lengths, out, B, H, Hkv,
-      Smax, 1, head_dim, scale, stream);
+      q, k_cache, v_cache, k_scale, v_scale, slots, lengths, out, part, count,
+      B, H, Hkv, Smax, 1, chunk, splits, head_dim, scale, stream);
 }

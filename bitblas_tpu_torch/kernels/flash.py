@@ -17,7 +17,11 @@ make_flash_decode_paged_quant).
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain PyTorch
 version (`*_plain`) on CPU tensors; both take the same shapes (head dim
-128, GQA groups up to 8). Sliding windows, ``trans_k`` and
+128, GQA groups up to 8). The decode kernels split each sequence's keys
+into chunks across blocks (`plan_splits`, from static sizes only) and
+merge the chunks' partials in the same launch;
+`flash_decode_split_plain` is that arithmetic in plain PyTorch, for the
+tests. Sliding windows, ``trans_k`` and
 ``partial_stats`` are not ported yet.
 """
 
@@ -35,17 +39,22 @@ LOG2E = 1.4426950408889634
 HEAD_DIM = 128      # the kernels' head dim
 BLOCK = 64          # prefill q/kv tile: S must be a multiple
 MAX_GROUP = 8       # largest GQA group the decode kernel handles
+DECODE_TILE = 64    # keys a decode tile; a split's chunk is a multiple
+H100_SMS = 132      # SMs of an H100 SXM, the split planner's default
+SPLIT_BLOCKS_PER_SM = 2   # the planner's target: B * Hkv * splits >= 2 SMs
+MAX_SPLITS = 1024   # the kernels' merge holds at most this many weights
 
 _PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_float, ctypes.c_void_p]
-# decode entry points: q, caches (scales), index, lengths, out, then ints
-_DECODE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+# decode entry points: q, caches (scales), index, lengths, out, the split
+# scratch and counters, then ints (sizes, chunk, splits, head dim)
+_DECODE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
-_DECODE_QUANT_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+_DECODE_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
-_DECODE_PAGED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+_DECODE_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
     + [ctypes.c_float, ctypes.c_void_p]
-_DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+_DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -174,6 +183,111 @@ def _page_rows(tables: torch.Tensor, lengths: torch.Tensor, *pools):
             < lengths[:, None])
 
 
+def plan_splits(span: int, batch: int, kv_heads: int,
+                sms: int = H100_SMS):
+    """(chunk, splits) of the split-KV decode kernels, from static sizes
+    only: the span a sequence may reach (Smax, or max_blocks * bs), B, Hkv
+    and the SM count -- never from the lengths, which live on the card.
+    chunk is a multiple of the 64-key tile; splits = ceil(span / chunk) <=
+    MAX_SPLITS and B * Hkv * splits reaches 2 * sms wherever the span has
+    enough tiles. Split s covers keys [s * chunk, (s + 1) * chunk)."""
+    if min(span, batch, kv_heads, sms) < 1:
+        raise ValueError(f"plan_splits: sizes must be positive, got span "
+                         f"{span}, B {batch}, Hkv {kv_heads}, sms {sms}")
+    tiles = -(-span // DECODE_TILE)
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // (batch * kv_heads))
+    chunk = DECODE_TILE * max(1, tiles // want, -(-tiles // MAX_SPLITS))
+    return chunk, -(-span // chunk)
+
+
+def _split_partials_plain(q, k, v, valid, chunk, k_scale=None,
+                          v_scale=None):
+    """Each chunk's partial in the kernels' arithmetic: the unnormalised
+    f32 accumulator acc [B, Hkv, splits, group, D], the base-2 max m and
+    the sum l [B, Hkv, splits, group] (m = -inf, l = 0, acc = 0 for a chunk
+    with no live key). Arguments as `_attend_plain`'s."""
+    B, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    splits = -(-L // chunk)
+    pad = splits * chunk - L
+    zero = torch.zeros((), device=q.device)
+    if pad:
+        grow = (lambda x: torch.cat(
+            [x, torch.zeros((B, pad, *x.shape[2:]), dtype=x.dtype,
+                            device=x.device)], dim=1))
+        k, v, valid = grow(k), grow(v), grow(valid)
+        k_scale = grow(k_scale) if k_scale is not None else None
+        v_scale = grow(v_scale) if v_scale is not None else None
+    v = torch.where(valid[:, :, None, None], v.float(), zero)
+    qf = q.float().reshape(B, Hkv, group, D) * (LOG2E / math.sqrt(D))
+    s = torch.einsum("bhgd,blhd->bhgl", qf,
+                     torch.where(valid[:, :, None, None], k.float(), zero))
+    if k_scale is not None:
+        ks = torch.where(valid[..., None], k_scale.float(), zero)
+        s = s * ks.permute(0, 2, 1)[:, :, None, :]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), float("-inf"), device=s.device))
+    s = s.reshape(B, Hkv, group, splits, chunk).transpose(2, 3)
+    m = s.amax(dim=-1)                                 # [B, Hkv, sp, g]
+    m_use = torch.where(torch.isfinite(m), m, zero)
+    p = torch.exp2(s - m_use[..., None])
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        vsc = torch.where(valid[..., None], v_scale.float(), zero)
+        p = p * vsc.permute(0, 2, 1).reshape(B, Hkv, 1, splits, chunk) \
+            .transpose(2, 3)
+    vv = v.reshape(B, splits, chunk, Hkv, D)
+    acc = torch.einsum("bhsgc,bschd->bhsgd", p, vv)
+    return acc, m, l
+
+
+def _merge_partials_plain(acc, m, l, lengths, chunk):
+    """The kernels' merge: the live splits of each (sequence, KV head)
+    (s * chunk < length) by log-sum-exp in split order; a sequence of
+    length 0 gives 0. -> [B, H, D] f32."""
+    B, Hkv, splits, group, D = acc.shape
+    live = (torch.arange(splits, device=acc.device)[None] * chunk
+            < lengths[:, None].long())                      # [B, splits]
+    live = live[:, None, :, None]
+    zero = torch.zeros((), device=acc.device)
+    M = torch.where(live, m, torch.full((), float("-inf"),
+                                        device=acc.device)).amax(dim=2)
+    M = torch.where(torch.isfinite(M), M, zero)
+    w = torch.where(live, torch.exp2(m - M[:, :, None]), zero)
+    o = (w[..., None] * acc).sum(dim=2)
+    lsum = (w * l).sum(dim=2)
+    return (o / lsum.clamp_min(1e-30)[..., None]).reshape(B, Hkv * group, D)
+
+
+def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lengths: torch.Tensor,
+                             index: torch.Tensor, *, paged: bool = False,
+                             k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None,
+                             sms: int = H100_SMS) -> torch.Tensor:
+    """The split-KV arithmetic of the decode kernels in plain PyTorch: the
+    chunks `plan_splits` gives the cache's span, each chunk's base-2
+    partial, then the merge. Slot cache (index = slots) or block pool
+    (paged=True, index = tables), bf16 or int8 with scales. Only the tests
+    call it; the wrappers take the single-pass `*_plain` versions."""
+    B, H, _ = q.shape
+    Hkv = k.shape[2]
+    if paged:
+        rows = _page_rows(index, lengths, k, v,
+                          *(x for x in (k_scale, v_scale) if x is not None))
+        span = index.shape[1] * k.shape[1]
+    else:
+        rows = _slot_rows(index, lengths, k, v,
+                          *(x for x in (k_scale, v_scale) if x is not None))
+        span = k.shape[1]
+    chunk, _ = plan_splits(span, B, Hkv, sms)
+    kr, vr = rows[:2]
+    ks, vs = rows[2:4] if k_scale is not None else (None, None)
+    acc, m, l = _split_partials_plain(q, kr, vr, rows[-1], chunk, ks, vs)
+    return _merge_partials_plain(acc, m, l, lengths, chunk).to(q.dtype)
+
+
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, lengths: torch.Tensor,
                        slots: torch.Tensor) -> torch.Tensor:
@@ -230,15 +344,50 @@ def _check_decode(q: torch.Tensor, kv: torch.Tensor, name: str):
     return B, H, Hkv
 
 
+# device index -> int32 split counters, zero between calls. One buffer a
+# device: decode calls on one device run on one stream (the engines').
+_counts = {}
+_sms = {}       # device index -> SM count
+
+
+def _split_scratch(q: torch.Tensor, B: int, H: int, Hkv: int, span: int):
+    """(chunk, splits, part, count) for a decode launch on q's device: the
+    plan from static sizes, the partials' f32 scratch (allocated only when
+    a sequence can span several splits) and the counters, kept per device
+    and zeroed once (the kernels leave them at 0)."""
+    dev = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    sms = _sms.get(dev)
+    if sms is None:
+        sms = _sms[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    chunk, splits = plan_splits(span, B, Hkv, sms)
+    if splits == 1:
+        return chunk, splits, None, None
+    part = torch.empty(B * H * splits * (HEAD_DIM + 2), dtype=torch.float32,
+                       device=q.device)
+    count = _counts.get(dev)
+    if count is None or count.numel() < B * Hkv:
+        count = _counts[dev] = torch.zeros(B * Hkv, dtype=torch.int32,
+                                           device=q.device)
+    return chunk, splits, part, count
+
+
 def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
-            tensors, ints) -> torch.Tensor:
+            tensors, ints, span: int) -> torch.Tensor:
     """Launch csrc/<symbol>.cu's entry point on q's device: pointers of q
-    and `tensors`, then the output, the ints, 1/sqrt(D) and the stream."""
+    and `tensors`, the output, the split scratch and counters, then the
+    ints, the split plan for `span` keys, the head dim, 1/sqrt(D) and the
+    stream. One launch a call."""
+    B, H, Hkv = ints[:3]
     out = torch.empty_like(q)
     fn = build.entry(symbol, symbol, argtypes)
     with torch.cuda.device(q.device):
+        chunk, splits, part, count = _split_scratch(q, B, H, Hkv, span)
         err = fn(q.data_ptr(), *(t.data_ptr() for t in tensors),
-                 out.data_ptr(), *ints, HEAD_DIM, 1.0 / math.sqrt(HEAD_DIM),
+                 out.data_ptr(), part.data_ptr() if part is not None else 0,
+                 count.data_ptr() if count is not None else 0, *ints,
+                 chunk, splits, HEAD_DIM, 1.0 / math.sqrt(HEAD_DIM),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, symbol)
     wrapper.launches += 1
@@ -267,7 +416,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if _device(q) == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, slots)
     return _launch(flash_decode, "flash_decode", _DECODE_ARGS, q,
-                   (k_cache, v_cache, slots, lengths), (B, H, Hkv, Smax))
+                   (k_cache, v_cache, slots, lengths), (B, H, Hkv, Smax),
+                   Smax)
 
 
 flash_decode.launches = 0
@@ -298,7 +448,7 @@ def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
     return _launch(flash_decode_quant, "flash_decode_quant",
                    _DECODE_QUANT_ARGS, q,
                    (k_cache, v_cache, k_scale, v_scale, slots, lengths),
-                   (B, H, Hkv, Smax))
+                   (B, H, Hkv, Smax), Smax)
 
 
 flash_decode_quant.launches = 0
@@ -323,7 +473,7 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
         return flash_decode_paged_plain(q, k_pool, v_pool, tables, lengths)
     return _launch(flash_decode_paged, "flash_decode_paged",
                    _DECODE_PAGED_ARGS, q, (k_pool, v_pool, tables, lengths),
-                   (B, H, Hkv, bs, tables.shape[1]))
+                   (B, H, Hkv, bs, tables.shape[1]), bs * tables.shape[1])
 
 
 flash_decode_paged.launches = 0
@@ -355,7 +505,7 @@ def flash_decode_paged_quant(q: torch.Tensor, k_pool: torch.Tensor,
     return _launch(flash_decode_paged_quant, "flash_decode_paged_quant",
                    _DECODE_PAGED_QUANT_ARGS, q,
                    (k_pool, v_pool, k_scale, v_scale, tables, lengths),
-                   (B, H, Hkv, bs, tables.shape[1]))
+                   (B, H, Hkv, bs, tables.shape[1]), bs * tables.shape[1])
 
 
 flash_decode_paged_quant.launches = 0

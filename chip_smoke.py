@@ -19,7 +19,10 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                and bound_ms (the larger of bytes over 3.35 TB/s and
                operations over 989 TFLOP/s f16, 1979 TOP/s int8 or 67
                TFLOP/s float32 FFMA, the H100 SXM data-sheet peaks); the
-               paged kernels also time the table-gather path (gather_ms).
+               paged kernels also time the table-gather path (gather_ms);
+               flash_attention_fwd (S = 512) and flash_decode also run at
+               BitNet's heads (H = 32, Hkv = 8); the attention rows time
+               a contiguous read of the same bytes (stream_ms).
                Then the route table: the fused kernel against the
                materialize plan (decode kernel + library product) at M =
                256 / 512 / 2048, uint4 x f16 and int2 x int8. Then kernel
@@ -441,6 +444,9 @@ def check_dense(torch, flush):
 
 
 def check_flash_attention(torch, flush):
+    """Kernel 4 at the main path's prompts (B = 1, H = 32, S = 256 / 512):
+    Llama-2-7B's Hkv = 32 and BitNet's Llama-3-8B Hkv = 8. The yardstick
+    is SDPA on K/V expanded to every head beforehand."""
     from bitblas_tpu_torch.kernels.flash import (flash_attention_fwd,
                                                  flash_attention_plain)
     F = torch.nn.functional
@@ -448,9 +454,10 @@ def check_flash_attention(torch, flush):
     gen.manual_seed(2)
     rows = []
     B, H, D = 1, 32, 128
-    for S in (256, 512):
-        Q, K, V = (torch.randn((B, S, H, D), generator=gen,
-                               device="cuda").half() for _ in range(3))
+    for S, Hkv in ((256, 32), (512, 32), (512, 8)):
+        Q = torch.randn((B, S, H, D), generator=gen, device="cuda").half()
+        K, V = (torch.randn((B, S, Hkv, D), generator=gen,
+                            device="cuda").half() for _ in range(2))
         out = flash_attention_fwd(Q, K, V)
         ref = flash_attention_plain(Q, K, V)
         torch.cuda.synchronize()
@@ -460,14 +467,17 @@ def check_flash_attention(torch, flush):
         # outputs of magnitude < 4
         tol = 1e-2
         if not (err <= tol and torch.isfinite(out).all().item()):
-            raise AssertionError(f"flash S={S}: max abs err {err} > {tol}")
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (Q, K, V))
-        nbytes = 4 * B * S * H * D * 2
+            raise AssertionError(f"flash S={S} Hkv={Hkv}: max abs err {err} "
+                                 f"> {tol}")
+        qt = Q.transpose(1, 2).contiguous()
+        kt, vt = (x.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  .contiguous() for x in (K, V))
+        nbytes = 2 * B * S * (H + Hkv) * D * 2
         flops = 4.0 * B * H * D * S * (S + 1) / 2
         b_ms, b_by = bound(nbytes, flops)
         row = {
             "phase": "kernels", "kernel": "flash_attention_fwd",
-            "B": B, "H": H, "S": S, "D": D, "max_abs_err": err,
+            "B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "max_abs_err": err,
             "max_rel_err": err / ref.float().abs().max().item(), "tol": tol,
             "kernel_ms": time_ms(torch, lambda: flash_attention_fwd(Q, K, V),
                                  20, flush),
@@ -475,6 +485,7 @@ def check_flash_attention(torch, flush):
                                 5, flush),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), 20, flush),
+            "stream_ms": time_ms(torch, _stream(torch, nbytes), 20, flush),
             "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         rows.append(row)
@@ -482,6 +493,15 @@ def check_flash_attention(torch, flush):
 
 
 DECODE_LENGTHS = (1, 37, 513, 1024)
+
+
+def _stream(torch, nbytes: float):
+    """A yardstick for the attention rows (`stream_ms`): one PyTorch
+    reduction over a contiguous f16 buffer of the kernel's byte count, i.e.
+    the time to read those bytes once under the same timing (L2 flushed
+    before each launch)."""
+    buf = torch.zeros(int(nbytes) // 2, dtype=torch.float16, device="cuda")
+    return lambda: buf.sum()
 
 
 def _decode_row(torch, name, out, ref, tol, timed, extra, flush):
@@ -500,43 +520,49 @@ def _decode_row(torch, name, out, ref, tol, timed, extra, flush):
 
 
 def check_flash_decode(torch, flush):
+    """Kernel 5 over the bf16 slot cache at Llama-2-7B's heads (H = Hkv =
+    32) and BitNet's Llama-3-8B heads (H = 32, Hkv = 8, group 4)."""
     from bitblas_tpu_torch.kernels.flash import flash_decode, flash_decode_plain
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    B, H, Hkv, D, Smax, rows_n = 4, 32, 32, 128, 1024, 6
+    rows = []
+    B, H, D, Smax, rows_n = 4, 32, 128, 1024, 6
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
     slots = torch.tensor([5, 0, 3, 1], dtype=torch.int32, device="cuda")
-    q = torch.randn((B, H, D), generator=gen, device="cuda").half()
-    kc = torch.randn((rows_n, Smax, Hkv, D), generator=gen,
-                     device="cuda").to(torch.bfloat16)
-    vc = torch.randn((rows_n, Smax, Hkv, D), generator=gen,
-                     device="cuda").to(torch.bfloat16)
-    for b in range(B):   # stale rows past each length: must never be read
-        kc[slots[b], lengths[b]:] = float("nan")
-        vc[slots[b], lengths[b]:] = float("nan")
-    args = (q, kc, vc, lengths, slots)
-    out = flash_decode(*args)
-    ref = flash_decode_plain(*args)
-    # yardstick: SDPA over the gathered caches with a length mask (the
-    # gather itself is outside the timed call)
-    kg = kc[slots.long()].transpose(1, 2).half().nan_to_num()
-    vg = vc[slots.long()].transpose(1, 2).half().nan_to_num()
-    mask = (torch.arange(Smax, device="cuda")[None] < lengths[:, None]
-            .long())[:, None, None, :]
-    ltot = int(lengths.sum().item())
-    nbytes = ltot * Hkv * D * 2 * 2 + 2 * B * H * D * 2
-    b_ms, b_by = bound(nbytes, 4.0 * ltot * H * D)
-    # f32 softmax both sides; one f16 rounding of |out| < 2
-    return _decode_row(
-        torch, "flash_decode", out, ref, 2e-3,
-        {"kernel_ms": (lambda: flash_decode(*args), 20),
-         "plain_ms": (lambda: flash_decode_plain(*args), 5),
-         "library_ms": (lambda: F.scaled_dot_product_attention(
-             q[:, :, None], kg, vg, attn_mask=mask), 20)},
-        {"B": B, "H": H, "Hkv": Hkv, "Smax": Smax,
-         "lengths": lengths.tolist(), "bound_ms": b_ms, "bound_by": b_by},
-        flush)
+    for Hkv in (32, 8):
+        q = torch.randn((B, H, D), generator=gen, device="cuda").half()
+        kc = torch.randn((rows_n, Smax, Hkv, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        vc = torch.randn((rows_n, Smax, Hkv, D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        for b in range(B):   # stale rows past each length: never read
+            kc[slots[b], lengths[b]:] = float("nan")
+            vc[slots[b], lengths[b]:] = float("nan")
+        args = (q, kc, vc, lengths, slots)
+        out = flash_decode(*args)
+        ref = flash_decode_plain(*args)
+        # yardstick: SDPA over the gathered caches, expanded to every head,
+        # with a length mask (the gather itself is outside the timed call)
+        kg, vg = (x[slots.long()].transpose(1, 2).half().nan_to_num()
+                  .repeat_interleave(H // Hkv, dim=1) for x in (kc, vc))
+        mask = (torch.arange(Smax, device="cuda")[None] < lengths[:, None]
+                .long())[:, None, None, :]
+        ltot = int(lengths.sum().item())
+        nbytes = ltot * Hkv * D * 2 * 2 + 2 * B * H * D * 2
+        b_ms, b_by = bound(nbytes, 4.0 * ltot * H * D)
+        # f32 softmax both sides; one f16 rounding of |out| < 2
+        rows.append(_decode_row(
+            torch, "flash_decode", out, ref, 2e-3,
+            {"kernel_ms": (lambda: flash_decode(*args), 20),
+             "plain_ms": (lambda: flash_decode_plain(*args), 5),
+             "library_ms": (lambda: F.scaled_dot_product_attention(
+                 q[:, :, None], kg, vg, attn_mask=mask), 20),
+             "stream_ms": (_stream(torch, nbytes), 20)},
+            {"B": B, "H": H, "Hkv": Hkv, "Smax": Smax,
+             "lengths": lengths.tolist(), "bound_ms": b_ms,
+             "bound_by": b_by}, flush))
+    return rows
 
 
 def check_flash_decode_quant(torch, flush):
@@ -583,7 +609,8 @@ def check_flash_decode_quant(torch, flush):
         {"kernel_ms": (lambda: flash_decode_quant(*args), 20),
          "plain_ms": (lambda: flash_decode_quant_plain(*args), 5),
          "library_ms": (lambda: F.scaled_dot_product_attention(
-             q[:, :, None], kg, vg, attn_mask=mask), 20)},
+             q[:, :, None], kg, vg, attn_mask=mask), 20),
+         "stream_ms": (_stream(torch, nbytes), 20)},
         {"B": B, "H": H, "Hkv": Hkv, "Smax": Smax,
          "lengths": list(DECODE_LENGTHS), "bound_ms": b_ms,
          "bound_by": b_by}, flush)
@@ -659,7 +686,8 @@ def check_flash_decode_paged(torch, flush, quant: bool):
          "gather_ms": (lambda: gather(*args, num_heads=H, use_flash=False),
                        5),
          "library_ms": (lambda: F.scaled_dot_product_attention(
-             q[:, :, None], kg, vg, attn_mask=mask), 20)},
+             q[:, :, None], kg, vg, attn_mask=mask), 20),
+         "stream_ms": (_stream(torch, nbytes), 20)},
         {"B": B, "H": H, "Hkv": Hkv, "block_size": bs, "max_blocks": MB,
          "lengths": list(DECODE_LENGTHS), "bound_ms": b_ms,
          "bound_by": b_by}, flush)
@@ -1649,9 +1677,9 @@ def main() -> int:
         ("weight_decode_int8", "weight_decode_int8.cu", "materialize.py:398",
          wd_i8, pick(wd_i8, N=14336, K=4096), "N=14336 K=4096 int2 -> int8"),
         ("flash_attention_fwd", "flash_attention.cu", "flash.py:106",
-         fa, pick(fa, S=512), "B=1 H=32 S=512 D=128 causal"),
+         fa, pick(fa, S=512, Hkv=32), "B=1 H=32 S=512 D=128 causal"),
         ("flash_decode", "flash_decode.cu", "flash.py:456",
-         [fd], fd, f"B=4 H=32 Smax=1024 {lens}"),
+         fd, pick(fd, Hkv=32), f"B=4 H=32 Smax=1024 {lens}"),
         ("flash_decode_quant", "flash_decode_quant.cu", "flash.py:648",
          [fq], fq, f"B=4 H=32 Smax=1024 int8 {lens}"),
         ("flash_decode_paged", "flash_decode_paged.cu", "flash.py:874",
@@ -1671,7 +1699,7 @@ def main() -> int:
         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "shape": shape,
-        **({"gather_ms": row["gather_ms"]} if "gather_ms" in row else {})}
+        **{k: row[k] for k in ("gather_ms", "stream_ms") if k in row}}
         for name, src, rep, rows, row, shape in summary]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -13,7 +13,9 @@ both quantized formats and of native Matmuls in every layout, GQA groups
 1 to 8, stale NaN rows (and NaN scales) past each length and in the
 reserved block 0, a length of 0, block sizes 16 and 128 over permuted
 tables, and K amplified 20x so that a head mix-up cannot hide in a
-near-uniform softmax.
+near-uniform softmax. The split-KV decode kernels run at a span of 2048
+keys with lengths across several splits (two calls bit-equal, one launch
+a call); the wgmma prefill at S = 64 ... 1024, Hkv = H and H / 4.
 """
 
 import math
@@ -33,7 +35,7 @@ from bitblas_tpu_torch.kernels.flash import (
     flash_attention_fwd, flash_attention_plain, flash_decode,
     flash_decode_paged, flash_decode_paged_plain, flash_decode_paged_quant,
     flash_decode_paged_quant_plain, flash_decode_plain, flash_decode_quant,
-    flash_decode_quant_plain)
+    flash_decode_quant_plain, flash_decode_split_plain, plan_splits)
 from bitblas_tpu_torch.ops.matmul import Matmul
 from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
 from bitblas_tpu_torch.serving import kv_cache
@@ -215,6 +217,25 @@ def test_flash_attention_pad_rows_do_not_leak(dev):
     assert torch.equal(out[:, :100], out2[:, :100])
 
 
+@pytest.mark.parametrize("S", [64, 192, 256, 512, 1024])
+@pytest.mark.parametrize("Hkv", [8, 2])
+def test_flash_attention_wgmma_shapes(dev, S, Hkv):
+    g = torch.Generator(device=dev)
+    g.manual_seed(S * 10 + Hkv)
+    Q = torch.randn((1, S, 8, 128), generator=g, device=dev).half()
+    K = (torch.randn((1, S, Hkv, 128), generator=g, device=dev) * 3).half()
+    V = torch.randn((1, S, Hkv, 128), generator=g, device=dev).half()
+    before = flash_attention_fwd.launches
+    out = flash_attention_fwd(Q, K, V)
+    ref = flash_attention_plain(Q, K, V)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert torch.isfinite(out).all()
+    # P rounds to f16 before the PV product; outputs |.| < 4
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    assert torch.equal(out, flash_attention_fwd(Q, K, V))
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2), (16, 2)])
 def test_flash_decode_matches_plain(dev, H, Hkv):
     g = torch.Generator(device=dev)
@@ -348,6 +369,85 @@ def test_flash_decode_paged_quant_matches_plain(dev, bs, H, Hkv):
     out = flash_decode_paged_quant(q, k, v, ks, vs, tables, lengths)
     ref = flash_decode_paged_quant_plain(q, k, v, ks, vs, tables, lengths)
     _check_decode(out, ref, flash_decode_paged_quant, before)
+
+
+# Split-KV decode at a span of 2048 keys (H = 8, the group set by Hkv):
+# lengths of 0 among long ones, of one key, at and around a chunk end and
+# across many splits; stale rows NaN, K amplified 20x.
+SPAN = 2048
+
+
+def _split_lengths(B, Hkv, sms):
+    chunk, _ = plan_splits(SPAN, B, Hkv, sms)
+    return (0, SPAN, 1, chunk, chunk + 1, 3 * chunk - 1, 1000)
+
+
+@pytest.mark.parametrize("bs", [0, 16, 128])     # 0: the slot cache
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_decode_split_kv(dev, bs, quant, group):
+    g = torch.Generator(device=dev)
+    g.manual_seed(500 + bs + 10 * quant + group)
+    H, Hkv = 8, 8 // group
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lengths_ = _split_lengths(7, Hkv, sms)
+    B = len(lengths_)
+    lengths = torch.tensor(lengths_, dtype=torch.int32, device=dev)
+    if bs == 0:
+        rows = B + 1
+        index = torch.randperm(rows, generator=g, device=dev)[:B].to(
+            torch.int32)
+        shape = (rows, SPAN, Hkv, 128)
+    else:
+        MB = SPAN // bs
+        need = [-(-n // bs) for n in lengths_]
+        blocks = 1 + sum(need)
+        perm = torch.randperm(blocks - 1, generator=g, device=dev) + 1
+        index = torch.zeros((B, MB), dtype=torch.int32, device=dev)
+        at = 0
+        for b, n in enumerate(need):
+            index[b, :n] = perm[at:at + n].to(torch.int32)
+            at += n
+        shape = (blocks, bs, Hkv, 128)
+    kf, vf = _rows(g, dev, shape)
+    if quant:
+        (k, ks), (v, vs) = kv_cache.quantize_kv(kf), kv_cache.quantize_kv(vf)
+        stale = ((k, 127), (v, -128), (ks, float("nan")),
+                 (vs, float("nan")))
+    else:
+        k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        ks = vs = None
+        stale = ((k, float("nan")), (v, float("nan")))
+    for x, val in stale:
+        for b, n in enumerate(lengths_):
+            if bs == 0:
+                x[index[b], n:] = val
+            else:
+                x[0] = val
+                if n % bs:
+                    x[index[b, n // bs], n % bs:] = val
+    q = _decode_q(g, dev, B, H)
+    if bs == 0:
+        wrapper = flash_decode_quant if quant else flash_decode
+        plain = flash_decode_quant_plain if quant else flash_decode_plain
+        args = ((q, k, v, ks, vs, lengths, index) if quant
+                else (q, k, v, lengths, index))
+    else:
+        wrapper = flash_decode_paged_quant if quant else flash_decode_paged
+        plain = (flash_decode_paged_quant_plain if quant
+                 else flash_decode_paged_plain)
+        args = ((q, k, v, ks, vs, index, lengths) if quant
+                else (q, k, v, index, lengths))
+    before = wrapper.launches
+    out = wrapper(*args)
+    _check_decode(out, plain(*args), wrapper, before)
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(out, again)          # the merge's fixed order
+    split = flash_decode_split_plain(q, k, v, lengths, index, paged=bs > 0,
+                                     k_scale=ks, v_scale=vs, sms=sms)
+    assert (out.float() - split.float()).abs().max().item() <= DECODE_TOL
 
 
 def test_paged_routing_takes_the_kernels_on_the_card(dev):
