@@ -1,7 +1,7 @@
 // Small device helpers shared by the kernels of bitblas_tpu_torch:
-// cp.async copies with zero fill, the mma.sync m16n8k16 f16 and bf16
-// products with float32 accumulation and the m16n8k32 int8 product with
-// int32 accumulation.
+// cp.async copies (16 and 4 bytes) with zero fill, the mma.sync m16n8k16
+// f16 and bf16 products with float32 accumulation and the m16n8k32 int8
+// product with int32 accumulation.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -17,6 +17,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+// 4-byte global->shared copy (a scale); zero-filled when `pred` is false.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
 }
 

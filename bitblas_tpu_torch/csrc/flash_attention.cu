@@ -25,7 +25,9 @@
 //     two halves. The tensor maps depend on the pointers: the host encodes
 //     them per call (cuTensorMapEncodeTiled through
 //     cudaGetDriverEntryPoint, no -lcuda) and passes them as
-//     __grid_constant__ parameters.
+//     __grid_constant__ parameters. The mbarrier, TMA, tensor-map and
+//     wgmma descriptor helpers are hopper.cuh's, shared with
+//     dense_matmul.cu.
 //   - Q is scaled in shared memory by log2(e)/sqrt(D) in f32 and rounded
 //     to f16 (the fold of flash.py:437-441), so scores are base 2.
 //   - S = Q K^T: wgmma.mma_async m64n64k16, Q and K both from shared
@@ -45,9 +47,8 @@
 // head. Pad rows of a prompt bucket sit after the real rows, so causality
 // keeps them out of every real row.
 
-#include <cuda.h>   // CUtensorMap and its enums only: nothing links libcuda
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -67,90 +68,17 @@ struct Bars {
   uint64_t full[kStages], empty[kStages];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of `map` at coordinates (dim, head, row) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle. Both operands here
-// have one swizzle atom across their contiguous dimension (64 f16), so
-// only the stride between 8-row groups (1024 bytes) matters; it goes in
-// both offset fields, whichever the layout reads.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  constexpr uint64_t kGroup = 1024 >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kGroup << 16) |
-         (kGroup << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from touching accumulators across an async wgmma,
-// and an A fragment's registers alive until the wgmma reading them is
-// waited for.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void keep_regs(const uint32_t (&a)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" ::"r"(a[i]) : "memory");
-}
+using bbt::desc_sw128;
+using bbt::fence_regs;
+using bbt::keep_regs;
+using bbt::mbar_arrive;
+using bbt::mbar_expect_tx;
+using bbt::mbar_init;
+using bbt::mbar_wait;
+using bbt::smem_u32;
+using bbt::wgmma_commit;
+using bbt::wgmma_fence;
+using bbt::wgmma_wait;
 
 // d (64 x 64, f32) = A (64 x 16, shared, K-major) B (16 x 64, shared,
 // K-major) + (scale_d ? d : 0).
@@ -298,15 +226,15 @@ __global__ void __launch_bounds__(kThreads)
       mbar_init(&bars->full[i], 1);
       mbar_init(&bars->empty[i], kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bbt::mbar_fence_init();
   }
   __syncthreads();
 
   if (tid >= kConsumers) {   // the producer warp: one thread issues
     if (tid == kConsumers) {
       mbar_expect_tx(&bars->q, kTile);
-      tma_load(qs, &tq, &bars->q, 0, h, row0 + q0);
-      tma_load(qs + kBox, &tq, &bars->q, 64, h, row0 + q0);
+      bbt::tma_load_3d(qs, &tq, &bars->q, 0, h, row0 + q0);
+      bbt::tma_load_3d(qs + kBox, &tq, &bars->q, 64, h, row0 + q0);
       for (int j = 0; j < nkv; ++j) {
         const int st = j % kStages;
         // use u = j / kStages of a stage waits for the consumers' release
@@ -315,10 +243,10 @@ __global__ void __launch_bounds__(kThreads)
         uint64_t* full = &bars->full[st];
         const int row = row0 + j * BKV;
         mbar_expect_tx(full, 2 * kTile);
-        tma_load(ks + st * kTile, &tk, full, 0, hk, row);
-        tma_load(ks + st * kTile + kBox, &tk, full, 64, hk, row);
-        tma_load(vs + st * kTile, &tv, full, 0, hk, row);
-        tma_load(vs + st * kTile + kBox, &tv, full, 64, hk, row);
+        bbt::tma_load_3d(ks + st * kTile, &tk, full, 0, hk, row);
+        bbt::tma_load_3d(ks + st * kTile + kBox, &tk, full, 64, hk, row);
+        bbt::tma_load_3d(vs + st * kTile, &tv, full, 0, hk, row);
+        bbt::tma_load_3d(vs + st * kTile + kBox, &tv, full, 64, hk, row);
       }
     }
     return;
@@ -345,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
       q4[i] = x;
     }
     // generic-proxy writes, then read by wgmma (the async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bbt::fence_proxy_async();
     asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
   }
   const uint32_t q_addr = smem_u32(qs);
@@ -420,36 +348,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [rows, heads, D] f16 (rows = B * S) in boxes of 64 rows x 1 head x 64
 // dims, 128-byte swizzle.
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+bool make_map(bbt::EncodeTiled encode, CUtensorMap* map, const void* ptr,
               int heads, long long rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)rows};
@@ -473,7 +374,7 @@ extern "C" int flash_attention_fwd(const void* Q, const void* K,
   if (head_dim != D || S % BQ != 0 || S < BQ || B < 1 || Hkv < 1 ||
       H % Hkv != 0 || S / BQ > 65535)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
+  const bbt::EncodeTiled encode = bbt::encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
   const long long rows = (long long)B * S;

@@ -1,8 +1,8 @@
 // The decode-attention kernel shared by flash_decode{,_quant,_paged,
 // _paged_quant}.cu: one query token per sequence against a KV cache.
 //
-//   q      [B, H, D]  float16 (D = 128)
-//   K, V   bfloat16 or int8 codes, rows of [Hkv, D], held either as
+//   q      [B, H, D]  float16 (D = 128 or 256)
+//   K, V   bfloat16, float16 or int8 codes, rows of [Hkv, D], held either as
 //          the slot cache [rows, Smax, Hkv, D] (row of key t of sequence b:
 //          slots[b] * Smax + t) or as the block pool [blocks, bs, Hkv, D]
 //          (row: tables[b, t / bs] * bs + t % bs)
@@ -13,7 +13,8 @@
 //   part   f32 scratch [B, Hkv, splits, group, D + 2] (unnormalised
 //          accumulator, then m and l), allocated by the wrapper; unused
 //          when splits == 1
-//   count  int32 [B * Hkv], zero before the launch and zero after it
+//   count  int32 [B * Hkv * ceil(group / 8)], zero before the launch and
+//          zero after it
 //
 // What bounds it on the H100: the live KV bytes of the step,
 // sum_b lengths[b] * Hkv * (2 * D * sizeof(elem) + scales), over 3.35 TB/s.
@@ -60,6 +61,12 @@
 // sequence of length 0 has no live split: block 0 writes 0.
 // The GQA group is a template parameter (1, 2, 4 or 8 rows, the group
 // rounded up), so the accumulators of a small group take few registers.
+// A group above 8 is cut into chunks of 8 query heads on a grid axis
+// folded into blockIdx.y = hk * hchunks + chunk: each chunk re-reads the
+// KV head's tiles, which L2 serves, and merges its own rows through its
+// own counter. The head dim D (128 or 256) is a template parameter: at
+// D = 256 a lane accumulates 8 dims, and the 3-stage bf16/f16 ring takes
+// 193 KB (one block an SM).
 // Each entry point launches on the caller's stream and returns the
 // launch's cudaError_t.
 #pragma once
@@ -72,13 +79,13 @@
 namespace bbt {
 namespace decode {
 
-constexpr int D = 128;
 constexpr int TK = 64;          // keys per tile
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int KW = TK / kWarps; // keys of a warp in a tile (8)
 constexpr int LPK = 32 / KW;    // lanes of a key in the score phase (4)
 constexpr int kMaxSplits = 1024; // the merge's weights fit the ring
+constexpr int kMaxG = 8;         // query rows a block: larger groups chunk
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Stored K/V -> floats: a 16-byte chunk (score phase) and the 4 values of
@@ -115,6 +122,33 @@ struct Codes<__nv_bfloat16> {
 };
 
 template <>
+struct Codes<half> {
+  static constexpr int N = 8;
+  static constexpr bool kScaled = false;
+  static constexpr int kStages = 3;
+  __device__ __forceinline__ static void to_float(const uint4& raw,
+                                                  float* f) {
+    const half2* h = reinterpret_cast<const half2*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __half22float2(h[e]);
+      f[2 * e] = x.x;
+      f[2 * e + 1] = x.y;
+    }
+  }
+  __device__ __forceinline__ static void four(const unsigned char* p,
+                                              float* f) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const half2* h = reinterpret_cast<const half2*>(&raw);
+    const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = b.x;
+    f[3] = b.y;
+  }
+};
+
+template <>
 struct Codes<int8_t> {
   static constexpr int N = 16;
   static constexpr bool kScaled = true;
@@ -140,19 +174,10 @@ struct Codes<int8_t> {
   }
 };
 
-// 4-byte global->shared copy (a scale); zero-filled when `pred` is false.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-template <typename T>
+template <typename T, int D>
 struct Layout {
-  static constexpr int kRowBytes = D * (int)sizeof(T);   // 256 or 128
-  static constexpr int kChunks = kRowBytes / 16;         // 16 or 8
+  static constexpr int kRowBytes = D * (int)sizeof(T);   // 128 ... 512
+  static constexpr int kChunks = kRowBytes / 16;         // 8 ... 32
   static constexpr int kTileBytes = TK * kRowBytes;
   static constexpr int kStages = Codes<T>::kStages;
   // the ring: per stage the K tile, the V tile, K scales, V scales
@@ -170,14 +195,14 @@ struct Layout {
 // Dynamic shared memory: the ring, the query rows [G][D] f32, the weights
 // of each warp [warps][G][KW]. After the walk the ring holds the warps'
 // partials, then the split weights of the merge.
-template <int G>
+template <int G, int D>
 constexpr int smem_bytes(int ring) {
   return ring + G * D * 4 + kWarps * G * KW * 4;
 }
 
 // index: slots [B] (slot cache) or tables [B, max_blocks] (block pool);
 // span: Smax (slot cache) or the block size (block pool).
-template <typename T, bool kPaged, int G>
+template <typename T, bool kPaged, int G, int D>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const half* __restrict__ q, const T* __restrict__ kc,
                   const T* __restrict__ vc, const float* __restrict__ ksc,
@@ -187,8 +212,9 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ part, int* __restrict__ count, int H,
                   int Hkv, int span, int max_blocks, int chunk, float scale) {
   using C = Codes<T>;
-  using L = Layout<T>;
+  using L = Layout<T, D>;
   constexpr int VEC = C::N;
+  constexpr int DPL = D / 32;             // dims a lane accumulates
   constexpr int S = L::kStages;
   constexpr int CPL = L::kChunks / LPK;   // K chunks a lane dots
   extern __shared__ __align__(16) unsigned char smem[];
@@ -197,18 +223,22 @@ __global__ void __launch_bounds__(kThreads)
   float* ps = qs + G * D;                                // [warps][G][KW]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int hchunks = gridDim.y / Hkv;
+  const int hk = blockIdx.y / hchunks, hc = blockIdx.y % hchunks;
   const int splits = gridDim.x;
   const int group = H / Hkv;
+  const int rows = min(G, group - hc * G);   // query rows of this block
+  const int h0 = hk * group + hc * G;        // their first head
   const int start = split * chunk;
   // The slot loads beside the length, not after it.
   const size_t slot_base = kPaged ? 0 : (size_t)index[b] * span;
   const int* table = index + (size_t)b * max_blocks;
   const int len = lengths[b];
-  half* ob = out + ((size_t)b * H + hk * group) * D;
+  half* ob = out + ((size_t)b * H + h0) * D;
   if (start >= len) {
     if (len <= 0 && split == 0)   // no live key: the output is 0
-      for (int i = tid; i < group * D; i += kThreads)
+      for (int i = tid; i < rows * D; i += kThreads)
         ob[i] = __float2half_rn(0.f);
     return;
   }
@@ -258,20 +288,20 @@ __global__ void __launch_bounds__(kThreads)
     if (i < ntiles) load_tile(i, i);
     cp_async_commit();
   }
-  for (int i = tid; i < group * D; i += kThreads)
-    qs[i] = __half2float(q[((size_t)b * H + hk * group) * D + i]) *
+  for (int i = tid; i < rows * D; i += kThreads)
+    qs[i] = __half2float(q[((size_t)b * H + h0) * D + i]) *
             (scale * LOG2E);
 
   // Per warp: running max m (base 2) and sum l of each query row
   // (replicated in every lane), the lane's accumulator over dims
-  // 4 lane .. 4 lane + 3.
-  float m[G], l[G], acc[G][4];
+  // DPL lane .. DPL lane + DPL - 1.
+  float m[G], l[G], acc[G][DPL];
 #pragma unroll
   for (int gq = 0; gq < G; ++gq) {
     m[gq] = -INFINITY;
     l[gq] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[gq][e] = 0.f;
+    for (int e = 0; e < DPL; ++e) acc[gq][e] = 0.f;
   }
   const int kloc = lane / LPK, pl = lane % LPK;   // phase (1): key, part
   const int key = warp * KW + kloc;               // key within the tile
@@ -301,7 +331,7 @@ __global__ void __launch_bounds__(kThreads)
                   kf);
 #pragma unroll
       for (int gq = 0; gq < G; ++gq) {
-        if (gq >= group) break;
+        if (gq >= rows) break;
         const float4* qv = reinterpret_cast<const float4*>(qs + gq * D +
                                                            c * VEC);
 #pragma unroll
@@ -321,7 +351,7 @@ __global__ void __launch_bounds__(kThreads)
     // (2) the warp's online softmax over its KW keys
 #pragma unroll
     for (int gq = 0; gq < G; ++gq) {
-      if (gq >= group) break;
+      if (gq >= rows) break;
       float sc = s0[gq] + s1[gq];
 #pragma unroll
       for (int w = 1; w < LPK; w <<= 1)
@@ -343,35 +373,38 @@ __global__ void __launch_bounds__(kThreads)
       l[gq] = l[gq] * alpha + sum;
       m[gq] = m_new;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[gq][e] *= alpha;
+      for (int e = 0; e < DPL; ++e) acc[gq][e] *= alpha;
       if (pl == 0) pw[gq * KW + kloc] = p * vsc_k;
     }
     __syncwarp();
-    // (3) acc += p * V over the warp's keys, dims 4 lane .. 4 lane + 3
+    // (3) acc += p * V over the warp's keys, dims DPL lane .. + DPL - 1
 #pragma unroll
     for (int k4 = 0; k4 < KW; k4 += 4) {
       float4 pv[G];
 #pragma unroll
       for (int gq = 0; gq < G; ++gq)
-        if (gq < group)
+        if (gq < rows)
           pv[gq] = *reinterpret_cast<const float4*>(pw + gq * KW + k4);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const int r = warp * KW + k4 + kk;
-        const int byte = lane * 4 * (int)sizeof(T);
-        float vf[4];
-        C::four(vt + r * L::kRowBytes + L::swz(r, byte / 16) * 16 +
-                    byte % 16,
-                vf);
+        float vf[DPL];
+#pragma unroll
+        for (int h = 0; h < DPL / 4; ++h) {
+          const int byte = (lane * DPL + 4 * h) * (int)sizeof(T);
+          C::four(vt + r * L::kRowBytes + L::swz(r, byte / 16) * 16 +
+                      byte % 16,
+                  vf + 4 * h);
+        }
 #pragma unroll
         for (int gq = 0; gq < G; ++gq)
-          if (gq < group) {
+          if (gq < rows) {
             const float p = kk == 0   ? pv[gq].x
                             : kk == 1 ? pv[gq].y
                             : kk == 2 ? pv[gq].z
                                       : pv[gq].w;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[gq][e] += p * vf[e];
+            for (int e = 0; e < DPL; ++e) acc[gq][e] += p * vf[e];
           }
       }
     }
@@ -386,22 +419,28 @@ __global__ void __launch_bounds__(kThreads)
   float* lw = mw + kWarps * G;
 #pragma unroll
   for (int gq = 0; gq < G; ++gq)
-    if (gq < group) {
-      *reinterpret_cast<float4*>(red + (warp * G + gq) * D + 4 * lane) =
-          make_float4(acc[gq][0], acc[gq][1], acc[gq][2], acc[gq][3]);
+    if (gq < rows) {
+#pragma unroll
+      for (int h = 0; h < DPL / 4; ++h)
+        *reinterpret_cast<float4*>(red + (warp * G + gq) * D + DPL * lane +
+                                   4 * h) =
+            make_float4(acc[gq][4 * h], acc[gq][4 * h + 1],
+                        acc[gq][4 * h + 2], acc[gq][4 * h + 3]);
       if (lane == 0) {
         mw[warp * G + gq] = m[gq];
         lw[warp * G + gq] = l[gq];
       }
     }
   __syncthreads();
-  const int d = tid % D, g0 = tid / D;   // kThreads == 2 D: two rows at once
+  // kThreads / D rows at once (2 at D = 128, 1 at D = 256)
+  const int d = tid % D, g0 = tid / D;
   const int nlive = min((len + chunk - 1) / chunk, splits);
-  // partial of (b, hk, split): [group][D + 2]
+  // partial of (b, hk, split): [group][D + 2]; this block's rows start at
+  // hc * G
   const size_t part_stride = (size_t)group * (D + 2);
   float* mine = part + (((size_t)b * Hkv + hk) * splits + split) *
-                           part_stride;
-  for (int gq = g0; gq < group; gq += kThreads / D) {
+                           part_stride + (size_t)hc * G * (D + 2);
+  for (int gq = g0; gq < rows; gq += kThreads / D) {
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, mw[w * G + gq]);
@@ -425,25 +464,27 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (nlive == 1) return;
 
-  // The last live block of (b, hk) merges the partials in split order.
+  // The last live block of (b, hk, hc) merges the partials in split
+  // order.
   __shared__ int last;
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* cnt = count + (size_t)b * Hkv + hk;
+    int* cnt = count + ((size_t)b * Hkv + hk) * hchunks + hc;
     last = atomicAdd(cnt, 1) == nlive - 1;
     if (last) *cnt = 0;   // ready for the next launch
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* p0 = part + ((size_t)b * Hkv + hk) * splits * part_stride;
+  const float* p0 = part + ((size_t)b * Hkv + hk) * splits * part_stride +
+                    (size_t)hc * G * (D + 2);
   // Warp gq: the row's max M over the splits and the weights
   // exp2(m_s - M) into shared memory ([G][nlive], over the ring), then
   // sum_s w_s l_s. Every live split's m is finite.
   float* wts = red;
   float* lsm = wts + G * nlive;
-  if (warp < group) {
+  if (warp < rows) {
     const int gq = warp;
     float M = -INFINITY;
     for (int sp = lane; sp < nlive; sp += 32) {
@@ -466,7 +507,7 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0) lsm[gq] = fmaxf(lsum, 1e-30f);
   }
   __syncthreads();
-  for (int gq = g0; gq < group; gq += kThreads / D) {
+  for (int gq = g0; gq < rows; gq += kThreads / D) {
     const float* pd = p0 + gq * (D + 2) + d;
     float o = 0.f;
 #pragma unroll 8
@@ -476,8 +517,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Checks the shapes the kernel takes and launches it with the GQA group
-// rounded up to 1, 2, 4 or 8 over (splits, Hkv, B) blocks.
+template <typename T, bool kPaged, int G, int D>
+inline cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
+                            const void* k, const void* v,
+                            const void* k_scale, const void* v_scale,
+                            const void* index, const void* lengths,
+                            void* out, void* part, void* count, int H,
+                            int Hkv, int span, int max_blocks, int chunk,
+                            float scale) {
+  constexpr int bytes = smem_bytes<G, D>(Layout<T, D>::kRingBytes);
+  static bool smem_set[kMaxDevices];
+  cudaError_t e =
+      set_max_smem_once(decode_kernel<T, kPaged, G, D>, bytes, smem_set);
+  if (e != cudaSuccess) return e;
+  decode_kernel<T, kPaged, G, D><<<grid, kThreads, bytes, st>>>(
+      static_cast<const half*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(index),
+      static_cast<const int*>(lengths), static_cast<half*>(out),
+      static_cast<float*>(part), static_cast<int*>(count), H, Hkv, span,
+      max_blocks, chunk, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kPaged, int D>
+inline cudaError_t launch_d(int group, dim3 grid, cudaStream_t st,
+                            const void* q, const void* k, const void* v,
+                            const void* ks, const void* vs,
+                            const void* index, const void* lengths,
+                            void* out, void* part, void* count, int H,
+                            int Hkv, int span, int max_blocks, int chunk,
+                            float scale) {
+  if (group == 1)
+    return launch_g<T, kPaged, 1, D>(grid, st, q, k, v, ks, vs, index,
+                                     lengths, out, part, count, H, Hkv,
+                                     span, max_blocks, chunk, scale);
+  if (group == 2)
+    return launch_g<T, kPaged, 2, D>(grid, st, q, k, v, ks, vs, index,
+                                     lengths, out, part, count, H, Hkv,
+                                     span, max_blocks, chunk, scale);
+  if (group <= 4)
+    return launch_g<T, kPaged, 4, D>(grid, st, q, k, v, ks, vs, index,
+                                     lengths, out, part, count, H, Hkv,
+                                     span, max_blocks, chunk, scale);
+  return launch_g<T, kPaged, kMaxG, D>(grid, st, q, k, v, ks, vs, index,
+                                       lengths, out, part, count, H, Hkv,
+                                       span, max_blocks, chunk, scale);
+}
+
+// Checks the shapes the kernel takes and launches it over (splits,
+// Hkv * hchunks, B) blocks, hchunks = ceil(group / 8), with the rows of a
+// block rounded up to 1, 2, 4 or 8 and the head dim 128 or 256. `part`
+// holds B * H * splits * (D + 2) floats and `count` B * Hkv * hchunks
+// ints when splits > 1.
 template <typename T, bool kPaged>
 inline int launch(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
@@ -485,40 +577,25 @@ inline int launch(const void* q, const void* k, const void* v,
                   void* part, void* count, int B, int H, int Hkv, int span,
                   int max_blocks, int chunk, int splits, int head_dim,
                   float scale, void* stream) {
-  if (head_dim != D || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 ||
-      H % Hkv != 0 || H / Hkv > 8 || span < 1 ||
+  if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+  const int group = H / Hkv;
+  const int hchunks = (group + kMaxG - 1) / kMaxG;
+  if ((head_dim != 128 && head_dim != 256) || B < 1 || B > 65535 ||
+      (long long)Hkv * hchunks > 65535 || span < 1 ||
       (kPaged && max_blocks < 1) || chunk < TK || chunk % TK != 0 ||
       splits < 1 || splits > kMaxSplits ||
       (splits > 1 && (part == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int group = H / Hkv;
-  const dim3 grid(splits, Hkv, B);
+  const dim3 grid(splits, Hkv * hchunks, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BBT_DECODE_LAUNCH(G)                                                \
-  do {                                                                      \
-    constexpr int bytes = smem_bytes<G>(Layout<T>::kRingBytes);             \
-    static bool smem_set[kMaxDevices];                                      \
-    cudaError_t e = set_max_smem_once(decode_kernel<T, kPaged, G>, bytes,   \
-                                      smem_set);                            \
-    if (e != cudaSuccess) return (int)e;                                    \
-    decode_kernel<T, kPaged, G><<<grid, kThreads, bytes, st>>>(             \
-        static_cast<const half*>(q), static_cast<const T*>(k),              \
-        static_cast<const T*>(v), static_cast<const float*>(k_scale),       \
-        static_cast<const float*>(v_scale), static_cast<const int*>(index), \
-        static_cast<const int*>(lengths), static_cast<half*>(out),          \
-        static_cast<float*>(part), static_cast<int*>(count), H, Hkv, span,  \
-        max_blocks, chunk, scale);                                          \
-  } while (0)
-  if (group == 1)
-    BBT_DECODE_LAUNCH(1);
-  else if (group == 2)
-    BBT_DECODE_LAUNCH(2);
-  else if (group <= 4)
-    BBT_DECODE_LAUNCH(4);
-  else
-    BBT_DECODE_LAUNCH(8);
-#undef BBT_DECODE_LAUNCH
-  return (int)cudaGetLastError();
+  const int rows = group < kMaxG ? group : kMaxG;
+  if (head_dim == 128)
+    return (int)launch_d<T, kPaged, 128>(
+        rows, grid, st, q, k, v, k_scale, v_scale, index, lengths, out,
+        part, count, H, Hkv, span, max_blocks, chunk, scale);
+  return (int)launch_d<T, kPaged, 256>(
+      rows, grid, st, q, k, v, k_scale, v_scale, index, lengths, out, part,
+      count, H, Hkv, span, max_blocks, chunk, scale);
 }
 
 }  // namespace decode

@@ -1,7 +1,7 @@
-// flash_decode_paged: one query token per sequence against the bf16
-// block pool.
-//   q       [B, H, D]                  float16 (D = 128)
-//   k, v    [num_blocks, bs, Hkv, D]   bfloat16
+// flash_decode_paged: one query token per sequence against the bf16 or
+// f16 block pool.
+//   q       [B, H, D]                  float16 (D = 128 or 256)
+//   k, v    [num_blocks, bs, Hkv, D]   bfloat16 or float16 (kv_f16)
 //   tables  [B, max_blocks] int32: page j of sequence b (keys
 //           [j * bs, (j + 1) * bs)) lives in block tables[b, j]
 //   lengths [B] int32
@@ -28,7 +28,12 @@ extern "C" int flash_decode_paged(const void* q, const void* k_pool,
                                   void* part, void* count, int B, int H,
                                   int Hkv, int block_size, int max_blocks,
                                   int chunk, int splits, int head_dim,
-                                  float scale, void* stream) {
+                                  int kv_f16, float scale, void* stream) {
+  if (kv_f16)
+    return bbt::decode::launch<half, true>(
+        q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, part,
+        count, B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim,
+        scale, stream);
   return bbt::decode::launch<__nv_bfloat16, true>(
       q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, part, count,
       B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim, scale,

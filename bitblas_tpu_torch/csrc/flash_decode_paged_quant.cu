@@ -1,6 +1,6 @@
 // flash_decode_paged_quant: one query token per sequence against the
 // int8 block pool.
-//   q        [B, H, D]                 float16 (D = 128)
+//   q        [B, H, D]                 float16 (D = 128 or 256)
 //   k, v     [num_blocks, bs, Hkv, D]  int8 codes
 //   k_scale, v_scale [num_blocks, bs, Hkv] float32
 //   tables   [B, max_blocks] int32, lengths [B] int32

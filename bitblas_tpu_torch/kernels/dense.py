@@ -16,8 +16,10 @@ bitblas_tpu/kernels/dense.py).
 * `make_dense_matmul_pallas` -- TPU kernel 9's counterpart: the tiled "nt"
   GEMM of csrc/dense_matmul.cu with the hint's tile, N % block_n == 0 and
   K % block_k == 0 required, M padded up to block_m (rows past M are
-  masked, which gives the same rows). As in JAX, no part of the program
-  calls it; the tuner's tests and chip_smoke.py do.
+  masked, which gives the same rows). float16, bfloat16 and int8 run on
+  wgmma + TMA (4-stage ring), a hint of the 16-row tile on the 64 x 128
+  tile; float32 on FFMA at every tile. As in JAX, no part of the program calls it; the
+  tuner's tests and chip_smoke.py do.
 * `dense_matmul` / `dense_matmul_plain` -- kernel 9's wrapper (a launch
   counter, the kernel on a CUDA tensor, the plain version on a CPU one)
   and its plain version.
@@ -40,8 +42,13 @@ from .spec import KernelSpec
 if TYPE_CHECKING:   # the tuner imports this module
     from ..tuner.hint import TileHint
 
-# Compiled tiles of csrc/dense_matmul.cu (block_m, block_n, block_k).
-DENSE_TILES = ((16, 128, 128), (64, 128, 64), (128, 128, 64))
+# Compiled tiles of csrc/dense_matmul.cu (block_m, block_n, block_k): the
+# 16-row tile (float32's FFMA kernel; the other types run a hint that
+# names it on the 64 x 128 wgmma tile, which measured faster at M = 16,
+# PERF.md), then the wgmma + TMA tiles with their ring depth.
+DENSE_TILES = ((16, 128, 128), (64, 128, 64), (128, 128, 64),
+               (128, 256, 64))
+WGMMA_STAGES = {(64, 128, 64): 4, (128, 128, 64): 4, (128, 256, 64): 4}
 _A_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
            torch.int8: 3}
 _OUT_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
@@ -56,11 +63,25 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _INT_MM_MIN_M = 17
 
 
+def launched_tile(a_dtype: torch.dtype, tile):
+    """The compiled tile that runs a hint's `tile`: the 16-row tile is
+    float32's; f16, bf16 and int8 run it as the 64 x 128 wgmma tile."""
+    tile = tuple(tile[:3])
+    if tile == DENSE_TILES[0] and a_dtype != torch.float32:
+        return DENSE_TILES[1]
+    return tile
+
+
 def dense_smem_bytes(a_dtype: torch.dtype, tile) -> int:
-    """Shared memory one block of csrc/dense_matmul.cu takes (its
-    MmaTile / F32Tile): two stages of (BM + BN) rows of BK elements plus
-    16 bytes of padding a row."""
-    bm, bn, bk = tile[:3]
+    """Shared memory one block of csrc/dense_matmul.cu takes for the tile
+    that runs `tile`: for a wgmma tile (f16, bf16, int8) its WgTile, 1 KB
+    of alignment, the ring of (BM + BN) rows of 128 bytes a stage and two
+    barriers a stage; for float32 its F32Tile, two stages of (BM + BN)
+    rows of BK floats plus 16 bytes of padding a row."""
+    bm, bn, bk = launched_tile(a_dtype, tile)
+    stages = WGMMA_STAGES.get((bm, bn, bk))
+    if stages and a_dtype != torch.float32:
+        return 1024 + stages * (bm + bn) * 128 + 16 * stages
     return 2 * (bm + bn) * (bk * a_dtype.itemsize + 16)
 
 
@@ -117,7 +138,8 @@ def dense_matmul(A: torch.Tensor, W: torch.Tensor, out_dtype: torch.dtype,
         fn = build.entry("dense_matmul", "dense_matmul", _ARGTYPES)
         err = fn(A.data_ptr(), W.data_ptr(), out.data_ptr(), M, N,
                  A.shape[1], _A_CODE[A.dtype], _OUT_CODE[out_dtype],
-                 *tile[:3], torch.cuda.current_stream().cuda_stream)
+                 *launched_tile(A.dtype, tile),
+                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "dense_matmul")
     dense_matmul.launches += 1
     return out

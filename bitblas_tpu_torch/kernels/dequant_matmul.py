@@ -13,9 +13,14 @@ ported configuration, with the Hopper layout of quantization/packing.py:
 Each kernel is compiled for a small fixed set of tile instances
 (`FUSED_TILES`, (block_m, block_n, block_k, stages)); the caller names one
 (`tile=`, from the Matmul's hint), and `default_tile` is the choice by M
-that the Matmul makes untuned. On a CUDA tensor each wrapper launches its
-kernel (design and bound are written in the source); on a CPU tensor it
-runs the plain version, for which the tile changes nothing.
+that the Matmul makes untuned. The first uint4 instance,
+`U4_DECODE_TILE`, is the decode-M design: K split across blocks in whole
+128-groups (`plan_splits_k`, from static sizes only), the weight decoded
+in registers, the f32 partials summed in split order by the last block of
+each tile, one launch a call; `dequant_matmul_u4_split_plain` is that
+arithmetic in plain PyTorch, for the tests. On a CUDA tensor each wrapper
+launches its kernel (design and bound are written in the source); on a
+CPU tensor it runs the plain version, for which the tile changes nothing.
 """
 
 from __future__ import annotations
@@ -26,35 +31,71 @@ import torch
 
 from ..ops.reference import expand_groups, matmul_dense_reference
 from ..quantization import numerics, packing
-from . import build
+from . import build, scratch
 
 GROUP = 128
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES_DECODE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
 _ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # The compiled instances of csrc/dequant_matmul.cu ("uint4") and
 # csrc/dequant_matmul_i2.cu ("int2"), (block_m, block_n, block_k, stages).
+U4_DECODE_TILE = (16, 128, 128, 4)   # split-K, register decode
 FUSED_TILES = {
-    "uint4": ((16, 32, 128, 6), (32, 64, 128, 4), (64, 128, 128, 3),
+    "uint4": (U4_DECODE_TILE, (32, 64, 128, 4), (64, 128, 128, 3),
               (128, 128, 128, 3)),
     "int2": ((16, 32, 256, 4), (32, 64, 256, 4), (64, 128, 128, 3),
              (128, 128, 128, 3)),
 }
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
+# The decode instance: 128 weight rows a block, A tiles of 16 rows, at most
+# 8 groups a split (its K range of A sits in shared memory), and the
+# planner's target of blocks an SM.
+DECODE_BN = 128
+DECODE_BM = 16
+DECODE_MAX_CHUNK = 8
+SPLITK_BLOCKS_PER_SM = 2
+H100_SMS = 132
 
 
 def default_tile(fmt: str, m: int):
-    """The untuned instance at M = m: the narrow decode tile up to 16
-    rows, where the weight bytes bound the kernel, the 64 x 128 tile
-    above."""
+    """The untuned instance at M = m: the decode instance up to 16 rows,
+    where the weight bytes bound the kernel, the 64 x 128 tile above."""
     return FUSED_TILES[fmt][0] if m <= 16 else FUSED_TILES[fmt][2]
+
+
+def plan_splits_k(m: int, n: int, k: int, sms: int = H100_SMS):
+    """(chunk, splits) of the uint4 decode instance, from static sizes
+    only: K's 128-groups cut into `splits` runs of `chunk` groups (the
+    last may be shorter, none is empty), enough that the (N tiles x M
+    tiles x splits) blocks come within a factor 2 of SPLITK_BLOCKS_PER_SM
+    on every SM where K has the groups, and at most DECODE_MAX_CHUNK
+    groups a split. Split s covers groups [s * chunk, min((s + 1) *
+    chunk, K / 128))."""
+    if min(m, n, k, sms) < 1 or k % GROUP:
+        raise ValueError(f"plan_splits_k: M={m}, N={n}, K={k} (a multiple "
+                         f"of {GROUP}), sms={sms}")
+    groups = k // GROUP
+    tiles = -(-n // DECODE_BN) * -(-m // DECODE_BM)
+    want = -(-SPLITK_BLOCKS_PER_SM * sms // tiles)
+    splits = min(groups, max(want, -(-groups // DECODE_MAX_CHUNK)))
+    chunk = -(-groups // splits)
+    return chunk, -(-groups // chunk)
 
 
 def fused_smem_bytes(fmt: str, tile) -> int:
     """Dynamic shared memory one block of the instance takes (the Tile
     structs of the two sources): STAGES slabs of A, packed W (and the
-    uint4 kernel's scale and zero rows), plus the decoded W tile."""
+    uint4 kernel's scale and zero rows), plus the decoded W tile; for the
+    decode instance its largest size, A and its group sums over 8 groups
+    (16 rows) and the per-thread ring of weight chunks and scale / zero
+    pairs."""
     bm, bn, bk, stages = tile
+    if fmt == "uint4" and tuple(tile) == U4_DECODE_TILE:
+        threads = bn // 16 * 32
+        return DECODE_MAX_CHUNK * bm * (bk * 2 + 4) + stages * threads * (
+            2 * 16 + 2 * 4)
     if fmt == "uint4":
         lda = bk + 8                      # halves
         stage = bm * lda * 2 + bn * bk // 8 * 4 + 2 * bn * 2
@@ -91,6 +132,33 @@ def dequant_matmul_u4_plain(A: torch.Tensor, qweight: torch.Tensor,
     """Plain PyTorch version of the kernel (any device)."""
     W = dequantize_hopper(qweight, scales, zeros, group)
     return matmul_dense_reference(A, W, torch.float16)
+
+
+def dequant_matmul_u4_split_plain(A: torch.Tensor, qweight: torch.Tensor,
+                                  scales: torch.Tensor, zeros: torch.Tensor,
+                                  sms: int = H100_SMS) -> torch.Tensor:
+    """The decode instance's arithmetic in plain PyTorch (any device): the
+    splits `plan_splits_k` gives; in each, the groups in order, each
+    adding s (sum q a - z sum a) in f32 (scale and zero applied to the
+    group's sums, as the kernel and the JAX kernel apply them); then the
+    partials summed in split order 0, 1, ... in f32 and rounded once to
+    float16. Only the tests call it."""
+    M, K = A.shape
+    N = qweight.shape[0]
+    chunk, splits = plan_splits_k(M, N, K, sms)
+    q = packing.unpack_k(qweight, 4).float()              # [N, K] codes
+    Af = A.float()
+    out = torch.zeros((M, N), dtype=torch.float32, device=A.device)
+    for sp in range(splits):
+        part = torch.zeros_like(out)
+        for g in range(sp * chunk, min((sp + 1) * chunk, K // GROUP)):
+            ks = slice(g * GROUP, (g + 1) * GROUP)
+            a = Af[:, ks]
+            raw = a @ q[:, ks].T - a.sum(dim=1, keepdim=True) \
+                * zeros[g].float()[None]
+            part = part + raw * scales[g].float()[None]
+        out = out + part
+    return out.to(torch.float16)
 
 
 def _check(A, qweight, scales, zeros, group):
@@ -134,16 +202,38 @@ def dequant_matmul_u4(A: torch.Tensor, qweight: torch.Tensor,
     if M == 0:
         return out
     with torch.cuda.device(A.device):
-        fn = build.entry("dequant_matmul", "dequant_matmul_u4", _ARGTYPES)
-        err = fn(A.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                 zeros.data_ptr(), out.data_ptr(), M, N, K, group, *tile,
-                 torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tile == U4_DECODE_TILE:
+            chunk, splits = plan_splits_k(M, N, K,
+                                          scratch.sm_count(A.device))
+            part = count = None
+            if splits > 1:
+                part = scratch.partials(A.device, splits * M * N)
+                count = scratch.counters(
+                    A.device, -(-N // DECODE_BN) * -(-M // DECODE_BM))
+            fn = build.entry("dequant_matmul", "dequant_matmul_u4_decode",
+                             _ARGTYPES_DECODE)
+            err = fn(A.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                     zeros.data_ptr(), out.data_ptr(),
+                     part.data_ptr() if part is not None else 0,
+                     count.data_ptr() if count is not None else 0, M, N, K,
+                     group, chunk, splits, stream)
+        else:
+            fn = build.entry("dequant_matmul", "dequant_matmul_u4",
+                             _ARGTYPES)
+            err = fn(A.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                     zeros.data_ptr(), out.data_ptr(), M, N, K, group,
+                     *tile, stream)
     build.check(err, "dequant_matmul_u4")
     dequant_matmul_u4.launches += 1
+    if tile == U4_DECODE_TILE:
+        dequant_matmul_u4.decode_launches += 1
     return out
 
 
 dequant_matmul_u4.launches = 0
+# the launches of the split-K decode instance among them
+dequant_matmul_u4.decode_launches = 0
 
 
 def decode_i2_hopper(qweight: torch.Tensor) -> torch.Tensor:

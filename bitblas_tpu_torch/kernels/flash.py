@@ -16,13 +16,16 @@ make_flash_decode_paged_quant).
   (csrc/flash_decode_paged{,_quant}.cu).
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain PyTorch
-version (`*_plain`) on CPU tensors; both take the same shapes (head dim
-128, GQA groups up to 8). The decode kernels split each sequence's keys
-into chunks across blocks (`plan_splits`, from static sizes only) and
-merge the chunks' partials in the same launch;
+version (`*_plain`) on CPU tensors. The plain decode versions take any
+head dim and GQA group; the decode kernels take head dims 128 and 256
+(`DECODE_HEAD_DIMS`) and any group (above 8 in chunks of 8 query heads),
+and the two float decode kernels bfloat16 or float16 caches. On the card
+a shape no kernel instance takes raises. The decode kernels split each
+sequence's keys into chunks across blocks (`plan_splits`, from static
+sizes only) and merge the chunks' partials in the same launch;
 `flash_decode_split_plain` is that arithmetic in plain PyTorch, for the
-tests. Sliding windows, ``trans_k`` and
-``partial_stats`` are not ported yet.
+tests. Sliding windows, ``trans_k`` and ``partial_stats`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -33,12 +36,14 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, scratch
 
 LOG2E = 1.4426950408889634
-HEAD_DIM = 128      # the kernels' head dim
+HEAD_DIM = 128      # the prefill kernel's head dim
+DECODE_HEAD_DIMS = (128, 256)   # the decode kernels' head dims
 BLOCK = 64          # prefill q/kv tile: S must be a multiple
-MAX_GROUP = 8       # largest GQA group the decode kernel handles
+MAX_GROUP = 8       # query rows a decode block holds: larger groups chunk
+MAX_GRID_Y = 65535  # Hkv * ceil(group / MAX_GROUP) rides the grid's y axis
 DECODE_TILE = 64    # keys a decode tile; a split's chunk is a multiple
 H100_SMS = 132      # SMs of an H100 SXM, the split planner's default
 SPLIT_BLOCKS_PER_SM = 2   # the planner's target: B * Hkv * splits >= 2 SMs
@@ -48,11 +53,11 @@ _PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
     + [ctypes.c_float, ctypes.c_void_p]
 # decode entry points: q, caches (scales), index, lengths, out, the split
 # scratch and counters, then ints (sizes, chunk, splits, head dim)
-_DECODE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+_DECODE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
     + [ctypes.c_float, ctypes.c_void_p]
 _DECODE_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
-_DECODE_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+_DECODE_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
 _DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
     + [ctypes.c_float, ctypes.c_void_p]
@@ -329,57 +334,54 @@ def flash_decode_paged_quant_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return _attend_plain(q, k, v, valid, ks, vs)
 
 
-def _check_decode(q: torch.Tensor, kv: torch.Tensor, name: str):
-    """(B, H, Hkv) for a query [B, H, D] and a cache or pool
-    [n, span, Hkv, D]; raises on what the kernels do not take."""
-    if q.dim() != 3 or kv.dim() != 4:
-        raise ValueError(f"{name}: q [B, H, D] and caches [n, L, Hkv, D], "
-                         f"got {tuple(q.shape)}, {tuple(kv.shape)}")
+def _decode_shape(q: torch.Tensor, kv: torch.Tensor, name: str):
+    """(B, H, Hkv, D) for a query [B, H, D] and a cache or pool
+    [n, span, Hkv, D] (what the plain versions need too)."""
+    if q.dim() != 3 or kv.dim() != 4 or q.shape[-1] != kv.shape[-1] \
+            or kv.shape[2] < 1 or q.shape[1] % kv.shape[2]:
+        raise ValueError(f"{name}: q [B, H, D] and caches [n, L, Hkv, D] "
+                         f"with H % Hkv == 0, got {tuple(q.shape)}, "
+                         f"{tuple(kv.shape)}")
     B, H, D = q.shape
-    Hkv = kv.shape[2]
-    if D != HEAD_DIM or H % Hkv or H // Hkv > MAX_GROUP:
+    return B, H, kv.shape[2], D
+
+
+def _check_decode(name: str, B: int, H: int, Hkv: int, D: int):
+    """Raises on a shape no instance of the decode kernels takes: head
+    dims other than DECODE_HEAD_DIMS, or a grid past CUDA's limits."""
+    hchunks = -(-(H // Hkv) // MAX_GROUP)
+    if D not in DECODE_HEAD_DIMS or B > MAX_GRID_Y \
+            or Hkv * hchunks > MAX_GRID_Y:
         raise NotImplementedError(
-            f"{name} takes head_dim {HEAD_DIM} and GQA groups up to "
-            f"{MAX_GROUP} (got D={D}, H={H}, Hkv={Hkv})")
-    return B, H, Hkv
-
-
-# device index -> int32 split counters, zero between calls. One buffer a
-# device: decode calls on one device run on one stream (the engines').
-_counts = {}
-_sms = {}       # device index -> SM count
+            f"{name}: no kernel instance takes B={B}, H={H}, Hkv={Hkv}, "
+            f"D={D} (head dims {DECODE_HEAD_DIMS}, B and "
+            f"Hkv * ceil(group / {MAX_GROUP}) up to {MAX_GRID_Y})")
 
 
 def _split_scratch(q: torch.Tensor, B: int, H: int, Hkv: int, span: int):
     """(chunk, splits, part, count) for a decode launch on q's device: the
     plan from static sizes, the partials' f32 scratch (allocated only when
-    a sequence can span several splits) and the counters, kept per device
-    and zeroed once (the kernels leave them at 0)."""
-    dev = q.device.index if q.device.index is not None \
-        else torch.cuda.current_device()
-    sms = _sms.get(dev)
-    if sms is None:
-        sms = _sms[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    chunk, splits = plan_splits(span, B, Hkv, sms)
+    a sequence can span several splits) and the counters, one per
+    sequence, KV head and chunk of query heads (kernels/scratch.py)."""
+    chunk, splits = plan_splits(span, B, Hkv, scratch.sm_count(q.device))
     if splits == 1:
         return chunk, splits, None, None
-    part = torch.empty(B * H * splits * (HEAD_DIM + 2), dtype=torch.float32,
-                       device=q.device)
-    count = _counts.get(dev)
-    if count is None or count.numel() < B * Hkv:
-        count = _counts[dev] = torch.zeros(B * Hkv, dtype=torch.int32,
-                                           device=q.device)
-    return chunk, splits, part, count
+    D = q.shape[-1]
+    part = scratch.partials(q.device, B * H * splits * (D + 2))
+    hchunks = -(-(H // Hkv) // MAX_GROUP)
+    return chunk, splits, part, scratch.counters(q.device, B * Hkv * hchunks)
 
 
 def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
-            tensors, ints, span: int) -> torch.Tensor:
+            tensors, ints, span: int, kv_f16=None) -> torch.Tensor:
     """Launch csrc/<symbol>.cu's entry point on q's device: pointers of q
     and `tensors`, the output, the split scratch and counters, then the
-    ints, the split plan for `span` keys, the head dim, 1/sqrt(D) and the
-    stream. One launch a call."""
+    ints, the split plan for `span` keys, the head dim, for the float
+    kernels whether the cache is float16, 1/sqrt(D) and the stream. One
+    launch a call."""
     B, H, Hkv = ints[:3]
+    D = q.shape[-1]
+    _check_decode(symbol, B, H, Hkv, D)
     out = torch.empty_like(q)
     fn = build.entry(symbol, symbol, argtypes)
     with torch.cuda.device(q.device):
@@ -387,11 +389,23 @@ def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
         err = fn(q.data_ptr(), *(t.data_ptr() for t in tensors),
                  out.data_ptr(), part.data_ptr() if part is not None else 0,
                  count.data_ptr() if count is not None else 0, *ints,
-                 chunk, splits, HEAD_DIM, 1.0 / math.sqrt(HEAD_DIM),
+                 chunk, splits, D,
+                 *(() if kv_f16 is None else (int(kv_f16),)),
+                 1.0 / math.sqrt(D),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, symbol)
     wrapper.launches += 1
     return out
+
+
+def _float_cache(name: str, k: torch.Tensor, v: torch.Tensor, dev):
+    """The float caches: bfloat16 (the engines') or float16 (generate's),
+    both of one type."""
+    if k.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"{name}: caches must be bfloat16 or float16, got "
+                         f"{k.dtype}")
+    _require(k, "k", k.dtype, k.shape, dev)
+    _require(v, "v", k.dtype, k.shape, dev)
 
 
 def _device(q: torch.Tensor) -> str:
@@ -403,21 +417,20 @@ def _device(q: torch.Tensor) -> str:
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor,
                  slots: torch.Tensor) -> torch.Tensor:
-    """q [B, H, D] f16 against caches [rows, Smax, Hkv, D] bf16 through
-    slots/lengths [B] int32 -> [B, H, D] f16."""
-    B, H, Hkv = _check_decode(q, k_cache, "flash_decode")
+    """q [B, H, D] f16 against caches [rows, Smax, Hkv, D] bf16 or f16
+    through slots/lengths [B] int32 -> [B, H, D] f16."""
+    B, H, Hkv, D = _decode_shape(q, k_cache, "flash_decode")
     rows, Smax = k_cache.shape[:2]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
-    _require(k_cache, "k_cache", torch.bfloat16, k_cache.shape, dev)
-    _require(v_cache, "v_cache", torch.bfloat16, k_cache.shape, dev)
+    _require(q, "q", torch.float16, (B, H, D), dev)
+    _float_cache("flash_decode", k_cache, v_cache, dev)
     _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
     _require(slots, "slots", torch.int32, (B,), dev, align=4)
     if _device(q) == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, slots)
     return _launch(flash_decode, "flash_decode", _DECODE_ARGS, q,
                    (k_cache, v_cache, slots, lengths), (B, H, Hkv, Smax),
-                   Smax)
+                   Smax, kv_f16=k_cache.dtype == torch.float16)
 
 
 flash_decode.launches = 0
@@ -430,10 +443,10 @@ def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
     """q [B, H, D] f16 against int8 caches [rows, Smax, Hkv, D] with f32
     scales [rows, Smax, Hkv] through slots/lengths [B] int32
     -> [B, H, D] f16."""
-    B, H, Hkv = _check_decode(q, k_cache, "flash_decode_quant")
+    B, H, Hkv, D = _decode_shape(q, k_cache, "flash_decode_quant")
     rows, Smax = k_cache.shape[:2]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
+    _require(q, "q", torch.float16, (B, H, D), dev)
     _require(k_cache, "k_cache", torch.int8, k_cache.shape, dev)
     _require(v_cache, "v_cache", torch.int8, k_cache.shape, dev)
     _require(k_scale, "k_scale", torch.float32, k_cache.shape[:3], dev,
@@ -457,15 +470,14 @@ flash_decode_quant.launches = 0
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, tables: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
-    """q [B, H, D] f16 against the bf16 block pool [blocks, bs, Hkv, D]
-    through tables [B, MB] and lengths [B] int32 -> [B, H, D] f16. Only
-    pages below each length are read."""
-    B, H, Hkv = _check_decode(q, k_pool, "flash_decode_paged")
+    """q [B, H, D] f16 against the bf16 or f16 block pool [blocks, bs,
+    Hkv, D] through tables [B, MB] and lengths [B] int32 -> [B, H, D] f16.
+    Only pages below each length are read."""
+    B, H, Hkv, D = _decode_shape(q, k_pool, "flash_decode_paged")
     bs = k_pool.shape[1]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
-    _require(k_pool, "k_pool", torch.bfloat16, k_pool.shape, dev)
-    _require(v_pool, "v_pool", torch.bfloat16, k_pool.shape, dev)
+    _require(q, "q", torch.float16, (B, H, D), dev)
+    _float_cache("flash_decode_paged", k_pool, v_pool, dev)
     _require(tables, "tables", torch.int32, (B, tables.shape[-1]), dev,
              align=4)
     _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
@@ -473,7 +485,8 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
         return flash_decode_paged_plain(q, k_pool, v_pool, tables, lengths)
     return _launch(flash_decode_paged, "flash_decode_paged",
                    _DECODE_PAGED_ARGS, q, (k_pool, v_pool, tables, lengths),
-                   (B, H, Hkv, bs, tables.shape[1]), bs * tables.shape[1])
+                   (B, H, Hkv, bs, tables.shape[1]), bs * tables.shape[1],
+                   kv_f16=k_pool.dtype == torch.float16)
 
 
 flash_decode_paged.launches = 0
@@ -486,10 +499,10 @@ def flash_decode_paged_quant(q: torch.Tensor, k_pool: torch.Tensor,
     """q [B, H, D] f16 against the int8 block pool [blocks, bs, Hkv, D]
     and its f32 scale planes [blocks, bs, Hkv] through tables [B, MB] and
     lengths [B] int32 -> [B, H, D] f16."""
-    B, H, Hkv = _check_decode(q, k_pool, "flash_decode_paged_quant")
+    B, H, Hkv, D = _decode_shape(q, k_pool, "flash_decode_paged_quant")
     bs = k_pool.shape[1]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, HEAD_DIM), dev)
+    _require(q, "q", torch.float16, (B, H, D), dev)
     _require(k_pool, "k_pool", torch.int8, k_pool.shape, dev)
     _require(v_pool, "v_pool", torch.int8, k_pool.shape, dev)
     _require(k_scale, "k_scale", torch.float32, k_pool.shape[:3], dev,

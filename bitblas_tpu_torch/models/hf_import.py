@@ -67,9 +67,10 @@ class QuantLlamaLM:
                  eos_token_id: Optional[int] = None, seed: int = 0,
                  max_seq_len: Optional[int] = None) -> np.ndarray:
         """Autoregressive generation for one sequence: prefill through
-        `make_prefill`, then one `decode_step` per token over a bfloat16
-        slot cache (the flash-decode kernel's cache dtype). temperature=0
-        is greedy. Returns the full token sequence [S + new] int32."""
+        `make_prefill`, then one `decode_step` per token over a slot cache
+        in the hidden dtype (float16), as JAX's generate keeps it; the
+        engines keep bfloat16, as JAX's do. temperature=0 is greedy.
+        Returns the full token sequence [S + new] int32."""
         toks = np.asarray(prompt_tokens).reshape(-1).astype(np.int32)
         S = toks.shape[0]
         if S < 1:
@@ -86,10 +87,10 @@ class QuantLlamaLM:
             torch.arange(S, device=dev)[None])
         L = cfg.num_layers
         shape = (L, 1, lmax, cfg.num_kv_heads, cfg.head_dim)
-        caches_k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        caches_v = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        caches_k[:, 0, :S] = torch.stack(ks).to(torch.bfloat16)
-        caches_v[:, 0, :S] = torch.stack(vs).to(torch.bfloat16)
+        caches_k = torch.zeros(shape, dtype=hidden.dtype, device=dev)
+        caches_v = torch.zeros(shape, dtype=hidden.dtype, device=dev)
+        caches_k[:, 0, :S] = torch.stack(ks).to(hidden.dtype)
+        caches_v[:, 0, :S] = torch.stack(vs).to(hidden.dtype)
         slots = torch.zeros((1,), dtype=torch.int32, device=dev)
         out = list(toks)
         last_hidden = hidden[:, -1:]

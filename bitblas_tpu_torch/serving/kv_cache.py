@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..common import resolve_device
-from ..kernels.flash import (HEAD_DIM, flash_decode, flash_decode_paged,
+from ..kernels.flash import (flash_decode, flash_decode_paged,
                              flash_decode_paged_plain,
                              flash_decode_paged_quant,
                              flash_decode_paged_quant_plain,
@@ -90,9 +90,10 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     appended). Returns [B, H, D].
 
     With a lane-aligned head dim (D % 128 == 0, the JAX package's rule) it
-    runs the flash-decode kernel straight out of the slot cache, reading
-    only rows below each length; other head dims take the plain
-    length-masked decode."""
+    runs the flash-decode wrapper straight out of the slot cache, reading
+    only rows below each length (any GQA group; on the card the kernel
+    takes D = 128 and 256 and raises on other such head dims); other head
+    dims take the plain length-masked decode."""
     if window is not None:
         raise NotImplementedError("sliding-window decode is not ported yet")
     lengths, slots = _int32(lengths, slots)
@@ -243,7 +244,7 @@ append_token_paged_quant = append_token_quant
 
 def _use_paged_kernel(q: torch.Tensor, use_flash: Optional[bool]) -> bool:
     if use_flash is None:
-        return q.is_cuda and q.shape[-1] == HEAD_DIM
+        return q.is_cuda and q.shape[-1] % 128 == 0
     return use_flash
 
 
@@ -257,9 +258,11 @@ def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
     request (entries past the live pages are never read); lengths [B].
     Returns [B, H, D].
 
-    use_flash=None runs the paged CUDA kernel when q is on the card and
-    D == 128, and the plain table gather otherwise; False always takes the
-    gather (the same function); True the kernel's wrapper."""
+    use_flash=None runs the paged kernel's wrapper when q is on the card
+    and the head dim is lane-aligned (D % 128 == 0, as the slot route;
+    any GQA group; the kernel takes D = 128 and 256 and raises on other
+    such head dims), and the plain table gather otherwise; False always
+    takes the gather (the same function); True the kernel's wrapper."""
     if window is not None:
         raise NotImplementedError("sliding-window decode is not ported yet")
     tables, lengths = _int32(tables, lengths)

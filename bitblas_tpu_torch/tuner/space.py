@@ -12,7 +12,8 @@ hints do not change the dense product.
 
 `default_hint` is the untuned choice and reproduces the routing the port
 had before it had a tuner: the fused kernel below M = 512 with
-`default_tile` by M (the 16-row instance up to 16 rows, 64 x 128 above),
+`default_tile` by M (the decode instance up to 16 rows, for uint4 the
+split-K one, 64 x 128 above),
 the materialize plan from M = 512 (`MATERIALIZE_MIN_M`, JAX's bound).
 `roofline_seconds` is the least time the card could take for the plan's
 work: the larger of its bytes (each input read once, each output written
@@ -85,17 +86,33 @@ def roofline_seconds(spec: KernelSpec, hint: TileHint,
                2.0 * M * N * K / _peak(spec, arch))
 
 
+def _dense_want(spec: KernelSpec):
+    """Kernel 9's tile for this M. On wgmma (f16, bf16, int8): 64 x 128 up
+    to 256 rows (where the card needs the most blocks; at M = 16 it
+    measured faster than the 16-row mma.sync tile, PERF.md), 128 x 128 up
+    to 1024 and 128 x 256 above. float32 (FFMA at every tile): the
+    16-row tile up to 16 rows, 64 x 128 up to 64, 128 x 128 above."""
+    if spec.a_dtype == "float32":
+        if spec.m <= 16:
+            return DENSE_TILES[0]
+        return DENSE_TILES[1] if spec.m <= 64 else DENSE_TILES[2]
+    if spec.m <= 256:
+        return DENSE_TILES[1]
+    return DENSE_TILES[2] if spec.m <= 1024 else DENSE_TILES[3]
+
+
 def _dense_hint(spec: KernelSpec) -> TileHint:
     """The one hint of a native spec: full float32 for float32, and the
-    kernel-9 tile nearest this M's block_m among those that divide N and
-    K (no tile if none does)."""
+    kernel-9 tile of `_dense_want`, or the one of nearest block_m (then
+    narrowest) among those that divide N and K (no tile if none does)."""
     precision = "highest" if spec.a_dtype == "float32" else "default"
-    want = 16 if spec.m <= 16 else 64 if spec.m <= 64 else 128
+    want = _dense_want(spec)
     fits = [t for t in DENSE_TILES
             if spec.n % t[1] == 0 and spec.k % t[2] == 0]
     if not fits:
         return TileHint("dense", 0, 0, 0, 0, precision)
-    bm, bn, bk = min(fits, key=lambda t: abs(t[0] - want))
+    bm, bn, bk = want if want in fits else min(
+        fits, key=lambda t: (abs(t[0] - want[0]), t[1]))
     return TileHint("dense", bm, bn, bk, 0, precision)
 
 

@@ -2,9 +2,13 @@
 
 `measure_kernel(fn, args)` is the median device time of one call of
 ``fn(*args)``: warm-up calls first, then `iters` calls each between two
-CUDA events, with the L2 cache flushed before each call (a buffer of
-twice the card's L2 size is rewritten) so that weights come from device
-memory as they do on the serving path. A device-side sleep queued before
+CUDA events, with the L2 cache flushed before each call so that weights
+come from device memory as they do on the serving path. The flush reads
+a buffer of twice the card's L2 size (one sum into a one-element
+output); the buffer is written once, before the warm-up. A read leaves
+no dirty line behind, so the timed call never pays for writing back the
+flush's lines (a flush that rewrote the buffer did: a plain read of
+25.8 MB then took three times its byte bound). A device-side sleep queued before
 the timed calls keeps the card busy while the host enqueues them, so no
 call waits on the host's wrapper code between its two events. The JAX
 package times a chained `fori_loop` and takes a slope, a workaround for
@@ -30,11 +34,12 @@ def time_launches(fn: Callable, args: Sequence = (), *, warmup: int = 2,
     if not torch.cuda.is_available():
         raise RuntimeError("measure_kernel times on the card; "
                            "torch.cuda.is_available() is False")
-    buf = None
+    buf = acc = None
     if flush:
         l2 = torch.cuda.get_device_properties(
             torch.cuda.current_device()).L2_cache_size
-        buf = torch.empty(2 * l2, dtype=torch.uint8, device="cuda")
+        buf = torch.zeros(2 * l2 // 4, dtype=torch.float32, device="cuda")
+        acc = torch.empty((), dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
@@ -42,7 +47,7 @@ def time_launches(fn: Callable, args: Sequence = (), *, warmup: int = 2,
     events = []
     for _ in range(iters):
         if buf is not None:
-            buf.zero_()
+            torch.sum(buf, 0, out=acc)   # read-only: leaves no dirty line
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Time kernel 1 (uint4 x f16) and kernel 9 (dense nt GEMM) of an earlier
+checkout of bitblas_tpu_torch against this one, on one NVIDIA GPU, in
+turns (earlier, this, this, earlier) within one process.
+
+    python3 scripts/torch_ab_kernels.py --parent DIR
+
+DIR holds an earlier tree's `bitblas_tpu_torch` package (for example
+`git archive <commit> bitblas_tpu_torch | tar -x -C DIR`, DIR a
+git-ignored directory). It is imported beside this tree's package under
+the name `ab_parent`, builds its own kernels into DIR/build, and each
+tree runs its own wrappers on its own untuned routes: kernel 1 on the
+default tile of each M (`default_tile("uint4", M)`), kernel 9 on the tile
+of its dense hint (`tuner.default_hint`). Each time is this tree's
+`utils.timing.measure_kernel` (median of 20 CUDA-event launches, L2
+flushed by a read before each). A one-element fill is timed the same
+way: the floor of any timed launch. One JSON line per row; the card's
+name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def import_tree(name: str, package_dir: str):
+    """Import the package at `package_dir` under `name` (its modules import
+    one another relatively, so they resolve inside it)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(package_dir, "__init__.py"),
+        submodule_search_locations=[package_dir])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", required=True,
+                    help="directory holding an earlier bitblas_tpu_torch")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_ab_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import bitblas_tpu_torch
+    from bitblas_tpu_torch.utils.timing import measure_kernel
+    import_tree("ab_parent", os.path.join(os.path.abspath(args.parent),
+                                          "bitblas_tpu_torch"))
+    trees = {}
+    for key, pkg in (("earlier", "ab_parent"),
+                     ("this", bitblas_tpu_torch.__name__)):
+        trees[key] = {mod: importlib.import_module(f"{pkg}.{path}")
+                      for mod, path in (("build", "kernels.build"),
+                                        ("dq", "kernels.dequant_matmul"),
+                                        ("dense", "kernels.dense"),
+                                        ("spec", "kernels.spec"),
+                                        ("tuner", "tuner"))}
+
+    def emit(obj):
+        print(json.dumps(obj), flush=True)
+
+    def ms(fn):
+        return measure_kernel(fn, (), iters=20) * 1e3
+
+    def turns(fns):
+        return [ms(fns["earlier"]), ms(fns["this"]), ms(fns["this"]),
+                ms(fns["earlier"])]
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    emit({"device": smi})
+    for t in trees.values():
+        t["build"].build(["dequant_matmul", "dense_matmul"])
+    warm = torch.randn((8192, 8192), device="cuda").half()
+    ms(lambda: warm @ warm)
+    del warm
+    one = torch.zeros(1, device="cuda")
+    emit({"row": "timer_floor", "one_element_fill_ms": ms(one.zero_)})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for N, K in ((4096, 4096), (11008, 4096), (4096, 11008)):
+        G = K // 128
+        qw = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8), generator=gen,
+                           device="cuda", dtype=torch.int64).to(torch.int32)
+        sc = (torch.rand((G, N), generator=gen, device="cuda") * 0.01
+              + 0.005).half()
+        zr = torch.randint(0, 16, (G, N), generator=gen,
+                           device="cuda").half()
+        for M in (1, 4, 16):
+            A = torch.randn((M, K), generator=gen, device="cuda").half()
+            ref = trees["this"]["dq"].dequant_matmul_u4_plain(A, qw, sc, zr)
+            fns, row = {}, {"row": "dequant_matmul_u4", "M": M, "N": N,
+                            "K": K}
+            for key, t in trees.items():
+                fns[key] = (lambda dq=t["dq"]: dq.dequant_matmul_u4(
+                    A, qw, sc, zr))
+                out = fns[key]()
+                torch.cuda.synchronize()
+                row[f"{key}_tile"] = list(t["dq"].default_tile("uint4", M))
+                row[f"{key}_max_abs_err"] = (
+                    out.float() - ref.float()).abs().max().item()
+            emit({**row, "ms_earlier_this_this_earlier": turns(fns)})
+    N = K = 4096
+    for name in ("float16", "bfloat16", "int8"):
+        dt = getattr(torch, name)
+        out_dt = torch.int32 if name == "int8" else dt
+
+        def draw(shape):
+            if name == "int8":
+                return torch.randint(-128, 128, shape, generator=gen,
+                                     device="cuda",
+                                     dtype=torch.int64).to(torch.int8)
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        W = draw((N, K))
+        for M in (16, 256, 4096):
+            A = draw((M, K))
+            fns, row = {}, {"row": "dense_matmul", "dtype": name, "M": M,
+                            "N": N, "K": K}
+            for key, t in trees.items():
+                spec = t["spec"].KernelSpec(
+                    m=M, n=N, k=K, a_dtype=name,
+                    out_dtype="int32" if name == "int8" else name,
+                    family="int" if name == "int8" else "fp",
+                    bits=8 * W.element_size(), native=True)
+                tile = t["tuner"].default_hint(
+                    spec, t["tuner"].H100_SXM).tile[:3]
+                fns[key] = (lambda dense=t["dense"], tile=tile:
+                            dense.dense_matmul(A, W, out_dt, tile))
+                row[f"{key}_tile"] = list(tile)
+            emit({**row, "ms_earlier_this_this_earlier": turns(fns)})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

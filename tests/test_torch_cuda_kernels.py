@@ -15,7 +15,12 @@ reserved block 0, a length of 0, block sizes 16 and 128 over permuted
 tables, and K amplified 20x so that a head mix-up cannot hide in a
 near-uniform softmax. The split-KV decode kernels run at a span of 2048
 keys with lengths across several splits (two calls bit-equal, one launch
-a call); the wgmma prefill at S = 64 ... 1024, Hkv = H and H / 4.
+a call); the wgmma prefill at S = 64 ... 1024, Hkv = H and H / 4; the
+decode kernels at head dim 256, GQA groups 12 and 16 (chunks of 8 query
+heads) and on float16 caches; kernel 9's wgmma tiles (f16, bf16, int8
+bit for bit) at M tails and an int8 K tail of 64; kernel 1's split-K
+decode instance at M = 1, 3, 8, 16 and odd N (two calls bit-equal, one
+launch a call, against the split-then-merge plain version too).
 """
 
 import math
@@ -24,10 +29,11 @@ import pytest
 import torch
 
 from bitblas_tpu_torch.kernels.dense import (
-    DENSE_TILES, dense_matmul, dense_matmul_plain)
+    DENSE_TILES, WGMMA_STAGES, dense_matmul, dense_matmul_plain)
 from bitblas_tpu_torch.kernels.dequant_matmul import (
-    FUSED_TILES, decode_i2_hopper, dequant_matmul_i2, dequant_matmul_i2_plain,
-    dequant_matmul_u4, dequant_matmul_u4_plain)
+    FUSED_TILES, U4_DECODE_TILE, decode_i2_hopper, dequant_matmul_i2,
+    dequant_matmul_i2_plain, dequant_matmul_u4, dequant_matmul_u4_plain,
+    dequant_matmul_u4_split_plain, plan_splits_k)
 from bitblas_tpu_torch.kernels.materialize import (
     weight_decode_int8, weight_decode_int8_plain, weight_decode_u4,
     weight_decode_u4_plain)
@@ -477,14 +483,20 @@ def test_dequant_matmul_u4_tiles_match_plain(dev, tile, M):
     sc = (torch.rand((K // 128, N), generator=g, device=dev) * 0.05).half()
     zr = torch.randint(0, 16, (K // 128, N), generator=g, device=dev).half()
     A = torch.randn((M, K), generator=g, device=dev).half()
+    decode_before = dequant_matmul_u4.decode_launches
     out = dequant_matmul_u4(A, qw, sc, zr, tile=tile)
+    assert dequant_matmul_u4.decode_launches == decode_before + int(
+        tile == U4_DECODE_TILE)
     ref = dequant_matmul_u4_plain(A, qw, sc, zr)
     torch.cuda.synchronize()
     # same f16 weights; f32 sums in another order + 1 rounding
     tol = 4e-3 * ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= tol
-    # every tile sums each output over K in the same order: equal
-    assert torch.equal(out, dequant_matmul_u4(A, qw, sc, zr))
+    # every tiled instance sums each output over K in the same order:
+    # equal; the split-K decode instance sums by split, and equals itself
+    same = U4_DECODE_TILE if tile == U4_DECODE_TILE else FUSED_TILES[
+        "uint4"][2]
+    assert torch.equal(out, dequant_matmul_u4(A, qw, sc, zr, tile=same))
 
 
 @pytest.mark.parametrize("tile", FUSED_TILES["int2"])
@@ -516,10 +528,11 @@ _DENSE_OUT = {torch.float16: torch.float16, torch.bfloat16: torch.bfloat16,
 
 
 @pytest.mark.parametrize("tile", DENSE_TILES)
-@pytest.mark.parametrize("M,N,K", [(1, 128, 128), (17, 256, 384),
-                                   (130, 384, 4096)])
+@pytest.mark.parametrize("M,NT,K", [(1, 1, 128), (17, 2, 384),
+                                    (130, 3, 4096)])
 @pytest.mark.parametrize("dtype", list(_DENSE_OUT))
-def test_dense_matmul_matches_plain(dev, dtype, M, N, K, tile):
+def test_dense_matmul_matches_plain(dev, dtype, M, NT, K, tile):
+    N = NT * tile[1]          # one, two and three tiles of N
     g = torch.Generator(device=dev)
     g.manual_seed(M + N + K + tile[0])
     if dtype == torch.int8:
@@ -543,6 +556,11 @@ def test_dense_matmul_matches_plain(dev, dtype, M, N, K, tile):
     else:
         tol = _DENSE_TOL[dtype] * ref.float().abs().max().item()
         assert (out.float() - ref.float()).abs().max().item() <= tol
+    if tile == DENSE_TILES[0] and dtype != torch.float32:
+        # the 16-row tile is float32's; the other types run the hint on
+        # the 64 x 128 wgmma tile
+        assert torch.equal(out, dense_matmul(A, W, out_dtype,
+                                             DENSE_TILES[1]))
 
 
 def test_dense_matmul_refuses_ragged_tiles(dev):
@@ -574,7 +592,14 @@ def test_fast_tune_measures_and_installs_two_buckets(dev, fmt):
         default = Matmul(pm.config, device=dev, enable_tuning=False)
         want = default.forward(A, *W)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (m, pm.hint_for(m))
+        # int2 sums are exact on every route; uint4 routes sum in their own
+        # order (the split-K decode instance by split), so the same route
+        # is equal and another within one f16 rounding of f32 sums
+        if fmt == "int2" or pm.hint_for(m) == default.hint_for(m):
+            assert torch.equal(got, want), (m, pm.hint_for(m))
+        else:
+            tol = 4e-3 * want.float().abs().max().item()
+            assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 def test_fast_tune_raises_when_a_candidate_fails(dev):
@@ -626,3 +651,197 @@ def test_native_matmul_tunes_and_matches_plain(dev, dtype, layout):
         else:
             tol = _DENSE_TOL[dtype] * want.float().abs().max().item()
             assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# -- this slice: kernel 9 on wgmma, kernel 1's split-K decode instance, the
+# widened decode kernels ------------------------------------------------------
+
+@pytest.mark.parametrize("tile", sorted(WGMMA_STAGES))
+@pytest.mark.parametrize("M", [1, 65, 200])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.int8])
+def test_dense_matmul_wgmma_tails(dev, dtype, M, tile):
+    """The wgmma tiles at M tails (TMA's zero fill past M) and K = 192
+    (for int8 a last 128-byte K step half past K, zero-filled): int8 bit
+    for bit, floats within one rounding; two calls bit-equal."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(M + tile[0] + tile[1])
+    N, K = 2 * tile[1], 192
+    if dtype == torch.int8:
+        A, W = (torch.randint(-128, 128, shape, generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int8)
+                for shape in ((M, K), (N, K)))
+    else:
+        A, W = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((M, K), (N, K)))
+    out_dtype = _DENSE_OUT[dtype]
+    before = dense_matmul.launches
+    out = dense_matmul(A, W, out_dtype, tile)
+    again = dense_matmul(A, W, out_dtype, tile)
+    ref = dense_matmul_plain(A, W, out_dtype)
+    torch.cuda.synchronize()
+    assert dense_matmul.launches == before + 2
+    assert torch.equal(out, again)
+    if dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        tol = _DENSE_TOL[dtype] * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _f16_ulps(got, want, floor=2.0 ** -18):
+    """The largest |got - want| in units of want's float16 ulp plus `floor`
+    of the largest |want|: the split-K instance sums each group in the
+    mma's order, so its f32 rounding, about 2^-24 of the largest output,
+    can exceed the f16 ulp of an output near zero."""
+    w = want.double()
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -14)))
+    unit = torch.exp2(e - 10) + floor * w.abs().max()
+    return ((got.double() - w).abs() / unit).max().item()
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 16])
+@pytest.mark.parametrize("N,K", [(136, 2048), (136, 256), (11008, 4096)])
+def test_dequant_matmul_u4_decode_instance(dev, M, N, K):
+    """Kernel 1's split-K decode instance (the default up to M = 16): one
+    launch a call, counted as a decode-instance launch; within 4e-3 of the
+    largest output of the plain version and within one f16 ulp of each
+    output of the split-then-merge plain version (`_f16_ulps`); two calls
+    bit-equal; N = 136 has a ragged last tile, K = 2048 at N = 136 cuts K
+    into 16 splits of one group."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(M * 7 + N + K)
+    qw = _words(g, dev, N, K // 8)
+    sc = (torch.rand((K // 128, N), generator=g, device=dev) * 0.05).half()
+    zr = torch.randint(0, 16, (K // 128, N), generator=g, device=dev).half()
+    A = torch.randn((M, K), generator=g, device=dev).half()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, splits = plan_splits_k(M, N, K, sms)
+    assert splits > 1
+    before = dequant_matmul_u4.launches
+    decode_before = dequant_matmul_u4.decode_launches
+    out = dequant_matmul_u4(A, qw, sc, zr)
+    again = dequant_matmul_u4(A, qw, sc, zr, tile=U4_DECODE_TILE)
+    ref = dequant_matmul_u4_plain(A, qw, sc, zr)
+    split = dequant_matmul_u4_split_plain(A, qw, sc, zr, sms=sms)
+    torch.cuda.synchronize()
+    assert dequant_matmul_u4.launches == before + 2
+    assert dequant_matmul_u4.decode_launches == decode_before + 2
+    assert torch.equal(out, again)            # the merge's fixed order
+    assert torch.isfinite(out).all()
+    tol = 4e-3 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert _f16_ulps(out, split) <= 1
+
+
+def _wide_decode_args(g, dev, kind, D, H, Hkv, dtype):
+    """(wrapper, plain, args) of one decode kernel over LENGTHS at head dim
+    D, H query heads, Hkv KV heads and cache dtype (bf16 or f16 for the
+    float kernels); stale rows NaN (NaN scales for int8), K amplified
+    20x."""
+    B = len(LENGTHS)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    quant = kind.endswith("quant")
+    if kind.startswith("slot"):
+        rows, span = B + 1, 256
+        index = torch.randperm(rows, generator=g, device=dev)[:B].to(
+            torch.int32)
+        shape = (rows, span, Hkv, D)
+    else:
+        bs, MB = 16, 16
+        need = [-(-n // bs) for n in LENGTHS]
+        blocks = 1 + sum(need)
+        perm = torch.randperm(blocks - 1, generator=g, device=dev) + 1
+        index = torch.zeros((B, MB), dtype=torch.int32, device=dev)
+        at = 0
+        for b, n in enumerate(need):
+            index[b, :n] = perm[at:at + n].to(torch.int32)
+            at += n
+        shape = (blocks, bs, Hkv, D)
+    kf = torch.randn(shape, generator=g, device=dev) * 20
+    vf = torch.randn(shape, generator=g, device=dev)
+    if quant:
+        (k, ks), (v, vs) = kv_cache.quantize_kv(kf), kv_cache.quantize_kv(vf)
+        stale = ((k, 127), (v, -128), (ks, float("nan")),
+                 (vs, float("nan")))
+    else:
+        k, v = kf.to(dtype), vf.to(dtype)
+        stale = ((k, float("nan")), (v, float("nan")))
+    for x, val in stale:
+        for b, n in enumerate(LENGTHS):
+            if kind.startswith("slot"):
+                x[index[b], n:] = val
+            else:
+                x[0] = val
+                if n % 16:
+                    x[index[b, n // 16], n % 16:] = val
+    q = torch.randn((B, H, D), generator=g, device=dev).half()
+    table = {
+        "slot": (flash_decode, flash_decode_plain,
+                 lambda: (q, k, v, lengths, index)),
+        "slot_quant": (flash_decode_quant, flash_decode_quant_plain,
+                       lambda: (q, k, v, ks, vs, lengths, index)),
+        "paged": (flash_decode_paged, flash_decode_paged_plain,
+                  lambda: (q, k, v, index, lengths)),
+        "paged_quant": (flash_decode_paged_quant,
+                        flash_decode_paged_quant_plain,
+                        lambda: (q, k, v, ks, vs, index, lengths)),
+    }
+    wrapper, plain, args = table[kind]
+    return wrapper, plain, args()
+
+
+@pytest.mark.parametrize("D,H,Hkv,dtype", [
+    (256, 8, 2, torch.bfloat16), (128, 16, 1, torch.bfloat16),
+    (128, 24, 2, torch.bfloat16), (256, 16, 1, torch.bfloat16),
+    (128, 8, 2, torch.float16), (256, 16, 1, torch.float16)])
+@pytest.mark.parametrize("kind", ["slot", "slot_quant", "paged",
+                                  "paged_quant"])
+def test_flash_decode_wide_shapes(dev, kind, D, H, Hkv, dtype):
+    """The decode kernels at head dim 256, at GQA groups 16 and 12 (chunks
+    of 8 query heads on the grid) and on float16 caches (the int8 kernels
+    take their codes whatever `dtype` says): one launch a call, against
+    the plain version, two calls bit-equal."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(D + H * 3 + Hkv + (dtype == torch.float16))
+    wrapper, plain, args = _wide_decode_args(g, dev, kind, D, H, Hkv, dtype)
+    before = wrapper.launches
+    out = wrapper(*args)
+    _check_decode(out, plain(*args), wrapper, before)
+    assert torch.equal(out, wrapper(*args))
+
+
+def test_decode_attention_routes_wide_shapes_to_the_kernels(dev):
+    """decode_attention and decode_attention_paged at D = 256 and group 16
+    run their kernels on the card (no quiet fallback); a lane-aligned
+    head dim no kernel takes (D = 384) raises on the slot and the paged
+    routes alike."""
+    g = torch.Generator(device=dev)
+    wrapper, plain, args = _wide_decode_args(g, dev, "slot", 256, 16, 1,
+                                             torch.bfloat16)
+    q, k, v, lengths, slots = args
+    before = flash_decode.launches
+    out = kv_cache.decode_attention(q, k, v, slots, lengths, num_heads=16)
+    _check_decode(out, plain(*args), flash_decode, before)
+    wrapper, plain, args = _wide_decode_args(g, dev, "paged", 256, 16, 1,
+                                             torch.bfloat16)
+    q, k, v, tables, lengths = args
+    before = flash_decode_paged.launches
+    out = kv_cache.decode_attention_paged(q, k, v, tables, lengths,
+                                          num_heads=16)
+    _check_decode(out, plain(*args), flash_decode_paged, before)
+    wide = torch.zeros((2, 4, 384), dtype=torch.float16, device=dev)
+    cache = torch.zeros((2, 16, 2, 384), dtype=torch.bfloat16, device=dev)
+    codes = torch.zeros((2, 16, 2, 384), dtype=torch.int8, device=dev)
+    scales = torch.ones((2, 16, 2), dtype=torch.float32, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    tables = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="D=384"):
+        kv_cache.decode_attention(wide, cache, cache, idx, idx, num_heads=4)
+    with pytest.raises(NotImplementedError, match="D=384"):
+        kv_cache.decode_attention_paged(wide, cache, cache, tables, idx,
+                                        num_heads=4)
+    with pytest.raises(NotImplementedError, match="D=384"):
+        kv_cache.decode_attention_paged_quant(wide, codes, codes, scales,
+                                              scales, tables, idx,
+                                              num_heads=4)

@@ -149,6 +149,20 @@ def test_dense_matmul_pallas_rejects_ragged_tiles(n, k):
             spec, TileHint("dense", 16, 128, 128, 0))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_16_row_hint_launches_its_tile(dtype):
+    """The 16-row tile is float32's; a hint of it runs the 64 x 128 wgmma
+    tile for the other types, with that tile's shared memory."""
+    dt = getattr(torch, dtype)
+    small, wgmma = pdense.DENSE_TILES[:2]
+    want = small if dt == torch.float32 else wgmma
+    assert pdense.launched_tile(dt, small) == want
+    assert pdense.dense_smem_bytes(dt, small) == \
+        pdense.dense_smem_bytes(dt, want)
+    for tile in pdense.DENSE_TILES[1:]:
+        assert pdense.launched_tile(dt, tile) == tile
+
+
 def test_dense_matmul_checks_its_arguments():
     A = torch.zeros((4, 256), dtype=torch.float16)
     W = torch.zeros((128, 256), dtype=torch.float16)

@@ -106,7 +106,7 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError):      # head dim
         flash_attention_fwd(y, y, y)
     q = torch.zeros((2, 4, D), dtype=torch.float16)
-    cache = torch.zeros((2, 16, 2, D), dtype=torch.float16)
+    cache = torch.zeros((2, 16, 2, D), dtype=torch.float32)
     idx = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(ValueError):               # cache dtype
+    with pytest.raises(ValueError):               # cache dtype (bf16/f16)
         flash_decode(q, cache, cache, idx, idx)

@@ -38,10 +38,10 @@ U4 = dict(A_dtype="float16", W_dtype="uint4", with_scaling=True,
 I2 = dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
           out_dtype="float32")
 FORMATS = {"uint4": U4, "int2": I2}
-# The tiles the port ran before it had a tuner (csrc/dequant_matmul*.cu's
-# C entries chose them by M): the decode tile up to M = 16, 64 x 128
-# above, the materialize plan from M = 512.
-UNTUNED_SMALL = {"uint4": (16, 32, 128, 6), "int2": (16, 32, 256, 4)}
+# The untuned routing: the decode instance up to M = 16 (for uint4 the
+# split-K instance, which replaced the 16 x 32 tile the port ran before it
+# had a tuner), 64 x 128 above, the materialize plan from M = 512.
+UNTUNED_SMALL = {"uint4": (16, 128, 128, 4), "int2": (16, 32, 256, 4)}
 UNTUNED_LARGE = (64, 128, 128, 3)
 
 
