@@ -18,21 +18,29 @@
 // over 3.35 TB/s; at prefill M the int8 tensor-core rate, 2*M*N*K over
 // 1979 TOP/s.
 //
-// Design: the structure of dequant_matmul.cu. One kernel for every M, a
-// tile over (M, N) chosen by the caller from the compiled instances at the
-// end of this file, and a loop over K in BK-sized steps; a STAGES-deep
-// cp.async ring keeps K slabs of A and of the packed words in flight (at
-// decode M the kernel does little arithmetic, so bytes in flight are what
-// reach the bandwidth). Each step decodes its packed slab once into a
-// shared int8 tile: byte p of a word holds k = 4p..4p+3, which
+// Two designs, chosen by the caller's tile:
+//
+// Decode M (the 16 x 32 x 256 instance, 4 stages; the default up to M =
+// 16): one kernel, a tile over (M, N) and a loop over K in 256-deep steps;
+// a 4-stage cp.async ring keeps K slabs of A and of the packed words in
+// flight (at decode M the kernel does little arithmetic, so bytes in
+// flight are what reach the bandwidth). Each step decodes its packed slab
+// once into a shared int8 tile: byte p of a word holds k = 4p..4p+3, which
 // bbt::decode_i2x4 spreads into four int8 values field - 2 with two masks,
 // a subtract and an XOR. The warps then run mma.sync m16n8k32 (s8 in, s32
 // accumulate). Rows past M, columns past N and K past the end are
 // zero-filled on load (a zero-filled A slab makes the K tail contribute
-// nothing whatever its decoded weights) and masked on store. wgmma, TMA and
-// a split-K small-M variant are left for later work.
+// nothing whatever its decoded weights) and masked on store. A split-K
+// decode path is left for later work.
+//
+// Prefill M (the tiled instances, every call with M > 16 on the default
+// route): the mixed-input wgmma + TMA main loop of dequant_wgmma.cuh,
+// shared with the uint4 x f16 kernel (design and bound written there),
+// the int2 fields decoded in registers straight into wgmma's s8 A
+// fragments.
 
 #include "common.cuh"
+#include "dequant_wgmma.cuh"
 
 namespace {
 
@@ -192,27 +200,21 @@ cudaError_t launch(const int8_t* A, const uint32_t* Wq, float* out, int M,
 
 }  // namespace
 
-// The compiled tile instances, (BM, BN, BK, STAGES) with their warp grid;
-// kernels/dequant_matmul.py FUSED_TILES lists the same four and the tuner
-// (tuner/space.py) picks one per M bucket. 16x32 with 256-deep K slabs
-// keeps bytes in flight at decode M; the taller tiles re-read the packed
-// weight fewer times as M grows (128x128x128, 3 stages: 84 KB).
+// The decode instance (16, 32, 256, 4) on mma.sync and the tiled
+// instances (bbt::dqw::run_tiled lists them); kernels/dequant_matmul.py
+// FUSED_TILES names the same and the tuner (tuner/space.py) picks one per
+// M bucket.
 extern "C" int dequant_matmul_i2(const void* A, const void* Wq, void* out,
                                  int M, int N, int K, int bm, int bn, int bk,
                                  int stages, void* stream) {
   if (K % 64 != 0 || K > 65536 || N % 8 != 0 || M < 1)
     return (int)cudaErrorInvalidValue;
-  auto a = static_cast<const int8_t*>(A);
-  auto w = static_cast<const uint32_t*>(Wq);
-  auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (bm == 16 && bn == 32 && bk == 256 && stages == 4)
-    return (int)launch<16, 32, 256, 1, 4, 4>(a, w, o, M, N, K, st);
-  if (bm == 32 && bn == 64 && bk == 256 && stages == 4)
-    return (int)launch<32, 64, 256, 2, 2, 4>(a, w, o, M, N, K, st);
-  if (bm == 64 && bn == 128 && bk == 128 && stages == 3)
-    return (int)launch<64, 128, 128, 2, 2, 3>(a, w, o, M, N, K, st);
-  if (bm == 128 && bn == 128 && bk == 128 && stages == 3)
-    return (int)launch<128, 128, 128, 2, 4, 3>(a, w, o, M, N, K, st);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch<16, 32, 256, 1, 4, 4>(
+        static_cast<const int8_t*>(A), static_cast<const uint32_t*>(Wq),
+        static_cast<float*>(out), M, N, K, st);
+  return (int)bbt::dqw::run_tiled<bbt::dqw::I2>(A, Wq, nullptr, nullptr, out,
+                                               M, N, K, bm, bn, bk, stages,
+                                               st);
 }

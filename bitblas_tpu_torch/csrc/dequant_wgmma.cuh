@@ -1,0 +1,612 @@
+// The tiled instances of kernel 1 (kernels/dequant_matmul.py FUSED_TILES
+// past the decode instance; every fused call with M > 16 on the default
+// route): one mixed-input wgmma + TMA main loop for both ported formats,
+// instantiated by dequant_matmul.cu (uint4 x f16) and dequant_matmul_i2.cu
+// (int2 x int8).
+//
+// Replaces bitblas_tpu/kernels/dequant_matmul.py:make_dequant_matmul (its
+// pallas_call at :629) at prefill M. What it computes:
+//   uint4 x f16: out[M, N] f16 = A[M, K] f16 . W^T, W[n, k] = (q - z) * s
+//     rounded in f16 exactly as dequantize_hopper / the plain version
+//     decode it (so kernel and plain version differ only in the order of
+//     the f32 sums), f32 accumulation, one rounding to f16;
+//   int2 x int8: out[M, N] f32 = the exact int32 sums of A[M, K] int8 .
+//     (field - 2)^T, converted once (bit for bit the plain version).
+// Operands: the Hopper layout of quantization/packing.py (Wq [N, K/8]
+// int32 uint4 codes or [N, K/16] int32 biased int2 fields, K-packed, LSB
+// first; scales and zeros [K/128, N] f16), A row-major, all 16-byte
+// aligned. No second copy of the weight: the codes are reordered in
+// registers.
+//
+// What bounds it on the H100: at M = 32 ... 64 the weight bytes (N K / 2
+// or N K / 4, plus uint4's scales and zeros) over 3.35 TB/s; from M = 128
+// the tensor cores, 2 M N K over 989 TFLOP/s (f16) or 1979 TOP/s (int8).
+//
+// Design (Machete's orientation): the transposed problem out^T[N, M] =
+// W[N, K] . A[M, K]^T, the decoded weight as wgmma's register operand.
+//   - A block owns BN = 64 WG weight rows and BM tokens. One producer warp
+//     keeps a STAGES-deep ring of TMA boxes, each slot completing on its
+//     full mbarrier: four activation boxes (BM rows x 128 bytes each, 64
+//     f16 or 128 int8 of K, 128-byte swizzled, K-major: wgmma's B operand,
+//     read as kernel 9 reads its W), one packed weight box (BN rows x 128
+//     bytes, the same K, 128-byte swizzled so that the rows a warp reads
+//     hit distinct banks) and, for uint4, the slot's two K groups of scale
+//     and zero rows (BN halves each). A slot covers 256 (uint4) or 512
+//     (int2) of K: a weight box of 32-byte rows made TMA issue one request
+//     for every 32 bytes, and slots that small bounded the kernel at
+//     ~0.5 us a slot whatever its arithmetic. Rows past M or N and a K
+//     tail past the last whole slot (whole activation boxes included) are
+//     TMA's zero fill: zero activations add 0 whatever the weight decodes
+//     to.
+//   - WG consumer warpgroups each own 64 weight rows (wgmma's m side);
+//     tokens are its n side, n = BM, so a bucket of 32 pads nothing. A
+//     slot is four steps, one per activation box, of four wgmma.mma_async
+//     m64nBMk16 (f16) or m64nBMk32 (s8) products whose A operand comes
+//     from registers: thread (g = lane / 4, t = lane % 4) of warp w owns
+//     weight rows 16 w + g and 16 w + g + 8, and product s of step u takes
+//     byte t of the row's words 8 u + 2 s and 8 u + 2 s + 1 (k = 2t, 2t+1
+//     and 2t+8, 2t+9 of a k16 product; 4t..4t+3 and 16+4t.. of a k32
+//     one). It reads only its two rows' 32 bytes of the step from shared
+//     memory and decodes them straight into the fragments:
+//       uint4: __byte_perm puts byte t of word x at byte 0 and byte t of
+//         x >> 4 at byte 2; & 0x000F000F | 0x64006400 is then the f16x2
+//         (1024 + q_lo, 1024 + q_hi) (the 0x6400 magic); less 1024
+//         (exact), less z, times s in f16: (q - z) * s as the plain
+//         version rounds it;
+//       int2: bbt::decode_i2x4 gives the byte's four fields - 2 in int8
+//         lanes, summed exactly in s32.
+//   - The fragments are double-buffered: step u's products stay in flight
+//     while step u + 1 is decoded. Shared-memory loads issue through the
+//     queue the wgmmas issue through, so a step's packed words are read
+//     one step ahead, before the previous step's products are issued
+//     (read after them, the decode waited for those products). A slot is
+//     released once the products of its last step are waited for. uint4
+//     sums each slot in accumulators of its own and adds them to the
+//     running sums in f32 (U4::kPromote).
+//   - Epilogue: each thread stores its accumulators (weight rows r, r + 8,
+//     tokens 8 i + 2 t, + 1) transposed into out[M, N], rows past M and
+//     columns past N masked; for f32 a warp's store fills whole 32-byte
+//     sectors.
+//   - The grid runs the token tiles of one weight tile side by side (x =
+//     M tile), so the packed weight comes from device memory once; the
+//     activation is read again for every weight tile, from L2 (at M = 256
+//     about as many bytes a second as L2 gives: PERF.md).
+
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace bbt {
+namespace dqw {
+
+// -- wgmma with the A operand in registers -----------------------------------
+
+// d (64 x n) = a (64 x k16 f16 / k32 s8, registers: rows g and g + 8 of
+// each warp's 16, k 2t.. / 4t.. and +8 / +16) . b (n x k, shared, K-major,
+// 128-byte swizzle)^T + (scale_d ? d : 0); one overload per n = 32, 64,
+// 128 (d[n / 2]).
+__device__ __forceinline__ void rs_f16(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void rs_f16(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void rs_f16(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void rs_s8(
+    int (&d)[16], const uint32_t (&a)[4], uint64_t db,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void rs_s8(
+    int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void rs_s8(
+    int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// 16 bytes and one half from shared memory at a shared-window address.
+__device__ __forceinline__ void lds128(uint32_t* v, uint32_t addr) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ half lds_half(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return __ushort_as_half(v);
+}
+
+// -- the two formats ---------------------------------------------------------
+
+// Byte t of each of a row's 8 words: one stage's k of that row for this
+// thread, k16 (k32) step s from words 2 s and 2 s + 1.
+struct U4 {
+  using In = half;
+  using Acc = float;
+  using Out = half;
+  static constexpr bool kScaled = true;
+  // A ring slot's products sum in their own accumulators, added to the
+  // running sums in f32 once the slot is done: summed over all of K in the
+  // tensor cores' accumulators, outputs near zero strayed up to 1.3 f16
+  // ulps (plus 2^-18 of the largest output) from the plain version and
+  // from exact sums at K = 11008.
+  static constexpr bool kPromote = true;
+  static constexpr int kStepK = 64;        // K of a 128-byte row of A
+  static constexpr int kWordK = 8;         // K a packed int32 word
+  static constexpr CUtensorMapDataType kAMap =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+
+  // f[4 s + i] for product s: i = 0 (row lo, word 2 s), 1 (row hi, word
+  // 2 s), 2 (row lo, word 2 s + 1), 3 (row hi, word 2 s + 1).
+  __device__ __forceinline__ static void decode(const uint32_t (&lo)[8],
+                                                const uint32_t (&hi)[8],
+                                                int t, half2 s_lo, half2 z_lo,
+                                                half2 s_hi, half2 z_hi,
+                                                uint32_t (&f)[16]) {
+    const half2 k1024 = __float2half2_rn(1024.f);
+    // byte t of x at byte 0 and byte t of x >> 4 at byte 2: the low
+    // nibbles of those bytes are the byte's codes (q_lo, q_hi)
+    const uint32_t sel = t | ((t + 4) << 8);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t x = r ? hi[w] : lo[w];
+        uint32_t m =
+            (__byte_perm(x, x >> 4, sel) & 0x000F000Fu) | 0x64006400u;
+        half2 q = __hsub2(*reinterpret_cast<half2*>(&m), k1024);  // exact
+        q = __hmul2(__hsub2(q, r ? z_hi : z_lo), r ? s_hi : s_lo);
+        f[4 * (w / 2) + 2 * (w % 2) + r] = *reinterpret_cast<uint32_t*>(&q);
+      }
+    }
+  }
+
+  template <int ND>
+  __device__ __forceinline__ static void mma(float (&d)[ND],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    rs_f16(d, a, db, scale_d);
+  }
+
+  __device__ __forceinline__ static Out cvt(float x) {
+    return __float2half_rn(x);
+  }
+};
+
+struct I2 {
+  using In = int8_t;
+  using Acc = int;
+  using Out = float;
+  static constexpr bool kScaled = false;
+  static constexpr bool kPromote = false;   // integer sums are exact
+  static constexpr int kStepK = 128;       // K of a 128-byte row of A
+  static constexpr int kWordK = 16;
+  static constexpr CUtensorMapDataType kAMap = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+
+  __device__ __forceinline__ static void decode(const uint32_t (&lo)[8],
+                                                const uint32_t (&hi)[8],
+                                                int t, half2, half2, half2,
+                                                half2, uint32_t (&f)[16]) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      f[4 * (w / 2) + 2 * (w % 2)] = bbt::decode_i2x4(lo[w] >> (8 * t));
+      f[4 * (w / 2) + 2 * (w % 2) + 1] = bbt::decode_i2x4(hi[w] >> (8 * t));
+    }
+  }
+
+  template <int ND>
+  __device__ __forceinline__ static void mma(int (&d)[ND],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    rs_s8(d, a, db, scale_d);
+  }
+
+  // exact: |sum| <= K * 128 * 2 <= 2^24 for K <= 65536
+  __device__ __forceinline__ static Out cvt(int x) { return (float)x; }
+};
+
+// -- the kernel --------------------------------------------------------------
+
+constexpr int kRowBytes = 128;   // bytes of one row of an A box
+constexpr int kSub = 4;          // A boxes (steps of four products) a stage
+// One weight box row: 128 bytes, 128-byte swizzled, the K of the stage's
+// kSub steps (32 packed bytes a step).
+constexpr int kWRowBytes = kSub * 32;
+
+template <class F, int BM, int WG, int STAGES>
+struct Tiled {
+  static constexpr int BN = 64 * WG;                   // weight rows
+  static constexpr int kConsumers = 128 * WG;
+  static constexpr int kThreads = kConsumers + 32;     // + producer warp
+  static constexpr int kStepK = F::kStepK;             // K of one A box
+  static constexpr int kStageK = kSub * kStepK;
+  static constexpr int kABox = BM * kRowBytes;
+  static constexpr int kABytes = kSub * kABox;
+  static constexpr int kWBytes = BN * kWRowBytes;
+  static constexpr int kGroups = kStageK / 128;        // uint4: 2
+  static constexpr int kSZBytes = F::kScaled ? kGroups * BN * 2 : 0;  // each
+  static constexpr int kLoadBytes = kABytes + kWBytes + 2 * kSZBytes;
+  static constexpr int kStageBytes = (kLoadBytes + 1023) / 1024 * 1024;
+  static constexpr int kSmemBytes =
+      1024 /* alignment */ + STAGES * kStageBytes + 2 * STAGES * 8;
+  // two blocks an SM where registers and shared memory leave room
+  static constexpr int kMinBlocks =
+      BM <= 64 && 2 * kSmemBytes <= 232448 ? 2 : 1;
+};
+
+template <class F, int BM, int WG, int STAGES>
+__global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
+                                  Tiled<F, BM, WG, STAGES>::kMinBlocks)
+    dequant_tiled_kernel(const __grid_constant__ CUtensorMap ta,
+                         const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap ts,
+                         const __grid_constant__ CUtensorMap tz,
+                         typename F::Out* __restrict__ out, int M, int N,
+                         int K) {
+  using T = Tiled<F, BM, WG, STAGES>;
+  using Acc = typename F::Acc;
+  constexpr int ND = BM / 2;   // accumulators a thread
+  static_assert(BM == 32 || BM == 64 || BM == 128, "wgmma n");
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + STAGES * T::kStageBytes);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  // the M tiles of one weight tile are neighbours on the grid, so they run
+  // together and the packed weight comes from device memory once
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * T::BN;
+  // a K tail past the last whole stage is zero-filled (whole A boxes too)
+  const int nk = (K + T::kStageK - 1) / T::kStageK;
+
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], T::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= T::kConsumers) {   // the producer warp: one thread issues
+    if (tid == T::kConsumers) {
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % STAGES;
+        // use u = j / STAGES of a stage waits for the release of use u - 1
+        if (j >= STAGES) mbar_wait(&empty[st], (j / STAGES - 1) & 1);
+        unsigned char* base = smem + st * T::kStageBytes;
+        mbar_expect_tx(&full[st], T::kLoadBytes);
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+          tma_load_2d(base + i * T::kABox, &ta, &full[st],
+                      j * T::kStageK + i * T::kStepK, m0);
+        tma_load_2d(base + T::kABytes, &tw, &full[st],
+                    j * (T::kStageK / F::kWordK), n0);
+        if constexpr (F::kScaled) {
+          unsigned char* sz = base + T::kABytes + T::kWBytes;
+          tma_load_2d(sz, &ts, &full[st], n0, j * T::kGroups);
+          tma_load_2d(sz + T::kSZBytes, &tz, &full[st], n0, j * T::kGroups);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = wg * 64 + warp * 16 + g;   // this thread's weight rows
+  const int r_hi = r_lo + 8;                  // (within the tile)
+  // 16-byte chunk c of weight row r sits at chunk c ^ (r % 8) of its
+  // 128-byte row (the 128-byte swizzle): the rows g of a warp hit
+  // distinct banks
+  const int sw = g;
+  const uint32_t ring = smem_u32(smem);
+
+  // the running sums; with F::kPromote the products go to `part`, one
+  // ring slot at a time
+  constexpr int NP = F::kPromote ? ND : 1;
+  Acc acc[ND], part[NP];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) part[i] = 0;
+  uint32_t fa[16], fb[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) fa[i] = fb[i] = 0u;
+
+  // The packed words of the next step (8 of each row) and its scale and
+  // zero pairs, read from shared memory one step ahead: shared-memory
+  // loads queue behind the wgmmas issued before them, so a step's reads
+  // go out before the previous step's products.
+  uint32_t lo[8], hi[8];
+  half2 s_lo{}, z_lo{}, s_hi{}, z_hi{};
+  auto fetch = [&](uint32_t base, int u) {
+    const uint32_t w = base + T::kABytes;
+    const uint32_t c0 = ((2 * u) ^ sw) << 4, c1 = ((2 * u + 1) ^ sw) << 4;
+    lds128(&lo[0], w + r_lo * kWRowBytes + c0);
+    lds128(&lo[4], w + r_lo * kWRowBytes + c1);
+    lds128(&hi[0], w + r_hi * kWRowBytes + c0);
+    lds128(&hi[4], w + r_hi * kWRowBytes + c1);
+    if constexpr (F::kScaled) {
+      // the step's K group, u * kStepK / 128 of the stage's kGroups rows
+      const uint32_t sz =
+          w + T::kWBytes + (u * T::kStepK / 128) * T::BN * 2 + 2 * r_lo;
+      s_lo = __half2half2(lds_half(sz));
+      s_hi = __half2half2(lds_half(sz + 16));
+      z_lo = __half2half2(lds_half(sz + T::kSZBytes));
+      z_hi = __half2half2(lds_half(sz + T::kSZBytes + 16));
+    }
+  };
+
+  // Step u of stage j (A box u, packed bytes 32 u .. 32 u + 31 of each
+  // weight row): decode the fetched words into `cur`, fetch the next
+  // step's, issue this step's four products, wait for the previous
+  // step's (whose fragments are `prev`); a stage's first step then
+  // releases the previous stage.
+  auto step = [&](int j, int u, uint32_t base, uint32_t (&cur)[16],
+                  uint32_t (&prev)[16]) {
+    F::decode(lo, hi, t, s_lo, z_lo, s_hi, z_hi, cur);
+    if (u + 1 < kSub) {
+      fetch(base, u + 1);
+    } else if (j + 1 < nk) {
+      const int nx = (j + 1) % STAGES;
+      mbar_wait(&full[nx], ((j + 1) / STAGES) & 1);
+      fetch(ring + nx * T::kStageBytes, 0);
+    }
+    if constexpr (F::kPromote) {
+      if (u == 0 && j > 0) {   // the previous slot's sums into acc
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < ND; ++i) acc[i] += part[i];
+      }
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t a[4] = {cur[4 * s], cur[4 * s + 1], cur[4 * s + 2],
+                               cur[4 * s + 3]};
+        // a slot's first product overwrites the previous slot's sums
+        F::mma(part, a, desc_sw128(base + u * T::kABox + s * 32),
+               u != 0 || s != 0);
+      }
+    } else {
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t a[4] = {cur[4 * s], cur[4 * s + 1], cur[4 * s + 2],
+                               cur[4 * s + 3]};
+        F::mma(acc, a, desc_sw128(base + u * T::kABox + s * 32), 1);
+      }
+    }
+    wgmma_commit();
+    // this step's products stay in flight; those of the step before are
+    // done, so its fragments may be overwritten and, at a stage's first
+    // step, the previous stage's slot refilled
+    wgmma_wait<1>();
+    fence_regs(acc);
+    fence_regs(part);
+    keep_regs(prev);
+    if (u == 0 && j > 0) mbar_arrive(&empty[(j - 1) % STAGES]);
+  };
+
+  mbar_wait(&full[0], 0);
+  fetch(ring, 0);
+  for (int j = 0; j < nk; ++j) {
+    const uint32_t base = ring + (j % STAGES) * T::kStageBytes;
+    static_assert(kSub % 2 == 0, "fragments alternate within a stage");
+#pragma unroll
+    for (int u = 0; u < kSub; u += 2) {
+      step(j, u, base, fa, fb);
+      step(j, u + 1, base, fb, fa);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(part);
+  if constexpr (F::kPromote) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] += part[i];
+  }
+  keep_regs(fa);
+  keep_regs(fb);
+
+  // acc[4 i + e]: weight row r_lo + 8 (e / 2), token 8 i + 2 t + e % 2
+  const int n_lo = n0 + r_lo, n_hi = n0 + r_hi;
+#pragma unroll
+  for (int i = 0; i < ND / 4; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + 8 * i + 2 * t + (e & 1);
+      const int n = (e & 2) ? n_hi : n_lo;
+      if (m < M && n < N) out[(size_t)m * N + n] = F::cvt(acc[4 * i + e]);
+    }
+  }
+}
+
+// Launches one instance: A [M, K] (F::In), Wq [N, K / F::kWordK] int32,
+// scales and zeros [K / 128, N] f16 (uint4 only), out [M, N] (F::Out).
+template <class F, int BM, int WG, int STAGES>
+cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
+                         const void* zeros, void* out, int M, int N, int K,
+                         cudaStream_t stream) {
+  using T = Tiled<F, BM, WG, STAGES>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap ta, tw, ts, tz;
+  if (!make_map_2d(encode, &ta, A, F::kAMap, (int)sizeof(typename F::In), M,
+                   K, BM) ||
+      !make_map_2d(encode, &tw, Wq, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, N,
+                   K / F::kWordK, T::BN))
+    return cudaErrorInvalidValue;
+  if constexpr (F::kScaled) {
+    if (!make_map_2d_box(encode, &ts, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                         2, K / 128, N, T::BN, T::kGroups) ||
+        !make_map_2d_box(encode, &tz, zeros, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                         2, K / 128, N, T::BN, T::kGroups))
+      return cudaErrorInvalidValue;
+  } else {
+    ts = tw;   // not read
+    tz = tw;
+  }
+  auto kernel = dequant_tiled_kernel<F, BM, WG, STAGES>;
+  static bool smem_set[kMaxDevices];
+  cudaError_t err = set_max_smem_once(kernel, T::kSmemBytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + BM - 1) / BM, (N + T::BN - 1) / T::BN);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      ta, tw, ts, tz, static_cast<typename F::Out*>(out), M, N, K);
+  return cudaGetLastError();
+}
+
+// The compiled instances, (block_m = BM tokens, block_n = 64 WG weight
+// rows, block_k = the K of a slot, stages): kernels/dequant_matmul.py
+// FUSED_TILES lists the same after each format's decode instance, and
+// fused_smem_bytes gives Tiled<...>::kSmemBytes. 64-row tiles give the
+// down projections (N = 4096) twice the blocks; 128-token tiles decode
+// each weight for twice the tokens. uint4's promoted sums take registers
+// that the two-block 64 x 128 tile and the 128 x 128 tile do not have to
+// spare (they spilled: ptxas gave a 288-thread block at most 168
+// registers a thread): its 64 x 128 tile runs one block an SM with a
+// deeper ring, and it has no 128 x 128 tile.
+template <class F>
+cudaError_t run_tiled(const void* A, const void* Wq, const void* scales,
+                      const void* zeros, void* out, int M, int N, int K,
+                      int bm, int bn, int bk, int stages,
+                      cudaStream_t stream) {
+  if (bk != kSub * F::kStepK) return cudaErrorInvalidValue;
+#define BBT_DQW_TILE(BM, BN, S)                                           \
+  if (bm == BM && bn == BN && stages == S)                                \
+    return launch_tiled<F, BM, BN / 64, S>(A, Wq, scales, zeros, out, M, \
+                                           N, K, stream);
+  BBT_DQW_TILE(32, 64, 4)
+  BBT_DQW_TILE(128, 64, 3)
+  if constexpr (F::kPromote) {
+    BBT_DQW_TILE(64, 128, 4)
+  } else {
+    BBT_DQW_TILE(64, 128, 2)
+    BBT_DQW_TILE(128, 128, 2)
+  }
+#undef BBT_DQW_TILE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace dqw
+}  // namespace bbt

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that load tiles
 // with the Tensor Memory Accelerator and multiply them with wgmma
-// (flash_attention.cu, dense_matmul.cu): mbarriers, TMA tile loads, the
-// host-side tensor-map encoding, wgmma shared-memory descriptors and the
-// wgmma fences.
+// (flash_attention.cu, dense_matmul.cu, dequant_wgmma.cuh): mbarriers, TMA
+// tile loads, the host-side tensor-map encoding, wgmma shared-memory
+// descriptors and the wgmma fences.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums only: nothing links libcuda
@@ -178,6 +178,24 @@ inline bool make_map_2d(EncodeTiled encode, CUtensorMap* map, const void* ptr,
   return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
                 elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major [rows, cols] matrix in unswizzled boxes of `box_rows` rows x
+// `box_cols` elements (box_cols * elem_bytes a multiple of 16, at most 256
+// elements a side); reads past either edge are zero-filled.
+inline bool make_map_2d_box(EncodeTiled encode, CUtensorMap* map,
+                            const void* ptr, CUtensorMapDataType type,
+                            int elem_bytes, long long rows, long long cols,
+                            int box_cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

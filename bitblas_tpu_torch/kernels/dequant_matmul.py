@@ -9,16 +9,24 @@ ported configuration, with the Hopper layout of quantization/packing.py:
 * `dequant_matmul_i2` (BitNet W2A8): ``out[M, N] f32 = A[M, K] int8 @
   (Wq - 2)^T`` with int32 accumulation, Wq [N, K/16] int32 of biased int2
   fields; csrc/dequant_matmul_i2.cu.
+* Both tiled paths: csrc/dequant_wgmma.cuh.
 
 Each kernel is compiled for a small fixed set of tile instances
 (`FUSED_TILES`, (block_m, block_n, block_k, stages)); the caller names one
 (`tile=`, from the Matmul's hint), and `default_tile` is the choice by M
-that the Matmul makes untuned. The first uint4 instance,
-`U4_DECODE_TILE`, is the decode-M design: K split across blocks in whole
-128-groups (`plan_splits_k`, from static sizes only), the weight decoded
-in registers, the f32 partials summed in split order by the last block of
-each tile, one launch a call; `dequant_matmul_u4_split_plain` is that
-arithmetic in plain PyTorch, for the tests. On a CUDA tensor each wrapper
+that the Matmul makes untuned. The first instance of each format is its
+decode-M design: for uint4 `U4_DECODE_TILE`, K split across blocks in
+whole 128-groups (`plan_splits_k`, from static sizes only), the weight
+decoded in registers, the f32 partials summed in split order by the last
+block of each tile, one launch a call (`dequant_matmul_u4_split_plain` is
+that arithmetic in plain PyTorch, for the tests); for int2 a 16 x 32
+mma.sync tile. The others are the tiled instances (block_m tokens x
+block_n weight rows, three uint4 and four int2), one mixed-input wgmma +
+TMA main loop shared by both formats (csrc/dequant_wgmma.cuh): the
+weight decoded in registers straight into wgmma's A operand, the tokens
+on its n side. Each wrapper counts its launches (`launches`), and apart from them
+those of its tiled instances (`tiled_launches`) and, for uint4, of the
+decode instance (`decode_launches`). On a CUDA tensor each wrapper
 launches its kernel (design and bound are written in the source); on a
 CPU tensor it runs the plain version, for which the tile changes nothing.
 """
@@ -39,14 +47,24 @@ _ARGTYPES_DECODE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p]
 _ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # The compiled instances of csrc/dequant_matmul.cu ("uint4") and
-# csrc/dequant_matmul_i2.cu ("int2"), (block_m, block_n, block_k, stages).
+# csrc/dequant_matmul_i2.cu ("int2"), (block_m, block_n, block_k, stages):
+# each format's decode instance, then its tiled instances on the wgmma +
+# TMA loop of csrc/dequant_wgmma.cuh: block_m tokens (wgmma's n), block_n
+# weight rows (a warpgroup each 64), block_k the K of one ring slot (four
+# 128-byte rows of A: 256 f16 or 512 int8), `stages` slots.
 U4_DECODE_TILE = (16, 128, 128, 4)   # split-K, register decode
+I2_DECODE_TILE = (16, 32, 256, 4)    # mma.sync
+WGMMA_BK = {"uint4": 256, "int2": 512}
+# (block_m, block_n, stages); uint4 sums each slot apart (more registers):
+# its 64 x 128 tile runs one block an SM, and it has no 128 x 128 tile
+WGMMA_TILES = {"uint4": ((32, 64, 4), (64, 128, 4), (128, 64, 3)),
+               "int2": ((32, 64, 4), (64, 128, 2), (128, 64, 3),
+                        (128, 128, 2))}
 FUSED_TILES = {
-    "uint4": (U4_DECODE_TILE, (32, 64, 128, 4), (64, 128, 128, 3),
-              (128, 128, 128, 3)),
-    "int2": ((16, 32, 256, 4), (32, 64, 256, 4), (64, 128, 128, 3),
-             (128, 128, 128, 3)),
-}
+    fmt: (decode,) + tuple((bm, bn, WGMMA_BK[fmt], stages)
+                           for bm, bn, stages in WGMMA_TILES[fmt])
+    for fmt, decode in (("uint4", U4_DECODE_TILE),
+                        ("int2", I2_DECODE_TILE))}
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
 # The decode instance: 128 weight rows a block, A tiles of 16 rows, at most
@@ -61,8 +79,14 @@ H100_SMS = 132
 
 def default_tile(fmt: str, m: int):
     """The untuned instance at M = m: the decode instance up to 16 rows,
-    where the weight bytes bound the kernel, the 64 x 128 tile above."""
+    where the weight bytes bound the kernel, the 64-token x 128-row wgmma
+    tile above."""
     return FUSED_TILES[fmt][0] if m <= 16 else FUSED_TILES[fmt][2]
+
+
+def is_tiled(fmt: str, tile) -> bool:
+    """Whether `tile` is one of the format's wgmma + TMA instances."""
+    return tuple(tile) in FUSED_TILES[fmt][1:]
 
 
 def plan_splits_k(m: int, n: int, k: int, sms: int = H100_SMS):
@@ -85,21 +109,24 @@ def plan_splits_k(m: int, n: int, k: int, sms: int = H100_SMS):
 
 
 def fused_smem_bytes(fmt: str, tile) -> int:
-    """Dynamic shared memory one block of the instance takes (the Tile
-    structs of the two sources): STAGES slabs of A, packed W (and the
-    uint4 kernel's scale and zero rows), plus the decoded W tile; for the
-    decode instance its largest size, A and its group sums over 8 groups
-    (16 rows) and the per-thread ring of weight chunks and scale / zero
-    pairs."""
+    """Dynamic shared memory one block of the instance takes (the sources'
+    own sizes). The wgmma + TMA instances (dequant_wgmma.cuh Tiled): 1024
+    bytes of alignment, STAGES ring slots of A (four boxes of block_m rows
+    x 128 bytes), the packed weight (block_n rows x 128 bytes) and, for
+    uint4, the slot's two scale and two zero rows (block_n halves each),
+    each slot rounded up to 1024 bytes, and two mbarriers a slot. The
+    uint4 decode instance: its largest size, A and its group sums over 8
+    groups (16 rows) and the per-thread ring of weight chunks and scale /
+    zero pairs. The int2 decode instance (dequant_matmul_i2.cu Tile):
+    STAGES slabs of A and packed W, plus the decoded int8 tile."""
     bm, bn, bk, stages = tile
-    if fmt == "uint4" and tuple(tile) == U4_DECODE_TILE:
+    if is_tiled(fmt, tile):
+        load = 4 * bm * 128 + bn * 128 + (8 * bn if fmt == "uint4" else 0)
+        return 1024 + stages * -(-load // 1024) * 1024 + 2 * stages * 8
+    if fmt == "uint4":
         threads = bn // 16 * 32
         return DECODE_MAX_CHUNK * bm * (bk * 2 + 4) + stages * threads * (
             2 * 16 + 2 * 4)
-    if fmt == "uint4":
-        lda = bk + 8                      # halves
-        stage = bm * lda * 2 + bn * bk // 8 * 4 + 2 * bn * 2
-        return stages * stage + bn * lda * 2
     lds = bk + 16                         # bytes
     return stages * (bm * lds + bn * bk // 16 * 4) + bn * lds
 
@@ -228,12 +255,16 @@ def dequant_matmul_u4(A: torch.Tensor, qweight: torch.Tensor,
     dequant_matmul_u4.launches += 1
     if tile == U4_DECODE_TILE:
         dequant_matmul_u4.decode_launches += 1
+    else:
+        dequant_matmul_u4.tiled_launches += 1
     return out
 
 
 dequant_matmul_u4.launches = 0
-# the launches of the split-K decode instance among them
+# among them, the launches of the split-K decode instance and those of the
+# wgmma + TMA tiled instances
 dequant_matmul_u4.decode_launches = 0
+dequant_matmul_u4.tiled_launches = 0
 
 
 def decode_i2_hopper(qweight: torch.Tensor) -> torch.Tensor:
@@ -296,7 +327,11 @@ def dequant_matmul_i2(A: torch.Tensor, qweight: torch.Tensor,
                  *tile, torch.cuda.current_stream().cuda_stream)
     build.check(err, "dequant_matmul_i2")
     dequant_matmul_i2.launches += 1
+    if tile != I2_DECODE_TILE:
+        dequant_matmul_i2.tiled_launches += 1
     return out
 
 
 dequant_matmul_i2.launches = 0
+# among them, the launches of the wgmma + TMA tiled instances
+dequant_matmul_i2.tiled_launches = 0

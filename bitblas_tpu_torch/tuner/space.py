@@ -4,17 +4,19 @@ bitblas_tpu/tuner/space.py).
 The space of a quantized spec is what the port's kernels can vary: the
 compiled tile instances of the fused dequant-GEMM kernel
 (kernels/dequant_matmul.FUSED_TILES) and, from the 256 bucket, the
-two-pass materialize plan. JAX offers materialize from M = 512; on the
-H100 the plan measured ahead of the fused kernel already at M = 256
-(PERF.md, route table), so the port offers it there and the measured
-tuner decides. A native spec has one "dense" hint, as in JAX, where
-hints do not change the dense product.
+two-pass materialize plan. JAX offers materialize from M = 512. On the
+H100 (PERF.md, route table) the fused kernel's wgmma + TMA tiles beat
+the plan at M = 256 in both formats and, for int2 x int8, up to M =
+2048; for uint4 x f16 the plan wins from M = 512. The port offers the
+plan from the 256 bucket and the measured tuner decides. A native spec
+has one "dense" hint, as in JAX, where hints do not change the dense
+product.
 
 `default_hint` is the untuned choice and reproduces the routing the port
 had before it had a tuner: the fused kernel below M = 512 with
 `default_tile` by M (the decode instance up to 16 rows, for uint4 the
-split-K one, 64 x 128 above),
-the materialize plan from M = 512 (`MATERIALIZE_MIN_M`, JAX's bound).
+split-K one, the 64-token x 128-row wgmma tile above), the materialize
+plan from M = 512 (`MATERIALIZE_MIN_M`, JAX's bound).
 `roofline_seconds` is the least time the card could take for the plan's
 work: the larger of its bytes (each input read once, each output written
 once; the materialize plan also writes and reads its decoded weight) over

@@ -23,9 +23,12 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                flash_attention_fwd (S = 512) and flash_decode also run at
                BitNet's heads (H = 32, Hkv = 8); the attention rows time
                a contiguous read of the same bytes (stream_ms).
-               Kernel 1 uint4 runs at M = 1 / 4 / 16 (the split-K decode
-               instance) and 256 / 512; the rows of kernels 1, 2, 3 and 9
-               time a contiguous read of their bytes too (stream_ms).
+               Kernel 1 runs at M = 1 / 4 / 16 (uint4: the split-K decode
+               instance; int2 at 1 / 4: its decode instance) and 32 / 64 /
+               128 / 256 / 512 (the wgmma + TMA tiled instance of the
+               default route, both formats); the rows of kernels 1, 2, 3
+               and 9 time a contiguous read of their bytes too
+               (stream_ms).
                Then the route table: the fused kernel against the
                materialize plan (decode kernel + library product) at M =
                256 / 512 / 2048, uint4 x f16 and int2 x int8. Then kernel
@@ -39,6 +42,8 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                (timer_floor).
 3b. edges   -- untimed: kernel 9 at every tile, type and M tail; kernel
                1's decode instance at M = 1 / 3 / 8 / 16 over a ragged N;
+               kernel 1's tiled instances, both formats, at M tails over a
+               ragged N and K tails;
                the decode kernels at head dim 256, GQA groups 16 and 12
                and on float16 caches; each against its plain version, two
                calls bit-equal.
@@ -83,8 +88,11 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                call, one weight decode a "materialize" call, and as many
                launches of kernel 1's uint4 split-K decode instance
                (dequant_matmul_u4.decode_launches) as uint4 calls of M <=
-               16. A profile of 5 decode steps follows each token-engine
-               phase.
+               16, and as many launches of its wgmma + TMA tiled instances
+               (dequant_matmul_{u4,i2}.tiled_launches) as fused calls
+               whose hint names one: on untuned operators, the fused calls
+               with M > 16. A profile of 5 decode steps follows each
+               token-engine phase.
 6. tune     -- the distinct Matmul configurations of both serving models
                at full width (W4A16: 3 shapes, buckets 1/16/256; W2A8: 4
                shapes, buckets 1/16/32/64/128/256) tuned through the global
@@ -152,18 +160,22 @@ def f16_ulps(torch, got, want) -> float:
     SPLIT_ULP_FLOOR of the largest |want|): at most 1 when got is within
     one f16 ulp of each output."""
     w = want.double()
-    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -14)))
+    # floor(log2 |w|) exactly (log2 of a power of two can fall a hair
+    # short, halving that output's unit), at least float16's -14
+    e = (torch.frexp(w.abs().clamp_min(2.0 ** -14))[1] - 1).double()
     unit = torch.exp2(e - 10) + SPLIT_ULP_FLOOR * w.abs().max()
     return ((got.double() - w).abs() / unit).max().item()
 
 
 def check_dequant(torch, flush):
     """Kernel 1 uint4 x f16 at Llama-2-7B's W4A16 shapes, M = 1 / 4 / 16
-    (the split-K decode instance: also two calls bit-equal and within one
-    f16 ulp of each output of the split-then-merge plain version,
-    `f16_ulps`) and 256 / 512 (the 64 x 128 instance), on the default
-    tile of each M; all within 4e-3 of the largest output of the
-    single-pass plain version."""
+    (the split-K decode instance: within one f16 ulp of each output of the
+    split-then-merge plain version, `f16_ulps`) and 32 / 64 / 128 / 256 /
+    512 (the default wgmma + TMA tile, 64 tokens x 128 weight rows: it
+    decodes the plain version's f16 weights bit for bit, so within one f16
+    ulp of each output of the single-pass plain version), on the default
+    tile of each M; every row two calls bit-equal and within 4e-3 of the
+    largest output of the single-pass plain version."""
     from bitblas_tpu_torch.kernels.dequant_matmul import (
         default_tile, dequant_matmul_u4, dequant_matmul_u4_plain,
         dequant_matmul_u4_split_plain, dequantize_hopper, plan_splits_k)
@@ -180,21 +192,27 @@ def check_dequant(torch, flush):
         zr = torch.randint(0, 16, (G, N), generator=gen,
                            device="cuda").half()
         Wd = dequantize_hopper(qw, sc, zr)
-        for M in (1, 4, 16, 256, 512):
+        for M in (1, 4, 16, 32, 64, 128, 256, 512):
             A = torch.randn((M, K), generator=gen, device="cuda").half()
             out = dequant_matmul_u4(A, qw, sc, zr)
             ref = dequant_matmul_u4_plain(A, qw, sc, zr)
-            split_ulps = None
+            if not torch.equal(out, dequant_matmul_u4(A, qw, sc, zr)):
+                raise AssertionError(f"dequant M={M} N={N} K={K}: two "
+                                     f"calls differ")
+            split_ulps = tiled_ulps = None
             if M <= 16:
                 split = dequant_matmul_u4_split_plain(A, qw, sc, zr, sms=sms)
-                if not torch.equal(out, dequant_matmul_u4(A, qw, sc, zr)):
-                    raise AssertionError(f"dequant M={M} N={N} K={K}: two "
-                                         f"calls differ")
                 split_ulps = f16_ulps(torch, out, split)
                 if not split_ulps <= 1:
                     raise AssertionError(
                         f"dequant M={M} N={N} K={K}: {split_ulps} f16 ulps "
                         f"from the split plain version")
+            else:
+                tiled_ulps = f16_ulps(torch, out, ref)
+                if not tiled_ulps <= 1:
+                    raise AssertionError(
+                        f"dequant M={M} N={N} K={K}: {tiled_ulps} f16 ulps "
+                        f"from the plain version")
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
@@ -215,7 +233,7 @@ def check_dequant(torch, flush):
                 "splits": plan_splits_k(M, N, K, sms) if M <= 16 else None,
                 "max_abs_err": err,
                 "max_rel_err": err / max(scale, 1e-30), "tol": tol,
-                "split_ulps": split_ulps,
+                "split_ulps": split_ulps, "tiled_ulps": tiled_ulps,
                 "kernel_ms": time_ms(torch, lambda: dequant_matmul_u4(
                     A, qw, sc, zr), 20, flush),
                 "plain_ms": time_ms(torch, lambda: dequant_matmul_u4_plain(
@@ -263,13 +281,17 @@ BITNET_SHAPES = ((14336, 4096), (4096, 14336))   # gate/up, down
 
 
 def check_dequant_i2(torch, flush):
-    """The W2A8 kernel at BitNet's MLP shapes. The yardstick is one
-    library product on the pre-decoded weight: torch._int_mm on int8
-    where it takes the shape (M > 16), else torch.matmul on float32
-    copies (exact: |sum| <= K * 256 < 2^24, and TF32 is off by default);
-    it must equal the plain version too."""
+    """The W2A8 kernel at BitNet's MLP shapes, M = 1 / 4 (the decode
+    instance) and 32 / 64 / 128 / 256 / 512 (the default wgmma + TMA
+    tile), on the default tile of each M: bit-equal to the plain version,
+    two calls bit-equal. The yardstick is one library product on the
+    pre-decoded weight: torch._int_mm on int8 where it takes the shape
+    (M > 16), else torch.matmul on float32 copies (exact: |sum| <= K *
+    256 < 2^24, and TF32 is off by default); it must equal the plain
+    version too."""
     from bitblas_tpu_torch.kernels.dequant_matmul import (
-        decode_i2_hopper, dequant_matmul_i2, dequant_matmul_i2_plain)
+        decode_i2_hopper, default_tile, dequant_matmul_i2,
+        dequant_matmul_i2_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     rows = []
@@ -277,9 +299,13 @@ def check_dequant_i2(torch, flush):
         qw = _words(torch, gen, (N, K // 16))
         Wi = decode_i2_hopper(qw)
         Wf = Wi.float()
-        for M in (1, 4, 256):
+        for M in (1, 4, 32, 64, 128, 256, 512):
             A = _int8(torch, gen, (M, K))
             ref = dequant_matmul_i2_plain(A, qw)
+            out = dequant_matmul_i2(A, qw)
+            if not torch.equal(out, dequant_matmul_i2(A, qw)):
+                raise AssertionError(f"dequant_i2 M={M} N={N} K={K}: two "
+                                     f"calls differ")
             if M > 16:
                 lib_name, lib = "torch._int_mm", lambda: torch._int_mm(
                     A, Wi.T)
@@ -293,8 +319,9 @@ def check_dequant_i2(torch, flush):
             nbytes = M * K + N * K / 4 + M * N * 4
             b_ms, b_by = bound(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
             rows.append(_exact_row(
-                torch, "dequant_matmul_i2", dequant_matmul_i2(A, qw), ref,
-                {"M": M, "N": N, "K": K, "bound_ms": b_ms,
+                torch, "dequant_matmul_i2", out, ref,
+                {"M": M, "N": N, "K": K,
+                 "tile": list(default_tile("int2", M)), "bound_ms": b_ms,
                  "bound_by": b_by, "library": lib_name},
                 {"kernel_ms": (lambda: dequant_matmul_i2(A, qw), 20),
                  "plain_ms": (lambda: dequant_matmul_i2_plain(A, qw), 3),
@@ -521,14 +548,18 @@ def check_edges(torch):
     bit-equal; kernel 1's decode instance at M = 1 / 3 / 8 / 16, N = 136
     (a ragged tile), K = 2048 (16 splits) against both plain versions
     (the split one within one f16 ulp of each output), two calls
-    bit-equal; the decode kernels at head dim 256, GQA groups
-    16 and 12 and on float16 caches against their plain versions (K
-    amplified 20x), two calls bit-equal."""
+    bit-equal; kernel 1's wgmma + TMA tiled instances, both formats, at
+    M = 1 / 33 / 100 / 130, N = 192, uint4 K = 384 and int2 K = 4160
+    against the plain version (uint4 within one f16 ulp of each output,
+    int2 bit for bit), two calls bit-equal; the decode kernels at head
+    dim 256, GQA groups 16 and 12 and on float16 caches against their
+    plain versions (K amplified 20x), two calls bit-equal."""
     from bitblas_tpu_torch.kernels import flash
     from bitblas_tpu_torch.kernels.dense import (DENSE_TILES, WGMMA_STAGES,
                                                  dense_matmul,
                                                  dense_matmul_plain)
     from bitblas_tpu_torch.kernels.dequant_matmul import (
+        FUSED_TILES, dequant_matmul_i2, dequant_matmul_i2_plain,
         dequant_matmul_u4, dequant_matmul_u4_plain,
         dequant_matmul_u4_split_plain)
     from bitblas_tpu_torch.serving.kv_cache import quantize_kv
@@ -591,6 +622,43 @@ def check_edges(torch):
              4e-3 * ref.float().abs().max().item(), out)
         held(f"dequant_matmul_u4_split M={M}", f16_ulps(torch, out, split),
              1.0)
+    n_tiled = 0
+    # the wgmma + TMA tiled instances: M tails of every token tile, N =
+    # 192 (a ragged 128-row tile), uint4 K = 384 (the last ring slot's
+    # second K group zero-filled) and int2 K = 4160 (a tail of 64 past the
+    # last whole 512, three of that slot's four A boxes wholly past K)
+    for fmt, K in (("uint4", 384), ("int2", 4160)):
+        N = 192
+        if fmt == "uint4":
+            qw = _words(torch, gen, (N, K // 8))
+            sc = (torch.rand((K // 128, N), generator=gen, device="cuda")
+                  * 0.05).half()
+            zr = torch.randint(0, 16, (K // 128, N), generator=gen,
+                               device="cuda").half()
+        else:
+            qw = _words(torch, gen, (N, K // 16))
+        for tile in FUSED_TILES[fmt][1:]:
+            for M in (1, 33, 100, 130):
+                if fmt == "uint4":
+                    A = torch.randn((M, K), generator=gen,
+                                    device="cuda").half()
+                    out = dequant_matmul_u4(A, qw, sc, zr, tile=tile)
+                    again = dequant_matmul_u4(A, qw, sc, zr, tile=tile)
+                    ref = dequant_matmul_u4_plain(A, qw, sc, zr)
+                else:
+                    A = _int8(torch, gen, (M, K))
+                    out = dequant_matmul_i2(A, qw, tile=tile)
+                    again = dequant_matmul_i2(A, qw, tile=tile)
+                    ref = dequant_matmul_i2_plain(A, qw)
+                torch.cuda.synchronize()
+                name = f"dequant_matmul_{fmt}_tiled {tile} M={M}"
+                if not torch.equal(out, again):
+                    raise AssertionError(f"edges {name}: two calls differ")
+                if fmt == "uint4":
+                    held(name, f16_ulps(torch, out, ref), 1.0, out)
+                else:
+                    held(name, (out - ref).abs().max().item(), 0.0, out)
+                n_tiled += 1
     n_decode = 0
     lengths_ = (0, 1, 37, 64, 65, 200)
     B = len(lengths_)
@@ -658,7 +726,7 @@ def check_edges(torch):
                      1e-2, out)
                 n_decode += 1
     row = {"phase": "edges", "dense_cases": n_dense, "dequant_cases": 4,
-           "decode_cases": n_decode,
+           "dequant_tiled_cases": n_tiled, "decode_cases": n_decode,
            "worst_err_over_tol": worst}
     emit(row)
     return row
@@ -1443,11 +1511,14 @@ def serving_model(torch, family: str = "llama"):
             "weight_bytes": packed}
 
 
-# the launch count of kernel 1's uint4 split-K decode instance, beside the
-# kernels' own counts (dequant_matmul_u4.decode_launches)
+# the launch counts of kernel 1's uint4 split-K decode instance and of its
+# wgmma + TMA tiled instances (both formats), beside the kernels' own
+# counts (dequant_matmul_u4.decode_launches, .tiled_launches)
 U4_DECODE = "dequant_matmul_u4_decode"
+TILED = {"uint4": "dequant_matmul_u4_tiled", "int2": "dequant_matmul_i2_tiled"}
 # phase -> (engine, engine options, the kernels its path must launch)
-LLAMA = ("dequant_matmul_u4", "weight_decode_u4", "flash_attention_fwd")
+LLAMA = ("dequant_matmul_u4", TILED["uint4"], "weight_decode_u4",
+         "flash_attention_fwd")
 SERVE_PHASES = (
     ("serve", "token", {}, LLAMA + ("flash_decode",)),
     ("serve_kv_quant", "token", {"kv_quant": True},
@@ -1457,7 +1528,7 @@ SERVE_PHASES = (
      LLAMA + ("flash_decode_paged_quant",)),
 )
 BITNET_PHASE = ("serve_bitnet", "token", {},
-                ("dequant_matmul_i2", "weight_decode_int8",
+                ("dequant_matmul_i2", TILED["int2"], "weight_decode_int8",
                  "flash_attention_fwd", "flash_decode"))
 # serve_bitnet_tuned's GEMM kernels are the routes the database chose
 # (checked against the recorded routes); the attention kernels are fixed
@@ -1471,8 +1542,10 @@ class RouteRecorder:
     by weight format, while installed, so a serve phase can check that
     the GEMM kernels launched exactly as the operators' hints route: one
     fused-kernel launch per "fused" call, one weight decode per
-    "materialize" call, and every uint4 call of M <= 16 (the decode
-    projections) on kernel 1's split-K decode instance."""
+    "materialize" call, every uint4 call of M <= 16 (the decode
+    projections) on kernel 1's split-K decode instance, and one launch of
+    a wgmma + TMA tiled instance per fused call whose hint names one; on
+    untuned operators those are the fused calls with M > 16."""
 
     def __init__(self):
         from bitblas_tpu_torch.ops.matmul import Matmul
@@ -1481,6 +1554,7 @@ class RouteRecorder:
         self.by_hint = {}
 
     def __enter__(self):
+        from bitblas_tpu_torch.kernels.dequant_matmul import is_tiled
         orig, calls, by_hint = self.orig, self.calls, self.by_hint
 
         def recording(op, A, W, *args, **kw):
@@ -1490,6 +1564,11 @@ class RouteRecorder:
             keys = [f"{fmt} {hint.decode_mode}"]
             if fmt == "uint4" and m <= 16:
                 keys.append("uint4 M<=16")
+            if hint.decode_mode == "fused":
+                if is_tiled(fmt, hint.tile):
+                    keys.append(f"{fmt} tiled")
+                if m > 16:
+                    keys.append(f"{fmt} fused M>16")
             for key in keys:
                 calls[key] = calls.get(key, 0) + 1
             by_hint[hint.short_name()] = by_hint.get(hint.short_name(),
@@ -1506,17 +1585,23 @@ class RouteRecorder:
         self.calls.clear()
         self.by_hint.clear()
 
-    def check(self, phase, launches):
+    def check(self, phase, launches, untuned: bool):
         c = self.calls
         want = {"dequant_matmul_i2": c.get("int2 fused", 0),
                 "weight_decode_int8": c.get("int2 materialize", 0),
                 "dequant_matmul_u4": c.get("uint4 fused", 0),
                 "weight_decode_u4": c.get("uint4 materialize", 0),
-                U4_DECODE: c.get("uint4 M<=16", 0)}
+                U4_DECODE: c.get("uint4 M<=16", 0),
+                **{name: c.get(f"{fmt} tiled", 0)
+                   for fmt, name in TILED.items()}}
         got = {k: launches[k] for k in want}
         if got != want:
             raise AssertionError(f"{phase}: GEMM launches {got} differ from "
                                  f"the routes of the hints {self.calls}")
+        if untuned and any(launches[name] != c.get(f"{fmt} fused M>16", 0)
+                           for fmt, name in TILED.items()):
+            raise AssertionError(f"{phase}: tiled launches {got} differ from "
+                                 f"the fused calls with M > 16 {self.calls}")
         return {"routes": dict(self.calls), "hints": dict(self.by_hint)}
 
 
@@ -1561,7 +1646,8 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     for c in counters:
         c.launches = 0
     u4 = next(c for c in counters if c.__name__ == "dequant_matmul_u4")
-    u4.decode_launches = 0
+    i2 = next(c for c in counters if c.__name__ == "dequant_matmul_i2")
+    u4.decode_launches = u4.tiled_launches = i2.tiled_launches = 0
     if routes is not None:
         routes.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1582,6 +1668,8 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     launches[U4_DECODE] = u4.decode_launches
+    launches[TILED["uint4"]] = u4.tiled_launches
+    launches[TILED["int2"]] = i2.tiled_launches
     peak = torch.cuda.max_memory_allocated()
 
     if not all(r.done and r.generated == MAX_NEW for r in reqs):
@@ -1595,7 +1683,9 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     if min(launches[k] for k in expect) <= 0:
         raise AssertionError(f"{phase}: a kernel was not launched: "
                              f"{launches}")
-    route_row = routes.check(phase, launches) if routes is not None else {}
+    route_row = (routes.check(phase, launches,
+                              untuned=phase != BITNET_TUNED_PHASE[0])
+                 if routes is not None else {})
     pure = [(dt, n) for dt, adm, n in steps if adm == 0]
     step_s = sum(dt for dt, _ in pure) / max(len(pure), 1)
     adm = [(dt, a) for dt, a, _ in steps if a > 0]
@@ -1880,6 +1970,7 @@ def main() -> int:
 
     launches = {c.__name__: 0 for c in counters}
     launches[U4_DECODE] = 0
+    launches.update({name: 0 for name in TILED.values()})
 
     def run(ctx, phase, routes=None):
         row = serve(torch, ctx, counters, *phase, routes=routes)
@@ -1929,12 +2020,22 @@ def main() -> int:
                     if all(r[k] == v for k, v in where.items()))
 
     lens = "lengths 1/37/513/1024"
+    dq_decode = [r for r in dq if r["M"] <= 16]
+    di2_decode = [r for r in di2 if r["M"] <= 16]
     summary = [
         ("dequant_matmul_u4", "dequant_matmul.cu", "dequant_matmul.py:231",
-         dq, pick(dq, M=4, N=11008, K=4096), "M=4 N=11008 K=4096"),
+         dq_decode, pick(dq, M=4, N=11008, K=4096), "M=4 N=11008 K=4096"),
+        # kernel 1's wgmma + TMA tiled instances, launched by the same two
+        # wrappers, counted apart (tiled_launches)
+        (TILED["uint4"], "dequant_wgmma.cuh", "dequant_matmul.py:231",
+         [r for r in dq if r["M"] > 16], pick(dq, M=256, N=11008, K=4096),
+         "M=256 N=11008 K=4096 uint4 x f16, 64 x 128 tile"),
         ("dequant_matmul_i2", "dequant_matmul_i2.cu",
-         "dequant_matmul.py:231", di2, pick(di2, M=4, N=14336, K=4096),
-         "M=4 N=14336 K=4096 int2 x int8"),
+         "dequant_matmul.py:231", di2_decode,
+         pick(di2, M=4, N=14336, K=4096), "M=4 N=14336 K=4096 int2 x int8"),
+        (TILED["int2"], "dequant_wgmma.cuh", "dequant_matmul.py:231",
+         [r for r in di2 if r["M"] > 16], pick(di2, M=256, N=14336, K=4096),
+         "M=256 N=14336 K=4096 int2 x int8, 64 x 128 tile"),
         ("weight_decode_u4", "weight_decode.cu", "materialize.py:227",
          wd_u4, pick(wd_u4, N=11008, K=4096), "N=11008 K=4096 uint4 -> f16"),
         ("weight_decode_int8", "weight_decode_int8.cu", "materialize.py:398",
@@ -1963,8 +2064,11 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "shape": shape,
         **{k: row[k] for k in ("gather_ms", "stream_ms") if k in row},
-        **({"decode_launches": launches[U4_DECODE]}
-           if name == "dequant_matmul_u4" else {})}
+        **({"decode_launches": launches[U4_DECODE],
+            "tiled_launches": launches[TILED["uint4"]]}
+           if name == "dequant_matmul_u4" else {}),
+        **({"tiled_launches": launches[TILED["int2"]]}
+           if name == "dequant_matmul_i2" else {})}
         for name, src, rep, rows, row, shape in summary]
     emit({"kernels": kernels})
     print(smi, flush=True)

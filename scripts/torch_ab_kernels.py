@@ -1,21 +1,39 @@
 #!/usr/bin/env python3
-"""Time kernel 1 (uint4 x f16) and kernel 9 (dense nt GEMM) of an earlier
-checkout of bitblas_tpu_torch against this one, on one NVIDIA GPU, in
-turns (earlier, this, this, earlier) within one process.
+"""Time kernel 1 (uint4 x f16 and int2 x int8) and kernel 9 (dense nt
+GEMM) of an earlier checkout of bitblas_tpu_torch against this one, on one
+NVIDIA GPU, in turns (earlier, this, this, earlier) within one process.
 
-    python3 scripts/torch_ab_kernels.py --parent DIR
+    python3 scripts/torch_ab_kernels.py --parent DIR [--only-parent]
+                                        [--kernels all|tiled]
 
 DIR holds an earlier tree's `bitblas_tpu_torch` package (for example
 `git archive <commit> bitblas_tpu_torch | tar -x -C DIR`, DIR a
 git-ignored directory). It is imported beside this tree's package under
 the name `ab_parent`, builds its own kernels into DIR/build, and each
 tree runs its own wrappers on its own untuned routes: kernel 1 on the
-default tile of each M (`default_tile("uint4", M)`), kernel 9 on the tile
-of its dense hint (`tuner.default_hint`). Each time is this tree's
-`utils.timing.measure_kernel` (median of 20 CUDA-event launches, L2
-flushed by a read before each). A one-element fill is timed the same
-way: the floor of any timed launch. One JSON line per row; the card's
-name and power limit first.
+default tile of each M (`default_tile(fmt, M)`), kernel 9 on the tile of
+its dense hint (`tuner.default_hint`). Rows:
+
+* `dequant_matmul_u4` at M = 1 / 4 / 16 (the decode instance) on
+  Llama-2-7B's three W4A16 shapes;
+* `dequant_matmul_u4_tiled` and `dequant_matmul_i2_tiled`: kernel 1's
+  tiled instances at M = 32 / 64 / 128 / 256 / 512 on the models' MLP
+  shapes (uint4 11008 x 4096 and 4096 x 11008, int2 14336 x 4096 and
+  4096 x 14336): the default tile in turns, every tiled instance of each
+  tree (each tree's FUSED_TILES past its decode instance) timed once, and
+  beside them the bound (the larger of the bytes over 3.35 TB/s and
+  2 M N K over 989 TFLOP/s f16 or 1979 TOP/s int8), `stream_ms` (one
+  PyTorch sum over an f16 buffer of the row's bytes) and `library_ms`
+  (torch.matmul on the pre-decoded f16 weight, torch._int_mm on the
+  pre-decoded int8 weight);
+* `dense_matmul` (kernel 9) at M = 16 / 256 / 4096, N = K = 4096.
+
+`--kernels tiled` keeps only the tiled rows; `--only-parent` times the
+earlier tree alone (this tree's kernels are neither built nor run). Each
+time is this tree's `utils.timing.measure_kernel` (median of 20
+CUDA-event launches, L2 flushed by a read before each). A one-element
+fill is timed the same way: the floor of any timed launch. One JSON line
+per row; the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -47,6 +65,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
                     help="directory holding an earlier bitblas_tpu_torch")
+    ap.add_argument("--only-parent", action="store_true",
+                    help="time the earlier tree alone")
+    ap.add_argument("--kernels", choices=("all", "tiled"), default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -59,7 +80,8 @@ def main() -> int:
                                           "bitblas_tpu_torch"))
     trees = {}
     for key, pkg in (("earlier", "ab_parent"),
-                     ("this", bitblas_tpu_torch.__name__)):
+                     ("this", bitblas_tpu_torch.__name__))[
+                         :1 if args.only_parent else 2]:
         trees[key] = {mod: importlib.import_module(f"{pkg}.{path}")
                       for mod, path in (("build", "kernels.build"),
                                         ("dq", "kernels.dequant_matmul"),
@@ -74,6 +96,8 @@ def main() -> int:
         return measure_kernel(fn, (), iters=20) * 1e3
 
     def turns(fns):
+        if "this" not in fns:
+            return [ms(fns["earlier"]), ms(fns["earlier"])]
         return [ms(fns["earlier"]), ms(fns["this"]), ms(fns["this"]),
                 ms(fns["earlier"])]
 
@@ -82,7 +106,8 @@ def main() -> int:
                          text=True).stdout.strip()
     emit({"device": smi})
     for t in trees.values():
-        t["build"].build(["dequant_matmul", "dense_matmul"])
+        t["build"].build(["dequant_matmul", "dequant_matmul_i2",
+                          "dense_matmul"])
     warm = torch.randn((8192, 8192), device="cuda").half()
     ms(lambda: warm @ warm)
     del warm
@@ -90,6 +115,10 @@ def main() -> int:
     emit({"row": "timer_floor", "one_element_fill_ms": ms(one.zero_)})
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    plain = next(iter(trees.values()))["dq"]
+    tiled_rows(torch, trees, plain, gen, ms, turns, emit)
+    if args.kernels == "tiled":
+        return 0
     for N, K in ((4096, 4096), (11008, 4096), (4096, 11008)):
         G = K // 128
         qw = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8), generator=gen,
@@ -100,7 +129,7 @@ def main() -> int:
                            device="cuda").half()
         for M in (1, 4, 16):
             A = torch.randn((M, K), generator=gen, device="cuda").half()
-            ref = trees["this"]["dq"].dequant_matmul_u4_plain(A, qw, sc, zr)
+            ref = plain.dequant_matmul_u4_plain(A, qw, sc, zr)
             fns, row = {}, {"row": "dequant_matmul_u4", "M": M, "N": N,
                             "K": K}
             for key, t in trees.items():
@@ -142,6 +171,91 @@ def main() -> int:
                 row[f"{key}_tile"] = list(tile)
             emit({**row, "ms_earlier_this_this_earlier": turns(fns)})
     return 0
+
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+PEAK = {"uint4": 989e12, "int2": 1979e12}   # f16 / int8 tensor cores
+TILED_SHAPES = {"uint4": ((11008, 4096), (4096, 11008)),
+                "int2": ((14336, 4096), (4096, 14336))}
+TILED_M = (32, 64, 128, 256, 512)
+
+
+def tiled_rows(torch, trees, plain, gen, ms, turns, emit):
+    """Kernel 1's tiled instances, uint4 x f16 and int2 x int8 (see the
+    module docstring)."""
+    for fmt, shapes in TILED_SHAPES.items():
+        for N, K in shapes:
+            if fmt == "uint4":
+                G = K // 128
+                qw = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int64).to(torch.int32)
+                sc = (torch.rand((G, N), generator=gen, device="cuda")
+                      * 0.01 + 0.005).half()
+                zr = torch.randint(0, 16, (G, N), generator=gen,
+                                   device="cuda").half()
+                Wd = plain.dequantize_hopper(qw, sc, zr)
+                wbytes = N * K / 2 + 2 * G * N * 2
+            else:
+                qw = torch.randint(-2 ** 31, 2 ** 31, (N, K // 16),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int64).to(torch.int32)
+                Wd = plain.decode_i2_hopper(qw)
+                wbytes = N * K / 4
+            for M in TILED_M:
+                if fmt == "uint4":
+                    A = torch.randn((M, K), generator=gen,
+                                    device="cuda").half()
+                    ref = plain.dequant_matmul_u4_plain(A, qw, sc, zr)
+                    nbytes = M * K * 2 + wbytes + M * N * 2
+
+                    def call(dq, tile, A=A):
+                        return dq.dequant_matmul_u4(A, qw, sc, zr, tile=tile)
+
+                    def library(A=A):
+                        return torch.matmul(A, Wd.T)
+                else:
+                    A = torch.randint(-128, 128, (M, K), generator=gen,
+                                      device="cuda",
+                                      dtype=torch.int64).to(torch.int8)
+                    ref = plain.dequant_matmul_i2_plain(A, qw)
+                    nbytes = M * K + wbytes + M * N * 4
+
+                    def call(dq, tile, A=A):
+                        return dq.dequant_matmul_i2(A, qw, tile=tile)
+
+                    def library(A=A):
+                        return torch._int_mm(A, Wd.T)
+                buf = torch.zeros(int(nbytes) // 2, dtype=torch.float16,
+                                  device="cuda")
+                name = ("dequant_matmul_u4_tiled" if fmt == "uint4"
+                        else "dequant_matmul_i2_tiled")
+                row = {"row": name, "M": M, "N": N, "K": K,
+                       "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                       2.0 * M * N * K / PEAK[fmt]) * 1e3,
+                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                    >= 2.0 * M * N * K / PEAK[fmt]
+                                    else "operations"),
+                       "stream_ms": ms(lambda: buf.sum()),
+                       "library_ms": ms(library)}
+                fns = {}
+                for key, t in trees.items():
+                    dq = t["dq"]
+                    tile = dq.default_tile(fmt, M)
+                    fns[key] = (lambda dq=dq, tile=tile: call(dq, tile))
+                    out = fns[key]()
+                    torch.cuda.synchronize()
+                    row[f"{key}_tile"] = list(tile)
+                    row[f"{key}_max_abs_err"] = (
+                        out.float() - ref.float()).abs().max().item()
+                    row[f"{key}_tiles_ms"] = {
+                        "x".join(map(str, tl)): ms(
+                            lambda dq=dq, tl=tl: call(dq, tl))
+                        for tl in dq.FUSED_TILES[fmt][1:]}
+                row["ms_earlier_this_this_earlier"] = turns(fns)
+                emit(row)
+                del buf
+            del qw, Wd
 
 
 if __name__ == "__main__":

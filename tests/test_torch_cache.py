@@ -35,8 +35,9 @@ U4 = dict(A_dtype="float16", W_dtype="uint4", with_scaling=True,
           out_dtype="float16")
 I2 = dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
           out_dtype="float32")
-H1 = TileHint("fused", 32, 64, 128, 4)
-H16 = TileHint("fused", 128, 128, 128, 3)
+# two of the uint4 wgmma + TMA instances
+H1 = TileHint("fused", 32, 64, 256, 4)
+H16 = TileHint("fused", 128, 64, 256, 3)
 
 
 def _cfg(K=256, M=(1, 16), **kw):
@@ -151,7 +152,7 @@ cfg = MatmulConfig(M=[1, 16, 256], N=256, K=256, A_dtype="int8",
 bucket = int(sys.argv[2])
 for rep in range(20):
     op = Matmul(cfg, device="cpu")
-    op.apply_hints({bucket: TileHint("fused", 32, 64, 256, 4)})
+    op.apply_hints({bucket: TileHint("fused", 32, 64, 512, 4)})
     cache = OperatorCache()
     cache.add(cfg, op)
     cache.save_into_database(sys.argv[1], target="cpu")
@@ -169,7 +170,7 @@ def test_processes_saving_different_buckets_keep_both(tmp_path):
     merged = OperatorCache()
     assert merged.load_from_database(str(tmp_path), target="cpu") == 1
     (op,) = merged._ops.values()
-    want = TileHint("fused", 32, 64, 256, 4)
+    want = TileHint("fused", 32, 64, 512, 4)
     assert op.hints == {1: want, 16: want, 256: want}
 
 
@@ -283,8 +284,8 @@ def test_bitnet_serves_on_hints_loaded_from_the_database(
                     ).half()
     want = ref.layers[0].proj("up", x)
     for op in list(clean_global_cache._ops.values()):
-        op.apply_hints({32: MATERIALIZE, 1: TileHint("fused", 32, 64, 256,
-                                                      4)})
+        op.apply_hints({32: MATERIALIZE, 1: TileHint("fused", 32, 64,
+                                                      512, 4)})
     clean_global_cache.save_into_database(str(tmp_path), target="cpu")
     clean_global_cache.clear()
     assert pcache.load_global_ops_cache(str(tmp_path), target="cpu") == 4

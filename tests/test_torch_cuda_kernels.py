@@ -476,6 +476,13 @@ def test_paged_routing_takes_the_kernels_on_the_card(dev):
 @pytest.mark.parametrize("tile", FUSED_TILES["uint4"])
 @pytest.mark.parametrize("M", [1, 33, 130])
 def test_dequant_matmul_u4_tiles_match_plain(dev, tile, M):
+    """Every uint4 instance against the plain version (N = 384: three
+    128-row tiles; M = 33 and 130 cut a token tile): within 4e-3 of the
+    largest output; the wgmma + TMA tiled instances decode the plain
+    version's f16 weights bit for bit, so they also lie within one f16 ulp
+    of each output (`_f16_ulps`) and equal one another (f32 sums over K in
+    the same order); the split-K decode instance sums by split and equals
+    itself. Each launch counts as a decode or a tiled launch."""
     g = torch.Generator(device=dev)
     g.manual_seed(M + tile[0])
     N, K = 384, 512
@@ -484,32 +491,41 @@ def test_dequant_matmul_u4_tiles_match_plain(dev, tile, M):
     zr = torch.randint(0, 16, (K // 128, N), generator=g, device=dev).half()
     A = torch.randn((M, K), generator=g, device=dev).half()
     decode_before = dequant_matmul_u4.decode_launches
+    tiled_before = dequant_matmul_u4.tiled_launches
     out = dequant_matmul_u4(A, qw, sc, zr, tile=tile)
-    assert dequant_matmul_u4.decode_launches == decode_before + int(
-        tile == U4_DECODE_TILE)
+    decode = tile == U4_DECODE_TILE
+    assert dequant_matmul_u4.decode_launches == decode_before + int(decode)
+    assert dequant_matmul_u4.tiled_launches == tiled_before + int(not decode)
     ref = dequant_matmul_u4_plain(A, qw, sc, zr)
     torch.cuda.synchronize()
     # same f16 weights; f32 sums in another order + 1 rounding
     tol = 4e-3 * ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= tol
-    # every tiled instance sums each output over K in the same order:
-    # equal; the split-K decode instance sums by split, and equals itself
-    same = U4_DECODE_TILE if tile == U4_DECODE_TILE else FUSED_TILES[
-        "uint4"][2]
+    assert torch.isfinite(out).all()
+    if not decode:
+        assert _f16_ulps(out, ref) <= 1
+    same = U4_DECODE_TILE if decode else FUSED_TILES["uint4"][2]
     assert torch.equal(out, dequant_matmul_u4(A, qw, sc, zr, tile=same))
 
 
 @pytest.mark.parametrize("tile", FUSED_TILES["int2"])
 @pytest.mark.parametrize("M", [1, 33, 130])
 def test_dequant_matmul_i2_tiles_match_plain(dev, tile, M):
+    """Every int2 instance equals the plain version bit for bit (int32
+    sums), at a K tail of 64 past the last whole 128 of the wgmma + TMA
+    stages (K = 4160) and a ragged token tile; each launch of a tiled
+    instance counts as one."""
     g = torch.Generator(device=dev)
     g.manual_seed(M + tile[0] + 1)
     N, K = 384, 4160
     qw = _words(g, dev, N, K // 16)
     A = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                       dtype=torch.int64).to(torch.int8)
+    tiled_before = dequant_matmul_i2.tiled_launches
     out = dequant_matmul_i2(A, qw, tile=tile)
     torch.cuda.synchronize()
+    assert dequant_matmul_i2.tiled_launches == tiled_before + int(
+        tile != FUSED_TILES["int2"][0])
     assert torch.equal(out, dequant_matmul_i2_plain(A, qw))
 
 
@@ -695,7 +711,9 @@ def _f16_ulps(got, want, floor=2.0 ** -18):
     mma's order, so its f32 rounding, about 2^-24 of the largest output,
     can exceed the f16 ulp of an output near zero."""
     w = want.double()
-    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -14)))
+    # floor(log2 |w|) exactly (log2 of a power of two can fall a hair
+    # short, halving that output's unit), at least float16's -14
+    e = (torch.frexp(w.abs().clamp_min(2.0 ** -14))[1] - 1).double()
     unit = torch.exp2(e - 10) + floor * w.abs().max()
     return ((got.double() - w).abs() / unit).max().item()
 

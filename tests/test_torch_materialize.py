@@ -38,8 +38,8 @@ import bitblas_tpu_torch.ops.matmul as pmm
 from bitblas_tpu_torch import testing as ptesting
 from bitblas_tpu_torch.kernels import materialize as pmat
 from bitblas_tpu_torch.kernels.dequant_matmul import (
-    decode_i2_hopper, dequant_matmul_i2, dequant_matmul_i2_plain,
-    dequantize_hopper)
+    decode_i2_hopper, default_tile, dequant_matmul_i2,
+    dequant_matmul_i2_plain, dequantize_hopper)
 from bitblas_tpu_torch.kernels.spec import KernelSpec
 from bitblas_tpu_torch.ops import reference as pref
 from bitblas_tpu_torch.ops.matmul import Matmul
@@ -141,6 +141,14 @@ def test_matmul_int2_int8_matches_jax(i2_pair, m):
     assert np.array_equal(got.numpy(), want)
 
 
+def _route_hint(route):
+    """The uint4 hint of a route: the fused kernel on its untuned tile at
+    M = 512 (a compiled instance), or the materialize plan."""
+    if route == "fused":
+        return TileHint("fused", *default_tile("uint4", 512))
+    return TileHint(decode_mode=route)
+
+
 @pytest.mark.parametrize("route", ["fused", "materialize"])
 def test_matmul_uint4_routes_match_jax_materialize(route):
     jc, (jW, jS, jZ), (pW, pS, pZ) = _u4_operands(5)
@@ -149,7 +157,7 @@ def test_matmul_uint4_routes_match_jax_materialize(route):
     want = np.asarray(jmat.make_materialize_matmul(
         spec, MAT_F32, interpret=True)(jnp.asarray(A), jW, jS, jZ))
     pm = Matmul(MatmulConfig(M=[512], **U4), device="cpu")
-    pm.apply_hints({512: TileHint(decode_mode=route)})
+    pm.apply_hints({512: _route_hint(route)})
     got = pm.forward(torch.from_numpy(A), pW, scale=pS, zeros=pZ)
     assert got.dtype == torch.float16 and got.shape == (512, N)
     assert_close(got, want, rtol=1e-2, atol=1.0, max_mismatched_ratio=0.0)
@@ -163,7 +171,7 @@ def test_matmul_uint4_routes_agree():
     outs = []
     for r in ("fused", "materialize"):
         pm = Matmul(cfg, device="cpu")
-        pm.apply_hints({512: TileHint(decode_mode=r)})
+        pm.apply_hints({512: _route_hint(r)})
         outs.append(pm.forward(A, pW, scale=pS, zeros=pZ))
     assert_close(outs[1], outs[0], rtol=0.0, atol=0.25,
                  max_mismatched_ratio=0.0)

@@ -40,15 +40,20 @@ I2 = dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
 FORMATS = {"uint4": U4, "int2": I2}
 # The untuned routing: the decode instance up to M = 16 (for uint4 the
 # split-K instance, which replaced the 16 x 32 tile the port ran before it
-# had a tuner), 64 x 128 above, the materialize plan from M = 512.
+# had a tuner), the 64-token x 128-row wgmma + TMA tile above (block_k:
+# 256 f16 or 512 int8, four 128-byte rows of A a ring slot), the
+# materialize plan from M = 512.
 UNTUNED_SMALL = {"uint4": (16, 128, 128, 4), "int2": (16, 32, 256, 4)}
-UNTUNED_LARGE = (64, 128, 128, 3)
+UNTUNED_LARGE = {"uint4": (64, 128, 256, 4), "int2": (64, 128, 512, 2)}
+# The N of the models' projections (Llama-2-7B: 4096, 11008; Llama-3-8B
+# widths, BitNet: 4096, 1024, 14336).
+MODEL_N = (4096, 11008, 14336, 1024)
 
 
 def _untuned_hint(fmt, m):
     if m >= 512:
         return MATERIALIZE
-    tile = UNTUNED_SMALL[fmt] if m <= 16 else UNTUNED_LARGE
+    tile = UNTUNED_SMALL[fmt] if m <= 16 else UNTUNED_LARGE[fmt]
     return TileHint("fused", *tile)
 
 
@@ -90,9 +95,35 @@ def test_every_compiled_instance_fits_shared_memory():
     for dt in (torch.float16, torch.bfloat16, torch.float32, torch.int8):
         for tile in DENSE_TILES:
             assert dense_smem_bytes(dt, tile) <= H100_SXM.smem_per_block
-    # the two instances the port had before: the sources' own sizes
-    assert fused_smem_bytes("uint4", (16, 32, 128, 6)) == 47872
-    assert fused_smem_bytes("uint4", (64, 128, 128, 3)) == 113152
+    # the sources' own sizes: the wgmma + TMA ring (1024 bytes of
+    # alignment; slots of four A boxes, the packed W and, for uint4, two
+    # scale and two zero rows, each rounded up to 1024 bytes; two
+    # mbarriers a slot) and int2's decode instance (4 slabs of A and W,
+    # the decoded int8 tile)
+    assert fused_smem_bytes("uint4", (64, 128, 256, 4)) == 201792
+    assert fused_smem_bytes("uint4", (128, 64, 256, 3)) == 225328
+    assert fused_smem_bytes("int2", (128, 128, 512, 2)) == 164896
+    assert fused_smem_bytes("int2", (16, 32, 256, 4)) == 34304
+
+
+@pytest.mark.parametrize("fmt", ["uint4", "int2"])
+def test_every_fused_instance_fits_and_tiles_the_models_n(fmt):
+    """Each compiled instance of both formats fits the 227 KB a block may
+    take, and its block_n divides every N the two models run, so the
+    tuner's space (whole N tiles) keeps every instance at every shape; the
+    tiled instances are the wgmma + TMA loop's: 32 / 64 / 128 tokens
+    (a wgmma n), 64 or 128 weight rows (one warpgroup each 64), block_k
+    four 128-byte rows of A (uint4, whose sums take more registers, has
+    no 128 x 128 tile)."""
+    for tile in FUSED_TILES[fmt]:
+        assert fused_smem_bytes(fmt, tile) <= 232448
+        assert all(n % tile[1] == 0 for n in MODEL_N), tile
+    want = {"uint4": ((32, 64, 256, 4), (64, 128, 256, 4),
+                      (128, 64, 256, 3)),
+            "int2": ((32, 64, 512, 4), (64, 128, 512, 2),
+                     (128, 64, 512, 3), (128, 128, 512, 2))}
+    assert FUSED_TILES[fmt][1:] == want[fmt]
+    assert FUSED_TILES[fmt][2] == UNTUNED_LARGE[fmt]
 
 
 @pytest.mark.parametrize("m", [1, 16, 256, 512])
@@ -153,7 +184,7 @@ def test_installed_hints_route_by_bucket(monkeypatch):
             calls.append((_n, k.get("tile"))), _f(*a, **k))[1])
     op = Matmul(MatmulConfig(M=[1, 16, 256], N=256, K=512, **I2),
                 device="cpu")
-    mid = TileHint("fused", 32, 64, 256, 4)
+    mid = TileHint("fused", 32, 64, 512, 4)
     op.apply_hints({16: mid, 256: MATERIALIZE, 4096: MATERIALIZE})
     assert op.tuned_hints == {16: mid, 256: MATERIALIZE}
     assert set(op.hints) == {1, 16, 256}          # 4096 is no bucket
@@ -163,7 +194,7 @@ def test_installed_hints_route_by_bucket(monkeypatch):
                     (16, ("dequant_matmul_i2", mid.tile)),
                     (17, ("materialize_matmul", None)),
                     (256, ("materialize_matmul", None)),
-                    (300, ("dequant_matmul_i2", UNTUNED_LARGE))):
+                    (300, ("dequant_matmul_i2", UNTUNED_LARGE["int2"]))):
         calls.clear()
         out = op.forward(torch.zeros((m, 512), dtype=torch.int8), W)
         assert out.shape == (m, 256) and calls == [want], m
