@@ -24,8 +24,13 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bitblas_tpu_torch"
+# -fno-gnu-unique: a template's statics (the once-a-device shared-memory
+# flags of dequant_wgmma.cuh) stay private to each library, so two trees'
+# libraries loaded into one process (scripts/torch_ab_kernels.py) do not
+# share them and skip each other's cudaFuncSetAttribute.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC,-fno-gnu-unique",
+              "-Xptxas", "-v")
 SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
            "weight_decode_int8", "flash_attention", "flash_decode",
            "flash_decode_quant", "flash_decode_paged",

@@ -15,20 +15,28 @@ Each kernel is compiled for a small fixed set of tile instances
 (`FUSED_TILES`, (block_m, block_n, block_k, stages)); the caller names one
 (`tile=`, from the Matmul's hint), and `default_tile` is the choice by M
 that the Matmul makes untuned. The first instance of each format is its
-decode-M design: for uint4 `U4_DECODE_TILE`, K split across blocks in
-whole 128-groups (`plan_splits_k`, from static sizes only), the weight
-decoded in registers, the f32 partials summed in split order by the last
-block of each tile, one launch a call (`dequant_matmul_u4_split_plain` is
-that arithmetic in plain PyTorch, for the tests); for int2 a 16 x 32
-mma.sync tile. The others are the tiled instances (block_m tokens x
-block_n weight rows, three uint4 and four int2), one mixed-input wgmma +
-TMA main loop shared by both formats (csrc/dequant_wgmma.cuh): the
-weight decoded in registers straight into wgmma's A operand, the tokens
-on its n side. Each wrapper counts its launches (`launches`), and apart from them
-those of its tiled instances (`tiled_launches`) and, for uint4, of the
-decode instance (`decode_launches`). On a CUDA tensor each wrapper
-launches its kernel (design and bound are written in the source); on a
-CPU tensor it runs the plain version, for which the tile changes nothing.
+decode-M design, split-K with the weight decoded in registers: 128
+weight rows a block on the mma's 16-row side, the tokens on its 8-wide
+side, K split across blocks from static sizes only, the partials summed
+in split order by the last block of each tile, one launch a call:
+* uint4 `U4_DECODE_TILE`: K split in whole 128-groups (`plan_splits_k`),
+  f32 partials (`dequant_matmul_u4_split_plain` is that arithmetic in
+  plain PyTorch, for the tests);
+* int2 `I2_DECODE_TILE`: K split in steps of 256 (`plan_splits_k_i2`;
+  the last step may end at a K tail of 64, 128 or 192), the biased codes
+  fed to the mma as they are and the bias taken off once a split (sum (f
+  - 2) a = sum f a - 2 sum a), int32 partials
+  (`dequant_matmul_i2_split_plain`). Bound at M <= 16: the weight bytes
+  N K / 4 over 3.35 TB/s.
+The others are the tiled instances (block_m tokens x block_n weight
+rows, three uint4 and four int2), one mixed-input wgmma + TMA main loop
+shared by both formats (csrc/dequant_wgmma.cuh): the weight decoded in
+registers straight into wgmma's A operand, the tokens on its n side.
+Each wrapper counts its launches (`launches`), and apart from them those
+of its decode instance (`decode_launches`) and of its tiled instances
+(`tiled_launches`). On a CUDA tensor each wrapper launches its kernel
+(design and bound are written in the source); on a CPU tensor it runs
+the plain version, for which the tile changes nothing.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _ARGTYPES_DECODE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p]
 _ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES_I2_DECODE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
 # The compiled instances of csrc/dequant_matmul.cu ("uint4") and
 # csrc/dequant_matmul_i2.cu ("int2"), (block_m, block_n, block_k, stages):
 # each format's decode instance, then its tiled instances on the wgmma +
@@ -53,7 +63,7 @@ _ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # weight rows (a warpgroup each 64), block_k the K of one ring slot (four
 # 128-byte rows of A: 256 f16 or 512 int8), `stages` slots.
 U4_DECODE_TILE = (16, 128, 128, 4)   # split-K, register decode
-I2_DECODE_TILE = (16, 32, 256, 4)    # mma.sync
+I2_DECODE_TILE = (16, 128, 256, 4)   # split-K, register decode
 WGMMA_BK = {"uint4": 256, "int2": 512}
 # (block_m, block_n, stages); uint4 sums each slot apart (more registers):
 # its 64 x 128 tile runs one block an SM, and it has no 128 x 128 tile
@@ -67,12 +77,14 @@ FUSED_TILES = {
                         ("int2", I2_DECODE_TILE))}
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
-# The decode instance: 128 weight rows a block, A tiles of 16 rows, at most
-# 8 groups a split (its K range of A sits in shared memory), and the
-# planner's target of blocks an SM.
+# The decode instances: 128 weight rows a block, A tiles of 16 rows, at
+# most 8 groups (uint4) or 8 steps of 256 (int2) a split (its K range of A
+# sits in shared memory), and the planner's target of blocks an SM.
 DECODE_BN = 128
 DECODE_BM = 16
 DECODE_MAX_CHUNK = 8
+I2_DECODE_STEP = 256
+I2_DECODE_MAX_CHUNK = 8
 SPLITK_BLOCKS_PER_SM = 2
 H100_SMS = 132
 
@@ -89,6 +101,18 @@ def is_tiled(fmt: str, tile) -> bool:
     return tuple(tile) in FUSED_TILES[fmt][1:]
 
 
+def _plan_splits(m: int, n: int, steps: int, max_chunk: int, sms: int):
+    """(chunk, splits): `steps` cut into `splits` runs of `chunk` (the last
+    may be shorter, none is empty), enough that the (N tiles x M tiles x
+    splits) blocks come within a factor 2 of SPLITK_BLOCKS_PER_SM on every
+    SM where there are the steps, and at most `max_chunk` steps a split."""
+    tiles = -(-n // DECODE_BN) * -(-m // DECODE_BM)
+    want = -(-SPLITK_BLOCKS_PER_SM * sms // tiles)
+    splits = min(steps, max(want, -(-steps // max_chunk)))
+    chunk = -(-steps // splits)
+    return chunk, -(-steps // chunk)
+
+
 def plan_splits_k(m: int, n: int, k: int, sms: int = H100_SMS):
     """(chunk, splits) of the uint4 decode instance, from static sizes
     only: K's 128-groups cut into `splits` runs of `chunk` groups (the
@@ -100,12 +124,20 @@ def plan_splits_k(m: int, n: int, k: int, sms: int = H100_SMS):
     if min(m, n, k, sms) < 1 or k % GROUP:
         raise ValueError(f"plan_splits_k: M={m}, N={n}, K={k} (a multiple "
                          f"of {GROUP}), sms={sms}")
-    groups = k // GROUP
-    tiles = -(-n // DECODE_BN) * -(-m // DECODE_BM)
-    want = -(-SPLITK_BLOCKS_PER_SM * sms // tiles)
-    splits = min(groups, max(want, -(-groups // DECODE_MAX_CHUNK)))
-    chunk = -(-groups // splits)
-    return chunk, -(-groups // chunk)
+    return _plan_splits(m, n, k // GROUP, DECODE_MAX_CHUNK, sms)
+
+
+def plan_splits_k_i2(m: int, n: int, k: int, sms: int = H100_SMS):
+    """(chunk, splits) of the int2 decode instance, from static sizes only:
+    K cut into steps of I2_DECODE_STEP (the last ends at K, which need only
+    be a multiple of 64), the steps planned as `plan_splits_k` plans
+    groups, at most I2_DECODE_MAX_CHUNK a split. Split s covers K [s *
+    chunk * 256, min((s + 1) * chunk * 256, K))."""
+    if min(m, n, k, sms) < 1 or k % 64:
+        raise ValueError(f"plan_splits_k_i2: M={m}, N={n}, K={k} (a "
+                         f"multiple of 64), sms={sms}")
+    return _plan_splits(m, n, -(-k // I2_DECODE_STEP), I2_DECODE_MAX_CHUNK,
+                        sms)
 
 
 def fused_smem_bytes(fmt: str, tile) -> int:
@@ -117,18 +149,18 @@ def fused_smem_bytes(fmt: str, tile) -> int:
     each slot rounded up to 1024 bytes, and two mbarriers a slot. The
     uint4 decode instance: its largest size, A and its group sums over 8
     groups (16 rows) and the per-thread ring of weight chunks and scale /
-    zero pairs. The int2 decode instance (dequant_matmul_i2.cu Tile):
-    STAGES slabs of A and packed W, plus the decoded int8 tile."""
+    zero pairs. The int2 decode instance (dequant_matmul_i2.cu): its
+    largest size, A over 8 steps of 256 (16 rows), A's 16 row sums and the
+    per-thread ring of two 16-byte weight chunks a stage."""
     bm, bn, bk, stages = tile
     if is_tiled(fmt, tile):
         load = 4 * bm * 128 + bn * 128 + (8 * bn if fmt == "uint4" else 0)
         return 1024 + stages * -(-load // 1024) * 1024 + 2 * stages * 8
+    threads = bn // 16 * 32
     if fmt == "uint4":
-        threads = bn // 16 * 32
         return DECODE_MAX_CHUNK * bm * (bk * 2 + 4) + stages * threads * (
             2 * 16 + 2 * 4)
-    lds = bk + 16                         # bytes
-    return stages * (bm * lds + bn * bk // 16 * 4) + bn * lds
+    return I2_DECODE_MAX_CHUNK * bm * bk + bm * 4 + stages * threads * 2 * 16
 
 
 def _tile(fmt: str, m: int, tile):
@@ -283,6 +315,29 @@ def dequant_matmul_i2_plain(A: torch.Tensor,
                                   torch.float32)
 
 
+def dequant_matmul_i2_split_plain(A: torch.Tensor, qweight: torch.Tensor,
+                                  sms: int = H100_SMS) -> torch.Tensor:
+    """The int2 decode instance's arithmetic in plain PyTorch (any device):
+    the splits `plan_splits_k_i2` gives; in each, the biased codes f =
+    value + 2 against A, less 2 sum A of the split (sum (f - 2) a); then
+    the int32 partials summed in split order 0, 1, ... and cast to
+    float32 once. Integer sums are exact in any order, so it equals
+    `dequant_matmul_i2_plain` bit for bit. Only the tests call it."""
+    M, K = A.shape
+    N = qweight.shape[0]
+    chunk, splits = plan_splits_k_i2(M, N, K, sms)
+    f = packing.unpack_k(qweight, 2).to(torch.int8)      # [N, K] codes
+    out = torch.zeros((M, N), dtype=torch.int32, device=A.device)
+    span = chunk * I2_DECODE_STEP
+    for sp in range(splits):
+        ks = slice(sp * span, min((sp + 1) * span, K))
+        a = A[:, ks]
+        bias = 2 * a.to(torch.int32).sum(dim=1, keepdim=True)
+        out = out + (matmul_dense_reference(a, f[:, ks], torch.int32)
+                     - bias)
+    return out.to(torch.float32)
+
+
 def _check_i2(A, qweight):
     if A.dim() != 2 or qweight.dim() != 2:
         raise ValueError(f"A must be [M, K] and qweight [N, K/16], got "
@@ -321,17 +376,38 @@ def dequant_matmul_i2(A: torch.Tensor, qweight: torch.Tensor,
     if M == 0:
         return out
     with torch.cuda.device(A.device):
-        fn = build.entry("dequant_matmul_i2", "dequant_matmul_i2",
-                         _ARGTYPES_I2)
-        err = fn(A.data_ptr(), qweight.data_ptr(), out.data_ptr(), M, N, K,
-                 *tile, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if tile == I2_DECODE_TILE:
+            chunk, splits = plan_splits_k_i2(M, N, K,
+                                             scratch.sm_count(A.device))
+            part = count = None
+            if splits > 1:
+                part = scratch.partials(A.device, splits * M * N,
+                                        torch.int32)
+                count = scratch.counters(
+                    A.device, -(-N // DECODE_BN) * -(-M // DECODE_BM))
+            fn = build.entry("dequant_matmul_i2", "dequant_matmul_i2_decode",
+                             _ARGTYPES_I2_DECODE)
+            err = fn(A.data_ptr(), qweight.data_ptr(), out.data_ptr(),
+                     part.data_ptr() if part is not None else 0,
+                     count.data_ptr() if count is not None else 0, M, N, K,
+                     chunk, splits, stream)
+        else:
+            fn = build.entry("dequant_matmul_i2", "dequant_matmul_i2",
+                             _ARGTYPES_I2)
+            err = fn(A.data_ptr(), qweight.data_ptr(), out.data_ptr(), M, N,
+                     K, *tile, stream)
     build.check(err, "dequant_matmul_i2")
     dequant_matmul_i2.launches += 1
-    if tile != I2_DECODE_TILE:
+    if tile == I2_DECODE_TILE:
+        dequant_matmul_i2.decode_launches += 1
+    else:
         dequant_matmul_i2.tiled_launches += 1
     return out
 
 
 dequant_matmul_i2.launches = 0
-# among them, the launches of the wgmma + TMA tiled instances
+# among them, the launches of the split-K decode instance and those of the
+# wgmma + TMA tiled instances
+dequant_matmul_i2.decode_launches = 0
 dequant_matmul_i2.tiled_launches = 0

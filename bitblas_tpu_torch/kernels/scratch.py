@@ -1,15 +1,15 @@
 """Device scratch of the kernels that split a reduction across blocks and
 merge it inside the same launch (the split-KV decode kernels of
-kernels/flash.py, the split-K decode instance of kernel 1 in
+kernels/flash.py, the split-K decode instances of kernel 1 in
 kernels/dequant_matmul.py).
 
-Each such launch writes float32 partials to a scratch buffer and counts
-finished blocks in an int32 counter that the last block resets to 0. The
-counters live in one buffer a device, zeroed once and left at 0 by every
-launch, so calls on one device must run in stream order (the engines run
-one stream). The partials are per call. Both come from here, so that one
-change (a CUDA graph's pool, a counter buffer made before capture) covers
-every split kernel.
+Each such launch writes partials (float32; int32 for integer sums) to a
+scratch buffer and counts finished blocks in an int32 counter that the
+last block resets to 0. The counters live in one buffer a device,
+zeroed once and left at 0 by every launch, so calls on one device must
+run in stream order (the engines run one stream). The partials are per
+call. Both come from here, so that one change (a CUDA graph's pool, a
+counter buffer made before capture) covers every split kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +52,8 @@ def counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def partials(device: torch.device, numel: int) -> torch.Tensor:
-    """A float32 buffer of `numel` partial sums for one launch."""
-    return torch.empty(numel, dtype=torch.float32, device=device)
+def partials(device: torch.device, numel: int,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A buffer of `numel` partial sums for one launch (float32, or int32
+    for kernel 1's int2 decode instance)."""
+    return torch.empty(numel, dtype=dtype, device=device)

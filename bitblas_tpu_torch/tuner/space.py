@@ -14,9 +14,9 @@ product.
 
 `default_hint` is the untuned choice and reproduces the routing the port
 had before it had a tuner: the fused kernel below M = 512 with
-`default_tile` by M (the decode instance up to 16 rows, for uint4 the
-split-K one, the 64-token x 128-row wgmma tile above), the materialize
-plan from M = 512 (`MATERIALIZE_MIN_M`, JAX's bound).
+`default_tile` by M (the split-K decode instance up to 16 rows, the
+64-token x 128-row wgmma tile above), the materialize plan from M = 512
+(`MATERIALIZE_MIN_M`, JAX's bound).
 `roofline_seconds` is the least time the card could take for the plan's
 work: the larger of its bytes (each input read once, each output written
 once; the materialize plan also writes and reads its decoded weight) over

@@ -23,12 +23,13 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                flash_attention_fwd (S = 512) and flash_decode also run at
                BitNet's heads (H = 32, Hkv = 8); the attention rows time
                a contiguous read of the same bytes (stream_ms).
-               Kernel 1 runs at M = 1 / 4 / 16 (uint4: the split-K decode
-               instance; int2 at 1 / 4: its decode instance) and 32 / 64 /
-               128 / 256 / 512 (the wgmma + TMA tiled instance of the
-               default route, both formats); the rows of kernels 1, 2, 3
-               and 9 time a contiguous read of their bytes too
-               (stream_ms).
+               Kernel 1 runs at M = 1 / 4 / 16 (the split-K decode
+               instance of each format; int2 on BitNet's four projection
+               shapes, beside the 32 x 64 wgmma tile on the same operands,
+               tile_32x64_ms) and 32 / 64 / 128 / 256 / 512 (the wgmma +
+               TMA tiled instance of the default route, both formats); the
+               rows of kernels 1, 2, 3 and 9 time a contiguous read of
+               their bytes too (stream_ms).
                Then the route table: the fused kernel against the
                materialize plan (decode kernel + library product) at M =
                256 / 512 / 2048, uint4 x f16 and int2 x int8. Then kernel
@@ -41,7 +42,8 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                timed the same way gives the floor of a timed launch
                (timer_floor).
 3b. edges   -- untimed: kernel 9 at every tile, type and M tail; kernel
-               1's decode instance at M = 1 / 3 / 8 / 16 over a ragged N;
+               1's decode instances at M = 1 / 3 / 8 / 16 over a ragged N
+               (int2 also over a K tail of 64);
                kernel 1's tiled instances, both formats, at M tails over a
                ragged N and K tails;
                the decode kernels at head dim 256, GQA groups 16 and 12
@@ -86,13 +88,12 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                The GEMM launches equal the routes of the Matmul calls
                (recorded by weight format): one fused launch a "fused"
                call, one weight decode a "materialize" call, and as many
-               launches of kernel 1's uint4 split-K decode instance
-               (dequant_matmul_u4.decode_launches) as uint4 calls of M <=
-               16, and as many launches of its wgmma + TMA tiled instances
-               (dequant_matmul_{u4,i2}.tiled_launches) as fused calls
-               whose hint names one: on untuned operators, the fused calls
-               with M > 16. A profile of 5 decode steps follows each
-               token-engine phase.
+               launches of kernel 1's split-K decode instances
+               (dequant_matmul_{u4,i2}.decode_launches) and of its wgmma +
+               TMA tiled instances (.tiled_launches) as fused calls whose
+               hint names one: on untuned operators, the fused calls with
+               M <= 16 and M > 16. A profile of 5 decode steps follows
+               each token-engine phase.
 6. tune     -- the distinct Matmul configurations of both serving models
                at full width (W4A16: 3 shapes, buckets 1/16/256; W2A8: 4
                shapes, buckets 1/16/32/64/128/256) tuned through the global
@@ -278,34 +279,53 @@ def _exact_row(torch, kernel, out, ref, extra, timed, flush):
 
 
 BITNET_SHAPES = ((14336, 4096), (4096, 14336))   # gate/up, down
+# and q / o, k / v: the decode instance's rows run all four
+BITNET_DECODE_SHAPES = BITNET_SHAPES + ((4096, 4096), (1024, 4096))
 
 
 def check_dequant_i2(torch, flush):
-    """The W2A8 kernel at BitNet's MLP shapes, M = 1 / 4 (the decode
-    instance) and 32 / 64 / 128 / 256 / 512 (the default wgmma + TMA
-    tile), on the default tile of each M: bit-equal to the plain version,
-    two calls bit-equal. The yardstick is one library product on the
-    pre-decoded weight: torch._int_mm on int8 where it takes the shape
-    (M > 16), else torch.matmul on float32 copies (exact: |sum| <= K *
-    256 < 2^24, and TF32 is off by default); it must equal the plain
-    version too."""
+    """The W2A8 kernel on the default tile of each M: M = 1 / 4 / 16 (the
+    split-K decode instance) on BitNet's four projection shapes, and 32 /
+    64 / 128 / 256 / 512 (the default wgmma + TMA tile) on its MLP shapes;
+    bit-equal to the plain version (and, at M <= 16, to the split-then-
+    merge plain version), two calls bit-equal. The decode rows also time
+    the 32 x 64 wgmma tile on the same operands (`tile_32x64_ms`). The
+    yardstick is one library product on the pre-decoded weight:
+    torch._int_mm on int8 where it takes the shape (M > 16), else
+    torch.matmul on float32 copies (exact: |sum| <= K * 256 < 2^24, and
+    TF32 is off by default); it must equal the plain version too."""
     from bitblas_tpu_torch.kernels.dequant_matmul import (
-        decode_i2_hopper, default_tile, dequant_matmul_i2,
-        dequant_matmul_i2_plain)
+        FUSED_TILES, decode_i2_hopper, default_tile, dequant_matmul_i2,
+        dequant_matmul_i2_plain, dequant_matmul_i2_split_plain,
+        plan_splits_k_i2)
+    tile_32x64 = FUSED_TILES["int2"][1]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for (N, K) in BITNET_SHAPES:
+    for (N, K) in BITNET_DECODE_SHAPES:
         qw = _words(torch, gen, (N, K // 16))
         Wi = decode_i2_hopper(qw)
         Wf = Wi.float()
-        for M in (1, 4, 32, 64, 128, 256, 512):
+        ms = (1, 4, 16) + ((32, 64, 128, 256, 512) if (N, K) in
+                           BITNET_SHAPES else ())
+        for M in ms:
             A = _int8(torch, gen, (M, K))
             ref = dequant_matmul_i2_plain(A, qw)
             out = dequant_matmul_i2(A, qw)
             if not torch.equal(out, dequant_matmul_i2(A, qw)):
                 raise AssertionError(f"dequant_i2 M={M} N={N} K={K}: two "
                                      f"calls differ")
+            extra, timed = {}, {}
+            if M <= 16:
+                if not torch.equal(out, dequant_matmul_i2_split_plain(
+                        A, qw, sms=sms)):
+                    raise AssertionError(f"dequant_i2 M={M} N={N} K={K}: "
+                                         f"differs from the split plain "
+                                         f"version")
+                extra["splits"] = plan_splits_k_i2(M, N, K, sms)
+                timed["tile_32x64_ms"] = (lambda: dequant_matmul_i2(
+                    A, qw, tile=tile_32x64), 20)
             if M > 16:
                 lib_name, lib = "torch._int_mm", lambda: torch._int_mm(
                     A, Wi.T)
@@ -321,12 +341,13 @@ def check_dequant_i2(torch, flush):
             rows.append(_exact_row(
                 torch, "dequant_matmul_i2", out, ref,
                 {"M": M, "N": N, "K": K,
-                 "tile": list(default_tile("int2", M)), "bound_ms": b_ms,
-                 "bound_by": b_by, "library": lib_name},
+                 "tile": list(default_tile("int2", M)), **extra,
+                 "bound_ms": b_ms, "bound_by": b_by, "library": lib_name},
                 {"kernel_ms": (lambda: dequant_matmul_i2(A, qw), 20),
                  "plain_ms": (lambda: dequant_matmul_i2_plain(A, qw), 3),
                  "library_ms": (lib, 20),
-                 "stream_ms": (_stream(torch, nbytes), 20)}, flush))
+                 "stream_ms": (_stream(torch, nbytes), 20), **timed},
+                flush))
         del Wi, Wf
     return rows
 
@@ -560,8 +581,8 @@ def check_edges(torch):
                                                  dense_matmul_plain)
     from bitblas_tpu_torch.kernels.dequant_matmul import (
         FUSED_TILES, dequant_matmul_i2, dequant_matmul_i2_plain,
-        dequant_matmul_u4, dequant_matmul_u4_plain,
-        dequant_matmul_u4_split_plain)
+        dequant_matmul_i2_split_plain, dequant_matmul_u4,
+        dequant_matmul_u4_plain, dequant_matmul_u4_split_plain)
     from bitblas_tpu_torch.serving.kv_cache import quantize_kv
     gen = torch.Generator(device="cuda")
     gen.manual_seed(16)
@@ -622,6 +643,25 @@ def check_edges(torch):
              4e-3 * ref.float().abs().max().item(), out)
         held(f"dequant_matmul_u4_split M={M}", f16_ulps(torch, out, split),
              1.0)
+    # the int2 split-K decode instance over a ragged N and a K tail of 64
+    # (17 steps of 256, the last one step of 64): bit-equal to both plain
+    # versions, two calls bit-equal
+    N, K = 136, 4160
+    qw = _words(torch, gen, (N, K // 16))
+    for M in (1, 3, 8, 16):
+        A = _int8(torch, gen, (M, K))
+        out = dequant_matmul_i2(A, qw)
+        again = dequant_matmul_i2(A, qw)
+        ref = dequant_matmul_i2_plain(A, qw)
+        split = dequant_matmul_i2_split_plain(A, qw, sms=sms)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"edges dequant_matmul_i2 M={M}: two calls "
+                                 f"differ")
+        held(f"dequant_matmul_i2 M={M}", (out - ref).abs().max().item(), 0.0,
+             out)
+        held(f"dequant_matmul_i2_split M={M}",
+             (out - split).abs().max().item(), 0.0, out)
     n_tiled = 0
     # the wgmma + TMA tiled instances: M tails of every token tile, N =
     # 192 (a ragged 128-row tile), uint4 K = 384 (the last ring slot's
@@ -1511,14 +1551,15 @@ def serving_model(torch, family: str = "llama"):
             "weight_bytes": packed}
 
 
-# the launch counts of kernel 1's uint4 split-K decode instance and of its
+# the launch counts of kernel 1's split-K decode instances and of its
 # wgmma + TMA tiled instances (both formats), beside the kernels' own
-# counts (dequant_matmul_u4.decode_launches, .tiled_launches)
-U4_DECODE = "dequant_matmul_u4_decode"
+# counts (dequant_matmul_{u4,i2}.decode_launches, .tiled_launches)
+DECODE = {"uint4": "dequant_matmul_u4_decode",
+          "int2": "dequant_matmul_i2_decode"}
 TILED = {"uint4": "dequant_matmul_u4_tiled", "int2": "dequant_matmul_i2_tiled"}
 # phase -> (engine, engine options, the kernels its path must launch)
-LLAMA = ("dequant_matmul_u4", TILED["uint4"], "weight_decode_u4",
-         "flash_attention_fwd")
+LLAMA = ("dequant_matmul_u4", DECODE["uint4"], TILED["uint4"],
+         "weight_decode_u4", "flash_attention_fwd")
 SERVE_PHASES = (
     ("serve", "token", {}, LLAMA + ("flash_decode",)),
     ("serve_kv_quant", "token", {"kv_quant": True},
@@ -1528,8 +1569,8 @@ SERVE_PHASES = (
      LLAMA + ("flash_decode_paged_quant",)),
 )
 BITNET_PHASE = ("serve_bitnet", "token", {},
-                ("dequant_matmul_i2", TILED["int2"], "weight_decode_int8",
-                 "flash_attention_fwd", "flash_decode"))
+                ("dequant_matmul_i2", DECODE["int2"], TILED["int2"],
+                 "weight_decode_int8", "flash_attention_fwd", "flash_decode"))
 # serve_bitnet_tuned's GEMM kernels are the routes the database chose
 # (checked against the recorded routes); the attention kernels are fixed
 BITNET_TUNED_PHASE = ("serve_bitnet_tuned", "token", {},
@@ -1542,10 +1583,10 @@ class RouteRecorder:
     by weight format, while installed, so a serve phase can check that
     the GEMM kernels launched exactly as the operators' hints route: one
     fused-kernel launch per "fused" call, one weight decode per
-    "materialize" call, every uint4 call of M <= 16 (the decode
-    projections) on kernel 1's split-K decode instance, and one launch of
-    a wgmma + TMA tiled instance per fused call whose hint names one; on
-    untuned operators those are the fused calls with M > 16."""
+    "materialize" call, one launch of kernel 1's split-K decode instance
+    per fused call whose hint names it and one of a wgmma + TMA tiled
+    instance per fused call whose hint names one; on untuned operators
+    those are the fused calls with M <= 16 and M > 16."""
 
     def __init__(self):
         from bitblas_tpu_torch.ops.matmul import Matmul
@@ -1554,7 +1595,8 @@ class RouteRecorder:
         self.by_hint = {}
 
     def __enter__(self):
-        from bitblas_tpu_torch.kernels.dequant_matmul import is_tiled
+        from bitblas_tpu_torch.kernels.dequant_matmul import (FUSED_TILES,
+                                                              is_tiled)
         orig, calls, by_hint = self.orig, self.calls, self.by_hint
 
         def recording(op, A, W, *args, **kw):
@@ -1562,13 +1604,12 @@ class RouteRecorder:
             hint = op.hint_for(m)
             fmt = op.config.W_dtype
             keys = [f"{fmt} {hint.decode_mode}"]
-            if fmt == "uint4" and m <= 16:
-                keys.append("uint4 M<=16")
             if hint.decode_mode == "fused":
                 if is_tiled(fmt, hint.tile):
                     keys.append(f"{fmt} tiled")
-                if m > 16:
-                    keys.append(f"{fmt} fused M>16")
+                elif tuple(hint.tile) == FUSED_TILES[fmt][0]:
+                    keys.append(f"{fmt} decode")
+                keys.append(f"{fmt} fused M{'>' if m > 16 else '<='}16")
             for key in keys:
                 calls[key] = calls.get(key, 0) + 1
             by_hint[hint.short_name()] = by_hint.get(hint.short_name(),
@@ -1591,17 +1632,21 @@ class RouteRecorder:
                 "weight_decode_int8": c.get("int2 materialize", 0),
                 "dequant_matmul_u4": c.get("uint4 fused", 0),
                 "weight_decode_u4": c.get("uint4 materialize", 0),
-                U4_DECODE: c.get("uint4 M<=16", 0),
+                **{name: c.get(f"{fmt} decode", 0)
+                   for fmt, name in DECODE.items()},
                 **{name: c.get(f"{fmt} tiled", 0)
                    for fmt, name in TILED.items()}}
         got = {k: launches[k] for k in want}
         if got != want:
             raise AssertionError(f"{phase}: GEMM launches {got} differ from "
                                  f"the routes of the hints {self.calls}")
-        if untuned and any(launches[name] != c.get(f"{fmt} fused M>16", 0)
-                           for fmt, name in TILED.items()):
-            raise AssertionError(f"{phase}: tiled launches {got} differ from "
-                                 f"the fused calls with M > 16 {self.calls}")
+        if untuned and any(
+                launches[DECODE[fmt]] != c.get(f"{fmt} fused M<=16", 0)
+                or launches[TILED[fmt]] != c.get(f"{fmt} fused M>16", 0)
+                for fmt in TILED):
+            raise AssertionError(f"{phase}: decode / tiled launches {got} "
+                                 f"differ from the fused calls with M <= 16 "
+                                 f"/ M > 16 {self.calls}")
         return {"routes": dict(self.calls), "hints": dict(self.by_hint)}
 
 
@@ -1647,7 +1692,8 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
         c.launches = 0
     u4 = next(c for c in counters if c.__name__ == "dequant_matmul_u4")
     i2 = next(c for c in counters if c.__name__ == "dequant_matmul_i2")
-    u4.decode_launches = u4.tiled_launches = i2.tiled_launches = 0
+    u4.decode_launches = u4.tiled_launches = 0
+    i2.decode_launches = i2.tiled_launches = 0
     if routes is not None:
         routes.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1667,9 +1713,9 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
                       sum(r.generated for r in reqs) - made - first))
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    launches[U4_DECODE] = u4.decode_launches
-    launches[TILED["uint4"]] = u4.tiled_launches
-    launches[TILED["int2"]] = i2.tiled_launches
+    for fmt, wrapper in (("uint4", u4), ("int2", i2)):
+        launches[DECODE[fmt]] = wrapper.decode_launches
+        launches[TILED[fmt]] = wrapper.tiled_launches
     peak = torch.cuda.max_memory_allocated()
 
     if not all(r.done and r.generated == MAX_NEW for r in reqs):
@@ -1969,8 +2015,8 @@ def main() -> int:
     check_bitnet_reference(torch, counters)
 
     launches = {c.__name__: 0 for c in counters}
-    launches[U4_DECODE] = 0
-    launches.update({name: 0 for name in TILED.values()})
+    launches.update({name: 0 for name in (*DECODE.values(),
+                                          *TILED.values())})
 
     def run(ctx, phase, routes=None):
         row = serve(torch, ctx, counters, *phase, routes=routes)
@@ -2054,6 +2100,12 @@ def main() -> int:
         ("dense_matmul", "dense_matmul.cu", "dense.py:73", dense,
          pick(dense, dtype="float16", M=256), "M=256 N=K=4096 f16"),
     ]
+    # kernel 1's wrappers: their decode and tiled instances' launches apart
+    split_counts = {
+        wrapper: {"decode_launches": launches[DECODE[fmt]],
+                  "tiled_launches": launches[TILED[fmt]]}
+        for fmt, wrapper in (("uint4", "dequant_matmul_u4"),
+                             ("int2", "dequant_matmul_i2"))}
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"bitblas_tpu_torch/csrc/{src}",
@@ -2063,12 +2115,9 @@ def main() -> int:
         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"], "shape": shape,
-        **{k: row[k] for k in ("gather_ms", "stream_ms") if k in row},
-        **({"decode_launches": launches[U4_DECODE],
-            "tiled_launches": launches[TILED["uint4"]]}
-           if name == "dequant_matmul_u4" else {}),
-        **({"tiled_launches": launches[TILED["int2"]]}
-           if name == "dequant_matmul_i2" else {})}
+        **{k: row[k] for k in ("gather_ms", "stream_ms", "tile_32x64_ms")
+           if k in row},
+        **split_counts.get(name, {})}
         for name, src, rep, rows, row, shape in summary]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -4,7 +4,7 @@ GEMM) of an earlier checkout of bitblas_tpu_torch against this one, on one
 NVIDIA GPU, in turns (earlier, this, this, earlier) within one process.
 
     python3 scripts/torch_ab_kernels.py --parent DIR [--only-parent]
-                                        [--kernels all|tiled]
+                                        [--kernels all|tiled|i2decode]
 
 DIR holds an earlier tree's `bitblas_tpu_torch` package (for example
 `git archive <commit> bitblas_tpu_torch | tar -x -C DIR`, DIR a
@@ -16,6 +16,13 @@ its dense hint (`tuner.default_hint`). Rows:
 
 * `dequant_matmul_u4` at M = 1 / 4 / 16 (the decode instance) on
   Llama-2-7B's three W4A16 shapes;
+* `dequant_matmul_i2` at M = 1 / 4 / 16 (the default tile: the decode
+  instance) on BitNet's four W2A8 shapes at Llama-3-8B widths (N x K =
+  14336 x 4096, 4096 x 14336, 4096 x 4096, 1024 x 4096), with each
+  tree's 32-token x 64-row wgmma tile timed on the same operands beside
+  it (`tile_32x64_ms`), the bound, `stream_ms` and `library_ms`
+  (torch.matmul on float32 copies of A and the pre-decoded weight:
+  exact, |sum| < 2^24);
 * `dequant_matmul_u4_tiled` and `dequant_matmul_i2_tiled`: kernel 1's
   tiled instances at M = 32 / 64 / 128 / 256 / 512 on the models' MLP
   shapes (uint4 11008 x 4096 and 4096 x 11008, int2 14336 x 4096 and
@@ -28,7 +35,8 @@ its dense hint (`tuner.default_hint`). Rows:
   pre-decoded int8 weight);
 * `dense_matmul` (kernel 9) at M = 16 / 256 / 4096, N = K = 4096.
 
-`--kernels tiled` keeps only the tiled rows; `--only-parent` times the
+`--kernels tiled` keeps only the tiled rows, `--kernels i2decode` only
+the int2 decode rows; `--only-parent` times the
 earlier tree alone (this tree's kernels are neither built nor run). Each
 time is this tree's `utils.timing.measure_kernel` (median of 20
 CUDA-event launches, L2 flushed by a read before each). A one-element
@@ -67,7 +75,8 @@ def main() -> int:
                     help="directory holding an earlier bitblas_tpu_torch")
     ap.add_argument("--only-parent", action="store_true",
                     help="time the earlier tree alone")
-    ap.add_argument("--kernels", choices=("all", "tiled"), default="all")
+    ap.add_argument("--kernels", choices=("all", "tiled", "i2decode"),
+                    default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -116,8 +125,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     plain = next(iter(trees.values()))["dq"]
-    tiled_rows(torch, trees, plain, gen, ms, turns, emit)
-    if args.kernels == "tiled":
+    if args.kernels in ("all", "i2decode"):
+        i2_decode_rows(torch, trees, plain, gen, ms, turns, emit)
+    if args.kernels in ("all", "tiled"):
+        tiled_rows(torch, trees, plain, gen, ms, turns, emit)
+    if args.kernels != "all":
         return 0
     for N, K in ((4096, 4096), (11008, 4096), (4096, 11008)):
         G = K // 128
@@ -180,6 +192,53 @@ TILED_SHAPES = {"uint4": ((11008, 4096), (4096, 11008)),
 TILED_M = (32, 64, 128, 256, 512)
 
 
+I2_DECODE_SHAPES = ((14336, 4096), (4096, 14336), (4096, 4096),
+                    (1024, 4096))
+
+
+def _bound(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def i2_decode_rows(torch, trees, plain, gen, ms, turns, emit):
+    """Kernel 1's int2 x int8 decode rows (see the module docstring)."""
+    for N, K in I2_DECODE_SHAPES:
+        qw = torch.randint(-2 ** 31, 2 ** 31, (N, K // 16), generator=gen,
+                           device="cuda", dtype=torch.int64).to(torch.int32)
+        Wf = plain.decode_i2_hopper(qw).float()
+        for M in (1, 4, 16):
+            A = torch.randint(-128, 128, (M, K), generator=gen,
+                              device="cuda", dtype=torch.int64).to(
+                                  torch.int8)
+            Af = A.float()
+            ref = plain.dequant_matmul_i2_plain(A, qw)
+            nbytes = M * K + N * K / 4 + M * N * 4
+            buf = torch.zeros(int(nbytes) // 2, dtype=torch.float16,
+                              device="cuda")
+            b_ms, b_by = _bound(nbytes, 2.0 * M * N * K, PEAK["int2"])
+            row = {"row": "dequant_matmul_i2", "M": M, "N": N, "K": K,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "stream_ms": ms(lambda: buf.sum()),
+                   "library_ms": ms(lambda: torch.matmul(Af, Wf.T))}
+            fns = {}
+            for key, t in trees.items():
+                dq = t["dq"]
+                fns[key] = (lambda dq=dq: dq.dequant_matmul_i2(A, qw))
+                out = fns[key]()
+                torch.cuda.synchronize()
+                row[f"{key}_tile"] = list(dq.default_tile("int2", M))
+                row[f"{key}_max_abs_err"] = (out - ref).abs().max().item()
+                row[f"{key}_tile_32x64_ms"] = ms(
+                    lambda dq=dq: dq.dequant_matmul_i2(
+                        A, qw, tile=dq.FUSED_TILES["int2"][1]))
+            row["ms_earlier_this_this_earlier"] = turns(fns)
+            emit(row)
+            del buf
+        del qw, Wf
+
+
 def tiled_rows(torch, trees, plain, gen, ms, turns, emit):
     """Kernel 1's tiled instances, uint4 x f16 and int2 x int8 (see the
     module docstring)."""
@@ -230,12 +289,9 @@ def tiled_rows(torch, trees, plain, gen, ms, turns, emit):
                                   device="cuda")
                 name = ("dequant_matmul_u4_tiled" if fmt == "uint4"
                         else "dequant_matmul_i2_tiled")
+                b_ms, b_by = _bound(nbytes, 2.0 * M * N * K, PEAK[fmt])
                 row = {"row": name, "M": M, "N": N, "K": K,
-                       "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                       2.0 * M * N * K / PEAK[fmt]) * 1e3,
-                       "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                    >= 2.0 * M * N * K / PEAK[fmt]
-                                    else "operations"),
+                       "bound_ms": b_ms, "bound_by": b_by,
                        "stream_ms": ms(lambda: buf.sum()),
                        "library_ms": ms(library)}
                 fns = {}

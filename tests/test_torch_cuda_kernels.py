@@ -19,8 +19,9 @@ a call); the wgmma prefill at S = 64 ... 1024, Hkv = H and H / 4; the
 decode kernels at head dim 256, GQA groups 12 and 16 (chunks of 8 query
 heads) and on float16 caches; kernel 9's wgmma tiles (f16, bf16, int8
 bit for bit) at M tails and an int8 K tail of 64; kernel 1's split-K
-decode instance at M = 1, 3, 8, 16 and odd N (two calls bit-equal, one
-launch a call, against the split-then-merge plain version too).
+decode instances at M = 1, 3, 8, 16 and odd N (two calls bit-equal, one
+launch a call, against the split-then-merge plain version too; int2 bit
+for bit at a K tail of 64 and at K = 14336).
 """
 
 import math
@@ -31,9 +32,10 @@ import torch
 from bitblas_tpu_torch.kernels.dense import (
     DENSE_TILES, WGMMA_STAGES, dense_matmul, dense_matmul_plain)
 from bitblas_tpu_torch.kernels.dequant_matmul import (
-    FUSED_TILES, U4_DECODE_TILE, decode_i2_hopper, dequant_matmul_i2,
-    dequant_matmul_i2_plain, dequant_matmul_u4, dequant_matmul_u4_plain,
-    dequant_matmul_u4_split_plain, plan_splits_k)
+    FUSED_TILES, I2_DECODE_TILE, U4_DECODE_TILE, decode_i2_hopper,
+    dequant_matmul_i2, dequant_matmul_i2_plain, dequant_matmul_i2_split_plain,
+    dequant_matmul_u4, dequant_matmul_u4_plain, dequant_matmul_u4_split_plain,
+    plan_splits_k, plan_splits_k_i2)
 from bitblas_tpu_torch.kernels.materialize import (
     weight_decode_int8, weight_decode_int8_plain, weight_decode_u4,
     weight_decode_u4_plain)
@@ -513,8 +515,8 @@ def test_dequant_matmul_u4_tiles_match_plain(dev, tile, M):
 def test_dequant_matmul_i2_tiles_match_plain(dev, tile, M):
     """Every int2 instance equals the plain version bit for bit (int32
     sums), at a K tail of 64 past the last whole 128 of the wgmma + TMA
-    stages (K = 4160) and a ragged token tile; each launch of a tiled
-    instance counts as one."""
+    stages (K = 4160) and a ragged token tile; each launch counts as a
+    decode or a tiled launch."""
     g = torch.Generator(device=dev)
     g.manual_seed(M + tile[0] + 1)
     N, K = 384, 4160
@@ -522,10 +524,12 @@ def test_dequant_matmul_i2_tiles_match_plain(dev, tile, M):
     A = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                       dtype=torch.int64).to(torch.int8)
     tiled_before = dequant_matmul_i2.tiled_launches
+    decode_before = dequant_matmul_i2.decode_launches
     out = dequant_matmul_i2(A, qw, tile=tile)
     torch.cuda.synchronize()
-    assert dequant_matmul_i2.tiled_launches == tiled_before + int(
-        tile != FUSED_TILES["int2"][0])
+    decode = tile == I2_DECODE_TILE
+    assert dequant_matmul_i2.tiled_launches == tiled_before + int(not decode)
+    assert dequant_matmul_i2.decode_launches == decode_before + int(decode)
     assert torch.equal(out, dequant_matmul_i2_plain(A, qw))
 
 
@@ -750,6 +754,39 @@ def test_dequant_matmul_u4_decode_instance(dev, M, N, K):
     tol = 4e-3 * ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert _f16_ulps(out, split) <= 1
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 16])
+@pytest.mark.parametrize("N,K", [(136, 4160), (136, 14336), (1024, 4096)])
+def test_dequant_matmul_i2_decode_instance(dev, M, N, K):
+    """Kernel 1's int2 split-K decode instance (the default up to M = 16):
+    one launch a call, counted as a decode-instance launch; bit-equal to
+    the plain version and to the split-then-merge plain version (integer
+    sums); two calls bit-equal (the counters left at 0). N = 136 has a
+    ragged last 128-row tile; K = 4160 ends in a step of 64 (three of its
+    threads' chunks past K), K = 14336 runs 56 steps."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(M * 11 + N + K)
+    qw = _words(g, dev, N, K // 16)
+    A = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, splits = plan_splits_k_i2(M, N, K, sms)
+    assert splits > 1
+    before = dequant_matmul_i2.launches
+    decode_before = dequant_matmul_i2.decode_launches
+    tiled_before = dequant_matmul_i2.tiled_launches
+    out = dequant_matmul_i2(A, qw)
+    again = dequant_matmul_i2(A, qw, tile=I2_DECODE_TILE)
+    ref = dequant_matmul_i2_plain(A, qw)
+    split = dequant_matmul_i2_split_plain(A, qw, sms=sms)
+    torch.cuda.synchronize()
+    assert dequant_matmul_i2.launches == before + 2
+    assert dequant_matmul_i2.decode_launches == decode_before + 2
+    assert dequant_matmul_i2.tiled_launches == tiled_before
+    assert torch.equal(out, again)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, split)
 
 
 def _wide_decode_args(g, dev, kind, D, H, Hkv, dtype):

@@ -38,12 +38,12 @@ U4 = dict(A_dtype="float16", W_dtype="uint4", with_scaling=True,
 I2 = dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
           out_dtype="float32")
 FORMATS = {"uint4": U4, "int2": I2}
-# The untuned routing: the decode instance up to M = 16 (for uint4 the
-# split-K instance, which replaced the 16 x 32 tile the port ran before it
-# had a tuner), the 64-token x 128-row wgmma + TMA tile above (block_k:
-# 256 f16 or 512 int8, four 128-byte rows of A a ring slot), the
-# materialize plan from M = 512.
-UNTUNED_SMALL = {"uint4": (16, 128, 128, 4), "int2": (16, 32, 256, 4)}
+# The untuned routing: the split-K decode instance up to M = 16 (it
+# replaced, in both formats, the 16 x 32 tile the port ran before it had a
+# tuner), the 64-token x 128-row wgmma + TMA tile above (block_k: 256 f16
+# or 512 int8, four 128-byte rows of A a ring slot), the materialize plan
+# from M = 512.
+UNTUNED_SMALL = {"uint4": (16, 128, 128, 4), "int2": (16, 128, 256, 4)}
 UNTUNED_LARGE = {"uint4": (64, 128, 256, 4), "int2": (64, 128, 512, 2)}
 # The N of the models' projections (Llama-2-7B: 4096, 11008; Llama-3-8B
 # widths, BitNet: 4096, 1024, 14336).
@@ -98,12 +98,13 @@ def test_every_compiled_instance_fits_shared_memory():
     # the sources' own sizes: the wgmma + TMA ring (1024 bytes of
     # alignment; slots of four A boxes, the packed W and, for uint4, two
     # scale and two zero rows, each rounded up to 1024 bytes; two
-    # mbarriers a slot) and int2's decode instance (4 slabs of A and W,
-    # the decoded int8 tile)
+    # mbarriers a slot) and int2's decode instance (A over 8 steps of 256
+    # and 16 rows, its 16 row sums, the 4-stage ring of two 16-byte weight
+    # chunks a thread)
     assert fused_smem_bytes("uint4", (64, 128, 256, 4)) == 201792
     assert fused_smem_bytes("uint4", (128, 64, 256, 3)) == 225328
     assert fused_smem_bytes("int2", (128, 128, 512, 2)) == 164896
-    assert fused_smem_bytes("int2", (16, 32, 256, 4)) == 34304
+    assert fused_smem_bytes("int2", (16, 128, 256, 4)) == 65600
 
 
 @pytest.mark.parametrize("fmt", ["uint4", "int2"])
