@@ -56,6 +56,25 @@ __device__ __forceinline__ uint32_t pack_float2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// a * b rounded to f16 on its own: the explicit rounding mode keeps the
+// compiler from contracting it with a following add or subtract into one
+// fma (q * s - z must round twice, as the plain version's f16 ops do).
+__device__ __forceinline__ half2 hmul2_rn(half2 a, half2 b) {
+  uint32_t r;
+  asm("mul.rn.f16x2 %0, %1, %2;\n"
+      : "=r"(r)
+      : "r"(*reinterpret_cast<uint32_t*>(&a)),
+        "r"(*reinterpret_cast<uint32_t*>(&b)));
+  return *reinterpret_cast<half2*>(&r);
+}
+__device__ __forceinline__ half hmul_rn(half a, half b) {
+  unsigned short r;
+  asm("mul.rn.f16 %0, %1, %2;\n"
+      : "=h"(r)
+      : "h"(__half_as_ushort(a)), "h"(__half_as_ushort(b)));
+  return __ushort_as_half(r);
+}
+
 // D = A (16x16, row) * B (16x8, col) + D, f16 operands, f32 accumulators.
 // Fragment ownership (g = lane / 4, t = lane % 4):
 //   a[0]: (row g, k 2t..2t+1)  a[1]: (row g+8, k 2t..)  a[2]: (row g, k 2t+8..)

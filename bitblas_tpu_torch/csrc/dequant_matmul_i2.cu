@@ -305,8 +305,9 @@ extern "C" int dequant_matmul_i2(const void* A, const void* Wq, void* out,
                                  int stages, void* stream) {
   if (K % 64 != 0 || K > 65536 || N % 8 != 0 || M < 1)
     return (int)cudaErrorInvalidValue;
+  // no scales, zeros or bias (the group argument is not read)
   return (int)bbt::dqw::run_tiled<bbt::dqw::I2>(
-      A, Wq, nullptr, nullptr, out, M, N, K, bm, bn, bk, stages,
+      A, Wq, nullptr, nullptr, nullptr, out, M, N, K, K, bm, bn, bk, stages,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -6,17 +6,18 @@
 //
 // Replaces bitblas_tpu/kernels/dequant_matmul.py:make_dequant_matmul (its
 // pallas_call at :629) at prefill M. What it computes:
-//   uint4 x f16: out[M, N] f16 = A[M, K] f16 . W^T, W[n, k] = (q - z) * s
-//     rounded in f16 exactly as dequantize_hopper / the plain version
-//     decode it (so kernel and plain version differ only in the order of
-//     the f32 sums), f32 accumulation, one rounding to f16;
+//   uint4 x f16: out[M, N] f16 = A[M, K] f16 . W^T (+ bias), W[n, k] =
+//     (q - z) * s, or q * s - z (zeros mode rescale), rounded in f16
+//     exactly as dequantize_hopper / the plain version decode it (so
+//     kernel and plain version differ only in the order of the f32 sums),
+//     f32 accumulation, the f32 bias added, one rounding to f16;
 //   int2 x int8: out[M, N] f32 = the exact int32 sums of A[M, K] int8 .
 //     (field - 2)^T, converted once (bit for bit the plain version).
 // Operands: the Hopper layout of quantization/packing.py (Wq [N, K/8]
 // int32 uint4 codes or [N, K/16] int32 biased int2 fields, K-packed, LSB
-// first; scales and zeros [K/128, N] f16), A row-major, all 16-byte
-// aligned. No second copy of the weight: the codes are reordered in
-// registers.
+// first; scales and zeros [K/g, N] f16 for g = 32, 64, 128, a multiple
+// of 256 or K; bias [N] f32 or none), A row-major, all 16-byte aligned.
+// No second copy of the weight: the codes are reordered in registers.
 //
 // What bounds it on the H100: at M = 32 ... 64 the weight bytes (N K / 2
 // or N K / 4, plus uint4's scales and zeros) over 3.35 TB/s; from M = 128
@@ -30,11 +31,15 @@
 //     f16 or 128 int8 of K, 128-byte swizzled, K-major: wgmma's B operand,
 //     read as kernel 9 reads its W), one packed weight box (BN rows x 128
 //     bytes, the same K, 128-byte swizzled so that the rows a warp reads
-//     hit distinct banks) and, for uint4, the slot's two K groups of scale
-//     and zero rows (BN halves each). A slot covers 256 (uint4) or 512
-//     (int2) of K: a weight box of 32-byte rows made TMA issue one request
-//     for every 32 bytes, and slots that small bounded the kernel at
-//     ~0.5 us a slot whatever its arithmetic. Rows past M or N and a K
+//     hit distinct banks) and, for uint4, the slot's scale and zero rows
+//     (BN halves each), from row slot * 256 / g: 256 / g rows for g = 32
+//     and 64 (the NARROW instances, 8 rows of room), else a box of two
+//     rows of which the slot reads the first (g >= 256: the slot lies in
+//     one group) or both (g = 128), so that g >= 128 runs with the sizes
+//     and the reads it had at g = 128 alone. A slot covers 256 (uint4) or
+//     512 (int2) of K: a weight box of 32-byte rows made TMA issue one
+//     request for every 32 bytes, and slots that small bounded the kernel
+//     at ~0.5 us a slot whatever its arithmetic. Rows past M or N and a K
 //     tail past the last whole slot (whole activation boxes included) are
 //     TMA's zero fill: zero activations add 0 whatever the weight decodes
 //     to.
@@ -52,7 +57,9 @@
 //         x >> 4 at byte 2; & 0x000F000F | 0x64006400 is then the f16x2
 //         (1024 + q_lo, 1024 + q_hi) (the 0x6400 magic); less 1024
 //         (exact), less z, times s in f16: (q - z) * s as the plain
-//         version rounds it;
+//         version rounds it (rescale: times s, less z); NARROW: a
+//         step's two 32-deep halves take their own scale / zero pair (one
+//         group each at g = 32, the same pair at g = 64);
 //       int2: bbt::decode_i2x4 gives the byte's four fields - 2 in int8
 //         lanes, summed exactly in s32.
 //   - The fragments are double-buffered: step u's products stay in flight
@@ -64,9 +71,9 @@
 //     sums each slot in accumulators of its own and adds them to the
 //     running sums in f32 (U4::kPromote).
 //   - Epilogue: each thread stores its accumulators (weight rows r, r + 8,
-//     tokens 8 i + 2 t, + 1) transposed into out[M, N], rows past M and
-//     columns past N masked; for f32 a warp's store fills whole 32-byte
-//     sectors.
+//     tokens 8 i + 2 t, + 1) plus the rows' f32 bias transposed into
+//     out[M, N], rows past M and columns past N masked; for f32 a warp's
+//     store fills whole 32-byte sectors.
 //   - The grid runs the token tiles of one weight tile side by side (x =
 //     M tile), so the packed weight comes from device memory once; the
 //     activation is read again for every weight tile, from L2 (at M = 256
@@ -231,12 +238,17 @@ __device__ __forceinline__ half lds_half(uint32_t addr) {
 // -- the two formats ---------------------------------------------------------
 
 // Byte t of each of a row's 8 words: one stage's k of that row for this
-// thread, k16 (k32) step s from words 2 s and 2 s + 1.
+// thread, k16 (k32) step s from words 2 s and 2 s + 1. RESCALE: zeros mode
+// rescale, q * s - z. NARROW: g = 32 or 64, a scale / zero pair for each
+// 32-deep half of a step.
+template <bool RESCALE, bool NARROW>
 struct U4 {
   using In = half;
   using Acc = float;
   using Out = half;
   static constexpr bool kScaled = true;
+  static constexpr bool kNarrow = NARROW;
+  static constexpr int kSZRows = NARROW ? 8 : 2;   // rows of room a slot
   // A ring slot's products sum in their own accumulators, added to the
   // running sums in f32 once the slot is done: summed over all of K in the
   // tensor cores' accumulators, outputs near zero strayed up to 1.3 f16
@@ -249,11 +261,15 @@ struct U4 {
       CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 
   // f[4 s + i] for product s: i = 0 (row lo, word 2 s), 1 (row hi, word
-  // 2 s), 2 (row lo, word 2 s + 1), 3 (row hi, word 2 s + 1).
+  // 2 s), 2 (row lo, word 2 s + 1), 3 (row hi, word 2 s + 1). NARROW:
+  // words 0-3 (the step's first 32 of K) take pair 0, words 4-7 pair 1;
+  // else every word pair 0.
   __device__ __forceinline__ static void decode(const uint32_t (&lo)[8],
                                                 const uint32_t (&hi)[8],
-                                                int t, half2 s_lo, half2 z_lo,
-                                                half2 s_hi, half2 z_hi,
+                                                int t, const half2 (&s_lo)[2],
+                                                const half2 (&z_lo)[2],
+                                                const half2 (&s_hi)[2],
+                                                const half2 (&z_hi)[2],
                                                 uint32_t (&f)[16]) {
     const half2 k1024 = __float2half2_rn(1024.f);
     // byte t of x at byte 0 and byte t of x >> 4 at byte 2: the low
@@ -267,7 +283,10 @@ struct U4 {
         uint32_t m =
             (__byte_perm(x, x >> 4, sel) & 0x000F000Fu) | 0x64006400u;
         half2 q = __hsub2(*reinterpret_cast<half2*>(&m), k1024);  // exact
-        q = __hmul2(__hsub2(q, r ? z_hi : z_lo), r ? s_hi : s_lo);
+        const int h = NARROW ? w / 4 : 0;
+        const half2 s = r ? s_hi[h] : s_lo[h];
+        const half2 z = r ? z_hi[h] : z_lo[h];
+        q = RESCALE ? __hsub2(hmul2_rn(q, s), z) : __hmul2(__hsub2(q, z), s);
         f[4 * (w / 2) + 2 * (w % 2) + r] = *reinterpret_cast<uint32_t*>(&q);
       }
     }
@@ -290,6 +309,8 @@ struct I2 {
   using Acc = int;
   using Out = float;
   static constexpr bool kScaled = false;
+  static constexpr bool kNarrow = false;
+  static constexpr int kSZRows = 0;
   static constexpr bool kPromote = false;   // integer sums are exact
   static constexpr int kStepK = 128;       // K of a 128-byte row of A
   static constexpr int kWordK = 16;
@@ -297,8 +318,11 @@ struct I2 {
 
   __device__ __forceinline__ static void decode(const uint32_t (&lo)[8],
                                                 const uint32_t (&hi)[8],
-                                                int t, half2, half2, half2,
-                                                half2, uint32_t (&f)[16]) {
+                                                int t, const half2 (&)[2],
+                                                const half2 (&)[2],
+                                                const half2 (&)[2],
+                                                const half2 (&)[2],
+                                                uint32_t (&f)[16]) {
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
       f[4 * (w / 2) + 2 * (w % 2)] = bbt::decode_i2x4(lo[w] >> (8 * t));
@@ -335,8 +359,8 @@ struct Tiled {
   static constexpr int kABox = BM * kRowBytes;
   static constexpr int kABytes = kSub * kABox;
   static constexpr int kWBytes = BN * kWRowBytes;
-  static constexpr int kGroups = kStageK / 128;        // uint4: 2
-  static constexpr int kSZBytes = F::kScaled ? kGroups * BN * 2 : 0;  // each
+  // uint4: the room for a slot's scale (then zero) rows
+  static constexpr int kSZBytes = F::kSZRows * BN * 2;   // each
   static constexpr int kLoadBytes = kABytes + kWBytes + 2 * kSZBytes;
   static constexpr int kStageBytes = (kLoadBytes + 1023) / 1024 * 1024;
   static constexpr int kSmemBytes =
@@ -353,8 +377,11 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
                          const __grid_constant__ CUtensorMap tw,
                          const __grid_constant__ CUtensorMap ts,
                          const __grid_constant__ CUtensorMap tz,
+                         const float* __restrict__ bias,
                          typename F::Out* __restrict__ out, int M, int N,
-                         int K) {
+                         int K, int group, int rs) {
+  // rs: the scale / zero rows of a slot's box that the slot reads (g = 32
+  // / 64: 8 / 4, the box's rows; g = 128: 2; g >= 256: 1 of a box of 2)
   using T = Tiled<F, BM, WG, STAGES>;
   using Acc = typename F::Acc;
   constexpr int ND = BM / 2;   // accumulators a thread
@@ -363,8 +390,8 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + STAGES * T::kStageBytes);
+  constexpr int kStageBytes = T::kStageBytes, kSZBytes = T::kSZBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * kStageBytes);
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
@@ -389,8 +416,11 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
         const int st = j % STAGES;
         // use u = j / STAGES of a stage waits for the release of use u - 1
         if (j >= STAGES) mbar_wait(&empty[st], (j / STAGES - 1) & 1);
-        unsigned char* base = smem + st * T::kStageBytes;
-        mbar_expect_tx(&full[st], T::kLoadBytes);
+        unsigned char* base = smem + st * kStageBytes;
+        // a NARROW box holds the rs rows the slot reads, the others two
+        mbar_expect_tx(&full[st],
+                       F::kNarrow ? T::kABytes + T::kWBytes + 4 * rs * T::BN
+                                  : T::kLoadBytes);
 #pragma unroll
         for (int i = 0; i < kSub; ++i)
           tma_load_2d(base + i * T::kABox, &ta, &full[st],
@@ -398,9 +428,12 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
         tma_load_2d(base + T::kABytes, &tw, &full[st],
                     j * (T::kStageK / F::kWordK), n0);
         if constexpr (F::kScaled) {
+          // the slot's first group row (a K tail past the last group is
+          // zero-filled)
+          const int row = j * T::kStageK / group;
           unsigned char* sz = base + T::kABytes + T::kWBytes;
-          tma_load_2d(sz, &ts, &full[st], n0, j * T::kGroups);
-          tma_load_2d(sz + T::kSZBytes, &tz, &full[st], n0, j * T::kGroups);
+          tma_load_2d(sz, &ts, &full[st], n0, row);
+          tma_load_2d(sz + kSZBytes, &tz, &full[st], n0, row);
         }
       }
     }
@@ -434,7 +467,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   // loads queue behind the wgmmas issued before them, so a step's reads
   // go out before the previous step's products.
   uint32_t lo[8], hi[8];
-  half2 s_lo{}, z_lo{}, s_hi{}, z_hi{};
+  half2 s_lo[2]{}, z_lo[2]{}, s_hi[2]{}, z_hi[2]{};
   auto fetch = [&](uint32_t base, int u) {
     const uint32_t w = base + T::kABytes;
     const uint32_t c0 = ((2 * u) ^ sw) << 4, c1 = ((2 * u + 1) ^ sw) << 4;
@@ -443,13 +476,17 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
     lds128(&hi[0], w + r_hi * kWRowBytes + c0);
     lds128(&hi[4], w + r_hi * kWRowBytes + c1);
     if constexpr (F::kScaled) {
-      // the step's K group, u * kStepK / 128 of the stage's kGroups rows
-      const uint32_t sz =
-          w + T::kWBytes + (u * T::kStepK / 128) * T::BN * 2 + 2 * r_lo;
-      s_lo = __half2half2(lds_half(sz));
-      s_hi = __half2half2(lds_half(sz + 16));
-      z_lo = __half2half2(lds_half(sz + T::kSZBytes));
-      z_hi = __half2half2(lds_half(sz + T::kSZBytes + 16));
+      // the group row of the step (NARROW: of each 32-deep half), row (u *
+      // kStepK + 32 h) * rs / kStageK of the slot's rs
+#pragma unroll
+      for (int h = 0; h < (F::kNarrow ? 2 : 1); ++h) {
+        const int row = (u * T::kStepK + 32 * h) * rs / T::kStageK;
+        const uint32_t sz = w + T::kWBytes + row * T::BN * 2 + 2 * r_lo;
+        s_lo[h] = __half2half2(lds_half(sz));
+        s_hi[h] = __half2half2(lds_half(sz + 16));
+        z_lo[h] = __half2half2(lds_half(sz + kSZBytes));
+        z_hi[h] = __half2half2(lds_half(sz + kSZBytes + 16));
+      }
     }
   };
 
@@ -466,7 +503,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
     } else if (j + 1 < nk) {
       const int nx = (j + 1) % STAGES;
       mbar_wait(&full[nx], ((j + 1) / STAGES) & 1);
-      fetch(ring + nx * T::kStageBytes, 0);
+      fetch(ring + nx * kStageBytes, 0);
     }
     if constexpr (F::kPromote) {
       if (u == 0 && j > 0) {   // the previous slot's sums into acc
@@ -509,7 +546,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   mbar_wait(&full[0], 0);
   fetch(ring, 0);
   for (int j = 0; j < nk; ++j) {
-    const uint32_t base = ring + (j % STAGES) * T::kStageBytes;
+    const uint32_t base = ring + (j % STAGES) * kStageBytes;
     static_assert(kSub % 2 == 0, "fragments alternate within a stage");
 #pragma unroll
     for (int u = 0; u < kSub; u += 2) {
@@ -529,6 +566,20 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
 
   // acc[4 i + e]: weight row r_lo + 8 (e / 2), token 8 i + 2 t + e % 2
   const int n_lo = n0 + r_lo, n_hi = n0 + r_hi;
+  if constexpr (F::kScaled) {
+    // the f32 bias of the thread's two rows, before the one rounding
+    if (bias != nullptr) {
+      const float b_lo = n_lo < N ? bias[n_lo] : 0.f;
+      const float b_hi = n_hi < N ? bias[n_hi] : 0.f;
+#pragma unroll
+      for (int i = 0; i < ND / 4; ++i) {
+        acc[4 * i] += b_lo;
+        acc[4 * i + 1] += b_lo;
+        acc[4 * i + 2] += b_hi;
+        acc[4 * i + 3] += b_hi;
+      }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < ND / 4; ++i) {
 #pragma unroll
@@ -541,10 +592,12 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
 }
 
 // Launches one instance: A [M, K] (F::In), Wq [N, K / F::kWordK] int32,
-// scales and zeros [K / 128, N] f16 (uint4 only), out [M, N] (F::Out).
+// scales and zeros [K / group, N] f16 and bias [N] f32 or null (uint4
+// only), out [M, N] (F::Out).
 template <class F, int BM, int WG, int STAGES>
 cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
-                         const void* zeros, void* out, int M, int N, int K,
+                         const void* zeros, const float* bias, void* out,
+                         int M, int N, int K, int group,
                          cudaStream_t stream) {
   using T = Tiled<F, BM, WG, STAGES>;
   const EncodeTiled encode = encode_tiled();
@@ -555,11 +608,17 @@ cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
       !make_map_2d(encode, &tw, Wq, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, N,
                    K / F::kWordK, T::BN))
     return cudaErrorInvalidValue;
+  // the group rows a slot reads: 256 / g for g <= 128, else 1; a box of
+  // that many rows for NARROW, else of 2
+  const int rs = group < T::kStageK ? T::kStageK / group : 1;
+  const int box = F::kNarrow ? rs : 2;
   if constexpr (F::kScaled) {
-    if (!make_map_2d_box(encode, &ts, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                         2, K / 128, N, T::BN, T::kGroups) ||
+    if (group < 32 || K % group != 0 || rs > F::kSZRows ||
+        F::kNarrow != (rs > 2) ||
+        !make_map_2d_box(encode, &ts, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                         2, K / group, N, T::BN, box) ||
         !make_map_2d_box(encode, &tz, zeros, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                         2, K / 128, N, T::BN, T::kGroups))
+                         2, K / group, N, T::BN, box))
       return cudaErrorInvalidValue;
   } else {
     ts = tw;   // not read
@@ -572,7 +631,8 @@ cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
   const dim3 grid((M + BM - 1) / BM, (N + T::BN - 1) / T::BN);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-      ta, tw, ts, tz, static_cast<typename F::Out*>(out), M, N, K);
+      ta, tw, ts, tz, bias, static_cast<typename F::Out*>(out), M, N, K,
+      group, rs);
   return cudaGetLastError();
 }
 
@@ -588,14 +648,14 @@ cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
 // deeper ring, and it has no 128 x 128 tile.
 template <class F>
 cudaError_t run_tiled(const void* A, const void* Wq, const void* scales,
-                      const void* zeros, void* out, int M, int N, int K,
-                      int bm, int bn, int bk, int stages,
-                      cudaStream_t stream) {
+                      const void* zeros, const float* bias, void* out, int M,
+                      int N, int K, int group, int bm, int bn, int bk,
+                      int stages, cudaStream_t stream) {
   if (bk != kSub * F::kStepK) return cudaErrorInvalidValue;
-#define BBT_DQW_TILE(BM, BN, S)                                           \
-  if (bm == BM && bn == BN && stages == S)                                \
-    return launch_tiled<F, BM, BN / 64, S>(A, Wq, scales, zeros, out, M, \
-                                           N, K, stream);
+#define BBT_DQW_TILE(BM, BN, S)                                             \
+  if (bm == BM && bn == BN && stages == S)                                  \
+    return launch_tiled<F, BM, BN / 64, S>(A, Wq, scales, zeros, bias, out, \
+                                           M, N, K, group, stream);
   BBT_DQW_TILE(32, 64, 4)
   BBT_DQW_TILE(128, 64, 3)
   if constexpr (F::kPromote) {

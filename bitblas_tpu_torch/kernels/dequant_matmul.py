@@ -3,9 +3,12 @@ bitblas_tpu/kernels/dequant_matmul.py:make_dequant_matmul), one per
 ported configuration, with the Hopper layout of quantization/packing.py:
 
 * `dequant_matmul_u4` (GPTQ W4A16): ``out[M, N] f16 = A[M, K] f16 @
-  dequant(Wq)^T``, Wq [N, K/8] int32, scales and zeros [K/g, N] float16,
-  g = 128; csrc/dequant_matmul.cu. Its plain version decodes the same
-  layout and contracts with float32 accumulation (ops/reference.py).
+  dequant(Wq)^T (+ bias)``, Wq [N, K/8] int32, scales and zeros [K/g, N]
+  float16 for g in 32, 64, 128, any multiple of 256 and K (per channel;
+  `check_group`), zeros mode original ((q - z) s) or rescale (q s - z),
+  an optional float32 bias [N] added before the one f16 rounding;
+  csrc/dequant_matmul.cu. Its plain version decodes the same layout and
+  contracts with float32 accumulation (ops/reference.py).
 * `dequant_matmul_i2` (BitNet W2A8): ``out[M, N] f32 = A[M, K] int8 @
   (Wq - 2)^T`` with int32 accumulation, Wq [N, K/16] int32 of biased int2
   fields; csrc/dequant_matmul_i2.cu.
@@ -19,9 +22,11 @@ decode-M design, split-K with the weight decoded in registers: 128
 weight rows a block on the mma's 16-row side, the tokens on its 8-wide
 side, K split across blocks from static sizes only, the partials summed
 in split order by the last block of each tile, one launch a call:
-* uint4 `U4_DECODE_TILE`: K split in whole 128-groups (`plan_splits_k`),
-  f32 partials (`dequant_matmul_u4_split_plain` is that arithmetic in
-  plain PyTorch, for the tests);
+* uint4 `U4_DECODE_TILE`: K split in whole steps of 128 (`plan_splits_k`),
+  the scale and zero applied to a group's sums (a step's, or each
+  32-deep quarter's for g = 32 and 64), f32 partials
+  (`dequant_matmul_u4_split_plain` is that arithmetic in plain PyTorch,
+  for the tests);
 * int2 `I2_DECODE_TILE`: K split in steps of 256 (`plan_splits_k_i2`;
   the last step may end at a K tail of 64, 128 or 192), the biased codes
   fed to the mma as they are and the bias taken off once a split (sum (f
@@ -49,9 +54,13 @@ from ..ops.reference import expand_groups, matmul_dense_reference
 from ..quantization import numerics, packing
 from . import build, scratch
 
-GROUP = 128
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_ARGTYPES_DECODE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+GROUP = 128          # the step of the uint4 decode instance, JAX's default
+# groups the uint4 kernels take besides 128, the multiples of 256 that
+# divide K and K itself (per channel): csrc/dequant_matmul.cu group_ok
+NARROW_GROUPS = (32, 64)
+ZEROS_MODES = ("original", "rescale")
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES_DECODE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
 _ARGTYPES_I2 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ARGTYPES_I2_DECODE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
@@ -115,12 +124,12 @@ def _plan_splits(m: int, n: int, steps: int, max_chunk: int, sms: int):
 
 def plan_splits_k(m: int, n: int, k: int, sms: int = H100_SMS):
     """(chunk, splits) of the uint4 decode instance, from static sizes
-    only: K's 128-groups cut into `splits` runs of `chunk` groups (the
-    last may be shorter, none is empty), enough that the (N tiles x M
-    tiles x splits) blocks come within a factor 2 of SPLITK_BLOCKS_PER_SM
-    on every SM where K has the groups, and at most DECODE_MAX_CHUNK
-    groups a split. Split s covers groups [s * chunk, min((s + 1) *
-    chunk, K / 128))."""
+    only, whatever the group size: K's steps of 128 cut into `splits`
+    runs of `chunk` steps (the last may be shorter, none is empty),
+    enough that the (N tiles x M tiles x splits) blocks come within a
+    factor 2 of SPLITK_BLOCKS_PER_SM on every SM where K has the steps,
+    and at most DECODE_MAX_CHUNK steps a split. Split s covers steps [s *
+    chunk, min((s + 1) * chunk, K / 128))."""
     if min(m, n, k, sms) < 1 or k % GROUP:
         raise ValueError(f"plan_splits_k: M={m}, N={n}, K={k} (a multiple "
                          f"of {GROUP}), sms={sms}")
@@ -140,26 +149,31 @@ def plan_splits_k_i2(m: int, n: int, k: int, sms: int = H100_SMS):
                         sms)
 
 
-def fused_smem_bytes(fmt: str, tile) -> int:
-    """Dynamic shared memory one block of the instance takes (the sources'
-    own sizes). The wgmma + TMA instances (dequant_wgmma.cuh Tiled): 1024
-    bytes of alignment, STAGES ring slots of A (four boxes of block_m rows
-    x 128 bytes), the packed weight (block_n rows x 128 bytes) and, for
-    uint4, the slot's two scale and two zero rows (block_n halves each),
-    each slot rounded up to 1024 bytes, and two mbarriers a slot. The
-    uint4 decode instance: its largest size, A and its group sums over 8
-    groups (16 rows) and the per-thread ring of weight chunks and scale /
-    zero pairs. The int2 decode instance (dequant_matmul_i2.cu): its
-    largest size, A over 8 steps of 256 (16 rows), A's 16 row sums and the
+def fused_smem_bytes(fmt: str, tile, group: int = GROUP) -> int:
+    """Dynamic shared memory one block of the instance takes at uint4's
+    group size `group` (the sources' own sizes). The wgmma + TMA
+    instances (dequant_wgmma.cuh Tiled): 1024 bytes of alignment, STAGES
+    ring slots of A (four boxes of block_m rows x 128 bytes), the packed
+    weight (block_n rows x 128 bytes) and, for uint4, room for the slot's
+    scale and zero rows (block_n halves each; 8 rows for g = 32 and 64,
+    else 2), each slot rounded up to 1024 bytes, and two mbarriers a slot.
+    The uint4 decode instance: its largest size, A and its sums over 8
+    steps (16 rows; a sum a quarter for g = 32, 64) and the per-thread
+    ring of weight chunks and scale / zero pairs. The int2 decode
+    instance (dequant_matmul_i2.cu): its largest
+    size, A over 8 steps of 256 (16 rows), A's 16 row sums and the
     per-thread ring of two 16-byte weight chunks a stage."""
     bm, bn, bk, stages = tile
     if is_tiled(fmt, tile):
-        load = 4 * bm * 128 + bn * 128 + (8 * bn if fmt == "uint4" else 0)
+        rows = (8 if group in NARROW_GROUPS else 2) if fmt == "uint4" \
+            else 0
+        load = 4 * bm * 128 + bn * 128 + 4 * rows * bn
         return 1024 + stages * -(-load // 1024) * 1024 + 2 * stages * 8
     threads = bn // 16 * 32
     if fmt == "uint4":
-        return DECODE_MAX_CHUNK * bm * (bk * 2 + 4) + stages * threads * (
-            2 * 16 + 2 * 4)
+        sums = 4 if group in NARROW_GROUPS else 1
+        return DECODE_MAX_CHUNK * (bm * bk * 2 + sums * bm * 4) \
+            + stages * threads * (2 * 16 + 2 * 4)
     return I2_DECODE_MAX_CHUNK * bm * bk + bm * 4 + stages * threads * 2 * 16
 
 
@@ -171,69 +185,113 @@ def _tile(fmt: str, m: int, tile):
     return tile
 
 
+def check_group(K: int, group: int) -> None:
+    """Raise NotImplementedError unless the uint4 kernels take this group
+    size at this K (csrc/dequant_matmul.cu group_ok): K a multiple of 128
+    and g = 32, 64, 128, a multiple of 256 that divides K, or K."""
+    if K % GROUP == 0 and K % group == 0 and (
+            group in NARROW_GROUPS or group == GROUP or group % 256 == 0
+            or group == K):
+        return
+    raise NotImplementedError(
+        f"no uint4 kernel instance takes K={K} with group size {group} "
+        f"(K a multiple of {GROUP}; g = 32, 64, 128, a multiple of 256 "
+        f"that divides K, or K)")
+
+
 def dequantize_hopper(qweight: torch.Tensor, scales: torch.Tensor,
-                      zeros: torch.Tensor, group: int = GROUP
-                      ) -> torch.Tensor:
+                      zeros: torch.Tensor, group: int = GROUP,
+                      zeros_mode: str = "original") -> torch.Tensor:
     """Hopper-layout operands -> dense [N, K] float16, ``(q - z) * s``
-    evaluated in float16 (bit-identical to ops/reference.dequantize_weight
-    on the same codes)."""
+    (rescale: ``q * s - z``) evaluated in float16 (bit-identical to
+    ops/reference.dequantize_weight on the same codes)."""
     K = qweight.shape[1] * 8
     w = numerics.decode_uint_field(packing.unpack_k(qweight, 4), 4,
                                    torch.float16)
     s = expand_groups(scales.T.to(torch.float16), group, K)
     z = expand_groups(zeros.T.to(torch.float16), group, K)
-    return numerics.apply_scaling(w, s, z, "original").to(torch.float16)
+    return numerics.apply_scaling(w, s, z, zeros_mode).to(torch.float16)
+
+
+def _with_bias(out: torch.Tensor, bias) -> torch.Tensor:
+    """f32 sums [M, N] + the f32 bias, rounded once to float16."""
+    if bias is not None:
+        out = out + bias.reshape(1, -1).float()
+    return out.to(torch.float16)
 
 
 def dequant_matmul_u4_plain(A: torch.Tensor, qweight: torch.Tensor,
                             scales: torch.Tensor, zeros: torch.Tensor,
-                            group: int = GROUP) -> torch.Tensor:
+                            group: int = GROUP, bias=None,
+                            zeros_mode: str = "original") -> torch.Tensor:
     """Plain PyTorch version of the kernel (any device)."""
-    W = dequantize_hopper(qweight, scales, zeros, group)
-    return matmul_dense_reference(A, W, torch.float16)
+    W = dequantize_hopper(qweight, scales, zeros, group, zeros_mode)
+    if bias is None:
+        return matmul_dense_reference(A, W, torch.float16)
+    return _with_bias(matmul_dense_reference(A, W, torch.float32), bias)
 
 
 def dequant_matmul_u4_split_plain(A: torch.Tensor, qweight: torch.Tensor,
                                   scales: torch.Tensor, zeros: torch.Tensor,
-                                  sms: int = H100_SMS) -> torch.Tensor:
+                                  sms: int = H100_SMS, group: int = GROUP,
+                                  bias=None, zeros_mode: str = "original"
+                                  ) -> torch.Tensor:
     """The decode instance's arithmetic in plain PyTorch (any device): the
-    splits `plan_splits_k` gives; in each, the groups in order, each
-    adding s (sum q a - z sum a) in f32 (scale and zero applied to the
-    group's sums, as the kernel and the JAX kernel apply them); then the
-    partials summed in split order 0, 1, ... in f32 and rounded once to
+    splits `plan_splits_k` gives; in each, the steps of 128 in order, each
+    adding s (sum q a - z sum a) in f32 (rescale: s sum q a - z sum a;
+    scale and zero applied to a group's sums, as the kernel and the JAX
+    kernel apply them), one pair a step for g >= 128 and one a 32-deep
+    quarter, in order, for g = 32 and 64; then the partials summed in
+    split order 0, 1, ... in f32, the bias added and rounded once to
     float16. Only the tests call it."""
     M, K = A.shape
     N = qweight.shape[0]
     chunk, splits = plan_splits_k(M, N, K, sms)
     q = packing.unpack_k(qweight, 4).float()              # [N, K] codes
     Af = A.float()
+    span = 32 if group in NARROW_GROUPS else GROUP     # K a correction
     out = torch.zeros((M, N), dtype=torch.float32, device=A.device)
     for sp in range(splits):
         part = torch.zeros_like(out)
-        for g in range(sp * chunk, min((sp + 1) * chunk, K // GROUP)):
-            ks = slice(g * GROUP, (g + 1) * GROUP)
+        for k0 in range(sp * chunk * GROUP, min((sp + 1) * chunk * GROUP, K),
+                        span):
+            ks = slice(k0, k0 + span)
             a = Af[:, ks]
-            raw = a @ q[:, ks].T - a.sum(dim=1, keepdim=True) \
-                * zeros[g].float()[None]
-            part = part + raw * scales[g].float()[None]
+            r = k0 // group
+            s, z = scales[r].float()[None], zeros[r].float()[None]
+            raw, asum = a @ q[:, ks].T, a.sum(dim=1, keepdim=True)
+            if zeros_mode == "rescale":
+                part = part + (raw * s - asum * z)
+            else:
+                part = part + (raw - asum * z) * s
         out = out + part
-    return out.to(torch.float16)
+    return _with_bias(out, bias)
 
 
-def _check(A, qweight, scales, zeros, group):
+def _check(A, qweight, scales, zeros, group, bias=None,
+           zeros_mode="original"):
     if A.dim() != 2 or qweight.dim() != 2:
         raise ValueError(f"A must be [M, K] and qweight [N, K/8], got "
                          f"{tuple(A.shape)} and {tuple(qweight.shape)}")
     M, K = A.shape
     N = qweight.shape[0]
-    if group != GROUP:
-        raise NotImplementedError(f"group size {group} (kernel runs {GROUP})")
-    if K % GROUP or N % 8:
-        raise ValueError(f"K={K} must be a multiple of {GROUP} and N={N} of 8")
+    if zeros_mode not in ZEROS_MODES:
+        raise ValueError(f"zeros_mode {zeros_mode!r} (the kernels take "
+                         f"{ZEROS_MODES}; quantized zeros are unpacked to "
+                         f"float16 zeros by the weight transform)")
+    # the plain version takes what the kernels take, on every device
+    check_group(K, group)
+    if N % 8:
+        raise ValueError(f"N={N} must be a multiple of 8")
     want = {"A": (A, torch.float16, (M, K)),
             "qweight": (qweight, torch.int32, (N, K // 8)),
             "scales": (scales, torch.float16, (K // group, N)),
             "zeros": (zeros, torch.float16, (K // group, N))}
+    if bias is not None:
+        want["bias"] = (bias, torch.float32, tuple(bias.shape))
+        if bias.numel() != N:
+            raise ValueError(f"bias: expected {N} values, got "
+                             f"{tuple(bias.shape)}")
     for name, (t, dt, shape) in want.items():
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {dt} {shape}, got "
@@ -246,17 +304,24 @@ def _check(A, qweight, scales, zeros, group):
 
 def dequant_matmul_u4(A: torch.Tensor, qweight: torch.Tensor,
                       scales: torch.Tensor, zeros: torch.Tensor,
-                      group: int = GROUP, tile=None) -> torch.Tensor:
+                      group: int = GROUP, tile=None, bias=None,
+                      zeros_mode: str = "original") -> torch.Tensor:
     """out [M, N] float16; see the module docstring for the layout.
-    `tile` is one of FUSED_TILES["uint4"] (default: default_tile)."""
-    _check(A, qweight, scales, zeros, group)
+    `tile` is one of FUSED_TILES["uint4"] (default: default_tile); `bias`
+    float32 [N] or [1, N]; `zeros_mode` "original" or "rescale". A group
+    size no instance takes raises NotImplementedError (`check_group`), on
+    the card and, so that the CPU tests see it, on the CPU."""
+    _check(A, qweight, scales, zeros, group, bias, zeros_mode)
     tile = _tile("uint4", A.shape[0], tile)
     if A.device.type == "cpu":
-        return dequant_matmul_u4_plain(A, qweight, scales, zeros, group)
+        return dequant_matmul_u4_plain(A, qweight, scales, zeros, group,
+                                       bias, zeros_mode)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     M, K = A.shape
     N = qweight.shape[0]
+    rescale = int(zeros_mode == "rescale")
+    bias_ptr = bias.data_ptr() if bias is not None else 0
     out = torch.empty((M, N), dtype=torch.float16, device=A.device)
     if M == 0:
         return out
@@ -273,30 +338,46 @@ def dequant_matmul_u4(A: torch.Tensor, qweight: torch.Tensor,
             fn = build.entry("dequant_matmul", "dequant_matmul_u4_decode",
                              _ARGTYPES_DECODE)
             err = fn(A.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                     zeros.data_ptr(), out.data_ptr(),
+                     zeros.data_ptr(), bias_ptr, out.data_ptr(),
                      part.data_ptr() if part is not None else 0,
                      count.data_ptr() if count is not None else 0, M, N, K,
-                     group, chunk, splits, stream)
+                     group, rescale, chunk, splits, stream)
         else:
             fn = build.entry("dequant_matmul", "dequant_matmul_u4",
                              _ARGTYPES)
             err = fn(A.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                     zeros.data_ptr(), out.data_ptr(), M, N, K, group,
-                     *tile, stream)
+                     zeros.data_ptr(), bias_ptr, out.data_ptr(), M, N, K,
+                     group, rescale, *tile, stream)
     build.check(err, "dequant_matmul_u4")
     dequant_matmul_u4.launches += 1
-    if tile == U4_DECODE_TILE:
+    kind = "decode" if tile == U4_DECODE_TILE else "tiled"
+    if kind == "decode":
         dequant_matmul_u4.decode_launches += 1
     else:
         dequant_matmul_u4.tiled_launches += 1
+    key = u4_variant(kind, group, K, zeros_mode, bias is not None)
+    counts = dequant_matmul_u4.variant_launches
+    counts[key] = counts.get(key, 0) + 1
     return out
+
+
+def u4_variant(kind: str, group: int, K: int, zeros_mode: str,
+               bias: bool) -> str:
+    """The name of a uint4 launch's instance and options, as
+    `variant_launches` counts it: "decode g64", "tiled per_channel",
+    "decode g128 rescale bias", ..."""
+    g = "per_channel" if group == K and group > GROUP else f"g{group}"
+    return " ".join([kind, g] + (["rescale"] if zeros_mode == "rescale"
+                                 else []) + (["bias"] if bias else []))
 
 
 dequant_matmul_u4.launches = 0
 # among them, the launches of the split-K decode instance and those of the
-# wgmma + TMA tiled instances
+# wgmma + TMA tiled instances; and every launch by instance, group size,
+# zeros mode and bias (u4_variant)
 dequant_matmul_u4.decode_launches = 0
 dequant_matmul_u4.tiled_launches = 0
+dequant_matmul_u4.variant_launches = {}
 
 
 def decode_i2_hopper(qweight: torch.Tensor) -> torch.Tensor:

@@ -10,10 +10,12 @@ from M = 512, or in a bucket whose measured winner it is
 (tuner/space.py).
 
 * `weight_decode_u4` -- kernel 2's counterpart (csrc/weight_decode.cu):
-  uint4 codes, group-128 scales, original zeros -> dense [N, K] float16,
-  bfloat16 or float32 (JAX's `mma_dtype`). float16 is bit-identical to
-  `dequantize_hopper`, the fused kernel's decoded tile; bfloat16 and
-  float32 are the float32 value (q - z) * s with one cast, as JAX computes.
+  uint4 codes, grouped scales (any group of whole words: GPTQ's 32, 64,
+  128 and per channel), original or rescale zeros -> dense [N, K]
+  float16, bfloat16 or float32 (JAX's `mma_dtype`). float16 is
+  bit-identical to `dequantize_hopper`, the fused kernel's decoded tile;
+  bfloat16 and float32 are the float32 value (q - z) * s (q * s - z)
+  with one cast, as JAX computes.
 * `weight_decode_int8` -- kernel 3's counterpart
   (csrc/weight_decode_int8.cu): 2- or 4-bit int/uint fields -> int8 codes
   [N, K], the int family minus its bias 2^(bits-1).
@@ -21,8 +23,9 @@ from M = 512, or in a bucket whose measured winner it is
   (kernels/dense.dense_product): on the card `torch.matmul` (float16 in
   and out) or `torch._int_mm` (int8 in, int32 out). JAX computes both
   products as `lax.dot_general` outside any Pallas kernel, so they stay
-  library calls. cuBLAS may reduce split-K partial sums of the float16
-  product in float16
+  library calls. A bias is added to the product in float32 before the
+  cast, as JAX's `_finish` adds it. cuBLAS may reduce split-K partial
+  sums of the float16 product in float16
   (`torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction`,
   left as the process has it), so the route is held to 4e-3 of the
   largest output against the fused kernel and the plain version; the
@@ -47,10 +50,10 @@ from ..quantization import numerics, packing
 from ..quantization.formats import as_torch_dtype
 from . import build
 from .dense import dense_product
-from .dequant_matmul import GROUP, dequantize_hopper
+from .dequant_matmul import GROUP, ZEROS_MODES, dequantize_hopper
 from .spec import KernelSpec
 
-_ARGTYPES_U4 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_U4 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_I8 = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _OUT_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 
@@ -84,50 +87,66 @@ def _check(name, t, dtype, shape, device):
 
 def weight_decode_u4_plain(qweight: torch.Tensor, scales: torch.Tensor,
                            zeros: torch.Tensor,
-                           out_dtype: torch.dtype = torch.float16
-                           ) -> torch.Tensor:
+                           out_dtype: torch.dtype = torch.float16,
+                           group: int = GROUP,
+                           zeros_mode: str = "original") -> torch.Tensor:
     """Plain PyTorch version of kernel 2 (any device)."""
     if out_dtype == torch.float16:
-        return dequantize_hopper(qweight, scales, zeros)
+        return dequantize_hopper(qweight, scales, zeros, group, zeros_mode)
     K = qweight.shape[1] * 8
     q = packing.unpack_k(qweight, 4).to(torch.float32)
-    s = expand_groups(scales.T.to(torch.float32), GROUP, K)
-    z = expand_groups(zeros.T.to(torch.float32), GROUP, K)
-    return ((q - z) * s).to(out_dtype)
+    s = expand_groups(scales.T.to(torch.float32), group, K)
+    z = expand_groups(zeros.T.to(torch.float32), group, K)
+    w = q * s - z if zeros_mode == "rescale" else (q - z) * s
+    return w.to(out_dtype)
 
 
 def weight_decode_u4(qweight: torch.Tensor, scales: torch.Tensor,
                      zeros: torch.Tensor,
-                     out_dtype: torch.dtype = torch.float16) -> torch.Tensor:
-    """qweight [N, K/8] int32, scales / zeros [K/128, N] float16 -> dense
-    [N, K] in `out_dtype` (float16, bfloat16 or float32)."""
+                     out_dtype: torch.dtype = torch.float16,
+                     group: int = GROUP,
+                     zeros_mode: str = "original") -> torch.Tensor:
+    """qweight [N, K/8] int32, scales / zeros [K/g, N] float16 (g a
+    multiple of 8 that divides K) -> dense [N, K] in `out_dtype`
+    (float16, bfloat16 or float32); `zeros_mode` original or rescale."""
     if qweight.dim() != 2:
         raise ValueError(f"qweight must be [N, K/8], got {qweight.shape}")
     if out_dtype not in _OUT_CODE:
         raise ValueError(f"out_dtype {out_dtype} (float16, bfloat16, "
                          f"float32)")
+    if zeros_mode not in ZEROS_MODES:
+        raise ValueError(f"zeros_mode {zeros_mode!r} ({ZEROS_MODES})")
     N, K = qweight.shape[0], qweight.shape[1] * 8
-    if K % GROUP:
-        raise ValueError(f"K={K} must be a multiple of {GROUP}")
+    if group < 8 or group % 8 or K % group:
+        raise ValueError(f"K={K} must be a multiple of the group size "
+                         f"{group}, a multiple of 8")
     _check("qweight", qweight, torch.int32, (N, K // 8), qweight.device)
     for name, t in (("scales", scales), ("zeros", zeros)):
-        _check(name, t, torch.float16, (K // GROUP, N), qweight.device)
+        _check(name, t, torch.float16, (K // group, N), qweight.device)
     if qweight.device.type == "cpu":
-        return weight_decode_u4_plain(qweight, scales, zeros, out_dtype)
+        return weight_decode_u4_plain(qweight, scales, zeros, out_dtype,
+                                      group, zeros_mode)
     if qweight.device.type != "cuda":
         raise ValueError(f"unsupported device {qweight.device}")
     out = torch.empty((N, K), dtype=out_dtype, device=qweight.device)
     with torch.cuda.device(qweight.device):
         fn = build.entry("weight_decode", "weight_decode_u4", _ARGTYPES_U4)
         err = fn(qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                 out.data_ptr(), N, K, GROUP, _OUT_CODE[out_dtype],
+                 out.data_ptr(), N, K, group, int(zeros_mode == "rescale"),
+                 _OUT_CODE[out_dtype],
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, "weight_decode_u4")
     weight_decode_u4.launches += 1
+    key = ("per_channel" if group == K and group > GROUP else f"g{group}") \
+        + (" rescale" if zeros_mode == "rescale" else "")
+    counts = weight_decode_u4.variant_launches
+    counts[key] = counts.get(key, 0) + 1
     return out
 
 
 weight_decode_u4.launches = 0
+# the launches by group size and zeros mode ("g64", "g128 rescale", ...)
+weight_decode_u4.variant_launches = {}
 
 
 def weight_decode_int8_plain(qweight: torch.Tensor, bits: int = 2,
@@ -168,14 +187,21 @@ weight_decode_int8.launches = 0
 
 def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
                        qweight: torch.Tensor, scales=None,
-                       zeros=None) -> torch.Tensor:
+                       zeros=None, bias=None) -> torch.Tensor:
     """A [M, K] -> out [M, N] through the two-pass plan for the ported
     configurations: W2A8 (int8 codes, int32 sums cast to float32) and
-    W4A16 (float16 weight, float16 out)."""
+    W4A16 (float16 weight at the spec's group and zeros mode, float16
+    out; a float32 bias added to the product before the cast)."""
     if not supports_materialize_spec(spec):
         raise ValueError(f"materialize plan unsupported for {spec}")
+    out_dtype = as_torch_dtype(spec.out_dtype)
     if spec.is_int_activation:
         W = weight_decode_int8(qweight, spec.bits, spec.family)
     else:
-        W = weight_decode_u4(qweight, scales, zeros)
-    return dense_product(A, W, as_torch_dtype(spec.out_dtype))
+        mode = "rescale" if spec.zeros_mode == "rescale" else "original"
+        W = weight_decode_u4(qweight, scales, zeros, group=spec.group_size,
+                             zeros_mode=mode)
+    if bias is None:
+        return dense_product(A, W, out_dtype)
+    out = dense_product(A, W, torch.float32) + bias.reshape(1, -1).float()
+    return out.to(out_dtype)

@@ -1,18 +1,186 @@
-"""The unquantized ends of a quantized Llama and the tokens->logits
-wrapper (counterpart of bitblas_tpu/models/hf_import.py: LMHead,
-QuantLlamaLM, sample_token). Loading HF GPTQ checkpoints is not ported
-yet."""
+"""Import a HuggingFace-transformers GPTQ Llama checkpoint into
+QuantLlama, with the unquantized ends of the model and the tokens->logits
+wrapper (counterpart of bitblas_tpu/models/hf_import.py).
+
+`load_quant_llama_from_hf_gptq` maps the HF state-dict names
+(`model.layers.{i}.self_attn.q_proj.qweight` ...) onto QuantLlama's seven
+projections, repacks every GPTQ bundle into the Hopper layout with torch
+ops on the model's device (graph.repack_gptq_layer) and returns the
+trunk and its LMHead. The config comes from `llama_config_from_hf`, a
+transformers config object or a plain dict (transformers is never
+imported). Act-order (`desc_act=True`) checkpoints are refused: their
+`g_idx` permutes K, which grouped scales do not represent. `perplexity`
+evaluates any tokens->logits callable.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+import logging
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..common import resolve_device
-from .quant_llama import QuantLlama, rmsnorm
+from ..graph import as_tensor, repack_gptq_layer
+from .quant_llama import LlamaConfig, QuantLlama, rmsnorm
+
+logger = logging.getLogger("bitblas_tpu_torch")
+
+# HF projection name -> the port's projection name
+_HF_PROJS = (
+    ("self_attn.q_proj", "q"),
+    ("self_attn.k_proj", "k"),
+    ("self_attn.v_proj", "v"),
+    ("self_attn.o_proj", "o"),
+    ("mlp.gate_proj", "gate"),
+    ("mlp.up_proj", "up"),
+    ("mlp.down_proj", "down"),
+)
+
+
+def rope_scaling_from_hf(get) -> Optional[dict]:
+    """A HF config's rope_scaling, checked: None or "default" pass
+    through as None, "llama3" is taken, anything else raises (dropping a
+    scaling silently would drift long-context logits from the source)."""
+    scaling = get("rope_scaling", None)
+    if scaling is None:
+        return None
+    if not isinstance(scaling, Mapping):
+        scaling = dict(scaling.__dict__)
+    rt = scaling.get("rope_type", scaling.get("type", "default"))
+    if rt == "default":
+        return None
+    if rt != "llama3":
+        raise ValueError(
+            f"rope_scaling type {rt!r} unsupported (only 'llama3'; "
+            f"linear/dynamic NTK checkpoints need that formula added "
+            f"to quant_llama.llama3_scaled_freqs' family)")
+    return dict(scaling)
+
+
+def llama_config_from_hf(hf_config, *, group_size: int = 128,
+                         act_dtype: str = "float16") -> LlamaConfig:
+    """Map a transformers LlamaConfig (an object or a plain dict) onto the
+    port's LlamaConfig, as JAX's importer maps it."""
+    def get(name, default=None):
+        if isinstance(hf_config, Mapping):
+            return hf_config.get(name, default)
+        return getattr(hf_config, name, default)
+
+    heads = get("num_attention_heads")
+    scaling = rope_scaling_from_hf(get)
+    sw = (get("sliding_window", None)
+          if get("use_sliding_window", True) else None)
+    mwl = get("max_window_layers", None)
+    if sw is not None and mwl is not None \
+            and mwl < get("num_hidden_layers"):
+        # Qwen2: layers from max_window_layers attend fully while lower
+        # layers window; per-layer windows are not wired, and windowing
+        # every layer would drift the logits
+        raise NotImplementedError(
+            f"max_window_layers={mwl} < num_hidden_layers="
+            f"{get('num_hidden_layers')} with an active sliding window: "
+            f"per-layer window gating is not implemented")
+    return LlamaConfig(
+        hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        num_heads=heads,
+        num_kv_heads=get("num_key_value_heads", heads) or heads,
+        num_layers=get("num_hidden_layers"),
+        vocab_size=get("vocab_size"),
+        group_size=group_size,
+        act_dtype=act_dtype,
+        rope_theta=float(get("rope_theta", 10000.0)),
+        rope_scaling=scaling,
+        # Qwen2 configs carry no attention_bias field (the q/k/v biases
+        # are implicit in the architecture): default it from model_type
+        attention_bias=bool(get("attention_bias",
+                                get("model_type", "") == "qwen2")),
+        rms_norm_eps=float(get("rms_norm_eps", 1e-5)),
+        # Mistral-family sliding windows; use_sliding_window=False (the
+        # Qwen2 gate) turns one off, as transformers does
+        sliding_window=sw,
+    )
+
+
+def _check_g_idx(state: Mapping, key: str, K: int, group_size: int) -> None:
+    """Refuse a non-sequential g_idx (act-order / desc_act)."""
+    g_idx = state.get(f"{key}.g_idx")
+    if g_idx is None:
+        return
+    g = K if group_size in (-1, None) else group_size
+    got = as_tensor(g_idx).to(torch.int64).reshape(-1)
+    expect = torch.arange(K, dtype=torch.int64, device=got.device) // g
+    if not torch.equal(got, expect):
+        raise ValueError(
+            f"{key}: non-sequential g_idx (act-order / desc_act checkpoint)."
+            f" The grouped-scale layout needs sequential groups; "
+            f"re-quantize with desc_act=False or pre-permute K offline")
+
+
+def _lm_head_weight(state: Mapping):
+    """lm_head.weight, else the tied embedding (Qwen2-small and many
+    chat finetunes ship no lm_head.weight)."""
+    if "lm_head.weight" in state:
+        return state["lm_head.weight"]
+    return state["model.embed_tokens.weight"]
+
+
+def load_quant_llama_from_hf_gptq(
+    state: Mapping[str, object],
+    hf_config,
+    *,
+    bits: int = 4,
+    group_size: int = 128,
+    gptq_v2: bool = False,
+    opt_m=(1, 16, 256),
+    enable_tuning: bool = False,
+    device="cuda",
+) -> Tuple[QuantLlama, "LMHead"]:
+    """A QuantLlama trunk and its LMHead from a HF GPTQ Llama state dict
+    (torch tensors on any device, or numpy arrays): per layer the GPTQ
+    bundles (`...q_proj.qweight/qzeros/scales`, an optional sequential
+    g_idx, q/k/v biases where the config has attention_bias) and the two
+    RMSNorm weights; `model.embed_tokens.weight`, `model.norm.weight` and
+    `lm_head.weight` (or the tied embedding). `QuantLlamaLM` composes the
+    two into tokens -> logits."""
+    if bits != 4:
+        raise ValueError(f"GPTQ llama import supports 4-bit (got {bits})")
+    dev = resolve_device(device)
+    cfg = llama_config_from_hf(hf_config, group_size=group_size)
+    model = QuantLlama(cfg, device=dev, enable_tuning=enable_tuning,
+                       opt_m=opt_m)
+    for i, layer in enumerate(model.layers):
+        base = f"model.layers.{i}"
+        for hf_name, ours in _HF_PROJS:
+            key = f"{base}.{hf_name}"
+            mcfg = layer.ops[ours].config
+            if f"{key}.bias" in state:
+                if not (cfg.attention_bias and ours in ("q", "k", "v")):
+                    raise ValueError(
+                        f"{key}: unexpected bias (attention_bias covers "
+                        f"q/k/v only); refusing to drop it")
+                setattr(layer, f"{ours}_bias", as_tensor(
+                    state[f"{key}.bias"], dev).to(torch.float32))
+            _check_g_idx(state, key, mcfg.K, group_size)
+            packed = repack_gptq_layer(
+                mcfg, state[f"{key}.qweight"], state[f"{key}.scales"],
+                state[f"{key}.qzeros"], gptq_v2=gptq_v2, device=dev)
+            for t in ("qweight", "scales", "zeros"):
+                setattr(layer, f"{ours}_{t}", packed[t])
+        layer.attn_norm = as_tensor(
+            state[f"{base}.input_layernorm.weight"], dev).float()
+        layer.mlp_norm = as_tensor(
+            state[f"{base}.post_attention_layernorm.weight"], dev).float()
+        logger.info("imported layer %d/%d", i + 1, cfg.num_layers)
+    head = LMHead(embed=as_tensor(state["model.embed_tokens.weight"], dev),
+                  final_norm=as_tensor(state["model.norm.weight"], dev),
+                  lm_head=as_tensor(_lm_head_weight(state), dev),
+                  norm_eps=cfg.rms_norm_eps, device=dev,
+                  act_dtype=getattr(torch, cfg.act_dtype))
+    return model, head
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -109,6 +277,28 @@ class QuantLlamaLM:
             last_hidden, caches_k, caches_v = self.model.decode_step(
                 x, caches_k, caches_v, slots, lengths)
         return np.asarray(out, np.int32)
+
+
+def perplexity(lm, token_ids, *, chunk: int = 0) -> float:
+    """Causal-LM perplexity of `lm` (any tokens -> logits callable, e.g.
+    QuantLlamaLM) over token_ids [B, S]: exp of the mean next-token
+    negative log-likelihood, summed in float32 per chunk of `chunk`
+    sequences (0: the whole batch at once)."""
+    ids = as_tensor(token_ids)
+    if ids.dim() == 1:
+        ids = ids[None]
+    B = ids.shape[0]
+    step = B if chunk <= 0 else chunk
+    total, count = 0.0, 0
+    for s in range(0, B, step):
+        toks = ids[s:s + step]
+        logits = lm(toks[:, :-1]).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        tgt = toks[:, 1:].to(device=logp.device, dtype=torch.int64)
+        nll = -torch.gather(logp, -1, tgt[..., None])
+        total += float(nll.sum())
+        count += tgt.numel()
+    return float(np.exp(total / max(count, 1)))
 
 
 def sample_token(logits_row: np.ndarray, *, temperature: float = 0.0,

@@ -2,11 +2,12 @@
 bitblas_tpu/models/quant_llama.py).
 
 RMSNorm + RoPE + GQA attention + SwiGLU MLP, every weight matrix a GPTQ
-W4A16 matmul (uint4 codes, group-128 float16 scales and zeros) through the
-dequant kernel; prefill attention runs the flash kernel for long prompts
-and each decode step a flash-decode kernel over the slot cache or the
-block pool, bfloat16 or int8. The
-decoder is an nn.Module whose buffers hold the device-layout weights;
+W4A16 matmul (uint4 codes, float16 scales and zeros in groups of
+`LlamaConfig.group_size`: 32, 64, 128, a multiple of 256 or -1, per
+channel) through the dequant kernel; prefill attention runs the flash
+kernel for long prompts and each decode step a flash-decode kernel over
+the slot cache or the block pool, bfloat16 or int8. The decoder is an
+nn.Module whose buffers hold the device-layout weights;
 `convert.from_jax_state` carries the JAX package's weights across.
 """
 
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -105,20 +106,23 @@ class QuantLlamaLayer(nn.Module):
     contractive as the JAX fixture's do."""
 
     def __init__(self, cfg: LlamaConfig, seed: int = 0, device="cuda",
-                 enable_tuning: bool = False):
+                 enable_tuning: bool = False,
+                 opt_m: Optional[Sequence[int]] = None):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         self.ops: Dict[str, Matmul] = {}
-        g = cfg.group_size
         for name, kin, kout in _PROJS:
             K, N = _dim(cfg, kin), _dim(cfg, kout)
-            mcfg = MatmulConfig(N=N, K=K, A_dtype=cfg.act_dtype,
+            mcfg = MatmulConfig(M=None if opt_m is None else list(opt_m),
+                                N=N, K=K, A_dtype=cfg.act_dtype,
                                 W_dtype="uint4", with_scaling=True,
                                 with_zeros=True, zeros_mode="original",
-                                group_size=g, out_dtype=cfg.act_dtype)
+                                group_size=cfg.group_size,
+                                out_dtype=cfg.act_dtype)
+            g = mcfg.effective_group_size
             self.ops[name] = Matmul(mcfg, device=dev,
                                     enable_tuning=enable_tuning)
             words = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8),
@@ -385,11 +389,12 @@ class QuantLlama(DecoderServingMixin, nn.Module):
     stream hidden states; models/hf_import.LMHead adds the ends)."""
 
     def __init__(self, cfg: LlamaConfig, device="cuda", seed: int = 0,
-                 enable_tuning: bool = False):
+                 enable_tuning: bool = False,
+                 opt_m: Optional[Sequence[int]] = None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.layers = nn.ModuleList(
             [QuantLlamaLayer(cfg, seed=seed + i, device=self.device,
-                             enable_tuning=enable_tuning)
+                             enable_tuning=enable_tuning, opt_m=opt_m)
              for i in range(cfg.num_layers)])

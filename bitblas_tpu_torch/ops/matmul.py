@@ -1,10 +1,12 @@
 """Matmul: the matmul operator (counterpart of bitblas_tpu/ops/matmul.py).
 
 `transform_weight` turns reference-layout operands into the Hopper device
-layout on the operator's device: uint4 codes [N, K] with scales and zeros
-[N, K/g] (W4A16), int2 values [N, K] in -2..1, clamped and biased (W2A8),
-or a native weight as it is ([N, K] for ``*t`` layouts, [K, N] for
-``*n``) with its bias as float32 [1, N]. `forward(A, W, scale=, zeros=,
+layout on the operator's device (where it moves them first): W4A16's
+uint4 codes [N, K] with scales [N, K/g] and zeros [N, K/g] (original,
+rescale) or packed [K/g, N/2] (quantized: unpacked to float16 zeros);
+W2A8's int2 values [N, K] in -2..1, clamped and biased; or a native
+weight as it is ([N, K] for ``*t`` layouts, [K, N] for ``*n``); a bias
+as float32 [1, N]. `forward(A, W, scale=, zeros=,
 bias=)` runs at any M, on the device of its inputs: PyTorch runs eagerly,
 so there is no per-bucket compile and no bucket padding, and each call
 takes the hint of its M (ops/operator.py):
@@ -108,8 +110,11 @@ class Matmul(Operator):
                 out.append((torch.rand(groups, generator=gen, device=dev)
                             * 0.01 + 0.005).half())
             if cfg.with_zeros:
-                out.append(torch.randint(0, 1 << cfg.bit, groups,
-                                         generator=gen, device=dev).half())
+                z = torch.randint(0, 1 << cfg.bit, groups, generator=gen,
+                                  device=dev).half()
+                if cfg.zeros_mode == "rescale":   # z * s, as GPTQ's
+                    z = (z * out[-1]).half()
+                out.append(z)
         if cfg.with_bias:
             out.append(torch.randn((1, cfg.N), generator=gen, device=dev))
         return out
@@ -124,23 +129,26 @@ class Matmul(Operator):
 
     def transform_weight(self, weight, scale=None, zeros=None, bias=None):
         """Reference-layout operands -> device layout: [weight, scales
-        [K/g, N] f16, zeros [K/g, N] f16, bias [1, N] float32], those
-        given (a single tensor when only the weight is)."""
+        [K/g, N] f16, zeros [K/g, N] f16 (quantized: unpacked from
+        [K/g, N*bits/8]), bias [1, N] float32], those given (a single
+        tensor when only the weight is)."""
         cfg = self.config
-        w = _to_tensor(weight)
+        w = _to_tensor(weight).to(self.device)
         if cfg.is_native_compute():
             result = [w.to(as_torch_dtype(cfg.W_dtype))]
         elif cfg.source_format == "int":
             result = [wt.signed_weight_to_device(cfg, w)]
         else:
-            result = [wt.unpacked_weight_to_device(cfg, w.cpu())]
+            result = [wt.unpacked_weight_to_device(cfg, w)]
         if scale is not None:
-            result.append(wt.scales_to_device(_to_tensor(scale).cpu()))
+            result.append(wt.scales_to_device(
+                _to_tensor(scale).to(self.device)))
         if zeros is not None:
-            result.append(wt.scales_to_device(_to_tensor(zeros).cpu()))
+            result.append(wt.zeros_to_device(
+                cfg, _to_tensor(zeros).to(self.device)))
         if bias is not None:
-            result.append(_to_tensor(bias).to(torch.float32).reshape(1, -1))
-        result = [t.to(self.device) for t in result]
+            result.append(wt.bias_to_device(_to_tensor(bias).to(
+                self.device)))
         return result[0] if len(result) == 1 else result
 
     # -- forward ------------------------------------------------------------
@@ -153,11 +161,13 @@ class Matmul(Operator):
                                      layout="n" + cfg.layout[1])(
                 A, W, bias=bias)
         if hint.decode_mode == "materialize":
-            return materialize_matmul(self._spec, A, W, scale, zeros)
+            return materialize_matmul(self._spec, A, W, scale, zeros, bias)
         if cfg.source_format == "int":
             return dequant_matmul_i2(A, W, tile=hint.tile)
-        return dequant_matmul_u4(A, W, scale, zeros, cfg.group_size,
-                                 tile=hint.tile)
+        return dequant_matmul_u4(
+            A, W, scale, zeros, cfg.effective_group_size, tile=hint.tile,
+            bias=bias, zeros_mode=("rescale" if cfg.zeros_mode == "rescale"
+                                   else "original"))
 
     def forward(self, A: torch.Tensor, W: torch.Tensor, scale=None,
                 zeros=None, bias=None) -> torch.Tensor:

@@ -1,18 +1,19 @@
 """MatmulConfig: the frozen dataclass that specifies a matmul operator
 (counterpart of bitblas_tpu/ops/matmul_config.py, same fields).
 
-The port runs these configurations (`PORTED`): the GPTQ W4A16 linear of
-the quantized Llama path (uint4 weights, float16 activations and outputs,
-float32 accumulation, group 128, scales and zeros with zeros_mode
-"original") and the BitNet W2A8 linear that `models/bitnet.py`
-BitLinearInference builds (int2 weights, int8 activations, int32
-accumulation, float32 outputs, no scales or zeros), both layout "nt"
-without bias; and the native dense configurations, A_dtype == W_dtype in
-float16, bfloat16, float32 (out_dtype the same) or int8 (out_dtype int32
-or float32), in every layout, with or without bias. A native
-configuration accumulates in float32 for float operands and in int32 for
-int8 whatever `accum_dtype` says, as the JAX dense kernel does, and the
-field is legalized to that type. Every other configuration raises
+The port runs these configurations (`PORTED`): the GPTQ W4A16 linear
+(uint4 weights, float16 activations and outputs, float32 accumulation,
+scales and zeros in groups of 32, 64 or 128, every multiple of 256 that
+divides K, or per channel (-1), zeros_mode "original", "rescale" or
+"quantized", with or without bias) and the BitNet W2A8 linear that
+`models/bitnet.py` BitLinearInference builds (int2 weights, int8
+activations, int32 accumulation, float32 outputs, no scales or zeros, no
+bias), both layout "nt"; and the native dense configurations, A_dtype ==
+W_dtype in float16, bfloat16, float32 (out_dtype the same) or int8
+(out_dtype int32 or float32), in every layout, with or without bias. A
+native configuration accumulates in float32 for float operands and in
+int32 for int8 whatever `accum_dtype` says, as the JAX dense kernel
+does, and the field is legalized to that type. Every other configuration raises
 NotImplementedError; the JAX legalization rules then fill the derived
 fields. `M` gives the operator's M buckets (ops/operator.py). The repr
 holds field values only, so it is the same in every process: the hint
@@ -31,19 +32,39 @@ from .common import OptimizeStrategy, TransformKind
 DEFAULT_OPT_M_DECODE = (1, 16, 32, 64, 128, 256, 512, 1024)
 DEFAULT_OPT_M_BATCHED = (16, 32, 64, 128, 256, 512, 1024)
 
-# The legal configurations: field -> the one value each takes. Quantized
-# configurations are "nt" without bias; native ones take every layout and
-# bias (those two fields are not listed for them).
-_QUANT = {"layout": "nt", "zeros_mode": "original", "with_bias": False}
+
+class OneOf(tuple):
+    """The values a field of PORTED may take."""
+
+
+def gptq_group(config) -> bool:
+    """GPTQ's group sizes at this K: -1 (per channel), 32, 64, 128, or a
+    multiple of 256 that divides K (the kernels' steps and slots never
+    straddle a group)."""
+    g = config.group_size
+    return g in (-1, 32, 64, 128) or (g > 0 and g % 256 == 0
+                                      and config.K % g == 0)
+
+
+gptq_group.describe = "-1, 32, 64, 128 or a multiple of 256 that divides K"
+
+
+# The legal configurations: field -> the value each takes (a OneOf: any
+# of its values; a function of the config: where it returns True).
+# Quantized configurations are "nt"; native ones take every layout and bias
+# (those two fields are not listed for them).
 _DENSE = {"group_size": -1, "with_scaling": False, "with_zeros": False,
           "zeros_mode": "original"}
 PORTED = (
     dict(A_dtype="float16", W_dtype="uint4", out_dtype="float16",
-         accum_dtype="float32", group_size=128, with_scaling=True,
-         with_zeros=True, **_QUANT),
+         accum_dtype="float32", group_size=gptq_group, with_scaling=True,
+         with_zeros=True, layout="nt",
+         zeros_mode=OneOf(("original", "rescale", "quantized")),
+         with_bias=OneOf((False, True))),
     dict(A_dtype="int8", W_dtype="int2", out_dtype="float32",
          accum_dtype="int32", group_size=-1, with_scaling=False,
-         with_zeros=False, **_QUANT),
+         with_zeros=False, layout="nt", zeros_mode="original",
+         with_bias=False),
     *(dict(A_dtype=dt, W_dtype=dt, out_dtype=dt, accum_dtype="float32",
            **_DENSE) for dt in ("float16", "bfloat16", "float32")),
     *(dict(A_dtype="int8", W_dtype="int8", out_dtype=out,
@@ -51,20 +72,36 @@ PORTED = (
 )
 
 
+def _allows(cfg, name: str, want) -> bool:
+    if callable(want):
+        return want(cfg)
+    if isinstance(want, OneOf):
+        return getattr(cfg, name) in want
+    return getattr(cfg, name) == want
+
+
+def _describe(want) -> str:
+    if callable(want):
+        return want.describe
+    if isinstance(want, OneOf):
+        return "one of " + ", ".join(repr(v) for v in want)
+    return repr(want)
+
+
 def _check_ported(cfg) -> None:
     """Raise NotImplementedError unless `cfg` is one of PORTED, naming the
     first field that differs from the ported configuration nearest to it
     (same A_dtype and W_dtype, else same A_dtype)."""
-    if any(all(getattr(cfg, k) == v for k, v in p.items()) for p in PORTED):
+    if any(all(_allows(cfg, k, v) for k, v in p.items()) for p in PORTED):
         return
     near = next((p for p in PORTED if (p["A_dtype"], p["W_dtype"])
                  == (cfg.A_dtype, cfg.W_dtype)), None) \
         or next((p for p in PORTED if p["A_dtype"] == cfg.A_dtype),
                 PORTED[0])
     name, want = next((k, v) for k, v in near.items()
-                      if getattr(cfg, k) != v)
+                      if not _allows(cfg, k, v))
     raise NotImplementedError(
-        f"bitblas_tpu_torch runs {name}={want!r} only with "
+        f"bitblas_tpu_torch runs {name} = {_describe(want)} only with "
         f"A_dtype={near['A_dtype']!r}, W_dtype={near['W_dtype']!r} so far "
         f"(got {getattr(cfg, name)!r})")
 

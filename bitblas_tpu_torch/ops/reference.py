@@ -6,7 +6,10 @@ Inputs use the reference checkpoint layouts of the JAX package:
 
   qweight : [N, K*bits/8] int8, packed along K, LSB-first (general_compress)
   scales  : [N, K/group_size]
-  zeros   : [N, K/group_size]   (zeros_mode original)
+  zeros   : [N, K/group_size]   (zeros_mode original or rescale)
+  qzeros  : [K/group_size, N*bits/8] int8, packed along N (zeros_mode
+            quantized)
+  bias    : [N]
 
 `dequantize_weight` is bit-exact against the JAX function; the
 contraction accumulates in float32. The dequant kernel's plain version
@@ -34,19 +37,28 @@ def expand_groups(grouped: torch.Tensor, group: int, K: int) -> torch.Tensor:
 
 
 def dequantize_weight(config: MatmulConfig, qweight, scales=None,
-                      zeros=None) -> torch.Tensor:
+                      zeros=None, qzeros=None) -> torch.Tensor:
     """Decode a reference-layout packed weight to dense [N, K] in A_dtype:
-    ``(q - zeros) * scales`` evaluated in float16, or the int codes
-    ``field - 2^(bits-1)`` for the int family, as the JAX oracle does."""
+    ``(q - zeros) * scales`` (rescale: ``q * scales - zeros``; quantized:
+    ``(q - z)`` in the integer domain, cast, times scales) evaluated in
+    float16, or the int codes ``field - 2^(bits-1)`` for the int family,
+    as the JAX oracle does."""
     qweight = _tensor(qweight)
     adt = as_torch_dtype(config.A_dtype)
-    g, K = config.effective_group_size, config.K
+    g, K, N = config.effective_group_size, config.K, config.N
     fields = numerics.unpack_fields(qweight, config.bit)[..., :K]
-    w = numerics.decode_field(fields, config.source_format, config.bit, adt)
+    if config.with_zeros and config.zeros_mode == "quantized":
+        z = numerics.unpack_fields(_tensor(qzeros, fields.device),
+                                   config.bit)[..., :N]        # [K/g, N]
+        z = expand_groups(z.T.to(torch.int32), g, K)
+        w = (fields.to(torch.int32) - z).to(adt)
+    else:
+        w = numerics.decode_field(fields, config.source_format, config.bit,
+                                  adt)
     if config.with_scaling:
         s = expand_groups(_tensor(scales, w.device).to(adt), g, K)
         z = None
-        if config.with_zeros:
+        if config.with_zeros and config.zeros_mode != "quantized":
             z = expand_groups(_tensor(zeros, w.device).to(adt), g, K)
         w = numerics.apply_scaling(w, s, z, config.zeros_mode)
     return w.to(adt)
@@ -76,8 +88,15 @@ def matmul_dense_reference(A: torch.Tensor, W_nk: torch.Tensor,
 
 
 def matmul_reference(config: MatmulConfig, A, qweight, scales=None,
-                     zeros=None) -> torch.Tensor:
-    """Full oracle: dequantize, then contract."""
+                     zeros=None, qzeros=None, bias=None) -> torch.Tensor:
+    """Full oracle: dequantize, then contract; a bias is added to the
+    float32 (or int32) sums in float32 before the cast, as JAX adds it."""
     A = _tensor(A)
-    W = dequantize_weight(config, qweight, scales, zeros).to(A.device)
-    return matmul_dense_reference(A, W, as_torch_dtype(config.out_dtype))
+    W = dequantize_weight(config, qweight, scales, zeros,
+                          qzeros).to(A.device)
+    out_dtype = as_torch_dtype(config.out_dtype)
+    if bias is None:
+        return matmul_dense_reference(A, W, out_dtype)
+    out = matmul_dense_reference(A, W, torch.float32)
+    out = out + _tensor(bias, A.device).reshape(1, -1).float()
+    return numerics.saturate_cast(out, out_dtype)

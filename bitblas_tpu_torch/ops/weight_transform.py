@@ -5,9 +5,14 @@ The chain is: unpack the reference packing -> K-packed int32 words
 (quantization/packing.pack_k: eight uint4 or sixteen int2 fields per
 word); int values are clamped and biased first (`signed_weight_to_device`,
 the JAX Matmul.transform_weight rule); scales and zeros [N, K/g] ->
-[K/g, N] float16. The TPU's slot-strided N packing, its XOR-0x80 storage
-and its [K/g, 1, N] float32 scale planes are Mosaic workarounds and have
-no counterpart here. Each transform has an inverse so tests can round-trip.
+[K/g, N] float16 for every group size; quantized zeros (reference
+[K/g, N*bits/8] int8, packed along N) are unpacked to the same float16
+[K/g, N] zeros, since (q - z) * s with an integer z is exactly the
+original mode's value (`zeros_to_device`); a bias [N] -> [1, N] float32.
+Every transform of a tensor stays on the tensor's device. The TPU's
+slot-strided N packing, its XOR-0x80 storage and its [K/g, 1, N] float32
+scale planes are Mosaic workarounds and have no counterpart here. Each
+transform has an inverse so tests can round-trip.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ class DeviceWeights:
     qweight: torch.Tensor                  # [N, K*bits/32] int32
     scales: Optional[torch.Tensor] = None  # [K/g, N] float16
     zeros: Optional[torch.Tensor] = None   # [K/g, N] float16
+    bias: Optional[torch.Tensor] = None    # [1, N] float32
 
 
 def unpacked_weight_to_device(config: MatmulConfig,
@@ -80,14 +86,46 @@ def scales_from_device(scales_gn: torch.Tensor) -> np.ndarray:
     return scales_gn.T.contiguous().cpu().numpy()
 
 
+def qzeros_to_device(config: MatmulConfig, qzeros) -> torch.Tensor:
+    """Reference quantized zeros [K/g, N*bits/8] int8 (packed along N,
+    LSB first) -> their integer values as [K/g, N] float16 zeros, on the
+    tensor's device."""
+    q = qzeros if isinstance(qzeros, torch.Tensor) \
+        else torch.as_tensor(np.asarray(qzeros))
+    fields = packing.decompress(q.to(torch.int8), config.bit)
+    return fields[:, :config.N].to(torch.float16).contiguous()
+
+
+def zeros_to_device(config: MatmulConfig, zeros) -> torch.Tensor:
+    """The zeros of the configuration's mode -> [K/g, N] float16: [N, K/g]
+    values (original, rescale), or packed quantized zeros
+    (`qzeros_to_device`)."""
+    if config.zeros_mode == "quantized":
+        return qzeros_to_device(config, zeros)
+    return scales_to_device(zeros)
+
+
+def bias_to_device(bias) -> torch.Tensor:
+    """[N] -> [1, N] float32, contiguous, on the tensor's device."""
+    b = bias if isinstance(bias, torch.Tensor) \
+        else torch.as_tensor(np.asarray(bias))
+    return b.to(torch.float32).reshape(1, -1).contiguous()
+
+
 def transform_reference_operands(config: MatmulConfig, qweight: np.ndarray,
                                  scales: Optional[np.ndarray] = None,
-                                 zeros: Optional[np.ndarray] = None
+                                 zeros: Optional[np.ndarray] = None,
+                                 qzeros: Optional[np.ndarray] = None,
+                                 bias: Optional[np.ndarray] = None
                                  ) -> DeviceWeights:
-    """Bundle-transform reference-layout operands into the device layout."""
+    """Bundle-transform reference-layout operands (ops/reference.py's
+    shapes; `qzeros` for zeros mode quantized) into the device layout."""
     dw = DeviceWeights(qweight=reference_weight_to_device(config, qweight))
     if config.with_scaling:
         dw.scales = scales_to_device(scales)
     if config.with_zeros:
-        dw.zeros = scales_to_device(zeros)
+        dw.zeros = zeros_to_device(
+            config, qzeros if config.zeros_mode == "quantized" else zeros)
+    if bias is not None:
+        dw.bias = bias_to_device(bias)
     return dw

@@ -1,6 +1,15 @@
-"""Weight packing: the reference checkpoint layout, the JAX package's TPU
-layout (read-only, to carry JAX state across) and the port's own Hopper
-layout (counterpart of bitblas_tpu/quantization/packing.py).
+"""Weight packing: the reference checkpoint layout, GPTQ's checkpoint
+tensors (AutoGPTQ v1 / GPTQModel v2), the JAX package's TPU layout
+(read-only, to carry JAX state across) and the port's own Hopper layout
+(counterpart of bitblas_tpu/quantization/packing.py).
+
+The reference and GPTQ functions come in two forms: numpy
+(`general_compress`, `general_decompress`) where a host array is the
+natural input, and torch ops that run on the tensors' own device
+(`compress`, `decompress`, `unpack_qweight`, `unpack_qzeros{,_v2}`,
+`pack_autogptq`, `interleave_weight`), so a checkpoint already on the
+card is repacked there; each is bit-identical to the JAX function of the
+same name.
 
 Hopper device layout (K-packed words)
 -------------------------------------
@@ -68,6 +77,137 @@ def general_decompress(packed: np.ndarray, bits: int,
     if out_elems is not None:
         out = out[..., :out_elems]
     return out.astype(np.uint8)
+
+
+def _tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else \
+        torch.as_tensor(np.ascontiguousarray(x))
+
+
+def _wrap32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 of the same bits."""
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def compress(codes: torch.Tensor, bits: int = 4) -> torch.Tensor:
+    """`general_compress` as torch ops: fields [..., K] (the low `bits`
+    bits kept) -> int8 [..., K*bits/8], packed along the last axis, LSB
+    first, on the codes' device."""
+    codes = _tensor(codes)
+    e = 8 // bits
+    *lead, last = codes.shape
+    c = (codes.to(torch.int64) & ((1 << bits) - 1)).reshape(
+        *lead, last // e, e)
+    shifts = torch.arange(e, device=codes.device, dtype=torch.int64) * bits
+    return (c << shifts).sum(dim=-1).to(torch.uint8).view(torch.int8)
+
+
+def decompress(packed: torch.Tensor, bits: int,
+               out_elems: int | None = None) -> torch.Tensor:
+    """`general_decompress` of int8 storage as torch ops: [..., P] bytes
+    (any dtype; its bytes are read, little-endian) -> uint8 fields [...,
+    P*8/bits], on the tensor's device."""
+    packed = _tensor(packed)
+    b = packed.contiguous().view(torch.uint8)
+    out = _byte_fields(bits, b.device)[b.to(torch.int64)].reshape(
+        *b.shape[:-1], b.shape[-1] * 8 // bits)
+    return out if out_elems is None else out[..., :out_elems]
+
+
+# ---------------------------------------------------------------------------
+# GPTQ checkpoint tensors (AutoGPTQ v1 / GPTQModel v2), as torch ops
+# ---------------------------------------------------------------------------
+
+def unpack_qweight(qweight: torch.Tensor, bits: int) -> torch.Tensor:
+    """GPTQ qweight fields, packed along the last axis of its bytes (an
+    [N, K*bits/8] int8 view) -> int8 codes [N, K]."""
+    return decompress(qweight, bits).to(torch.int8)
+
+
+def _unpack_zeros(qzeros: torch.Tensor, bits: int, add: int) -> torch.Tensor:
+    z = _tensor(qzeros).contiguous().view(torch.int32).to(torch.int64)
+    e = 32 // bits
+    shifts = torch.arange(e, device=z.device, dtype=torch.int64) * bits
+    fields = ((z[..., None] >> shifts) + add) & ((1 << bits) - 1)
+    return fields.reshape(*z.shape[:-1], z.shape[-1] * e).to(torch.int8)
+
+
+def unpack_qzeros(qzeros: torch.Tensor, bits: int) -> torch.Tensor:
+    """AutoGPTQ v1 qzeros [G, N*bits/32] int32 -> int8 zeros [G, N], with
+    the v1 quirk: the stored field is z - 1, so the zero is (field + 1) &
+    mask."""
+    return _unpack_zeros(qzeros, bits, 1)
+
+
+def unpack_qzeros_v2(qzeros: torch.Tensor, bits: int) -> torch.Tensor:
+    """GPTQModel v2 qzeros: the fields as they are, no off-by-one."""
+    return _unpack_zeros(qzeros, bits, 0)
+
+
+def pack_autogptq(intweight_kn: torch.Tensor, zeros_gn: torch.Tensor,
+                  scales_gn: torch.Tensor, bits: int = 4, *,
+                  v2: bool = False):
+    """Inverse of unpack_qweight / unpack_qzeros: natural-layout codes
+    [K, N], integer zeros [K/g, N] and scales [K/g, N] -> AutoGPTQ
+    CudaOldQuantLinear storage on their device: (qweight int32 [K*bits/32,
+    N], qzeros int32 [K/g, N*bits/32] storing z - 1 (v2: z), scales f16
+    [K/g, N])."""
+    iw, zg = _tensor(intweight_kn), _tensor(zeros_gn)
+    e = 32 // bits
+    K, N = iw.shape
+    if K % e or N % e:
+        raise ValueError(f"K={K} and N={N} must be multiples of {e}")
+    mask = (1 << bits) - 1
+    shifts = torch.arange(e, device=iw.device, dtype=torch.int64) * bits
+    w = (iw.to(torch.int64) & mask).reshape(K // e, e, N)
+    qweight = _wrap32((w << shifts[None, :, None]).sum(dim=1))
+    z = (zg.to(torch.int64) - (0 if v2 else 1)) & mask
+    z = z.reshape(z.shape[0], N // e, e)
+    qzeros = _wrap32((z << shifts).sum(dim=2))
+    return qweight, qzeros, _tensor(scales_gn).to(torch.float16)
+
+
+def interleave_weight(qweight: torch.Tensor, nbits: int = 4,
+                      target_dtype: str = "float16") -> torch.Tensor:
+    """The reference's `interleave_weight`: rearranges the fields inside
+    each 32-bit word so BitBLAS's LOP3 decode reads contiguous nibbles;
+    returns the int8 view. Kept for checkpoint parity; the Hopper kernels
+    read the plain K-packed layout instead."""
+    if target_dtype not in ("float16", "int8"):
+        raise ValueError(f"target_dtype {target_dtype!r}")
+    q = _tensor(qweight).contiguous()
+    w = q.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    new = torch.zeros_like(w)
+    bits_stride = 8 if target_dtype == "int8" else 16
+    mask = (1 << nbits) - 1
+    num_groups = 32 // bits_stride
+    elems_per_group = bits_stride // nbits
+    for i in range(num_groups):
+        for j in range(elems_per_group):
+            offset = i * elems_per_group + j
+            shift = (offset % num_groups) * bits_stride \
+                + (offset // num_groups) * nbits
+            new |= ((w >> (nbits * offset)) & mask) << shift
+
+    def moved(src_mask: int, down: int, up: int) -> torch.Tensor:
+        return ((new & src_mask) >> down) << up
+
+    if nbits == 1 and target_dtype == "int8":
+        out = (new & 0xF0F00F0F) | moved(0x000000F0, 4, 16) \
+            | moved(0x0000F000, 12, 24) | moved(0x000F0000, 16, 4) \
+            | moved(0x0F000000, 24, 12)
+    elif nbits == 2 and target_dtype == "float16":
+        out = (new & 0xFF0000FF) | moved(0x0000FF00, 8, 16) \
+            | moved(0x00FF0000, 16, 8)
+    elif nbits == 1 and target_dtype == "float16":
+        out = (new & 0xF000000F) | moved(0x000000F0, 4, 8) \
+            | moved(0x00000F00, 8, 16) | moved(0x0000F000, 12, 24) \
+            | moved(0x000F0000, 16, 4) | moved(0x00F00000, 20, 12) \
+            | moved(0x0F000000, 24, 20)
+    else:
+        out = new
+    return _wrap32(out & 0xFFFFFFFF).view(torch.int8)
 
 
 # ---------------------------------------------------------------------------

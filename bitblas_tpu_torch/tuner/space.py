@@ -56,7 +56,8 @@ def smem_bytes(spec: KernelSpec, hint: TileHint) -> int:
     """Shared memory one block of the hint's kernel takes (0 for the
     library routes)."""
     if hint.decode_mode == "fused":
-        return fused_smem_bytes(_fused_format(spec), hint.tile)
+        return fused_smem_bytes(_fused_format(spec), hint.tile,
+                                spec.group_size)
     if hint.decode_mode == "dense" and hint.block_n > 0:
         return dense_smem_bytes(as_torch_dtype(spec.a_dtype), hint.tile)
     return 0
@@ -70,7 +71,10 @@ def _peak(spec: KernelSpec, arch: TileDevice) -> float:
 
 def roofline_seconds(spec: KernelSpec, hint: TileHint,
                      arch: TileDevice) -> float:
-    """max(bytes / bandwidth, operations / peak) of the hint's plan."""
+    """max(bytes / bandwidth, operations / peak) of the hint's plan: the
+    activation, the packed weight, its scales and zeros (2 bytes each a
+    group and column: 4 N K / g), the float32 bias and the output, each
+    once."""
     M, N, K = spec.m, spec.n, spec.k
     a_b = M * K * _bytes(spec.a_dtype)
     o_b = M * N * _bytes(spec.out_dtype)
@@ -84,6 +88,8 @@ def roofline_seconds(spec: KernelSpec, hint: TileHint,
         if hint.decode_mode == "materialize":
             # the decoded operand is written once and read once
             w_b += 2 * N * K * _bytes(spec.a_dtype)
+    if spec.with_bias:
+        w_b += 4 * N
     return max((a_b + w_b + o_b) / arch.hbm_bandwidth,
                2.0 * M * N * K / _peak(spec, arch))
 

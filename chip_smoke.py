@@ -29,7 +29,12 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                tile_32x64_ms) and 32 / 64 / 128 / 256 / 512 (the wgmma +
                TMA tiled instance of the default route, both formats); the
                rows of kernels 1, 2, 3 and 9 time a contiguous read of
-               their bytes too (stream_ms).
+               their bytes too (stream_ms). Kernel 1 again at GPTQ's
+               group sizes 32, 64 and per channel (both MLP shapes), zeros
+               mode rescale and a bias (g = 128), M = 1 / 4 / 16 (decode
+               instance) and 32 / 256 (tiled), each within one f16 ulp of
+               its plain version, and kernel 2 at the same groups and
+               rescale, bit for bit.
                Then the route table: the fused kernel against the
                materialize plan (decode kernel + library product) at M =
                256 / 512 / 2048, uint4 x f16 and int2 x int8. Then kernel
@@ -49,6 +54,16 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                the decode kernels at head dim 256, GQA groups 16 and 12
                and on float16 caches; each against its plain version, two
                calls bit-equal.
+3c. gptq_golden -- the committed AutoGPTQ golden (g = 64) repacked, v1
+               and v2, into module.Linear (zeros mode quantized) and
+               QuantLinear on the card: dequantized weights bit-equal, the
+               2-layer logits within tests/test_gptq_golden.py's
+               tolerance.
+3d. linear  -- an AutoGPTQ bundle at 4096 -> 11008, g = 128 and 64, drawn
+               on the card, through Linear.repack_from_gptq and
+               QuantLinear.repack_from_gptq_v2; forwards at M = 1 / 16 /
+               256 / 1024 against the plain version; a checkpoint round
+               trip bit for bit and a JAX-stamped checkpoint refused.
 4. reference -- a 2-layer model at Llama-2-7B widths: prefill (flash) and
                teacher-forced decode steps on the card against the same
                weights on the CPU plain path; then TokenContinuousBatching-
@@ -65,7 +80,9 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                the readings of a glue fault), greedy tokens equal wherever
                the CPU's top-2 margin exceeds the limit, of which there
                must be a minimum number, and elsewhere the card's pick
-               within the limit of the CPU's best.
+               within the limit of the CPU's best. reference_gptq: 2
+               layers imported from an AutoGPTQ state dict (g = 64) on the
+               card and on the CPU, prefill and decode steps as above.
 5. serve    -- 32-layer W4A16 Llama-2-7B widths (random weights from a
                seeded generator on the card) behind an LMHead (vocab 32000),
                four greedy requests (prompts 200/300/450/500, 32 new tokens)
@@ -77,6 +94,11 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                                 embedded, plus two requests sharing a
                                 256-token prefix;
                serve_paged_quant  the same over the int8 pool;
+               serve_gptq       an AutoGPTQ v1 state dict at Llama-2-7B
+                                widths, g = 64, drawn on the card,
+                                imported (load_quant_llama_from_hf_gptq,
+                                timed) and served as `serve` (token
+                                engine, bf16 KV);
                serve_bitnet     32 BitNet b1.58 W2A8 layers at Llama-3-8B
                                 widths behind an LMHead of vocab 128256,
                                 TokenContinuousBatchingEngine, bf16 KV, on
@@ -116,6 +138,8 @@ Then the kernel summary line, the nvidia-smi line, and the last line
 from __future__ import annotations
 
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -393,6 +417,141 @@ def check_weight_decode(torch, flush):
              "library_ms": (None, 0),
              "stream_ms": (_stream(torch, nbytes), 20)}, flush))
     return u4, i8
+
+
+# GPTQ's options on kernel 1 and kernel 2 at Llama-2-7B's MLP shapes:
+# (group: -1 per channel; zeros mode; bias; (N, K) shapes)
+GPTQ_VARIANTS = (
+    (32, "original", False, ((11008, 4096), (4096, 11008))),
+    (64, "original", False, ((11008, 4096), (4096, 11008))),
+    (-1, "original", False, ((11008, 4096), (4096, 11008))),
+    (128, "rescale", False, ((11008, 4096),)),
+    (128, "original", True, ((11008, 4096),)),
+)
+GPTQ_MS = (1, 4, 16, 32, 256)   # the decode instance, then the tiled one
+
+
+def _gptq_operands(torch, gen, N, K, group, mode):
+    """Random codes, [K/g, N] scales and zeros of a group size and zeros
+    mode (rescale: z * s, as the import makes them)."""
+    G = K // group
+    qw = _words(torch, gen, (N, K // 8))
+    sc = (torch.rand((G, N), generator=gen, device="cuda") * 0.01
+          + 0.005).half()
+    zr = torch.randint(0, 16, (G, N), generator=gen, device="cuda").half()
+    if mode == "rescale":
+        zr = (zr * sc).half()
+    return qw, sc, zr
+
+
+def check_gptq_kernels(torch, flush):
+    """Kernel 1 at GPTQ's group sizes 32, 64 and per channel (both MLP
+    shapes), zeros mode rescale and a bias (g = 128), M = 1 / 4 / 16 on
+    the split-K decode instance (within one f16 ulp of each output of the
+    split plain version) and M = 32 / 256 on the default tiled instance
+    (within one f16 ulp of the plain version); every row within 4e-3 of
+    the plain version's largest output, two calls bit-equal, each launch
+    counted (decode_launches / tiled_launches and the variant's own
+    count). Kernel 2 at each group and rescale, bit for bit its plain
+    version. Bound: the bytes N K / 2 + 4 N K / g (+ 4 N of bias) +
+    activations + outputs over 3.35 TB/s, or the f16 tensor-core peak;
+    library: torch.matmul on the f16 weight (kernel 2: none)."""
+    from bitblas_tpu_torch.kernels.dequant_matmul import (
+        default_tile, dequant_matmul_u4, dequant_matmul_u4_plain,
+        dequant_matmul_u4_split_plain, dequantize_hopper, plan_splits_k,
+        u4_variant)
+    from bitblas_tpu_torch.kernels.materialize import (
+        weight_decode_u4, weight_decode_u4_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    u4 = dequant_matmul_u4
+    rows, wd = [], []
+    for group, mode, with_bias, shapes in GPTQ_VARIANTS:
+        for (N, K) in shapes:
+            grp = K if group == -1 else group
+            qw, sc, zr = _gptq_operands(torch, gen, N, K, grp, mode)
+            bias = (torch.randn(N, generator=gen, device="cuda")
+                    if with_bias else None)
+            Wd = dequantize_hopper(qw, sc, zr, grp, mode)
+            kw = dict(bias=bias, zeros_mode=mode)
+            for M in GPTQ_MS:
+                A = torch.randn((M, K), generator=gen, device="cuda").half()
+                kind = "decode" if M <= 16 else "tiled"
+                key = u4_variant(kind, grp, K, mode, with_bias)
+                before = (u4.variant_launches.get(key, 0),
+                          u4.decode_launches, u4.tiled_launches)
+                out = u4(A, qw, sc, zr, grp, **kw)
+                if not torch.equal(out, u4(A, qw, sc, zr, grp, **kw)):
+                    raise AssertionError(f"{key} M={M} N={N} K={K}: two "
+                                         f"calls differ")
+                after = (u4.variant_launches.get(key, 0),
+                         u4.decode_launches, u4.tiled_launches)
+                want = (before[0] + 2, before[1] + 2 * (kind == "decode"),
+                        before[2] + 2 * (kind == "tiled"))
+                if after != want:
+                    raise AssertionError(f"{key}: launches {after} != {want}")
+                ref = dequant_matmul_u4_plain(A, qw, sc, zr, grp, **kw)
+                held = ref if kind == "tiled" else \
+                    dequant_matmul_u4_split_plain(A, qw, sc, zr, sms=sms,
+                                                  group=grp, **kw)
+                ulps = f16_ulps(torch, out, held)
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                tol = 4e-3 * scale
+                if not (ulps <= 1 and err <= tol
+                        and torch.isfinite(out).all().item()):
+                    raise AssertionError(
+                        f"{key} M={M} N={N} K={K}: {ulps} f16 ulps from "
+                        f"the {'split ' if kind == 'decode' else ''}plain "
+                        f"version, max abs err {err} (tol {tol})")
+                nbytes = (M * K * 2 + N * K / 2 + 4 * N * K / grp
+                          + M * N * 2 + (4 * N if with_bias else 0))
+                b_ms, b_by = bound(nbytes, 2.0 * M * N * K)
+                row = {
+                    "phase": "kernels", "kernel": "dequant_matmul_u4",
+                    "variant": key, "group": grp, "zeros_mode": mode,
+                    "bias": with_bias, "M": M, "N": N, "K": K,
+                    "tile": list(default_tile("uint4", M)),
+                    "splits": (plan_splits_k(M, N, K, sms)
+                               if kind == "decode" else None),
+                    "max_abs_err": err,
+                    "max_rel_err": err / max(scale, 1e-30), "tol": tol,
+                    "f16_ulps": ulps,
+                    "kernel_ms": time_ms(torch, lambda: u4(
+                        A, qw, sc, zr, grp, **kw), 20, flush),
+                    "plain_ms": time_ms(
+                        torch, lambda: dequant_matmul_u4_plain(
+                            A, qw, sc, zr, grp, **kw), 3, flush),
+                    "library_ms": time_ms(
+                        torch, lambda: torch.matmul(A, Wd.T), 20, flush),
+                    "stream_ms": time_ms(torch, _stream(torch, nbytes), 20,
+                                         flush),
+                    "bound_ms": b_ms, "bound_by": b_by}
+                emit(row)
+                rows.append(row)
+            if with_bias:
+                continue   # kernel 2 has no bias: it follows the GEMM
+            nbytes = N * K / 2 + 4 * N * K / grp + N * K * 2
+            b_ms, b_by = bound(nbytes, 0.0)
+            dec = weight_decode_u4(qw, sc, zr, group=grp, zeros_mode=mode)
+            if not torch.equal(dec, weight_decode_u4(
+                    qw, sc, zr, group=grp, zeros_mode=mode)):
+                raise AssertionError(f"weight_decode_u4 g={grp} {mode}: two "
+                                     f"calls differ")
+            wd.append(_exact_row(
+                torch, "weight_decode_u4", dec,
+                weight_decode_u4_plain(qw, sc, zr, torch.float16, grp, mode),
+                {"variant": key.split(" ", 1)[1], "group": grp,
+                 "zeros_mode": mode, "N": N, "K": K, "out": "float16",
+                 "bound_ms": b_ms, "bound_by": b_by},
+                {"kernel_ms": (lambda: weight_decode_u4(
+                    qw, sc, zr, group=grp, zeros_mode=mode), 20),
+                 "plain_ms": (lambda: weight_decode_u4_plain(
+                     qw, sc, zr, torch.float16, grp, mode), 3),
+                 "library_ms": (None, 0),
+                 "stream_ms": (_stream(torch, nbytes), 20)}, flush))
+    return rows, wd
 
 
 def route_table(torch, flush):
@@ -1568,6 +1727,11 @@ SERVE_PHASES = (
     ("serve_paged_quant", "paged", {"kv_quant": True},
      LLAMA + ("flash_decode_paged_quant",)),
 )
+# the imported GPTQ model (group 64): the fused kernel's g64 instances and
+# kernel 2 at g64 must launch
+GPTQ_PHASE = ("serve_gptq", "token", {},
+              LLAMA + ("flash_decode", "dequant_matmul_u4 decode g64",
+                       "dequant_matmul_u4 tiled g64", "weight_decode_u4 g64"))
 BITNET_PHASE = ("serve_bitnet", "token", {},
                 ("dequant_matmul_i2", DECODE["int2"], TILED["int2"],
                  "weight_decode_int8", "flash_attention_fwd", "flash_decode"))
@@ -1692,8 +1856,11 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
         c.launches = 0
     u4 = next(c for c in counters if c.__name__ == "dequant_matmul_u4")
     i2 = next(c for c in counters if c.__name__ == "dequant_matmul_i2")
+    wd_u4 = next(c for c in counters if c.__name__ == "weight_decode_u4")
     u4.decode_launches = u4.tiled_launches = 0
     i2.decode_launches = i2.tiled_launches = 0
+    u4.variant_launches.clear()
+    wd_u4.variant_launches.clear()
     if routes is not None:
         routes.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1716,6 +1883,11 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     for fmt, wrapper in (("uint4", u4), ("int2", i2)):
         launches[DECODE[fmt]] = wrapper.decode_launches
         launches[TILED[fmt]] = wrapper.tiled_launches
+    # kernels 1 and 2 by group size, zeros mode and bias ("dequant_matmul_u4
+    # decode g128", "weight_decode_u4 g64", ...)
+    for wrapper in (u4, wd_u4):
+        for variant, n in wrapper.variant_launches.items():
+            launches[f"{wrapper.__name__} {variant}"] = n
     peak = torch.cuda.max_memory_allocated()
 
     if not all(r.done and r.generated == MAX_NEW for r in reqs):
@@ -1726,7 +1898,7 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
         np.stack([r.final_hidden for r in reqs]), device=head.embed.device))
     if not torch.isfinite(final_logits).all():
         raise AssertionError(f"{phase}: non-finite logits at completion")
-    if min(launches[k] for k in expect) <= 0:
+    if min(launches.get(k, 0) for k in expect) <= 0:
         raise AssertionError(f"{phase}: a kernel was not launched: "
                              f"{launches}")
     route_row = (routes.check(phase, launches,
@@ -1936,6 +2108,254 @@ def profile_decode(torch, eng, prompts, phase: str, steps: int = 5):
                                       for name, t, _ in top}})
 
 
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "gptq_golden_256x256_g64.npz")
+
+
+def _within(torch, got, want, rtol, atol, ratio) -> bool:
+    """At most `ratio` of the elements outside atol + rtol |want|."""
+    bad = (got.float() - want.float()).abs() > atol + rtol * want.float().abs()
+    return bad.sum().item() <= math.ceil(ratio * want.numel())
+
+
+def check_gptq_golden(torch):
+    """The committed AutoGPTQ golden (tests/golden, g = 64) on the card:
+    module.Linear (zeros mode quantized) and QuantLinear repacked from its
+    v1 and v2 tensors; the identity through each (16-row chunks: the
+    decode instance; 32-row: the tiled one) gives the golden's dequantized
+    weight bit for bit; the 2-layer forward gives its logits within
+    tests/test_gptq_golden.py's tolerance (rtol 2e-2, atol 2e-2 of the
+    largest, at most 0.1% of the elements outside)."""
+    import numpy as np
+    from types import SimpleNamespace
+    from bitblas_tpu_torch.integration.pytorch import QuantLinear
+    from bitblas_tpu_torch.module import Linear
+    gold = np.load(GOLDEN)
+    t = {k: torch.from_numpy(gold[k]).cuda() for k in gold.files}
+    eye = torch.eye(256, dtype=torch.float16, device="cuda")
+    out = {"phase": "gptq_golden", "group": 64}
+    for v2 in (False, True):
+        sfx = "_v2" if v2 else ""
+        layers = {}
+        for li in (1, 2):
+            stub = SimpleNamespace(qweight=t[f"l{li}/qweight{sfx}"],
+                                   qzeros=t[f"l{li}/qzeros{sfx}"],
+                                   scales=t[f"l{li}/scales"])
+            lin = Linear(256, 256, A_dtype="float16", W_dtype="uint4",
+                         group_size=64, with_scaling=True, with_zeros=True,
+                         zeros_mode="quantized", opt_M=[16],
+                         enable_tuning=False, device="cuda")
+            ql = QuantLinear(4, 64, 256, 256, bias=False, device="cuda")
+            for m in (lin, ql):
+                getattr(m, "repack_from_gptq_v2" if v2 else
+                        "repack_from_gptq")(stub)
+            want = t[f"l{li}/dequant_w"].half()              # [in, out]
+            for name, m in (("linear", lin), ("quant_linear", ql)):
+                for rows in (16, 32):
+                    got = torch.cat([m(eye[o:o + rows])
+                                     for o in range(0, 256, rows)])
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"gptq_golden {name} v2={v2} layer {li}: the "
+                            f"dequantized weight differs ({rows}-row "
+                            f"chunks)")
+            layers[li] = (lin, ql)
+        for name, k in (("linear", 0), ("quant_linear", 1)):
+            logits = layers[2][k](layers[1][k](t["x"])).float()
+            ref = t["logits"]
+            atol = 0.02 * ref.abs().max().item()
+            err = (logits - ref).abs().max().item()
+            if not _within(torch, logits, ref, 2e-2, atol, 1e-3):
+                raise AssertionError(f"gptq_golden {name} v2={v2}: logits "
+                                     f"max abs err {err} (atol {atol})")
+            out[f"{name}_{'v2' if v2 else 'v1'}_logit_max_abs_err"] = err
+    out["dequant_bit_equal"] = True
+    emit(out)
+
+
+def check_linear(torch):
+    """A synthetic AutoGPTQ bundle at 4096 -> 11008 (Llama-2-7B's gate /
+    up), g = 128 and 64, drawn on the card: module.Linear repacked from
+    the v1 tensors, QuantLinear from the v2 tensors (the same codes and
+    zeros); the unpacked codes and zeros equal the drawn ones; forwards at
+    M = 1 / 16 / 256 / 1024 within 4e-3 of the plain version's largest
+    output, the two layers bit-equal; a save_quant_state /
+    load_quant_state round trip on the card bit for bit, and a
+    checkpoint stamped with the JAX package's layout refused."""
+    from types import SimpleNamespace
+    from bitblas_tpu_torch.integration.pytorch import QuantLinear
+    from bitblas_tpu_torch.kernels.dequant_matmul import (
+        dequant_matmul_u4_plain)
+    from bitblas_tpu_torch.module import Linear
+    from bitblas_tpu_torch.module.checkpoint import (load_quant_state,
+                                                     save_quant_state)
+    from bitblas_tpu_torch.quantization.packing import pack_autogptq
+    K, N = 4096, 11008
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    tmp = tempfile.mkdtemp(prefix="bitblas_tpu_torch_ckpt_")
+    try:
+        for g in (128, 64):
+            codes = torch.randint(0, 16, (K, N), generator=gen,
+                                  device="cuda")
+            zeros = torch.randint(1, 15, (K // g, N), generator=gen,
+                                  device="cuda")
+            scales = (torch.rand((K // g, N), generator=gen, device="cuda")
+                      * 0.01 + 0.005).half()
+            bias = torch.randn(N, generator=gen, device="cuda").half()
+            stubs = [SimpleNamespace(**dict(zip(
+                ("qweight", "qzeros", "scales"),
+                pack_autogptq(codes, zeros, scales, 4, v2=v2))), bias=bias)
+                for v2 in (False, True)]
+            lin = Linear(K, N, bias=True, A_dtype="float16",
+                         W_dtype="uint4", group_size=g, with_scaling=True,
+                         with_zeros=True, zeros_mode="original",
+                         enable_tuning=False, device="cuda")
+            got_codes, got_z = lin.repack_from_gptq(stubs[0])
+            if not (torch.equal(got_codes.long(), codes.T)
+                    and torch.equal(got_z.long(), zeros)):
+                raise AssertionError(f"linear g={g}: unpacked codes or "
+                                     f"zeros differ from the drawn ones")
+            ql = QuantLinear(4, g, K, N, bias=True, device="cuda")
+            ql.repack_from_gptq_v2(stubs[1])
+            routes = {}
+            for M in (1, 16, 256, 1024):
+                A = torch.randn((M, K), generator=gen, device="cuda").half()
+                out = lin(A)
+                ref = dequant_matmul_u4_plain(A, lin.qweight, lin.scales,
+                                              lin.zeros, g, bias=lin.bias)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 4e-3 * ref.float().abs().max().item()
+                if not (err <= tol and torch.isfinite(out).all().item()
+                        and torch.equal(ql(A), out)):
+                    raise AssertionError(f"linear g={g} M={M}: err {err} "
+                                         f"(tol {tol}) or QuantLinear "
+                                         f"differs")
+                routes[M] = lin.bitblas_matmul.hint_for(M).short_name()
+            path = os.path.join(tmp, f"linear_g{g}")
+            state = {"proj": dict(lin.state_dict())}
+            save_quant_state(path, state)
+            back = load_quant_state(path, device="cuda")["proj"]
+            if set(back) != set(state["proj"]) or not all(
+                    torch.equal(back[k], v) for k, v in state["proj"].items()):
+                raise AssertionError(f"linear g={g}: checkpoint round trip "
+                                     f"differs")
+            with open(path + ".npz.meta.json", "w") as f:
+                json.dump({"device_layout_version": 2}, f)
+            try:
+                load_quant_state(path, device="cuda")
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("a JAX-stamped checkpoint was loaded")
+            emit({"phase": "linear", "in": K, "out": N, "group": g,
+                  "routes": routes, "checkpoint_round_trip": True,
+                  "jax_checkpoint_refused": True})
+    finally:
+        shutil.rmtree(tmp)
+
+
+# meta-llama/Llama-2-7b-hf config.json, as a HF config dict
+LLAMA2_7B_HF = {"hidden_size": 4096, "intermediate_size": 11008,
+                "num_attention_heads": 32, "num_key_value_heads": 32,
+                "num_hidden_layers": 32, "vocab_size": 32000,
+                "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+                "model_type": "llama"}
+GPTQ_PROJS = (("self_attn.q_proj", 4096, 4096),
+              ("self_attn.k_proj", 4096, 4096),
+              ("self_attn.v_proj", 4096, 4096),
+              ("self_attn.o_proj", 4096, 4096),
+              ("mlp.gate_proj", 4096, 11008), ("mlp.up_proj", 4096, 11008),
+              ("mlp.down_proj", 11008, 4096))     # (name, K = in, N = out)
+
+
+def gptq_state(torch, num_layers: int, group: int, seed: int):
+    """An AutoGPTQ v1 (desc_act=False) state dict at Llama-2-7B widths,
+    drawn on the card from `seed`: random qweight words (every code
+    occurs), zero point 8 (v1 stores 7), scales 0.001 +- 0.0002 (the
+    random residual stream stays contractive, as QuantLlama's own random
+    init keeps it), unit norms, embedding and lm_head * 0.05."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = {}
+    for i in range(num_layers):
+        base = f"model.layers.{i}"
+        for name, K, N in GPTQ_PROJS:
+            key = f"{base}.{name}"
+            state[f"{key}.qweight"] = _words(torch, gen, (K // 8, N))
+            state[f"{key}.qzeros"] = torch.full(
+                (K // group, N // 8), 0x77777777, dtype=torch.int32,
+                device="cuda")
+            state[f"{key}.scales"] = (torch.randn(
+                (K // group, N), generator=gen, device="cuda") * 0.0002
+                + 0.001).half()
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            state[f"{base}.{norm}.weight"] = torch.ones(4096, device="cuda")
+    state["model.embed_tokens.weight"] = (torch.randn(
+        (32000, 4096), generator=gen, device="cuda") * 0.05).half()
+    state["model.norm.weight"] = torch.ones(4096, device="cuda")
+    state["lm_head.weight"] = torch.randn((32000, 4096), generator=gen,
+                                          device="cuda") * 0.05
+    return state
+
+
+GPTQ_GROUP = 64
+
+
+def check_gptq_reference(torch):
+    """The imported model, 2 layers: card against CPU (the same state
+    dict imported on each) at check_reference's tolerance."""
+    from bitblas_tpu_torch.models.hf_import import (
+        load_quant_llama_from_hf_gptq)
+    hf = dict(LLAMA2_7B_HF, num_hidden_layers=2)
+    state = gptq_state(torch, 2, GPTQ_GROUP, seed=21)
+    gpu, _ = load_quant_llama_from_hf_gptq(state, hf, group_size=GPTQ_GROUP,
+                                           device="cuda")
+    cpu, _ = load_quant_llama_from_hf_gptq(
+        {k: v.cpu() for k, v in state.items()}, hf, group_size=GPTQ_GROUP,
+        device="cpu")
+    reference_steps(torch, gpu.cfg, gpu, cpu, "reference_gptq")
+    del gpu, cpu, state
+    torch.cuda.empty_cache()
+
+
+def gptq_serving_model(torch):
+    """The 32-layer model imported from a GPTQ state dict at Llama-2-7B
+    widths (g = 64), with serving_model's prompts."""
+    import numpy as np
+    from bitblas_tpu_torch.models.hf_import import (
+        load_quant_llama_from_hf_gptq)
+    t0 = time.perf_counter()
+    state = gptq_state(torch, 32, GPTQ_GROUP, seed=7)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, head = load_quant_llama_from_hf_gptq(
+        state, LLAMA2_7B_HF, group_size=GPTQ_GROUP, device="cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    V = model.cfg.vocab_size
+    prompts = [rng.integers(0, V, n).astype(np.int32)
+               for n in (200, 300, 450, 500)]
+    prefix = rng.integers(0, V, 256)
+    pair = [np.concatenate([prefix, rng.integers(0, V, n)]).astype(np.int32)
+            for n in (40, 90)]
+    packed = sum(t.numel() * t.element_size()
+                 for n, t in model.named_buffers() if "qweight" in n or
+                 "scales" in n or "zeros" in n)
+    emit({"phase": "gptq_import", "layers": 32, "group": GPTQ_GROUP,
+          "state_draw_s": draw_s, "import_s": import_s,
+          "weight_bytes": packed})
+    return {"cfg": model.cfg, "model": model, "head": head,
+            "prompts": prompts, "pair": pair, "init_s": import_s,
+            "name": f"Llama-2-7B widths, AutoGPTQ v1 g{GPTQ_GROUP} import",
+            "weight_bytes": packed}
+
+
 def main() -> int:
     try:
         import torch
@@ -2003,6 +2423,7 @@ def main() -> int:
     dq = check_dequant(torch, flush)
     di2 = check_dequant_i2(torch, flush)
     wd_u4, wd_i8 = check_weight_decode(torch, flush)
+    gq, gq_wd = check_gptq_kernels(torch, flush)
     fa = check_flash_attention(torch, flush)
     fd = check_flash_decode(torch, flush)
     fq = check_flash_decode_quant(torch, flush)
@@ -2011,7 +2432,18 @@ def main() -> int:
     route_table(torch, flush)
     dense = check_dense(torch, flush)
     check_edges(torch)
+    # the layers of the GPTQ phases keep their hint database in a
+    # temporary directory (never the user's), and their operators leave
+    # the global cache when the phases end
+    from bitblas_tpu_torch.cache import global_operator_cache
+    from bitblas_tpu_torch.common import DATABASE_PATH_ENV
+    gptq_db = tempfile.mkdtemp(prefix="bitblas_tpu_torch_db_")
+    os.environ[DATABASE_PATH_ENV] = gptq_db
+    check_gptq_golden(torch)
+    check_linear(torch)
+    global_operator_cache.clear()
     check_reference(torch)
+    check_gptq_reference(torch)
     check_bitnet_reference(torch, counters)
 
     launches = {c.__name__: 0 for c in counters}
@@ -2021,7 +2453,7 @@ def main() -> int:
     def run(ctx, phase, routes=None):
         row = serve(torch, ctx, counters, *phase, routes=routes)
         for name, n in row["launches"].items():
-            launches[name] += n
+            launches[name] = launches.get(name, 0) + n
         return row
 
     routes = RouteRecorder()
@@ -2030,6 +2462,12 @@ def main() -> int:
         with routes:
             run(ctx, phase, routes)
     del ctx
+    torch.cuda.empty_cache()
+    ctx = gptq_serving_model(torch)
+    with routes:
+        run(ctx, GPTQ_PHASE, routes)
+    del ctx
+    shutil.rmtree(gptq_db)
     torch.cuda.empty_cache()
     with routes:
         ctx = serving_model(torch, "bitnet")
@@ -2100,6 +2538,23 @@ def main() -> int:
         ("dense_matmul", "dense_matmul.cu", "dense.py:73", dense,
          pick(dense, dtype="float16", M=256), "M=256 N=K=4096 f16"),
     ]
+    # kernel 1's instances and kernel 2 at GPTQ's group sizes, rescale and
+    # bias, launched by the same wrappers and counted by variant
+    for variant in dict.fromkeys(r["variant"].split(" ", 1)[1] for r in gq):
+        for kind, M, src in (("decode", 4, "dequant_matmul.cu"),
+                             ("tiled", 256, "dequant_wgmma.cuh")):
+            rows = [r for r in gq if r["variant"] == f"{kind} {variant}"]
+            summary.append((
+                f"dequant_matmul_u4 {kind} {variant}", src,
+                "dequant_matmul.py:231", rows,
+                pick(rows, M=M, N=11008, K=4096),
+                f"M={M} N=11008 K=4096 uint4 x f16, {variant}"))
+    for variant in dict.fromkeys(r["variant"] for r in gq_wd):
+        rows = [r for r in gq_wd if r["variant"] == variant]
+        summary.append((
+            f"weight_decode_u4 {variant}", "weight_decode.cu",
+            "materialize.py:227", rows, pick(rows, N=11008, K=4096),
+            f"N=11008 K=4096 uint4 -> f16, {variant}"))
     # kernel 1's wrappers: their decode and tiled instances' launches apart
     split_counts = {
         wrapper: {"decode_launches": launches[DECODE[fmt]],
@@ -2110,7 +2565,7 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"bitblas_tpu_torch/csrc/{src}",
         "replaces": f"bitblas_tpu/kernels/{rep}",
-        "launches": launches[name],
+        "launches": launches.get(name, 0),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -21,7 +21,10 @@ heads) and on float16 caches; kernel 9's wgmma tiles (f16, bf16, int8
 bit for bit) at M tails and an int8 K tail of 64; kernel 1's split-K
 decode instances at M = 1, 3, 8, 16 and odd N (two calls bit-equal, one
 launch a call, against the split-then-merge plain version too; int2 bit
-for bit at a K tail of 64 and at K = 14336).
+for bit at a K tail of 64 and at K = 14336); kernel 1's uint4 instances at
+GPTQ's group sizes (32, 64, 128, 256, per channel), zeros mode rescale
+and a bias, kernel 2 at those groups, and the refusal of a group no
+instance takes.
 """
 
 import math
@@ -900,3 +903,115 @@ def test_decode_attention_routes_wide_shapes_to_the_kernels(dev):
         kv_cache.decode_attention_paged_quant(wide, codes, codes, scales,
                                               scales, tables, idx,
                                               num_heads=4)
+
+
+def _gptq_operands(g, dev, N, K, group, mode, seed):
+    """Random codes, scales and zeros of a group size and zeros mode
+    (rescale: z * s, as a GPTQ import makes them) and an f32 bias."""
+    g.manual_seed(seed)
+    qw = _words(g, dev, N, K // 8)
+    G = K // group
+    sc = (torch.rand((G, N), generator=g, device=dev) * 0.05).half()
+    zr = torch.randint(0, 16, (G, N), generator=g, device=dev).half()
+    if mode == "rescale":
+        zr = (zr * sc).half()
+    bias = torch.randn(N, generator=g, device=dev)
+    return qw, sc, zr, bias
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("mode", ["original", "rescale"])
+@pytest.mark.parametrize("K,group", [(512, 32), (512, 64), (512, 128),
+                                     (512, 256), (512, -1), (384, 32),
+                                     (384, 64), (384, 128), (384, -1)])
+@pytest.mark.parametrize("tile", FUSED_TILES["uint4"])
+def test_dequant_matmul_u4_groups_modes_bias(dev, tile, K, group, mode,
+                                             bias):
+    """GPTQ's groups (32, 64, 128, 256, per channel), both zeros modes and
+    a bias on every uint4 instance (K = 384: a tiled slot cut to 128 of
+    K): the decode instance within one f16 ulp of each output of the
+    split plain version, the tiled instances within one of the plain
+    version, both within 4e-3 of the largest output of the plain version;
+    two calls bit-equal; each launch counted."""
+    grp = K if group == -1 else group
+    g = torch.Generator(device=dev)
+    N = 384
+    qw, sc, zr, b = _gptq_operands(g, dev, N, K, grp, mode,
+                                   K + grp + tile[0] + len(mode))
+    b = b if bias else None
+    decode = tile == U4_DECODE_TILE
+    M = 5 if decode else 33
+    A = torch.randn((M, K), generator=g, device=dev).half()
+    decode_before = dequant_matmul_u4.decode_launches
+    tiled_before = dequant_matmul_u4.tiled_launches
+    kw = dict(tile=tile, bias=b, zeros_mode=mode)
+    out = dequant_matmul_u4(A, qw, sc, zr, grp, **kw)
+    again = dequant_matmul_u4(A, qw, sc, zr, grp, **kw)
+    ref = dequant_matmul_u4_plain(A, qw, sc, zr, grp, bias=b,
+                                  zeros_mode=mode)
+    torch.cuda.synchronize()
+    assert dequant_matmul_u4.decode_launches == decode_before + 2 * decode
+    assert dequant_matmul_u4.tiled_launches == \
+        tiled_before + 2 * (not decode)
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    tol = 4e-3 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    if decode:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        split = dequant_matmul_u4_split_plain(A, qw, sc, zr, sms=sms,
+                                              group=grp, bias=b,
+                                              zeros_mode=mode)
+        assert _f16_ulps(out, split) <= 1
+    else:
+        assert _f16_ulps(out, ref) <= 1
+
+
+@pytest.mark.parametrize("mode", ["original", "rescale"])
+@pytest.mark.parametrize("group", [32, 64, 4096])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_weight_decode_u4_groups_and_rescale(dev, dtype, group, mode):
+    """Kernel 2 at GPTQ's groups (4096: per channel) and rescale, bit for
+    bit its plain version."""
+    g = torch.Generator(device=dev)
+    N, K = 1024, 4096
+    qw, sc, zr, _ = _gptq_operands(g, dev, N, K, group, mode, group)
+    before = weight_decode_u4.launches
+    out = weight_decode_u4(qw, sc, zr, dtype, group=group, zeros_mode=mode)
+    ref = weight_decode_u4_plain(qw, sc, zr, dtype, group, mode)
+    torch.cuda.synchronize()
+    assert weight_decode_u4.launches == before + 1
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("M", [4, 64, 512])
+def test_matmul_gptq_bias_routes(dev, M):
+    """A Matmul at group 64 with a bias on each untuned route (decode
+    instance, tiled instance, materialize) against the plain version."""
+    cfg = MatmulConfig(M=[M], N=384, K=512, A_dtype="float16",
+                       W_dtype="uint4", with_scaling=True, with_zeros=True,
+                       zeros_mode="quantized", group_size=64, with_bias=True)
+    op = Matmul(cfg, device=dev, enable_tuning=False)
+    g = torch.Generator(device=dev)
+    qw, sc, zr, b = _gptq_operands(g, dev, 384, 512, 64, "original", M)
+    A = torch.randn((M, 512), generator=g, device=dev).half()
+    out = op.forward(A, qw, scale=sc, zeros=zr, bias=b.reshape(1, -1))
+    ref = dequant_matmul_u4_plain(A, qw, sc, zr, 64, bias=b)
+    torch.cuda.synchronize()
+    tol = 4e-3 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_dequant_matmul_u4_refuses_groups_no_instance_takes(dev):
+    """No fallback: a group no instance takes raises on the card."""
+    A = torch.zeros((4, 384), dtype=torch.float16, device=dev)
+    qw = torch.zeros((256, 48), dtype=torch.int32, device=dev)
+    s = torch.zeros((24, 256), dtype=torch.float16, device=dev)
+    before = dequant_matmul_u4.launches
+    with pytest.raises(NotImplementedError, match="group size 16"):
+        dequant_matmul_u4(A, qw, s, s, 16)
+    A = torch.zeros((1, 4160), dtype=torch.float16, device=dev)
+    s = torch.zeros((1, 256), dtype=torch.float16, device=dev)
+    with pytest.raises(NotImplementedError, match="K=4160"):
+        dequant_matmul_u4(A, torch.zeros((256, 520), dtype=torch.int32,
+                                         device=dev), s, s, 4160)
+    assert dequant_matmul_u4.launches == before

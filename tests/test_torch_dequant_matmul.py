@@ -86,4 +86,4 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(ops):
         dequant_matmul_u4(torch.zeros((jc.K, 4), dtype=torch.float16).T,
                           pW, pS, pZ)                       # contiguity
     with pytest.raises(NotImplementedError):
-        dequant_matmul_u4(A, pW, pS, pZ, group=64)
+        dequant_matmul_u4(A, pW, pS, pZ, group=16)
