@@ -122,11 +122,10 @@ __host__ __device__ constexpr int dec_smem_max(bool narrow) {
          kDecStages * kDecStageBytes;
 }
 
-// f16x2 (1024 + q0, 1024 + q1) -> (q0, q1), exact.
-__device__ __forceinline__ uint32_t codes(uint32_t magic) {
-  half2 q = __hsub2(*reinterpret_cast<const half2*>(&magic),
-                    __float2half2_rn(1024.f));
-  return *reinterpret_cast<uint32_t*>(&q);
+// A raw pair of uint4 codes (q0, q1 in the low bits of each half) ->
+// f16x2 (q0, q1): the 0x6400 magic of decode_formats.cuh, exact.
+__device__ __forceinline__ uint32_t codes(uint32_t raw) {
+  return bbt::fmt::UInt<4>::convert<bbt::fmt::F16>(raw, nullptr);
 }
 
 // One block: (N tile of 128 rows, split, M tile of 16 rows); NB8 = 1 for
@@ -289,8 +288,8 @@ __global__ void __launch_bounds__(kDecThreads)
       uint32_t dlo[4], dhi[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        dlo[j] = codes(((wlo[i] >> (4 * j)) & 0x000F000Fu) | 0x64006400u);
-        dhi[j] = codes(((whi[i] >> (4 * j)) & 0x000F000Fu) | 0x64006400u);
+        dlo[j] = codes((wlo[i] >> (4 * j)) & 0x000F000Fu);
+        dhi[j] = codes((whi[i] >> (4 * j)) & 0x000F000Fu);
       }
       // two k16 products: pairs (0, 1) then (2, 3); logical k (2t, 2t+1)
       // is codes (j, j + 4) of pair j, logical (2t + 8, 2t + 9) those of

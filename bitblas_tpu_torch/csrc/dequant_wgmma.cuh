@@ -82,6 +82,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "decode_formats.cuh"
 #include "hopper.cuh"
 
 namespace bbt {
@@ -223,10 +224,36 @@ __device__ __forceinline__ void rs_s8(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// The same with bf16 operands, n = 64 (the new formats' 64 x 128 tile).
+__device__ __forceinline__ void rs_bf16(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // 16 bytes and one half from shared memory at a shared-window address.
 __device__ __forceinline__ void lds128(uint32_t* v, uint32_t addr) {
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void lds64(uint32_t* v, uint32_t addr) {
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v[0]), "=r"(v[1])
                : "r"(addr));
 }
 __device__ __forceinline__ half lds_half(uint32_t addr) {
@@ -247,7 +274,12 @@ struct U4 {
   using Acc = float;
   using Out = half;
   static constexpr bool kScaled = true;
+  static constexpr bool kZeros = true;     // always a zero tensor
+  static constexpr bool kBias = true;
+  static constexpr bool kOutAny = false;   // out is Out
   static constexpr bool kNarrow = NARROW;
+  static constexpr int kHalves = NARROW ? 2 : 1;   // scale pairs a step
+  static constexpr int kStepWords = 8;     // packed words of a row a step
   static constexpr int kSZRows = NARROW ? 8 : 2;   // rows of room a slot
   // A ring slot's products sum in their own accumulators, added to the
   // running sums in f32 once the slot is done: summed over all of K in the
@@ -270,8 +302,8 @@ struct U4 {
                                                 const half2 (&z_lo)[2],
                                                 const half2 (&s_hi)[2],
                                                 const half2 (&z_hi)[2],
+                                                const uint16_t*,
                                                 uint32_t (&f)[16]) {
-    const half2 k1024 = __float2half2_rn(1024.f);
     // byte t of x at byte 0 and byte t of x >> 4 at byte 2: the low
     // nibbles of those bytes are the byte's codes (q_lo, q_hi)
     const uint32_t sel = t | ((t + 4) << 8);
@@ -280,9 +312,10 @@ struct U4 {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const uint32_t x = r ? hi[w] : lo[w];
-        uint32_t m =
-            (__byte_perm(x, x >> 4, sel) & 0x000F000Fu) | 0x64006400u;
-        half2 q = __hsub2(*reinterpret_cast<half2*>(&m), k1024);  // exact
+        // the 0x6400 magic (decode_formats.cuh), exact
+        uint32_t m = fmt::UInt<4>::convert<fmt::F16>(
+            __byte_perm(x, x >> 4, sel) & 0x000F000Fu, nullptr);
+        half2 q = *reinterpret_cast<half2*>(&m);
         const int h = NARROW ? w / 4 : 0;
         const half2 s = r ? s_hi[h] : s_lo[h];
         const half2 z = r ? z_hi[h] : z_lo[h];
@@ -309,7 +342,12 @@ struct I2 {
   using Acc = int;
   using Out = float;
   static constexpr bool kScaled = false;
+  static constexpr bool kZeros = false;
+  static constexpr bool kBias = false;
+  static constexpr bool kOutAny = false;
   static constexpr bool kNarrow = false;
+  static constexpr int kHalves = 1;
+  static constexpr int kStepWords = 8;
   static constexpr int kSZRows = 0;
   static constexpr bool kPromote = false;   // integer sums are exact
   static constexpr int kStepK = 128;       // K of a 128-byte row of A
@@ -322,6 +360,7 @@ struct I2 {
                                                 const half2 (&)[2],
                                                 const half2 (&)[2],
                                                 const half2 (&)[2],
+                                                const uint16_t*,
                                                 uint32_t (&f)[16]) {
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
@@ -341,13 +380,110 @@ struct I2 {
   __device__ __forceinline__ static Out cvt(int x) { return (float)x; }
 };
 
+// Every other format with f16 / bf16 activations (decode_formats.cuh): a
+// step's 64 of K are 8 b bytes (2 b words) of each row; product s takes
+// codes 16 s + 2t, + 1 (logical k 2t, 2t + 1) and 16 s + 8 + 2t, + 1 of
+// the step, so the weight follows A's natural order of k. Each pair is
+// decoded and scaled in A's type (fmt::scale2), exactly as the plain
+// version and kernel 2 decode it; product s takes the scale / zero pair
+// of its 32-deep half of the step (two groups at g = 32, one above: both
+// pairs are read whatever the group, so the group is a runtime value).
+// Zeros, when the configuration has them, are a runtime choice (nsz = 2);
+// the output is A's type or float32 (out_f32).
+template <class Fam, class AT, int MODE>
+struct Fmt {
+  using In = typename AT::T;
+  using Acc = float;
+  using Out = typename AT::T;
+  static constexpr int B = Fam::kBits;
+  static constexpr bool kScaled = MODE != fmt::kNone;
+  static constexpr bool kZeros = false;    // runtime: nsz
+  static constexpr bool kBias = true;
+  static constexpr bool kOutAny = true;
+  static constexpr bool kNarrow = false;   // runtime: the box's rows
+  static constexpr int kHalves = 2;
+  static constexpr int kStepWords = 2 * B;
+  static constexpr int kSZRows = 8;
+  static constexpr bool kPromote = true;   // as uint4: f32 sums a slot
+  static constexpr int kStepK = 64;
+  static constexpr int kWordK = 32 / B;
+  static constexpr CUtensorMapDataType kAMap =
+      AT::kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+
+  // codes base + 2t and base + 2t + 1 of the step's words (base a
+  // multiple of 8: 32 b bits), as a raw pair
+  __device__ __forceinline__ static uint32_t pair(
+      const uint32_t (&w)[kStepWords], int base, int t) {
+    if constexpr (B == 8) {
+      const int w0 = base / 4;
+      const uint32_t x = ((t & 2) ? w[w0 + 1] : w[w0]) >> (16 * (t & 1));
+      return (x & 0xFFu) | ((x << 8) & 0xFF0000u);
+    } else {
+      constexpr uint32_t M = (1u << B) - 1u;
+      const int pos = base * B;
+      const uint32_t x = w[pos / 32] >> (pos % 32 + 2 * t * B);
+      return (x & M) | ((x << (16 - B)) & (M << 16));
+    }
+  }
+
+  __device__ __forceinline__ static uint32_t bits(half2 h) {
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+
+  __device__ __forceinline__ static void decode(
+      const uint32_t (&lo)[kStepWords], const uint32_t (&hi)[kStepWords],
+      int t, const half2 (&s_lo)[2], const half2 (&z_lo)[2],
+      const half2 (&s_hi)[2], const half2 (&z_hi)[2], const uint16_t* lut,
+      uint32_t (&f)[16]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int h = s / 2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int base = 16 * s + 8 * j;
+        f[4 * s + 2 * j] = fmt::scale2<AT, MODE>(
+            Fam::template convert<AT>(pair(lo, base, t), lut), bits(s_lo[h]),
+            bits(z_lo[h]));
+        f[4 * s + 2 * j + 1] = fmt::scale2<AT, MODE>(
+            Fam::template convert<AT>(pair(hi, base, t), lut), bits(s_hi[h]),
+            bits(z_hi[h]));
+      }
+    }
+  }
+
+  template <int ND>
+  __device__ __forceinline__ static void mma(float (&d)[ND],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    if constexpr (AT::kBf16)
+      rs_bf16(d, a, db, scale_d);
+    else
+      rs_f16(d, a, db, scale_d);
+  }
+
+  __device__ __forceinline__ static Out cvt(float x) { return AT::cvt(x); }
+};
+
+// Whether a functor decodes through nf4's table (kept in shared memory).
+template <class F>
+struct LutOf {
+  static constexpr bool value = false, bf16 = false;
+};
+template <class Fam, class AT, int MODE>
+struct LutOf<Fmt<Fam, AT, MODE>> {
+  static constexpr bool value = Fam::kLut, bf16 = AT::kBf16;
+};
+
 // -- the kernel --------------------------------------------------------------
 
 constexpr int kRowBytes = 128;   // bytes of one row of an A box
 constexpr int kSub = 4;          // A boxes (steps of four products) a stage
-// One weight box row: 128 bytes, 128-byte swizzled, the K of the stage's
-// kSub steps (32 packed bytes a step).
-constexpr int kWRowBytes = kSub * 32;
+
+// TMA's W-byte swizzle of a box whose rows are W bytes (32, 64 or 128;
+// CUTLASS's Swizzle<log2(W / 16), 4, 3>: address bits 4.. XOR bits
+// 7..) puts the 16-byte chunk c of row r at chunk c ^ ((r / (128 / W)) %
+// (W / 16)).
 
 template <class F, int BM, int WG, int STAGES>
 struct Tiled {
@@ -358,7 +494,12 @@ struct Tiled {
   static constexpr int kStageK = kSub * kStepK;
   static constexpr int kABox = BM * kRowBytes;
   static constexpr int kABytes = kSub * kABox;
-  static constexpr int kWBytes = BN * kWRowBytes;
+  // a stage's packed bytes of one weight row, in boxes of at most 128
+  // bytes (swizzled by their width)
+  static constexpr int kWRow = kSub * F::kStepWords * 4;
+  static constexpr int kWBox = kWRow < 128 ? kWRow : 128;
+  static constexpr int kWBoxes = kWRow / kWBox;
+  static constexpr int kWBytes = BN * kWRow;
   // uint4: the room for a slot's scale (then zero) rows
   static constexpr int kSZBytes = F::kSZRows * BN * 2;   // each
   static constexpr int kLoadBytes = kABytes + kWBytes + 2 * kSZBytes;
@@ -378,10 +519,13 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
                          const __grid_constant__ CUtensorMap ts,
                          const __grid_constant__ CUtensorMap tz,
                          const float* __restrict__ bias,
-                         typename F::Out* __restrict__ out, int M, int N,
-                         int K, int group, int rs) {
+                         void* __restrict__ out_ptr, int M, int N, int K,
+                         int group, int rs, int box, int nsz, int out_f32) {
   // rs: the scale / zero rows of a slot's box that the slot reads (g = 32
-  // / 64: 8 / 4, the box's rows; g = 128: 2; g >= 256: 1 of a box of 2)
+  // / 64: 8 / 4, the box's rows; g = 128: 2; g >= 256: 1 of a box of 2);
+  // box: the rows of the box (rs, or 2 where rs <= 2); nsz: the scale
+  // tensors loaded (0, 1 scales, 2 scales and zeros); out_f32: a float32
+  // output for a functor whose output may be either (F::kOutAny)
   using T = Tiled<F, BM, WG, STAGES>;
   using Acc = typename F::Acc;
   constexpr int ND = BM / 2;   // accumulators a thread
@@ -393,6 +537,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   constexpr int kStageBytes = T::kStageBytes, kSZBytes = T::kSZBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * kStageBytes);
   uint64_t* empty = full + STAGES;
+  __shared__ uint16_t lut[16];   // nf4's table in A's type
 
   const int tid = threadIdx.x;
   // the M tiles of one weight tile are neighbours on the grid, so they run
@@ -408,6 +553,10 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
     }
     mbar_fence_init();
   }
+  if constexpr (LutOf<F>::value) {
+    if (tid < 16)
+      lut[tid] = LutOf<F>::bf16 ? fmt::kNf4Bf16[tid] : fmt::kNf4F16[tid];
+  }
   __syncthreads();
 
   if (tid >= T::kConsumers) {   // the producer warp: one thread issues
@@ -417,23 +566,25 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
         // use u = j / STAGES of a stage waits for the release of use u - 1
         if (j >= STAGES) mbar_wait(&empty[st], (j / STAGES - 1) & 1);
         unsigned char* base = smem + st * kStageBytes;
-        // a NARROW box holds the rs rows the slot reads, the others two
+        // each scale tensor's box: `box` rows of BN halves
         mbar_expect_tx(&full[st],
-                       F::kNarrow ? T::kABytes + T::kWBytes + 4 * rs * T::BN
-                                  : T::kLoadBytes);
+                       T::kABytes + T::kWBytes + nsz * 2 * box * T::BN);
 #pragma unroll
         for (int i = 0; i < kSub; ++i)
           tma_load_2d(base + i * T::kABox, &ta, &full[st],
                       j * T::kStageK + i * T::kStepK, m0);
-        tma_load_2d(base + T::kABytes, &tw, &full[st],
-                    j * (T::kStageK / F::kWordK), n0);
+#pragma unroll
+        for (int b = 0; b < T::kWBoxes; ++b)
+          tma_load_2d(base + T::kABytes + b * T::BN * T::kWBox, &tw,
+                      &full[st],
+                      j * (T::kStageK / F::kWordK) + b * (T::kWBox / 4), n0);
         if constexpr (F::kScaled) {
           // the slot's first group row (a K tail past the last group is
           // zero-filled)
           const int row = j * T::kStageK / group;
           unsigned char* sz = base + T::kABytes + T::kWBytes;
           tma_load_2d(sz, &ts, &full[st], n0, row);
-          tma_load_2d(sz + kSZBytes, &tz, &full[st], n0, row);
+          if (nsz == 2) tma_load_2d(sz + kSZBytes, &tz, &full[st], n0, row);
         }
       }
     }
@@ -444,10 +595,12 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   const int g = lane >> 2, t = lane & 3;
   const int r_lo = wg * 64 + warp * 16 + g;   // this thread's weight rows
   const int r_hi = r_lo + 8;                  // (within the tile)
-  // 16-byte chunk c of weight row r sits at chunk c ^ (r % 8) of its
-  // 128-byte row (the 128-byte swizzle): the rows g of a warp hit
-  // distinct banks
-  const int sw = g;
+  // 16-byte chunk c of weight row r sits at chunk c ^ ((r / (128 / W)) %
+  // (W / 16)) of its W-byte box row (TMA's swizzle, above): the rows g of
+  // a warp hit distinct banks. Rows r_lo and r_hi are g and g + 8 modulo
+  // 16, so that term is sw = g / (128 / W) for both
+  constexpr int kWB = T::kWBox;
+  const int sw = g / (128 / kWB);
   const uint32_t ring = smem_u32(smem);
 
   // the running sums; with F::kPromote the products go to `part`, one
@@ -466,26 +619,41 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   // zero pairs, read from shared memory one step ahead: shared-memory
   // loads queue behind the wgmmas issued before them, so a step's reads
   // go out before the previous step's products.
-  uint32_t lo[8], hi[8];
+  constexpr int SW = F::kStepWords;
+  uint32_t lo[SW], hi[SW];
   half2 s_lo[2]{}, z_lo[2]{}, s_hi[2]{}, z_hi[2]{};
   auto fetch = [&](uint32_t base, int u) {
     const uint32_t w = base + T::kABytes;
-    const uint32_t c0 = ((2 * u) ^ sw) << 4, c1 = ((2 * u + 1) ^ sw) << 4;
-    lds128(&lo[0], w + r_lo * kWRowBytes + c0);
-    lds128(&lo[4], w + r_lo * kWRowBytes + c1);
-    lds128(&hi[0], w + r_hi * kWRowBytes + c0);
-    lds128(&hi[4], w + r_hi * kWRowBytes + c1);
-    if constexpr (F::kScaled) {
-      // the group row of the step (NARROW: of each 32-deep half), row (u *
-      // kStepK + 32 h) * rs / kStageK of the slot's rs
+    // step u's 4 SW bytes of each row: in box (4 SW u) / kWB, from byte
+    // (4 SW u) % kWB of its row
+    const int byte0 = 4 * SW * u;
+    const uint32_t wb = w + (byte0 / kWB) * T::BN * kWB;
+    const int c0 = (byte0 % kWB) / 16;
+    if constexpr (SW >= 4) {
 #pragma unroll
-      for (int h = 0; h < (F::kNarrow ? 2 : 1); ++h) {
+      for (int c = 0; c < SW / 4; ++c)
+        lds128(&lo[4 * c], wb + r_lo * kWB + (((c0 + c) ^ sw) << 4));
+#pragma unroll
+      for (int c = 0; c < SW / 4; ++c)
+        lds128(&hi[4 * c], wb + r_hi * kWB + (((c0 + c) ^ sw) << 4));
+    } else {   // 8 bytes, half a chunk
+      const int o = byte0 % 16;
+      lds64(&lo[0], wb + r_lo * kWB + ((c0 ^ sw) << 4) + o);
+      lds64(&hi[0], wb + r_hi * kWB + ((c0 ^ sw) << 4) + o);
+    }
+    if constexpr (F::kScaled) {
+      // the group row of the step (of each 32-deep half where kHalves is
+      // 2), row (u * kStepK + 32 h) * rs / kStageK of the slot's rs
+#pragma unroll
+      for (int h = 0; h < F::kHalves; ++h) {
         const int row = (u * T::kStepK + 32 * h) * rs / T::kStageK;
         const uint32_t sz = w + T::kWBytes + row * T::BN * 2 + 2 * r_lo;
         s_lo[h] = __half2half2(lds_half(sz));
         s_hi[h] = __half2half2(lds_half(sz + 16));
-        z_lo[h] = __half2half2(lds_half(sz + kSZBytes));
-        z_hi[h] = __half2half2(lds_half(sz + kSZBytes + 16));
+        if (F::kZeros || nsz == 2) {
+          z_lo[h] = __half2half2(lds_half(sz + kSZBytes));
+          z_hi[h] = __half2half2(lds_half(sz + kSZBytes + 16));
+        }
       }
     }
   };
@@ -497,7 +665,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   // releases the previous stage.
   auto step = [&](int j, int u, uint32_t base, uint32_t (&cur)[16],
                   uint32_t (&prev)[16]) {
-    F::decode(lo, hi, t, s_lo, z_lo, s_hi, z_hi, cur);
+    F::decode(lo, hi, t, s_lo, z_lo, s_hi, z_hi, lut, cur);
     if (u + 1 < kSub) {
       fetch(base, u + 1);
     } else if (j + 1 < nk) {
@@ -566,7 +734,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
 
   // acc[4 i + e]: weight row r_lo + 8 (e / 2), token 8 i + 2 t + e % 2
   const int n_lo = n0 + r_lo, n_hi = n0 + r_hi;
-  if constexpr (F::kScaled) {
+  if constexpr (F::kBias) {
     // the f32 bias of the thread's two rows, before the one rounding
     if (bias != nullptr) {
       const float b_lo = n_lo < N ? bias[n_lo] : 0.f;
@@ -586,18 +754,27 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
     for (int e = 0; e < 4; ++e) {
       const int m = m0 + 8 * i + 2 * t + (e & 1);
       const int n = (e & 2) ? n_hi : n_lo;
-      if (m < M && n < N) out[(size_t)m * N + n] = F::cvt(acc[4 * i + e]);
+      if (m >= M || n >= N) continue;
+      if constexpr (F::kOutAny) {
+        if (out_f32) {
+          static_cast<float*>(out_ptr)[(size_t)m * N + n] = acc[4 * i + e];
+          continue;
+        }
+      }
+      static_cast<typename F::Out*>(out_ptr)[(size_t)m * N + n] =
+          F::cvt(acc[4 * i + e]);
     }
   }
 }
 
 // Launches one instance: A [M, K] (F::In), Wq [N, K / F::kWordK] int32,
-// scales and zeros [K / group, N] f16 and bias [N] f32 or null (uint4
-// only), out [M, N] (F::Out).
+// scales and zeros [K / group, N] (2-byte: f16, or bf16 for a bf16 Fmt;
+// zeros null for a scale-only Fmt) and bias [N] f32 or null (not int2),
+// out [M, N] (F::Out, or float32 where out_f32 and F::kOutAny).
 template <class F, int BM, int WG, int STAGES>
 cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
                          const void* zeros, const float* bias, void* out,
-                         int M, int N, int K, int group,
+                         int out_f32, int M, int N, int K, int group,
                          cudaStream_t stream) {
   using T = Tiled<F, BM, WG, STAGES>;
   const EncodeTiled encode = encode_tiled();
@@ -605,21 +782,28 @@ cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
   CUtensorMap ta, tw, ts, tz;
   if (!make_map_2d(encode, &ta, A, F::kAMap, (int)sizeof(typename F::In), M,
                    K, BM) ||
-      !make_map_2d(encode, &tw, Wq, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, N,
-                   K / F::kWordK, T::BN))
+      !make_map_2d_sw(encode, &tw, Wq, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, N,
+                      K / F::kWordK, T::BN, T::kWBox))
     return cudaErrorInvalidValue;
   // the group rows a slot reads: 256 / g for g <= 128, else 1; a box of
-  // that many rows for NARROW, else of 2
+  // that many rows for g < 128 (NARROW), else of 2
   const int rs = group < T::kStageK ? T::kStageK / group : 1;
-  const int box = F::kNarrow ? rs : 2;
+  const int box = rs > 2 ? rs : 2;
+  const int nsz = !F::kScaled ? 0 : zeros != nullptr ? 2 : 1;
   if constexpr (F::kScaled) {
     if (group < 32 || K % group != 0 || rs > F::kSZRows ||
-        F::kNarrow != (rs > 2) ||
+        (F::kHalves == 1 && rs > 2) || (F::kNarrow && rs <= 2) ||
+        (F::kZeros && zeros == nullptr) ||
         !make_map_2d_box(encode, &ts, scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                         2, K / group, N, T::BN, box) ||
-        !make_map_2d_box(encode, &tz, zeros, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
                          2, K / group, N, T::BN, box))
       return cudaErrorInvalidValue;
+    if (nsz < 2) {
+      tz = ts;   // not read
+    } else if (!make_map_2d_box(encode, &tz, zeros,
+                                CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, K / group,
+                                N, T::BN, box)) {
+      return cudaErrorInvalidValue;
+    }
   } else {
     ts = tw;   // not read
     tz = tw;
@@ -631,8 +815,7 @@ cudaError_t launch_tiled(const void* A, const void* Wq, const void* scales,
   const dim3 grid((M + BM - 1) / BM, (N + T::BN - 1) / T::BN);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-      ta, tw, ts, tz, bias, static_cast<typename F::Out*>(out), M, N, K,
-      group, rs);
+      ta, tw, ts, tz, bias, out, M, N, K, group, rs, box, nsz, out_f32);
   return cudaGetLastError();
 }
 
@@ -655,7 +838,7 @@ cudaError_t run_tiled(const void* A, const void* Wq, const void* scales,
 #define BBT_DQW_TILE(BM, BN, S)                                             \
   if (bm == BM && bn == BN && stages == S)                                  \
     return launch_tiled<F, BM, BN / 64, S>(A, Wq, scales, zeros, bias, out, \
-                                           M, N, K, group, stream);
+                                           0, M, N, K, group, stream);
   BBT_DQW_TILE(32, 64, 4)
   BBT_DQW_TILE(128, 64, 3)
   if constexpr (F::kPromote) {
@@ -666,6 +849,18 @@ cudaError_t run_tiled(const void* A, const void* Wq, const void* scales,
   }
 #undef BBT_DQW_TILE
   return cudaErrorInvalidValue;
+}
+
+// The Fmt formats' one tiled instance: 64 tokens x 128 weight rows, a slot
+// of 256 of K, three slots (an 8-bit weight's slot is 256 bytes of each
+// row: four slots would not fit). kernels/dequant_matmul.py FMT_TILED_TILE.
+template <class F>
+cudaError_t run_tiled_fmt(const void* A, const void* Wq, const void* scales,
+                          const void* zeros, const float* bias, void* out,
+                          int out_f32, int M, int N, int K, int group,
+                          cudaStream_t stream) {
+  return launch_tiled<F, 64, 2, 3>(A, Wq, scales, zeros, bias, out, out_f32,
+                                   M, N, K, group, stream);
 }
 
 }  // namespace dqw

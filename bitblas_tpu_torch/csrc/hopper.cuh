@@ -165,21 +165,34 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A row-major [rows, cols] matrix of `elem_bytes`-byte elements in boxes
-// of `box_rows` rows x 128 bytes, 128-byte swizzle; reads past either
-// edge are zero-filled (and still count toward the barrier's bytes).
+// of `box_rows` rows x `box_bytes` bytes (32, 64 or 128), swizzled by that
+// width (TMA's 32-, 64- or 128-byte swizzle); reads past either edge are
+// zero-filled (and still count toward the barrier's bytes).
+inline bool make_map_2d_sw(EncodeTiled encode, CUtensorMap* map,
+                           const void* ptr, CUtensorMapDataType type,
+                           int elem_bytes, long long rows, long long cols,
+                           int box_rows, int box_bytes) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(box_bytes / elem_bytes),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle sw = box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (box_bytes != 32 && box_bytes != 64 && box_bytes != 128) return false;
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same in boxes of 128 bytes, 128-byte swizzle.
 inline bool make_map_2d(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                         CUtensorMapDataType type, int elem_bytes,
                         long long rows, long long cols, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes),
-                             (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_2d_sw(encode, map, ptr, type, elem_bytes, rows, cols,
+                        box_rows, 128);
 }
 
 // A row-major [rows, cols] matrix in unswizzled boxes of `box_rows` rows x

@@ -10,8 +10,10 @@ reference's torch integration. The compute runs through the port's
 `module.Linear` on the layer's device (JAX's version converts every
 activation through numpy on the host; this one stays on the card).
 `post_init()` rebuilds the device operands from the buffers: call it
-after `load_state_dict`, as AutoGPTQ's post-init contract asks. Only
-4-bit weights are ported; bits 1 and 2 raise NotImplementedError.
+after `load_state_dict`, as AutoGPTQ's post-init contract asks. Bits 1,
+2 and 4 run (uint1 / uint2 / uint4 with GPTQ-style scales and zeros),
+with float16 activations, or bfloat16 ones (A_dtype="bfloat16", the
+scales and zeros then in bfloat16 on the card).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..common import resolve_device
 from ..graph import as_tensor
 from ..module import Linear
 from ..quantization import packing
+from ..quantization.formats import as_torch_dtype
 
 
 class QuantLinear(nn.Module):
@@ -49,10 +52,6 @@ class QuantLinear(nn.Module):
         super().__init__()
         if bits not in (1, 2, 4):
             raise NotImplementedError("Only 1/2/4 bits are supported.")
-        if bits != 4:
-            raise NotImplementedError(
-                f"bitblas_tpu_torch runs 4-bit QuantLinear only so far "
-                f"(uint{bits} x float16 is not ported)")
         if trainable:
             raise NotImplementedError(
                 "QuantLinear is inference-only (reference parity).")
@@ -69,6 +68,7 @@ class QuantLinear(nn.Module):
         self.out_features = out_features
         self.group_size = group_size
         self.opt_M = opt_M
+        self.act_dtype = as_torch_dtype(A_dtype)
 
         self.inner = Linear(
             in_features, out_features, bias=bias, A_dtype=A_dtype,
@@ -155,7 +155,7 @@ class QuantLinear(nn.Module):
     def forward(self, A: torch.Tensor) -> torch.Tensor:
         """A [..., in] on the layer's device -> [..., out] in A's dtype."""
         lead = A.shape[:-1]
-        a2 = A.reshape(-1, self.in_features).to(torch.float16)
+        a2 = A.reshape(-1, self.in_features).to(self.act_dtype)
         out = self.inner.forward(a2)
         return out.reshape(*lead, self.out_features).to(A.dtype)
 

@@ -34,7 +34,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
            "weight_decode_int8", "flash_attention", "flash_decode",
            "flash_decode_quant", "flash_decode_paged",
-           "flash_decode_paged_quant", "dense_matmul")
+           "flash_decode_paged_quant", "dense_matmul",
+           # kernels 1 and 2 for the other formats with float activations
+           # (csrc/dequant_formats.cuh), a source for each family group and
+           # activation type so that they build side by side
+           "dequant_fmt_uint_f16", "dequant_fmt_uint_bf16",
+           "dequant_fmt_int_f16", "dequant_fmt_int_bf16",
+           "dequant_fmt_float_f16", "dequant_fmt_float_bf16")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, object] = {}

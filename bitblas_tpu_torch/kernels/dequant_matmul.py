@@ -12,19 +12,28 @@ ported configuration, with the Hopper layout of quantization/packing.py:
 * `dequant_matmul_i2` (BitNet W2A8): ``out[M, N] f32 = A[M, K] int8 @
   (Wq - 2)^T`` with int32 accumulation, Wq [N, K/16] int32 of biased int2
   fields; csrc/dequant_matmul_i2.cu.
-* Both tiled paths: csrc/dequant_wgmma.cuh.
+* `dequant_matmul_fmt` (every other weight format with float16 or
+  bfloat16 activations, ops/matmul_config.FLOAT_PAIRS): ``out[M, N] =
+  A[M, K] @ W^T (+ bias)`` in A's type or float32, W the codes of Wq [N,
+  K*bits/32] int32 (uint1/2/4, int1/2/4 biased by 2^(bits-1), int8, nf4,
+  fp4_e2m1, e4m3, e5m2) decoded to A's type, with scales [K/g, N] and, for
+  uint, zeros [K/g, N] in A's type (original or rescale), or neither;
+  csrc/dequant_formats.cuh, instantiated by csrc/dequant_fmt_*.cu. Its
+  decoded weight is the plain version's bit for bit
+  (`dequantize_fmt_hopper`).
+* The tiled paths: csrc/dequant_wgmma.cuh.
 
 Each kernel is compiled for a small fixed set of tile instances
 (`FUSED_TILES`, (block_m, block_n, block_k, stages)); the caller names one
 (`tile=`, from the Matmul's hint), and `default_tile` is the choice by M
 that the Matmul makes untuned. The first instance of each format is its
-decode-M design, split-K with the weight decoded in registers: 128
-weight rows a block on the mma's 16-row side, the tokens on its 8-wide
-side, K split across blocks from static sizes only, the partials summed
-in split order by the last block of each tile, one launch a call:
+decode-M design, split-K with the weight decoded in registers: 128 weight
+rows a block on the mma's 16-row side, the tokens on its 8-wide side, K
+split across blocks from static sizes only, the partials summed in split
+order by the last block of each tile, one launch a call:
 * uint4 `U4_DECODE_TILE`: K split in whole steps of 128 (`plan_splits_k`),
-  the scale and zero applied to a group's sums (a step's, or each
-  32-deep quarter's for g = 32 and 64), f32 partials
+  the scale and zero applied to a group's sums (a step's, or each 32-deep
+  quarter's for g = 32 and 64), f32 partials
   (`dequant_matmul_u4_split_plain` is that arithmetic in plain PyTorch,
   for the tests);
 * int2 `I2_DECODE_TILE`: K split in steps of 256 (`plan_splits_k_i2`;
@@ -32,17 +41,22 @@ in split order by the last block of each tile, one launch a call:
   fed to the mma as they are and the bias taken off once a split (sum (f
   - 2) a = sum f a - 2 sum a), int32 partials
   (`dequant_matmul_i2_split_plain`). Bound at M <= 16: the weight bytes
-  N K / 4 over 3.35 TB/s.
+  N K / 4 over 3.35 TB/s;
+* `fmt_decode_tile` (dequant_matmul_fmt): 16 x 128, K split in steps of
+  512 / bits, each thread's chunk decoded and scaled in A's type, f32
+  partials (`plan_splits_fmt`, `dequant_matmul_fmt_split_plain`).
 The others are the tiled instances (block_m tokens x block_n weight
-rows, three uint4 and four int2), one mixed-input wgmma + TMA main loop
-shared by both formats (csrc/dequant_wgmma.cuh): the weight decoded in
-registers straight into wgmma's A operand, the tokens on its n side.
+rows: three uint4, four int2, and for each other format one,
+`FMT_TILED_TILE`), one mixed-input wgmma + TMA main loop shared by all
+formats (csrc/dequant_wgmma.cuh): the weight decoded in registers
+straight into wgmma's A operand, the tokens on its n side.
 Each wrapper counts its launches (`launches`), and apart from them those
 of its decode instance (`decode_launches`) and of its tiled instances
-(`tiled_launches`). On a CUDA tensor each wrapper launches its kernel
-(design and bound are written in the source); on a CPU tensor it runs
-the plain version, for which the tile changes nothing.
-"""
+(`tiled_launches`); `dequant_matmul_fmt` also by format
+(`format_launches`) and by instance and options (`variant_launches`). On
+a CUDA tensor each wrapper launches its kernel (design and bound are
+written in the source); on a CPU tensor it runs the plain version, for
+which the tile changes nothing."""
 
 from __future__ import annotations
 
@@ -50,8 +64,10 @@ import ctypes
 
 import torch
 
+from ..ops.matmul_config import FLOAT_PAIRS
 from ..ops.reference import expand_groups, matmul_dense_reference
 from ..quantization import numerics, packing
+from ..quantization.formats import as_torch_dtype, source_format_and_bits
 from . import build, scratch
 
 GROUP = 128          # the step of the uint4 decode instance, JAX's default
@@ -84,6 +100,42 @@ FUSED_TILES = {
                            for bm, bn, stages in WGMMA_TILES[fmt])
     for fmt, decode in (("uint4", U4_DECODE_TILE),
                         ("int2", I2_DECODE_TILE))}
+# dequant_matmul_fmt's formats (csrc/dequant_formats.cuh): the split-K
+# decode instance, K in steps of 512 / bits (a quad's four 16-byte chunks
+# of each weight row), at most FMT_MAX_SPLIT_K of K a split; and one
+# tiled instance, 64 tokens x 128 weight rows, slots of 256 of K, three
+# slots (csrc/dequant_wgmma.cuh run_tiled_fmt).
+FMT_MAX_SPLIT_K = 1024
+FMT_DECODE_STAGES = 4
+FMT_TILED_TILE = (64, 128, 256, 3)
+
+
+def fmt_decode_tile(bits: int):
+    return (16, 128, 512 // bits, FMT_DECODE_STAGES)
+
+
+def fused_format(W_dtype: str, A_dtype: str) -> str:
+    """The key of a quantized (W, A) pair's fused instances: "uint4"
+    (uint4 x float16, dequant_matmul_u4), "int2" (int2 x int8,
+    dequant_matmul_i2), else "<W>x<A>" ("nf4xbfloat16", dequant_matmul_fmt)."""
+    if (W_dtype, A_dtype) == ("uint4", "float16"):
+        return "uint4"
+    if (W_dtype, A_dtype) == ("int2", "int8"):
+        return "int2"
+    return f"{W_dtype}x{A_dtype}"
+
+
+def split_format(fmt: str):
+    """(W_dtype, A_dtype) of a fused_format key."""
+    return {"uint4": ("uint4", "float16"),
+            "int2": ("int2", "int8")}.get(fmt) or tuple(fmt.split("x"))
+
+
+FMT_FORMATS = tuple(fused_format(w, a) for a, w in FLOAT_PAIRS)
+for _fmt in FMT_FORMATS:
+    FUSED_TILES[_fmt] = (
+        fmt_decode_tile(source_format_and_bits(split_format(_fmt)[0])[1]),
+        FMT_TILED_TILE)
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
 # The decode instances: 128 weight rows a block, A tiles of 16 rows, at
@@ -102,7 +154,10 @@ def default_tile(fmt: str, m: int):
     """The untuned instance at M = m: the decode instance up to 16 rows,
     where the weight bytes bound the kernel, the 64-token x 128-row wgmma
     tile above."""
-    return FUSED_TILES[fmt][0] if m <= 16 else FUSED_TILES[fmt][2]
+    tiles = FUSED_TILES[fmt]
+    if m <= 16:
+        return tiles[0]
+    return FMT_TILED_TILE if fmt in FMT_FORMATS else tiles[2]
 
 
 def is_tiled(fmt: str, tile) -> bool:
@@ -164,6 +219,17 @@ def fused_smem_bytes(fmt: str, tile, group: int = GROUP) -> int:
     size, A over 8 steps of 256 (16 rows), A's 16 row sums and the
     per-thread ring of two 16-byte weight chunks a stage."""
     bm, bn, bk, stages = tile
+    if fmt in FMT_FORMATS:
+        bits = source_format_and_bits(split_format(fmt)[0])[1]
+        if is_tiled(fmt, tile):   # a slot's 256 of K is 32 bits bytes a row
+            load = 4 * bm * 128 + bn * 32 * bits + 2 * 8 * bn * 2
+            return 1024 + stages * -(-load // 1024) * 1024 + 2 * stages * 8
+        # A over FMT_MAX_SPLIT_K of K (16 rows, each padded by 32 bytes),
+        # the ring of two 16-byte chunks and up to four scale / zero pairs
+        # (a chunk's 128 / bits codes against groups of 32) a thread
+        pairs = max(1, 128 // bits // 32)
+        return 16 * (FMT_MAX_SPLIT_K * 2 + 32) \
+            + stages * (bn // 16 * 32) * (2 * 16 + 2 * pairs * 4)
     if is_tiled(fmt, tile):
         rows = (8 if group in NARROW_GROUPS else 2) if fmt == "uint4" \
             else 0
@@ -186,17 +252,18 @@ def _tile(fmt: str, m: int, tile):
 
 
 def check_group(K: int, group: int) -> None:
-    """Raise NotImplementedError unless the uint4 kernels take this group
-    size at this K (csrc/dequant_matmul.cu group_ok): K a multiple of 128
-    and g = 32, 64, 128, a multiple of 256 that divides K, or K."""
+    """Raise NotImplementedError unless the kernels take this group size
+    at this K (csrc/dequant_matmul.cu and dequant_formats.cuh group_ok): K
+    a multiple of 128 and g = 32, 64, 128, a multiple of 256 that divides
+    K, or K."""
     if K % GROUP == 0 and K % group == 0 and (
             group in NARROW_GROUPS or group == GROUP or group % 256 == 0
             or group == K):
         return
     raise NotImplementedError(
-        f"no uint4 kernel instance takes K={K} with group size {group} "
-        f"(K a multiple of {GROUP}; g = 32, 64, 128, a multiple of 256 "
-        f"that divides K, or K)")
+        f"no kernel instance takes K={K} with group size {group} (K a "
+        f"multiple of {GROUP}; g = 32, 64, 128, a multiple of 256 that "
+        f"divides K, or K)")
 
 
 def dequantize_hopper(qweight: torch.Tensor, scales: torch.Tensor,
@@ -492,3 +559,269 @@ dequant_matmul_i2.launches = 0
 # wgmma + TMA tiled instances
 dequant_matmul_i2.decode_launches = 0
 dequant_matmul_i2.tiled_launches = 0
+
+
+# -- every other format with float activations (csrc/dequant_formats.cuh) ----
+
+# the family codes of the C entry points
+_FMT_FAMILY = {"uint": 0, "int": 1, "nf": 2, "fp": 3, "fp_e4m3": 4,
+               "fp_e5m2": 5}
+# csrc/dequant_fmt_<tag>.cu of a (family, A_dtype)
+_FMT_TAG = {"uint": "uint", "int": "int", "nf": "float", "fp": "float",
+            "fp_e4m3": "float", "fp_e5m2": "float"}
+_FMT_ACT = {"float16": "f16", "bfloat16": "bf16"}
+
+
+def fmt_source(w_dtype: str, a_dtype: str) -> str:
+    """The csrc/ source that compiles the (w_dtype, a_dtype) pair."""
+    family = source_format_and_bits(w_dtype)[0]
+    return f"dequant_fmt_{_FMT_TAG[family]}_{_FMT_ACT[a_dtype]}"
+
+_ARGTYPES_FMT_DECODE = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 \
+    + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+_ARGTYPES_FMT_TILED = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 \
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def fmt_entry(w_dtype: str, a_dtype: str, kind: str, argtypes):
+    """The C entry point `kind` ("decode", "tiled", "weight_decode") of the
+    source that compiles (w_dtype, a_dtype), and the (family, bits) codes
+    it dispatches on."""
+    family, bits = source_format_and_bits(w_dtype)
+    source = fmt_source(w_dtype, a_dtype)
+    fn = build.entry(source, f"dqf_{source[len('dequant_fmt_'):]}_{kind}",
+                     argtypes)
+    return fn, _FMT_FAMILY[family], bits
+
+
+def plan_splits_fmt(m: int, n: int, k: int, bits: int, sms: int = H100_SMS):
+    """(chunk, splits) of dequant_matmul_fmt's decode instance, from static
+    sizes only: K's steps of 512 / bits (the last may end at a K tail, K
+    a multiple of 128) planned as `plan_splits_k` plans uint4's, at most
+    FMT_MAX_SPLIT_K of K a split. Split s covers steps [s * chunk, min((s
+    + 1) * chunk, ceil(K / step)))."""
+    step = 512 // bits
+    if min(m, n, k, sms) < 1 or k % 128:
+        raise ValueError(f"plan_splits_fmt: M={m}, N={n}, K={k} (a "
+                         f"multiple of 128), sms={sms}")
+    return _plan_splits(m, n, -(-k // step), FMT_MAX_SPLIT_K // step, sms)
+
+
+def dequantize_fmt_hopper(qweight: torch.Tensor, w_dtype: str,
+                          a_dtype: str, scales=None, zeros=None,
+                          group: int = -1,
+                          zeros_mode: str = "original") -> torch.Tensor:
+    """Hopper-layout operands -> the dense weight [N, K] in A's type: the
+    codes decoded (numerics.decode_codes) and, with scales, ``(w - z) *
+    s`` (rescale: ``w * s - z``; no zeros: ``w * s``), each op rounded in
+    A's type: bit-identical to ops/reference.dequantize_weight (the JAX
+    oracle) on the same codes, and to what the kernels decode."""
+    family, bits = source_format_and_bits(w_dtype)
+    adt = as_torch_dtype(a_dtype)
+    codes = packing.unpack_k(qweight, bits)
+    K = codes.shape[1]
+    w = numerics.decode_codes(codes, family, bits, adt)
+    if scales is None:
+        return w
+    g = K if group in (-1, None) else group
+    s = expand_groups(scales.T.to(adt), g, K)
+    z = None if zeros is None else expand_groups(zeros.T.to(adt), g, K)
+    return numerics.apply_scaling(w, s, z, zeros_mode).to(adt)
+
+
+def _finish(out: torch.Tensor, bias, out_dtype: torch.dtype):
+    """f32 sums [M, N] + the f32 bias, rounded once to out_dtype."""
+    if bias is not None:
+        out = out + bias.reshape(1, -1).float()
+    return out.to(out_dtype)
+
+
+def dequant_matmul_fmt_plain(A: torch.Tensor, qweight: torch.Tensor,
+                             w_dtype: str, scales=None, zeros=None,
+                             group: int = -1, bias=None,
+                             zeros_mode: str = "original",
+                             out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of dequant_matmul_fmt (any device): the dense
+    weight of `dequantize_fmt_hopper`, the product summed in float32, the
+    bias added, one rounding to out_dtype (A's type by default)."""
+    adt = A.dtype
+    W = dequantize_fmt_hopper(qweight, w_dtype, _act_name(adt), scales,
+                              zeros, group, zeros_mode)
+    return _finish(matmul_dense_reference(A, W, torch.float32), bias,
+                   out_dtype or adt)
+
+
+def dequant_matmul_fmt_split_plain(A: torch.Tensor, qweight: torch.Tensor,
+                                   w_dtype: str, scales=None, zeros=None,
+                                   group: int = -1, bias=None,
+                                   zeros_mode: str = "original",
+                                   out_dtype=None,
+                                   sms: int = H100_SMS) -> torch.Tensor:
+    """The decode instance's arithmetic in plain PyTorch (any device): the
+    splits `plan_splits_fmt` gives, each the f32 product of its K range
+    (the dense weight of `dequantize_fmt_hopper`), the partials summed in
+    split order 0, 1, ..., the bias added, one rounding. Only the tests
+    call it."""
+    M, K = A.shape
+    N = qweight.shape[0]
+    bits = source_format_and_bits(w_dtype)[1]
+    chunk, splits = plan_splits_fmt(M, N, K, bits, sms)
+    W = dequantize_fmt_hopper(qweight, w_dtype, _act_name(A.dtype), scales,
+                              zeros, group, zeros_mode).float()
+    Af = A.float()
+    span = chunk * (512 // bits)
+    out = torch.zeros((M, N), dtype=torch.float32, device=A.device)
+    for sp in range(splits):
+        ks = slice(sp * span, min((sp + 1) * span, K))
+        out = out + Af[:, ks] @ W[:, ks].T
+    return _finish(out, bias, out_dtype or A.dtype)
+
+
+def _act_name(dtype: torch.dtype) -> str:
+    if dtype not in (torch.float16, torch.bfloat16):
+        raise ValueError(f"A must be float16 or bfloat16, got {dtype}")
+    return "float16" if dtype == torch.float16 else "bfloat16"
+
+
+def _check_fmt(A, qweight, w_dtype, scales, zeros, group, bias, zeros_mode,
+               out_dtype):
+    if A.dim() != 2 or qweight.dim() != 2:
+        raise ValueError(f"A must be [M, K] and qweight 2-D, got "
+                         f"{tuple(A.shape)} and {tuple(qweight.shape)}")
+    a_name = _act_name(A.dtype)
+    fmt = fused_format(w_dtype, a_name)
+    if fmt not in FMT_FORMATS:
+        raise NotImplementedError(f"dequant_matmul_fmt does not run "
+                                  f"{w_dtype} x {a_name}")
+    family, bits = source_format_and_bits(w_dtype)
+    M, K = A.shape
+    N = qweight.shape[0]
+    g = K if group in (-1, None) else group
+    if zeros_mode not in ZEROS_MODES:
+        raise ValueError(f"zeros_mode {zeros_mode!r} (the kernels take "
+                         f"{ZEROS_MODES}; quantized zeros are unpacked by "
+                         f"the weight transform)")
+    if zeros is not None and (scales is None or family != "uint"):
+        raise NotImplementedError(f"zeros need scales and the uint family "
+                                  f"(got {w_dtype}, scales "
+                                  f"{'none' if scales is None else 'given'})")
+    if out_dtype not in (None, A.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype}: A's type or float32")
+    if scales is not None:
+        check_group(K, g)
+    if K % 128 or N % 8:
+        raise ValueError(f"K={K} must be a multiple of 128, N={N} of 8")
+    want = {"A": (A, A.dtype, (M, K)),
+            "qweight": (qweight, torch.int32, (N, K * bits // 32))}
+    for name, t in (("scales", scales), ("zeros", zeros)):
+        if t is not None:
+            want[name] = (t, A.dtype, (K // g, N))
+    if bias is not None:
+        want["bias"] = (bias, torch.float32, tuple(bias.shape))
+        if bias.numel() != N:
+            raise ValueError(f"bias: expected {N} values, got "
+                             f"{tuple(bias.shape)}")
+    for name, (t, dt, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dt} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != A.device:
+            raise ValueError(f"{name} on {t.device}, A on {A.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return fmt, g, bits
+
+
+def fmt_variant(fmt: str, kind: str, group: int, K: int, scaled: bool,
+                zeros_mode: str, bias: bool) -> str:
+    """The name of a dequant_matmul_fmt launch's instance and options, as
+    `variant_launches` counts it: "nf4xbfloat16 decode g128",
+    "uint2xfloat16 tiled per_channel rescale bias", "int8xfloat16 decode
+    unscaled", ..."""
+    g = ("unscaled" if not scaled else "per_channel" if group == K
+         and group > GROUP else f"g{group}")
+    return " ".join([fmt, kind, g] + (["rescale"] if zeros_mode == "rescale"
+                                      else []) + (["bias"] if bias else []))
+
+
+def dequant_matmul_fmt(A: torch.Tensor, qweight: torch.Tensor, w_dtype: str,
+                       scales=None, zeros=None, group: int = -1, tile=None,
+                       bias=None, zeros_mode: str = "original",
+                       out_dtype=None) -> torch.Tensor:
+    """out [M, N] in `out_dtype` (A's type by default, or float32) for a
+    `w_dtype` weight under A's float16 / bfloat16 activations; see the
+    module docstring for the layout. `scales` (and, for the uint family,
+    `zeros`) [K/g, N] in A's type or None; `group` g (-1: per channel);
+    `tile` one of FUSED_TILES[fused_format(w_dtype, A's type)] (default:
+    default_tile); `bias` float32 [N] or [1, N]; `zeros_mode` "original"
+    ((w - z) s) or "rescale" (w s - z)."""
+    fmt, g, bits = _check_fmt(A, qweight, w_dtype, scales, zeros, group,
+                              bias, zeros_mode, out_dtype)
+    tile = _tile(fmt, A.shape[0], tile)
+    odt = out_dtype or A.dtype
+    if A.device.type == "cpu":
+        return dequant_matmul_fmt_plain(A, qweight, w_dtype, scales, zeros,
+                                        g, bias, zeros_mode, odt)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    M, K = A.shape
+    N = qweight.shape[0]
+    mode = 0 if scales is None else 2 if zeros_mode == "rescale" and \
+        zeros is not None else 1
+    ptrs = [A.data_ptr(), qweight.data_ptr(),
+            scales.data_ptr() if scales is not None else 0,
+            zeros.data_ptr() if zeros is not None else 0,
+            bias.data_ptr() if bias is not None else 0]
+    out = torch.empty((M, N), dtype=odt, device=A.device)
+    if M == 0:
+        return out
+    f32 = int(odt == torch.float32)
+    decode = tile == FUSED_TILES[fmt][0]
+    a_name = _act_name(A.dtype)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if decode:
+            chunk, splits = plan_splits_fmt(M, N, K, bits,
+                                            scratch.sm_count(A.device))
+            part = count = None
+            if splits > 1:
+                part = scratch.partials(A.device, splits * M * N)
+                count = scratch.counters(
+                    A.device, -(-N // DECODE_BN) * -(-M // DECODE_BM))
+            fn, fam, b = fmt_entry(w_dtype, a_name, "decode",
+                                   _ARGTYPES_FMT_DECODE)
+            err = fn(fam, b, mode, *ptrs, out.data_ptr(), f32,
+                     part.data_ptr() if part is not None else 0,
+                     count.data_ptr() if count is not None else 0, M, N, K,
+                     g, chunk, splits, stream)
+        else:
+            fn, fam, b = fmt_entry(w_dtype, a_name, "tiled",
+                                   _ARGTYPES_FMT_TILED)
+            err = fn(fam, b, mode, *ptrs, out.data_ptr(), f32, M, N, K, g,
+                     stream)
+    build.check(err, f"dequant_matmul_fmt {fmt}")
+    kind = "decode" if decode else "tiled"
+    dequant_matmul_fmt.launches += 1
+    if decode:
+        dequant_matmul_fmt.decode_launches += 1
+    else:
+        dequant_matmul_fmt.tiled_launches += 1
+    for counts, key in (
+            (dequant_matmul_fmt.format_launches, fmt),
+            (dequant_matmul_fmt.variant_launches,
+             fmt_variant(fmt, kind, g, K, scales is not None, zeros_mode
+                         if zeros is not None else "original",
+                         bias is not None))):
+        counts[key] = counts.get(key, 0) + 1
+    return out
+
+
+dequant_matmul_fmt.launches = 0
+# among them, the decode instance's and the tiled instance's launches; and
+# every launch by format ("nf4xbfloat16") and by instance and options
+# (fmt_variant)
+dequant_matmul_fmt.decode_launches = 0
+dequant_matmul_fmt.tiled_launches = 0
+dequant_matmul_fmt.format_launches = {}
+dequant_matmul_fmt.variant_launches = {}

@@ -16,6 +16,11 @@ from M = 512, or in a bucket whose measured winner it is
   bit-identical to `dequantize_hopper`, the fused kernel's decoded tile;
   bfloat16 and float32 are the float32 value (q - z) * s (q * s - z)
   with one cast, as JAX computes.
+* `weight_decode_fmt` -- kernel 2 for every other format with float16
+  or bfloat16 activations (csrc/dequant_formats.cuh, instantiated by
+  csrc/dequant_fmt_*.cu): the codes decoded and scaled in A's type, the
+  dense [N, K] weight the fused kernel's decode gives, bit for bit
+  `dequantize_fmt_hopper`.
 * `weight_decode_int8` -- kernel 3's counterpart
   (csrc/weight_decode_int8.cu): 2- or 4-bit int/uint fields -> int8 codes
   [N, K], the int family minus its bias 2^(bits-1).
@@ -24,7 +29,10 @@ from M = 512, or in a bucket whose measured winner it is
   and out) or `torch._int_mm` (int8 in, int32 out). JAX computes both
   products as `lax.dot_general` outside any Pallas kernel, so they stay
   library calls. A bias is added to the product in float32 before the
-  cast, as JAX's `_finish` adds it. cuBLAS may reduce split-K partial
+  cast, as JAX's `_finish` adds it. A float32 output of float16 or
+  bfloat16 operands (dequant_matmul_fmt's formats) takes the product of
+  their float32 copies in full float32: a float16 product would round
+  its sums first. cuBLAS may reduce split-K partial
   sums of the float16 product in float16
   (`torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction`,
   left as the process has it), so the route is held to 4e-3 of the
@@ -47,14 +55,18 @@ import torch
 
 from ..ops.reference import expand_groups
 from ..quantization import numerics, packing
-from ..quantization.formats import as_torch_dtype
+from ..quantization.formats import as_torch_dtype, source_format_and_bits
 from . import build
 from .dense import dense_product
-from .dequant_matmul import GROUP, ZEROS_MODES, dequantize_hopper
+from .dequant_matmul import (FMT_FORMATS, GROUP, ZEROS_MODES,
+                             dequantize_fmt_hopper, dequantize_hopper,
+                             fmt_entry, fused_format)
 from .spec import KernelSpec
 
 _ARGTYPES_U4 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _ARGTYPES_I8 = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES_FMT = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 \
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _OUT_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -149,6 +161,73 @@ weight_decode_u4.launches = 0
 weight_decode_u4.variant_launches = {}
 
 
+def weight_decode_fmt_plain(qweight: torch.Tensor, w_dtype: str,
+                            a_dtype: str, scales=None, zeros=None,
+                            group: int = -1,
+                            zeros_mode: str = "original") -> torch.Tensor:
+    """Plain PyTorch version of weight_decode_fmt (any device)."""
+    return dequantize_fmt_hopper(qweight, w_dtype, a_dtype, scales, zeros,
+                                 group, zeros_mode)
+
+
+def weight_decode_fmt(qweight: torch.Tensor, w_dtype: str, a_dtype: str,
+                      scales=None, zeros=None, group: int = -1,
+                      zeros_mode: str = "original") -> torch.Tensor:
+    """qweight [N, K*bits/32] int32 of a `w_dtype` weight (a format of
+    dequant_matmul_fmt) with scales (and, uint only, zeros) [K/g, N] in
+    A's type or none -> the dense [N, K] weight in `a_dtype` (float16 or
+    bfloat16); K a multiple of 128; `group` g (-1: per channel), a
+    multiple of 8 that divides K; `zeros_mode` original or rescale."""
+    fmt = fused_format(w_dtype, a_dtype)
+    if fmt not in FMT_FORMATS:
+        raise NotImplementedError(f"weight_decode_fmt does not run "
+                                  f"{w_dtype} -> {a_dtype}")
+    if qweight.dim() != 2:
+        raise ValueError(f"qweight must be 2-D, got {qweight.shape}")
+    if zeros_mode not in ZEROS_MODES:
+        raise ValueError(f"zeros_mode {zeros_mode!r} ({ZEROS_MODES})")
+    family, bits = source_format_and_bits(w_dtype)
+    adt = as_torch_dtype(a_dtype)
+    N, K = qweight.shape[0], qweight.shape[1] * 32 // bits
+    g = K if group in (-1, None) else group
+    if zeros is not None and (scales is None or family != "uint"):
+        raise NotImplementedError(f"zeros need scales and the uint family "
+                                  f"(got {w_dtype})")
+    if K % 128 or (scales is not None and (g % 8 or K % g)):
+        raise ValueError(f"K={K} must be a multiple of 128 and of the group "
+                         f"size {g}, a multiple of 8")
+    _check("qweight", qweight, torch.int32, qweight.shape, qweight.device)
+    for name, t in (("scales", scales), ("zeros", zeros)):
+        if t is not None:
+            _check(name, t, adt, (K // g, N), qweight.device)
+    if qweight.device.type == "cpu":
+        return weight_decode_fmt_plain(qweight, w_dtype, a_dtype, scales,
+                                       zeros, g, zeros_mode)
+    if qweight.device.type != "cuda":
+        raise ValueError(f"unsupported device {qweight.device}")
+    mode = 0 if scales is None else 2 if zeros_mode == "rescale" and \
+        zeros is not None else 1
+    out = torch.empty((N, K), dtype=adt, device=qweight.device)
+    with torch.cuda.device(qweight.device):
+        fn, fam, b = fmt_entry(w_dtype, a_dtype, "weight_decode",
+                               _ARGTYPES_FMT)
+        err = fn(fam, b, mode, qweight.data_ptr(),
+                 scales.data_ptr() if scales is not None else 0,
+                 zeros.data_ptr() if zeros is not None else 0,
+                 out.data_ptr(), N, K, g,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"weight_decode_fmt {fmt}")
+    weight_decode_fmt.launches += 1
+    counts = weight_decode_fmt.format_launches
+    counts[fmt] = counts.get(fmt, 0) + 1
+    return out
+
+
+weight_decode_fmt.launches = 0
+# the launches by format ("nf4xbfloat16", ...)
+weight_decode_fmt.format_launches = {}
+
+
 def weight_decode_int8_plain(qweight: torch.Tensor, bits: int = 2,
                              family: str = "int") -> torch.Tensor:
     """Plain PyTorch version of kernel 3 (any device)."""
@@ -189,19 +268,30 @@ def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
                        qweight: torch.Tensor, scales=None,
                        zeros=None, bias=None) -> torch.Tensor:
     """A [M, K] -> out [M, N] through the two-pass plan for the ported
-    configurations: W2A8 (int8 codes, int32 sums cast to float32) and
-    W4A16 (float16 weight at the spec's group and zeros mode, float16
-    out; a float32 bias added to the product before the cast)."""
+    configurations: W2A8 (int8 codes, int32 sums cast to float32), W4A16
+    (float16 weight at the spec's group and zeros mode, float16 out) and
+    every other format with float activations (the weight in A's type;
+    out in A's type or float32); a float32 bias added to the product
+    before the cast."""
     if not supports_materialize_spec(spec):
         raise ValueError(f"materialize plan unsupported for {spec}")
     out_dtype = as_torch_dtype(spec.out_dtype)
-    if spec.is_int_activation:
+    mode = "rescale" if spec.zeros_mode == "rescale" else "original"
+    precision = "default"
+    if fused_format(spec.w_dtype, spec.a_dtype) in FMT_FORMATS:
+        W = weight_decode_fmt(qweight, spec.w_dtype, spec.a_dtype, scales,
+                              zeros, spec.group_size, mode)
+        if out_dtype == torch.float32:
+            # a float16 / bfloat16 product would round its sums to A's
+            # type first: the float32 product of the float32 copies
+            A, W, precision = A.float(), W.float(), "highest"
+    elif spec.is_int_activation:
         W = weight_decode_int8(qweight, spec.bits, spec.family)
     else:
-        mode = "rescale" if spec.zeros_mode == "rescale" else "original"
         W = weight_decode_u4(qweight, scales, zeros, group=spec.group_size,
                              zeros_mode=mode)
     if bias is None:
-        return dense_product(A, W, out_dtype)
-    out = dense_product(A, W, torch.float32) + bias.reshape(1, -1).float()
+        return dense_product(A, W, out_dtype, precision)
+    out = dense_product(A, W, torch.float32, precision) \
+        + bias.reshape(1, -1).float()
     return out.to(out_dtype)

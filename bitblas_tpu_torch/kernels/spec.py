@@ -3,7 +3,9 @@
 
 On Hopper the device layout needs no N padding (the kernel masks the
 ragged N tile): the packed weight is the K-packed ``[N, K*bits/32]``
-int32 of quantization/packing.py.
+int32 of quantization/packing.py. `w_dtype` names the weight format of
+(family, bits); nf4's table is quantization/formats.nf4_lut (the kernels
+keep its float16 / bfloat16 bits in csrc/decode_formats.cuh).
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..ops.matmul_config import MatmulConfig
-from ..quantization.formats import source_format_and_bits, storage_bits
+from ..quantization.formats import (source_format_and_bits, storage_bits,
+                                   weight_dtype_name)
 
 
 @dataclass(frozen=True)
@@ -56,6 +59,12 @@ class KernelSpec:
     @property
     def is_int_activation(self) -> bool:
         return self.a_dtype in ("int8", "uint8", "int4", "uint4")
+
+    @property
+    def w_dtype(self) -> str:
+        """The weight format's name ("uint4", "nf4", "e4m3_float8", ...)."""
+        return self.a_dtype if self.native else weight_dtype_name(
+            self.family, self.bits)
 
     @property
     def elems_per_word(self) -> int:

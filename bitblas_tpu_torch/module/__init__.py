@@ -6,11 +6,13 @@ An `nn.Module` on an explicit device (default "cuda"): it builds a
 dynamic-M Matmul through the global operator cache (loading the hint
 database first, tuning and saving when asked), owns the device-layout
 buffers, and repacks AutoGPTQ v1 / GPTQModel v2 checkpoints (the v1
-qzeros off-by-one included) with torch ops on its device. Buffers:
-``qweight`` [N, K*bits/32] int32 (or ``weight`` [N, K] for a native
-A_dtype == W_dtype layer), ``scales`` and ``zeros`` [K/g, N] float16
-(quantized zeros are kept unpacked, as float16 integers), ``bias``
-[1, N] float32.
+qzeros off-by-one included) with torch ops on its device. Any ported
+W_dtype runs (ops/matmul_config.PORTED: uint4 x float16, every other
+quantized format with float16 or bfloat16 activations, int2 x int8, the
+native pairs). Buffers: ``qweight`` [N, K*bits/32] int32 (or ``weight``
+[N, K] for a native A_dtype == W_dtype layer), ``scales`` and ``zeros``
+[K/g, N] in A's type (float16 for integer activations; quantized zeros
+are kept unpacked, as integers of that type), ``bias`` [1, N] float32.
 """
 
 from __future__ import annotations
@@ -113,12 +115,11 @@ class Linear(nn.Module):
                 dtype=torch.int32, device=dev))
             self.register_buffer("weight", None)
         groups = (in_features // self.group_size, out_features)
+        sdt = wt.scale_dtype(cfg)
         self.register_buffer("scales", torch.ones(
-            groups, dtype=torch.float16, device=dev)
-            if cfg.with_scaling else None)
+            groups, dtype=sdt, device=dev) if cfg.with_scaling else None)
         self.register_buffer("zeros", torch.zeros(
-            groups, dtype=torch.float16, device=dev)
-            if cfg.with_zeros else None)
+            groups, dtype=sdt, device=dev) if cfg.with_zeros else None)
         self.register_buffer("bias", torch.zeros(
             (1, out_features), dtype=torch.float32, device=dev)
             if bias else None)
@@ -167,18 +168,20 @@ class Linear(nn.Module):
     # -- weight loading -----------------------------------------------------
     def load_and_transform_weight(self, weight, scales=None, zeros=None,
                                   bias=None) -> None:
-        """Load an unpacked weight [out, in] (codes, or the dense weight of
-        a native layer) with scales [out, in/g], zeros [out, in/g]
+        """Load an unpacked weight [out, in] (codes; int values for the int
+        family; fp8 bytes or a float8 tensor; or the dense weight of a
+        native layer) with scales [out, in/g], zeros [out, in/g]
         (quantized mode: packed [in/g, out*bits/8] int8) and bias [out]."""
         dev, cfg = self.device, self.bitblas_matmul.config
         if self.is_consistent:
             self.weight = as_tensor(weight, dev).to(
                 as_torch_dtype(cfg.W_dtype)).contiguous()
         else:
-            self.qweight = self.bitblas_matmul.transform_weight(
-                as_tensor(weight, dev))
+            # the Matmul moves it to the device and reads float8 as bytes
+            self.qweight = self.bitblas_matmul.transform_weight(weight)
         if scales is not None:
-            self.scales = wt.scales_to_device(as_tensor(scales, dev))
+            self.scales = wt.scales_to_device(as_tensor(scales, dev),
+                                              wt.scale_dtype(cfg))
         if zeros is not None:
             self.zeros = wt.zeros_to_device(cfg, as_tensor(zeros, dev))
         if bias is not None:

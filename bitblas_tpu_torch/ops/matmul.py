@@ -4,7 +4,10 @@
 layout on the operator's device (where it moves them first): W4A16's
 uint4 codes [N, K] with scales [N, K/g] and zeros [N, K/g] (original,
 rescale) or packed [K/g, N/2] (quantized: unpacked to float16 zeros);
-W2A8's int2 values [N, K] in -2..1, clamped and biased; or a native
+W2A8's int2 values [N, K] in -2..1, clamped and biased; every other
+quantized format's codes [N, K] (sub-byte int values clamped and biased,
+int8 values as they are, fp8 as its bytes, a float8 tensor viewed as
+them) with scales and zeros in A's type; or a native
 weight as it is ([N, K] for ``*t`` layouts, [K, N] for ``*n``); a bias
 as float32 [1, N]. `forward(A, W, scale=, zeros=,
 bias=)` runs at any M, on the device of its inputs: PyTorch runs eagerly,
@@ -12,7 +15,8 @@ so there is no per-bucket compile and no bucket padding, and each call
 takes the hint of its M (ops/operator.py):
 
 * "fused": the dequant-GEMM kernel with the hint's tile instance
-  (kernels/dequant_matmul.py);
+  (kernels/dequant_matmul.py: dequant_matmul_u4, dequant_matmul_i2, or
+  dequant_matmul_fmt for the other formats);
 * "materialize": decode the weight once, then the library product
   (kernels/materialize.py);
 * "dense": a native configuration's product (kernels/dense.py), every
@@ -34,7 +38,9 @@ import numpy as np
 import torch
 
 from ..kernels.dense import make_dense_matmul
-from ..kernels.dequant_matmul import dequant_matmul_i2, dequant_matmul_u4
+from ..kernels.dequant_matmul import (FMT_FORMATS, dequant_matmul_fmt,
+                                      dequant_matmul_i2, dequant_matmul_u4,
+                                      fused_format)
 from ..kernels.materialize import materialize_matmul
 from ..kernels.spec import KernelSpec
 from ..quantization.formats import as_torch_dtype
@@ -45,9 +51,19 @@ from . import weight_transform as wt
 
 
 def _to_tensor(x) -> torch.Tensor:
+    """A tensor of `x`; a float8 tensor or array as its bytes (uint8)."""
     if isinstance(x, torch.Tensor):
-        return x.detach()
-    return torch.as_tensor(np.asarray(x))
+        x = x.detach()
+        return x.view(torch.uint8) if x.dtype in _FLOAT8 else x
+    a = np.asarray(x)
+    if a.dtype.itemsize == 1 and a.dtype.kind not in "iub":
+        a = a.view(np.uint8)   # ml_dtypes float8
+    return torch.as_tensor(a)
+
+
+_FLOAT8 = tuple(getattr(torch, n) for n in (
+    "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz")
+    if hasattr(torch, n))
 
 
 class Matmul(Operator):
@@ -106,14 +122,15 @@ class Matmul(Operator):
                                  device=dev, dtype=torch.int64)
                    .to(torch.int32)]
             groups = (cfg.K // cfg.effective_group_size, cfg.N)
+            sdt = wt.scale_dtype(cfg)
             if cfg.with_scaling:
                 out.append((torch.rand(groups, generator=gen, device=dev)
-                            * 0.01 + 0.005).half())
+                            * 0.01 + 0.005).to(sdt))
             if cfg.with_zeros:
                 z = torch.randint(0, 1 << cfg.bit, groups, generator=gen,
-                                  device=dev).half()
+                                  device=dev).to(sdt)
                 if cfg.zeros_mode == "rescale":   # z * s, as GPTQ's
-                    z = (z * out[-1]).half()
+                    z = (z * out[-1]).to(sdt)
                 out.append(z)
         if cfg.with_bias:
             out.append(torch.randn((1, cfg.N), generator=gen, device=dev))
@@ -129,20 +146,20 @@ class Matmul(Operator):
 
     def transform_weight(self, weight, scale=None, zeros=None, bias=None):
         """Reference-layout operands -> device layout: [weight, scales
-        [K/g, N] f16, zeros [K/g, N] f16 (quantized: unpacked from
-        [K/g, N*bits/8]), bias [1, N] float32], those given (a single
-        tensor when only the weight is)."""
+        [K/g, N], zeros [K/g, N] (quantized: unpacked from [K/g,
+        N*bits/8]), both in A's type, bias [1, N] float32], those given
+        (a single tensor when only the weight is)."""
         cfg = self.config
         w = _to_tensor(weight).to(self.device)
         if cfg.is_native_compute():
             result = [w.to(as_torch_dtype(cfg.W_dtype))]
-        elif cfg.source_format == "int":
+        elif cfg.source_format == "int" and cfg.bit < 8:
             result = [wt.signed_weight_to_device(cfg, w)]
-        else:
+        else:   # codes, int8 values, fp8 bytes: their low bits packed
             result = [wt.unpacked_weight_to_device(cfg, w)]
         if scale is not None:
             result.append(wt.scales_to_device(
-                _to_tensor(scale).to(self.device)))
+                _to_tensor(scale).to(self.device), wt.scale_dtype(cfg)))
         if zeros is not None:
             result.append(wt.zeros_to_device(
                 cfg, _to_tensor(zeros).to(self.device)))
@@ -162,17 +179,23 @@ class Matmul(Operator):
                 A, W, bias=bias)
         if hint.decode_mode == "materialize":
             return materialize_matmul(self._spec, A, W, scale, zeros, bias)
+        mode = "rescale" if cfg.zeros_mode == "rescale" else "original"
+        if fused_format(cfg.W_dtype, cfg.A_dtype) in FMT_FORMATS:
+            return dequant_matmul_fmt(
+                A, W, cfg.W_dtype, scale, zeros, cfg.effective_group_size,
+                tile=hint.tile, bias=bias, zeros_mode=mode,
+                out_dtype=as_torch_dtype(cfg.out_dtype))
         if cfg.source_format == "int":
             return dequant_matmul_i2(A, W, tile=hint.tile)
         return dequant_matmul_u4(
             A, W, scale, zeros, cfg.effective_group_size, tile=hint.tile,
-            bias=bias, zeros_mode=("rescale" if cfg.zeros_mode == "rescale"
-                                   else "original"))
+            bias=bias, zeros_mode=mode)
 
     def forward(self, A: torch.Tensor, W: torch.Tensor, scale=None,
                 zeros=None, bias=None) -> torch.Tensor:
         """A [..., K] (``t*`` layouts: [K, M]) -> [..., N]: float16 ->
-        float16 (W4A16), int8 -> float32 (W2A8), or the native out_dtype."""
+        float16 (W4A16), int8 -> float32 (W2A8), or the configuration's
+        out_dtype (every other format, native compute)."""
         cfg = self.config
         if (cfg.with_scaling and scale is None) or \
                 (cfg.with_zeros and zeros is None):

@@ -5,20 +5,27 @@ The port runs these configurations (`PORTED`): the GPTQ W4A16 linear
 (uint4 weights, float16 activations and outputs, float32 accumulation,
 scales and zeros in groups of 32, 64 or 128, every multiple of 256 that
 divides K, or per channel (-1), zeros_mode "original", "rescale" or
-"quantized", with or without bias) and the BitNet W2A8 linear that
+"quantized", with or without bias); every other quantized weight format
+with float16 or bfloat16 activations (`FLOAT_PAIRS`: uint1/2/4,
+int1/2/4/8, nf4, fp4_e2m1, e4m3 and e5m2 weights; scales in the same
+groups or none, zeros for the uint family only, a bias or none, the output
+in A's type or float32, float32 accumulation); the BitNet W2A8 linear that
 `models/bitnet.py` BitLinearInference builds (int2 weights, int8
 activations, int32 accumulation, float32 outputs, no scales or zeros, no
-bias), both layout "nt"; and the native dense configurations, A_dtype ==
+bias), all layout "nt"; and the native dense configurations, A_dtype ==
 W_dtype in float16, bfloat16, float32 (out_dtype the same) or int8
 (out_dtype int32 or float32), in every layout, with or without bias. A
 native configuration accumulates in float32 for float operands and in
-int32 for int8 whatever `accum_dtype` says, as the JAX dense kernel
-does, and the field is legalized to that type. Every other configuration raises
-NotImplementedError; the JAX legalization rules then fill the derived
-fields. `M` gives the operator's M buckets (ops/operator.py). The repr
-holds field values only, so it is the same in every process: the hint
-database keys on it (cache/__init__.py).
-"""
+int32 for int8 whatever `accum_dtype` says, as the JAX dense kernel does,
+and the field is legalized to that type. Every other configuration raises
+NotImplementedError, but zeros on int weights raise ValueError, as in JAX
+(the bias of the int family is their zero point); the JAX legalization
+rules then fill the derived fields (`fast_decoding` for sub-byte int /
+uint weights under float activations; the storage is the port's Hopper
+layout, int32 words, or the weight's own type for native compute). `M`
+gives the operator's M buckets (ops/operator.py). The repr holds field
+values only, so it is the same in every process: the hint database keys on
+it (cache/__init__.py)."""
 
 from __future__ import annotations
 
@@ -55,6 +62,40 @@ gptq_group.describe = "-1, 32, 64, 128 or a multiple of 256 that divides K"
 # (those two fields are not listed for them).
 _DENSE = {"group_size": -1, "with_scaling": False, "with_zeros": False,
           "zeros_mode": "original"}
+
+
+def zeros_need_scaling(config) -> bool:
+    """Zeros apply only together with scales (JAX's dequantize_weight
+    reads them under with_scaling)."""
+    return config.with_scaling or not config.with_zeros
+
+
+zeros_need_scaling.describe = "False unless with_scaling"
+
+# The weight formats the port runs with each float activation besides
+# uint4 x float16 (GPTQ's, above): (A_dtype, W_dtype) pairs.
+FLOAT_PAIRS = tuple(
+    [("float16", w) for w in ("uint2", "uint1", "int4", "int2", "int1",
+                              "int8", "nf4", "fp4_e2m1", "e4m3_float8",
+                              "e5m2_float8")]
+    + [("bfloat16", w) for w in ("uint4", "int4", "nf4", "fp4_e2m1",
+                                 "e4m3_float8", "int8", "uint2", "int2",
+                                 "uint1", "e5m2_float8")])
+
+
+def _float_pair(a: str, w: str) -> dict:
+    family = DTYPE_MAP[w][0]
+    return dict(A_dtype=a, W_dtype=w, out_dtype=OneOf((a, "float32")),
+                accum_dtype="float32", group_size=gptq_group,
+                with_scaling=OneOf((False, True)),
+                with_zeros=(OneOf((False, True)) if family == "uint"
+                            else False),
+                layout="nt",
+                zeros_mode=OneOf(("original", "rescale", "quantized")),
+                with_bias=OneOf((False, True)),
+                zeros_with_scaling=zeros_need_scaling)
+
+
 PORTED = (
     dict(A_dtype="float16", W_dtype="uint4", out_dtype="float16",
          accum_dtype="float32", group_size=gptq_group, with_scaling=True,
@@ -69,6 +110,7 @@ PORTED = (
            **_DENSE) for dt in ("float16", "bfloat16", "float32")),
     *(dict(A_dtype="int8", W_dtype="int8", out_dtype=out,
            accum_dtype="int32", **_DENSE) for out in ("int32", "float32")),
+    *(_float_pair(a, w) for a, w in FLOAT_PAIRS),
 )
 
 
@@ -100,10 +142,12 @@ def _check_ported(cfg) -> None:
                 PORTED[0])
     name, want = next((k, v) for k, v in near.items()
                       if not _allows(cfg, k, v))
+    got = getattr(cfg, name) if hasattr(cfg, name) else \
+        (cfg.with_scaling, cfg.with_zeros)
     raise NotImplementedError(
         f"bitblas_tpu_torch runs {name} = {_describe(want)} only with "
         f"A_dtype={near['A_dtype']!r}, W_dtype={near['W_dtype']!r} so far "
-        f"(got {getattr(cfg, name)!r})")
+        f"(got {got!r} in A_dtype={cfg.A_dtype!r}, W_dtype={cfg.W_dtype!r})")
 
 
 @dataclass(frozen=True)
@@ -169,6 +213,13 @@ class MatmulConfig(OperatorConfig):
             object.__setattr__(self, "accum_dtype",
                                "int32" if self.A_dtype == "int8"
                                else "float32")
+        family, bits = source_format_and_bits(self.W_dtype)
+        if (family == "int" and self.with_zeros
+                and (self.A_dtype, self.W_dtype) in FLOAT_PAIRS):
+            # JAX's rule: the int family's bias is its zero point
+            raise ValueError(
+                "with_zeros is unsupported for signed int weights "
+                "(constant zero point is implied)")
         _check_ported(self)
         if self.group_size > 0 and self.K % self.group_size:
             raise ValueError(f"K={self.K} not a multiple of group_size="
@@ -182,10 +233,12 @@ class MatmulConfig(OperatorConfig):
         object.__setattr__(self, "propagate_b", TransformKind.NonTransform)
         if self.fast_decoding is None:
             # JAX rule: fast decoding for sub-byte int/uint weights under
-            # float activations only
+            # float activations only (the kernels decode every format with
+            # magic numbers or bit surgery either way: the flag changes no
+            # bit of a result)
             object.__setattr__(self, "fast_decoding",
-                               not native and self.A_dtype in ("float16",
-                                                               "bfloat16"))
+                               family in ("int", "uint") and bits < 8
+                               and self.A_dtype in ("float16", "bfloat16"))
 
     # -- derived properties -------------------------------------------------
     def is_native_compute(self) -> bool:

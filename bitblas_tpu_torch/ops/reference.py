@@ -36,24 +36,35 @@ def expand_groups(grouped: torch.Tensor, group: int, K: int) -> torch.Tensor:
     return grouped.repeat_interleave(group, dim=1)[:, :K]
 
 
+def reference_codes(config: MatmulConfig, qweight) -> torch.Tensor:
+    """A reference-layout qweight -> its unsigned codes [N, K]: fields of
+    [N, K*bits/8] bytes packed along K, or one byte a code at 8 bits."""
+    q = _tensor(qweight)
+    if config.bit == 8:
+        return q.contiguous().view(torch.uint8).to(torch.int32)
+    return numerics.unpack_fields(q, config.bit)[..., :config.K]
+
+
 def dequantize_weight(config: MatmulConfig, qweight, scales=None,
                       zeros=None, qzeros=None) -> torch.Tensor:
-    """Decode a reference-layout packed weight to dense [N, K] in A_dtype:
-    ``(q - zeros) * scales`` (rescale: ``q * scales - zeros``; quantized:
-    ``(q - z)`` in the integer domain, cast, times scales) evaluated in
-    float16, or the int codes ``field - 2^(bits-1)`` for the int family,
-    as the JAX oracle does."""
+    """Decode a reference-layout packed weight to dense [N, K] in A_dtype,
+    as the JAX oracle does: the codes decoded (numerics.decode_codes: the
+    int family less 2^(bits-1), int8 unbiased, nf4, fp4 and fp8 by the
+    reference's formulas) in A's type, then ``(w - zeros) * scales``
+    (rescale: ``w * scales - zeros``; quantized: ``(q - z)`` in the
+    integer domain, cast, times scales), each op in A's type, or the int
+    codes as they are for integer activations."""
     qweight = _tensor(qweight)
     adt = as_torch_dtype(config.A_dtype)
     g, K, N = config.effective_group_size, config.K, config.N
-    fields = numerics.unpack_fields(qweight, config.bit)[..., :K]
+    fields = reference_codes(config, qweight)
     if config.with_zeros and config.zeros_mode == "quantized":
         z = numerics.unpack_fields(_tensor(qzeros, fields.device),
                                    config.bit)[..., :N]        # [K/g, N]
         z = expand_groups(z.T.to(torch.int32), g, K)
         w = (fields.to(torch.int32) - z).to(adt)
     else:
-        w = numerics.decode_field(fields, config.source_format, config.bit,
+        w = numerics.decode_codes(fields, config.source_format, config.bit,
                                   adt)
     if config.with_scaling:
         s = expand_groups(_tensor(scales, w.device).to(adt), g, K)

@@ -2,11 +2,13 @@
 bitblas_tpu/ops/weight_transform.py).
 
 The chain is: unpack the reference packing -> K-packed int32 words
-(quantization/packing.pack_k: eight uint4 or sixteen int2 fields per
-word); int values are clamped and biased first (`signed_weight_to_device`,
-the JAX Matmul.transform_weight rule); scales and zeros [N, K/g] ->
-[K/g, N] float16 for every group size; quantized zeros (reference
-[K/g, N*bits/8] int8, packed along N) are unpacked to the same float16
+(quantization/packing.pack_k: 32 / bits codes of 1, 2, 4 or 8 bits per
+word; the reference stores 8-bit weights one byte a code, int8 as two's
+complement and fp8 as its bits); sub-byte int values are clamped and
+biased first (`signed_weight_to_device`, the JAX Matmul.transform_weight
+rule); scales and zeros [N, K/g] -> [K/g, N] in A's type (float16 or
+bfloat16: `scale_dtype`) for every group size; quantized zeros
+(reference [K/g, N*bits/8] int8, packed along N) are unpacked to the same
 [K/g, N] zeros, since (q - z) * s with an integer z is exactly the
 original mode's value (`zeros_to_device`); a bias [N] -> [1, N] float32.
 Every transform of a tensor stays on the tensor's device. The TPU's
@@ -31,9 +33,15 @@ from .matmul_config import MatmulConfig
 class DeviceWeights:
     """Device-layout operand bundle for the dequant kernel."""
     qweight: torch.Tensor                  # [N, K*bits/32] int32
-    scales: Optional[torch.Tensor] = None  # [K/g, N] float16
-    zeros: Optional[torch.Tensor] = None   # [K/g, N] float16
+    scales: Optional[torch.Tensor] = None  # [K/g, N] A's type
+    zeros: Optional[torch.Tensor] = None   # [K/g, N] A's type
     bias: Optional[torch.Tensor] = None    # [1, N] float32
+
+
+def scale_dtype(config: MatmulConfig) -> torch.dtype:
+    """The type of the device scales and zeros: A's (float16 or bfloat16;
+    float16 for integer activations, which take none here)."""
+    return torch.bfloat16 if config.A_dtype == "bfloat16" else torch.float16
 
 
 def unpacked_weight_to_device(config: MatmulConfig,
@@ -60,9 +68,13 @@ def signed_weight_to_device(config: MatmulConfig,
 
 def reference_weight_to_device(config: MatmulConfig,
                                qweight: np.ndarray) -> torch.Tensor:
-    """Reference packed qweight [N, K*bits/8] int8 -> device layout."""
-    fields = packing.general_decompress(np.asarray(qweight).view(np.int8),
-                                        config.bit, out_elems=config.K)
+    """Reference packed qweight [N, K*bits/8] int8 (8-bit formats: [N, K],
+    one byte a code) -> device layout."""
+    q = np.asarray(qweight)
+    if config.bit == 8:
+        return unpacked_weight_to_device(config, q.view(np.uint8))
+    fields = packing.general_decompress(q.view(np.int8), config.bit,
+                                        out_elems=config.K)
     return unpacked_weight_to_device(config, fields)
 
 
@@ -70,15 +82,18 @@ def device_weight_to_reference(config: MatmulConfig,
                                qweight: torch.Tensor) -> np.ndarray:
     """Inverse of reference_weight_to_device."""
     codes = packing.unpack_k(qweight.cpu(), config.bit).numpy()
+    if config.bit == 8:
+        return codes.view(np.int8)
     return packing.general_compress(codes, config.bit)
 
 
-def scales_to_device(scales_ngk) -> torch.Tensor:
-    """[N, K/g] -> [K/g, N] float16, contiguous."""
+def scales_to_device(scales_ngk,
+                     dtype: torch.dtype = torch.float16) -> torch.Tensor:
+    """[N, K/g] -> [K/g, N] in `dtype` (A's type), contiguous."""
     t = torch.as_tensor(np.asarray(scales_ngk)
                         if not isinstance(scales_ngk, torch.Tensor)
                         else scales_ngk)
-    return t.to(torch.float16).T.contiguous()
+    return t.to(dtype).T.contiguous()
 
 
 def scales_from_device(scales_gn: torch.Tensor) -> np.ndarray:
@@ -88,21 +103,21 @@ def scales_from_device(scales_gn: torch.Tensor) -> np.ndarray:
 
 def qzeros_to_device(config: MatmulConfig, qzeros) -> torch.Tensor:
     """Reference quantized zeros [K/g, N*bits/8] int8 (packed along N,
-    LSB first) -> their integer values as [K/g, N] float16 zeros, on the
-    tensor's device."""
+    LSB first) -> their integer values as [K/g, N] zeros in A's type, on
+    the tensor's device."""
     q = qzeros if isinstance(qzeros, torch.Tensor) \
         else torch.as_tensor(np.asarray(qzeros))
     fields = packing.decompress(q.to(torch.int8), config.bit)
-    return fields[:, :config.N].to(torch.float16).contiguous()
+    return fields[:, :config.N].to(scale_dtype(config)).contiguous()
 
 
 def zeros_to_device(config: MatmulConfig, zeros) -> torch.Tensor:
-    """The zeros of the configuration's mode -> [K/g, N] float16: [N, K/g]
-    values (original, rescale), or packed quantized zeros
+    """The zeros of the configuration's mode -> [K/g, N] in A's type:
+    [N, K/g] values (original, rescale), or packed quantized zeros
     (`qzeros_to_device`)."""
     if config.zeros_mode == "quantized":
         return qzeros_to_device(config, zeros)
-    return scales_to_device(zeros)
+    return scales_to_device(zeros, scale_dtype(config))
 
 
 def bias_to_device(bias) -> torch.Tensor:
@@ -122,7 +137,7 @@ def transform_reference_operands(config: MatmulConfig, qweight: np.ndarray,
     shapes; `qzeros` for zeros mode quantized) into the device layout."""
     dw = DeviceWeights(qweight=reference_weight_to_device(config, qweight))
     if config.with_scaling:
-        dw.scales = scales_to_device(scales)
+        dw.scales = scales_to_device(scales, scale_dtype(config))
     if config.with_zeros:
         dw.zeros = zeros_to_device(
             config, qzeros if config.zeros_mode == "quantized" else zeros)

@@ -5,8 +5,10 @@ Every weight dtype is a ``(source_format, bits)`` pair, as in the
 reference's ``BITBLAS_TRICK_DTYPE_MAP``. The whole map is kept so that a
 config naming a format this port does not run yet fails with
 NotImplementedError (ops/matmul_config.py) rather than "unknown dtype";
-the kernels of this package run uint4 and int2 weights, and the dense
-route the native pairs float16, bfloat16, float32 and int8.
+the kernels of this package run uint1/2/4, int1/2/4/8, nf4, fp4_e2m1 and
+fp8 e4m3 / e5m2 weights with float16 or bfloat16 activations, int2
+weights with int8 activations, and the dense route the native pairs
+float16, bfloat16, float32 and int8.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import re
 from typing import Tuple
 
+import numpy as np
 import torch
 
 DTYPE_MAP = {
@@ -92,3 +95,26 @@ def storage_bits(storage_dtype: str) -> int:
     if not m:
         raise ValueError(f"Bad storage dtype: {storage_dtype}")
     return int(m.group(1))
+
+
+# NF4 quantile table (QLoRA NormalFloat4): the JAX package's NF4_TABLE
+# (bitblas_tpu/quantization/formats.py), the reference's LUT values.
+NF4_TABLE = np.array(
+    [-1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+     -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+     0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+     0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+     0.7229568362236023, 1.0], dtype=np.float32)
+
+
+def nf4_lut(dtype: torch.dtype = torch.float16) -> torch.Tensor:
+    """NF4's 16 values rounded to `dtype` (the JAX `nf4_lut`)."""
+    return torch.from_numpy(NF4_TABLE).to(dtype)
+
+
+def weight_dtype_name(family: str, bits: int) -> str:
+    """The W_dtype name of a (source format, bits) pair."""
+    for name, fb in DTYPE_MAP.items():
+        if fb == (family, bits):
+            return name
+    raise ValueError(f"no weight dtype {family}{bits}")

@@ -15,10 +15,13 @@ Hopper device layout (K-packed words)
 -------------------------------------
 A uint4 weight [N, K] is stored as ``qweight [N, K/8] int32``: word
 ``[n, j]`` holds the codes of ``(n, k = 8j + i)`` for ``i = 0..7`` at bits
-``[4i, 4i + 4)`` (LSB first). An int2 weight is ``[N, K/16] int32``, 16
-fields per word at bits ``[2i, 2i + 2)``, each the value biased by 2
-(``bias_signed_weight``), so byte ``p`` of a word holds k = 4p..4p+3
-(``pack_k(fields, 2)``).
+``[4i, 4i + 4)`` (LSB first). Every other width is the same with 32 /
+bits codes a word (``pack_k(codes, bits)`` for bits 1, 2, 4 and 8): an
+int2 weight is ``[N, K/16] int32``, 16 fields per word at bits ``[2i, 2i
++ 2)``, each the value biased by 2 (``bias_signed_weight``), so byte ``p``
+of a word holds k = 4p..4p+3; a uint1 weight ``[N, K/32]``; an 8-bit
+weight (int8, e4m3, e5m2) ``[N, K/4]``, one byte a code (int8 as two's
+complement, not biased).
 Invariants the kernels rely on:
 
 * Packing runs along K, the contraction axis, so a block that owns output

@@ -3,11 +3,13 @@
 `random_reference_operands` draws from numpy with the same generator calls
 as the JAX package, so both packages get identical reference-layout
 inputs from one seed. `assert_close` bounds the share of elements outside
-the tolerance, as the JAX helper does.
+the tolerance, as the JAX helper does; `out_ulps` measures a kernel's
+distance from its plain version in ulps of the output type.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -59,6 +61,36 @@ class ReferenceOperands:
     qweight: np.ndarray
     scales: Optional[np.ndarray] = None
     zeros: Optional[np.ndarray] = None
+
+
+# (mantissa bits, smallest normal exponent) of each output type
+_ULP = {torch.float16: (10, -14), torch.bfloat16: (7, -126),
+        torch.float32: (23, -126)}
+
+
+def out_ulps(got: torch.Tensor, want: torch.Tensor, dtype=None,
+             floor: float = 2.0 ** -18) -> float:
+    """The largest |got - want| in units of want's ulp in `dtype` (want's
+    own type by default: float16, bfloat16 or float32) plus `floor` of the
+    largest |want|: at most 1 when got is within one ulp of the output
+    type of each output. Two float32 sums of the same products in another
+    order differ by their f32 rounding, about 2^-24 of the largest output,
+    which can exceed the ulp of an output near zero: hence the floor.
+    Non-finite wants must be matched exactly (both NaN, or equal)."""
+    dtype = dtype or want.dtype
+    mant, emin = _ULP[dtype]
+    w, g = want.double(), got.double()
+    fin = torch.isfinite(w)
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    if not bool(same[~fin].all()):
+        return math.inf
+    w, g = w[fin], g[fin]
+    if w.numel() == 0:
+        return 0.0
+    # floor(log2 |w|) exactly, at least the type's smallest normal exponent
+    e = (torch.frexp(w.abs().clamp_min(2.0 ** emin))[1] - 1).double()
+    unit = torch.exp2(e - mant) + floor * w.abs().max()
+    return ((g - w).abs() / unit).max().item()
 
 
 def _float_draw(x: np.ndarray, dtype: str,

@@ -30,7 +30,7 @@ from typing import List
 
 from ..kernels.dense import DENSE_TILES, dense_smem_bytes
 from ..kernels.dequant_matmul import (FUSED_TILES, default_tile,
-                                      fused_smem_bytes)
+                                      fused_format, fused_smem_bytes)
 from ..kernels.materialize import supports_materialize_spec
 from ..kernels.spec import KernelSpec
 from ..quantization.formats import as_torch_dtype
@@ -44,8 +44,9 @@ MATERIALIZE_TUNE_MIN_M = 256
 
 
 def _fused_format(spec: KernelSpec) -> str:
-    """The fused kernel of a ported quantized spec ("uint4" or "int2")."""
-    return "int2" if spec.is_int_activation else "uint4"
+    """The key of a ported quantized spec's fused instances ("uint4",
+    "int2", or "<W>x<A>" for dequant_matmul_fmt's formats)."""
+    return fused_format(spec.w_dtype, spec.a_dtype)
 
 
 def _bytes(dtype: str) -> int:
@@ -72,9 +73,9 @@ def _peak(spec: KernelSpec, arch: TileDevice) -> float:
 def roofline_seconds(spec: KernelSpec, hint: TileHint,
                      arch: TileDevice) -> float:
     """max(bytes / bandwidth, operations / peak) of the hint's plan: the
-    activation, the packed weight, its scales and zeros (2 bytes each a
-    group and column: 4 N K / g), the float32 bias and the output, each
-    once."""
+    activation, the packed weight (N K bits / 8), its scales and zeros (2
+    bytes each a group and column: 2 N K / g each), the float32 bias and
+    the output, each once."""
     M, N, K = spec.m, spec.n, spec.k
     a_b = M * K * _bytes(spec.a_dtype)
     o_b = M * N * _bytes(spec.out_dtype)

@@ -6,6 +6,7 @@
                                               # BITNET_LOGIT_* are set from
     python3 chip_smoke.py --bitnet-tuned-ab   # only serve_bitnet against
                                               # serve_bitnet_tuned, in turns
+    python3 chip_smoke.py --formats           # only the formats phase
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -54,6 +55,30 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                the decode kernels at head dim 256, GQA groups 16 and 12
                and on float16 caches; each against its plain version, two
                calls bit-equal.
+3b'. formats -- kernels 1 and 2 for the twenty other (A, W) pairs with
+               float16 / bfloat16 activations (uint1/2/4, int1/2/4/8, nf4,
+               fp4_e2m1, e4m3, e5m2; ops/matmul_config.FLOAT_PAIRS): a
+               module.Linear for each pair at Llama-2-7B's MLP shapes
+               (11008 x 4096 and 4096 x 11008; scales in groups of 128,
+               uint with zeros) built on the card from reference-layout
+               operands drawn from a seed, and QuantLinear(bits=1 / 2) at
+               4096 -> 11008 from pack(); the main path (each Linear at M =
+               4 / 256 / 2048: the decode instance, the tiled instance and
+               the materialize plan, each QuantLinear at 4 / 256) run with
+               the launch counters set to 0 and read after (every format's
+               decode instance, tiled instance and kernel 2 must launch);
+               then each fused output within one ulp of the output type of
+               its plain version (out_ulps; the materialize plan's output
+               bit-equal to cuBLAS's product of the plain decoded weight
+               and within one ulp or 4e-3 of the largest output of the
+               float32 plain version; the route table's two routes the
+               same), two calls bit-equal, kernel 2's
+               weight and kernel 1's (one-hot activations) bit-equal to
+               the plain one, kernel 2 on every code of each format, the
+               timed rows (M = 4, M = 256, kernel 2) beside bound, stream,
+               plain, library (torch.matmul on the decoded weight) and the
+               timer floor, and each format's route table (M = 256 / 512 /
+               2048). `--formats` runs this phase alone.
 3c. gptq_golden -- the committed AutoGPTQ golden (g = 64) repacked, v1
                and v2, into module.Linear (zeros mode quantized) and
                QuantLinear on the card: dequantized weights bit-equal, the
@@ -2108,6 +2133,347 @@ def profile_decode(torch, eng, prompts, phase: str, steps: int = 5):
                                       for name, t, _ in top}})
 
 
+# -- the formats phase: kernels 1 and 2 for every other weight format with
+# float16 / bfloat16 activations, through module.Linear and QuantLinear --
+
+FORMAT_SHAPES = ((11008, 4096), (4096, 11008))   # Llama-2-7B MLP (N, K)
+FORMAT_MS = (4, 256, 2048)   # decode instance, tiled instance, materialize
+FORMAT_GROUP = 128
+# The materialize plan's product is cuBLAS's, whose sums over K = 11008
+# stray past one ulp of the output (1.2 f16 ulps, 1.15 bf16 ulps at the
+# formats phase's shapes): it is held, against the fused kernels and the
+# float32 plain version, to the route table's 4e-3 of the largest output
+# in float16 (four units of 2^-10), and to four units of bfloat16's 2^-7
+# in bfloat16.
+ROUTE_TOL = {"float16": 4e-3, "bfloat16": 4 * 2.0 ** -7}
+
+
+def _route_tol(out, ref) -> float:
+    """ROUTE_TOL of out's type times the largest |ref|."""
+    return (ROUTE_TOL[str(out.dtype).split(".")[-1]]
+            * ref.float().abs().max().item())
+
+
+def _format_weights(torch, gen, w_dtype, a_dtype, N, K):
+    """Reference-layout operands drawn on the card: codes [N, K] (every
+    code, e5m2's inf / NaN codes made finite), scales [N, K/g] in A's
+    type, zeros [N, K/g] (uint only)."""
+    from bitblas_tpu_torch.quantization.formats import source_format_and_bits
+    family, bits = source_format_and_bits(w_dtype)
+    codes = torch.randint(0, 1 << bits, (N, K), generator=gen,
+                          device="cuda", dtype=torch.int64)
+    if family == "fp_e5m2":
+        codes = torch.where((codes & 0x7C) == 0x7C, codes & 0xBF, codes)
+    if family == "int" and bits == 8:
+        codes = codes.to(torch.uint8).view(torch.int8)
+    elif family == "int":
+        codes = codes - (1 << (bits - 1))      # values, as a user has them
+    adt = getattr(torch, a_dtype)
+    G = K // FORMAT_GROUP
+    sc = (torch.rand((N, G), generator=gen, device="cuda") * 0.01
+          + 0.005).to(adt)
+    zr = (torch.randint(0, 1 << bits, (N, G), generator=gen, device="cuda")
+          .to(adt) if family == "uint" else None)
+    return codes, sc, zr
+
+
+def _format_layers(torch, gen):
+    """One module.Linear per new (A, W) pair and Llama-2-7B MLP shape,
+    built on the card (untuned: M <= 16 the decode instance, up to 511 the
+    tiled one, from 512 the materialize plan), scaled in groups of 128,
+    uint with zeros (original), output in A's type; and QuantLinear(bits=1
+    / 2) at 4096 -> 11008 from pack() of a fake-quantized float weight."""
+    from bitblas_tpu_torch.integration.pytorch import QuantLinear
+    from bitblas_tpu_torch.module import Linear
+    from bitblas_tpu_torch.ops.matmul_config import FLOAT_PAIRS
+    layers = []
+    for a_dtype, w_dtype in FLOAT_PAIRS:
+        for N, K in FORMAT_SHAPES:
+            codes, sc, zr = _format_weights(torch, gen, w_dtype, a_dtype, N,
+                                            K)
+            lin = Linear(K, N, A_dtype=a_dtype, W_dtype=w_dtype,
+                         out_dtype=a_dtype, group_size=FORMAT_GROUP,
+                         with_scaling=True, with_zeros=zr is not None,
+                         zeros_mode="original" if zr is not None else None,
+                         opt_M=list(FORMAT_MS), enable_tuning=False,
+                         device="cuda")
+            lin.load_and_transform_weight(codes, scales=sc, zeros=zr)
+            layers.append((a_dtype, w_dtype, N, K, lin))
+    quant = []
+    for bits in (1, 2):
+        N, K, g = 11008, 4096, FORMAT_GROUP
+        s = torch.rand((N, K // g), generator=gen, device="cuda") * 0.02 \
+            + 0.01
+        z = torch.randint(0, 1 << bits, (N, K // g), generator=gen,
+                          device="cuda").float()
+        q = torch.randint(0, 1 << bits, (N, K), generator=gen,
+                          device="cuda").float()
+        gi = torch.arange(K, device="cuda") // g
+        fake = torch.nn.Linear(K, N, bias=True, device="cuda")
+        fake.weight.data = (q - z[:, gi]) * s[:, gi]
+        fake.bias.data = torch.randn(N, generator=gen, device="cuda") * 0.1
+        ql = QuantLinear(bits, g, K, N, bias=True, device="cuda")
+        ql.pack(fake, s, z)
+        quant.append((bits, ql))
+    return layers, quant
+
+
+def _onehot(torch, M, K, dtype):
+    """M one-hot rows: out[m, n] = W[n, k_m] exactly."""
+    ks = torch.arange(M, device="cuda") * (K // M) + 5
+    A = torch.zeros((M, K), device="cuda", dtype=dtype)
+    A[torch.arange(M, device="cuda"), ks] = 1
+    return A, ks
+
+
+def check_formats(torch, flush, floor_ms):
+    """The formats phase. First the main path alone: every launch counter
+    of dequant_matmul_fmt and weight_decode_fmt set to 0, each Linear
+    forward at M = 4 / 256 / 2048 and each QuantLinear at M = 4 / 256, the
+    counters read, and each format's decode instance, tiled instance and
+    kernel 2 must have launched. Then, outside that count, each output
+    against its plain version on the card (one ulp of the output type of
+    each output, `out_ulps`: M = 4 against the split plain version, 256 the
+    single-pass one; the materialize plan at M = 2048 bit-equal to the
+    library product of the plain decoded weight, and within one ulp or the
+    route table's 4e-3 of the largest output of the float32 plain
+    version: cuBLAS's sums over K = 11008 stray past one ulp), a second call
+    bit-equal, kernel 2's decoded weight bit-equal to the plain version's,
+    kernel 1's decoded weight read back through one-hot activations on
+    both instances bit-equal;
+    kernel 2 on every code of each format, unscaled; the timed rows (M =
+    4: the decode instance, M = 256: the tiled instance, kernel 2) with
+    their bound (bytes N K bits / 8 + 2 N K / g a scale or zero tensor +
+    A + out over 3.35 TB/s, operations 2 M N K over 989 TFLOP/s), the
+    plain version, the library call (torch.matmul on the decoded weight,
+    which the port never calls), stream_ms and the timer floor; and the
+    route table (the fused default tile against the materialize plan at M
+    = 256 / 512 / 2048, N = 11008, K = 4096)."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    from bitblas_tpu_torch.kernels import materialize as mz
+    from bitblas_tpu_torch.testing import out_ulps
+    fmt_k, wd = dq.dequant_matmul_fmt, mz.weight_decode_fmt
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    t0 = time.perf_counter()
+    layers, quant = _format_layers(torch, gen)
+    inputs = {(K, M, a): torch.randn((M, K), generator=gen, device="cuda")
+              .to(getattr(torch, a))
+              for K in {K for *_, K, _ in layers} for M in FORMAT_MS
+              for a in ("float16", "bfloat16")}
+    build_s = time.perf_counter() - t0
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    for c in (fmt_k, wd):
+        c.launches = 0
+        c.format_launches.clear()
+    fmt_k.decode_launches = fmt_k.tiled_launches = 0
+    fmt_k.variant_launches.clear()
+    outs = {}
+    for a_dtype, w_dtype, N, K, lin in layers:
+        for M in FORMAT_MS:
+            outs[(w_dtype, a_dtype, N, M)] = lin(inputs[(K, M, a_dtype)])
+    qouts = {(bits, M): ql(inputs[(ql.in_features, M, "float16")])
+             for bits, ql in quant for M in (4, 256)}
+    torch.cuda.synchronize()
+    launches = {}
+    for key, n in fmt_k.variant_launches.items():
+        fmt, kind = key.split()[:2]
+        launches[f"dequant_matmul_fmt {kind} {fmt}"] = \
+            launches.get(f"dequant_matmul_fmt {kind} {fmt}", 0) + n
+    for fmt, n in wd.format_launches.items():
+        launches[f"weight_decode_fmt {fmt}"] = n
+    want = {f"{k} {dq.fused_format(w, a)}"
+            for a, w in {(a, w) for a, w, *_ in layers}
+            for k in ("dequant_matmul_fmt decode", "dequant_matmul_fmt tiled",
+                      "weight_decode_fmt")}
+    missing = sorted(k for k in want if launches.get(k, 0) <= 0)
+    if missing:
+        raise AssertionError(f"formats: not launched: {missing}")
+    emit({"phase": "formats_main_path", "layers": len(layers),
+          "quant_linears": len(quant), "build_s": build_s,
+          "launches": launches, "decode_launches": fmt_k.decode_launches,
+          "tiled_launches": fmt_k.tiled_launches})
+
+    rows = []
+    for a_dtype, w_dtype, N, K, lin in layers:
+        adt = getattr(torch, a_dtype)
+        fmt = dq.fused_format(w_dtype, a_dtype)
+        bits = lin.bits
+        qw, sc, zr = lin.qweight, lin.scales, lin.zeros
+        g = FORMAT_GROUP
+        Wd = mz.weight_decode_fmt_plain(qw, w_dtype, a_dtype, sc, zr, g)
+        dec = wd(qw, w_dtype, a_dtype, sc, zr, g)
+        torch.cuda.synchronize()
+        if not torch.equal(dec.view(torch.int16), Wd.view(torch.int16)):
+            raise AssertionError(f"{fmt} N={N} K={K}: kernel 2's weight "
+                                 f"differs from the plain version's")
+        for M, tile in ((16, dq.FUSED_TILES[fmt][0]),
+                        (64, dq.FMT_TILED_TILE)):
+            A1, ks = _onehot(torch, M, K, adt)
+            got = fmt_k(A1, qw, w_dtype, sc, zr, g, tile=tile,
+                        out_dtype=torch.float32)
+            if not torch.equal(got, Wd[:, ks].T.float()):
+                raise AssertionError(f"{fmt} N={N} K={K}: kernel 1's "
+                                     f"decoded weight (M={M}) differs")
+        wbytes = N * K * bits / 8 + 2 * (K // g) * N * (2 if zr is not None
+                                                        else 1)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for M in FORMAT_MS:
+            A = inputs[(K, M, a_dtype)]
+            out = outs[(w_dtype, a_dtype, N, M)]
+            again = lin(A)
+            route = lin.bitblas_matmul.hint_for(M).decode_mode
+            if M <= 16:
+                ref = dq.dequant_matmul_fmt_split_plain(
+                    A, qw, w_dtype, sc, zr, g, sms=sms)
+            else:
+                ref = dq.dequant_matmul_fmt_plain(A, qw, w_dtype, sc, zr, g)
+            # the materialize plan's product is cuBLAS's: its plain version
+            # is the same library product of the plain decoded weight
+            lib = torch.matmul(A, Wd.T) if route == "materialize" else None
+            torch.cuda.synchronize()
+            ulps = out_ulps(out, ref)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = _route_tol(out, ref)
+            ok = (torch.equal(out, lib) and (ulps <= 1 or err <= tol)) \
+                if lib is not None else ulps <= 1
+            if not (torch.equal(out, again) and ok):
+                raise AssertionError(
+                    f"{fmt} M={M} N={N} K={K} ({route}): {ulps} ulps and "
+                    f"{err} (tol {tol}) from the plain version, the library "
+                    f"product equal: {lib is None or torch.equal(out, lib)}, "
+                    f"two calls equal: {torch.equal(out, again)}")
+            row = {"phase": "formats", "format": fmt, "M": M, "N": N,
+                   "K": K, "group": g, "zeros": zr is not None,
+                   "route": route, "ulps": ulps, "max_abs_err": err}
+            if route == "materialize":
+                row.update({"tol": tol, "equals_library_product": True})
+                emit(row)
+                rows.append(row)
+                continue
+            tile = dq.default_tile(fmt, M)
+            nbytes = M * K * 2 + wbytes + M * N * 2
+            b_ms, b_by = bound(nbytes, 2.0 * M * N * K)
+            row.update({
+                "kernel": "decode" if M <= 16 else "tiled",
+                "tile": list(tile),
+                "kernel_ms": time_ms(torch, lambda: fmt_k(
+                    A, qw, w_dtype, sc, zr, g, tile=tile), 20, flush),
+                "plain_ms": time_ms(torch, lambda: dq.dequant_matmul_fmt_plain(
+                    A, qw, w_dtype, sc, zr, g), 3, flush),
+                "library_ms": time_ms(torch, lambda: torch.matmul(A, Wd.T),
+                                      20, flush),
+                "stream_ms": time_ms(torch, _stream(torch, nbytes), 20,
+                                     flush),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "timer_floor_ms": floor_ms})
+            emit(row)
+            rows.append(row)
+        nbytes = wbytes + N * K * 2
+        b_ms, b_by = bound(nbytes, 0.0)
+        row = {"phase": "formats", "format": fmt, "kernel": "weight_decode",
+               "N": N, "K": K, "group": g, "max_abs_err": 0.0,
+               "kernel_ms": time_ms(torch, lambda: wd(
+                   qw, w_dtype, a_dtype, sc, zr, g), 20, flush),
+               "plain_ms": time_ms(torch, lambda: mz.weight_decode_fmt_plain(
+                   qw, w_dtype, a_dtype, sc, zr, g), 3, flush),
+               "library_ms": None,
+               "stream_ms": time_ms(torch, _stream(torch, nbytes), 20, flush),
+               "bound_ms": b_ms, "bound_by": b_by, "timer_floor_ms": floor_ms}
+        emit(row)
+        rows.append(row)
+        del Wd, dec
+    # QuantLinear(bits=1 / 2) against its plain version
+    for bits, ql in quant:
+        inner = ql.inner
+        for M in (4, 256):
+            A = inputs[(ql.in_features, M, "float16")]
+            out = qouts[(bits, M)]
+            fn = (dq.dequant_matmul_fmt_split_plain if M <= 16
+                  else dq.dequant_matmul_fmt_plain)
+            kw = dict(sms=torch.cuda.get_device_properties(
+                0).multi_processor_count) if M <= 16 else {}
+            ref = fn(A, inner.qweight, f"uint{bits}", inner.scales,
+                     inner.zeros, ql.group_size, inner.bias, **kw)
+            torch.cuda.synchronize()
+            ulps = out_ulps(out, ref)
+            if not (ulps <= 1 and torch.equal(out, ql(A))):
+                raise AssertionError(f"QuantLinear(bits={bits}) M={M}: "
+                                     f"{ulps} ulps")
+            emit({"phase": "formats", "quant_linear_bits": bits, "M": M,
+                  "N": ql.out_features, "K": ql.in_features, "ulps": ulps})
+    del layers, quant, outs, qouts
+    torch.cuda.empty_cache()
+
+    # kernel 2 on every code of each format, unscaled
+    from bitblas_tpu_torch.ops.matmul_config import FLOAT_PAIRS
+    from bitblas_tpu_torch.quantization import packing
+    from bitblas_tpu_torch.quantization.formats import source_format_and_bits
+    codes_ok = []
+    for a_dtype, w_dtype in FLOAT_PAIRS:
+        bits = source_format_and_bits(w_dtype)[1]
+        codes = (torch.arange(64, device="cuda")[:, None] * 3
+                 + torch.arange(512, device="cuda")[None, :]) % (1 << bits)
+        qw = packing.pack_k(codes, bits)
+        got = wd(qw, w_dtype, a_dtype)
+        ref = mz.weight_decode_fmt_plain(qw, w_dtype, a_dtype)
+        torch.cuda.synchronize()
+        nan = torch.isnan(ref)
+        if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+                got.view(torch.int16)[~nan], ref.view(torch.int16)[~nan])):
+            raise AssertionError(f"{w_dtype} -> {a_dtype}: kernel 2 on every "
+                                 f"code differs from the plain decode")
+        codes_ok.append(dq.fused_format(w_dtype, a_dtype))
+    emit({"phase": "formats_every_code", "formats": codes_ok,
+          "codes": {f: 1 << source_format_and_bits(dq.split_format(f)[0])[1]
+                    for f in codes_ok}})
+
+    # the route table of each format at N = 11008, K = 4096
+    from bitblas_tpu_torch.kernels.spec import KernelSpec
+    for a_dtype, w_dtype in FLOAT_PAIRS:
+        N, K = FORMAT_SHAPES[0]
+        adt = getattr(torch, a_dtype)
+        fmt = dq.fused_format(w_dtype, a_dtype)
+        family, bits = source_format_and_bits(w_dtype)
+        qw = _words(torch, gen, (N, K * bits // 32))
+        if family == "fp_e5m2":
+            b = qw.view(torch.uint8)
+            b[(b & 0x7C) == 0x7C] &= 0xBF
+        sc = (torch.rand((K // FORMAT_GROUP, N), generator=gen, device="cuda")
+              * 0.01 + 0.005).to(adt)
+        spec = KernelSpec(m=512, n=N, k=K, a_dtype=a_dtype,
+                          out_dtype=a_dtype, family=family, bits=bits,
+                          group_size=FORMAT_GROUP, with_scaling=True)
+        for M in (256, 512, 2048):
+            A = torch.randn((M, K), generator=gen, device="cuda").to(adt)
+            tile = dq.default_tile(fmt, M)
+            a = fmt_k(A, qw, w_dtype, sc, None, FORMAT_GROUP, tile=tile)
+            b = mz.materialize_matmul(spec, A, qw, sc)
+            torch.cuda.synchronize()
+            ulps = out_ulps(a, b)
+            err = (a.float() - b.float()).abs().max().item()
+            tol = _route_tol(a, a)
+            row = {"phase": "route", "format": fmt, "M": M, "N": N, "K": K,
+                   "ulps": ulps, "max_abs_err": err, "tol": tol,
+                   "fused_tile": list(tile),
+                   "fused_ms": time_ms(torch, lambda: fmt_k(
+                       A, qw, w_dtype, sc, None, FORMAT_GROUP, tile=tile),
+                       20, flush),
+                   "materialize_ms": time_ms(
+                       torch, lambda: mz.materialize_matmul(spec, A, qw, sc),
+                       20, flush)}
+            row["faster"] = ("materialize" if row["materialize_ms"]
+                             < row["fused_ms"] else "fused")
+            if not (ulps <= 1 or err <= tol):
+                raise AssertionError(f"route {fmt} M={M}: the two routes "
+                                     f"{ulps} ulps, {err} apart (tol {tol})")
+            emit(row)
+        del qw, sc
+    return rows, launches
+
+
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "gptq_golden_256x256_g64.npz")
 
@@ -2370,7 +2736,7 @@ def main() -> int:
         from bitblas_tpu_torch.kernels import build, flash, materialize
         from bitblas_tpu_torch.kernels import dense as dense_mod
         from bitblas_tpu_torch.kernels.dequant_matmul import (
-            dequant_matmul_i2, dequant_matmul_u4)
+            dequant_matmul_fmt, dequant_matmul_i2, dequant_matmul_u4)
     except ImportError as e:
         print(f"chip_smoke: run from the root of a bitblas_tpu checkout "
               f"({e})", file=sys.stderr)
@@ -2386,7 +2752,8 @@ def main() -> int:
     print(smi, flush=True)
 
     mode = sys.argv[1:]
-    if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"]):
+    if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"],
+                    ["--formats"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -2404,7 +2771,8 @@ def main() -> int:
                 materialize.weight_decode_u4, materialize.weight_decode_int8,
                 flash.flash_attention_fwd, flash.flash_decode,
                 flash.flash_decode_quant, flash.flash_decode_paged,
-                flash.flash_decode_paged_quant, dense_mod.dense_matmul)
+                flash.flash_decode_paged_quant, dense_mod.dense_matmul,
+                dequant_matmul_fmt, materialize.weight_decode_fmt)
     if mode == ["--bitnet-tuned-ab"]:
         bitnet_tuned_ab(torch, counters)
         return 0
@@ -2417,9 +2785,12 @@ def main() -> int:
     del warm
     # the floor of any timed launch: a one-element fill, timed the same way
     one = torch.zeros(1, device="cuda")
-    emit({"phase": "timer_floor",
-          "one_element_fill_ms": time_ms(torch, one.zero_, 20)})
+    floor_ms = time_ms(torch, one.zero_, 20)
+    emit({"phase": "timer_floor", "one_element_fill_ms": floor_ms})
     flush = True
+    if mode == ["--formats"]:
+        check_formats(torch, flush, floor_ms)
+        return 0
     dq = check_dequant(torch, flush)
     di2 = check_dequant_i2(torch, flush)
     wd_u4, wd_i8 = check_weight_decode(torch, flush)
@@ -2432,6 +2803,7 @@ def main() -> int:
     route_table(torch, flush)
     dense = check_dense(torch, flush)
     check_edges(torch)
+    fmt_rows, fmt_launches = check_formats(torch, flush, floor_ms)
     # the layers of the GPTQ phases keep their hint database in a
     # temporary directory (never the user's), and their operators leave
     # the global cache when the phases end
@@ -2555,6 +2927,29 @@ def main() -> int:
             f"weight_decode_u4 {variant}", "weight_decode.cu",
             "materialize.py:227", rows, pick(rows, N=11008, K=4096),
             f"N=11008 K=4096 uint4 -> f16, {variant}"))
+    # kernel 1 and kernel 2 for every other format with float activations:
+    # each format's decode and tiled instances and its kernel 2, launched
+    # by the formats phase (no model serves them: 0 in the serve phases)
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    for fmt in dq.FMT_FORMATS:
+        w_dtype, a_dtype = dq.split_format(fmt)
+        src = dq.fmt_source(w_dtype, a_dtype) + ".cu"
+        k1 = "dequant_matmul.py:231"
+        for kind, M, name, rep in (
+                ("decode", 4, "dequant_matmul_fmt decode", k1),
+                ("tiled", 256, "dequant_matmul_fmt tiled", k1),
+                ("weight_decode", None, "weight_decode_fmt",
+                 "materialize.py:227")):
+            rows = [r for r in fmt_rows if r["format"] == fmt
+                    and r.get("kernel") == kind]
+            summary.append((
+                f"{name} {fmt}",
+                "dequant_wgmma.cuh" if kind == "tiled" else src, rep, rows,
+                pick(rows, N=11008, K=4096),
+                f"{'' if M is None else f'M={M} '}N=11008 K=4096 {w_dtype} "
+                f"x {a_dtype}, g128" + (" zeros" if w_dtype.startswith("uint")
+                                        else "")))
+    launches.update(fmt_launches)
     # kernel 1's wrappers: their decode and tiled instances' launches apart
     split_counts = {
         wrapper: {"decode_launches": launches[DECODE[fmt]],

@@ -24,7 +24,10 @@ launch a call, against the split-then-merge plain version too; int2 bit
 for bit at a K tail of 64 and at K = 14336); kernel 1's uint4 instances at
 GPTQ's group sizes (32, 64, 128, 256, per channel), zeros mode rescale
 and a bias, kernel 2 at those groups, and the refusal of a group no
-instance takes.
+instance takes; kernel 1 (both instances) and kernel 2 for the 20 other
+float-activation pairs (`FLOAT_PAIRS`) at every group, zeros mode, bias
+and output type, every code of each format, either instance at any M,
+and two of them tuned.
 """
 
 import math
@@ -48,7 +51,7 @@ from bitblas_tpu_torch.kernels.flash import (
     flash_decode_paged_quant_plain, flash_decode_plain, flash_decode_quant,
     flash_decode_quant_plain, flash_decode_split_plain, plan_splits)
 from bitblas_tpu_torch.ops.matmul import Matmul
-from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
+from bitblas_tpu_torch.ops.matmul_config import FLOAT_PAIRS, MatmulConfig
 from bitblas_tpu_torch.serving import kv_cache
 from bitblas_tpu_torch.tuner import H100_SXM, fast_tune
 from bitblas_tpu_torch.tuner.space import enumerate_hints
@@ -593,12 +596,19 @@ def test_dense_matmul_refuses_ragged_tiles(dev):
                                     device=dev), torch.float16)
 
 
-@pytest.mark.parametrize("fmt", ["uint4", "int2"])
+@pytest.mark.parametrize("fmt", ["uint4", "int2", "uint1xfloat16",
+                                 "nf4xbfloat16"])
 def test_fast_tune_measures_and_installs_two_buckets(dev, fmt):
-    kw = (dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
-               out_dtype="float32") if fmt == "int2" else
-          dict(A_dtype="float16", W_dtype="uint4", with_scaling=True,
-               with_zeros=True, group_size=128, out_dtype="float16"))
+    if fmt == "int2":
+        kw = dict(A_dtype="int8", W_dtype="int2", accum_dtype="int32",
+                  out_dtype="float32")
+    elif fmt == "uint4":
+        kw = dict(A_dtype="float16", W_dtype="uint4", with_scaling=True,
+                  with_zeros=True, group_size=128, out_dtype="float16")
+    else:   # dequant_matmul_fmt's formats: its two instances and the plan
+        w_dtype, a_dtype = fmt.split("x")
+        kw = dict(A_dtype=a_dtype, W_dtype=w_dtype, with_scaling=True,
+                  group_size=128, out_dtype=a_dtype)
     pm = Matmul(MatmulConfig(M=[4, 256], N=1024, K=4096, **kw), device=dev)
     assert set(pm.tuned_hints) == {4, 256}
     for m in (4, 256):
@@ -615,13 +625,15 @@ def test_fast_tune_measures_and_installs_two_buckets(dev, fmt):
         default = Matmul(pm.config, device=dev, enable_tuning=False)
         want = default.forward(A, *W)
         torch.cuda.synchronize()
-        # int2 sums are exact on every route; uint4 routes sum in their own
-        # order (the split-K decode instance by split), so the same route
-        # is equal and another within one f16 rounding of f32 sums
+        # int2 sums are exact on every route; float routes sum in their own
+        # order (the split-K decode instances by split), so the same route
+        # is equal and another within a rounding of the output type of f32
+        # sums (4e-3 of the largest f16 output, 4 x 2^-7 of a bf16 one)
         if fmt == "int2" or pm.hint_for(m) == default.hint_for(m):
             assert torch.equal(got, want), (m, pm.hint_for(m))
         else:
-            tol = 4e-3 * want.float().abs().max().item()
+            rel = 4 * 2.0 ** -7 if want.dtype == torch.bfloat16 else 4e-3
+            tol = rel * want.float().abs().max().item()
             assert (got.float() - want.float()).abs().max().item() <= tol
 
 
@@ -1015,3 +1027,167 @@ def test_dequant_matmul_u4_refuses_groups_no_instance_takes(dev):
         dequant_matmul_u4(A, torch.zeros((256, 520), dtype=torch.int32,
                                          device=dev), s, s, 4160)
     assert dequant_matmul_u4.launches == before
+
+
+# -- kernels 1 and 2 for every other format with float activations ----------
+
+_FMT_TORCH = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def _fmt_words(gen, dev, w_dtype, N, K):
+    """Random packed words of a format: every code occurs; e5m2's inf /
+    NaN codes (exponent 31) are turned into finite ones."""
+    from bitblas_tpu_torch.quantization.formats import source_format_and_bits
+    family, bits = source_format_and_bits(w_dtype)
+    qw = torch.randint(-2 ** 31, 2 ** 31, (N, K * bits // 32), generator=gen,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    if family == "fp_e5m2":
+        b = qw.view(torch.uint8)
+        b[(b & 0x7C) == 0x7C] &= 0xBF
+    return qw, family, bits
+
+
+# (N, K, group) shapes: a ragged last N tile and a K tail past the last
+# whole step of every width (K = 1408: 2.75 steps of 512), the groups of
+# GPTQ (32, 64, 128, per channel), and multiples of 256
+_FMT_SHAPES = ((136, 1408, 32), (136, 1408, 64), (136, 1408, 128),
+               (136, 1408, 1408), (256, 1536, 256), (256, 1536, 512))
+
+
+@pytest.mark.parametrize("a_dtype,w_dtype", [
+    pytest.param(a, w, id=f"{w}x{a}") for a, w in FLOAT_PAIRS])
+def test_dequant_matmul_fmt_matches_plain(dev, a_dtype, w_dtype):
+    """Kernel 1 for each of the new (A, W) pairs on both instances: M = 3
+    and 16 on the split-K decode instance (one f16 / bf16 / f32 ulp of
+    each output of the split plain version, `out_ulps`), M = 17 and 100 on
+    the tiled one (one ulp of the plain version); at every group size,
+    scaled or not, zeros modes original and rescale (uint), with and
+    without a bias, output in A's type and float32; two calls bit-equal,
+    each launch counted by instance and format."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    from bitblas_tpu_torch.testing import out_ulps
+    adt = _FMT_TORCH[a_dtype]
+    fmt = dq.fused_format(w_dtype, a_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(fmt))
+    f = dq.dequant_matmul_fmt
+    for N, K, g in _FMT_SHAPES:
+        qw, family, bits = _fmt_words(gen, dev, w_dtype, N, K)
+        sc = (torch.rand((K // g, N), generator=gen, device=dev) * 0.01
+              + 0.005).to(adt)
+        zr = torch.randint(0, 1 << bits, (K // g, N), generator=gen,
+                           device=dev).to(adt)
+        bias = torch.randn(N, generator=gen, device=dev)
+        opts = [dict(), dict(scales=sc, bias=bias),
+                dict(scales=sc, out_dtype=torch.float32)]
+        if family == "uint":
+            opts += [dict(scales=sc, zeros=zr, bias=bias),
+                     dict(scales=sc, zeros=(zr * sc).to(adt),
+                          zeros_mode="rescale", out_dtype=torch.float32)]
+        for kw in opts:
+            if "scales" not in kw and g != K:
+                continue   # unscaled: the group changes nothing
+            if family == "fp_e5m2" and "scales" not in kw:
+                kw = dict(kw, out_dtype=torch.float32)   # |w| <= 57344
+            for M in (3, 16, 17, 100):
+                A = torch.randn((M, K), generator=gen, device=dev).to(adt)
+                before = (f.launches, f.decode_launches, f.tiled_launches,
+                          f.format_launches.get(fmt, 0))
+                out = f(A, qw, w_dtype, group=g, **kw)
+                again = f(A, qw, w_dtype, group=g, **kw)
+                decode = M <= 16
+                ref = (dq.dequant_matmul_fmt_split_plain if decode
+                       else dq.dequant_matmul_fmt_plain)(
+                    A, qw, w_dtype, kw.get("scales"), kw.get("zeros"), g,
+                    kw.get("bias"), kw.get("zeros_mode", "original"),
+                    kw.get("out_dtype"))
+                torch.cuda.synchronize()
+                assert (f.launches, f.decode_launches, f.tiled_launches,
+                        f.format_launches[fmt]) == (
+                    before[0] + 2, before[1] + 2 * decode,
+                    before[2] + 2 * (not decode), before[3] + 2)
+                assert torch.equal(out, again)
+                assert out.dtype == ref.dtype
+                ulps = out_ulps(out, ref)
+                assert ulps <= 1, (N, K, g, sorted(kw), M, ulps)
+
+
+@pytest.mark.parametrize("a_dtype,w_dtype", [
+    pytest.param(a, w, id=f"{w}x{a}") for a, w in FLOAT_PAIRS])
+def test_fmt_every_code_decodes_as_plain(dev, a_dtype, w_dtype):
+    """Every code of each format, unscaled and scaled: kernel 2's decoded
+    weight bit-equal to the plain one (NaN codes decode to NaN), and kernel
+    1's decoded weight read back through one-hot activations (out[m, n] =
+    W[n, k_m] in float32, exactly) on both instances, bit-equal; the
+    weight's codes cycle through every value along N and K."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    from bitblas_tpu_torch.kernels import materialize as mz
+    from bitblas_tpu_torch.quantization import packing
+    from bitblas_tpu_torch.quantization.formats import source_format_and_bits
+    adt = _FMT_TORCH[a_dtype]
+    family, bits = source_format_and_bits(w_dtype)
+    N, K, g = 256, 512, 64
+    codes = (torch.arange(N, device=dev)[:, None] * 7
+             + torch.arange(K, device=dev)[None, :]) % (1 << bits)
+    qw = packing.pack_k(codes, bits)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bits)
+    sc = (torch.rand((K // g, N), generator=gen, device=dev) * 0.5
+          + 0.25).to(adt)   # e5m2: |w s| stays under f16's maximum
+    for scales in (None, sc):
+        dec = mz.weight_decode_fmt(qw, w_dtype, a_dtype, scales, None, g)
+        want = mz.weight_decode_fmt_plain(qw, w_dtype, a_dtype, scales,
+                                          None, g)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(dec), nan)
+        assert torch.equal(dec.view(torch.int16)[~nan],
+                           want.view(torch.int16)[~nan])
+        # kernel 1 reads a finite weight (0 * inf would be NaN): e5m2's
+        # exponent-31 codes made finite
+        fin_codes = codes
+        if family == "fp_e5m2":
+            fin_codes = torch.where((codes & 0x7C) == 0x7C, codes & 0xBF,
+                                    codes)
+        fqw = packing.pack_k(fin_codes, bits)
+        fwant = mz.weight_decode_fmt_plain(fqw, w_dtype, a_dtype, scales,
+                                           None, g)
+        assert torch.isfinite(fwant).all()
+        for M in (16, 64):
+            ks = torch.arange(M, device=dev) * (K // M) + M % 7
+            A = torch.zeros((M, K), device=dev, dtype=adt)
+            A[torch.arange(M), ks] = 1
+            out = dq.dequant_matmul_fmt(A, fqw, w_dtype, scales, None, g,
+                                        out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert torch.equal(out, fwant[:, ks].T.float()), (M, scales is
+                                                              None)
+
+
+@pytest.mark.parametrize("a_dtype,w_dtype", [
+    ("float16", "uint1"), ("bfloat16", "nf4"), ("float16", "e5m2_float8"),
+    ("bfloat16", "int8")])
+def test_fmt_instances_take_any_m(dev, a_dtype, w_dtype):
+    """A tuned hint may name either instance at any M: the decode instance
+    at M = 40 (three M tiles of 16) and the tiled instance at M = 5, each
+    within one ulp of its plain version (the decode instance's split plain
+    version), two calls bit-equal."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    from bitblas_tpu_torch.testing import out_ulps
+    adt = _FMT_TORCH[a_dtype]
+    fmt = dq.fused_format(w_dtype, a_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(40)
+    N, K, g = 264, 1536, 64
+    qw, _, _ = _fmt_words(gen, dev, w_dtype, N, K)
+    sc = (torch.rand((K // g, N), generator=gen, device=dev) * 0.01
+          + 0.005).to(adt)
+    for M, tile in ((40, dq.FUSED_TILES[fmt][0]), (5, dq.FMT_TILED_TILE)):
+        A = torch.randn((M, K), generator=gen, device=dev).to(adt)
+        out = dq.dequant_matmul_fmt(A, qw, w_dtype, sc, None, g, tile=tile)
+        again = dq.dequant_matmul_fmt(A, qw, w_dtype, sc, None, g, tile=tile)
+        ref = (dq.dequant_matmul_fmt_split_plain if M == 40
+               else dq.dequant_matmul_fmt_plain)(A, qw, w_dtype, sc, None, g)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert out_ulps(out, ref) <= 1, (M, tile)

@@ -118,7 +118,7 @@ def test_unpack_nslot_reads_the_jax_device_layout():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("W_dtype", "int4"), ("A_dtype", "bfloat16"), ("group_size", 96),
+    ("A_dtype", "int8"), ("W_dtype", "int16"), ("group_size", 96),
     ("with_zeros", False), ("with_scaling", False), ("layout", "nn")])
 def test_config_rejects_what_is_not_ported(field, value):
     kw = dict(CFG, **{field: value})

@@ -128,8 +128,11 @@ def test_state_dict_round_trip():
 
 @pytest.mark.parametrize("bits", [1, 2])
 def test_low_bits_not_ported(bits):
+    """uint1 / uint2 run with float activations; with int8 activations
+    (the integer column of the support matrix) they are not ported yet."""
     with pytest.raises(NotImplementedError, match=f"uint{bits}"):
-        QuantLinear(bits, 64, IN, OUT, bias=False, device="cpu")
+        QuantLinear(bits, 64, IN, OUT, bias=False, A_dtype="int8",
+                    device="cpu")
 
 
 def test_quantlinear_rejects_unsupported():
