@@ -323,14 +323,7 @@ cudaError_t launch_decode(const void* A, const void* Wq, const void* s,
   return cudaGetLastError();
 }
 
-// A group the kernels take at this K: 32, 64, 128, a multiple of 256 that
-// divides K, or K (per channel), with K a multiple of 128; neither a
-// decode chunk's scale pair nor a tiled slot's rows straddle a group.
-inline bool group_ok(int K, int group) {
-  if (K % 128 != 0 || group < 32 || K % group != 0) return false;
-  return group == 32 || group == 64 || group == 128 || group % 256 == 0 ||
-         group == K;
-}
+using dqw::group_ok;
 
 template <class Fam, class AT, int MODE>
 cudaError_t run_decode(const void* A, const void* Wq, const void* s,

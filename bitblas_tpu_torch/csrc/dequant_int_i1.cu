@@ -1,0 +1,5 @@
+// Kernel 1 for int8 activations with int1 weights (design, operands and
+// bound: dequant_int.cuh).
+#include "dequant_int.cuh"
+
+BBT_INT_ENTRIES(i1, 1, 1)

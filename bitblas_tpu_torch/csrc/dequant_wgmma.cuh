@@ -1,8 +1,10 @@
 // The tiled instances of kernel 1 (kernels/dequant_matmul.py FUSED_TILES
 // past the decode instance; every fused call with M > 16 on the default
-// route): one mixed-input wgmma + TMA main loop for both ported formats,
-// instantiated by dequant_matmul.cu (uint4 x f16) and dequant_matmul_i2.cu
-// (int2 x int8).
+// route): one mixed-input wgmma + TMA main loop for every format,
+// instantiated by dequant_matmul.cu (uint4 x f16), dequant_matmul_i2.cu
+// (int2 x int8), dequant_formats.cuh (Fmt: the other float-activation
+// formats) and dequant_int.cuh (IntFmt: int8 activations with uint1/2/4
+// and int1/2/4 weights, scaled, zero-pointed or not, four output types).
 //
 // Replaces bitblas_tpu/kernels/dequant_matmul.py:make_dequant_matmul (its
 // pallas_call at :629) at prefill M. What it computes:
@@ -70,6 +72,20 @@
 //     released once the products of its last step are waited for. uint4
 //     sums each slot in accumulators of its own and adds them to the
 //     running sums in f32 (U4::kPromote).
+//   - IntFmt decodes each product's codes straight into s8 fragments (the
+//     int family less its bias 2^(b-1) in the register, so its sums need
+//     no correction) and sums in s32. With scales, the s32 sums of each
+//     group are converted and scaled in f32 before they join the f32
+//     sums, as JAX applies a group's scale to an exact integer dot: a
+//     unit of P = min(16, the largest power of two dividing g / 32) k32
+//     products (a slot for g >= 512 and per channel, a step for g = 128,
+//     one product for g = 32) ends with a full wait and its promotion,
+//     which reads the unit's scale (and zero) row from the slot that
+//     holds it. Zeros need the sum of A over the unit for each token: a
+//     second product of the same A box against an all-ones fragment
+//     gives it in s32 (z sum a, taken off in f32: (d - r z) s or d s - r
+//     z). Narrow groups wait after every unit, so they keep fewer products
+//     in flight: a simple design first.
 //   - Epilogue: each thread stores its accumulators (weight rows r, r + 8,
 //     tokens 8 i + 2 t, + 1) plus the rows' f32 bias transposed into
 //     out[M, N], rows past M and columns past N masked; for f32 a warp's
@@ -80,6 +96,8 @@
 //     about as many bytes a second as L2 gives: PERF.md).
 
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "decode_formats.cuh"
@@ -255,6 +273,11 @@ __device__ __forceinline__ void lds64(uint32_t* v, uint32_t addr) {
   asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
                : "=r"(v[0]), "=r"(v[1])
                : "r"(addr));
+}
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
 }
 __device__ __forceinline__ half lds_half(uint32_t addr) {
   unsigned short v;
@@ -475,6 +498,159 @@ struct LutOf<Fmt<Fam, AT, MODE>> {
   static constexpr bool value = Fam::kLut, bf16 = AT::kBf16;
 };
 
+// -- integer activations ------------------------------------------------------
+
+// The output types of the integer column (kernels/dequant_matmul.py
+// _INT_OUT), and its stores: f32, f16 (round to nearest), int32 (the
+// exact sums; through float32 truncated toward zero when a bias is added,
+// as the plain version casts), int8 (saturating: rounded half to even,
+// then clamped; the exact sums clamped).
+enum OutKind { kOutF32 = 0, kOutF16 = 1, kOutI32 = 2, kOutI8 = 3 };
+
+__device__ __forceinline__ void store_float(void* out, size_t at, float v,
+                                            int kind) {
+  if (kind == kOutF32)
+    static_cast<float*>(out)[at] = v;
+  else if (kind == kOutF16)
+    static_cast<half*>(out)[at] = __float2half_rn(v);
+  else if (kind == kOutI32)
+    static_cast<int*>(out)[at] = __float2int_rz(v);
+  else
+    static_cast<int8_t*>(out)[at] =
+        (int8_t)fminf(fmaxf(rintf(v), -128.f), 127.f);
+}
+
+// `bias`: the f32 bias of the output's column, or null
+__device__ __forceinline__ void store_int(void* out, size_t at, int v,
+                                          const float* bias, int kind) {
+  if (bias != nullptr) {
+    store_float(out, at, __fadd_rn(__int2float_rn(v), *bias), kind);
+  } else if (kind == kOutI32) {
+    static_cast<int*>(out)[at] = v;
+  } else if (kind == kOutI8) {
+    static_cast<int8_t*>(out)[at] = (int8_t)min(max(v, -128), 127);
+  } else {
+    store_float(out, at, __int2float_rn(v), kind);
+  }
+}
+
+// Modes of the integer column: unscaled (exact int32 sums), scales, scales
+// and zeros (s (d - r z)), scales and zeros rescale (d s - r z).
+enum IntMode { kUnscaled = 0, kScale = 1, kZeros = 2, kRescale = 3 };
+
+// One group's (or unit's) f32 term from its exact sums d (of the values)
+// and r (of A), each op rounded on its own: the split plain version's
+// order (kernels/dequant_matmul.py dequant_matmul_int_split_plain).
+template <int MODE>
+__device__ __forceinline__ float fold(int d, int r, float s, float z) {
+  if constexpr (MODE == kScale) {
+    return __fmul_rn(__int2float_rn(d), s);
+  } else if constexpr (MODE == kZeros) {
+    return __fmul_rn(
+        __fsub_rn(__int2float_rn(d), __fmul_rn(__int2float_rn(r), z)), s);
+  } else {
+    return __fsub_rn(__fmul_rn(__int2float_rn(d), s),
+                     __fmul_rn(__int2float_rn(r), z));
+  }
+}
+
+// A group the kernels take at this K: 32, 64, 128, a multiple of 256 that
+// divides K, or K (per channel), with K a multiple of 128; neither a
+// decode chunk's scale pair nor a tiled slot's rows straddle a group.
+inline bool group_ok(int K, int group) {
+  if (K % 128 != 0 || group < 32 || K % group != 0) return false;
+  return group == 32 || group == 64 || group == 128 || group % 256 == 0 ||
+         group == K;
+}
+
+// int8 activations with FAM (0 uint, 1 int) weights of B = 1, 2 or 4 bits:
+// a step's 128 of K are 4 B words of each row; product s takes codes 32 s
+// + 4t .. + 3 (logical k 4t..) and 32 s + 16 + 4t .. + 3 (16 + 4t..) in
+// A's natural order, four codes spread to the four bytes of a register.
+template <int FAM, int B, int MODE>
+struct IntFmt {
+  using In = int8_t;
+  using Acc = typename std::conditional<MODE == kUnscaled, int, float>::type;
+  static constexpr bool kScaled = MODE != kUnscaled;   // scale rows loaded
+  static constexpr bool kZeros = false;    // read at promotion, not decode
+  static constexpr bool kNarrow = false;
+  static constexpr int kHalves = 2;
+  static constexpr int kStepWords = 4 * B;
+  static constexpr int kSZRows = MODE == kUnscaled ? 0 : 16;   // g = 32
+  static constexpr bool kPromote = false;  // IntOf::groups instead
+  static constexpr int kStepK = 128;
+  static constexpr int kWordK = 32 / B;
+  static constexpr int kBias8 = FAM == 1 ? (1 << (B - 1)) * 0x01010101 : 0;
+  static constexpr CUtensorMapDataType kAMap = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+
+  // codes 32 s + 16 h + 4t .. + 3 of the step's words, one a byte
+  __device__ __forceinline__ static uint32_t four(
+      const uint32_t (&w)[kStepWords], int s, int h, int t) {
+    uint32_t f;
+    if constexpr (B == 4) {   // half t & 1 of word 4 s + 2 h + t / 2,
+      const uint32_t x = w[2 * s + h];   // which the fetch put at 2 s + h
+      f = __byte_perm(x, x >> 4, (t & 1) ? 0x7362 : 0x5140) & 0x0F0F0F0Fu;
+    } else if constexpr (B == 2) {   // byte t of word 2 s + h
+      const uint32_t x = w[2 * s + h] >> (8 * t);
+      f = (x & 0x3u) | ((x & 0xCu) << 6) | ((x & 0x30u) << 12) |
+          ((x & 0xC0u) << 18);
+    } else {   // nibble 4 h + t of word s
+      f = (((w[s] >> (4 * (4 * h + t))) & 0xFu) * 0x00204081u) &
+          0x01010101u;
+    }
+    if constexpr (FAM == 1)   // less the bias in each byte (no borrows)
+      f = ((f | 0x80808080u) - (uint32_t)kBias8) ^ 0x80808080u;
+    return f;
+  }
+
+  __device__ __forceinline__ static void decode(
+      const uint32_t (&lo)[kStepWords], const uint32_t (&hi)[kStepWords],
+      int t, const half2 (&)[2], const half2 (&)[2], const half2 (&)[2],
+      const half2 (&)[2], const uint16_t*, uint32_t (&f)[16]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      f[4 * s] = four(lo, s, 0, t);
+      f[4 * s + 1] = four(hi, s, 0, t);
+      f[4 * s + 2] = four(lo, s, 1, t);
+      f[4 * s + 3] = four(hi, s, 1, t);
+    }
+  }
+
+  template <int ND>
+  __device__ __forceinline__ static void mma(int (&d)[ND],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    rs_s8(d, a, db, scale_d);
+  }
+
+  __device__ __forceinline__ static void store(void* out, size_t at, Acc v,
+                                               const float* bias, int n,
+                                               int kind) {
+    if constexpr (MODE == kUnscaled)
+      store_int(out, at, v, bias != nullptr ? bias + n : nullptr, kind);
+    else
+      store_float(out, at, bias != nullptr ? __fadd_rn(v, bias[n]) : v,
+                  kind);
+  }
+};
+
+// Whether a functor is IntFmt: then its products sum in s32 (`Part`), with
+// scales promoted a group at a time (`groups`), with zeros also summing A
+// (`zeros`), and it stores through IntFmt::store.
+template <class F>
+struct IntOf {
+  static constexpr bool value = false, groups = false, zeros = false;
+  static constexpr int mode = kUnscaled;
+  using Part = typename F::Acc;
+};
+template <int FAM, int B, int MODE>
+struct IntOf<IntFmt<FAM, B, MODE>> {
+  static constexpr bool value = true, groups = MODE != kUnscaled,
+                        zeros = MODE >= kZeros;
+  static constexpr int mode = MODE;
+  using Part = int;
+};
+
 // -- the kernel --------------------------------------------------------------
 
 constexpr int kRowBytes = 128;   // bytes of one row of an A box
@@ -522,10 +698,11 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
                          void* __restrict__ out_ptr, int M, int N, int K,
                          int group, int rs, int box, int nsz, int out_f32) {
   // rs: the scale / zero rows of a slot's box that the slot reads (g = 32
-  // / 64: 8 / 4, the box's rows; g = 128: 2; g >= 256: 1 of a box of 2);
-  // box: the rows of the box (rs, or 2 where rs <= 2); nsz: the scale
-  // tensors loaded (0, 1 scales, 2 scales and zeros); out_f32: a float32
-  // output for a functor whose output may be either (F::kOutAny)
+  // / 64: 8 / 4, the box's rows; g = 128: 2; g >= 256: 1 of a box of 2;
+  // IntFmt: 512 / g up to 16); box: the rows of the box (rs, or 2 where rs
+  // <= 2); nsz: the scale tensors loaded (0, 1 scales, 2 scales and
+  // zeros); out_f32: a float32 output for a functor whose output may be
+  // either (F::kOutAny), IntFmt's OutKind
   using T = Tiled<F, BM, WG, STAGES>;
   using Acc = typename F::Acc;
   constexpr int ND = BM / 2;   // accumulators a thread
@@ -605,12 +782,18 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
 
   // the running sums; with F::kPromote the products go to `part`, one
   // ring slot at a time
-  constexpr int NP = F::kPromote ? ND : 1;
-  Acc acc[ND], part[NP];
+  using IO = IntOf<F>;
+  constexpr int NP = F::kPromote || IO::groups ? ND : 1;
+  constexpr int NO = IO::zeros ? ND : 1;
+  Acc acc[ND];
+  typename IO::Part part[NP];
+  int ones[NO];   // IntFmt with zeros: each token's sum of A over the unit
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = 0;
 #pragma unroll
   for (int i = 0; i < NP; ++i) part[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) ones[i] = 0;
   uint32_t fa[16], fb[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) fa[i] = fb[i] = 0u;
@@ -629,7 +812,19 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
     const int byte0 = 4 * SW * u;
     const uint32_t wb = w + (byte0 / kWB) * T::BN * kWB;
     const int c0 = (byte0 % kWB) / 16;
-    if constexpr (SW >= 4) {
+    if constexpr (IO::value && SW == 16) {
+      // IntFmt at 4 bits: a thread decodes every other word of the step,
+      // 4 s + 2 h + t / 2, read alone into lo / hi[2 s + h] (constant
+      // indices keep the arrays in registers; IntFmt::four)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t o = (((c0 + s) ^ sw) << 4) + 4 * (2 * h + t / 2);
+          lo[2 * s + h] = lds_u32(wb + r_lo * kWB + o);
+          hi[2 * s + h] = lds_u32(wb + r_hi * kWB + o);
+        }
+    } else if constexpr (SW >= 4) {
 #pragma unroll
       for (int c = 0; c < SW / 4; ++c)
         lds128(&lo[4 * c], wb + r_lo * kWB + (((c0 + c) ^ sw) << 4));
@@ -641,7 +836,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
       lds64(&lo[0], wb + r_lo * kWB + ((c0 ^ sw) << 4) + o);
       lds64(&hi[0], wb + r_hi * kWB + ((c0 ^ sw) << 4) + o);
     }
-    if constexpr (F::kScaled) {
+    if constexpr (F::kScaled && !IO::groups) {
       // the group row of the step (of each 32-deep half where kHalves is
       // 2), row (u * kStepK + 32 h) * rs / kStageK of the slot's rs
 #pragma unroll
@@ -655,6 +850,37 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
           z_hi[h] = __half2half2(lds_half(sz + kSZBytes + 16));
         }
       }
+    }
+  };
+
+  // IntFmt with scales: the k32 products of a unit (P of them, never
+  // straddling a group or a slot) sum in `part` (and A's sums in `ones`);
+  // `promote` adds the finished unit that starts at product p0 (over K)
+  // to acc in f32 with its scale (and zero) row, read from the slot of
+  // its first product
+  int P = 16;
+  if constexpr (IO::groups) {
+    const int q = group / 32;
+    P = min(16, q & -q);
+  }
+  auto promote = [&](int p0) {
+    if constexpr (IO::groups) {
+      const int j0 = p0 / 16;
+      const int row = 32 * p0 / group - j0 * T::kStageK / group;
+      const uint32_t sz = ring + (j0 % STAGES) * kStageBytes + T::kABytes +
+                          T::kWBytes + row * T::BN * 2 + 2 * r_lo;
+      const float s2[2] = {__half2float(lds_half(sz)),
+                           __half2float(lds_half(sz + 16))};
+      float z2[2] = {0.f, 0.f};
+      if constexpr (IO::zeros) {
+        z2[0] = __half2float(lds_half(sz + kSZBytes));
+        z2[1] = __half2float(lds_half(sz + kSZBytes + 16));
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i)   // acc[i]: row r_hi where i & 2
+        acc[i] = __fadd_rn(
+            acc[i], fold<IO::mode>(part[i], IO::zeros ? ones[i % NO] : 0,
+                                   s2[(i >> 1) & 1], z2[(i >> 1) & 1]));
     }
   };
 
@@ -690,6 +916,33 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
         F::mma(part, a, desc_sw128(base + u * T::kABox + s * 32),
                u != 0 || s != 0);
       }
+    } else if constexpr (IO::groups) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int p = 16 * j + 4 * u + s;
+        const bool first = p % P == 0;   // of a unit: overwrites
+        if (first && p > 0) {   // the previous unit is done: promote it
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(part);
+          fence_regs(ones);
+          promote(p - P);
+        }
+        if (s == 0 || (first && p > 0)) {
+          fence_regs(part);
+          fence_regs(ones);
+          wgmma_fence();
+        }
+        const uint32_t a[4] = {cur[4 * s], cur[4 * s + 1], cur[4 * s + 2],
+                               cur[4 * s + 3]};
+        const uint64_t db = desc_sw128(base + u * T::kABox + s * 32);
+        F::mma(part, a, db, !first);
+        if constexpr (IO::zeros) {
+          const uint32_t one[4] = {0x01010101u, 0x01010101u, 0x01010101u,
+                                   0x01010101u};
+          F::mma(ones, one, db, !first);
+        }
+      }
     } else {
       fence_regs(acc);
       wgmma_fence();
@@ -707,6 +960,7 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
     wgmma_wait<1>();
     fence_regs(acc);
     fence_regs(part);
+    if constexpr (IO::zeros) fence_regs(ones);
     keep_regs(prev);
     if (u == 0 && j > 0) mbar_arrive(&empty[(j - 1) % STAGES]);
   };
@@ -725,44 +979,61 @@ __global__ void __launch_bounds__(Tiled<F, BM, WG, STAGES>::kThreads,
   wgmma_wait<0>();
   fence_regs(acc);
   fence_regs(part);
+  if constexpr (IO::zeros) fence_regs(ones);
   if constexpr (F::kPromote) {
 #pragma unroll
     for (int i = 0; i < ND; ++i) acc[i] += part[i];
   }
+  if constexpr (IO::groups) promote(16 * nk - P);   // the last unit
   keep_regs(fa);
   keep_regs(fb);
 
   // acc[4 i + e]: weight row r_lo + 8 (e / 2), token 8 i + 2 t + e % 2
   const int n_lo = n0 + r_lo, n_hi = n0 + r_hi;
-  if constexpr (F::kBias) {
-    // the f32 bias of the thread's two rows, before the one rounding
-    if (bias != nullptr) {
-      const float b_lo = n_lo < N ? bias[n_lo] : 0.f;
-      const float b_hi = n_hi < N ? bias[n_hi] : 0.f;
+  if constexpr (IO::value) {
 #pragma unroll
-      for (int i = 0; i < ND / 4; ++i) {
-        acc[4 * i] += b_lo;
-        acc[4 * i + 1] += b_lo;
-        acc[4 * i + 2] += b_hi;
-        acc[4 * i + 3] += b_hi;
+    for (int i = 0; i < ND / 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 8 * i + 2 * t + (e & 1);
+        const int n = (e & 2) ? n_hi : n_lo;
+        if (m < M && n < N)
+          F::store(out_ptr, (size_t)m * N + n, acc[4 * i + e], bias, n,
+                   out_f32);
       }
     }
-  }
+  } else {
+    if constexpr (F::kBias) {
+      // the f32 bias of the thread's two rows, before the one rounding
+      if (bias != nullptr) {
+        const float b_lo = n_lo < N ? bias[n_lo] : 0.f;
+        const float b_hi = n_hi < N ? bias[n_hi] : 0.f;
 #pragma unroll
-  for (int i = 0; i < ND / 4; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + 8 * i + 2 * t + (e & 1);
-      const int n = (e & 2) ? n_hi : n_lo;
-      if (m >= M || n >= N) continue;
-      if constexpr (F::kOutAny) {
-        if (out_f32) {
-          static_cast<float*>(out_ptr)[(size_t)m * N + n] = acc[4 * i + e];
-          continue;
+        for (int i = 0; i < ND / 4; ++i) {
+          acc[4 * i] += b_lo;
+          acc[4 * i + 1] += b_lo;
+          acc[4 * i + 2] += b_hi;
+          acc[4 * i + 3] += b_hi;
         }
       }
-      static_cast<typename F::Out*>(out_ptr)[(size_t)m * N + n] =
-          F::cvt(acc[4 * i + e]);
+    }
+#pragma unroll
+    for (int i = 0; i < ND / 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 8 * i + 2 * t + (e & 1);
+        const int n = (e & 2) ? n_hi : n_lo;
+        if (m >= M || n >= N) continue;
+        if constexpr (F::kOutAny) {
+          if (out_f32) {
+            static_cast<float*>(out_ptr)[(size_t)m * N + n] =
+                acc[4 * i + e];
+            continue;
+          }
+        }
+        static_cast<typename F::Out*>(out_ptr)[(size_t)m * N + n] =
+            F::cvt(acc[4 * i + e]);
+      }
     }
   }
 }
@@ -851,9 +1122,11 @@ cudaError_t run_tiled(const void* A, const void* Wq, const void* scales,
   return cudaErrorInvalidValue;
 }
 
-// The Fmt formats' one tiled instance: 64 tokens x 128 weight rows, a slot
-// of 256 of K, three slots (an 8-bit weight's slot is 256 bytes of each
-// row: four slots would not fit). kernels/dequant_matmul.py FMT_TILED_TILE.
+// The Fmt and IntFmt formats' one tiled instance: 64 tokens x 128 weight
+// rows, three slots of 256 (Fmt) or 512 (IntFmt) of K (an 8-bit weight's
+// slot is 256 bytes of each row: four slots would not fit).
+// kernels/dequant_matmul.py FMT_TILED_TILE, INT_TILED_TILE. `out_f32`:
+// IntFmt's OutKind.
 template <class F>
 cudaError_t run_tiled_fmt(const void* A, const void* Wq, const void* scales,
                           const void* zeros, const float* bias, void* out,

@@ -40,7 +40,11 @@ SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
            # activation type so that they build side by side
            "dequant_fmt_uint_f16", "dequant_fmt_uint_bf16",
            "dequant_fmt_int_f16", "dequant_fmt_int_bf16",
-           "dequant_fmt_float_f16", "dequant_fmt_float_bf16")
+           "dequant_fmt_float_f16", "dequant_fmt_float_bf16",
+           # kernel 1 for int8 activations (csrc/dequant_int.cuh), a
+           # source for each weight format
+           "dequant_int_u1", "dequant_int_u2", "dequant_int_u4",
+           "dequant_int_i1", "dequant_int_i2", "dequant_int_i4")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, object] = {}

@@ -13,7 +13,9 @@ ported configuration, with the Hopper layout of quantization/packing.py:
   (Wq - 2)^T`` with int32 accumulation, Wq [N, K/16] int32 of biased int2
   fields; csrc/dequant_matmul_i2.cu.
 * `dequant_matmul_fmt` (every other weight format with float16 or
-  bfloat16 activations, ops/matmul_config.FLOAT_PAIRS): ``out[M, N] =
+  bfloat16 activations, ops/matmul_config.FLOAT_PAIRS, and uint4 x
+  float16 beyond GPTQ's options: unscaled, scales without zeros, float32
+  out): ``out[M, N] =
   A[M, K] @ W^T (+ bias)`` in A's type or float32, W the codes of Wq [N,
   K*bits/32] int32 (uint1/2/4, int1/2/4 biased by 2^(bits-1), int8, nf4,
   fp4_e2m1, e4m3, e5m2) decoded to A's type, with scales [K/g, N] and, for
@@ -21,6 +23,18 @@ ported configuration, with the Hopper layout of quantization/packing.py:
   csrc/dequant_formats.cuh, instantiated by csrc/dequant_fmt_*.cu. Its
   decoded weight is the plain version's bit for bit
   (`dequantize_fmt_hopper`).
+* `dequant_matmul_int` (the integer column, ops/matmul_config.INT_PAIRS,
+  but BitNet's int2 configuration): ``out[M, N] = A[M, K] int8 . W^T (+
+  bias)``, W the uint1/2/4 codes or int1/2/4 values of Wq [N, K*bits/32]
+  int32 (int codes biased by 2^(bits-1)); unscaled, the exact int32 sums;
+  with scales [K/g, N] float16 (and, uint, zeros [K/g, N] float16,
+  original or rescale) each group's exact int32 sums converted and scaled
+  in float32 (s (d - z sum a), rescale d s - z sum a), as JAX's kernel
+  applies them; the float32 bias added; out float32, float16, int32
+  (unscaled) or int8 (saturating: rounded half to even, clamped);
+  csrc/dequant_int.cuh, instantiated by csrc/dequant_int_*.cu. Its plain
+  version is JAX's oracle: exact int32 sums unscaled, else the float32
+  product of the float32 weight (w - z) s.
 * The tiled paths: csrc/dequant_wgmma.cuh.
 
 Each kernel is compiled for a small fixed set of tile instances
@@ -44,16 +58,22 @@ order by the last block of each tile, one launch a call:
   N K / 4 over 3.35 TB/s;
 * `fmt_decode_tile` (dequant_matmul_fmt): 16 x 128, K split in steps of
   512 / bits, each thread's chunk decoded and scaled in A's type, f32
-  partials (`plan_splits_fmt`, `dequant_matmul_fmt_split_plain`).
+  partials (`plan_splits_fmt`, `dequant_matmul_fmt_split_plain`);
+* the same tile for dequant_matmul_int: int2's design for 1, 2 and 4
+  bits, K split in steps of 512 / bits (`plan_splits_k_int`), every mma
+  within one 32-deep window of K so that each group's int32 sums are
+  taken apart, int32 partials unscaled, f32 partials scaled
+  (`dequant_matmul_int_split_plain`).
 The others are the tiled instances (block_m tokens x block_n weight
 rows: three uint4, four int2, and for each other format one,
-`FMT_TILED_TILE`), one mixed-input wgmma + TMA main loop shared by all
-formats (csrc/dequant_wgmma.cuh): the weight decoded in registers
-straight into wgmma's A operand, the tokens on its n side.
+`FMT_TILED_TILE` or `INT_TILED_TILE`), one mixed-input wgmma + TMA main
+loop shared by all formats (csrc/dequant_wgmma.cuh): the weight decoded
+in registers straight into wgmma's A operand, the tokens on its n side.
 Each wrapper counts its launches (`launches`), and apart from them those
 of its decode instance (`decode_launches`) and of its tiled instances
-(`tiled_launches`); `dequant_matmul_fmt` also by format
-(`format_launches`) and by instance and options (`variant_launches`). On
+(`tiled_launches`); `dequant_matmul_fmt` and `dequant_matmul_int` also by
+format (`format_launches`) and by instance and options
+(`variant_launches`). On
 a CUDA tensor each wrapper launches its kernel (design and bound are
 written in the source); on a CPU tensor it runs the plain version, for
 which the tile changes nothing."""
@@ -64,7 +84,7 @@ import ctypes
 
 import torch
 
-from ..ops.matmul_config import FLOAT_PAIRS
+from ..ops.matmul_config import FLOAT_PAIRS, INT_PAIRS
 from ..ops.reference import expand_groups, matmul_dense_reference
 from ..quantization import numerics, packing
 from ..quantization.formats import as_torch_dtype, source_format_and_bits
@@ -114,15 +134,32 @@ def fmt_decode_tile(bits: int):
     return (16, 128, 512 // bits, FMT_DECODE_STAGES)
 
 
-def fused_format(W_dtype: str, A_dtype: str) -> str:
-    """The key of a quantized (W, A) pair's fused instances: "uint4"
-    (uint4 x float16, dequant_matmul_u4), "int2" (int2 x int8,
-    dequant_matmul_i2), else "<W>x<A>" ("nf4xbfloat16", dequant_matmul_fmt)."""
-    if (W_dtype, A_dtype) == ("uint4", "float16"):
+def fused_format(W_dtype: str, A_dtype: str, out_dtype=None, scaled=None,
+                 zeros=None, bias=None) -> str:
+    """The key of a quantized configuration's fused instances. Two pairs
+    have kernels of their own for one configuration, which keeps its key
+    (so the tuned hints of the database keep their meaning), and a call
+    without options names it: "uint4" for GPTQ's uint4 x float16 (scales
+    and zeros, float16 out; dequant_matmul_u4) and "int2" for BitNet's
+    int2 x int8 (unscaled, float32 out, no bias; dequant_matmul_i2).
+    Every other configuration is "<W>x<A>": "nf4xbfloat16" and
+    "uint4xfloat16" (dequant_matmul_fmt), "uint4xint8" and "int2xint8"
+    (dequant_matmul_int). `out_dtype` is a name; None for an option means
+    the pair's own configuration."""
+    pair = (W_dtype, A_dtype)
+    if pair == ("uint4", "float16") and scaled in (None, True) \
+            and zeros in (None, True) and out_dtype in (None, "float16"):
         return "uint4"
-    if (W_dtype, A_dtype) == ("int2", "int8"):
+    if pair == ("int2", "int8") and not scaled and not bias \
+            and out_dtype in (None, "float32"):
         return "int2"
     return f"{W_dtype}x{A_dtype}"
+
+
+def spec_format(spec) -> str:
+    """fused_format of a KernelSpec (kernels/spec.py)."""
+    return fused_format(spec.w_dtype, spec.a_dtype, spec.out_dtype,
+                        spec.with_scaling, spec.with_zeros, spec.with_bias)
 
 
 def split_format(fmt: str):
@@ -131,11 +168,25 @@ def split_format(fmt: str):
             "int2": ("int2", "int8")}.get(fmt) or tuple(fmt.split("x"))
 
 
-FMT_FORMATS = tuple(fused_format(w, a) for a, w in FLOAT_PAIRS)
+FMT_FORMATS = tuple(f"{w}x{a}" for a, w in FLOAT_PAIRS
+                    + (("float16", "uint4"),))
 for _fmt in FMT_FORMATS:
     FUSED_TILES[_fmt] = (
         fmt_decode_tile(source_format_and_bits(split_format(_fmt)[0])[1]),
         FMT_TILED_TILE)
+# dequant_matmul_int's formats (csrc/dequant_int.cuh): the split-K decode
+# instance (fmt_decode_tile's geometry: K in steps of 512 / bits, a
+# quad's four 16-byte chunks of each weight row), at most INT_MAX_SPLIT_K
+# of K a split; and one tiled
+# instance, 64 tokens x 128 weight rows, slots of 512 of K (four
+# 128-byte boxes of A), three slots (csrc/dequant_wgmma.cuh IntFmt).
+INT_MAX_SPLIT_K = 2048
+INT_TILED_TILE = (64, 128, 512, 3)
+INT_FORMATS = tuple(f"{w}x{a}" for a, w in INT_PAIRS)
+for _fmt in INT_FORMATS:
+    FUSED_TILES[_fmt] = (
+        fmt_decode_tile(source_format_and_bits(split_format(_fmt)[0])[1]),
+        INT_TILED_TILE)
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
 # The decode instances: 128 weight rows a block, A tiles of 16 rows, at
@@ -157,7 +208,7 @@ def default_tile(fmt: str, m: int):
     tiles = FUSED_TILES[fmt]
     if m <= 16:
         return tiles[0]
-    return FMT_TILED_TILE if fmt in FMT_FORMATS else tiles[2]
+    return tiles[1] if fmt in FMT_FORMATS + INT_FORMATS else tiles[2]
 
 
 def is_tiled(fmt: str, tile) -> bool:
@@ -204,9 +255,24 @@ def plan_splits_k_i2(m: int, n: int, k: int, sms: int = H100_SMS):
                         sms)
 
 
+def plan_splits_k_int(m: int, n: int, k: int, bits: int,
+                      sms: int = H100_SMS):
+    """(chunk, splits) of dequant_matmul_int's decode instance, from
+    static sizes only: K's steps of 512 / bits (the last may end at a K
+    tail, K a multiple of 128) planned as `plan_splits_k` plans uint4's, at
+    most INT_MAX_SPLIT_K of K a split. Split s covers steps [s * chunk,
+    min((s + 1) * chunk, ceil(K / step)))."""
+    step = 512 // bits
+    if bits not in (1, 2, 4) or min(m, n, k, sms) < 1 or k % 128:
+        raise ValueError(f"plan_splits_k_int: M={m}, N={n}, K={k} (a "
+                         f"multiple of 128), bits={bits}, sms={sms}")
+    return _plan_splits(m, n, -(-k // step), INT_MAX_SPLIT_K // step, sms)
+
+
 def fused_smem_bytes(fmt: str, tile, group: int = GROUP) -> int:
     """Dynamic shared memory one block of the instance takes at uint4's
-    group size `group` (the sources' own sizes). The wgmma + TMA
+    group size `group` (the sources' own sizes; dequant_matmul_int's at
+    the largest of its options). The wgmma + TMA
     instances (dequant_wgmma.cuh Tiled): 1024 bytes of alignment, STAGES
     ring slots of A (four boxes of block_m rows x 128 bytes), the packed
     weight (block_n rows x 128 bytes) and, for uint4, room for the slot's
@@ -219,6 +285,16 @@ def fused_smem_bytes(fmt: str, tile, group: int = GROUP) -> int:
     size, A over 8 steps of 256 (16 rows), A's 16 row sums and the
     per-thread ring of two 16-byte weight chunks a stage."""
     bm, bn, bk, stages = tile
+    if fmt in INT_FORMATS:
+        bits = source_format_and_bits(split_format(fmt)[0])[1]
+        if is_tiled(fmt, tile):   # a slot's 512 of K is 64 bits bytes a
+            # row; 16 rows of room for the scales and for the zeros
+            load = 4 * bm * 128 + bn * 64 * bits + 2 * 16 * bn * 2
+            return 1024 + stages * -(-load // 1024) * 1024 + 2 * stages * 8
+        # A over INT_MAX_SPLIT_K of K (16 rows, each padded by 32 bytes),
+        # the sums of A by 32-deep window, the ring of two 16-byte chunks
+        return 16 * (INT_MAX_SPLIT_K + 32) + 16 * INT_MAX_SPLIT_K // 32 * 4 \
+            + stages * (bn // 16 * 32) * 2 * 16
     if fmt in FMT_FORMATS:
         bits = source_format_and_bits(split_format(fmt)[0])[1]
         if is_tiled(fmt, tile):   # a slot's 256 of K is 32 bits bytes a row
@@ -684,16 +760,17 @@ def _act_name(dtype: torch.dtype) -> str:
     return "float16" if dtype == torch.float16 else "bfloat16"
 
 
-def _check_fmt(A, qweight, w_dtype, scales, zeros, group, bias, zeros_mode,
-               out_dtype):
+def _check_quant(A, qweight, w_dtype, scales, zeros, group, bias,
+                 zeros_mode, sdtype):
+    """The operand checks dequant_matmul_fmt and dequant_matmul_int share
+    (the plain versions take what the kernels take, on every device): A
+    [M, K], qweight [N, K*bits/32] int32, scales and zeros [K/g, N] in
+    `sdtype` (zeros with scales, uint only), a float32 bias of N values,
+    every tensor contiguous, 16-byte aligned and on A's device. Returns
+    (g, bits)."""
     if A.dim() != 2 or qweight.dim() != 2:
         raise ValueError(f"A must be [M, K] and qweight 2-D, got "
                          f"{tuple(A.shape)} and {tuple(qweight.shape)}")
-    a_name = _act_name(A.dtype)
-    fmt = fused_format(w_dtype, a_name)
-    if fmt not in FMT_FORMATS:
-        raise NotImplementedError(f"dequant_matmul_fmt does not run "
-                                  f"{w_dtype} x {a_name}")
     family, bits = source_format_and_bits(w_dtype)
     M, K = A.shape
     N = qweight.shape[0]
@@ -706,8 +783,6 @@ def _check_fmt(A, qweight, w_dtype, scales, zeros, group, bias, zeros_mode,
         raise NotImplementedError(f"zeros need scales and the uint family "
                                   f"(got {w_dtype}, scales "
                                   f"{'none' if scales is None else 'given'})")
-    if out_dtype not in (None, A.dtype, torch.float32):
-        raise ValueError(f"out_dtype {out_dtype}: A's type or float32")
     if scales is not None:
         check_group(K, g)
     if K % 128 or N % 8:
@@ -716,7 +791,7 @@ def _check_fmt(A, qweight, w_dtype, scales, zeros, group, bias, zeros_mode,
             "qweight": (qweight, torch.int32, (N, K * bits // 32))}
     for name, t in (("scales", scales), ("zeros", zeros)):
         if t is not None:
-            want[name] = (t, A.dtype, (K // g, N))
+            want[name] = (t, sdtype, (K // g, N))
     if bias is not None:
         want["bias"] = (bias, torch.float32, tuple(bias.shape))
         if bias.numel() != N:
@@ -730,7 +805,20 @@ def _check_fmt(A, qweight, w_dtype, scales, zeros, group, bias, zeros_mode,
             raise ValueError(f"{name} on {t.device}, A on {A.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    return fmt, g, bits
+    return g, bits
+
+
+def _check_fmt(A, qweight, w_dtype, scales, zeros, group, bias, zeros_mode,
+               out_dtype):
+    a_name = _act_name(A.dtype)
+    fmt = f"{w_dtype}x{a_name}"
+    if fmt not in FMT_FORMATS:
+        raise NotImplementedError(f"dequant_matmul_fmt does not run "
+                                  f"{w_dtype} x {a_name}")
+    if out_dtype not in (None, A.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype}: A's type or float32")
+    return (fmt, *_check_quant(A, qweight, w_dtype, scales, zeros, group,
+                               bias, zeros_mode, A.dtype))
 
 
 def fmt_variant(fmt: str, kind: str, group: int, K: int, scaled: bool,
@@ -753,7 +841,7 @@ def dequant_matmul_fmt(A: torch.Tensor, qweight: torch.Tensor, w_dtype: str,
     `w_dtype` weight under A's float16 / bfloat16 activations; see the
     module docstring for the layout. `scales` (and, for the uint family,
     `zeros`) [K/g, N] in A's type or None; `group` g (-1: per channel);
-    `tile` one of FUSED_TILES[fused_format(w_dtype, A's type)] (default:
+    `tile` one of FUSED_TILES["<w_dtype>x<A's type>"] (default:
     default_tile); `bias` float32 [N] or [1, N]; `zeros_mode` "original"
     ((w - z) s) or "rescale" (w s - z)."""
     fmt, g, bits = _check_fmt(A, qweight, w_dtype, scales, zeros, group,
@@ -825,3 +913,231 @@ dequant_matmul_fmt.decode_launches = 0
 dequant_matmul_fmt.tiled_launches = 0
 dequant_matmul_fmt.format_launches = {}
 dequant_matmul_fmt.variant_launches = {}
+
+
+# -- the integer column (csrc/dequant_int.cuh) --------------------------------
+
+# the options of the C entry points: the mode (0 unscaled, 1 scales, 2
+# scales and zeros (w - z) s, 3 w s - z) and the output type
+_INT_OUT = {torch.float32: 0, torch.float16: 1, torch.int32: 2,
+            torch.int8: 3}
+_ARGTYPES_INT_DECODE = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
+    + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+_ARGTYPES_INT_TILED = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def int_source(w_dtype: str) -> str:
+    """The csrc/ source that compiles the int8 x `w_dtype` instances
+    (dequant_int_u4, dequant_int_i1, ...); its entry points are
+    dqi_<u4, i1, ...>_decode and _tiled."""
+    family, bits = source_format_and_bits(w_dtype)
+    return f"dequant_int_{family[0]}{bits}"
+
+
+def decode_int_hopper(qweight: torch.Tensor, w_dtype: str,
+                      dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """[N, K*bits/32] int32 words of a uint / int weight -> its values [N,
+    K] in `dtype` (the int family less 2^(bits-1))."""
+    family, bits = source_format_and_bits(w_dtype)
+    return numerics.decode_field(packing.unpack_k(qweight, bits), family,
+                                 bits, dtype)
+
+
+def _saturated(out: torch.Tensor, bias, out_dtype: torch.dtype):
+    """int32 or float32 sums [M, N] + the float32 bias (the sums taken to
+    float32 first), then the saturating cast (numerics.saturate_cast)."""
+    if bias is not None:
+        out = out.float() + bias.reshape(1, -1).float()
+    return numerics.saturate_cast(out, out_dtype)
+
+
+def dequant_matmul_int_plain(A: torch.Tensor, qweight: torch.Tensor,
+                             w_dtype: str, scales=None, zeros=None,
+                             group: int = -1, bias=None,
+                             zeros_mode: str = "original",
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of dequant_matmul_int (any device), JAX's
+    oracle (ops/reference.py): unscaled, the exact int32 sums of the
+    values; scaled, the float32 product of A and the float32 weight (w -
+    z) s (rescale w s - z); the bias added in float32, the saturating
+    cast."""
+    if scales is None:
+        out = matmul_dense_reference(A, decode_int_hopper(qweight, w_dtype),
+                                     torch.int32)
+    else:
+        K = A.shape[1]
+        g = K if group in (-1, None) else group
+        w = decode_int_hopper(qweight, w_dtype, torch.float32)
+        s = expand_groups(scales.T.float(), g, K)
+        z = None if zeros is None else expand_groups(zeros.T.float(), g, K)
+        out = matmul_dense_reference(
+            A, numerics.apply_scaling(w, s, z, zeros_mode), torch.float32)
+    return _saturated(out, bias, out_dtype)
+
+
+def dequant_matmul_int_split_plain(A: torch.Tensor, qweight: torch.Tensor,
+                                   w_dtype: str, scales=None, zeros=None,
+                                   group: int = -1, bias=None,
+                                   zeros_mode: str = "original",
+                                   out_dtype=torch.float32,
+                                   sms: int = H100_SMS) -> torch.Tensor:
+    """The decode instance's arithmetic in plain PyTorch (any device): the
+    splits `plan_splits_k_int` gives; in each, the stored codes f against
+    A in int32, less 2^(bits-1) sum A for the int family (sum (f - b) a =
+    sum f a - b sum a). Unscaled: the int32 partials summed in split
+    order. Scaled: each run of a group within the split (a segment) gives
+    d = its int32 sum and r = its sum of A, and the split's f32 partial
+    adds float(d) s (zeros: (float(d) - float(r) z) s; rescale: float(d) s
+    - float(r) z) segment by segment; the partials summed in split order
+    0, 1, ... in f32. Then the bias and the saturating cast. Only the
+    tests call it."""
+    M, K = A.shape
+    N = qweight.shape[0]
+    family, bits = source_format_and_bits(w_dtype)
+    chunk, splits = plan_splits_k_int(M, N, K, bits, sms)
+    f = packing.unpack_k(qweight, bits)                   # [N, K] codes
+    b = 1 << (bits - 1) if family == "int" else 0
+    g = K if group in (-1, None) else group
+    span = chunk * (512 // bits)
+
+    def segment(k0, k1):
+        a = A[:, k0:k1]
+        r = a.to(torch.int32).sum(dim=1, keepdim=True)
+        return matmul_dense_reference(a, f[:, k0:k1], torch.int32) - b * r, r
+
+    if scales is None:
+        out = torch.zeros((M, N), dtype=torch.int32, device=A.device)
+        for sp in range(splits):
+            out = out + segment(sp * span, min((sp + 1) * span, K))[0]
+        return _saturated(out, bias, out_dtype)
+    out = torch.zeros((M, N), dtype=torch.float32, device=A.device)
+    for sp in range(splits):
+        part = torch.zeros_like(out)
+        k, end = sp * span, min((sp + 1) * span, K)
+        while k < end:
+            k1 = min(end, (k // g + 1) * g)
+            d, r = segment(k, k1)
+            d, r = d.float(), r.float()
+            s = scales[k // g].float()[None]
+            if zeros is None:
+                v = d * s
+            elif zeros_mode == "rescale":
+                v = d * s - r * zeros[k // g].float()[None]
+            else:
+                v = (d - r * zeros[k // g].float()[None]) * s
+            part = part + v
+            k = k1
+        out = out + part
+    return _saturated(out, bias, out_dtype)
+
+
+def _check_int(A, qweight, w_dtype, scales, zeros, group, bias, zeros_mode,
+               out_dtype):
+    fmt = f"{w_dtype}xint8"
+    if fmt not in INT_FORMATS:
+        raise NotImplementedError(f"dequant_matmul_int does not run "
+                                  f"{w_dtype} x int8")
+    if A.dtype != torch.int8:
+        raise ValueError(f"A must be int8, got {A.dtype}")
+    if out_dtype not in _INT_OUT or (out_dtype == torch.int32
+                                     and scales is not None):
+        raise ValueError(f"out_dtype {out_dtype}: float32, float16, int8, "
+                         f"or int32 without scales")
+    return (fmt, *_check_quant(A, qweight, w_dtype, scales, zeros, group,
+                               bias, zeros_mode, torch.float16))
+
+
+def int_variant(fmt: str, kind: str, group: int, K: int, scaled: bool,
+                zeros_mode, bias: bool, out_dtype: torch.dtype) -> str:
+    """The name of a dequant_matmul_int launch's instance and options, as
+    `variant_launches` counts it: "uint4xint8 decode g128 zeros int8",
+    "int1xint8 tiled unscaled int32", ... (zeros_mode None: no zeros)."""
+    g = ("unscaled" if not scaled else "per_channel" if group == K
+         and group > GROUP else f"g{group}")
+    z = [] if zeros_mode is None else \
+        ["rescale" if zeros_mode == "rescale" else "zeros"]
+    return " ".join([fmt, kind, g] + z + (["bias"] if bias else [])
+                    + [str(out_dtype).split(".")[-1]])
+
+
+def dequant_matmul_int(A: torch.Tensor, qweight: torch.Tensor, w_dtype: str,
+                       scales=None, zeros=None, group: int = -1, tile=None,
+                       bias=None, zeros_mode: str = "original",
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """out [M, N] in `out_dtype` (float32, float16, int32 without scales,
+    or int8) for a `w_dtype` weight (uint1/2/4, int1/2/4) under int8
+    activations; see the module docstring for the layout. `scales` (and,
+    for the uint family, `zeros`) [K/g, N] float16 or None; `group` g (-1:
+    per channel); `tile` one of FUSED_TILES[f"{w_dtype}xint8"] (default:
+    default_tile); `bias` float32 [N] or [1, N]; `zeros_mode` "original"
+    ((w - z) s) or "rescale" (w s - z)."""
+    fmt, g, bits = _check_int(A, qweight, w_dtype, scales, zeros, group,
+                              bias, zeros_mode, out_dtype)
+    tile = _tile(fmt, A.shape[0], tile)
+    if A.device.type == "cpu":
+        return dequant_matmul_int_plain(A, qweight, w_dtype, scales, zeros,
+                                        g, bias, zeros_mode, out_dtype)
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    M, K = A.shape
+    N = qweight.shape[0]
+    mode = 0 if scales is None else 1 if zeros is None else \
+        3 if zeros_mode == "rescale" else 2
+    ptrs = [A.data_ptr(), qweight.data_ptr(),
+            scales.data_ptr() if scales is not None else 0,
+            zeros.data_ptr() if zeros is not None else 0,
+            bias.data_ptr() if bias is not None else 0]
+    out = torch.empty((M, N), dtype=out_dtype, device=A.device)
+    if M == 0:
+        return out
+    decode = tile == FUSED_TILES[fmt][0]
+    source = int_source(w_dtype)
+    kind = "decode" if decode else "tiled"
+    symbol = f"dqi_{source[len('dequant_int_'):]}_{kind}"
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if decode:
+            chunk, splits = plan_splits_k_int(M, N, K, bits,
+                                              scratch.sm_count(A.device))
+            part = count = None
+            if splits > 1:
+                part = scratch.partials(
+                    A.device, splits * M * N,
+                    torch.int32 if scales is None else torch.float32)
+                count = scratch.counters(
+                    A.device, -(-N // DECODE_BN) * -(-M // DECODE_BM))
+            fn = build.entry(source, symbol, _ARGTYPES_INT_DECODE)
+            err = fn(mode, *ptrs, out.data_ptr(), _INT_OUT[out_dtype],
+                     part.data_ptr() if part is not None else 0,
+                     count.data_ptr() if count is not None else 0, M, N, K,
+                     g, chunk, splits, stream)
+        else:
+            fn = build.entry(source, symbol, _ARGTYPES_INT_TILED)
+            err = fn(mode, *ptrs, out.data_ptr(), _INT_OUT[out_dtype], M, N,
+                     K, g, stream)
+    build.check(err, f"dequant_matmul_int {fmt}")
+    dequant_matmul_int.launches += 1
+    if decode:
+        dequant_matmul_int.decode_launches += 1
+    else:
+        dequant_matmul_int.tiled_launches += 1
+    for counts, key in (
+            (dequant_matmul_int.format_launches, fmt),
+            (dequant_matmul_int.variant_launches,
+             int_variant(fmt, kind, g, K, scales is not None,
+                         None if zeros is None else zeros_mode,
+                         bias is not None, out_dtype))):
+        counts[key] = counts.get(key, 0) + 1
+    return out
+
+
+dequant_matmul_int.launches = 0
+# among them, the decode instance's and the tiled instance's launches; and
+# every launch by format ("uint4xint8") and by instance and options
+# (int_variant)
+dequant_matmul_int.decode_launches = 0
+dequant_matmul_int.tiled_launches = 0
+dequant_matmul_int.format_launches = {}
+dequant_matmul_int.variant_launches = {}

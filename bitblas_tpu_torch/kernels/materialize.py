@@ -22,8 +22,12 @@ from M = 512, or in a bucket whose measured winner it is
   dense [N, K] weight the fused kernel's decode gives, bit for bit
   `dequantize_fmt_hopper`.
 * `weight_decode_int8` -- kernel 3's counterpart
-  (csrc/weight_decode_int8.cu): 2- or 4-bit int/uint fields -> int8 codes
-  [N, K], the int family minus its bias 2^(bits-1).
+  (csrc/weight_decode_int8.cu): 1-, 2- or 4-bit int/uint fields -> int8
+  codes [N, K], the int family minus its bias 2^(bits-1). Integer
+  activations take the plan, as in JAX, only without zeros and with at
+  most per-channel scales (`supports_materialize_spec`): the int32
+  product then taken to float32 times the float16 scale of each column;
+  forcing the plan on a grouped or zero-point configuration raises.
 * `materialize_matmul` -- decode, then the dense product
   (kernels/dense.dense_product): on the card `torch.matmul` (float16 in
   and out) or `torch._int_mm` (int8 in, int32 out). JAX computes both
@@ -60,7 +64,7 @@ from . import build
 from .dense import dense_product
 from .dequant_matmul import (FMT_FORMATS, GROUP, ZEROS_MODES,
                              dequantize_fmt_hopper, dequantize_hopper,
-                             fmt_entry, fused_format)
+                             fmt_entry, spec_format)
 from .spec import KernelSpec
 
 _ARGTYPES_U4 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -178,7 +182,7 @@ def weight_decode_fmt(qweight: torch.Tensor, w_dtype: str, a_dtype: str,
     A's type or none -> the dense [N, K] weight in `a_dtype` (float16 or
     bfloat16); K a multiple of 128; `group` g (-1: per channel), a
     multiple of 8 that divides K; `zeros_mode` original or rescale."""
-    fmt = fused_format(w_dtype, a_dtype)
+    fmt = f"{w_dtype}x{a_dtype}"
     if fmt not in FMT_FORMATS:
         raise NotImplementedError(f"weight_decode_fmt does not run "
                                   f"{w_dtype} -> {a_dtype}")
@@ -238,10 +242,10 @@ def weight_decode_int8_plain(qweight: torch.Tensor, bits: int = 2,
 def weight_decode_int8(qweight: torch.Tensor, bits: int = 2,
                        family: str = "int") -> torch.Tensor:
     """qweight [N, K*bits/32] int32 of `family` ("int" or "uint") fields
-    of `bits` (2 or 4) -> int8 codes [N, K]."""
-    if bits not in (2, 4) or family not in ("int", "uint"):
-        raise ValueError(f"int8 decode covers int/uint at 2 or 4 bits, got "
-                         f"{family}{bits}")
+    of `bits` (1, 2 or 4) -> int8 codes [N, K]."""
+    if bits not in (1, 2, 4) or family not in ("int", "uint"):
+        raise ValueError(f"int8 decode covers int/uint at 1, 2 or 4 bits, "
+                         f"got {family}{bits}")
     if qweight.dim() != 2:
         raise ValueError(f"qweight must be 2-D, got {qweight.shape}")
     N, K = qweight.shape[0], qweight.shape[1] * 32 // bits
@@ -258,35 +262,46 @@ def weight_decode_int8(qweight: torch.Tensor, bits: int = 2,
                  int(family == "int"), torch.cuda.current_stream().cuda_stream)
     build.check(err, "weight_decode_int8")
     weight_decode_int8.launches += 1
+    counts = weight_decode_int8.variant_launches
+    counts[f"{family}{bits}"] = counts.get(f"{family}{bits}", 0) + 1
     return out
 
 
 weight_decode_int8.launches = 0
+# the launches by format ("int2", "uint1", ...)
+weight_decode_int8.variant_launches = {}
 
 
 def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
                        qweight: torch.Tensor, scales=None,
                        zeros=None, bias=None) -> torch.Tensor:
     """A [M, K] -> out [M, N] through the two-pass plan for the ported
-    configurations: W2A8 (int8 codes, int32 sums cast to float32), W4A16
-    (float16 weight at the spec's group and zeros mode, float16 out) and
-    every other format with float activations (the weight in A's type;
+    configurations: integer activations (int8 codes, the int32 sums, times
+    the per-channel float16 scales in float32 where there are scales),
+    W4A16 (float16 weight at the spec's group and zeros mode, float16 out)
+    and every other format with float activations (the weight in A's type;
     out in A's type or float32); a float32 bias added to the product
-    before the cast."""
+    before the cast, which saturates for an int8 output."""
     if not supports_materialize_spec(spec):
         raise ValueError(f"materialize plan unsupported for {spec}")
     out_dtype = as_torch_dtype(spec.out_dtype)
     mode = "rescale" if spec.zeros_mode == "rescale" else "original"
     precision = "default"
-    if fused_format(spec.w_dtype, spec.a_dtype) in FMT_FORMATS:
+    if spec.is_int_activation:
+        out = dense_product(A, weight_decode_int8(qweight, spec.bits,
+                                                  spec.family), torch.int32)
+        if scales is not None:   # per channel: [1, N]
+            out = out.float() * scales.reshape(1, -1).float()
+        if bias is not None:
+            out = out.float() + bias.reshape(1, -1).float()
+        return numerics.saturate_cast(out, out_dtype)
+    if spec_format(spec) in FMT_FORMATS:
         W = weight_decode_fmt(qweight, spec.w_dtype, spec.a_dtype, scales,
                               zeros, spec.group_size, mode)
         if out_dtype == torch.float32:
             # a float16 / bfloat16 product would round its sums to A's
             # type first: the float32 product of the float32 copies
             A, W, precision = A.float(), W.float(), "highest"
-    elif spec.is_int_activation:
-        W = weight_decode_int8(qweight, spec.bits, spec.family)
     else:
         W = weight_decode_u4(qweight, scales, zeros, group=spec.group_size,
                              zeros_mode=mode)

@@ -7,12 +7,13 @@ dynamic-M Matmul through the global operator cache (loading the hint
 database first, tuning and saving when asked), owns the device-layout
 buffers, and repacks AutoGPTQ v1 / GPTQModel v2 checkpoints (the v1
 qzeros off-by-one included) with torch ops on its device. Any ported
-W_dtype runs (ops/matmul_config.PORTED: uint4 x float16, every other
-quantized format with float16 or bfloat16 activations, int2 x int8, the
-native pairs). Buffers: ``qweight`` [N, K*bits/32] int32 (or ``weight``
-[N, K] for a native A_dtype == W_dtype layer), ``scales`` and ``zeros``
-[K/g, N] in A's type (float16 for integer activations; quantized zeros
-are kept unpacked, as integers of that type), ``bias`` [1, N] float32.
+W_dtype runs (ops/matmul_config.PORTED: every quantized format with
+float16 or bfloat16 activations, uint1/2/4 and int1/2/4 with int8
+activations, the native pairs). Buffers: ``qweight`` [N, K*bits/32]
+int32 (or ``weight`` [N, K] for a native A_dtype == W_dtype layer),
+``scales`` and ``zeros`` [K/g, N] in A's type (float16 for integer
+activations; quantized zeros are kept unpacked, as integers of that
+type), ``bias`` [1, N] float32.
 """
 
 from __future__ import annotations

@@ -15,8 +15,10 @@ so there is no per-bucket compile and no bucket padding, and each call
 takes the hint of its M (ops/operator.py):
 
 * "fused": the dequant-GEMM kernel with the hint's tile instance
-  (kernels/dequant_matmul.py: dequant_matmul_u4, dequant_matmul_i2, or
-  dequant_matmul_fmt for the other formats);
+  (kernels/dequant_matmul.py: dequant_matmul_u4 for GPTQ's W4A16,
+  dequant_matmul_i2 for BitNet's W2A8, dequant_matmul_fmt for every other
+  float-activation configuration, dequant_matmul_int for every other
+  int8-activation one);
 * "materialize": decode the weight once, then the library product
   (kernels/materialize.py);
 * "dense": a native configuration's product (kernels/dense.py), every
@@ -38,9 +40,10 @@ import numpy as np
 import torch
 
 from ..kernels.dense import make_dense_matmul
-from ..kernels.dequant_matmul import (FMT_FORMATS, dequant_matmul_fmt,
-                                      dequant_matmul_i2, dequant_matmul_u4,
-                                      fused_format)
+from ..kernels.dequant_matmul import (FMT_FORMATS, INT_FORMATS,
+                                      dequant_matmul_fmt, dequant_matmul_i2,
+                                      dequant_matmul_int, dequant_matmul_u4,
+                                      spec_format)
 from ..kernels.materialize import materialize_matmul
 from ..kernels.spec import KernelSpec
 from ..quantization.formats import as_torch_dtype
@@ -180,12 +183,15 @@ class Matmul(Operator):
         if hint.decode_mode == "materialize":
             return materialize_matmul(self._spec, A, W, scale, zeros, bias)
         mode = "rescale" if cfg.zeros_mode == "rescale" else "original"
-        if fused_format(cfg.W_dtype, cfg.A_dtype) in FMT_FORMATS:
-            return dequant_matmul_fmt(
-                A, W, cfg.W_dtype, scale, zeros, cfg.effective_group_size,
-                tile=hint.tile, bias=bias, zeros_mode=mode,
-                out_dtype=as_torch_dtype(cfg.out_dtype))
-        if cfg.source_format == "int":
+        fmt = spec_format(self._spec)
+        if fmt in FMT_FORMATS + INT_FORMATS:
+            run = dequant_matmul_fmt if fmt in FMT_FORMATS \
+                else dequant_matmul_int
+            return run(A, W, cfg.W_dtype, scale, zeros,
+                       cfg.effective_group_size, tile=hint.tile, bias=bias,
+                       zeros_mode=mode,
+                       out_dtype=as_torch_dtype(cfg.out_dtype))
+        if fmt == "int2":
             return dequant_matmul_i2(A, W, tile=hint.tile)
         return dequant_matmul_u4(
             A, W, scale, zeros, cfg.effective_group_size, tile=hint.tile,
@@ -193,9 +199,8 @@ class Matmul(Operator):
 
     def forward(self, A: torch.Tensor, W: torch.Tensor, scale=None,
                 zeros=None, bias=None) -> torch.Tensor:
-        """A [..., K] (``t*`` layouts: [K, M]) -> [..., N]: float16 ->
-        float16 (W4A16), int8 -> float32 (W2A8), or the configuration's
-        out_dtype (every other format, native compute)."""
+        """A [..., K] (``t*`` layouts: [K, M]) -> [..., N] in the
+        configuration's out_dtype."""
         cfg = self.config
         if (cfg.with_scaling and scale is None) or \
                 (cfg.with_zeros and zeros is None):

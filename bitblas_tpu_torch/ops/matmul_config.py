@@ -1,23 +1,27 @@
 """MatmulConfig: the frozen dataclass that specifies a matmul operator
 (counterpart of bitblas_tpu/ops/matmul_config.py, same fields).
 
-The port runs these configurations (`PORTED`): the GPTQ W4A16 linear
-(uint4 weights, float16 activations and outputs, float32 accumulation,
-scales and zeros in groups of 32, 64 or 128, every multiple of 256 that
-divides K, or per channel (-1), zeros_mode "original", "rescale" or
-"quantized", with or without bias); every other quantized weight format
-with float16 or bfloat16 activations (`FLOAT_PAIRS`: uint1/2/4,
-int1/2/4/8, nf4, fp4_e2m1, e4m3 and e5m2 weights; scales in the same
-groups or none, zeros for the uint family only, a bias or none, the output
-in A's type or float32, float32 accumulation); the BitNet W2A8 linear that
-`models/bitnet.py` BitLinearInference builds (int2 weights, int8
-activations, int32 accumulation, float32 outputs, no scales or zeros, no
-bias), all layout "nt"; and the native dense configurations, A_dtype ==
-W_dtype in float16, bfloat16, float32 (out_dtype the same) or int8
-(out_dtype int32 or float32), in every layout, with or without bias. A
-native configuration accumulates in float32 for float operands and in
-int32 for int8 whatever `accum_dtype` says, as the JAX dense kernel does,
-and the field is legalized to that type. Every other configuration raises
+The port runs these configurations (`PORTED`), all layout "nt" but the
+native ones: every quantized weight format with float16 or bfloat16
+activations (`FLOAT_PAIRS` and uint4 x float16, GPTQ's W4A16 among them:
+uint1/2/4, int1/2/4/8, nf4, fp4_e2m1, e4m3 and e5m2 weights; scales in
+groups of 32, 64 or 128, every multiple of 256 that divides K, or per
+channel (-1), or none; zeros for the uint family only, in zeros_mode
+"original", "rescale" or "quantized", and only with scales; a bias or
+none; the output in A's type or float32, float32 accumulation); the
+integer column (`INT_PAIRS`: int8 activations with uint1/2/4 and int1/2/4
+weights, the BitNet W2A8 linear of models/bitnet.py among them: scales
+in the same groups or none, zeros for the uint family with scales, a
+bias or none, the output float32, float16, int32 (unscaled only: the
+exact sums) or int8 (saturating: rounded half to even, then clamped),
+int32 or float32 accumulation named, the kernels summing each group in
+int32 either way); and the native dense configurations, A_dtype ==
+W_dtype in float16, bfloat16, float32 (out_dtype the same) or int8, int4
+and uint4 (out_dtype int32 or float32; 4-bit operands held in int8), in
+every layout, with or without bias. A native configuration accumulates
+in float32 for float operands and in int32 for integer ones whatever
+`accum_dtype` says, as the JAX dense kernel does, and the field is
+legalized to that type. Every other configuration raises
 NotImplementedError, but zeros on int weights raise ValueError, as in JAX
 (the bias of the int family is their zero point); the JAX legalization
 rules then fill the derived fields (`fast_decoding` for sub-byte int /
@@ -73,14 +77,18 @@ def zeros_need_scaling(config) -> bool:
 zeros_need_scaling.describe = "False unless with_scaling"
 
 # The weight formats the port runs with each float activation besides
-# uint4 x float16 (GPTQ's, above): (A_dtype, W_dtype) pairs.
+# uint4 x float16 (GPTQ's, which has kernels of its own): (A_dtype,
+# W_dtype) pairs.
 FLOAT_PAIRS = tuple(
     [("float16", w) for w in ("uint2", "uint1", "int4", "int2", "int1",
                               "int8", "nf4", "fp4_e2m1", "e4m3_float8",
                               "e5m2_float8")]
     + [("bfloat16", w) for w in ("uint4", "int4", "nf4", "fp4_e2m1",
                                  "e4m3_float8", "int8", "uint2", "int2",
-                                 "uint1", "e5m2_float8")])
+                                 "uint1", "int1", "e5m2_float8")])
+# The integer column: int8 activations with sub-byte int / uint weights.
+INT_PAIRS = tuple(("int8", w) for w in ("uint1", "uint2", "uint4", "int1",
+                                        "int2", "int4"))
 
 
 def _float_pair(a: str, w: str) -> dict:
@@ -96,20 +104,38 @@ def _float_pair(a: str, w: str) -> dict:
                 zeros_with_scaling=zeros_need_scaling)
 
 
+def int32_out_unscaled(config) -> bool:
+    """An int32 output holds the exact sums: unscaled only (JAX's
+    OUT_MATRIX)."""
+    return config.out_dtype != "int32" or not config.with_scaling
+
+
+int32_out_unscaled.describe = "int32 only without scales"
+
+
+def _int_pair(w: str) -> dict:
+    family = DTYPE_MAP[w][0]
+    return dict(A_dtype="int8", W_dtype=w,
+                out_dtype=OneOf(("float32", "float16", "int32", "int8")),
+                accum_dtype=OneOf(("int32", "float32")),
+                group_size=gptq_group, with_scaling=OneOf((False, True)),
+                with_zeros=(OneOf((False, True)) if family == "uint"
+                            else False),
+                layout="nt",
+                zeros_mode=OneOf(("original", "rescale", "quantized")),
+                with_bias=OneOf((False, True)),
+                zeros_with_scaling=zeros_need_scaling,
+                int32_out=int32_out_unscaled)
+
+
 PORTED = (
-    dict(A_dtype="float16", W_dtype="uint4", out_dtype="float16",
-         accum_dtype="float32", group_size=gptq_group, with_scaling=True,
-         with_zeros=True, layout="nt",
-         zeros_mode=OneOf(("original", "rescale", "quantized")),
-         with_bias=OneOf((False, True))),
-    dict(A_dtype="int8", W_dtype="int2", out_dtype="float32",
-         accum_dtype="int32", group_size=-1, with_scaling=False,
-         with_zeros=False, layout="nt", zeros_mode="original",
-         with_bias=False),
+    _float_pair("float16", "uint4"),
+    *(_int_pair(w) for _, w in INT_PAIRS),
     *(dict(A_dtype=dt, W_dtype=dt, out_dtype=dt, accum_dtype="float32",
            **_DENSE) for dt in ("float16", "bfloat16", "float32")),
-    *(dict(A_dtype="int8", W_dtype="int8", out_dtype=out,
-           accum_dtype="int32", **_DENSE) for out in ("int32", "float32")),
+    *(dict(A_dtype=dt, W_dtype=dt, out_dtype=out, accum_dtype="int32",
+           **_DENSE) for dt in ("int8", "int4", "uint4")
+      for out in ("int32", "float32")),
     *(_float_pair(a, w) for a, w in FLOAT_PAIRS),
 )
 
@@ -211,11 +237,13 @@ class MatmulConfig(OperatorConfig):
         native = self.is_native_compute()
         if native:
             object.__setattr__(self, "accum_dtype",
-                               "int32" if self.A_dtype == "int8"
+                               "int32" if self.A_dtype in ("int8", "int4",
+                                                           "uint4")
                                else "float32")
         family, bits = source_format_and_bits(self.W_dtype)
         if (family == "int" and self.with_zeros
-                and (self.A_dtype, self.W_dtype) in FLOAT_PAIRS):
+                and (self.A_dtype, self.W_dtype) in FLOAT_PAIRS
+                + INT_PAIRS):
             # JAX's rule: the int family's bias is its zero point
             raise ValueError(
                 "with_zeros is unsupported for signed int weights "

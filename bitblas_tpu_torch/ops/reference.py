@@ -12,8 +12,11 @@ Inputs use the reference checkpoint layouts of the JAX package:
   bias    : [N]
 
 `dequantize_weight` is bit-exact against the JAX function; the
-contraction accumulates in float32. The dequant kernel's plain version
-(kernels/dequant_matmul.py) decodes the Hopper layout and then runs
+contraction accumulates in float32, or exactly in int32 for integer
+activations on unscaled integer codes (a float32 weight of integer
+activations, scaled, contracts in float32 as JAX's does). The dequant
+kernel's plain version (kernels/dequant_matmul.py) decodes the Hopper
+layout and then runs
 `matmul_dense_reference`, so both share this arithmetic.
 """
 
@@ -53,9 +56,14 @@ def dequantize_weight(config: MatmulConfig, qweight, scales=None,
     reference's formulas) in A's type, then ``(w - zeros) * scales``
     (rescale: ``w * scales - zeros``; quantized: ``(q - z)`` in the
     integer domain, cast, times scales), each op in A's type, or the int
-    codes as they are for integer activations."""
+    values as they are for integer activations; with scales or zeros the
+    weight of integer activations is float32 (JAX's rule: the kernel
+    scales exact integer sums in a float32 epilogue)."""
     qweight = _tensor(qweight)
     adt = as_torch_dtype(config.A_dtype)
+    if not adt.is_floating_point and (config.with_scaling
+                                      or config.with_zeros):
+        adt = torch.float32
     g, K, N = config.effective_group_size, config.K, config.N
     fields = reference_codes(config, qweight)
     if config.with_zeros and config.zeros_mode == "quantized":

@@ -6,9 +6,10 @@ reference's ``BITBLAS_TRICK_DTYPE_MAP``. The whole map is kept so that a
 config naming a format this port does not run yet fails with
 NotImplementedError (ops/matmul_config.py) rather than "unknown dtype";
 the kernels of this package run uint1/2/4, int1/2/4/8, nf4, fp4_e2m1 and
-fp8 e4m3 / e5m2 weights with float16 or bfloat16 activations, int2
-weights with int8 activations, and the dense route the native pairs
-float16, bfloat16, float32 and int8.
+fp8 e4m3 / e5m2 weights with float16 or bfloat16 activations, uint1/2/4
+and int1/2/4 weights with int8 activations, and the dense route the
+native pairs float16, bfloat16, float32, int8, int4 and uint4 (4-bit
+operands held in int8, as the JAX package holds them).
 """
 
 from __future__ import annotations
@@ -52,6 +53,9 @@ TORCH_DTYPES = {
     "int16": torch.int16,
     "int8": torch.int8,
     "uint8": torch.uint8,
+    # 4-bit activations of the native pairs, one value an int8
+    "int4": torch.int8,
+    "uint4": torch.int8,
 }
 
 

@@ -30,7 +30,7 @@ from typing import List
 
 from ..kernels.dense import DENSE_TILES, dense_smem_bytes
 from ..kernels.dequant_matmul import (FUSED_TILES, default_tile,
-                                      fused_format, fused_smem_bytes)
+                                      fused_smem_bytes, spec_format)
 from ..kernels.materialize import supports_materialize_spec
 from ..kernels.spec import KernelSpec
 from ..quantization.formats import as_torch_dtype
@@ -43,12 +43,6 @@ MATERIALIZE_MIN_M = 512
 MATERIALIZE_TUNE_MIN_M = 256
 
 
-def _fused_format(spec: KernelSpec) -> str:
-    """The key of a ported quantized spec's fused instances ("uint4",
-    "int2", or "<W>x<A>" for dequant_matmul_fmt's formats)."""
-    return fused_format(spec.w_dtype, spec.a_dtype)
-
-
 def _bytes(dtype: str) -> int:
     return as_torch_dtype(dtype).itemsize
 
@@ -57,7 +51,7 @@ def smem_bytes(spec: KernelSpec, hint: TileHint) -> int:
     """Shared memory one block of the hint's kernel takes (0 for the
     library routes)."""
     if hint.decode_mode == "fused":
-        return fused_smem_bytes(_fused_format(spec), hint.tile,
+        return fused_smem_bytes(spec_format(spec), hint.tile,
                                 spec.group_size)
     if hint.decode_mode == "dense" and hint.block_n > 0:
         return dense_smem_bytes(as_torch_dtype(spec.a_dtype), hint.tile)
@@ -132,7 +126,7 @@ def default_hint(spec: KernelSpec, arch: TileDevice) -> TileHint:
         return _dense_hint(spec)
     if spec.m >= MATERIALIZE_MIN_M and supports_materialize_spec(spec):
         return MATERIALIZE
-    return TileHint("fused", *default_tile(_fused_format(spec), spec.m))
+    return TileHint("fused", *default_tile(spec_format(spec), spec.m))
 
 
 def enumerate_hints(spec: KernelSpec, arch: TileDevice) -> List[TileHint]:
@@ -145,7 +139,7 @@ def enumerate_hints(spec: KernelSpec, arch: TileDevice) -> List[TileHint]:
     if spec.native:
         return [first]
     hints = [TileHint("fused", *tile)
-             for tile in FUSED_TILES[_fused_format(spec)]]
+             for tile in FUSED_TILES[spec_format(spec)]]
     hints = [h for h in hints if h != first
              and smem_bytes(spec, h) <= arch.smem_per_block
              and spec.n % h.block_n == 0]

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --bitnet-tuned-ab   # only serve_bitnet against
                                               # serve_bitnet_tuned, in turns
     python3 chip_smoke.py --formats           # only the formats phase
+    python3 chip_smoke.py --int-formats       # only the int_formats phase
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -55,7 +56,7 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                the decode kernels at head dim 256, GQA groups 16 and 12
                and on float16 caches; each against its plain version, two
                calls bit-equal.
-3b'. formats -- kernels 1 and 2 for the twenty other (A, W) pairs with
+3b'. formats -- kernels 1 and 2 for the 21 other (A, W) pairs with
                float16 / bfloat16 activations (uint1/2/4, int1/2/4/8, nf4,
                fp4_e2m1, e4m3, e5m2; ops/matmul_config.FLOAT_PAIRS): a
                module.Linear for each pair at Llama-2-7B's MLP shapes
@@ -79,6 +80,30 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                plain, library (torch.matmul on the decoded weight) and the
                timer floor, and each format's route table (M = 256 / 512 /
                2048). `--formats` runs this phase alone.
+3b''. int_formats -- kernel 1's integer column (int8 activations with
+               uint1/2/4 at Llama-2-7B's MLP, N = 11008, and int1/2/4 at
+               W2A8's N = 14336, K = 4096; ops/matmul_config.INT_PAIRS):
+               per format a module.Linear unscaled (int32 out), per
+               channel (float16 / float32 out) and at g = 128 with a bias
+               (uint also zeros; saturating int8 out), QuantLinear(bits =
+               1 / 2 / 4, A_dtype="int8"), and uint4 x float16's
+               other layers (unscaled, scales without zeros, float32
+               out); the
+               main path (each Linear at M = 4 / 256 / 2048, the last on
+               materialize where allowed) counted as in the formats
+               phase (every format's decode and tiled instances, kernel
+               3 at 1 bit, uint4 x float16's instances and kernel 2 must
+               launch); then the decode instance bit-equal to its split
+               plain version, unscaled (int32) outputs bit-equal on every
+               route, scaled ones within one ulp of the float32 plain
+               version or nearer a float64 truth, int8 within 1 after
+               saturation, two calls bit-equal; kernel 3 on every code of
+               the six formats bit-equal; timed rows (decode M = 4, tiled
+               M = 256 on the g = 128 layers, kernel 3 at 1 bit, uint4 x
+               float16's instances and kernel 2) beside bound, stream,
+               plain and library (torch._int_mm on pre-decoded codes);
+               the route table of each per-channel layer. `--int-formats`
+               runs this phase alone.
 3c. gptq_golden -- the committed AutoGPTQ golden (g = 64) repacked, v1
                and v2, into module.Linear (zeros mode quantized) and
                QuantLinear on the card: dequantized weights bit-equal, the
@@ -2474,6 +2499,480 @@ def check_formats(torch, flush, floor_ms):
     return rows, launches
 
 
+# The int_formats phase: int8 activations with each uint / int weight of
+# ops/matmul_config.INT_PAIRS, uint at Llama-2-7B's MLP (N, K) and int at
+# Llama-3-8B's W2A8 up projection (BitNet's widths), and QuantLinear's
+# int8 layers at 4096 -> 11008.
+INT_SHAPES = {"uint": (11008, 4096), "int": (14336, 4096)}
+
+
+def _int_truth(torch, A, qw, w_dtype, sc, zr, g, mode, bias):
+    """The float64 sums of A and the weight (v - z) s (rescale v s - z)
+    (the integer column's plain version contracts a float32 weight)."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    K = A.shape[1]
+    v = dq.decode_int_hopper(qw, w_dtype, torch.float64)
+    s = sc.T.double().repeat_interleave(g, dim=1)[:, :K]
+    W = v * s
+    if zr is not None:
+        z = zr.T.double().repeat_interleave(g, dim=1)[:, :K]
+        W = W - z if mode == "rescale" else (v - z) * s
+    del v, s
+    out = A.double() @ W.T
+    return out if bias is None else out + bias.double().reshape(1, -1)
+
+
+def _int_close(torch, out, ref, truth) -> dict:
+    """The integer column's tolerance of a scaled output against its plain
+    version: int8 within 1 after saturation; a float output within one
+    ulp of the float32 plain version, or nearer the float64 truth than it
+    is. Returns the readings, with "ok"."""
+    from bitblas_tpu_torch.testing import out_ulps
+    if out.dtype == torch.int8:
+        d = (out.int() - ref.int()).abs().max().item()
+        return {"ok": d <= 1, "int8_diff": d}
+    ulps = out_ulps(out, ref)
+    e_out = (out.double() - truth).abs().max().item()
+    e_ref = (ref.double() - truth).abs().max().item()
+    return {"ok": ulps <= 1 or e_out <= e_ref, "ulps": ulps,
+            "err_vs_f64": e_out, "plain_err_vs_f64": e_ref}
+
+
+def _int_layers(torch, gen):
+    """The int_formats phase's layers, built on the card (untuned: M <= 16
+    the decode instance, up to 511 the tiled one, from 512 materialize
+    where allowed) from reference-layout operands drawn from a seed: for
+    each INT_PAIRS weight three module.Linear(A_dtype="int8") layers,
+    unscaled (int32 out), per channel (uint float16 out, int float32 out)
+    and g = 128 with a bias (uint also zeros, original mode; saturating
+    int8 out); QuantLinear(bits, A_dtype="int8") at 4096 -> 11008, g =
+    128, from pack(); and uint4 x float16's layers beyond GPTQ's options
+    (unscaled, scales without zeros, zeros with float32 out)."""
+    from bitblas_tpu_torch.integration.pytorch import QuantLinear
+    from bitblas_tpu_torch.module import Linear
+    from bitblas_tpu_torch.ops.matmul_config import INT_PAIRS
+    from bitblas_tpu_torch.quantization.formats import source_format_and_bits
+    g = FORMAT_GROUP
+    layers = []
+    for _, w_dtype in INT_PAIRS:
+        family, bits = source_format_and_bits(w_dtype)
+        N, K = INT_SHAPES[family]
+        lo = -(1 << (bits - 1)) if family == "int" else 0
+        codes = torch.randint(lo, lo + (1 << bits), (N, K), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        for kind in ("unscaled", "per_channel", "g128"):
+            G = K // g if kind == "g128" else 1
+            sc = (torch.rand((N, G), generator=gen, device="cuda") * 0.01
+                  + 0.005).half() if kind != "unscaled" else None
+            zr = (torch.randint(0, 1 << bits, (N, G), generator=gen,
+                                device="cuda").half()
+                  if kind == "g128" and family == "uint" else None)
+            bias = (torch.randn(N, generator=gen, device="cuda") * 4
+                    if kind == "g128" else None)
+            out = {"unscaled": "int32", "g128": "int8"}.get(
+                kind, "float16" if family == "uint" else "float32")
+            lin = Linear(K, N, bias=bias is not None, A_dtype="int8",
+                         W_dtype=w_dtype, out_dtype=out,
+                         group_size=g if kind == "g128" else -1,
+                         with_scaling=sc is not None,
+                         with_zeros=zr is not None,
+                         zeros_mode="original" if zr is not None else None,
+                         opt_M=list(FORMAT_MS), enable_tuning=False,
+                         device="cuda")
+            lin.load_and_transform_weight(codes, scales=sc, zeros=zr,
+                                          bias=bias)
+            layers.append((w_dtype, kind, N, K, lin))
+        del codes
+    quant = []
+    for bits in (1, 2, 4):
+        N, K = INT_SHAPES["uint"]   # 4096 -> 11008
+        s = torch.rand((N, K // g), generator=gen, device="cuda") * 0.02 \
+            + 0.01
+        z = torch.randint(0, 1 << bits, (N, K // g), generator=gen,
+                          device="cuda").float()
+        q = torch.randint(0, 1 << bits, (N, K), generator=gen,
+                          device="cuda").float()
+        gi = torch.arange(K, device="cuda") // g
+        fake = torch.nn.Linear(K, N, bias=True, device="cuda")
+        fake.weight.data = (q - z[:, gi]) * s[:, gi]
+        fake.bias.data = torch.randn(N, generator=gen, device="cuda")
+        ql = QuantLinear(bits, g, K, N, bias=True, A_dtype="int8",
+                         device="cuda")
+        ql.pack(fake, s, z)
+        quant.append((bits, ql))
+    u4f16 = []
+    N, K = INT_SHAPES["uint"]
+    codes = torch.randint(0, 16, (N, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    for kind, out, scaled, zeros in (("unscaled", "float16", False, False),
+                                     ("scales", "float16", True, False),
+                                     ("zeros_f32", "float32", True, True)):
+        sc = (torch.rand((N, K // g), generator=gen, device="cuda") * 0.01
+              + 0.005).half() if scaled else None
+        zr = torch.randint(0, 16, (N, K // g), generator=gen,
+                           device="cuda").half() if zeros else None
+        lin = Linear(K, N, A_dtype="float16", W_dtype="uint4", out_dtype=out,
+                     group_size=g if scaled else -1, with_scaling=scaled,
+                     with_zeros=zeros,
+                     zeros_mode="original" if zeros else None,
+                     opt_M=list(FORMAT_MS), enable_tuning=False,
+                     device="cuda")
+        lin.load_and_transform_weight(codes, scales=sc, zeros=zr)
+        u4f16.append((kind, N, K, lin))
+    return layers, quant, u4f16
+
+
+def check_int_formats(torch, flush, floor_ms):
+    """The int_formats phase. First the main path alone: the launch
+    counters of dequant_matmul_int, weight_decode_int8 (by format),
+    dequant_matmul_fmt and weight_decode_fmt set to 0, each integer-column
+    Linear forward at M = 4 / 256 / 2048, each QuantLinear(A_dtype="int8")
+    and each of uint4 x float16's other Linears at M = 4 / 256 / 2048,
+    the counters read: every format's decode and tiled instances, kernel 3
+    at 1 bit, and uint4 x float16's decode and tiled instances and kernel 2
+    must have launched. Then, outside that count, each output against its
+    plain version on the card: the decode instance bit-equal to its split
+    plain version; unscaled outputs (int32) bit-equal to the plain
+    version on every route; scaled ones `_int_close` (int8 within 1, float
+    within one ulp or nearer the float64 truth); uint4 x float16 within
+    one ulp (the materialize plan one ulp or ROUTE_TOL); two calls
+    bit-equal; kernel 3 on every code of the six formats bit-equal; the
+    timed rows (M = 4: the decode instance, M = 256: the tiled one, on the
+    g = 128 layer; kernel 3 at 1 bit; uint4 x float16's instances and
+    kernel 2 on its scales-only layer) with bound (bytes A + N K b / 8 + 2
+    N K / g a scale or zero tensor + bias + out over 3.35 TB/s, operations
+    2 M N K over 1979 TOP/s int8 or 989 TFLOP/s f16), stream_ms, the plain
+    version and the library call (torch._int_mm on the pre-decoded int8
+    codes, A padded to 17 rows as dense_product pads it: for the scaled
+    rows it leaves out the scales, less work than the kernel does;
+    torch.matmul on the decoded weight for uint4 x float16), and the route
+    table of each per-channel layer (fused against materialize at M = 256
+    / 512 / 2048)."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    from bitblas_tpu_torch.kernels import materialize as mz
+    from bitblas_tpu_torch.kernels.spec import KernelSpec
+    from bitblas_tpu_torch.quantization import packing
+    from bitblas_tpu_torch.testing import out_ulps
+    ik, wd8 = dq.dequant_matmul_int, mz.weight_decode_int8
+    fk, wdf = dq.dequant_matmul_fmt, mz.weight_decode_fmt
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    t0 = time.perf_counter()
+    layers, quant, u4f16 = _int_layers(torch, gen)
+    ins = {(K, M): torch.randint(-64, 64, (M, K), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+           for K in {K for *_, K, _ in layers} for M in FORMAT_MS}
+    fins = {M: torch.randn((M, 4096), generator=gen, device="cuda").half()
+            for M in FORMAT_MS}
+    build_s = time.perf_counter() - t0
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    for c in (ik, wd8, fk, wdf):
+        c.launches = 0
+    for c in (ik, fk):
+        c.decode_launches = c.tiled_launches = 0
+        c.format_launches.clear()
+        c.variant_launches.clear()
+    wd8.variant_launches.clear()
+    wdf.format_launches.clear()
+    outs = {}
+    for w_dtype, kind, N, K, lin in layers:
+        for M in FORMAT_MS:
+            outs[(w_dtype, kind, M)] = lin(ins[(K, M)])
+    qouts = {(bits, M): ql(ins[(4096, M)].float())
+             for bits, ql in quant for M in (4, 256)}
+    fouts = {(kind, M): lin(fins[M]) for kind, _, _, lin in u4f16
+             for M in FORMAT_MS}
+    torch.cuda.synchronize()
+    launches = {}
+    for key, n in ik.variant_launches.items():
+        fmt, kind = key.split()[:2]
+        name = f"dequant_matmul_int {kind} {fmt}"
+        launches[name] = launches.get(name, 0) + n
+    for key, n in fk.variant_launches.items():
+        fmt, kind = key.split()[:2]
+        name = f"dequant_matmul_fmt {kind} {fmt}"
+        launches[name] = launches.get(name, 0) + n
+    for fmt, n in wdf.format_launches.items():
+        launches[f"weight_decode_fmt {fmt}"] = n
+    launches["weight_decode_int8 1bit"] = sum(
+        n for k, n in wd8.variant_launches.items() if k.endswith("1"))
+    want = [f"dequant_matmul_int {k} {w}xint8" for w in
+            {w for w, *_ in layers} for k in ("decode", "tiled")]
+    want += ["weight_decode_int8 1bit",
+             "dequant_matmul_fmt decode uint4xfloat16",
+             "dequant_matmul_fmt tiled uint4xfloat16",
+             "weight_decode_fmt uint4xfloat16"]
+    missing = sorted(k for k in want if launches.get(k, 0) <= 0)
+    if missing:
+        raise AssertionError(f"int_formats: not launched: {missing}")
+    emit({"phase": "int_formats_main_path", "layers": len(layers),
+          "quant_linears": len(quant), "uint4_f16_layers": len(u4f16),
+          "build_s": build_s, "launches": launches,
+          "weight_decode_int8": dict(wd8.variant_launches),
+          "decode_launches": ik.decode_launches,
+          "tiled_launches": ik.tiled_launches})
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for w_dtype, kind, N, K, lin in layers:
+        fmt = f"{w_dtype}xint8"
+        cfg = lin.bitblas_matmul.config
+        qw, sc, zr, b = lin.qweight, lin.scales, lin.zeros, lin.bias
+        g = cfg.effective_group_size
+        odt = getattr(torch, cfg.out_dtype)
+        args = (qw, w_dtype, sc, zr, g, b, "original", odt)
+        for M in FORMAT_MS:
+            A = ins[(K, M)]
+            out = outs[(w_dtype, kind, M)]
+            again = lin(A)
+            route = lin.bitblas_matmul.hint_for(M).decode_mode
+            decode = route == "fused" and M <= 16
+            ref = (dq.dequant_matmul_int_split_plain(A, *args, sms=sms)
+                   if decode else dq.dequant_matmul_int_plain(A, *args))
+            torch.cuda.synchronize()
+            row = {"phase": "int_formats", "format": fmt, "layer": kind,
+                   "M": M, "N": N, "K": K, "out": cfg.out_dtype,
+                   "route": route,
+                   "instance": "decode" if decode else "tiled"
+                   if route == "fused" else None}
+            if decode or sc is None:
+                ok = torch.equal(out, ref)
+                row["bit_equal"] = ok
+            else:
+                truth = _int_truth(torch, A, qw, w_dtype, sc, zr, g, None,
+                                   b)
+                row.update(_int_close(torch, out, ref, truth))
+                ok = row.pop("ok")
+                del truth
+            row["max_abs_err"] = (out.double() - ref.double()).abs().max() \
+                .item()
+            if not (ok and torch.equal(out, again)):
+                raise AssertionError(f"int_formats {fmt} {kind} M={M}: "
+                                     f"{row}, two calls equal "
+                                     f"{torch.equal(out, again)}")
+            emit(row)
+            rows.append(row)
+    # kernel 1's instances timed on the g = 128 layers
+    for w_dtype, kind, N, K, lin in layers:
+        if kind != "g128":
+            continue
+        fmt = f"{w_dtype}xint8"
+        bits = lin.bits
+        qw, sc, zr, b = lin.qweight, lin.scales, lin.zeros, lin.bias
+        g = FORMAT_GROUP
+        codes = dq.decode_int_hopper(qw, w_dtype)
+        wbytes = N * K * bits / 8 + 2 * (K // g) * N * (2 if zr is not None
+                                                        else 1) + 4 * N
+        for M, inst in ((4, "decode"), (256, "tiled")):
+            A = ins[(K, M)]
+            tile = dq.FUSED_TILES[fmt][0 if inst == "decode" else 1]
+            Apad = torch.nn.functional.pad(A, (0, 0, 0, max(0, 17 - M)))
+            nbytes = M * K + wbytes + M * N
+            b_ms, b_by = bound(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
+            err = max(r["max_abs_err"] for r in rows if r["format"] == fmt
+                      and r.get("instance") == inst)
+            row = {"phase": "int_formats", "format": fmt, "kernel": inst,
+                   "tile": list(tile), "M": M, "N": N, "K": K, "group": g,
+                   "zeros": zr is not None, "out": "int8", "bias": True,
+                   "max_abs_err": err,
+                   "kernel_ms": time_ms(torch, lambda: ik(
+                       A, qw, w_dtype, sc, zr, g, tile=tile, bias=b,
+                       out_dtype=torch.int8), 20, flush),
+                   "plain_ms": time_ms(torch, lambda: dq
+                                       .dequant_matmul_int_plain(
+                                           A, qw, w_dtype, sc, zr, g, b,
+                                           "original", torch.int8), 3,
+                                       flush),
+                   "library_ms": time_ms(torch, lambda: torch._int_mm(
+                       Apad, codes.T), 20, flush),
+                   "stream_ms": time_ms(torch, _stream(torch, nbytes), 20,
+                                        flush),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "timer_floor_ms": floor_ms}
+            emit(row)
+            rows.append(row)
+        del codes
+    # QuantLinear(bits, A_dtype="int8") against its plain version
+    for bits, ql in quant:
+        inner = ql.inner
+        for M in (4, 256):
+            A = ins[(4096, M)]
+            out = qouts[(bits, M)]
+            args = (inner.qweight, f"uint{bits}", inner.scales, inner.zeros,
+                    ql.group_size, inner.bias, "original", torch.int8)
+            ref = (dq.dequant_matmul_int_split_plain(A, *args, sms=sms)
+                   if M <= 16 else dq.dequant_matmul_int_plain(A, *args))
+            torch.cuda.synchronize()
+            d = (out.int() - ref.int()).abs().max().item()
+            if not (d <= (0 if M <= 16 else 1)
+                    and torch.equal(out, ql(A.float()))):
+                raise AssertionError(f"QuantLinear(bits={bits}, int8) M={M}: "
+                                     f"{d} from the plain version")
+            emit({"phase": "int_formats", "quant_linear_bits": bits,
+                  "A_dtype": "int8", "M": M, "N": ql.out_features,
+                  "K": ql.in_features, "int8_diff": d})
+    # uint4 x float16 beyond GPTQ's options
+    for kind, N, K, lin in u4f16:
+        qw, sc, zr = lin.qweight, lin.scales, lin.zeros
+        cfg = lin.bitblas_matmul.config
+        g = cfg.effective_group_size
+        odt = getattr(torch, cfg.out_dtype)
+        for M in FORMAT_MS:
+            A = fins[M]
+            out = fouts[(kind, M)]
+            route = lin.bitblas_matmul.hint_for(M).decode_mode
+            if route == "fused" and M <= 16:
+                ref = dq.dequant_matmul_fmt_split_plain(
+                    A, qw, "uint4", sc, zr, g, out_dtype=odt, sms=sms)
+            else:
+                ref = dq.dequant_matmul_fmt_plain(A, qw, "uint4", sc, zr, g,
+                                                  out_dtype=odt)
+            torch.cuda.synchronize()
+            ulps = out_ulps(out, ref)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = ulps <= 1 or (route == "materialize"
+                               and err <= 4e-3 * ref.float().abs().max())
+            if not (ok and torch.equal(out, lin(A))):
+                raise AssertionError(f"uint4xfloat16 {kind} M={M} ({route}):"
+                                     f" {ulps} ulps, {err}")
+            row = {"phase": "int_formats", "format": "uint4xfloat16",
+                   "layer": kind, "M": M, "N": N, "K": K,
+                   "out": cfg.out_dtype, "route": route, "ulps": ulps,
+                   "max_abs_err": err}
+            emit(row)
+            rows.append(row)
+        if kind != "scales":
+            continue
+        Wd = mz.weight_decode_fmt_plain(qw, "uint4", "float16", sc, None, g)
+        wbytes = N * K / 2 + 2 * (K // g) * N
+        for M, inst in ((4, "decode"), (256, "tiled")):
+            A = fins[M]
+            tile = dq.FUSED_TILES["uint4xfloat16"][0 if inst == "decode"
+                                                   else 1]
+            nbytes = M * K * 2 + wbytes + M * N * 2
+            b_ms, b_by = bound(nbytes, 2.0 * M * N * K)
+            row = {"phase": "int_formats", "format": "uint4xfloat16",
+                   "kernel": inst, "tile": list(tile), "M": M, "N": N,
+                   "K": K, "group": g,
+                   "max_abs_err": max(r["max_abs_err"] for r in rows
+                                      if r["format"] == "uint4xfloat16"
+                                      and r.get("layer") == kind),
+                   "kernel_ms": time_ms(torch, lambda: fk(
+                       A, qw, "uint4", sc, None, g, tile=tile), 20, flush),
+                   "plain_ms": time_ms(torch, lambda: dq
+                                       .dequant_matmul_fmt_plain(
+                                           A, qw, "uint4", sc, None, g), 3,
+                                       flush),
+                   "library_ms": time_ms(torch, lambda: torch.matmul(
+                       A, Wd.T), 20, flush),
+                   "stream_ms": time_ms(torch, _stream(torch, nbytes), 20,
+                                        flush),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "timer_floor_ms": floor_ms}
+            emit(row)
+            rows.append(row)
+        dec = wdf(qw, "uint4", "float16", sc, None, g)
+        torch.cuda.synchronize()
+        if not torch.equal(dec, Wd):
+            raise AssertionError("uint4xfloat16: kernel 2's weight differs")
+        nbytes = wbytes + N * K * 2
+        b_ms, b_by = bound(nbytes, 0.0)
+        row = {"phase": "int_formats", "format": "uint4xfloat16",
+               "kernel": "weight_decode", "N": N, "K": K, "group": g,
+               "max_abs_err": 0.0,
+               "kernel_ms": time_ms(torch, lambda: wdf(
+                   qw, "uint4", "float16", sc, None, g), 20, flush),
+               "plain_ms": time_ms(torch, lambda: mz.weight_decode_fmt_plain(
+                   qw, "uint4", "float16", sc, None, g), 3, flush),
+               "library_ms": None,
+               "stream_ms": time_ms(torch, _stream(torch, nbytes), 20, flush),
+               "bound_ms": b_ms, "bound_by": b_by, "timer_floor_ms": floor_ms}
+        emit(row)
+        rows.append(row)
+        del Wd, dec
+
+    # kernel 3 on every code of the six formats, and its 1-bit row timed
+    codes_ok = []
+    for family in ("uint", "int"):
+        for bits in (1, 2, 4):
+            codes = (torch.arange(64, device="cuda")[:, None] * 3
+                     + torch.arange(1024, device="cuda")[None, :]) \
+                % (1 << bits)
+            qw = packing.pack_k(codes, bits)
+            got = wd8(qw, bits, family)
+            ref = mz.weight_decode_int8_plain(qw, bits, family)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, ref)
+                    and got.unique().numel() == 1 << bits):
+                raise AssertionError(f"{family}{bits}: kernel 3 on every "
+                                     f"code differs from the plain decode")
+            codes_ok.append(f"{family}{bits}")
+    emit({"phase": "int_formats_every_code", "formats": codes_ok})
+    N, K = INT_SHAPES["int"]
+    qw = _words(torch, gen, (N, K // 32))
+    got = wd8(qw, 1, "int")
+    ref = mz.weight_decode_int8_plain(qw, 1, "int")
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("kernel 3 at 1 bit differs from its plain "
+                             "version")
+    nbytes = N * K / 8 + N * K
+    b_ms, b_by = bound(nbytes, 0.0)
+    row = {"phase": "int_formats", "format": "int1", "kernel": "1bit",
+           "N": N, "K": K, "max_abs_err": 0.0,
+           "kernel_ms": time_ms(torch, lambda: wd8(qw, 1, "int"), 20, flush),
+           "plain_ms": time_ms(torch, lambda: mz.weight_decode_int8_plain(
+               qw, 1, "int"), 3, flush),
+           "library_ms": None,
+           "stream_ms": time_ms(torch, _stream(torch, nbytes), 20, flush),
+           "bound_ms": b_ms, "bound_by": b_by, "timer_floor_ms": floor_ms}
+    emit(row)
+    rows.append(row)
+    del got, ref, qw
+
+    # the route table of each per-channel layer
+    for w_dtype, kind, N, K, lin in layers:
+        if kind != "per_channel":
+            continue
+        fmt = f"{w_dtype}xint8"
+        spec = KernelSpec.from_config(lin.bitblas_matmul.config, 512)
+        qw, sc = lin.qweight, lin.scales
+        odt = getattr(torch, spec.out_dtype)
+        for M in (256, 512, 2048):
+            A = torch.randint(-64, 64, (M, K), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            tile = dq.default_tile(fmt, M)
+            a = ik(A, qw, w_dtype, sc, None, K, tile=tile, out_dtype=odt)
+            b = mz.materialize_matmul(spec, A, qw, sc)
+            ref = dq.dequant_matmul_int_plain(A, qw, w_dtype, sc, None, K,
+                                              out_dtype=odt)
+            truth = _int_truth(torch, A, qw, w_dtype, sc, None, K, None,
+                               None)
+            torch.cuda.synchronize()
+            ca = _int_close(torch, a, ref, truth)
+            cb = _int_close(torch, b, ref, truth)
+            del truth
+            row = {"phase": "int_route", "format": fmt, "M": M, "N": N,
+                   "K": K, "out": spec.out_dtype, "fused_tile": list(tile),
+                   "fused_ok": ca["ok"], "materialize_ok": cb["ok"],
+                   "fused_ms": time_ms(torch, lambda: ik(
+                       A, qw, w_dtype, sc, None, K, tile=tile,
+                       out_dtype=odt), 20, flush),
+                   "materialize_ms": time_ms(
+                       torch, lambda: mz.materialize_matmul(spec, A, qw, sc),
+                       20, flush)}
+            row["faster"] = ("materialize" if row["materialize_ms"]
+                             < row["fused_ms"] else "fused")
+            if not (ca["ok"] and cb["ok"]):
+                raise AssertionError(f"int route {fmt} M={M}: {row}")
+            emit(row)
+    del layers, quant, u4f16, outs, qouts, fouts, ins, fins
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "gptq_golden_256x256_g64.npz")
 
@@ -2753,7 +3252,7 @@ def main() -> int:
 
     mode = sys.argv[1:]
     if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"],
-                    ["--formats"]):
+                    ["--formats"], ["--int-formats"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -2791,6 +3290,9 @@ def main() -> int:
     if mode == ["--formats"]:
         check_formats(torch, flush, floor_ms)
         return 0
+    if mode == ["--int-formats"]:
+        check_int_formats(torch, flush, floor_ms)
+        return 0
     dq = check_dequant(torch, flush)
     di2 = check_dequant_i2(torch, flush)
     wd_u4, wd_i8 = check_weight_decode(torch, flush)
@@ -2804,6 +3306,7 @@ def main() -> int:
     dense = check_dense(torch, flush)
     check_edges(torch)
     fmt_rows, fmt_launches = check_formats(torch, flush, floor_ms)
+    int_rows, int_launches = check_int_formats(torch, flush, floor_ms)
     # the layers of the GPTQ phases keep their hint database in a
     # temporary directory (never the user's), and their operators leave
     # the global cache when the phases end
@@ -2931,8 +3434,9 @@ def main() -> int:
     # each format's decode and tiled instances and its kernel 2, launched
     # by the formats phase (no model serves them: 0 in the serve phases)
     from bitblas_tpu_torch.kernels import dequant_matmul as dq
-    for fmt in dq.FMT_FORMATS:
-        w_dtype, a_dtype = dq.split_format(fmt)
+    from bitblas_tpu_torch.ops.matmul_config import FLOAT_PAIRS, INT_PAIRS
+    for a_dtype, w_dtype in FLOAT_PAIRS:
+        fmt = f"{w_dtype}x{a_dtype}"
         src = dq.fmt_source(w_dtype, a_dtype) + ".cu"
         k1 = "dequant_matmul.py:231"
         for kind, M, name, rep in (
@@ -2950,6 +3454,39 @@ def main() -> int:
                 f"x {a_dtype}, g128" + (" zeros" if w_dtype.startswith("uint")
                                         else "")))
     launches.update(fmt_launches)
+    # the int_formats phase: kernel 1's integer-column instances (each
+    # format's decode and tiled rows, g = 128, int8 out), kernel 3 at 1
+    # bit, and uint4 x float16's instances beyond GPTQ's options
+    k1, k3 = "dequant_matmul.py:231", "materialize.py:398"
+    for a_dtype, w_dtype in INT_PAIRS:
+        fmt = f"{w_dtype}x{a_dtype}"
+        for kind, M in (("decode", 4), ("tiled", 256)):
+            rows = [r for r in int_rows if r["format"] == fmt
+                    and r.get("kernel") == kind]
+            summary.append((
+                f"dequant_matmul_int {kind} {fmt}",
+                "dequant_wgmma.cuh" if kind == "tiled"
+                else dq.int_source(w_dtype) + ".cu", k1, rows,
+                pick(rows, M=M),
+                f"M={M} N={rows[0]['N']} K={rows[0]['K']} {w_dtype} x int8, "
+                f"g128, {'zeros, ' if w_dtype[0] == 'u' else ''}bias, "
+                f"int8 out"))
+    rows = [r for r in int_rows if r.get("kernel") == "1bit"]
+    summary.append(("weight_decode_int8 1bit", "weight_decode_int8.cu", k3,
+                    rows, rows[0], "N=14336 K=4096 int1 -> int8"))
+    for kind, name, src, rep in (
+            ("decode", "dequant_matmul_fmt decode", "dequant_fmt_uint_f16.cu",
+             k1),
+            ("tiled", "dequant_matmul_fmt tiled", "dequant_wgmma.cuh", k1),
+            ("weight_decode", "weight_decode_fmt", "dequant_fmt_uint_f16.cu",
+             "materialize.py:227")):
+        rows = [r for r in int_rows if r["format"] == "uint4xfloat16"
+                and r.get("kernel") == kind]
+        summary.append((f"{name} uint4xfloat16", src, rep, rows, rows[0],
+                        "N=11008 K=4096 uint4 x float16, g128, no zeros"
+                        + ("" if kind == "weight_decode"
+                           else f", M={rows[0]['M']}")))
+    launches.update(int_launches)
     # kernel 1's wrappers: their decode and tiled instances' launches apart
     split_counts = {
         wrapper: {"decode_launches": launches[DECODE[fmt]],

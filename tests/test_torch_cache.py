@@ -89,6 +89,38 @@ def test_database_roundtrip(tmp_path):
         assert torch.equal(op.forward(A, W, S, Z), op2.forward(A, W, S, Z))
 
 
+def test_int8_operator_roundtrip(tmp_path):
+    """A tuned int8 x uint4 operator (grouped scales, int8 out): its hints
+    (the tiled instance at M = 1, the decode instance at 256) saved and
+    loaded back, and the reloaded operator's forwards equal the tuned
+    one's."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    cfg = MatmulConfig(M=[1, 256], N=256, K=256, A_dtype="int8",
+                       W_dtype="uint4", with_scaling=True, group_size=64,
+                       out_dtype="int8")
+    decode, tiled = dq.FUSED_TILES["uint4xint8"]
+    op = Matmul(cfg, device="cpu")
+    op.apply_hints({1: TileHint("fused", *tiled),
+                    256: TileHint("fused", *decode)})
+    cache = OperatorCache()
+    cache.add(cfg, op)
+    cache.save_into_database(str(tmp_path), target="cpu")
+    cache2 = OperatorCache()
+    assert cache2.load_from_database(str(tmp_path), target="cpu") == 1
+    op2 = cache2.get(cfg)
+    assert op2.hints == op.hints and not op2.tuned_hints
+    assert op2.hint_for(1).tile == tiled and op2.hint_for(200).tile == decode
+    rng = np.random.default_rng(3)
+    W, S = op.transform_weight(
+        rng.integers(0, 16, (256, 256)).astype(np.int8),
+        scale=(rng.random((256, 4)) * 0.05).astype(np.float16))
+    for m in (1, 200):
+        A = torch.from_numpy(rng.integers(-64, 64, (m, 256)).astype(np.int8))
+        out = op2.forward(A, W, S)
+        assert out.dtype == torch.int8
+        assert torch.equal(op.forward(A, W, S), out)
+
+
 def test_only_tuned_buckets_are_persisted(tmp_path):
     cfg = _cfg(M=(1, 16, 256))
     op = Matmul(cfg, device="cpu")

@@ -27,7 +27,15 @@ and a bias, kernel 2 at those groups, and the refusal of a group no
 instance takes; kernel 1 (both instances) and kernel 2 for the 20 other
 float-activation pairs (`FLOAT_PAIRS`) at every group, zeros mode, bias
 and output type, every code of each format, either instance at any M,
-and two of them tuned.
+and two of them tuned; kernel 1's integer column (`INT_PAIRS`: int8
+activations with uint1/2/4 and int1/2/4 weights) on both instances at
+every group, zeros mode, bias and output type (float32, float16, int32,
+int8), K tails and N = 136, M = 1, 16, 17 and 256 (the decode instance
+bit-equal to its split plain version, the tiled one bit-equal unscaled
+and, scaled, within one ulp of the plain version or nearer a float64
+truth, int8 within 1), ties at the int8 output rounding to even as the
+plain version rounds them, every code through one-hot activations,
+either instance at any M, and kernel 3 at 1 bit.
 """
 
 import math
@@ -126,7 +134,8 @@ def test_weight_decode_u4_matches_plain(dev, dtype, N, K):
     assert out.dtype == dtype and torch.equal(out, ref)     # bit for bit
 
 
-@pytest.mark.parametrize("bits,family", [(2, "int"), (2, "uint"), (4, "int"),
+@pytest.mark.parametrize("bits,family", [(1, "int"), (1, "uint"),
+                                         (2, "int"), (2, "uint"), (4, "int"),
                                          (4, "uint")])
 @pytest.mark.parametrize("N,K", [(1024, 4160), (14336, 4096)])
 def test_weight_decode_int8_matches_plain(dev, bits, family, N, K):
@@ -1054,8 +1063,13 @@ _FMT_SHAPES = ((136, 1408, 32), (136, 1408, 64), (136, 1408, 128),
                (136, 1408, 1408), (256, 1536, 256), (256, 1536, 512))
 
 
+# dequant_matmul_fmt's pairs: FLOAT_PAIRS and uint4 x float16 beyond
+# GPTQ's options
+_FMT_PAIRS = FLOAT_PAIRS + (("float16", "uint4"),)
+
+
 @pytest.mark.parametrize("a_dtype,w_dtype", [
-    pytest.param(a, w, id=f"{w}x{a}") for a, w in FLOAT_PAIRS])
+    pytest.param(a, w, id=f"{w}x{a}") for a, w in _FMT_PAIRS])
 def test_dequant_matmul_fmt_matches_plain(dev, a_dtype, w_dtype):
     """Kernel 1 for each of the new (A, W) pairs on both instances: M = 3
     and 16 on the split-K decode instance (one f16 / bf16 / f32 ulp of
@@ -1067,7 +1081,7 @@ def test_dequant_matmul_fmt_matches_plain(dev, a_dtype, w_dtype):
     from bitblas_tpu_torch.kernels import dequant_matmul as dq
     from bitblas_tpu_torch.testing import out_ulps
     adt = _FMT_TORCH[a_dtype]
-    fmt = dq.fused_format(w_dtype, a_dtype)
+    fmt = f"{w_dtype}x{a_dtype}"
     gen = torch.Generator(device=dev)
     gen.manual_seed(len(fmt))
     f = dq.dequant_matmul_fmt
@@ -1113,7 +1127,7 @@ def test_dequant_matmul_fmt_matches_plain(dev, a_dtype, w_dtype):
 
 
 @pytest.mark.parametrize("a_dtype,w_dtype", [
-    pytest.param(a, w, id=f"{w}x{a}") for a, w in FLOAT_PAIRS])
+    pytest.param(a, w, id=f"{w}x{a}") for a, w in _FMT_PAIRS])
 def test_fmt_every_code_decodes_as_plain(dev, a_dtype, w_dtype):
     """Every code of each format, unscaled and scaled: kernel 2's decoded
     weight bit-equal to the plain one (NaN codes decode to NaN), and kernel
@@ -1175,7 +1189,7 @@ def test_fmt_instances_take_any_m(dev, a_dtype, w_dtype):
     from bitblas_tpu_torch.kernels import dequant_matmul as dq
     from bitblas_tpu_torch.testing import out_ulps
     adt = _FMT_TORCH[a_dtype]
-    fmt = dq.fused_format(w_dtype, a_dtype)
+    fmt = f"{w_dtype}x{a_dtype}"
     gen = torch.Generator(device=dev)
     gen.manual_seed(40)
     N, K, g = 264, 1536, 64
@@ -1191,3 +1205,225 @@ def test_fmt_instances_take_any_m(dev, a_dtype, w_dtype):
         torch.cuda.synchronize()
         assert torch.equal(out, again)
         assert out_ulps(out, ref) <= 1, (M, tile)
+
+
+# -- the integer column (dequant_matmul_int) ----------------------------------
+
+# (N, K, group): a ragged last N tile, K tails past the last whole step of
+# every width (K = 1408: 2.75 steps of 512, 11 of 128), GPTQ's groups
+_INT_SHAPES = ((136, 1408, 64), (136, 1408, 128), (136, 1408, 1408),
+               (256, 1536, 32), (256, 1536, 512))
+
+
+def _int_truth(A, qw, w_dtype, sc, zr, g, mode, bias):
+    """The float64 sums of A and the weight (v - z) s (rescale v s - z)."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    K = A.shape[1]
+    v = dq.decode_int_hopper(qw, w_dtype, torch.float64)
+    s = sc.T.double().repeat_interleave(g, dim=1)[:, :K]
+    W = v * s
+    if zr is not None:
+        z = zr.T.double().repeat_interleave(g, dim=1)[:, :K]
+        W = W - z if mode == "rescale" else (v - z) * s
+    out = A.double() @ W.T
+    return out if bias is None else out + bias.double()[None]
+
+
+def _int_close(out, ref, truth):
+    """int8: within 1 of the plain version; a float output within one ulp
+    of it, or nearer the float64 truth than it is."""
+    from bitblas_tpu_torch.testing import out_ulps
+    if out.dtype == torch.int8:
+        return (out.int() - ref.int()).abs().max().item() <= 1
+    if out_ulps(out, ref) <= 1:
+        return True
+    return ((out.double() - truth).abs().max()
+            <= (ref.double() - truth).abs().max()).item()
+
+
+@pytest.mark.parametrize("w_dtype", ["uint1", "uint2", "uint4", "int1",
+                                     "int2", "int4"])
+def test_dequant_matmul_int_matches_plain(dev, w_dtype):
+    """Kernel 1 for int8 activations on both instances: M = 1 and 16 on the
+    split-K decode instance, bit-equal to the split plain version; M = 17
+    and 256 on the tiled one, bit-equal to the plain version unscaled,
+    scaled `_int_close`; unscaled (float32, float16, int32, int8 outputs,
+    a bias), scaled (float32, float16, int8, a bias), uint also with
+    zeros original and rescale; two calls bit-equal, each launch counted
+    by instance and format."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    fmt = f"{w_dtype}xint8"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(w_dtype))
+    f = dq.dequant_matmul_int
+    for N, K, g in _INT_SHAPES:
+        qw, family, bits = _fmt_words(gen, dev, w_dtype, N, K)
+        sc = (torch.rand((K // g, N), generator=gen, device=dev) * 0.01
+              + 0.005).half()
+        zr = torch.randint(0, 1 << bits, (K // g, N), generator=gen,
+                           device=dev).half()
+        bias = torch.randn(N, generator=gen, device=dev) * 4
+        opts = [dict(out_dtype=t) for t in (torch.float32, torch.float16,
+                                            torch.int32, torch.int8)]
+        opts += [dict(bias=bias, out_dtype=torch.int8),
+                 dict(scales=sc), dict(scales=sc, out_dtype=torch.float16),
+                 dict(scales=sc, bias=bias, out_dtype=torch.int8)]
+        if family == "uint":
+            opts += [dict(scales=sc, zeros=zr, bias=bias),
+                     dict(scales=sc, zeros=(zr * sc).half(),
+                          zeros_mode="rescale", out_dtype=torch.int8)]
+        for kw in opts:
+            if "scales" not in kw and g != K:
+                continue   # unscaled: the group changes nothing
+            for M in (1, 16, 17, 256):
+                A = torch.randint(-32, 32, (M, K), generator=gen, device=dev,
+                                  dtype=torch.int64).to(torch.int8)
+                before = (f.launches, f.decode_launches, f.tiled_launches,
+                          f.format_launches.get(fmt, 0))
+                out = f(A, qw, w_dtype, group=g, **kw)
+                again = f(A, qw, w_dtype, group=g, **kw)
+                decode = M <= 16
+                args = (A, qw, w_dtype, kw.get("scales"), kw.get("zeros"), g,
+                        kw.get("bias"), kw.get("zeros_mode", "original"),
+                        kw.get("out_dtype", torch.float32))
+                ref = (dq.dequant_matmul_int_split_plain if decode
+                       else dq.dequant_matmul_int_plain)(*args)
+                torch.cuda.synchronize()
+                assert (f.launches, f.decode_launches, f.tiled_launches,
+                        f.format_launches[fmt]) == (
+                    before[0] + 2, before[1] + 2 * decode,
+                    before[2] + 2 * (not decode), before[3] + 2)
+                assert torch.equal(out, again)
+                assert out.dtype == ref.dtype
+                what = (N, K, g, sorted(kw), M)
+                if decode or "scales" not in kw:
+                    assert torch.equal(out, ref), what
+                else:
+                    truth = _int_truth(A, qw, w_dtype, kw["scales"],
+                                       kw.get("zeros"), g,
+                                       kw.get("zeros_mode"), kw.get("bias"))
+                    assert _int_close(out, ref, truth), what
+
+
+@pytest.mark.parametrize("w_dtype", ["uint1", "uint2", "uint4", "int1",
+                                     "int2", "int4"])
+def test_int_every_code_reads_back(dev, w_dtype):
+    """Every code of each weight through one-hot int8 activations: out[m,
+    n] = v[n, k_m] (int32, exactly) on both instances, the codes cycling
+    through every value along N and K; and with unit scales (float32
+    out) the same values."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    from bitblas_tpu_torch.quantization import packing
+    from bitblas_tpu_torch.quantization.formats import source_format_and_bits
+    bits = source_format_and_bits(w_dtype)[1]
+    N, K, g = 256, 1024, 64
+    codes = (torch.arange(N, device=dev)[:, None] * 7
+             + torch.arange(K, device=dev)[None, :]) % (1 << bits)
+    qw = packing.pack_k(codes, bits)
+    v = dq.decode_int_hopper(qw, w_dtype, torch.int32)
+    assert v.unique().numel() == 1 << bits
+    ones = torch.ones((K // g, N), device=dev, dtype=torch.float16)
+    for M in (16, 64):
+        ks = torch.arange(M, device=dev) * (K // M) + M % 7
+        A = torch.zeros((M, K), device=dev, dtype=torch.int8)
+        A[torch.arange(M), ks] = 1
+        out = dq.dequant_matmul_int(A, qw, w_dtype, out_dtype=torch.int32)
+        scaled = dq.dequant_matmul_int(A, qw, w_dtype, ones, None, g)
+        torch.cuda.synchronize()
+        assert torch.equal(out, v[:, ks].T), M
+        assert torch.equal(scaled, v[:, ks].T.float()), M
+
+
+@pytest.mark.parametrize("w_dtype", ["uint4", "int1"])
+def test_int_instances_take_any_m(dev, w_dtype):
+    """A tuned hint may name either instance at any M: the decode instance
+    at M = 40 (three M tiles of 16) bit-equal to its split plain version,
+    the tiled instance at M = 5 `_int_close` to the plain version."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    fmt = f"{w_dtype}xint8"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    N, K, g = 264, 1536, 128
+    qw, _, _ = _fmt_words(gen, dev, w_dtype, N, K)
+    sc = (torch.rand((K // g, N), generator=gen, device=dev) * 0.01
+          + 0.005).half()
+    for M, tile in ((40, dq.FUSED_TILES[fmt][0]), (5, dq.INT_TILED_TILE)):
+        A = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int8)
+        out = dq.dequant_matmul_int(A, qw, w_dtype, sc, None, g, tile=tile)
+        again = dq.dequant_matmul_int(A, qw, w_dtype, sc, None, g, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        if M == 40:
+            ref = dq.dequant_matmul_int_split_plain(A, qw, w_dtype, sc, None,
+                                                    g)
+            assert torch.equal(out, ref)
+        else:
+            ref = dq.dequant_matmul_int_plain(A, qw, w_dtype, sc, None, g)
+            truth = _int_truth(A, qw, w_dtype, sc, None, g, None, None)
+            assert _int_close(out, ref, truth)
+
+
+def test_matmul_int_routes(dev):
+    """Untuned Matmul routes of an int8 x uint2 layer: the decode instance
+    at M = 16, the tiled one at 17, materialize from 512 where the
+    configuration allows it (per channel, no zeros; kernel 3 then
+    torch._int_mm), and the fused kernel at 512 where it does not
+    (grouped); each as its plain version."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    N, K = 1024, 2048
+    qw = _words(gen, dev, N, K // 16)
+    for group in (-1, 128):
+        g = K if group == -1 else group
+        pm = Matmul(MatmulConfig(N=N, K=K, A_dtype="int8", W_dtype="uint2",
+                                 with_scaling=True, group_size=group,
+                                 out_dtype="float32"), device=dev,
+                    enable_tuning=False)
+        sc = (torch.rand((K // g, N), generator=gen, device=dev) * 0.01
+              + 0.005).half()
+        A = torch.randint(-64, 64, (512, K), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int8)
+        for m, route in ((16, "decode"), (17, "tiled"),
+                         (512, "materialize" if group == -1 else "tiled")):
+            f = dq.dequant_matmul_int
+            before = (f.decode_launches, f.tiled_launches,
+                      weight_decode_int8.launches)
+            out = pm.forward(A[:m], qw, scale=sc)
+            torch.cuda.synchronize()
+            after = (f.decode_launches, f.tiled_launches,
+                     weight_decode_int8.launches)
+            delta = tuple(a - b for a, b in zip(after, before))
+            assert delta == {"decode": (1, 0, 0), "tiled": (0, 1, 0),
+                             "materialize": (0, 0, 1)}[route], (group, m)
+            ref = dq.dequant_matmul_int_plain(A[:m], qw, "uint2", sc, None,
+                                              g)
+            truth = _int_truth(A[:m], qw, "uint2", sc, None, g, None, None)
+            assert _int_close(out, ref, truth), (group, m)
+
+
+def test_int8_output_rounds_ties_to_even(dev):
+    """Scales of 0.5 make every odd integer sum a tie (k + 0.5, exact in
+    float32): both instances' saturating int8 outputs (cvt.rni, then the
+    clamp) equal the plain version's torch.round bit for bit, ties and
+    clamped outputs included."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    N, K = 256, 2048
+    qw = _words(gen, dev, N, K // 16)
+    sc = torch.full((1, N), 0.5, device=dev, dtype=torch.float16)
+    for M in (16, 64):
+        A = torch.randint(-2, 3, (M, K), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int8)
+        d = dq.dequant_matmul_int_plain(A, qw, "uint2",
+                                        out_dtype=torch.int32)
+        assert ((d % 2 != 0) & (d.abs() < 255)).sum() > 100
+        assert (d.abs() > 256).any()
+        out = dq.dequant_matmul_int(A, qw, "uint2", sc, None, K,
+                                    out_dtype=torch.int8)
+        ref = dq.dequant_matmul_int_plain(A, qw, "uint2", sc, None, K,
+                                          out_dtype=torch.int8)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), M

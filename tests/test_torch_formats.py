@@ -168,7 +168,7 @@ def test_config_legalizes_as_jax(a_dtype, w_dtype):
 
 
 @pytest.mark.parametrize("a_dtype,w_dtype", [
-    ("bfloat16", "int1"), ("int8", "uint4"), ("int8", "nf4"),
+    ("bfloat16", "int16"), ("int8", "uint8"), ("int8", "nf4"),
     ("float16", "int16"), ("e4m3_float8", "e5m2_float8")])
 def test_outside_the_slice_is_refused_by_name(a_dtype, w_dtype):
     JaxMatmulConfig(N=64, K=256, A_dtype=a_dtype, W_dtype=w_dtype)
@@ -365,9 +365,9 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError, match="zeros"):
         dq.dequant_matmul_fmt(A, torch.zeros((64, 32), dtype=torch.int32),
                               "nf4", s, s, group=128)
-    with pytest.raises(NotImplementedError, match="int1 x bfloat16"):
+    with pytest.raises(NotImplementedError, match="uint8 x bfloat16"):
         dq.dequant_matmul_fmt(A.bfloat16(), torch.zeros(
-            (64, 8), dtype=torch.int32), "int1")
+            (64, 64), dtype=torch.int32), "uint8")
     with pytest.raises(ValueError, match="scales"):
         dq.dequant_matmul_fmt(A, qw, "uint2", s.float(), group=128)
     with pytest.raises(ValueError, match="out_dtype"):

@@ -381,3 +381,90 @@ def test_tune_all_fills_the_cache_and_saves(tmp_path):
     assert ops[cfgs[0]] is first and set(ops) == set(cfgs)
     assert all(global_operator_cache.get(c) is ops[c] for c in cfgs)
     assert (tmp_path / "tuned" / "cpu").is_dir()
+
+
+INT_FORMATS = ("uint1", "uint2", "uint4", "int1", "int2", "int4")
+
+
+def _int_layer_kw(w_dtype):
+    """An int8-activation layer of each kind: uint with zeros (original),
+    g = 64, a bias, saturating int8 out; the int family unscaled (JAX's
+    transform_weight takes no scales for it): int32 out (int2), float16
+    out and a bias (int4), saturating int8 out (int1)."""
+    if w_dtype.startswith("uint"):
+        return dict(with_scaling=True, with_zeros=True,
+                    zeros_mode="original", group_size=64, bias=True,
+                    out_dtype="int8")
+    return {"int2": dict(accum_dtype="int32", out_dtype="int32"),
+            "int4": dict(bias=True, out_dtype="float16"),
+            "int1": dict(out_dtype="int8")}[w_dtype]
+
+
+def _int_operands(seed, w_dtype, kw):
+    """Reference-layout operands of an int8-activation layer: codes (uint)
+    or values (int) [N, K], scales [N, K/g] f16, integer zeros [N, K/g],
+    bias [N], A int8 [5, K]."""
+    rng = np.random.default_rng(seed)
+    bits = int(w_dtype[-1])
+    lo = -(1 << (bits - 1)) if w_dtype.startswith("int") else 0
+    codes = rng.integers(lo, lo + (1 << bits), (N, K)).astype(np.int8)
+    g = kw.get("group_size", K)
+    scales = (rng.standard_normal((N, K // g)) * 0.01 + 0.05).astype(
+        np.float16) if kw.get("with_scaling") else None
+    zeros = rng.integers(0, 1 << bits, (N, K // g)).astype(np.float16) \
+        if kw.get("with_zeros") else None
+    b = (rng.standard_normal(N) * 4).astype(np.float32) \
+        if kw.get("bias") else None
+    A = rng.integers(-64, 64, (5, K)).astype(np.int8)
+    return codes, scales, zeros, b, A
+
+
+@pytest.mark.parametrize("w_dtype", INT_FORMATS)
+def test_int8_linear_matches_jax(w_dtype):
+    """module.Linear(A_dtype="int8") for every weight of the integer
+    column against JAX's Linear on the same operands through
+    load_and_transform_weight: int32 outputs bit-equal, saturating int8
+    ones within 1 (JAX's kernel scales exact integer sums, the port's
+    plain version contracts a float32 weight), float16 ones at TOL."""
+    kw = dict(A_dtype="int8", W_dtype=w_dtype, opt_M=[1, 16],
+              enable_tuning=False, **_int_layer_kw(w_dtype))
+    codes, scales, zeros, b, A = _int_operands(len(w_dtype), w_dtype, kw)
+    jl, pl = JaxLinear(K, N, **kw), Linear(K, N, device="cpu", **kw)
+    for lin in (jl, pl):
+        lin.load_and_transform_weight(codes, scales=scales, zeros=zeros,
+                                      bias=b)
+    for m in (1, 5):
+        got = pl(torch.from_numpy(A[:m]))
+        want = np.asarray(jl(jnp.asarray(A[:m])))
+        assert str(got.dtype) == f"torch.{kw['out_dtype']}"
+        if kw["out_dtype"] == "int32":
+            np.testing.assert_array_equal(got.numpy(), want)
+        elif kw["out_dtype"] == "int8":
+            assert np.abs(got.numpy().astype(np.int32)
+                          - want.astype(np.int32)).max() <= 1
+        else:
+            assert_close(got, want, **TOL)
+
+
+def test_int8_linear_checkpoint_round_trip(tmp_path):
+    """An int8 x uint2 layer (zeros, bias, int8 out) loaded through
+    load_and_transform_weight, saved to an npz checkpoint and loaded into
+    a new layer: the same buffers and outputs, bit for bit."""
+    from bitblas_tpu_torch.module.checkpoint import (load_quant_state,
+                                                     save_quant_state)
+    kw = dict(A_dtype="int8", W_dtype="uint2", opt_M=[16],
+              enable_tuning=False, **_int_layer_kw("uint2"))
+    codes, scales, zeros, b, A = _int_operands(12, "uint2", kw)
+    pl = Linear(K, N, device="cpu", **kw)
+    pl.load_and_transform_weight(codes, scales=scales, zeros=zeros, bias=b)
+    assert pl.qweight.dtype == torch.int32 and \
+        tuple(pl.qweight.shape) == (N, K // 16)
+    assert pl.scales.dtype == pl.zeros.dtype == torch.float16
+    path = str(tmp_path / "int8")
+    save_quant_state(path, {"l0": dict(pl.state_dict())})
+    fresh = Linear(K, N, device="cpu", **kw)
+    fresh.load_state_dict(load_quant_state(path, device="cpu")["l0"])
+    for name, t in pl.state_dict().items():
+        assert torch.equal(fresh.state_dict()[name], t), name
+    x = torch.from_numpy(A)
+    assert torch.equal(fresh(x), pl(x))

@@ -240,8 +240,8 @@ def test_w2a8_config_is_legal_and_legalized():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("with_scaling", True), ("out_dtype", "int8"), ("W_dtype", "uint4"),
-    ("layout", "nn"), ("accum_dtype", "float32")])
+    ("group_size", 48), ("out_dtype", "bfloat16"), ("W_dtype", "nf4"),
+    ("layout", "nn"), ("accum_dtype", "float16")])
 def test_w2a8_config_rejects_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError):
         MatmulConfig(**dict(I2, **{field: value}))

@@ -118,8 +118,8 @@ def test_unpack_nslot_reads_the_jax_device_layout():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("A_dtype", "int8"), ("W_dtype", "int16"), ("group_size", 96),
-    ("with_zeros", False), ("with_scaling", False), ("layout", "nn")])
+    ("A_dtype", "uint8"), ("W_dtype", "int16"), ("group_size", 96),
+    ("out_dtype", "int8"), ("with_scaling", False), ("layout", "nn")])
 def test_config_rejects_what_is_not_ported(field, value):
     kw = dict(CFG, **{field: value})
     with pytest.raises(NotImplementedError):

@@ -126,13 +126,42 @@ def test_state_dict_round_trip():
     assert torch.equal(fresh(x), pq(x))
 
 
-@pytest.mark.parametrize("bits", [1, 2])
-def test_low_bits_not_ported(bits):
-    """uint1 / uint2 run with float activations; with int8 activations
-    (the integer column of the support matrix) they are not ported yet."""
-    with pytest.raises(NotImplementedError, match=f"uint{bits}"):
-        QuantLinear(bits, 64, IN, OUT, bias=False, A_dtype="int8",
-                    device="cpu")
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_int8_activations_match_jax(bits, bias):
+    """QuantLinear(bits, A_dtype="int8"), as JAX builds it (uint codes with
+    zeros, grouped, int8 output saturating): pack() the same fake-quantized
+    layer on both, buffers bit-equal, forwards on integer-valued
+    activations (a float input is taken to int8) bit-equal, saturated
+    outputs included."""
+    rng = np.random.default_rng(bits)
+    g = 64
+    scales = torch.from_numpy(rng.uniform(0.01, 0.05, (OUT, IN // g))
+                              .astype(np.float32))
+    zeros = torch.from_numpy(rng.integers(0, 1 << bits, (OUT, IN // g))
+                             .astype(np.float32))
+    codes = rng.integers(0, 1 << bits, (OUT, IN)).astype(np.float32)
+    gi = np.arange(IN) // g
+    lin = torch.nn.Linear(IN, OUT, bias=bias)
+    lin.weight.data = torch.from_numpy(
+        (codes - zeros.numpy()[:, gi]) * scales.numpy()[:, gi])
+    if bias:
+        lin.bias.data = torch.from_numpy(rng.standard_normal(OUT).astype(
+            np.float32) * 4)
+    kw = dict(bits=bits, group_size=g, in_features=IN, out_features=OUT,
+              bias=bias, enable_tuning=False, A_dtype="int8")
+    jq, pq = JaxQuantLinear(**kw), QuantLinear(device="cpu", **kw)
+    assert pq.inner.bitblas_matmul.config.out_dtype == "int8"
+    jq.pack(lin, scales, zeros)
+    pq.pack(lin, scales, zeros)
+    for name in ("qweight", "scales", "zeros") + (("bias",) if bias else ()):
+        assert torch.equal(getattr(pq, name), getattr(jq, name)), name
+    x = torch.from_numpy(rng.integers(-40, 40, (2, 3, IN)).astype(
+        np.float32))
+    got, want = pq(x), jq(x)
+    assert got.dtype == x.dtype and got.shape == (2, 3, OUT)
+    assert torch.equal(got, want)
+    assert got.abs().max() == 128 or bits < 4   # uint4 saturates here
 
 
 def test_quantlinear_rejects_unsupported():
