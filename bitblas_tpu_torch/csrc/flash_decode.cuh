@@ -1,7 +1,7 @@
 // The decode-attention kernel shared by flash_decode{,_quant,_paged,
 // _paged_quant}.cu: one query token per sequence against a KV cache.
 //
-//   q      [B, H, D]  float16 (D = 128 or 256)
+//   q      [B, H, D]  float16 or bfloat16 (D = 128 or 256)
 //   K, V   bfloat16, float16 or int8 codes, rows of [Hkv, D], held either as
 //          the slot cache [rows, Smax, Hkv, D] (row of key t of sequence b:
 //          slots[b] * Smax + t) or as the block pool [blocks, bs, Hkv, D]
@@ -9,7 +9,10 @@
 //   scales (int8 only) f32, one per row and KV head: [rows, Smax, Hkv] or
 //          [blocks, bs, Hkv], read as stored
 //   lengths [B] int32, valid keys (counting the token just appended)
-//   out    [B, H, D]  float16
+//   out    [B, H, D]  q's type
+//   window  0, or the sliding window W >= 1 of the slot cache kernels:
+//          the query at position len - 1 attends keys [max(len - W, 0),
+//          len) (the JAX package's convention, kv_cache.py:805-808)
 //   part   f32 scratch [B, Hkv, splits, group, D + 2] (unnormalised
 //          accumulator, then m and l), allocated by the wrapper; unused
 //          when splits == 1
@@ -28,8 +31,20 @@
 // kernels/flash.plan_splits), so that B * Hkv * splits is at least about
 // twice the SM count; it never reads `lengths`, which would synchronise
 // the stream. A block whose chunk starts at or past lengths[b] exits at
-// once and reads nothing, so tile 0 of a live block holds a live key and
-// its running max is finite.
+// once and reads nothing.
+//
+// Sliding window (slot cache kernels only, as in the JAX package; a
+// windowed paged decode takes the table gather there and here). The live
+// keys are [lo, len), lo = max(len - W, 0). The splits cut the live band,
+// not [0, Smax): the host plans them for a static span of min(Smax, W +
+// 64) keys, and each sequence's splits start on the device at base = 64
+// floor(lo / 64), so a windowed decode reads at most W + 64 keys a
+// sequence whatever its length. Keys of the first tile below lo are
+// zero-filled, never read, and score -inf. A warp, a block or a split
+// whose keys are all masked keeps m = -inf and l = 0; every merge takes a
+// max of -inf as 0 in its exponents, so such a part weighs 0 and no
+// exp2(-inf - (-inf)) NaN appears. Without a window (W = 0) base = lo =
+// 0 and the walk and its arithmetic are the windowless kernel's.
 //
 // Bytes in flight: K/V tiles of 64 keys stream through a ring of kStages
 // (3 for bf16: 98 KB, two blocks an SM; 4 for int8) in shared memory, fed
@@ -59,6 +74,8 @@
 // which it resets to 0 -- merges the partials in split order 0, 1, ...:
 // the same bits whichever block finishes last, and one launch a call. A
 // sequence of length 0 has no live split: block 0 writes 0.
+// The query type (float16 or bfloat16) is a template parameter: q is
+// read into f32 and out written from f32, in q's type.
 // The GQA group is a template parameter (1, 2, 4 or 8 rows, the group
 // rounded up), so the accumulators of a small group take few registers.
 // A group above 8 is cut into chunks of 8 query heads on a grid axis
@@ -202,15 +219,32 @@ constexpr int smem_bytes(int ring) {
 
 // index: slots [B] (slot cache) or tables [B, max_blocks] (block pool);
 // span: Smax (slot cache) or the block size (block pool).
-template <typename T, bool kPaged, int G, int D>
+// The query and output type: float16 or bfloat16.
+__device__ __forceinline__ float q_float(half x) { return __half2float(x); }
+__device__ __forceinline__ float q_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename Q>
+__device__ __forceinline__ Q q_from(float x);
+template <>
+__device__ __forceinline__ half q_from<half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 q_from<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T, typename Q, bool kPaged, int G, int D>
 __global__ void __launch_bounds__(kThreads)
-    decode_kernel(const half* __restrict__ q, const T* __restrict__ kc,
+    decode_kernel(const Q* __restrict__ q, const T* __restrict__ kc,
                   const T* __restrict__ vc, const float* __restrict__ ksc,
                   const float* __restrict__ vsc,
                   const int* __restrict__ index,
-                  const int* __restrict__ lengths, half* __restrict__ out,
+                  const int* __restrict__ lengths, Q* __restrict__ out,
                   float* __restrict__ part, int* __restrict__ count, int H,
-                  int Hkv, int span, int max_blocks, int chunk, float scale) {
+                  int Hkv, int span, int max_blocks, int chunk, int window,
+                  float scale) {
   using C = Codes<T>;
   using L = Layout<T, D>;
   constexpr int VEC = C::N;
@@ -230,16 +264,22 @@ __global__ void __launch_bounds__(kThreads)
   const int group = H / Hkv;
   const int rows = min(G, group - hc * G);   // query rows of this block
   const int h0 = hk * group + hc * G;        // their first head
-  const int start = split * chunk;
   // The slot loads beside the length, not after it.
   const size_t slot_base = kPaged ? 0 : (size_t)index[b] * span;
   const int* table = index + (size_t)b * max_blocks;
   const int len = lengths[b];
-  half* ob = out + ((size_t)b * H + h0) * D;
+  // live keys [lo, len); the splits start at the tile holding lo. Key t
+  // is live iff (unsigned)(t - lo) < band: one compare, as the windowless
+  // kernel's t < len (lo = 0 there).
+  const int lo = window > 0 ? max(len - window, 0) : 0;
+  const unsigned band = (unsigned)(len - lo);
+  const int base = lo / TK * TK;
+  const int start = base + split * chunk;
+  Q* ob = out + ((size_t)b * H + h0) * D;
   if (start >= len) {
     if (len <= 0 && split == 0)   // no live key: the output is 0
       for (int i = tid; i < rows * D; i += kThreads)
-        ob[i] = __float2half_rn(0.f);
+        ob[i] = q_from<Q>(0.f);
     return;
   }
   const int end = min(start + chunk, len);
@@ -252,8 +292,8 @@ __global__ void __launch_bounds__(kThreads)
     else
       return slot_base + t;
   };
-  // Copies of tile i (keys start + 64 i ...) into stage st; rows at or
-  // past the length are zero-filled and not read.
+  // Copies of tile i (keys start + 64 i ...) into stage st; rows outside
+  // [lo, len) are zero-filled and not read.
   auto load_tile = [&](int i, int st) {
     unsigned char* kt = ring + st * L::kStageBytes;
     unsigned char* vt = kt + L::kTileBytes;
@@ -264,7 +304,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TK * L::kChunks / kThreads; ++j) {
       const int idx = tid + j * kThreads;
       const int r = idx / L::kChunks, c = idx % L::kChunks;
-      const bool live = t0 + r < len;
+      const bool live = (unsigned)(t0 + r - lo) < band;
       const size_t off = live ? row_of(t0 + r) * key_stride + hk * D : 0;
       const int dst = r * L::kRowBytes + L::swz(r, c) * 16;
       cp_async16(kt + dst, reinterpret_cast<const unsigned char*>(kc + off)
@@ -275,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (C::kScaled) {
       if (tid < 2 * TK) {
         const int r = tid % TK;
-        const bool live = t0 + r < len;
+        const bool live = (unsigned)(t0 + r - lo) < band;
         const size_t at = live ? row_of(t0 + r) * Hkv + hk : 0;
         cp_async4((tid < TK ? kst : vst) + r, (tid < TK ? ksc : vsc) + at,
                   live);
@@ -289,8 +329,7 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   }
   for (int i = tid; i < rows * D; i += kThreads)
-    qs[i] = __half2float(q[((size_t)b * H + h0) * D + i]) *
-            (scale * LOG2E);
+    qs[i] = q_float(q[((size_t)b * H + h0) * D + i]) * (scale * LOG2E);
 
   // Per warp: running max m (base 2) and sum l of each query row
   // (replicated in every lane), the lane's accumulator over dims
@@ -316,7 +355,8 @@ __global__ void __launch_bounds__(kThreads)
     const unsigned char* vt = kt + L::kTileBytes;
     const float* kst = reinterpret_cast<const float*>(vt + L::kTileBytes);
     const float* vst = kst + TK;
-    const bool live = start + i * TK + key < len;
+    const int kabs = start + i * TK + key;
+    const bool live = (unsigned)(kabs - lo) < band;
 
     // (1) scores: this lane's CPL chunks, two sums per row for ILP
     float s0[G], s1[G];
@@ -434,7 +474,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   // kThreads / D rows at once (2 at D = 128, 1 at D = 256)
   const int d = tid % D, g0 = tid / D;
-  const int nlive = min((len + chunk - 1) / chunk, splits);
+  const int nlive = min((len - base + chunk - 1) / chunk, splits);
   // partial of (b, hk, split): [group][D + 2]; this block's rows start at
   // hc * G
   const size_t part_stride = (size_t)group * (D + 2);
@@ -444,16 +484,19 @@ __global__ void __launch_bounds__(kThreads)
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, mw[w * G + gq]);
-    // warp 0 holds the chunk's first key, which is live: M is finite
+    // a window can mask every key of a warp: it weighs 0 (and M = -inf
+    // only where the whole chunk is masked, which then writes m = -inf,
+    // l = 0)
+    const float Mu = M == -INFINITY ? 0.f : M;
     float o = 0.f, lsum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = exp2f(mw[w * G + gq] - M);
+      const float wt = exp2f(mw[w * G + gq] - Mu);
       o += wt * red[(w * G + gq) * D + d];
       lsum += wt * lw[w * G + gq];
     }
     if (nlive == 1) {
-      ob[gq * D + d] = __float2half_rn(o / fmaxf(lsum, 1e-30f));
+      ob[gq * D + d] = q_from<Q>(o / fmaxf(lsum, 1e-30f));
     } else {
       mine[gq * (D + 2) + d] = o;
       if (d == 0) {
@@ -481,7 +524,8 @@ __global__ void __launch_bounds__(kThreads)
                     (size_t)hc * G * (D + 2);
   // Warp gq: the row's max M over the splits and the weights
   // exp2(m_s - M) into shared memory ([G][nlive], over the ring), then
-  // sum_s w_s l_s. Every live split's m is finite.
+  // sum_s w_s l_s. A split whose keys are all masked has m = -inf and
+  // weighs 0.
   float* wts = red;
   float* lsm = wts + G * nlive;
   if (warp < rows) {
@@ -495,6 +539,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1)
       M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, w));
+    if (M == -INFINITY) M = 0.f;
     float lsum = 0.f;
     for (int sp = lane; sp < nlive; sp += 32) {
       const float wt = exp2f(wts[gq * nlive + sp] - M);
@@ -513,89 +558,80 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
     for (int sp = 0; sp < nlive; ++sp)
       o += wts[gq * nlive + sp] * __ldcg(pd + sp * part_stride);
-    ob[gq * D + d] = __float2half_rn(o / lsm[gq]);
+    ob[gq * D + d] = q_from<Q>(o / lsm[gq]);
   }
 }
 
-template <typename T, bool kPaged, int G, int D>
-inline cudaError_t launch_g(dim3 grid, cudaStream_t st, const void* q,
-                            const void* k, const void* v,
-                            const void* k_scale, const void* v_scale,
-                            const void* index, const void* lengths,
-                            void* out, void* part, void* count, int H,
-                            int Hkv, int span, int max_blocks, int chunk,
-                            float scale) {
+// The launch's arguments past the grid, passed down unchanged.
+struct Args {
+  const void *q, *k, *v, *k_scale, *v_scale, *index, *lengths;
+  void *out, *part, *count;
+  int H, Hkv, span, max_blocks, chunk, window;
+  float scale;
+};
+
+template <typename T, typename Q, bool kPaged, int G, int D>
+inline cudaError_t launch_g(dim3 grid, cudaStream_t st, const Args& a) {
   constexpr int bytes = smem_bytes<G, D>(Layout<T, D>::kRingBytes);
   static bool smem_set[kMaxDevices];
   cudaError_t e =
-      set_max_smem_once(decode_kernel<T, kPaged, G, D>, bytes, smem_set);
+      set_max_smem_once(decode_kernel<T, Q, kPaged, G, D>, bytes, smem_set);
   if (e != cudaSuccess) return e;
-  decode_kernel<T, kPaged, G, D><<<grid, kThreads, bytes, st>>>(
-      static_cast<const half*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(index),
-      static_cast<const int*>(lengths), static_cast<half*>(out),
-      static_cast<float*>(part), static_cast<int*>(count), H, Hkv, span,
-      max_blocks, chunk, scale);
+  decode_kernel<T, Q, kPaged, G, D><<<grid, kThreads, bytes, st>>>(
+      static_cast<const Q*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.index),
+      static_cast<const int*>(a.lengths), static_cast<Q*>(a.out),
+      static_cast<float*>(a.part), static_cast<int*>(a.count), a.H, a.Hkv,
+      a.span, a.max_blocks, a.chunk, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool kPaged, int D>
+template <typename T, typename Q, bool kPaged, int D>
 inline cudaError_t launch_d(int group, dim3 grid, cudaStream_t st,
-                            const void* q, const void* k, const void* v,
-                            const void* ks, const void* vs,
-                            const void* index, const void* lengths,
-                            void* out, void* part, void* count, int H,
-                            int Hkv, int span, int max_blocks, int chunk,
-                            float scale) {
-  if (group == 1)
-    return launch_g<T, kPaged, 1, D>(grid, st, q, k, v, ks, vs, index,
-                                     lengths, out, part, count, H, Hkv,
-                                     span, max_blocks, chunk, scale);
-  if (group == 2)
-    return launch_g<T, kPaged, 2, D>(grid, st, q, k, v, ks, vs, index,
-                                     lengths, out, part, count, H, Hkv,
-                                     span, max_blocks, chunk, scale);
-  if (group <= 4)
-    return launch_g<T, kPaged, 4, D>(grid, st, q, k, v, ks, vs, index,
-                                     lengths, out, part, count, H, Hkv,
-                                     span, max_blocks, chunk, scale);
-  return launch_g<T, kPaged, kMaxG, D>(grid, st, q, k, v, ks, vs, index,
-                                       lengths, out, part, count, H, Hkv,
-                                       span, max_blocks, chunk, scale);
+                            const Args& a) {
+  if (group == 1) return launch_g<T, Q, kPaged, 1, D>(grid, st, a);
+  if (group == 2) return launch_g<T, Q, kPaged, 2, D>(grid, st, a);
+  if (group <= 4) return launch_g<T, Q, kPaged, 4, D>(grid, st, a);
+  return launch_g<T, Q, kPaged, kMaxG, D>(grid, st, a);
 }
 
 // Checks the shapes the kernel takes and launches it over (splits,
 // Hkv * hchunks, B) blocks, hchunks = ceil(group / 8), with the rows of a
-// block rounded up to 1, 2, 4 or 8 and the head dim 128 or 256. `part`
-// holds B * H * splits * (D + 2) floats and `count` B * Hkv * hchunks
-// ints when splits > 1.
+// block rounded up to 1, 2, 4 or 8, the head dim 128 or 256 and q and out
+// bfloat16 (q_bf16) or float16. `part` holds B * H * splits * (D + 2)
+// floats and `count` B * Hkv * hchunks ints when splits > 1. `window` is
+// 0 or >= 1, and 0 for the block pool.
 template <typename T, bool kPaged>
 inline int launch(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
                   const void* index, const void* lengths, void* out,
                   void* part, void* count, int B, int H, int Hkv, int span,
                   int max_blocks, int chunk, int splits, int head_dim,
-                  float scale, void* stream) {
+                  int q_bf16, int window, float scale, void* stream) {
   if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int group = H / Hkv;
   const int hchunks = (group + kMaxG - 1) / kMaxG;
   if ((head_dim != 128 && head_dim != 256) || B < 1 || B > 65535 ||
       (long long)Hkv * hchunks > 65535 || span < 1 ||
       (kPaged && max_blocks < 1) || chunk < TK || chunk % TK != 0 ||
-      splits < 1 || splits > kMaxSplits ||
+      splits < 1 || splits > kMaxSplits || window < 0 ||
+      (kPaged && window != 0) ||
       (splits > 1 && (part == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(splits, Hkv * hchunks, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = group < kMaxG ? group : kMaxG;
+  const Args a{q,   k,   v,          k_scale, v_scale, index,  lengths,
+               out, part, count,     H,       Hkv,     span,   max_blocks,
+               chunk, window, scale};
   if (head_dim == 128)
-    return (int)launch_d<T, kPaged, 128>(
-        rows, grid, st, q, k, v, k_scale, v_scale, index, lengths, out,
-        part, count, H, Hkv, span, max_blocks, chunk, scale);
-  return (int)launch_d<T, kPaged, 256>(
-      rows, grid, st, q, k, v, k_scale, v_scale, index, lengths, out, part,
-      count, H, Hkv, span, max_blocks, chunk, scale);
+    return (int)(q_bf16 ? launch_d<T, __nv_bfloat16, kPaged, 128>(rows, grid,
+                                                                  st, a)
+                        : launch_d<T, half, kPaged, 128>(rows, grid, st, a));
+  return (int)(q_bf16
+                   ? launch_d<T, __nv_bfloat16, kPaged, 256>(rows, grid, st, a)
+                   : launch_d<T, half, kPaged, 256>(rows, grid, st, a));
 }
 
 }  // namespace decode

@@ -1,10 +1,12 @@
 // flash_decode_paged_quant: one query token per sequence against the
 // int8 block pool.
-//   q        [B, H, D]                 float16 (D = 128 or 256)
+//   q        [B, H, D]                 float16 or bfloat16 (q_bf16; D =
+//                                      128 or 256)
 //   k, v     [num_blocks, bs, Hkv, D]  int8 codes
 //   k_scale, v_scale [num_blocks, bs, Hkv] float32
 //   tables   [B, max_blocks] int32, lengths [B] int32
-//   out      [B, H, D]                 float16
+//   out      [B, H, D]                 q's type (no window: see
+//                                      flash_decode_paged.cu)
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_decode_paged_quant
 // (pallas_call at :1132): the paged walk of flash_decode_paged.cu with the
@@ -24,9 +26,9 @@ extern "C" int flash_decode_paged_quant(
     const void* k_scale, const void* v_scale, const void* tables,
     const void* lengths, void* out, void* part, void* count, int B, int H,
     int Hkv, int block_size, int max_blocks, int chunk, int splits,
-    int head_dim, float scale, void* stream) {
+    int head_dim, int q_bf16, float scale, void* stream) {
   return bbt::decode::launch<int8_t, true>(
       q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part, count,
-      B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim, scale,
-      stream);
+      B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim, q_bf16, 0,
+      scale, stream);
 }

@@ -1,14 +1,17 @@
 // flash_decode_quant: one query token per sequence against the int8 slot
 // cache.
-//   q        [B, H, D]             float16 (D = 128 or 256)
+//   q        [B, H, D]             float16 or bfloat16 (q_bf16; D = 128
+//                                  or 256)
 //   k, v     [rows, Smax, Hkv, D]  int8 codes
 //   k_scale, v_scale [rows, Smax, Hkv] float32 (x ~= code * scale, one
 //            symmetric scale per token and KV head)
 //   slots    [B] int32, lengths [B] int32
-//   out      [B, H, D]             float16
+//   out      [B, H, D]             q's type
+//   window   0, or the sliding window: keys [max(len - window, 0), len)
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_decode_quant
-// (pallas_call at :813) with partial_stats=False and no window. Scales
+// (pallas_call at :813) with partial_stats=False, with or without a
+// window (flash.py:652, :695-752). Scales
 // apply to the dot results as there: the K scale multiplies each logit
 // before the running max, the V scale folds into the softmax weight
 // before the PV product. The scales are read as stored; the TPU wrapper's
@@ -28,8 +31,10 @@ extern "C" int flash_decode_quant(const void* q, const void* k_cache,
                                   const void* lengths, void* out,
                                   void* part, void* count, int B, int H,
                                   int Hkv, int Smax, int chunk, int splits,
-                                  int head_dim, float scale, void* stream) {
+                                  int head_dim, int q_bf16, int window,
+                                  float scale, void* stream) {
   return bbt::decode::launch<int8_t, false>(
       q, k_cache, v_cache, k_scale, v_scale, slots, lengths, out, part, count,
-      B, H, Hkv, Smax, 1, chunk, splits, head_dim, scale, stream);
+      B, H, Hkv, Smax, 1, chunk, splits, head_dim, q_bf16, window, scale,
+      stream);
 }

@@ -67,12 +67,14 @@ def tune_all(configs: Iterable[MatmulConfig], *, topk: int = 20,
 def _gptq_zeros(config: MatmulConfig, intzeros: torch.Tensor,
                scales_gn: torch.Tensor) -> torch.Tensor:
     """GPTQ integer zeros [K/g, N] -> the device zeros of the config's
-    mode, [K/g, N] float16: the integers (original, quantized) or z * s
-    rounded to float16 (rescale, w = q s - z s)."""
+    mode, [K/g, N] in the scales' type (A's: float16 or bfloat16): the
+    integers (original, quantized) or z * s rounded to that type
+    (rescale, w = q s - z s)."""
+    sdt = wt.scale_dtype(config)
     if config.zeros_mode == "rescale":
         z = intzeros.to(torch.float32) * scales_gn.to(torch.float32)
-        return z.to(torch.float16).contiguous()
-    return intzeros.to(torch.float16).contiguous()
+        return z.to(sdt).contiguous()
+    return intzeros.to(sdt).contiguous()
 
 
 def repack_gptq_layer(config: MatmulConfig, qweight, scales, qzeros,
@@ -80,8 +82,9 @@ def repack_gptq_layer(config: MatmulConfig, qweight, scales, qzeros,
                       device=None) -> Dict[str, torch.Tensor]:
     """One GPTQ layer bundle (AutoGPTQ conventions: qweight [K*bits/32, N]
     int32, scales [K/g, N], qzeros [K/g, N*bits/32] int32, bias [N]) ->
-    {"qweight" [N, K*bits/32] int32, "scales" / "zeros" [K/g, N] float16,
-    "bias" [1, N] float32}, on `device` (default: the qweight's)."""
+    {"qweight" [N, K*bits/32] int32, "scales" / "zeros" [K/g, N] in A's
+    type (float16, or bfloat16 for a bfloat16 configuration), "bias"
+    [1, N] float32}, on `device` (default: the qweight's)."""
     qw = as_tensor(qweight, device)
     dev = qw.device
     bits, K, N = config.bit, config.K, config.N
@@ -90,7 +93,7 @@ def repack_gptq_layer(config: MatmulConfig, qweight, scales, qzeros,
     else:
         codes = packing.unpack_qweight(qw.T.contiguous(), bits)[:, :K]
         dev_w = wt.unpacked_weight_to_device(config, codes)
-    sc = as_tensor(scales, dev).to(torch.float16)
+    sc = as_tensor(scales, dev).to(wt.scale_dtype(config))
     out = {"qweight": dev_w, "scales": sc.contiguous()}
     if qzeros is not None and config.with_zeros:
         unpack = packing.unpack_qzeros_v2 if gptq_v2 else \

@@ -4,10 +4,11 @@ make_flash_decode_quant, make_flash_decode_paged and
 make_flash_decode_paged_quant).
 
 * `flash_attention_fwd` -- causal prefill over Q [B, S, H, D] and K/V
-  [B, S, Hkv, D], float16 (csrc/flash_attention.cu).
+  [B, S, Hkv, D], all float16 or all bfloat16, with an optional sliding
+  window (csrc/flash_attention.cu).
 * `flash_decode` -- one query token per sequence against the slot cache
-  [rows, Smax, Hkv, D] bfloat16 through `slots` and `lengths`
-  (csrc/flash_decode.cu).
+  [rows, Smax, Hkv, D] bfloat16 through `slots` and `lengths`, with an
+  optional sliding window (csrc/flash_decode.cu).
 * `flash_decode_quant` -- the same against the int8 slot cache and its
   f32 scales [rows, Smax, Hkv] (csrc/flash_decode_quant.cu).
 * `flash_decode_paged` / `flash_decode_paged_quant` -- the same against
@@ -16,16 +17,21 @@ make_flash_decode_paged_quant).
   (csrc/flash_decode_paged{,_quant}.cu).
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain PyTorch
-version (`*_plain`) on CPU tensors. The plain decode versions take any
-head dim and GQA group; the decode kernels take head dims 128 and 256
-(`DECODE_HEAD_DIMS`) and any group (above 8 in chunks of 8 query heads),
-and the two float decode kernels bfloat16 or float16 caches. On the card
+version (`*_plain`) on CPU tensors. Queries (and outputs) are float16 or
+bfloat16, as the JAX kernels take any query type and an out_dtype. The
+plain decode versions take any head dim and GQA group; the decode
+kernels take head dims 128 and 256 (`DECODE_HEAD_DIMS`) and any group
+(above 8 in chunks of 8 query heads), and the two float decode kernels
+bfloat16 or float16 caches. On the card
 a shape no kernel instance takes raises. The decode kernels split each
 sequence's keys into chunks across blocks (`plan_splits`, from static
 sizes only) and merge the chunks' partials in the same launch;
 `flash_decode_split_plain` is that arithmetic in plain PyTorch, for the
-tests. Sliding windows, ``trans_k`` and ``partial_stats`` are not ported
-yet.
+tests. A sliding window (HF convention: prefill row i attends keys (i -
+window, i]; the decode query at position len - 1 attends [max(len -
+window, 0), len)) runs in kernels 4, 5 and 6, as in the JAX package; the
+paged kernels have none there either. ``trans_k`` and ``partial_stats``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,18 +55,22 @@ H100_SMS = 132      # SMs of an H100 SXM, the split planner's default
 SPLIT_BLOCKS_PER_SM = 2   # the planner's target: B * Hkv * splits >= 2 SMs
 MAX_SPLITS = 1024   # the kernels' merge holds at most this many weights
 
-_PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+# prefill: Q, K, V, O, then B, S, H, Hkv, D, bf16, window
+_PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_void_p]
 # decode entry points: q, caches (scales), index, lengths, out, the split
-# scratch and counters, then ints (sizes, chunk, splits, head dim)
-_DECODE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+# scratch and counters, then ints (sizes, chunk, splits, head dim, for the
+# float caches whether they are float16, whether q is bfloat16, for the
+# slot caches the window)
+_DECODE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_void_p]
-_DECODE_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+_DECODE_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
-_DECODE_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
+_DECODE_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_void_p]
-_DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+_DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
+QUERY_DTYPES = (torch.float16, torch.bfloat16)
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device,
@@ -81,11 +91,21 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device,
 # Prefill
 # ---------------------------------------------------------------------------
 
+def _check_window(window: Optional[int]) -> None:
+    if window is not None and (isinstance(window, bool)
+                               or int(window) != window or window < 1):
+        raise ValueError(f"window must be None or an int >= 1, got "
+                         f"{window!r}")
+
+
 def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
-                          V: torch.Tensor) -> torch.Tensor:
+                          V: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
     """Plain causal attention with the kernel's arithmetic: Q folded into
     the base-2 domain and rounded to Q's dtype, f32 scores and softmax,
-    output cast back to Q's dtype."""
+    output cast back to Q's dtype. With a `window`, row i attends keys
+    (i - window, i] (every row keeps its own key)."""
+    _check_window(window)
     B, S, H, D = Q.shape
     group = H // K.shape[2]
     q = (Q.float() * (LOG2E / math.sqrt(D))).to(Q.dtype).float()
@@ -93,6 +113,8 @@ def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
     v = V.float().repeat_interleave(group, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k)
     keep = torch.ones(S, S, dtype=torch.bool, device=Q.device).tril()
+    if window is not None:
+        keep = keep.triu(1 - window)
     s = s.masked_fill(~keep, float("-inf"))
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bhqk,bkhd->bqhd", p, v) \
@@ -100,22 +122,42 @@ def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
     return out.to(Q.dtype)
 
 
+def _variant(dtype: torch.dtype, window: Optional[int]) -> str:
+    """A launch's variant as `variant_launches` counts it: "float16",
+    "bfloat16 window", ..."""
+    return str(dtype).split(".")[-1] + ("" if window is None else " window")
+
+
+def _count(wrapper, dtype: torch.dtype, window: Optional[int]) -> None:
+    wrapper.launches += 1
+    key = _variant(dtype, window)
+    wrapper.variant_launches[key] = wrapper.variant_launches.get(key, 0) + 1
+
+
 def flash_attention_fwd(Q: torch.Tensor, K: torch.Tensor,
-                        V: torch.Tensor) -> torch.Tensor:
-    """Causal attention, [B, S, H, D] f16 out."""
+                        V: torch.Tensor,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention, [B, S, H, D] out in Q's type (float16 or
+    bfloat16; K and V the same). `window`: None, or row i attends keys
+    (i - window, i]; a window >= S is no window."""
     if Q.dim() != 4:
         raise ValueError(f"Q must be [B, S, H, D], got {tuple(Q.shape)}")
+    _check_window(window)
     B, S, H, D = Q.shape
     Hkv = K.shape[2] if K.dim() == 4 else 0
     if D != HEAD_DIM or S % BLOCK or Hkv < 1 or H % Hkv:
         raise NotImplementedError(
             f"flash_attention_fwd takes head_dim {HEAD_DIM}, S % {BLOCK} "
             f"== 0 and H % Hkv == 0 (got D={D}, S={S}, H={H}, Hkv={Hkv})")
-    _require(Q, "Q", torch.float16, (B, S, H, D), Q.device)
-    _require(K, "K", torch.float16, (B, S, Hkv, D), Q.device)
-    _require(V, "V", torch.float16, (B, S, Hkv, D), Q.device)
+    if Q.dtype not in QUERY_DTYPES:
+        raise ValueError(f"Q: float16 or bfloat16, got {Q.dtype}")
+    _require(Q, "Q", Q.dtype, (B, S, H, D), Q.device)
+    _require(K, "K", Q.dtype, (B, S, Hkv, D), Q.device)
+    _require(V, "V", Q.dtype, (B, S, Hkv, D), Q.device)
+    if window is not None and window >= S:
+        window = None
     if Q.device.type == "cpu":
-        return flash_attention_plain(Q, K, V)
+        return flash_attention_plain(Q, K, V, window)
     if Q.device.type != "cuda":
         raise ValueError(f"unsupported device {Q.device}")
     out = torch.empty_like(Q)
@@ -123,14 +165,16 @@ def flash_attention_fwd(Q: torch.Tensor, K: torch.Tensor,
                      _PREFILL_ARGS)
     with torch.cuda.device(Q.device):
         err = fn(Q.data_ptr(), K.data_ptr(), V.data_ptr(), out.data_ptr(),
-                 B, S, H, Hkv, D, LOG2E / math.sqrt(D),
+                 B, S, H, Hkv, D, int(Q.dtype == torch.bfloat16),
+                 window or 0, LOG2E / math.sqrt(D),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, Q.dtype, window)
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.variant_launches = {}
 
 
 # ---------------------------------------------------------------------------
@@ -168,34 +212,54 @@ def _attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def _slot_rows(slots: torch.Tensor, lengths: torch.Tensor, *caches):
+def _live(span: int, lengths: torch.Tensor,
+          window: Optional[int]) -> torch.Tensor:
+    """[B, span] mask of the keys the query at position lengths - 1
+    attends: below each length and, with a window, at or above length -
+    window."""
+    pos = torch.arange(span, device=lengths.device)[None]
+    keep = pos < lengths[:, None]
+    if window is not None:
+        keep = keep & (pos >= lengths[:, None] - window)
+    return keep
+
+
+def _slot_rows(slots: torch.Tensor, lengths: torch.Tensor, *caches,
+               window: Optional[int] = None):
     """Each cache [rows, Smax, ...] gathered to its sequences' rows
-    [B, Smax, ...], then the [B, Smax] mask of rows below each length."""
+    [B, Smax, ...], then the [B, Smax] mask of the live keys (`_live`)."""
     rows = [c[slots.long()] for c in caches]
-    Smax = caches[0].shape[1]
-    return (*rows, torch.arange(Smax, device=lengths.device)[None]
-            < lengths[:, None])
+    return (*rows, _live(caches[0].shape[1], lengths, window))
 
 
-def _page_rows(tables: torch.Tensor, lengths: torch.Tensor, *pools):
+def _page_rows(tables: torch.Tensor, lengths: torch.Tensor, *pools,
+               window: Optional[int] = None):
     """Each block pool [blocks, bs, ...] gathered through tables [B, MB]
-    into [B, MB * bs, ...] (the table gather), then the mask of rows below
-    each length."""
+    into [B, MB * bs, ...] (the table gather), then the mask of the live
+    keys (`_live`)."""
     B, MB = tables.shape
     rows = [p[tables.long()].reshape(B, MB * p.shape[1], *p.shape[2:])
             for p in pools]
-    return (*rows, torch.arange(rows[0].shape[1], device=lengths.device)[None]
-            < lengths[:, None])
+    return (*rows, _live(rows[0].shape[1], lengths, window))
+
+
+def decode_span(span: int, window: Optional[int]) -> int:
+    """The keys a sequence's splits cover: its whole span (Smax, or
+    max_blocks * bs), or with a window the live band plus the tile that
+    holds its first key, min(span, window + 64)."""
+    return span if window is None else min(span, window + DECODE_TILE)
 
 
 def plan_splits(span: int, batch: int, kv_heads: int,
                 sms: int = H100_SMS):
     """(chunk, splits) of the split-KV decode kernels, from static sizes
-    only: the span a sequence may reach (Smax, or max_blocks * bs), B, Hkv
-    and the SM count -- never from the lengths, which live on the card.
+    only: the span a sequence's splits cover (`decode_span`), B, Hkv and
+    the SM count -- never from the lengths, which live on the card.
     chunk is a multiple of the 64-key tile; splits = ceil(span / chunk) <=
     MAX_SPLITS and B * Hkv * splits reaches 2 * sms wherever the span has
-    enough tiles. Split s covers keys [s * chunk, (s + 1) * chunk)."""
+    enough tiles. Split s covers keys [base + s * chunk, base + (s + 1) *
+    chunk), base = 64 floor(max(len - window, 0) / 64) with a window and 0
+    without."""
     if min(span, batch, kv_heads, sms) < 1:
         raise ValueError(f"plan_splits: sizes must be positive, got span "
                          f"{span}, B {batch}, Hkv {kv_heads}, sms {sms}")
@@ -249,8 +313,10 @@ def _split_partials_plain(q, k, v, valid, chunk, k_scale=None,
 
 def _merge_partials_plain(acc, m, l, lengths, chunk):
     """The kernels' merge: the live splits of each (sequence, KV head)
-    (s * chunk < length) by log-sum-exp in split order; a sequence of
-    length 0 gives 0. -> [B, H, D] f32."""
+    (s * chunk < length, the length counted from the splits' base) by
+    log-sum-exp in split order; a split whose keys are all masked (m =
+    -inf) weighs 0, and a sequence of length 0 gives 0. -> [B, H, D]
+    f32."""
     B, Hkv, splits, group, D = acc.shape
     live = (torch.arange(splits, device=acc.device)[None] * chunk
             < lengths[:, None].long())                      # [B, splits]
@@ -270,54 +336,76 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
                              index: torch.Tensor, *, paged: bool = False,
                              k_scale: Optional[torch.Tensor] = None,
                              v_scale: Optional[torch.Tensor] = None,
+                             window: Optional[int] = None,
                              sms: int = H100_SMS) -> torch.Tensor:
     """The split-KV arithmetic of the decode kernels in plain PyTorch: the
-    chunks `plan_splits` gives the cache's span, each chunk's base-2
-    partial, then the merge. Slot cache (index = slots) or block pool
-    (paged=True, index = tables), bf16 or int8 with scales. Only the tests
-    call it; the wrappers take the single-pass `*_plain` versions."""
+    chunks `plan_splits` gives the span the splits cover (`decode_span`),
+    each chunk's base-2 partial, then the merge. Slot cache (index = slots)
+    or block pool (paged=True, index = tables), bf16 or int8 with scales;
+    a `window` (slot cache only) offsets each sequence's splits to its
+    live band, as the kernels do. Only the tests call it; the wrappers take
+    the single-pass `*_plain` versions."""
+    _check_window(window)
     B, H, _ = q.shape
     Hkv = k.shape[2]
+    scales = tuple(x for x in (k_scale, v_scale) if x is not None)
     if paged:
-        rows = _page_rows(index, lengths, k, v,
-                          *(x for x in (k_scale, v_scale) if x is not None))
+        if window is not None:
+            raise ValueError("the paged kernels take no window")
+        rows = _page_rows(index, lengths, k, v, *scales)
         span = index.shape[1] * k.shape[1]
+        base = torch.zeros_like(lengths)
     else:
-        rows = _slot_rows(index, lengths, k, v,
-                          *(x for x in (k_scale, v_scale) if x is not None))
-        span = k.shape[1]
+        Smax = k.shape[1]
+        if window is not None and window >= Smax:
+            window = None
+        span = decode_span(Smax, window)
+        lo = (lengths - window).clamp_min(0) if window is not None \
+            else torch.zeros_like(lengths)
+        base = lo // DECODE_TILE * DECODE_TILE
+        pos = base[:, None].long() + torch.arange(span, device=q.device)
+        valid = (pos < lengths[:, None]) & (pos >= lo[:, None]) \
+            & (pos < Smax)
+        s = index.long()[:, None]
+        at = pos.clamp_max(Smax - 1)
+        rows = (*(c[s, at] for c in (k, v, *scales)), valid)
     chunk, _ = plan_splits(span, B, Hkv, sms)
     kr, vr = rows[:2]
     ks, vs = rows[2:4] if k_scale is not None else (None, None)
     acc, m, l = _split_partials_plain(q, kr, vr, rows[-1], chunk, ks, vs)
-    return _merge_partials_plain(acc, m, l, lengths, chunk).to(q.dtype)
+    return _merge_partials_plain(acc, m, l, lengths - base,
+                                 chunk).to(q.dtype)
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, lengths: torch.Tensor,
-                       slots: torch.Tensor) -> torch.Tensor:
+                       slots: torch.Tensor,
+                       window: Optional[int] = None) -> torch.Tensor:
     """Plain decode over the bf16 slot cache (kernel `flash_decode`)."""
-    k, v, valid = _slot_rows(slots, lengths, k_cache, v_cache)
+    k, v, valid = _slot_rows(slots, lengths, k_cache, v_cache, window=window)
     return _attend_plain(q, k, v, valid)
 
 
 def flash_decode_quant_plain(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, k_scale: torch.Tensor,
                              v_scale: torch.Tensor, lengths: torch.Tensor,
-                             slots: torch.Tensor) -> torch.Tensor:
+                             slots: torch.Tensor,
+                             window: Optional[int] = None) -> torch.Tensor:
     """Plain decode over the int8 slot cache (kernel `flash_decode_quant`):
     logits scale by the K scales, weights by the V scales."""
     k, v, ks, vs, valid = _slot_rows(slots, lengths, k_cache, v_cache,
-                                     k_scale, v_scale)
+                                     k_scale, v_scale, window=window)
     return _attend_plain(q, k, v, valid, ks, vs)
 
 
 def flash_decode_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, tables: torch.Tensor,
-                             lengths: torch.Tensor) -> torch.Tensor:
-    """Plain decode over the bf16 block pool: the table gather
-    (kernel `flash_decode_paged`)."""
-    k, v, valid = _page_rows(tables, lengths, k_pool, v_pool)
+                             lengths: torch.Tensor,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """Plain decode over the bf16 block pool: the table gather (kernel
+    `flash_decode_paged`). With a `window` it is the windowed paged decode
+    itself, as in the JAX package, whose paged kernels take no window."""
+    k, v, valid = _page_rows(tables, lengths, k_pool, v_pool, window=window)
     return _attend_plain(q, k, v, valid)
 
 
@@ -326,11 +414,14 @@ def flash_decode_paged_quant_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                    k_scale: torch.Tensor,
                                    v_scale: torch.Tensor,
                                    tables: torch.Tensor,
-                                   lengths: torch.Tensor) -> torch.Tensor:
+                                   lengths: torch.Tensor,
+                                   window: Optional[int] = None
+                                   ) -> torch.Tensor:
     """Plain decode over the int8 block pool: the table gather of codes
-    and scales (kernel `flash_decode_paged_quant`)."""
+    and scales (kernel `flash_decode_paged_quant`; with a `window`, the
+    windowed paged decode itself, as flash_decode_paged_plain)."""
     k, v, ks, vs, valid = _page_rows(tables, lengths, k_pool, v_pool,
-                                     k_scale, v_scale)
+                                     k_scale, v_scale, window=window)
     return _attend_plain(q, k, v, valid, ks, vs)
 
 
@@ -373,12 +464,15 @@ def _split_scratch(q: torch.Tensor, B: int, H: int, Hkv: int, span: int):
 
 
 def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
-            tensors, ints, span: int, kv_f16=None) -> torch.Tensor:
+            tensors, ints, span: int, kv_f16=None,
+            window: Optional[int] = None, slot: bool = True
+            ) -> torch.Tensor:
     """Launch csrc/<symbol>.cu's entry point on q's device: pointers of q
     and `tensors`, the output, the split scratch and counters, then the
-    ints, the split plan for `span` keys, the head dim, for the float
-    kernels whether the cache is float16, 1/sqrt(D) and the stream. One
-    launch a call."""
+    ints, the split plan for the `span` the splits cover, the head dim,
+    for the float kernels whether the cache is float16, whether q is
+    bfloat16, for the slot kernels the window (0 for none), 1/sqrt(D) and
+    the stream. One launch a call."""
     B, H, Hkv = ints[:3]
     D = q.shape[-1]
     _check_decode(symbol, B, H, Hkv, D)
@@ -391,10 +485,12 @@ def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
                  count.data_ptr() if count is not None else 0, *ints,
                  chunk, splits, D,
                  *(() if kv_f16 is None else (int(kv_f16),)),
+                 int(q.dtype == torch.bfloat16),
+                 *((window or 0,) if slot else ()),
                  1.0 / math.sqrt(D),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, symbol)
-    wrapper.launches += 1
+    _count(wrapper, q.dtype, window)
     return out
 
 
@@ -414,39 +510,61 @@ def _device(q: torch.Tensor) -> str:
     return q.device.type
 
 
+def _query(q: torch.Tensor, shape) -> None:
+    """q (and so the output): float16 or bfloat16."""
+    if q.dtype not in QUERY_DTYPES:
+        raise ValueError(f"q: float16 or bfloat16, got {q.dtype}")
+    _require(q, "q", q.dtype, shape, q.device)
+
+
+def _slot_window(window: Optional[int], Smax: int) -> Optional[int]:
+    """A checked window of the slot kernels; one >= Smax is none."""
+    _check_window(window)
+    return None if window is None or window >= Smax else window
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor,
-                 slots: torch.Tensor) -> torch.Tensor:
-    """q [B, H, D] f16 against caches [rows, Smax, Hkv, D] bf16 or f16
-    through slots/lengths [B] int32 -> [B, H, D] f16."""
+                 slots: torch.Tensor,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """q [B, H, D] f16 or bf16 against caches [rows, Smax, Hkv, D] bf16 or
+    f16 through slots/lengths [B] int32 -> [B, H, D] in q's type. With a
+    `window` the query at position len - 1 attends keys [max(len - window,
+    0), len), and the splits cover min(Smax, window + 64) keys a
+    sequence."""
     B, H, Hkv, D = _decode_shape(q, k_cache, "flash_decode")
     rows, Smax = k_cache.shape[:2]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, D), dev)
+    _query(q, (B, H, D))
     _float_cache("flash_decode", k_cache, v_cache, dev)
     _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
     _require(slots, "slots", torch.int32, (B,), dev, align=4)
+    window = _slot_window(window, Smax)
     if _device(q) == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, lengths, slots)
+        return flash_decode_plain(q, k_cache, v_cache, lengths, slots,
+                                  window)
     return _launch(flash_decode, "flash_decode", _DECODE_ARGS, q,
                    (k_cache, v_cache, slots, lengths), (B, H, Hkv, Smax),
-                   Smax, kv_f16=k_cache.dtype == torch.float16)
+                   decode_span(Smax, window),
+                   kv_f16=k_cache.dtype == torch.float16, window=window)
 
 
 flash_decode.launches = 0
+flash_decode.variant_launches = {}
 
 
 def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, k_scale: torch.Tensor,
                        v_scale: torch.Tensor, lengths: torch.Tensor,
-                       slots: torch.Tensor) -> torch.Tensor:
-    """q [B, H, D] f16 against int8 caches [rows, Smax, Hkv, D] with f32
-    scales [rows, Smax, Hkv] through slots/lengths [B] int32
-    -> [B, H, D] f16."""
+                       slots: torch.Tensor,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """q [B, H, D] f16 or bf16 against int8 caches [rows, Smax, Hkv, D]
+    with f32 scales [rows, Smax, Hkv] through slots/lengths [B] int32
+    -> [B, H, D] in q's type; `window` as flash_decode's."""
     B, H, Hkv, D = _decode_shape(q, k_cache, "flash_decode_quant")
     rows, Smax = k_cache.shape[:2]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, D), dev)
+    _query(q, (B, H, D))
     _require(k_cache, "k_cache", torch.int8, k_cache.shape, dev)
     _require(v_cache, "v_cache", torch.int8, k_cache.shape, dev)
     _require(k_scale, "k_scale", torch.float32, k_cache.shape[:3], dev,
@@ -455,28 +573,33 @@ def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
              align=4)
     _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
     _require(slots, "slots", torch.int32, (B,), dev, align=4)
+    window = _slot_window(window, Smax)
     if _device(q) == "cpu":
         return flash_decode_quant_plain(q, k_cache, v_cache, k_scale,
-                                        v_scale, lengths, slots)
+                                        v_scale, lengths, slots, window)
     return _launch(flash_decode_quant, "flash_decode_quant",
                    _DECODE_QUANT_ARGS, q,
                    (k_cache, v_cache, k_scale, v_scale, slots, lengths),
-                   (B, H, Hkv, Smax), Smax)
+                   (B, H, Hkv, Smax), decode_span(Smax, window),
+                   window=window)
 
 
 flash_decode_quant.launches = 0
+flash_decode_quant.variant_launches = {}
 
 
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, tables: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
-    """q [B, H, D] f16 against the bf16 or f16 block pool [blocks, bs,
-    Hkv, D] through tables [B, MB] and lengths [B] int32 -> [B, H, D] f16.
-    Only pages below each length are read."""
+    """q [B, H, D] f16 or bf16 against the bf16 or f16 block pool
+    [blocks, bs, Hkv, D] through tables [B, MB] and lengths [B] int32 ->
+    [B, H, D] in q's type. Only pages below each length are read. No
+    window, as in the JAX package (kv_cache.decode_attention_paged routes
+    a windowed decode to the table gather)."""
     B, H, Hkv, D = _decode_shape(q, k_pool, "flash_decode_paged")
     bs = k_pool.shape[1]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, D), dev)
+    _query(q, (B, H, D))
     _float_cache("flash_decode_paged", k_pool, v_pool, dev)
     _require(tables, "tables", torch.int32, (B, tables.shape[-1]), dev,
              align=4)
@@ -486,23 +609,25 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     return _launch(flash_decode_paged, "flash_decode_paged",
                    _DECODE_PAGED_ARGS, q, (k_pool, v_pool, tables, lengths),
                    (B, H, Hkv, bs, tables.shape[1]), bs * tables.shape[1],
-                   kv_f16=k_pool.dtype == torch.float16)
+                   kv_f16=k_pool.dtype == torch.float16, slot=False)
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.variant_launches = {}
 
 
 def flash_decode_paged_quant(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, k_scale: torch.Tensor,
                              v_scale: torch.Tensor, tables: torch.Tensor,
                              lengths: torch.Tensor) -> torch.Tensor:
-    """q [B, H, D] f16 against the int8 block pool [blocks, bs, Hkv, D]
-    and its f32 scale planes [blocks, bs, Hkv] through tables [B, MB] and
-    lengths [B] int32 -> [B, H, D] f16."""
+    """q [B, H, D] f16 or bf16 against the int8 block pool [blocks, bs,
+    Hkv, D] and its f32 scale planes [blocks, bs, Hkv] through tables
+    [B, MB] and lengths [B] int32 -> [B, H, D] in q's type (no window, as
+    flash_decode_paged)."""
     B, H, Hkv, D = _decode_shape(q, k_pool, "flash_decode_paged_quant")
     bs = k_pool.shape[1]
     dev = q.device
-    _require(q, "q", torch.float16, (B, H, D), dev)
+    _query(q, (B, H, D))
     _require(k_pool, "k_pool", torch.int8, k_pool.shape, dev)
     _require(v_pool, "v_pool", torch.int8, k_pool.shape, dev)
     _require(k_scale, "k_scale", torch.float32, k_pool.shape[:3], dev,
@@ -518,7 +643,9 @@ def flash_decode_paged_quant(q: torch.Tensor, k_pool: torch.Tensor,
     return _launch(flash_decode_paged_quant, "flash_decode_paged_quant",
                    _DECODE_PAGED_QUANT_ARGS, q,
                    (k_pool, v_pool, k_scale, v_scale, tables, lengths),
-                   (B, H, Hkv, bs, tables.shape[1]), bs * tables.shape[1])
+                   (B, H, Hkv, bs, tables.shape[1]), bs * tables.shape[1],
+                   slot=False)
 
 
 flash_decode_paged_quant.launches = 0
+flash_decode_paged_quant.variant_launches = {}

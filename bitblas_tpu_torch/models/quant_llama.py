@@ -2,13 +2,21 @@
 bitblas_tpu/models/quant_llama.py).
 
 RMSNorm + RoPE + GQA attention + SwiGLU MLP, every weight matrix a GPTQ
-W4A16 matmul (uint4 codes, float16 scales and zeros in groups of
-`LlamaConfig.group_size`: 32, 64, 128, a multiple of 256 or -1, per
-channel) through the dequant kernel; prefill attention runs the flash
-kernel for long prompts and each decode step a flash-decode kernel over
-the slot cache or the block pool, bfloat16 or int8. The decoder is an
+uint4 matmul (scales and zeros in groups of `LlamaConfig.group_size`: 32,
+64, 128, a multiple of 256 or -1, per channel) under float16 or bfloat16
+activations (`act_dtype`) through the dequant kernels; prefill attention
+runs the flash kernel for long prompts and each decode step a
+flash-decode kernel over the slot cache or the block pool, bfloat16 or
+int8, or a plain attend over the ring cache; `decode_chunk` appends T
+tokens a slot in one pass (chunked prefill). A sliding window
+(`sliding_window`, Mistral's) reaches every path. The decoder is an
 nn.Module whose buffers hold the device-layout weights;
 `convert.from_jax_state` carries the JAX package's weights across.
+
+The types follow the JAX package's: the engines feed float16 hidden
+states; each projection casts its activation to act_dtype and returns
+act_dtype, so with bfloat16 the first residual add (float16 + bfloat16)
+promotes the hidden state to float32, as jnp's does.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from ..common import resolve_device
 from ..kernels.flash import HEAD_DIM, flash_attention_fwd
 from ..ops.matmul import Matmul
 from ..ops.matmul_config import MatmulConfig
+from ..ops.weight_transform import scale_dtype
 
 
 @dataclass
@@ -98,7 +107,8 @@ class QuantLlamaLayer(nn.Module):
     """One decoder layer; all 7 projections are uint4 dequant matmuls.
 
     Buffers ``<proj>_qweight`` [N, K/8] int32, ``<proj>_scales`` and
-    ``<proj>_zeros`` [K/g, N] float16 (quantization/packing.py layout),
+    ``<proj>_zeros`` [K/g, N] in the activation type, float16 or bfloat16
+    (quantization/packing.py layout; load_state_dict casts float16 ones),
     optional ``<proj>_bias`` [N] float32, and the two RMSNorm weights.
     Random init draws from a seeded torch.Generator on the layer's device:
     uniform uint4 codes (every 32-bit pattern is eight of them), zero
@@ -128,10 +138,10 @@ class QuantLlamaLayer(nn.Module):
             words = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8),
                                   generator=gen, device=dev,
                                   dtype=torch.int64).to(torch.int32)
+            sdt = scale_dtype(mcfg)
             scales = (torch.randn((K // g, N), generator=gen, device=dev)
-                      * 0.0002 + 0.001).to(torch.float16)
-            zeros = torch.full((K // g, N), 8.0, dtype=torch.float16,
-                               device=dev)
+                      * 0.0002 + 0.001).to(sdt)
+            zeros = torch.full((K // g, N), 8.0, dtype=sdt, device=dev)
             self.register_buffer(f"{name}_qweight", words)
             self.register_buffer(f"{name}_scales", scales)
             self.register_buffer(f"{name}_zeros", zeros)
@@ -192,9 +202,10 @@ def layer_forward(layer: QuantLlamaLayer, x: torch.Tensor,
                   positions: torch.Tensor, *, flash=None,
                   return_kv: bool = False, window: Optional[int] = None):
     """x [B, S, hidden] -> [B, S, hidden] (optionally also the rope-applied
-    K/V [B, S, Hkv, D] for the KV cache). Attention is causal. `flash` is
-    an attention function fn(q, k, v) (the prefill kernel); without it the
-    plain masked softmax runs, with an optional sliding `window`."""
+    K/V [B, S, Hkv, D] for the KV cache). Attention is causal, with an
+    optional sliding `window` (query i attends keys (i - window, i]).
+    `flash` is an attention function fn(q, k, v[, window]) (the prefill
+    kernel); without it the plain masked softmax runs."""
     cfg = layer.cfg
     B, S, _ = x.shape
     h = rmsnorm(x, layer.attn_norm, cfg.rms_norm_eps)
@@ -204,10 +215,8 @@ def layer_forward(layer: QuantLlamaLayer, x: torch.Tensor,
     q = rope(q, positions, cfg.rope_arg)
     k = rope(k, positions, cfg.rope_arg)
     if flash is not None:
-        if window is not None:
-            raise NotImplementedError(
-                "layer_forward: flash + sliding window is not supported")
-        attn = flash(q.contiguous(), k.contiguous(), v.contiguous())
+        qkv = (q.contiguous(), k.contiguous(), v.contiguous())
+        attn = flash(*qkv) if window is None else flash(*qkv, window)
     else:
         group = cfg.num_heads // cfg.num_kv_heads
         k_ = k.repeat_interleave(group, dim=2).float()
@@ -247,12 +256,13 @@ class DecoderServingMixin:
         """Returns fn(x [1, S, hidden], positions) -> (hidden, ks, vs),
         ks/vs per-layer rope-applied K/V [S, Hkv, D]. Prompts of 256+
         tokens in 128-multiples attend through the flash kernel (the JAX
-        threshold); shorter ones, sliding-window models and head dims the
-        kernel does not take keep the plain masked softmax."""
+        threshold), a sliding window included (its banded walk); shorter
+        ones and head dims the kernel does not take keep the plain masked
+        softmax."""
         cfg = self.cfg
         flash = None
         if (seq_len >= 256 and seq_len % 128 == 0
-                and cfg.head_dim == HEAD_DIM and cfg.sliding_window is None):
+                and cfg.head_dim == HEAD_DIM):
             flash = flash_attention_fwd
 
         def prefill(x, positions):
@@ -268,30 +278,80 @@ class DecoderServingMixin:
         return prefill
 
     def _decode_layers(self, x: torch.Tensor, lengths: torch.Tensor,
-                       attend) -> torch.Tensor:
-        """The one-token layer stack shared by every decode step: x
-        [B, 1, hidden]; lengths [B] tokens already cached (the new token's
-        position). `attend(li, q, k, v)` writes layer li's new K/V [B, Hkv,
-        D] into its cache and returns the attention [B, H, D] over
-        lengths + 1 keys."""
+                       attend, chunk: bool = False) -> torch.Tensor:
+        """The layer stack shared by every decode step and chunk: x
+        [B, T, hidden] (T = 1 for a decode step); lengths [B] tokens
+        already cached, so token i sits at position lengths + i. Each
+        projection runs at M = B * T. `attend(li, q, k, v)` writes layer
+        li's new K/V into its cache and returns the attention: q [B, H, D],
+        k/v [B, Hkv, D] -> [B, H, D] for a step, [B, T, H, D], [B, T, Hkv,
+        D] -> [B, T, H, D] with `chunk`."""
         cfg = self.cfg
-        B = x.shape[0]
-        positions = lengths[:, None]
+        B, T, _ = x.shape
+        positions = lengths[:, None] + torch.arange(
+            T, device=lengths.device, dtype=lengths.dtype)
         for li, layer in enumerate(self.layers):
             h = rmsnorm(x, layer.attn_norm, cfg.rms_norm_eps)
-            h2 = h.reshape(B, cfg.hidden_size)
-            q = layer.proj("q", h2).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-            k = layer.proj("k", h2).reshape(B, 1, cfg.num_kv_heads,
+            h2 = h.reshape(B * T, cfg.hidden_size)
+            q = layer.proj("q", h2).reshape(B, T, cfg.num_heads, cfg.head_dim)
+            k = layer.proj("k", h2).reshape(B, T, cfg.num_kv_heads,
                                             cfg.head_dim)
-            v = layer.proj("v", h2).reshape(B, 1, cfg.num_kv_heads,
+            v = layer.proj("v", h2).reshape(B, T, cfg.num_kv_heads,
                                             cfg.head_dim)
-            q = rope(q, positions, cfg.rope_arg)[:, 0].contiguous()
-            k = rope(k, positions, cfg.rope_arg)[:, 0]
-            attn = attend(li, q, k, v[:, 0]).reshape(B, cfg.hidden_size)
-            x = x + layer.proj("o", attn)[:, None, :]
+            q = rope(q, positions, cfg.rope_arg)
+            k = rope(k, positions, cfg.rope_arg)
+            if chunk:
+                attn = attend(li, q.contiguous(), k, v)
+            else:
+                attn = attend(li, q[:, 0].contiguous(), k[:, 0], v[:, 0])
+            attn = attn.reshape(B * T, cfg.hidden_size)
+            x = x + layer.proj("o", attn).reshape(B, T, cfg.hidden_size)
             h = rmsnorm(x, layer.mlp_norm, cfg.rms_norm_eps)
-            x = x + _layer_mlp(layer, h.reshape(B, cfg.hidden_size))[:, None]
+            x = x + _layer_mlp(layer, h.reshape(B * T, cfg.hidden_size)) \
+                .reshape(B, T, cfg.hidden_size)
         return x
+
+    def _slot_decode(self, x: torch.Tensor, caches, slots: torch.Tensor,
+                     lengths: torch.Tensor, *, chunk: bool, ring: bool):
+        """The slot-cache steps: `caches` (K, V) or, int8, (K, V, K scales,
+        V scales), each stacked over the layers and updated IN PLACE.
+        Picks the token or chunk append and attend, on the slot cache or
+        (ring=True, needs cfg.sliding_window) the ring. Returns (hidden,
+        *caches)."""
+        from ..serving import kv_cache as kvc
+
+        if ring and self.cfg.sliding_window is None:
+            raise ValueError("ring cache requires cfg.sliding_window")
+        ops = {  # (chunk, ring) -> append, attention; int8 twins below
+            (False, False): (kvc.append_token, kvc.decode_attention),
+            (False, True): (kvc.append_token_ring,
+                            kvc.ring_decode_attention),
+            (True, False): (kvc.append_chunk, kvc.chunk_attention),
+            (True, True): (kvc.append_chunk_ring, kvc.ring_chunk_attention),
+        } if len(caches) == 2 else {
+            (False, False): (kvc.append_token_quant,
+                             kvc.decode_attention_quant),
+            (False, True): (kvc.append_token_ring_quant,
+                            kvc.ring_decode_attention_quant),
+            (True, False): (kvc.append_chunk_quant,
+                            kvc.chunk_attention_quant),
+            (True, True): (kvc.append_chunk_ring_quant,
+                           kvc.ring_chunk_attention_quant),
+        }
+        append, attention = ops[chunk, ring]
+        # a step's attention sees the token just appended; a chunk's
+        # attends from `lengths`, the tokens cached before it
+        seen = lengths if chunk else lengths + 1
+
+        def attend(li, q, k, v):
+            cache = tuple(c[li] for c in caches)
+            append(*cache, slots, lengths, k, v)
+            return attention(q, *cache, slots, seen,
+                             num_heads=self.cfg.num_heads,
+                             window=self.cfg.sliding_window)
+
+        return (self._decode_layers(x, lengths, attend, chunk=chunk),
+                *caches)
 
     def decode_step(self, x: torch.Tensor, caches_k: torch.Tensor,
                     caches_v: torch.Tensor, slots: torch.Tensor,
@@ -301,19 +361,12 @@ class DecoderServingMixin:
         x [B, 1, hidden]; caches_k/v [L, slots, Lmax, Hkv, D]; lengths [B]
         tokens already in each slot's cache. The new token's K/V land at
         position lengths[b], IN PLACE in caches_k/v. Returns (hidden
-        [B, 1, hidden], caches_k, caches_v)."""
-        from ..serving.kv_cache import append_token, decode_attention
-
-        if ring:
-            raise NotImplementedError("ring KV caches are not ported yet")
-
-        def attend(li, q, k, v):
-            append_token(caches_k[li], caches_v[li], slots, lengths, k, v)
-            return decode_attention(q, caches_k[li], caches_v[li], slots,
-                                    lengths + 1, num_heads=self.cfg.num_heads,
-                                    window=self.cfg.sliding_window)
-
-        return self._decode_layers(x, lengths, attend), caches_k, caches_v
+        [B, 1, hidden], caches_k, caches_v). ring=True: the caches are
+        window-sized rings [L, slots, R, Hkv, D] (kv_cache ring section;
+        needs cfg.sliding_window): the token lands in row lengths[b] % R
+        and attention masks on the rows' absolute positions."""
+        return self._slot_decode(x, (caches_k, caches_v), slots, lengths,
+                                 chunk=False, ring=ring)
 
     def decode_step_quant(self, x: torch.Tensor, caches_k: torch.Tensor,
                           caches_v: torch.Tensor, scales_k: torch.Tensor,
@@ -321,23 +374,33 @@ class DecoderServingMixin:
                           lengths: torch.Tensor, *, ring: bool = False):
         """decode_step against the int8 slot cache: caches_k/v
         [L, slots, Lmax, Hkv, D] int8, scales_k/v [L, slots, Lmax, Hkv]
-        f32, all updated IN PLACE. Returns (hidden, caches_k, caches_v,
-        scales_k, scales_v)."""
-        from ..serving.kv_cache import (append_token_quant,
-                                        decode_attention_quant)
+        f32, all updated IN PLACE (ring=True: int8 rings). Returns
+        (hidden, caches_k, caches_v, scales_k, scales_v)."""
+        return self._slot_decode(x, (caches_k, caches_v, scales_k, scales_v),
+                                 slots, lengths, chunk=False, ring=ring)
 
-        if ring:
-            raise NotImplementedError("ring KV caches are not ported yet")
+    def decode_chunk(self, x: torch.Tensor, caches_k: torch.Tensor,
+                     caches_v: torch.Tensor, slots: torch.Tensor,
+                     lengths: torch.Tensor, *, ring: bool = False):
+        """Append T tokens a slot in one pass (chunked prefill): x [B, T,
+        hidden]; caches as decode_step's; lengths [B] tokens already
+        cached. Token i lands at position lengths[b] + i, IN PLACE, and
+        attends its prefix and the chunk's tokens up to itself (within the
+        window, if set). Returns (hidden [B, T, hidden], caches_k,
+        caches_v). The projections run at M = B * T. ring=True: the
+        caches are rings with R >= window + T - 1."""
+        return self._slot_decode(x, (caches_k, caches_v), slots, lengths,
+                                 chunk=True, ring=ring)
 
-        def attend(li, q, k, v):
-            cache = (caches_k[li], caches_v[li], scales_k[li], scales_v[li])
-            append_token_quant(*cache, slots, lengths, k, v)
-            return decode_attention_quant(
-                q, *cache, slots, lengths + 1, num_heads=self.cfg.num_heads,
-                window=self.cfg.sliding_window)
-
-        return (self._decode_layers(x, lengths, attend), caches_k, caches_v,
-                scales_k, scales_v)
+    def decode_chunk_quant(self, x: torch.Tensor, caches_k: torch.Tensor,
+                           caches_v: torch.Tensor, scales_k: torch.Tensor,
+                           scales_v: torch.Tensor, slots: torch.Tensor,
+                           lengths: torch.Tensor, *, ring: bool = False):
+        """decode_chunk against the int8 slot cache (or int8 rings).
+        Returns (hidden [B, T, hidden], caches_k, caches_v, scales_k,
+        scales_v)."""
+        return self._slot_decode(x, (caches_k, caches_v, scales_k, scales_v),
+                                 slots, lengths, chunk=True, ring=ring)
 
     def decode_step_paged(self, x: torch.Tensor, caches_k: torch.Tensor,
                           caches_v: torch.Tensor, tables: torch.Tensor,

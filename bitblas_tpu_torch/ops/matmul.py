@@ -200,13 +200,24 @@ class Matmul(Operator):
     def forward(self, A: torch.Tensor, W: torch.Tensor, scale=None,
                 zeros=None, bias=None) -> torch.Tensor:
         """A [..., K] (``t*`` layouts: [K, M]) -> [..., N] in the
-        configuration's out_dtype."""
+        configuration's out_dtype. A quantized configuration with float16
+        or bfloat16 activations takes a float A of any type, cast to
+        A_dtype."""
         cfg = self.config
         if (cfg.with_scaling and scale is None) or \
                 (cfg.with_zeros and zeros is None):
             raise ValueError("this configuration needs scale and zeros")
         if cfg.layout[0] == "t":
             A = A.T
+        adt = as_torch_dtype(cfg.A_dtype)
+        if (A.dtype != adt and A.is_floating_point()
+                and adt in (torch.float16, torch.bfloat16)
+                and not cfg.is_native_compute()):
+            # a float activation of another type (a bfloat16 model's
+            # float16 inputs or float32 residual stream) takes the
+            # configured type first, as JAX's kernel casts its A block to
+            # the mma type
+            A = A.to(adt)
         lead = A.shape[:-1]
         A2 = A.reshape(-1, cfg.K).contiguous()
         out = self._run(self.hint_for(A2.shape[0]), A2, W, scale, zeros,

@@ -12,9 +12,10 @@ TokenContinuousBatchingEngine).
 Caches are updated in place; scheduling is host-side; each `step()` runs
 one decode step for every slot (inactive slots are masked by their
 length). Prompts are prefilled at power-of-two buckets, so prompts of
-129+ tokens reach the flash prefill kernel. Chunked prefill
-(`prefill_chunk`) and the ring cache (`kv_ring`) are not ported yet and
-raise NotImplementedError.
+129+ tokens reach the flash prefill kernel, or with `prefill_chunk=T` in
+T-token pieces through the model's `decode_chunk`. A sliding-window model
+can keep its slot cache as a window-sized ring (`kv_ring`, with
+prefill_chunk).
 """
 
 from __future__ import annotations
@@ -104,14 +105,56 @@ class ContinuousBatchingEngine:
     """Drives decode steps over a slot pool on the model's device.
     kv_quant=True stores the cache as int8 codes + per-(token, head) f32
     scales (half the KV bytes per decode step and of the footprint); the
-    model must expose decode_step_quant."""
+    model must expose decode_step_quant.
+
+    prefill_chunk=T admits prompts through the model's decode_chunk in
+    T-token pieces, the tail zero-padded (its pad rows land past the
+    sequence's length, where attention never reads and later appends
+    overwrite them; a tail that would run past the cache's last row is
+    cut there instead).
+
+    kv_ring=True (sliding-window models, with prefill_chunk): the cache
+    rows become a window-sized ring (kv_cache ring section), R rows a slot
+    instead of max_seq_len; kv_ring_capacity overrides R's default
+    ring_capacity(window, T). R >= window + T - 1 is required: it keeps
+    every key a chunk's first query needs and keeps the pad rows of a
+    tail chunk out of every window."""
 
     def __init__(self, model, num_slots: int, max_seq_len: int,
                  kv_quant: bool = False, prefill_chunk: int = 0,
-                 kv_ring: bool = False):
-        if prefill_chunk or kv_ring:
-            raise NotImplementedError(
-                "prefill_chunk and kv_ring are not ported yet")
+                 kv_ring: bool = False,
+                 kv_ring_capacity: Optional[int] = None):
+        self.prefill_chunk = int(prefill_chunk)
+        self.kv_ring = bool(kv_ring)
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got "
+                             f"{prefill_chunk}")
+        if self.prefill_chunk and kv_quant and not hasattr(
+                model, "decode_chunk_quant"):
+            raise ValueError("prefill_chunk with kv_quant needs the model "
+                             "to expose decode_chunk_quant")
+        cache_rows = max_seq_len
+        if self.kv_ring:
+            from .kv_cache import ring_capacity
+            window = model.cfg.sliding_window
+            if window is None:
+                raise ValueError("kv_ring requires cfg.sliding_window")
+            if not self.prefill_chunk:
+                raise ValueError(
+                    "kv_ring requires prefill_chunk > 0 (prompts must "
+                    "enter through the wrap-aware decode_chunk path)")
+            if kv_ring_capacity is not None:
+                cache_rows = int(kv_ring_capacity)
+            else:
+                cache_rows = min(ring_capacity(window, self.prefill_chunk),
+                                 max_seq_len)
+            if cache_rows < window + self.prefill_chunk - 1:
+                raise ValueError(
+                    f"kv_ring: ring capacity {cache_rows} < window + "
+                    f"prefill_chunk - 1 = {window + self.prefill_chunk - 1}"
+                    f": the ring cannot keep the keys a chunk needs; raise "
+                    f"the capacity, shrink prefill_chunk, or drop kv_ring")
+        self.cache_rows = cache_rows
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -123,7 +166,7 @@ class ContinuousBatchingEngine:
         self.pending: List[Request] = []
         self.finished: List[Request] = []
         c = self.cfg
-        _init_caches(self, (c.num_layers, num_slots, max_seq_len,
+        _init_caches(self, (c.num_layers, num_slots, cache_rows,
                             c.num_kv_heads, c.head_dim), kv_quant)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.last_hidden = torch.zeros((num_slots, c.hidden_size),
@@ -152,6 +195,8 @@ class ContinuousBatchingEngine:
             self.active[slot] = req
 
     def _prefill(self, req: Request):
+        if self.prefill_chunk:
+            return self._prefill_chunked(req)
         S = req.prompt.shape[0]
         bucket = min(_bucket(S), self.max_seq_len)
         hidden, ks, vs = _run_prefill(self, req.prompt, bucket)
@@ -163,19 +208,49 @@ class ContinuousBatchingEngine:
         self.last_hidden[req.slot] = hidden[0, S - 1].to(
             self.last_hidden.dtype)
 
+    def _caches(self):
+        """The cache tensors a decode step or chunk takes, in order."""
+        if self.kv_quant:
+            return (self.caches_k, self.caches_v, self.scales_k,
+                    self.scales_v)
+        return self.caches_k, self.caches_v
+
+    def _prefill_chunked(self, req: Request):
+        """Admit a prompt through T-token decode_chunk calls, in place; the
+        tail chunk is zero-padded (cut at the cache's last row on the slot
+        cache)."""
+        T = self.prefill_chunk
+        S = req.prompt.shape[0]
+        step = self.model.decode_chunk_quant if self.kv_quant \
+            else self.model.decode_chunk
+        kw = {"ring": True} if self.kv_ring else {}
+        slots = self._slots[req.slot:req.slot + 1]
+        prompt = torch.as_tensor(req.prompt).to(self.device, torch.float16)
+        written, hidden, n = 0, None, 0
+        while written < S:
+            n = min(T, S - written)
+            rows = T if self.kv_ring else min(T, self.cache_rows - written)
+            x = torch.zeros((1, rows, self.cfg.hidden_size),
+                            dtype=torch.float16, device=self.device)
+            x[0, :n] = prompt[written:written + n]
+            start = torch.tensor([written], dtype=torch.int32,
+                                 device=self.device)
+            hidden = step(x, *self._caches(), slots, start, **kw)[0]
+            written += n
+        self.lengths[req.slot] = S
+        self.last_hidden[req.slot] = hidden[0, n - 1].to(
+            self.last_hidden.dtype)
+
     # -- main loop ---------------------------------------------------------------
     def _run_decode(self) -> None:
         """One decode step over every slot; updates the caches (in place)
         and last_hidden."""
         lengths = torch.from_numpy(self.lengths).to(self.device)
         x = self.last_hidden[:, None, :]
-        if self.kv_quant:
-            hidden = self.model.decode_step_quant(
-                x, self.caches_k, self.caches_v, self.scales_k,
-                self.scales_v, self._slots, lengths)[0]
-        else:
-            hidden = self.model.decode_step(x, self.caches_k, self.caches_v,
-                                            self._slots, lengths)[0]
+        kw = {"ring": True} if self.kv_ring else {}
+        step = self.model.decode_step_quant if self.kv_quant \
+            else self.model.decode_step
+        hidden = step(x, *self._caches(), self._slots, lengths, **kw)[0]
         self.last_hidden = hidden[:, 0, :].to(self.last_hidden.dtype)
 
     def step(self) -> int:

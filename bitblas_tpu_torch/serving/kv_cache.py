@@ -1,10 +1,12 @@
 """KV caches for decode serving (counterpart of
 bitblas_tpu/serving/kv_cache.py: the slot cache, its int8 twin, the paged
-block pool and its int8 twin):
+block pool and its int8 twin, chunked appends and the ring cache):
 
   slot   k/v : [num_layers, num_slots, max_seq_len, kv_heads, head_dim]
   paged  k/v : [num_layers, num_blocks, block_size, kv_heads, head_dim]
                + block tables [num_slots, max_blocks_per_slot] (host side)
+  ring   k/v : [num_layers, num_slots, R, kv_heads, head_dim], R about the
+               sliding window (token at absolute position p in row p % R)
   int8       : codes in k/v, f32 scales [...,  kv_heads] in k_scale/v_scale
 
 Unlike the JAX package, whose arrays are immutable, the caches here are
@@ -12,13 +14,22 @@ updated IN PLACE: the writers and appenders write into the tensors they
 are given (and return them for call-site parity), so a decode step never
 copies a cache. The block pool is indexed like the slot cache, with
 (block, offset) in place of (slot, position), so the paged appenders are
-the slot appenders. The ring cache and chunked appends are not ported yet.
+the slot appenders.
+
+A sliding window (HF convention: the query at position p attends keys
+(p - window, p]) runs through the slot decode kernels; a windowed paged
+decode takes the table gather, as in the JAX package, whose paged kernels
+have no window. The chunk and ring attends are plain PyTorch, as JAX's are
+XLA: a chunk's T queries are one batched contraction, and a window-sized
+ring holds about the W keys a windowed kernel would read anyway.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
+
+import math
 
 import torch
 
@@ -93,13 +104,114 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     runs the flash-decode wrapper straight out of the slot cache, reading
     only rows below each length (any GQA group; on the card the kernel
     takes D = 128 and 256 and raises on other such head dims); other head
-    dims take the plain length-masked decode."""
-    if window is not None:
-        raise NotImplementedError("sliding-window decode is not ported yet")
+    dims take the plain length-masked decode. With a `window` the query at
+    position lengths - 1 attends keys [max(lengths - window, 0),
+    lengths), through the same kernel."""
     lengths, slots = _int32(lengths, slots)
     if q.shape[-1] % 128 == 0:
-        return flash_decode(q, cache_k, cache_v, lengths, slots)
-    return flash_decode_plain(q, cache_k, cache_v, lengths, slots)
+        return flash_decode(q, cache_k, cache_v, lengths, slots, window)
+    return flash_decode_plain(q, cache_k, cache_v, lengths, slots, window)
+
+
+def append_chunk(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 slots: torch.Tensor, starts: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer multi-token append, in place: cache_k/v [slots, L, Hkv,
+    D]; slots, starts [B]; k/v_new [B, T, Hkv, D] landing at positions
+    starts[b] + 0..T-1 (the caller guarantees starts[b] + T <= L)."""
+    b, pos = _chunk_index(slots, starts, k_new.shape[1])
+    cache_k[b, pos] = k_new.to(cache_k.dtype)
+    cache_v[b, pos] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def _chunk_index(slots: torch.Tensor, starts: torch.Tensor, T: int,
+                 rows: Optional[int] = None):
+    """([B, 1] slots, [B, T] positions starts + 0..T-1, modulo `rows` for
+    the ring) as int64 index tensors."""
+    pos = starts.long()[:, None] + torch.arange(T, device=starts.device)
+    if rows is not None:
+        pos = pos % rows
+    return slots.long()[:, None], pos
+
+
+def _softmax_attend(qf: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    keep: torch.Tensor, k_scale=None, v_scale=None,
+                    chunk: bool = False) -> torch.Tensor:
+    """The JAX package's XLA attend in float32: logits q.k / sqrt(D)
+    (times the K scales of an int8 cache), masked to -1e30 where `keep` is
+    False, softmax, the weights times the V scales, then P V. qf [B, Hkv,
+    g, D] (decode) or [B, T, Hkv, g, D] (chunk=True); k/v [B, L, Hkv, D];
+    keep broadcastable to the logits [B, Hkv, g, (T,) L]; scales
+    [B, L, Hkv]."""
+    D = qf.shape[-1]
+    if chunk:
+        s = torch.einsum("bthgd,blhd->bhgtl", qf, k.float())
+        ksc = None if k_scale is None else \
+            k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+        vsc = None if v_scale is None else \
+            v_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+    else:
+        s = torch.einsum("bhgd,blhd->bhgl", qf, k.float())
+        ksc = None if k_scale is None else \
+            k_scale.float().permute(0, 2, 1)[:, :, None, :]
+        vsc = None if v_scale is None else \
+            v_scale.float().permute(0, 2, 1)[:, :, None, :]
+    s = s / math.sqrt(D)
+    if ksc is not None:
+        s = s * ksc
+    s = torch.where(keep, s, torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    if vsc is not None:
+        p = p * vsc
+    if chunk:
+        return torch.einsum("bhgtl,blhd->bthgd", p, v.float())
+    return torch.einsum("bhgl,blhd->bhgd", p, v.float())
+
+
+def _gather_attend(q: torch.Tensor, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor, slots: torch.Tensor,
+                   keep: torch.Tensor, scale_k=None,
+                   scale_v=None) -> torch.Tensor:
+    """The chunk and ring attends: gather the slots' cache rows (and
+    scales) and attend in float32 (_softmax_attend). q [B, H, D] (one
+    token) or [B, T, H, D] (a chunk); returns q's shape and type."""
+    s = slots.long()
+    Hkv, H, D = cache_k.shape[2], q.shape[-2], q.shape[-1]
+    qf = q.float().reshape(*q.shape[:-2], Hkv, H // Hkv, D)
+    out = _softmax_attend(qf, cache_k[s], cache_v[s], keep,
+                          None if scale_k is None else scale_k[s],
+                          None if scale_v is None else scale_v[s],
+                          chunk=q.dim() == 4)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def _chunk_keep(starts: torch.Tensor, T: int, L: int,
+                window: Optional[int]) -> torch.Tensor:
+    """[B, 1, 1, T, L] mask of chunk_attention: query i of request b
+    attends positions < starts[b] + i + 1 and, with a window, above
+    starts[b] + i - window."""
+    limit = starts.long()[:, None] + torch.arange(T, device=starts.device) \
+        + 1                                                    # [B, T]
+    pos = torch.arange(L, device=starts.device)[None, None, :]
+    keep = pos < limit[:, :, None]
+    if window is not None:
+        keep = keep & (pos > limit[:, :, None] - 1 - window)
+    return keep[:, None, None]
+
+
+def chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, slots: torch.Tensor,
+                    starts: torch.Tensor, *, num_heads: int,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """T-token causal attention against the slot cache (chunk already
+    appended): q [B, T, H, D]; query i of request b attends cache
+    positions < starts[b] + i + 1, and within the trailing `window` keys
+    when one is set. Returns [B, T, H, D] in q's type. One batched
+    contraction per chunk, in plain PyTorch as JAX's is XLA."""
+    keep = _chunk_keep(starts, q.shape[1], cache_k.shape[1], window)
+    return _gather_attend(q, cache_k, cache_v, slots, keep)
 
 
 # -- int8 slot cache ----------------------------------------------------------
@@ -181,14 +293,37 @@ def decode_attention_quant(q: torch.Tensor, cache_k: torch.Tensor,
     """Single-token attention against the int8 cache: q [B, H, D];
     cache_k/v [slots, L, Hkv, D] int8; scale_k/v [slots, L, Hkv] f32;
     lengths [B]. Returns [B, H, D]. Lane-aligned head dims (D % 128 == 0)
-    run the int8 flash-decode kernel; other head dims its plain
-    version."""
-    if window is not None:
-        raise NotImplementedError("sliding-window decode is not ported yet")
+    run the int8 flash-decode kernel; other head dims its plain version;
+    `window` as decode_attention's."""
     lengths, slots = _int32(lengths, slots)
     fn = flash_decode_quant if q.shape[-1] % 128 == 0 \
         else flash_decode_quant_plain
-    return fn(q, cache_k, cache_v, scale_k, scale_v, lengths, slots)
+    return fn(q, cache_k, cache_v, scale_k, scale_v, lengths, slots, window)
+
+
+def append_chunk_quant(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                       scale_k: torch.Tensor, scale_v: torch.Tensor,
+                       slots: torch.Tensor, starts: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor):
+    """Quantized twin of append_chunk: k/v_new [B, T, Hkv, D] float are
+    quantized per (token, head) and written at starts[b] + 0..T-1, in
+    place."""
+    b, pos = _chunk_index(slots, starts, k_new.shape[1])
+    for codes, scales, x in ((cache_k, scale_k, k_new),
+                             (cache_v, scale_v, v_new)):
+        codes[b, pos], scales[b, pos] = quantize_kv(x)
+    return cache_k, cache_v, scale_k, scale_v
+
+
+def chunk_attention_quant(q: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, scale_k: torch.Tensor,
+                          scale_v: torch.Tensor, slots: torch.Tensor,
+                          starts: torch.Tensor, *, num_heads: int,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Quantized twin of chunk_attention: the same chunk-causal mask, the
+    K scales on the logits and the V scales folded into the weights."""
+    keep = _chunk_keep(starts, q.shape[1], cache_k.shape[1], window)
+    return _gather_attend(q, cache_k, cache_v, slots, keep, scale_k, scale_v)
 
 
 # -- paged cache (block pool) -------------------------------------------------
@@ -262,13 +397,23 @@ def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
     and the head dim is lane-aligned (D % 128 == 0, as the slot route;
     any GQA group; the kernel takes D = 128 and 256 and raises on other
     such head dims), and the plain table gather otherwise; False always
-    takes the gather (the same function); True the kernel's wrapper."""
-    if window is not None:
-        raise NotImplementedError("sliding-window decode is not ported yet")
+    takes the gather (the same function); True the kernel's wrapper.
+
+    A `window` always takes the table gather, masked to the window: this
+    is the JAX package's own design (its paged kernels have no window
+    lower bound, kv_cache.py:197-198), not a fallback. Such calls count
+    in `decode_attention_paged.window_gathers`."""
     tables, lengths = _int32(tables, lengths)
+    if window is not None:
+        decode_attention_paged.window_gathers += 1
+        return flash_decode_paged_plain(q, cache_k, cache_v, tables, lengths,
+                                        window)
     fn = flash_decode_paged if _use_paged_kernel(q, use_flash) \
         else flash_decode_paged_plain
     return fn(q, cache_k, cache_v, tables, lengths)
+
+
+decode_attention_paged.window_gathers = 0
 
 
 def decode_attention_paged_quant(q: torch.Tensor, cache_k: torch.Tensor,
@@ -280,13 +425,20 @@ def decode_attention_paged_quant(q: torch.Tensor, cache_k: torch.Tensor,
                                  window: Optional[int] = None
                                  ) -> torch.Tensor:
     """Quantized twin of decode_attention_paged over the int8 pool and its
-    scale planes [blocks, bs, Hkv]; same routing."""
-    if window is not None:
-        raise NotImplementedError("sliding-window decode is not ported yet")
+    scale planes [blocks, bs, Hkv]; same routing (a window takes the
+    masked gather, counted in `window_gathers`)."""
     tables, lengths = _int32(tables, lengths)
+    if window is not None:
+        decode_attention_paged_quant.window_gathers += 1
+        return flash_decode_paged_quant_plain(q, cache_k, cache_v, scale_k,
+                                              scale_v, tables, lengths,
+                                              window)
     fn = flash_decode_paged_quant if _use_paged_kernel(q, use_flash) \
         else flash_decode_paged_quant_plain
     return fn(q, cache_k, cache_v, scale_k, scale_v, tables, lengths)
+
+
+decode_attention_paged_quant.window_gathers = 0
 
 
 class BlockAllocator:
@@ -304,3 +456,209 @@ class BlockAllocator:
     @property
     def available(self) -> int:
         return len(self.free)
+
+
+# -- ring (sliding-window rolling-buffer) cache --------------------------------
+#
+# With a sliding window only the trailing `window` keys are ever attended;
+# the ring cache stores R ~= W rows a slot and writes the token at
+# absolute position p into row p % R, so KV memory follows the window, not
+# the conversation length. Row r of a slot holding `length` tokens holds
+# the newest p <= length - 1 with p % R == r, p = (length - 1) - ((length
+# - 1 - r) mod R), derived from `lengths`; attention masks on that
+# position, so the attended set is the windowed full-cache one. A chunk of
+# T tokens overwrites rows of positions < length - R, and its first query
+# still needs starts - window + 1: R >= window + T - 1 (decode: R >=
+# window). The attends are plain PyTorch, as JAX's are XLA (kv_cache.py:
+# 836-842): the ring is already window-sized, so they read about the W
+# keys a windowed kernel would.
+
+
+def ring_capacity(window: int, max_chunk: int = 1, align: int = 128) -> int:
+    """Smallest aligned ring capacity correct for chunked appends of up
+    to `max_chunk` tokens: R >= window + max_chunk - 1, rounded up."""
+    need = window + max_chunk - 1
+    return ((need + align - 1) // align) * align
+
+
+def _ring_shape(cfg: KVCacheConfig, window: int, max_chunk: int):
+    R = min(ring_capacity(window, max_chunk), cfg.max_seq_len)
+    return (cfg.num_layers, cfg.num_slots, R, cfg.num_kv_heads,
+            cfg.head_dim)
+
+
+def init_ring_kv_cache(cfg: KVCacheConfig, window: int, max_chunk: int = 1,
+                       device="cuda") -> Dict[str, torch.Tensor]:
+    """Slot cache with ring rows: k/v [L, slots, R, Hkv, D], R the
+    window-sized capacity (at most cfg.max_seq_len)."""
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+    shape = _ring_shape(cfg, window, max_chunk)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=dev),
+        "v": torch.zeros(shape, dtype=dt, device=dev),
+        "lengths": torch.zeros((cfg.num_slots,), dtype=torch.int32,
+                               device=dev),
+    }
+
+
+def init_ring_quant_kv_cache(cfg: KVCacheConfig, window: int,
+                             max_chunk: int = 1,
+                             device="cuda") -> Dict[str, torch.Tensor]:
+    """int8 ring cache: codes + per-(row, head) f32 scales at ring
+    capacity."""
+    dev = resolve_device(device)
+    shape = _ring_shape(cfg, window, max_chunk)
+    return {
+        "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+        "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+        "k_scale": init_kv_scales(shape, dev),
+        "v_scale": init_kv_scales(shape, dev),
+        "lengths": torch.zeros((cfg.num_slots,), dtype=torch.int32,
+                               device=dev),
+    }
+
+
+def ring_abs_positions(lengths: torch.Tensor, capacity: int) -> torch.Tensor:
+    """[B] lengths -> [B, R] absolute position held by each ring row (-1
+    for rows never written). Row r holds the newest p <= length - 1 with
+    p % R == r."""
+    r = torch.arange(capacity, device=lengths.device)[None]
+    last = lengths.long()[:, None] - 1
+    abs_pos = last - torch.remainder(last - r, capacity)
+    return torch.where(abs_pos >= 0, abs_pos, torch.full_like(abs_pos, -1))
+
+
+def append_token_ring(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      slots: torch.Tensor, positions: torch.Tensor,
+                      k_new: torch.Tensor, v_new: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """append_token into ring rows, in place: cache_k/v [slots, R, Hkv,
+    D]; the token at absolute position positions[b] lands in row
+    positions[b] % R."""
+    return append_token(cache_k, cache_v, slots,
+                        positions.long() % cache_k.shape[1], k_new, v_new)
+
+
+def append_token_ring_quant(cache_k, cache_v, scale_k, scale_v,
+                            slots: torch.Tensor, positions: torch.Tensor,
+                            k_new: torch.Tensor, v_new: torch.Tensor):
+    """Quantized ring append: codes + scales land in row position % R."""
+    return append_token_quant(cache_k, cache_v, scale_k, scale_v, slots,
+                              positions.long() % cache_k.shape[1], k_new,
+                              v_new)
+
+
+def _check_ring_chunk(T: int, R: int, name: str) -> None:
+    if T > R:
+        raise ValueError(f"{name}: chunk T={T} exceeds ring capacity R={R} "
+                         f"(two tokens of the chunk would share a row)")
+
+
+def append_chunk_ring(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      slots: torch.Tensor, starts: torch.Tensor,
+                      k_new: torch.Tensor, v_new: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """append_chunk into ring rows (absolute starts[b] + i -> row % R),
+    in place. T <= R keeps the T rows distinct."""
+    T, R = k_new.shape[1], cache_k.shape[1]
+    _check_ring_chunk(T, R, "append_chunk_ring")
+    b, pos = _chunk_index(slots, starts, T, R)
+    cache_k[b, pos] = k_new.to(cache_k.dtype)
+    cache_v[b, pos] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def append_chunk_ring_quant(cache_k, cache_v, scale_k, scale_v,
+                            slots: torch.Tensor, starts: torch.Tensor,
+                            k_new: torch.Tensor, v_new: torch.Tensor):
+    """Quantized ring chunk append: codes + scales land in rows
+    (starts[b] + i) % R, in place."""
+    T, R = k_new.shape[1], cache_k.shape[1]
+    _check_ring_chunk(T, R, "append_chunk_ring_quant")
+    b, pos = _chunk_index(slots, starts, T, R)
+    for codes, scales, x in ((cache_k, scale_k, k_new),
+                             (cache_v, scale_v, v_new)):
+        codes[b, pos], scales[b, pos] = quantize_kv(x)
+    return cache_k, cache_v, scale_k, scale_v
+
+
+def _ring_decode_keep(lengths: torch.Tensor, R: int,
+                      window: int) -> torch.Tensor:
+    """[B, 1, 1, R]: ring rows written and within the window of the query
+    at position lengths - 1."""
+    if R < window:
+        raise ValueError(f"ring capacity {R} < window {window}")
+    abs_pos = ring_abs_positions(lengths, R)
+    p = lengths.long()[:, None] - 1
+    return ((abs_pos >= 0) & (abs_pos > p - window))[:, None, None]
+
+
+def _ring_chunk_keep(starts: torch.Tensor, T: int, R: int,
+                     window: int) -> torch.Tensor:
+    """[B, 1, 1, T, R]: ring rows written, at or before query i's position
+    starts + i and within its window."""
+    if R < window + T - 1:
+        raise ValueError(
+            f"ring capacity {R} < window+T-1 = {window + T - 1}: chunk "
+            f"appends would evict keys the first chunk queries still need")
+    a = ring_abs_positions(starts + T, R)[:, None, :]           # [B, 1, R]
+    pq = (starts.long()[:, None]
+          + torch.arange(T, device=starts.device))[:, :, None]  # [B, T, 1]
+    return ((a >= 0) & (a <= pq) & (a > pq - window))[:, None, None]
+
+
+def ring_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, slots: torch.Tensor,
+                          lengths: torch.Tensor, *, num_heads: int,
+                          window: int) -> torch.Tensor:
+    """Single-token windowed attention against the ring cache: q [B, H,
+    D]; cache_k/v [slots, R, Hkv, D]; lengths [B] valid tokens INCLUDING
+    the one just appended; R >= window. Returns [B, H, D] in q's type:
+    the attended set of decode_attention(window=) on a full cache.
+    Counted in `ring_decode_attention.calls`."""
+    ring_decode_attention.calls += 1
+    keep = _ring_decode_keep(lengths, cache_k.shape[1], window)
+    return _gather_attend(q, cache_k, cache_v, slots, keep)
+
+
+def ring_decode_attention_quant(q: torch.Tensor, cache_k: torch.Tensor,
+                                cache_v: torch.Tensor, scale_k: torch.Tensor,
+                                scale_v: torch.Tensor, slots: torch.Tensor,
+                                lengths: torch.Tensor, *, num_heads: int,
+                                window: int) -> torch.Tensor:
+    """Single-token windowed attention against the int8 ring cache
+    (scales on the dot results, as decode_attention_quant)."""
+    ring_decode_attention_quant.calls += 1
+    keep = _ring_decode_keep(lengths, cache_k.shape[1], window)
+    return _gather_attend(q, cache_k, cache_v, slots, keep, scale_k, scale_v)
+
+
+def ring_chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                         cache_v: torch.Tensor, slots: torch.Tensor,
+                         starts: torch.Tensor, *, num_heads: int,
+                         window: int) -> torch.Tensor:
+    """T-token windowed causal attention against the ring cache (chunk
+    already appended): q [B, T, H, D]; starts [B] tokens cached BEFORE
+    the chunk; R >= window + T - 1. Returns [B, T, H, D] in q's type."""
+    ring_chunk_attention.calls += 1
+    keep = _ring_chunk_keep(starts, q.shape[1], cache_k.shape[1], window)
+    return _gather_attend(q, cache_k, cache_v, slots, keep)
+
+
+def ring_chunk_attention_quant(q: torch.Tensor, cache_k: torch.Tensor,
+                               cache_v: torch.Tensor, scale_k: torch.Tensor,
+                               scale_v: torch.Tensor, slots: torch.Tensor,
+                               starts: torch.Tensor, *, num_heads: int,
+                               window: int) -> torch.Tensor:
+    """Quantized twin of ring_chunk_attention (scales on dot results)."""
+    ring_chunk_attention_quant.calls += 1
+    keep = _ring_chunk_keep(starts, q.shape[1], cache_k.shape[1], window)
+    return _gather_attend(q, cache_k, cache_v, slots, keep, scale_k, scale_v)
+
+
+# Each ring attend counts its calls (the serve phases read them: the ring
+# attends are torch ops, not kernels).
+for _fn in (ring_decode_attention, ring_decode_attention_quant,
+            ring_chunk_attention, ring_chunk_attention_quant):
+    _fn.calls = 0

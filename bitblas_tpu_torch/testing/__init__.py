@@ -4,7 +4,9 @@
 as the JAX package, so both packages get identical reference-layout
 inputs from one seed. `assert_close` bounds the share of elements outside
 the tolerance, as the JAX helper does; `out_ulps` measures a kernel's
-distance from its plain version in ulps of the output type.
+distance from its plain version in ulps of the output type, and
+`attention_err` an attention output's, element by element, with a floor
+per output row.
 """
 
 from __future__ import annotations
@@ -91,6 +93,34 @@ def out_ulps(got: torch.Tensor, want: torch.Tensor, dtype=None,
     e = (torch.frexp(w.abs().clamp_min(2.0 ** emin))[1] - 1).double()
     unit = torch.exp2(e - mant) + floor * w.abs().max()
     return ((g - w).abs() / unit).max().item()
+
+
+# One ulp of a float16 / bfloat16 attention output, relative to the value
+# (at most: 2^-10 / 2^-7 at a power of two).
+ATTN_ULP = {torch.float16: 2.0 ** -10, torch.bfloat16: 2.0 ** -7}
+
+
+def attention_err(got: torch.Tensor, want: torch.Tensor, rel: float,
+                  row_floor: float) -> float:
+    """The largest |got - want| / (rel |want| + row_floor rms(row)), the
+    rms of want's row over the last dim (one head's output): at most 1
+    passes. Two outputs rounded to one type differ by one ulp, at most
+    ATTN_ULP of the value, where their float32 values are close: `rel`.
+    A flash prefill rounds P to Q's type before P V: the sum of those
+    per-key roundings is a random walk whose size follows its row's
+    magnitude, not the element's, and an element near zero carries it
+    whole: hence a floor per row, `row_floor` times the row's rms (a
+    float32 P, as in the decode kernels, needs one ulp of it). Each
+    element is held to its own row, so an error inside a sliding window's
+    band, where outputs average many keys and are small, is not hidden by
+    the large outputs of early rows. Non-finite values fail."""
+    w, g = want.double(), got.double()
+    if not bool(torch.isfinite(g).all()):
+        return math.inf
+    lim = rel * w.abs() + row_floor * w.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (g - w).abs()
+    return torch.where(err == 0, torch.zeros_like(err), err / lim).max() \
+        .item()
 
 
 def _float_draw(x: np.ndarray, dtype: str,

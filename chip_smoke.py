@@ -8,6 +8,8 @@
                                               # serve_bitnet_tuned, in turns
     python3 chip_smoke.py --formats           # only the formats phase
     python3 chip_smoke.py --int-formats       # only the int_formats phase
+    python3 chip_smoke.py --mistral           # only the Mistral-7B-v0.1
+                                              # phases (bf16, the window)
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -48,6 +50,15 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                flushed by a read before each launch; a one-element fill
                timed the same way gives the floor of a timed launch
                (timer_floor).
+               Kernels 4-8 on bfloat16 queries and with Mistral-7B-v0.1's
+               window (4096): kernel 4 at bf16, B = 1, H = 32, Hkv = 8,
+               S = 512, and at S = 8192 with the window, bf16 and f16;
+               kernels 5 / 6 at B = 4, H = 32, Hkv = 8, bf16 queries, the
+               window, lengths 1 / 37 / 4097 / 8000 over Smax = 8192;
+               kernels 7 / 8 on bf16 queries. These bounds count the
+               band: 4 H D sum_i min(i + 1, window) products for prefill,
+               min(len, window) keys a sequence for decode; the library
+               call is SDPA with the band as a boolean mask.
 3b. edges   -- untimed: kernel 9 at every tile, type and M tail; kernel
                1's decode instances at M = 1 / 3 / 8 / 16 over a ragged N
                (int2 also over a K tail of 64);
@@ -56,6 +67,13 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                the decode kernels at head dim 256, GQA groups 16 and 12
                and on float16 caches; each against its plain version, two
                calls bit-equal.
+3b. window_edges -- untimed: kernel 4 at S = 64 / 128 / 8192, f16 and
+               bf16, windows 1, 63, 64, 65 and >= S (a window >= S
+               bit-equal to none); kernels 5 / 6 with f16 and bf16
+               queries, windows 1, 63, 64, 65 and >= Smax, lengths window
+               - 1, window and window + 1 over Smax = 8192, splits that
+               hold no live key; each against its plain version (and the
+               split one), two calls bit-equal.
 3b'. formats -- kernels 1 and 2 for the 21 other (A, W) pairs with
                float16 / bfloat16 activations (uint1/2/4, int1/2/4/8, nf4,
                fp4_e2m1, e4m3, e5m2; ops/matmul_config.FLOAT_PAIRS): a
@@ -133,6 +151,16 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                within the limit of the CPU's best. reference_gptq: 2
                layers imported from an AutoGPTQ state dict (g = 64) on the
                card and on the CPU, prefill and decode steps as above.
+4b. reference_mistral -- 2 layers at Mistral-7B-v0.1's widths, bf16,
+               the window reduced to 256 (a CPU plain reference over
+               prompts past 4096 keys costs too much), card against the
+               CPU: prefill in bucket 512 and teacher-forced decode steps,
+               the token engine on bf16 and int8 KV, with prefill_chunk =
+               64, with kv_ring on bf16 and int8, the paged engine on bf16
+               and int8 (the window through the masked gather), and a
+               windowless bf16 model on the paged engine (kernels 7 / 8 on
+               bf16 queries); logits within MISTRAL_REF_TOL of the
+               largest.
 5. serve    -- 32-layer W4A16 Llama-2-7B widths (random weights from a
                seeded generator on the card) behind an LMHead (vocab 32000),
                four greedy requests (prompts 200/300/450/500, 32 new tokens)
@@ -149,6 +177,16 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                                 imported (load_quant_llama_from_hf_gptq,
                                 timed) and served as `serve` (token
                                 engine, bf16 KV);
+               serve_mistral    32 Mistral-7B-v0.1 layers (W4 g128, bf16,
+                                window 4096; four prompts of 1000 / 3000 /
+                                4500 / 6000 tokens, max_seq_len 8192),
+                                token engine, bf16 KV: the windowed
+                                kernels 4 and 5 must launch;
+               serve_mistral_kv_quant  the same on int8 KV (windowed
+                                kernel 6);
+               serve_mistral_ring  prefill_chunk = 256, kv_ring (4352
+                                ring rows a slot); the attends are torch
+                                ops, counted (ring_attends);
                serve_bitnet     32 BitNet b1.58 W2A8 layers at Llama-3-8B
                                 widths behind an LMHead of vocab 128256,
                                 TokenContinuousBatchingEngine, bf16 KV, on
@@ -1042,13 +1080,22 @@ def _stream(torch, nbytes: float):
     return lambda: buf.sum()
 
 
-def _decode_row(torch, name, out, ref, tol, timed, extra, flush):
+def _decode_row(torch, name, out, ref, tol, timed, extra, flush,
+                elementwise: bool = False):
     """Check a decode kernel's output against its plain version and time
-    it: `timed` maps a column (kernel_ms, plain_ms, ...) to (fn, iters)."""
+    it: `timed` maps a column (kernel_ms, plain_ms, ...) to (fn, iters).
+    `tol`: an absolute limit; `elementwise` holds each element to
+    DECODE_TOL as well (decode_err)."""
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     if not (err <= tol and torch.isfinite(out).all().item()):
         raise AssertionError(f"{name}: max abs err {err} > {tol}")
+    if elementwise:
+        ratio = decode_err(out, ref)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name}: error {ratio} of its limit (max "
+                                 f"abs {err})")
+        extra = {**extra, "err_over_tol": ratio, "elementwise": DECODE_TOL}
     row = {"phase": "kernels", "kernel": name, **extra, "max_abs_err": err,
            "max_rel_err": err / ref.float().abs().max().item(), "tol": tol}
     for col, (fn, iters) in timed.items():
@@ -1154,16 +1201,18 @@ def check_flash_decode_quant(torch, flush):
          "bound_by": b_by}, flush)
 
 
-def check_flash_decode_paged(torch, flush, quant: bool):
+def check_flash_decode_paged(torch, flush, quant: bool, qdtype=None):
     """Kernel 7 (bf16) or 8 (int8) at Llama-2-7B widths over a block pool
     of 16-row pages through a permuted table; the reserved block 0 and the
     rows past each length in the last page are NaN (NaN scales for int8),
-    and table entries past the live pages are 0."""
+    and table entries past the live pages are 0. Queries float16, or
+    `qdtype` (bfloat16: a bfloat16 model's)."""
     from bitblas_tpu_torch.kernels import flash
     from bitblas_tpu_torch.serving import kv_cache
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(9 + quant)
+    gen.manual_seed(9 + quant + (qdtype is not None))
+    qdtype = qdtype or torch.float16
     B, H, Hkv, D, bs, MB = 4, 32, 32, 128, 16, 64
     need = [-(-n // bs) for n in DECODE_LENGTHS]
     blocks = 1 + sum(need) + 27
@@ -1174,7 +1223,7 @@ def check_flash_decode_paged(torch, flush, quant: bool):
         tables[b, :n] = perm[at:at + n].to(torch.int32)
         at += n
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
-    q = torch.randn((B, H, D), generator=gen, device="cuda").half()
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(qdtype)
     kf, vf = (torch.randn((blocks, bs, Hkv, D), generator=gen, device="cuda")
               for _ in range(2))
     if quant:
@@ -1206,7 +1255,7 @@ def check_flash_decode_paged(torch, flush, quant: bool):
     # yardstick: SDPA over the rows gathered through the tables beforehand
     t = tables.long()
     kg, vg = (x[t].reshape(B, MB * bs, Hkv, D).float().nan_to_num()
-              .transpose(1, 2).half() for x in (kd, vd))
+              .transpose(1, 2).to(qdtype) for x in (kd, vd))
     mask = (torch.arange(MB * bs, device="cuda")[None]
             < lengths[:, None].long())[:, None, None, :]
     ltot = int(lengths.sum().item())
@@ -1216,9 +1265,11 @@ def check_flash_decode_paged(torch, flush, quant: bool):
     b_ms, b_by = bound(nbytes, 4.0 * ltot * H * D)
     name = kernel.__name__
     # f32 softmax and products on both sides over the same stored values;
-    # one f16 rounding of |out| < 2
+    # one rounding of |out| < 2 to q's type (f16 2^-10, bf16 2^-7), and,
+    # bfloat16, DECODE_TOL element by element
+    bf16 = qdtype == torch.bfloat16
     return _decode_row(
-        torch, name, out, ref, 2e-3,
+        torch, name, out, ref, 2 * BF16 if bf16 else 2e-3,
         {"kernel_ms": (lambda: kernel(*args), 20),
          "plain_ms": (lambda: plain(*args), 5),
          "gather_ms": (lambda: gather(*args, num_heads=H, use_flash=False),
@@ -1227,8 +1278,529 @@ def check_flash_decode_paged(torch, flush, quant: bool):
              q[:, :, None], kg, vg, attn_mask=mask), 20),
          "stream_ms": (_stream(torch, nbytes), 20)},
         {"B": B, "H": H, "Hkv": Hkv, "block_size": bs, "max_blocks": MB,
+         "q": str(qdtype).split(".")[-1],
          "lengths": list(DECODE_LENGTHS), "bound_ms": b_ms,
-         "bound_by": b_by}, flush)
+         "bound_by": b_by}, flush, elementwise=bf16)
+
+
+# -- bfloat16 and the sliding window in kernels 4-8 (Mistral-7B-v0.1) -------
+
+MISTRAL_WINDOW = 4096        # Mistral-7B-v0.1's sliding_window
+BF16 = 2.0 ** -8             # bfloat16's relative rounding
+# The bfloat16 and windowed attention rows keep their absolute limits and
+# hold each output element to its own size as well (testing.attention_err):
+# one ulp of the output type (ATTN_ULP) of |ref| plus a floor of the row's
+# rms, 4 ulps for the prefill (P rounds to Q's type before P V: about 2^-9
+# of the row's rms a row in bfloat16, 2^-7 at the worst of 33M elements)
+# and 1 ulp for the decode kernels (float32 P on both sides). An absolute
+# limit alone lets a band row, which averages up to W keys and is small,
+# be wrong by its own size.
+PREFILL_TOL = "ulp |ref| + 4 ulp rms(row)"
+DECODE_TOL = "ulp |ref| + ulp rms(row)"
+
+
+def prefill_err(out, ref) -> float:
+    """Kernel 4's output against its plain version, in units of its limit
+    (at most 1 passes)."""
+    from bitblas_tpu_torch.testing import ATTN_ULP, attention_err
+    u = ATTN_ULP[out.dtype]
+    return attention_err(out, ref, u, 4 * u)
+
+
+def decode_err(out, ref) -> float:
+    """A decode kernel's output against its plain version, in units of
+    its limit (at most 1 passes)."""
+    from bitblas_tpu_torch.testing import ATTN_ULP, attention_err
+    u = ATTN_ULP[out.dtype]
+    return attention_err(out, ref, u, u)
+
+
+def band_keys(S: int, window) -> int:
+    """sum over the S rows of a causal prefill of the keys each attends:
+    min(i + 1, window)."""
+    W = S if window is None else min(window, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def band_mask(torch, S: int, window):
+    """[S, S] boolean: key j <= row i and j > i - window (SDPA's
+    explicit mask for the library yardstick)."""
+    keep = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+    return keep if window is None else keep.triu(1 - window)
+
+
+def check_flash_attention_bf16_window(torch, flush):
+    """Kernel 4 at bfloat16 (B = 1, H = 32, Hkv = 8, S = 512, no window:
+    Mistral's heads) and with Mistral's window (S = 8192, window 4096,
+    bfloat16 and float16). The bound counts the band's bytes (Q, K, V
+    read once, O written once) and the band's products, 4 H D sum_i
+    min(i + 1, window); the yardstick is SDPA on K/V expanded to every
+    head, causal, or with the band as an explicit boolean mask."""
+    from bitblas_tpu_torch.kernels.flash import (flash_attention_fwd,
+                                                 flash_attention_plain)
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    rows = []
+    B, H, Hkv, D = 1, 32, 8, 128
+    for dtype, S, window in (("bfloat16", 512, None),
+                             ("bfloat16", 8192, MISTRAL_WINDOW),
+                             ("float16", 8192, MISTRAL_WINDOW)):
+        dt = getattr(torch, dtype)
+        Q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+        K, V = (torch.randn((B, S, Hkv, D), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        out = flash_attention_fwd(Q, K, V, window=window)
+        ref = flash_attention_plain(Q, K, V, window)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ratio = prefill_err(out, ref)
+        # P rounds to Q's type before P V and the output rounds once:
+        # float16 1e-2 on outputs |.| < 4 (the windowless rows' limit),
+        # bfloat16 2^-5 (two roundings of 2^-8 on |.| < 4)
+        tol = 8 * BF16 if dtype == "bfloat16" else 1e-2
+        if not (err <= tol and ratio <= 1.0):
+            raise AssertionError(f"flash {dtype} S={S} window={window}: "
+                                 f"max abs err {err} (limit {tol}), "
+                                 f"{ratio} of its element-wise limit")
+        qt = Q.transpose(1, 2).contiguous()
+        kt, vt = (x.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  .contiguous() for x in (K, V))
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+        else:
+            mask = band_mask(torch, S, window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        nbytes = 2 * B * S * (H + Hkv) * D * 2
+        flops = 4.0 * B * H * D * band_keys(S, window)
+        b_ms, b_by = bound(nbytes, flops)
+        row = {
+            "phase": "kernels", "kernel": "flash_attention_fwd",
+            "dtype": dtype, "window": window, "B": B, "H": H, "Hkv": Hkv,
+            "S": S, "D": D, "max_abs_err": err,
+            "max_rel_err": err / ref.float().abs().max().item(),
+            "tol": tol, "err_over_tol": ratio, "elementwise": PREFILL_TOL,
+            "kernel_ms": time_ms(torch, lambda: flash_attention_fwd(
+                Q, K, V, window=window), 20, flush),
+            "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+                Q, K, V, window), 3, flush),
+            "library_ms": time_ms(torch, lib, 10, flush),
+            "stream_ms": time_ms(torch, _stream(torch, nbytes), 20, flush),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del ref
+        torch.cuda.empty_cache()
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+WINDOW_LENGTHS = (1, 37, 4097, 8000)
+
+
+def check_flash_decode_window(torch, flush, quant: bool):
+    """Kernel 5 (bf16 slot cache) or 6 (int8) at Mistral's heads (B = 4,
+    H = 32, Hkv = 8, D = 128), bfloat16 queries, window 4096, lengths
+    1 / 37 / 4097 / 8000 over Smax = 8192; rows past each length NaN (int8:
+    extreme codes, NaN scales). The bound counts min(len, window) keys a
+    sequence; the yardstick is SDPA over the gathered caches with the
+    window as a boolean mask."""
+    from bitblas_tpu_torch.kernels import flash
+    from bitblas_tpu_torch.serving.kv_cache import quantize_kv
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22 + quant)
+    B, H, Hkv, D, Smax, rows_n = 4, 32, 8, 128, 8192, 6
+    W = MISTRAL_WINDOW
+    lengths = torch.tensor(WINDOW_LENGTHS, dtype=torch.int32, device="cuda")
+    slots = torch.tensor([5, 0, 3, 1], dtype=torch.int32, device="cuda")
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kf, vf = (torch.randn((rows_n, Smax, Hkv, D), generator=gen,
+                          device="cuda") for _ in range(2))
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kf), quantize_kv(vf)
+        caches = (kc, vc, ks, vs)
+        stale = ((kc, 127), (vc, -128), (ks, float("nan")),
+                 (vs, float("nan")))
+        kernel, plain = flash.flash_decode_quant, flash.flash_decode_quant_plain
+        kd, vd = kc.float() * ks[..., None], vc.float() * vs[..., None]
+        per_key = Hkv * (2 * D + 2 * 4)
+    else:
+        kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        caches = (kc, vc)
+        stale = ((kc, float("nan")), (vc, float("nan")))
+        kernel, plain = flash.flash_decode, flash.flash_decode_plain
+        kd, vd = kc, vc
+        per_key = Hkv * D * 2 * 2
+    del kf, vf
+    for x, val in stale:
+        for b in range(B):
+            x[slots[b], lengths[b]:] = val
+    args = (q, *caches, lengths, slots)
+    out = kernel(*args, window=W)
+    ref = plain(*args, W)
+    s = slots.long()
+    kg, vg = (x[s].float().nan_to_num().transpose(1, 2).to(torch.bfloat16)
+              .repeat_interleave(H // Hkv, dim=1) for x in (kd, vd))
+    pos = torch.arange(Smax, device="cuda")[None]
+    mask = ((pos < lengths[:, None].long())
+            & (pos >= lengths[:, None].long() - W))[:, None, None, :]
+    live = sum(min(n, W) for n in WINDOW_LENGTHS)
+    nbytes = live * per_key + 2 * B * H * D * 2
+    b_ms, b_by = bound(nbytes, 4.0 * live * H * D)
+    # f32 softmax both sides; one bfloat16 rounding of |out| < 2 (2^-7),
+    # and DECODE_TOL element by element
+    return _decode_row(
+        torch, kernel.__name__, out, ref, 2 * BF16,
+        {"kernel_ms": (lambda: kernel(*args, window=W), 20),
+         "plain_ms": (lambda: plain(*args, W), 5),
+         "library_ms": (lambda: F.scaled_dot_product_attention(
+             q[:, :, None], kg, vg, attn_mask=mask), 20),
+         "stream_ms": (_stream(torch, nbytes), 20)},
+        {"B": B, "H": H, "Hkv": Hkv, "Smax": Smax, "q": "bfloat16",
+         "window": W, "lengths": list(WINDOW_LENGTHS), "bound_ms": b_ms,
+         "bound_by": b_by}, flush, elementwise=True)
+
+
+def check_window_edges(torch):
+    """Untimed, against the plain versions, two calls bit-equal: kernel 4
+    at S = 64 / 128 / 8192, float16 and bfloat16, windows 1, 63, 64, 65
+    and >= S (63 and 64 give rows whose first visited tile is all
+    masked), a window >= S bit-equal to the windowless call; kernels 5 and
+    6 with float16 and bfloat16 queries, windows 1, 63, 64, 65 and >=
+    Smax, lengths window - 1, window and window + 1 (and 0, 1, Smax) over
+    Smax = 8192 on 132-key-apart splits' plan (decode_span: the splits
+    past a length hold no live key), NaN past each length, against the
+    single-pass and the split plain versions, a window >= Smax bit-equal
+    to the windowless call."""
+    from bitblas_tpu_torch.kernels import flash
+    from bitblas_tpu_torch.kernels.scratch import sm_count
+    from bitblas_tpu_torch.serving.kv_cache import quantize_kv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    worst, n_prefill, n_decode, dead = {}, 0, 0, 0
+
+    def held(name, out, ref, tol, ratio):
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (err <= tol and ratio <= 1.0
+                and torch.isfinite(out).all().item()):
+            raise AssertionError(f"window edges {name}: max abs err {err} "
+                                 f"(limit {tol}), {ratio} of its "
+                                 f"element-wise limit")
+        key = name.split(" ")[0]
+        worst[key] = max(worst.get(key, 0.0), ratio)
+
+    for S in (64, 128, 8192):
+        H, Hkv = (8, 2) if S == 8192 else (4, 2)
+        for dtype in ("float16", "bfloat16"):
+            dt = getattr(torch, dtype)
+            Q = torch.randn((1, S, H, 128), generator=gen, device="cuda") \
+                .to(dt)
+            K = (torch.randn((1, S, Hkv, 128), generator=gen, device="cuda")
+                 * 3).to(dt)
+            V = torch.randn((1, S, Hkv, 128), generator=gen, device="cuda") \
+                .to(dt)
+            full = flash.flash_attention_fwd(Q, K, V)
+            for window in (1, 63, 64, 65, S, S + 1):
+                out = flash.flash_attention_fwd(Q, K, V, window=window)
+                again = flash.flash_attention_fwd(Q, K, V, window=window)
+                ref = flash.flash_attention_plain(Q, K, V, min(window, S))
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"window edges prefill S={S} "
+                                         f"{dtype} w={window}: two calls "
+                                         f"differ")
+                if window >= S and not torch.equal(out, full):
+                    raise AssertionError(f"window edges prefill S={S} "
+                                         f"{dtype} w={window} >= S: not "
+                                         f"the windowless output")
+                held(f"flash_attention_fwd S={S} {dtype} w={window}", out,
+                     ref, 8 * BF16 if dtype == "bfloat16" else 1e-2,
+                     prefill_err(out, ref))
+                n_prefill += 1
+            del Q, K, V, full
+            torch.cuda.empty_cache()
+
+    Smax, H, Hkv = 8192, 8, 2
+    sms = sm_count(torch.device("cuda"))
+    for quant in (False, True):
+        for window in (1, 63, 64, 65, Smax):
+            lens = sorted({0, 1, max(window - 1, 1), window,
+                           min(window + 1, Smax), 5000, Smax})
+            B = len(lens)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            slots = torch.randperm(B + 1, generator=gen, device="cuda")[:B] \
+                .to(torch.int32)
+            kf = torch.randn((B + 1, Smax, Hkv, 128), generator=gen,
+                             device="cuda") * 20
+            vf = torch.randn((B + 1, Smax, Hkv, 128), generator=gen,
+                             device="cuda")
+            if quant:
+                (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+                caches = (k, v, ks, vs)
+                stale = ((k, 127), (v, -128), (ks, float("nan")),
+                         (vs, float("nan")))
+                kern, plain = flash.flash_decode_quant, \
+                    flash.flash_decode_quant_plain
+            else:
+                k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+                caches = (k, v)
+                stale = ((k, float("nan")), (v, float("nan")))
+                kern, plain = flash.flash_decode, flash.flash_decode_plain
+            del kf, vf
+            for x, val in stale:
+                for b in range(B):
+                    x[slots[b], lens[b]:] = val
+            span = flash.decode_span(Smax, window if window < Smax
+                                     else None)
+            chunk, splits = flash.plan_splits(span, B, Hkv, sms)
+            for n in lens:   # splits past the length: no live key
+                base = max(n - window, 0) // 64 * 64
+                dead += sum(1 for sp in range(splits)
+                            if base + sp * chunk >= n)
+            for qdt in (torch.float16, torch.bfloat16):
+                q = torch.randn((B, H, 128), generator=gen,
+                                device="cuda").to(qdt)
+                args = (q, *caches, lengths, slots)
+                out = kern(*args, window=window)
+                again = kern(*args, window=window)
+                ref = plain(*args, window)
+                scales = dict(k_scale=caches[2], v_scale=caches[3]) \
+                    if quant else {}
+                split = flash.flash_decode_split_plain(
+                    q, caches[0], caches[1], lengths, slots, window=window,
+                    sms=sms, **scales)
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"window edges {kern.__name__} "
+                                         f"w={window} {qdt}: two calls "
+                                         f"differ")
+                if window >= Smax and not torch.equal(out, kern(*args)):
+                    raise AssertionError(f"window edges {kern.__name__} "
+                                         f"w={window}: not the windowless "
+                                         f"output")
+                if not torch.equal(out[0], torch.zeros_like(out[0])):
+                    raise AssertionError("window edges: length 0 is not 0")
+                # K amplified 20x: f32 scores in other orders (1e-2, the
+                # windowless decode edges' limit) and, bfloat16, one
+                # rounding of |out| < 4
+                tol = 1e-2 + (4 * BF16 if qdt == torch.bfloat16 else 0.0)
+                held(f"{kern.__name__} w={window} {qdt}", out, ref, tol,
+                     decode_err(out, ref))
+                held(f"{kern.__name__}_split w={window} {qdt}", out, split,
+                     tol, decode_err(out, split))
+                n_decode += 1
+            del caches, stale
+            torch.cuda.empty_cache()
+    if dead == 0:
+        raise AssertionError("window edges: no split without a live key")
+    row = {"phase": "window_edges", "prefill_cases": n_prefill,
+           "decode_cases": n_decode, "splits_without_live_key": dead,
+           "elementwise": {"prefill": PREFILL_TOL, "decode": DECODE_TOL},
+           "worst_err_over_tol": worst}
+    emit(row)
+    return row
+
+
+def mistral_7b(num_layers: int, window=MISTRAL_WINDOW):
+    from bitblas_tpu_torch.models.quant_llama import LlamaConfig
+    # mistralai/Mistral-7B-v0.1 config.json widths (sliding_window 4096,
+    # torch_dtype bfloat16); uint4 GPTQ, group 128, original zeros (the
+    # TheBloke/Mistral-7B-v0.1-GPTQ layout), bfloat16 activations
+    return LlamaConfig(hidden_size=4096, intermediate_size=14336,
+                       num_heads=32, num_kv_heads=8, num_layers=num_layers,
+                       vocab_size=32000, group_size=128,
+                       act_dtype="bfloat16", rope_theta=10000.0,
+                       sliding_window=window, rms_norm_eps=1e-5)
+
+
+class CpuWeightMemo:
+    """While installed, the plain versions' dense weight of a CPU
+    projection (`dequantize_fmt_hopper`, the same function and the same
+    bits) is decoded once and kept, so the CPU reference does not decode
+    every weight again at every step. Card tensors pass through."""
+
+    def __init__(self):
+        from bitblas_tpu_torch.kernels import dequant_matmul, materialize
+        self.mods = (dequant_matmul, materialize)
+        self.orig = dequant_matmul.dequantize_fmt_hopper
+        self.memo = {}
+
+    def __enter__(self):
+        orig, memo = self.orig, self.memo
+
+        def cached(qweight, *args, **kw):
+            if qweight.device.type != "cpu" or kw:
+                return orig(qweight, *args, **kw)
+            key = (qweight.data_ptr(), *(a.data_ptr() if hasattr(
+                a, "data_ptr") else a for a in args))
+            if key not in memo:
+                memo[key] = orig(qweight, *args)
+            return memo[key]
+
+        for m in self.mods:
+            m.dequantize_fmt_hopper = cached
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.dequantize_fmt_hopper = self.orig
+        self.memo.clear()
+
+
+# The Mistral reference's tolerance on hidden states and logits: bfloat16
+# activations round each projection's output to 2^-8; the card's sums
+# (other orders, split-K, cuBLAS) flip some of those roundings, a few of
+# them per value through 2 layers: 3e-2 of the largest (about eight
+# bfloat16 roundings; the float16 reference holds 2e-2 at 2^-11).
+MISTRAL_REF_TOL = 3e-2
+REFERENCE_WINDOW = 256       # the reference's window (reduced from 4096)
+
+
+def check_reference_mistral(torch, counters):
+    """2 layers at Mistral-7B-v0.1's widths, bfloat16, the window reduced
+    to 256 (the CPU plain reference over prompts past 4096 keys costs too
+    much), card against the same weights on the CPU plain path: prefill
+    in bucket 512 (the banded flash kernel) and teacher-forced decode
+    steps; the token engine on bf16 and int8 KV; the paged engine on bf16
+    and int8 (the window through the masked gather); prefill_chunk = 64;
+    kv_ring on both caches. Prompts of 300-500 tokens cross the window.
+    Then a windowless bfloat16 model on the paged engine, so that kernels
+    7 and 8 launch on bfloat16 queries."""
+    from bitblas_tpu_torch.kernels import flash
+    from bitblas_tpu_torch.models.quant_llama import QuantLlama
+    from bitblas_tpu_torch.serving import kv_cache
+    by_name = {c.__name__: c for c in counters}
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "variant_launches"):
+            c.variant_launches.clear()
+    gathers = (kv_cache.decode_attention_paged.window_gathers,
+               kv_cache.decode_attention_paged_quant.window_gathers)
+    t0 = time.perf_counter()
+    cfg = mistral_7b(2, window=REFERENCE_WINDOW)
+    # one memo a CPU model: a later model's buffers may reuse the freed
+    # addresses of an earlier one's
+    with CpuWeightMemo():
+        gpu, cpu = _card_and_cpu(
+            torch, lambda **kw: QuantLlama(cfg, **kw), seed=31)
+        reference_steps(torch, cfg, gpu, cpu, "reference_mistral",
+                        hidden_tol=MISTRAL_REF_TOL)
+        common = dict(rel_tol=MISTRAL_REF_TOL, lengths=(300, 400, 500),
+                      budgets=(4, 6, 5))
+        for tag, kw in (("_mistral", {}),
+                        ("_mistral_kv_quant", {"kv_quant": True}),
+                        ("_mistral_chunk", {"engine_kw": {
+                            "prefill_chunk": 64}}),
+                        ("_mistral_ring", {"engine_kw": {
+                            "prefill_chunk": 64, "kv_ring": True}}),
+                        ("_mistral_ring_quant", {"kv_quant": True,
+                                                 "engine_kw": {
+                                                     "prefill_chunk": 64,
+                                                     "kv_ring": True}})):
+            compare_engines(torch, cfg, gpu, cpu, tag=tag, **common, **kw)
+        for quant in (False, True):
+            compare_paged(torch, cfg, gpu, cpu, kv_quant=quant,
+                          rel_tol=MISTRAL_REF_TOL, tag="_mistral")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+        windowed = {
+            "flash_attention_fwd bfloat16 window": by_name[
+                "flash_attention_fwd"].variant_launches.get(
+                    "bfloat16 window", 0),
+            "flash_decode bfloat16 window": by_name[
+                "flash_decode"].variant_launches.get("bfloat16 window", 0),
+            "flash_decode_quant bfloat16 window": by_name[
+                "flash_decode_quant"].variant_launches.get(
+                    "bfloat16 window", 0),
+            "paged window gathers": kv_cache.decode_attention_paged
+            .window_gathers - gathers[0],
+            "paged_quant window gathers": kv_cache
+            .decode_attention_paged_quant.window_gathers - gathers[1]}
+    nw = mistral_7b(2, window=None)
+    with CpuWeightMemo():
+        gpu, cpu = _card_and_cpu(
+            torch, lambda **kw: QuantLlama(nw, **kw), seed=33)
+        for quant in (False, True):
+            compare_paged(torch, nw, gpu, cpu, kv_quant=quant,
+                          rel_tol=MISTRAL_REF_TOL, tag="_mistral_nowindow")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    windowed.update({
+        f"{name} bfloat16": by_name[name].variant_launches.get("bfloat16", 0)
+        for name in ("flash_decode_paged", "flash_decode_paged_quant")})
+    if min(windowed.values()) <= 0:
+        raise AssertionError(f"reference_mistral: a route was not taken: "
+                             f"{windowed}")
+    emit({"phase": "reference_mistral_routes", "layers": 2,
+          "window": REFERENCE_WINDOW, "reduced": {
+              "window": f"{MISTRAL_WINDOW} -> {REFERENCE_WINDOW}: the CPU "
+                        f"plain reference over prompts past 4096 keys "
+                        f"costs too much", "layers": "32 -> 2"},
+          "launches": windowed, "seconds": time.perf_counter() - t0})
+    return windowed
+
+
+MISTRAL_PROMPTS = (1000, 3000, 4500, 6000)
+MISTRAL_MAX_SEQ = 8192
+MISTRAL_CHUNK = 256
+
+
+def mistral_serving_model(torch):
+    """32 layers at Mistral-7B-v0.1's widths, W4 g128 original zeros,
+    bfloat16 activations, window 4096, random weights drawn on the card
+    from a seed, an LMHead of vocab 32000, the four prompts (two decode
+    past the window), max_seq_len 8192."""
+    import numpy as np
+    from bitblas_tpu_torch.models.hf_import import LMHead
+    from bitblas_tpu_torch.models.quant_llama import QuantLlama
+
+    t0 = time.perf_counter()
+    cfg = mistral_7b(32)
+    model = QuantLlama(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    V, Hd = cfg.vocab_size, cfg.hidden_size
+    head = LMHead(
+        embed=(torch.randn((V, Hd), generator=gen, device="cuda") * 0.05
+               ).half(),
+        final_norm=torch.ones(Hd, device="cuda"),
+        lm_head=torch.randn((V, Hd), generator=gen, device="cuda") * 0.05,
+        norm_eps=cfg.rms_norm_eps, device="cuda")
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, n).astype(np.int32)
+               for n in MISTRAL_PROMPTS]
+    packed = sum(t.numel() * t.element_size()
+                 for n, t in model.named_buffers() if "qweight" in n or
+                 "scales" in n or "zeros" in n)
+    return {"cfg": cfg, "model": model, "head": head, "prompts": prompts,
+            "pair": [], "init_s": time.perf_counter() - t0,
+            "name": "Mistral-7B-v0.1 widths, W4 g128, bf16, window 4096",
+            "weight_bytes": packed, "max_seq_len": MISTRAL_MAX_SEQ,
+            "ring_rows": 4352}   # ring_capacity(4096, 256)
+
+
+def mistral_phases(torch, counters, flush):
+    """`--mistral`: the Mistral-7B-v0.1 slice alone: kernels 4-8's
+    bfloat16 and windowed rows, the window edges, reference_mistral and
+    the three 32-layer serve phases."""
+    check_flash_attention_bf16_window(torch, flush)
+    for quant in (False, True):
+        check_flash_decode_window(torch, flush, quant=quant)
+        check_flash_decode_paged(torch, flush, quant=quant,
+                                 qdtype=torch.bfloat16)
+    check_window_edges(torch)
+    check_reference_mistral(torch, counters)
+    routes = RouteRecorder()
+    ctx = mistral_serving_model(torch)
+    for phase in MISTRAL_PHASES:
+        with routes:
+            serve(torch, ctx, counters, *phase, routes=routes)
+    del ctx
+    torch.cuda.empty_cache()
 
 
 def llama2_7b(num_layers: int, hidden: int = 4096, inter: int = 11008,
@@ -1410,10 +1982,12 @@ def _decided(lc, lp, tol: float):
     return int(decided.sum()), margin
 
 
-def reference_steps(torch, cfg, gpu, cpu, phase: str, heads=None):
+def reference_steps(torch, cfg, gpu, cpu, phase: str, heads=None,
+                    hidden_tol: float = 2e-2):
     """Prefill a 512-token input on the card and on the CPU, then 4
     teacher-forced decode steps. Without `heads`, hidden states agree
-    within 2e-2 of the largest (f16 activations through 2 layers: a few
+    within `hidden_tol` of the largest (2e-2 for f16 activations through
+    2 layers: a few
     f16 ulps of the largest value per op, summed). With the LM `heads`
     (BitNet), the logits of the last 64 prefill positions and of every
     decode step agree within BITNET_LOGIT_RMS (rms) and BITNET_LOGIT_MAX
@@ -1423,7 +1997,7 @@ def reference_steps(torch, cfg, gpu, cpu, phase: str, heads=None):
     x = _reference_input(torch, cfg)
     errs = {}
     if heads is None:
-        rel_tol = 2e-2
+        rel_tol = hidden_tol
         outs = {dev: _run_steps(torch, cfg, model, x, dev)
                 for dev, model in (("cuda", gpu), ("cpu", cpu))}
         for i, key in enumerate(("prefill_hidden", "decode_hidden")):
@@ -1549,7 +2123,9 @@ def _reference_heads(torch, cfg):
 
 def compare_engines(torch, cfg, gpu, cpu, kv_quant: bool = False,
                     tag: str = "", heads=None, rel_tol: float = 2e-2,
-                    min_decided: int = 0):
+                    min_decided: int = 0, lengths=(200, 300, 450, 500),
+                    budgets=(4, 8, 6, 8), max_seq_len: int = 1024,
+                    engine_kw=None):
     """TokenContinuousBatchingEngine with four live slots, on the card and
     on the CPU with the same weights: prompts in buckets 256 and 512, and
     budgets that release slots while others still decode. Each request's
@@ -1568,15 +2144,14 @@ def compare_engines(torch, cfg, gpu, cpu, kv_quant: bool = False,
     heads = heads or _reference_heads(torch, cfg)
     V = cfg.vocab_size
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, V, n).astype(np.int32)
-               for n in (200, 300, 450, 500)]
-    budgets = (4, 8, 6, 8)
+    prompts = [rng.integers(0, V, n).astype(np.int32) for n in lengths]
     runs = {}
     for dev, model in (("cuda", gpu), ("cpu", cpu)):
         head = heads[dev]
         eng = TokenContinuousBatchingEngine(model, head, num_slots=4,
-                                            max_seq_len=1024,
-                                            kv_quant=kv_quant)
+                                            max_seq_len=max_seq_len,
+                                            kv_quant=kv_quant,
+                                            **(engine_kw or {}))
         rows = {}
         sample = eng._sample
 
@@ -1631,7 +2206,7 @@ def compare_engines(torch, cfg, gpu, cpu, kv_quant: bool = False,
             hidden_err = max(hidden_err, err)
     row = {"phase": "reference_engine" + ("_kv_quant" if kv_quant else "")
            + tag,
-           "layers": 2, "num_slots": 4,
+           "layers": 2, "num_slots": 4, **(engine_kw or {}),
            "prompts": [len(p) for p in prompts], "max_new": list(budgets),
            "rel_tol": rel_tol, "tokens_equal": same,
            "tokens_decided": decided, "max_logit_abs_err": logit_err,
@@ -1644,14 +2219,15 @@ def compare_engines(torch, cfg, gpu, cpu, kv_quant: bool = False,
     return {**row, "margins_rel": sorted(round(m, 5) for m in margins)}
 
 
-def compare_paged(torch, cfg, gpu, cpu, kv_quant: bool):
+def compare_paged(torch, cfg, gpu, cpu, kv_quant: bool,
+                  rel_tol: float = 2e-2, tag: str = ""):
     """PagedContinuousBatchingEngine (block size 16, four slots) on the
     card and on the CPU with the same weights: embedded prompts of 200 and
     300 tokens and two that share a 256-token prefix, budgets that release
     slots at different steps. After every step the block tables and prefix
     hits are identical, and each live request's hidden state gives logits
-    within 2e-2 x max |logit| of the CPU's; its greedy token (argmax) is
-    reported per request."""
+    within `rel_tol` x max |logit| of the CPU's (2e-2 for f16
+    activations); its greedy token (argmax) is reported per request."""
     import numpy as np
     from bitblas_tpu_torch.serving.engine import (
         PagedContinuousBatchingEngine, Request)
@@ -1702,14 +2278,14 @@ def compare_paged(torch, cfg, gpu, cpu, kv_quant: bool):
             if not np.isfinite(a).all():
                 raise AssertionError("reference paged: non-finite logits")
             err = float(np.abs(a - b).max())
-            if err > 2e-2 * float(np.abs(b).max()):
+            if err > rel_tol * float(np.abs(b).max()):
                 raise AssertionError(f"reference paged: request {uid} "
                                      f"logits {err}")
             logit_err = max(logit_err, err)
         same.append([int(a.argmax()) for a in lc[uid]]
                     == [int(b.argmax()) for b in lp[uid]])
-    emit({"phase": "reference_paged" + ("_quant" if kv_quant else ""),
-          "layers": 2, "num_slots": 4, "block_size": 16,
+    emit({"phase": "reference_paged" + ("_quant" if kv_quant else "") + tag,
+          "layers": 2, "num_slots": 4, "block_size": 16, "rel_tol": rel_tol,
           "prompts": [len(p) for p in prompts], "max_new": list(budgets),
           "steps": len(tc), "prefix_hits": hc, "tables_equal": True,
           "tokens_equal": same, "max_logit_abs_err": logit_err})
@@ -1761,11 +2337,20 @@ def serving_model(torch, family: str = "llama"):
 
 
 # the launch counts of kernel 1's split-K decode instances and of its
-# wgmma + TMA tiled instances (both formats), beside the kernels' own
-# counts (dequant_matmul_{u4,i2}.decode_launches, .tiled_launches)
+# wgmma + TMA tiled instances (GPTQ's, BitNet's and the bfloat16 uint4
+# model's formats), beside the kernels' own counts
+# (dequant_matmul_{u4,i2,fmt}.decode_launches, .tiled_launches)
+BF16_U4 = "uint4xbfloat16"
 DECODE = {"uint4": "dequant_matmul_u4_decode",
-          "int2": "dequant_matmul_i2_decode"}
-TILED = {"uint4": "dequant_matmul_u4_tiled", "int2": "dequant_matmul_i2_tiled"}
+          "int2": "dequant_matmul_i2_decode",
+          BF16_U4: "dequant_matmul_fmt_decode"}
+TILED = {"uint4": "dequant_matmul_u4_tiled", "int2": "dequant_matmul_i2_tiled",
+         BF16_U4: "dequant_matmul_fmt_tiled"}
+# each format's fused wrapper and its materialize plan's weight decoder
+FUSED = {"uint4": "dequant_matmul_u4", "int2": "dequant_matmul_i2",
+         BF16_U4: "dequant_matmul_fmt"}
+MATERIALIZE = {"uint4": "weight_decode_u4", "int2": "weight_decode_int8",
+               BF16_U4: "weight_decode_fmt"}
 # phase -> (engine, engine options, the kernels its path must launch)
 LLAMA = ("dequant_matmul_u4", DECODE["uint4"], TILED["uint4"],
          "weight_decode_u4", "flash_attention_fwd")
@@ -1791,6 +2376,27 @@ BITNET_TUNED_PHASE = ("serve_bitnet_tuned", "token", {},
                       ("flash_attention_fwd", "flash_decode"))
 MAX_NEW = 32
 
+MISTRAL_GEMMS = ("dequant_matmul_fmt", DECODE[BF16_U4], "weight_decode_fmt")
+MISTRAL_PHASES = (
+    ("serve_mistral", "token", {},
+     MISTRAL_GEMMS + ("flash_attention_fwd bfloat16 window",
+                      "flash_decode bfloat16 window")),
+    ("serve_mistral_kv_quant", "token", {"kv_quant": True},
+     MISTRAL_GEMMS + ("flash_attention_fwd bfloat16 window",
+                      "flash_decode_quant bfloat16 window")),
+    # chunks of 256 take the tiled instance; the attends are torch ops
+    ("serve_mistral_ring", "token",
+     {"prefill_chunk": MISTRAL_CHUNK, "kv_ring": True},
+     ("dequant_matmul_fmt", DECODE[BF16_U4], TILED[BF16_U4],
+      "ring_attends")),
+)
+
+
+# The ring cache's attends (plain PyTorch, as JAX's are XLA), each counting
+# its calls in serving.kv_cache.
+RING_ATTENDS = ("ring_decode_attention", "ring_decode_attention_quant",
+                "ring_chunk_attention", "ring_chunk_attention_quant")
+
 
 class RouteRecorder:
     """Counts the plan each Matmul.forward call takes (the hint of its M),
@@ -1810,13 +2416,14 @@ class RouteRecorder:
 
     def __enter__(self):
         from bitblas_tpu_torch.kernels.dequant_matmul import (FUSED_TILES,
-                                                              is_tiled)
+                                                              is_tiled,
+                                                              spec_format)
         orig, calls, by_hint = self.orig, self.calls, self.by_hint
 
         def recording(op, A, W, *args, **kw):
             m = A.numel() // A.shape[-1]
             hint = op.hint_for(m)
-            fmt = op.config.W_dtype
+            fmt = spec_format(op._spec)
             keys = [f"{fmt} {hint.decode_mode}"]
             if hint.decode_mode == "fused":
                 if is_tiled(fmt, hint.tile):
@@ -1842,10 +2449,10 @@ class RouteRecorder:
 
     def check(self, phase, launches, untuned: bool):
         c = self.calls
-        want = {"dequant_matmul_i2": c.get("int2 fused", 0),
-                "weight_decode_int8": c.get("int2 materialize", 0),
-                "dequant_matmul_u4": c.get("uint4 fused", 0),
-                "weight_decode_u4": c.get("uint4 materialize", 0),
+        want = {**{name: c.get(f"{fmt} fused", 0)
+                   for fmt, name in FUSED.items()},
+                **{name: c.get(f"{fmt} materialize", 0)
+                   for fmt, name in MATERIALIZE.items()},
                 **{name: c.get(f"{fmt} decode", 0)
                    for fmt, name in DECODE.items()},
                 **{name: c.get(f"{fmt} tiled", 0)
@@ -1879,8 +2486,9 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
 
     model, head = ctx["model"], ctx["head"]
     if kind == "token":
-        eng = TokenContinuousBatchingEngine(model, head, num_slots=4,
-                                            max_seq_len=1024, **kw)
+        eng = TokenContinuousBatchingEngine(
+            model, head, num_slots=4,
+            max_seq_len=ctx.get("max_seq_len", 1024), **kw)
 
         def submit():
             return [eng.submit_tokens(uid=i, tokens=p, max_new=MAX_NEW)
@@ -1902,17 +2510,20 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
                                       if kw.get("kv_quant") else ())))
 
     torch.cuda.synchronize()
+    by_name = {c.__name__: c for c in counters}
+    split = {fmt: by_name[name] for fmt, name in FUSED.items()}
     for c in counters:
         c.launches = 0
-    u4 = next(c for c in counters if c.__name__ == "dequant_matmul_u4")
-    i2 = next(c for c in counters if c.__name__ == "dequant_matmul_i2")
-    wd_u4 = next(c for c in counters if c.__name__ == "weight_decode_u4")
-    u4.decode_launches = u4.tiled_launches = 0
-    i2.decode_launches = i2.tiled_launches = 0
-    u4.variant_launches.clear()
-    wd_u4.variant_launches.clear()
+        if hasattr(c, "variant_launches"):
+            c.variant_launches.clear()
+    for c in split.values():
+        c.decode_launches = c.tiled_launches = 0
     if routes is not None:
         routes.reset()
+    from bitblas_tpu_torch.serving import kv_cache
+    rings = [getattr(kv_cache, n) for n in RING_ATTENDS]
+    for fn in rings:
+        fn.calls = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = submit()
@@ -1930,14 +2541,17 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
                       sum(r.generated for r in reqs) - made - first))
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    for fmt, wrapper in (("uint4", u4), ("int2", i2)):
+    for fmt, wrapper in split.items():
         launches[DECODE[fmt]] = wrapper.decode_launches
         launches[TILED[fmt]] = wrapper.tiled_launches
     # kernels 1 and 2 by group size, zeros mode and bias ("dequant_matmul_u4
-    # decode g128", "weight_decode_u4 g64", ...)
-    for wrapper in (u4, wd_u4):
-        for variant, n in wrapper.variant_launches.items():
-            launches[f"{wrapper.__name__} {variant}"] = n
+    # decode g128", "weight_decode_u4 g64", ...), the attention kernels by
+    # query type and window ("flash_decode bfloat16 window", ...)
+    for c in counters:
+        for variant, n in getattr(c, "variant_launches", {}).items():
+            launches[f"{c.__name__} {variant}"] = n
+    if kw.get("kv_ring"):
+        launches["ring_attends"] = sum(fn.calls for fn in rings)
     peak = torch.cuda.max_memory_allocated()
 
     if not all(r.done and r.generated == MAX_NEW for r in reqs):
@@ -1951,6 +2565,14 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     if min(launches.get(k, 0) for k in expect) <= 0:
         raise AssertionError(f"{phase}: a kernel was not launched: "
                              f"{launches}")
+    if kw.get("kv_ring") and eng.caches_k.shape[2] != ctx.get(
+            "ring_rows", eng.caches_k.shape[2]):
+        raise AssertionError(f"{phase}: ring of {eng.caches_k.shape[2]} "
+                             f"rows, expected {ctx['ring_rows']}")
+    if kw.get("kv_ring") and any(launches[k] for k in (
+            "flash_attention_fwd", "flash_decode", "flash_decode_quant")):
+        raise AssertionError(f"{phase}: the ring's attends are torch ops, "
+                             f"but an attention kernel launched: {launches}")
     route_row = (routes.check(phase, launches,
                               untuned=phase != BITNET_TUNED_PHASE[0])
                  if routes is not None else {})
@@ -1960,6 +2582,8 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     row = {"phase": phase, "model": ctx["name"],
            "layers": ctx["cfg"].num_layers, "num_slots": 4,
            "engine": type(eng).__name__, **kw,
+           "max_seq_len": ctx.get("max_seq_len", 1024),
+           "cache_rows": eng.caches_k.shape[2],
            "prompts": [len(r.prompt) for r in reqs], "max_new": MAX_NEW,
            "init_s": ctx["init_s"], "first_step_s": steps[0][0],
            "steps": len(steps), "decode_steps": len(pure),
@@ -3252,7 +3876,7 @@ def main() -> int:
 
     mode = sys.argv[1:]
     if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"],
-                    ["--formats"], ["--int-formats"]):
+                    ["--formats"], ["--int-formats"], ["--mistral"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -3293,6 +3917,9 @@ def main() -> int:
     if mode == ["--int-formats"]:
         check_int_formats(torch, flush, floor_ms)
         return 0
+    if mode == ["--mistral"]:
+        mistral_phases(torch, counters, flush)
+        return 0
     dq = check_dequant(torch, flush)
     di2 = check_dequant_i2(torch, flush)
     wd_u4, wd_i8 = check_weight_decode(torch, flush)
@@ -3302,9 +3929,17 @@ def main() -> int:
     fq = check_flash_decode_quant(torch, flush)
     fp = check_flash_decode_paged(torch, flush, quant=False)
     fpq = check_flash_decode_paged(torch, flush, quant=True)
+    fa_bw = check_flash_attention_bf16_window(torch, flush)
+    fd_w = check_flash_decode_window(torch, flush, quant=False)
+    fq_w = check_flash_decode_window(torch, flush, quant=True)
+    fp_b = check_flash_decode_paged(torch, flush, quant=False,
+                                    qdtype=torch.bfloat16)
+    fpq_b = check_flash_decode_paged(torch, flush, quant=True,
+                                     qdtype=torch.bfloat16)
     route_table(torch, flush)
     dense = check_dense(torch, flush)
     check_edges(torch)
+    check_window_edges(torch)
     fmt_rows, fmt_launches = check_formats(torch, flush, floor_ms)
     int_rows, int_launches = check_int_formats(torch, flush, floor_ms)
     # the layers of the GPTQ phases keep their hint database in a
@@ -3320,10 +3955,16 @@ def main() -> int:
     check_reference(torch)
     check_gptq_reference(torch)
     check_bitnet_reference(torch, counters)
+    ref_mistral = check_reference_mistral(torch, counters)
 
     launches = {c.__name__: 0 for c in counters}
     launches.update({name: 0 for name in (*DECODE.values(),
                                           *TILED.values())})
+    # kernels 7 and 8 on bfloat16 queries: the windowless bfloat16 model
+    # on the paged engine in reference_mistral (no serve phase runs them)
+    for name in ("flash_decode_paged bfloat16",
+                 "flash_decode_paged_quant bfloat16"):
+        launches[name] = ref_mistral[name]
 
     def run(ctx, phase, routes=None):
         row = serve(torch, ctx, counters, *phase, routes=routes)
@@ -3344,6 +3985,19 @@ def main() -> int:
     del ctx
     shutil.rmtree(gptq_db)
     torch.cuda.empty_cache()
+    ctx = mistral_serving_model(torch)
+    for phase in MISTRAL_PHASES:
+        with routes:
+            run(ctx, phase, routes)
+    del ctx
+    torch.cuda.empty_cache()
+    # the bfloat16 model's kernel 1 / 2 launches, under the names of the
+    # formats phase's rows for uint4 x bfloat16 (added to its counts)
+    for kind in ("decode", "tiled"):
+        launches[f"dequant_matmul_fmt {kind} {BF16_U4}"] = launches.get(
+            (DECODE if kind == "decode" else TILED)[BF16_U4], 0)
+    launches[f"weight_decode_fmt {BF16_U4}"] = launches.get(
+        "weight_decode_fmt", 0)
     with routes:
         ctx = serving_model(torch, "bitnet")
         default_row = run(ctx, BITNET_PHASE, routes)
@@ -3409,6 +4063,27 @@ def main() -> int:
          [fp], fp, f"B=4 H=32 bs=16 MB=64 bf16 {lens}"),
         ("flash_decode_paged_quant", "flash_decode_paged_quant.cu",
          "flash.py:1020", [fpq], fpq, f"B=4 H=32 bs=16 MB=64 int8 {lens}"),
+        # kernels 4-8 on bfloat16 queries and with Mistral's window
+        ("flash_attention_fwd bfloat16", "flash_attention.cu",
+         "flash.py:106", [fa_bw[0]], fa_bw[0],
+         "B=1 H=32 Hkv=8 S=512 D=128 bf16 causal"),
+        ("flash_attention_fwd bfloat16 window", "flash_attention.cu",
+         "flash.py:106", [fa_bw[1]], fa_bw[1],
+         "B=1 H=32 Hkv=8 S=8192 D=128 bf16 window 4096"),
+        ("flash_attention_fwd float16 window", "flash_attention.cu",
+         "flash.py:106", [fa_bw[2]], fa_bw[2],
+         "B=1 H=32 Hkv=8 S=8192 D=128 f16 window 4096"),
+        ("flash_decode bfloat16 window", "flash_decode.cu", "flash.py:456",
+         [fd_w], fd_w, "B=4 H=32 Hkv=8 Smax=8192 bf16 q window 4096 "
+         "lengths 1/37/4097/8000"),
+        ("flash_decode_quant bfloat16 window", "flash_decode_quant.cu",
+         "flash.py:648", [fq_w], fq_w, "B=4 H=32 Hkv=8 Smax=8192 int8 bf16 "
+         "q window 4096 lengths 1/37/4097/8000"),
+        ("flash_decode_paged bfloat16", "flash_decode_paged.cu",
+         "flash.py:874", [fp_b], fp_b, f"B=4 H=32 bs=16 MB=64 bf16 q {lens}"),
+        ("flash_decode_paged_quant bfloat16", "flash_decode_paged_quant.cu",
+         "flash.py:1020", [fpq_b], fpq_b,
+         f"B=4 H=32 bs=16 MB=64 int8 bf16 q {lens}"),
         # no caller in the program (nor in the JAX package): launches 0
         ("dense_matmul", "dense_matmul.cu", "dense.py:73", dense,
          pick(dense, dtype="float16", M=256), "M=256 N=K=4096 f16"),
@@ -3453,7 +4128,8 @@ def main() -> int:
                 f"{'' if M is None else f'M={M} '}N=11008 K=4096 {w_dtype} "
                 f"x {a_dtype}, g128" + (" zeros" if w_dtype.startswith("uint")
                                         else "")))
-    launches.update(fmt_launches)
+    for key, n in fmt_launches.items():
+        launches[key] = launches.get(key, 0) + n
     # the int_formats phase: kernel 1's integer-column instances (each
     # format's decode and tiled rows, g = 128, int8 out), kernel 3 at 1
     # bit, and uint4 x float16's instances beyond GPTQ's options
@@ -3486,7 +4162,8 @@ def main() -> int:
                         "N=11008 K=4096 uint4 x float16, g128, no zeros"
                         + ("" if kind == "weight_decode"
                            else f", M={rows[0]['M']}")))
-    launches.update(int_launches)
+    for key, n in int_launches.items():
+        launches[key] = launches.get(key, 0) + n
     # kernel 1's wrappers: their decode and tiled instances' launches apart
     split_counts = {
         wrapper: {"decode_launches": launches[DECODE[fmt]],

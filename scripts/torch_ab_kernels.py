@@ -4,7 +4,7 @@ GEMM) of an earlier checkout of bitblas_tpu_torch against this one, on one
 NVIDIA GPU, in turns (earlier, this, this, earlier) within one process.
 
     python3 scripts/torch_ab_kernels.py --parent DIR [--only-parent]
-                                        [--kernels all|tiled|i2decode]
+                            [--kernels all|tiled|i2decode|flash_decode]
 
 DIR holds an earlier tree's `bitblas_tpu_torch` package (for example
 `git archive <commit> bitblas_tpu_torch | tar -x -C DIR`, DIR a
@@ -33,10 +33,16 @@ its dense hint (`tuner.default_hint`). Rows:
   PyTorch sum over an f16 buffer of the row's bytes) and `library_ms`
   (torch.matmul on the pre-decoded f16 weight, torch._int_mm on the
   pre-decoded int8 weight);
-* `dense_matmul` (kernel 9) at M = 16 / 256 / 4096, N = K = 4096.
+* `dense_matmul` (kernel 9) at M = 16 / 256 / 4096, N = K = 4096;
+* `flash_decode` / `flash_decode_quant` (kernels 5 and 6, windowless,
+  float16 queries; `--kernels flash_decode` alone): the slot cache (bf16
+  or int8 + f32 scales) at B = 4, H = 32, Hkv = 32 and 8, D = 128, Smax
+  = 1024, lengths 1 / 37 / 513 / 1024 (chip_smoke.py's decode rows), each
+  tree's output against this tree's plain version.
 
 `--kernels tiled` keeps only the tiled rows, `--kernels i2decode` only
-the int2 decode rows; `--only-parent` times the
+the int2 decode rows, `--kernels flash_decode` only the decode attention
+rows; `--only-parent` times the
 earlier tree alone (this tree's kernels are neither built nor run). Each
 time is this tree's `utils.timing.measure_kernel` (median of 20
 CUDA-event launches, L2 flushed by a read before each). A one-element
@@ -75,8 +81,8 @@ def main() -> int:
                     help="directory holding an earlier bitblas_tpu_torch")
     ap.add_argument("--only-parent", action="store_true",
                     help="time the earlier tree alone")
-    ap.add_argument("--kernels", choices=("all", "tiled", "i2decode"),
-                    default="all")
+    ap.add_argument("--kernels", choices=("all", "tiled", "i2decode",
+                                          "flash_decode"), default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -95,6 +101,7 @@ def main() -> int:
                       for mod, path in (("build", "kernels.build"),
                                         ("dq", "kernels.dequant_matmul"),
                                         ("dense", "kernels.dense"),
+                                        ("flash", "kernels.flash"),
                                         ("spec", "kernels.spec"),
                                         ("tuner", "tuner"))}
 
@@ -115,7 +122,9 @@ def main() -> int:
                          text=True).stdout.strip()
     emit({"device": smi})
     for t in trees.values():
-        t["build"].build(["dequant_matmul", "dequant_matmul_i2",
+        t["build"].build(["flash_decode", "flash_decode_quant"]
+                         if args.kernels == "flash_decode" else
+                         ["dequant_matmul", "dequant_matmul_i2",
                           "dense_matmul"])
     warm = torch.randn((8192, 8192), device="cuda").half()
     ms(lambda: warm @ warm)
@@ -125,6 +134,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     plain = next(iter(trees.values()))["dq"]
+    if args.kernels == "flash_decode":
+        flash_decode_rows(torch, trees, gen, turns, emit)
+        return 0
     if args.kernels in ("all", "i2decode"):
         i2_decode_rows(torch, trees, plain, gen, ms, turns, emit)
     if args.kernels in ("all", "tiled"):
@@ -312,6 +324,44 @@ def tiled_rows(torch, trees, plain, gen, ms, turns, emit):
                 emit(row)
                 del buf
             del qw, Wd
+
+
+
+DECODE_LENGTHS = (1, 37, 513, 1024)
+
+
+def flash_decode_rows(torch, trees, gen, turns, emit):
+    """Kernels 5 and 6 without a window (see the module docstring)."""
+    from bitblas_tpu_torch.serving.kv_cache import quantize_kv
+    this = trees.get("this", trees["earlier"])["flash"]
+    B, H, D, Smax = 4, 32, 128, 1024
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    slots = torch.tensor([5, 0, 3, 1], dtype=torch.int32, device="cuda")
+    for quant in (False, True):
+        for Hkv in (32, 8):
+            q = torch.randn((B, H, D), generator=gen, device="cuda").half()
+            kf, vf = (torch.randn((6, Smax, Hkv, D), generator=gen,
+                                  device="cuda") for _ in range(2))
+            if quant:
+                (kc, ks), (vc, vs) = quantize_kv(kf), quantize_kv(vf)
+                caches = (kc, vc, ks, vs)
+                name = "flash_decode_quant"
+            else:
+                caches = (kf.to(torch.bfloat16), vf.to(torch.bfloat16))
+                name = "flash_decode"
+            args = (q, *caches, lengths, slots)
+            ref = getattr(this, name + "_plain")(*args)
+            fns, row = {}, {"row": name, "B": B, "H": H, "Hkv": Hkv,
+                            "D": D, "Smax": Smax,
+                            "lengths": list(DECODE_LENGTHS)}
+            for key, t in trees.items():
+                fns[key] = (lambda fn=getattr(t["flash"], name): fn(*args))
+                out = fns[key]()
+                torch.cuda.synchronize()
+                row[f"{key}_max_abs_err"] = (
+                    out.float() - ref.float()).abs().max().item()
+            emit({**row, "ms_earlier_this_this_earlier": turns(fns)})
+            del kf, vf, caches
 
 
 if __name__ == "__main__":

@@ -35,7 +35,14 @@ bit-equal to its split plain version, the tiled one bit-equal unscaled
 and, scaled, within one ulp of the plain version or nearer a float64
 truth, int8 within 1), ties at the int8 output rounding to even as the
 plain version rounds them, every code through one-hot activations,
-either instance at any M, and kernel 3 at 1 bit.
+either instance at any M, and kernel 3 at 1 bit. Kernels 4-8 on
+bfloat16 queries, and kernels 4-6 with a sliding window: the prefill at S
+= 64 ... 1024 with windows 1, 63, 64, 65 and >= S (rows whose first tile
+is all masked; a window >= S bit-equal to none), the slot decode kernels
+at Smax = 2048 with float16 and bfloat16 queries and lengths around the
+window (against the single-pass and the split plain versions), the paged
+kernels on bfloat16 queries and a windowed paged decode through the
+masked gather.
 """
 
 import math
@@ -61,6 +68,7 @@ from bitblas_tpu_torch.kernels.flash import (
 from bitblas_tpu_torch.ops.matmul import Matmul
 from bitblas_tpu_torch.ops.matmul_config import FLOAT_PAIRS, MatmulConfig
 from bitblas_tpu_torch.serving import kv_cache
+from bitblas_tpu_torch.testing import ATTN_ULP, attention_err
 from bitblas_tpu_torch.tuner import H100_SXM, fast_tune
 from bitblas_tpu_torch.tuner.space import enumerate_hints
 
@@ -1427,3 +1435,168 @@ def test_int8_output_rounds_ties_to_even(dev):
                                           out_dtype=torch.int8)
         torch.cuda.synchronize()
         assert torch.equal(out, ref), M
+
+
+# bfloat16 and sliding windows in kernels 4-8. The prefill's P rounds to
+# bfloat16 before P V (2^-8 of each weight) and its output rounds once:
+# 2^-5 on outputs |.| < 4. A bfloat16 decode output is one bfloat16
+# rounding (2^-6 of |.| < 4) beyond DECODE_TOL's float32 differences.
+# Each element is held to its own size as well (testing.attention_err):
+# one ulp of the output type of |ref| plus a floor of the row's rms, 4 ulps
+# for the prefill (a sum of per-key roundings of P, about 2^-9 of the
+# row's rms in bfloat16) and 1 ulp for the decode kernels (float32 P, as
+# their plain versions). The absolute limits alone would let a band row,
+# which averages up to `window` keys and is small, be wrong by its size.
+BF16_PREFILL_TOL = 2.0 ** -5
+BF16_DECODE_TOL = DECODE_TOL + 2.0 ** -6
+WINDOWS = (1, 63, 64, 65, 100000)
+
+
+def _prefill_err(out, ref):
+    u = ATTN_ULP[out.dtype]
+    return attention_err(out, ref, u, 4 * u)
+
+
+def _decode_err(out, ref):
+    u = ATTN_ULP[out.dtype]
+    return attention_err(out, ref, u, u)
+
+
+def _qkv(gen, dev, S, H, Hkv, dtype):
+    Q = torch.randn((1, S, H, 128), generator=gen, device=dev).to(dtype)
+    K = (torch.randn((1, S, Hkv, 128), generator=gen, device=dev) * 3) \
+        .to(dtype)
+    V = torch.randn((1, S, Hkv, 128), generator=gen, device=dev).to(dtype)
+    return Q, K, V
+
+
+@pytest.mark.parametrize("S", [64, 256, 1024])
+@pytest.mark.parametrize("Hkv", [8, 2])
+def test_flash_attention_bf16_matches_plain(dev, S, Hkv):
+    g = torch.Generator(device=dev)
+    g.manual_seed(S + Hkv)
+    Q, K, V = _qkv(g, dev, S, 8, Hkv, torch.bfloat16)
+    before = flash_attention_fwd.variant_launches.get("bfloat16", 0)
+    out = flash_attention_fwd(Q, K, V)
+    ref = flash_attention_plain(Q, K, V)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.variant_launches["bfloat16"] == before + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_PREFILL_TOL
+    assert _prefill_err(out, ref) <= 1.0
+    assert torch.equal(out, flash_attention_fwd(Q, K, V))
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("S", [64, 128, 256, 1024])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_flash_attention_window_matches_plain(dev, dtype, S, window):
+    """The banded walk: KV tiles from the band's first, the lower mask on
+    band-edge tiles; windows 63 and 64 give rows whose first tile is all
+    masked (no NaN); a window >= S is the windowless call bit for bit."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(S * 7 + window % 997)
+    Q, K, V = _qkv(g, dev, S, 4, 2, dtype)
+    out = flash_attention_fwd(Q, K, V, window=window)
+    ref = flash_attention_plain(Q, K, V, min(window, S))
+    torch.cuda.synchronize()
+    tol = BF16_PREFILL_TOL if dtype == torch.bfloat16 else 1e-2
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert _prefill_err(out, ref) <= 1.0
+    assert torch.equal(out, flash_attention_fwd(Q, K, V, window=window))
+    if window >= S:
+        assert torch.equal(out, flash_attention_fwd(Q, K, V))
+
+
+def _window_slot_case(gen, dev, quant, window, Smax=2048, H=8, Hkv=2):
+    w = min(window, Smax)
+    lens = sorted({0, 1, max(w - 1, 1), w, min(w + 1, Smax), 1000, Smax})
+    B = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slots = torch.randperm(B + 1, generator=gen, device=dev)[:B] \
+        .to(torch.int32)
+    kf, vf = _rows(gen, dev, (B + 1, Smax, Hkv, 128))
+    if quant:
+        (k, ks), (v, vs) = kv_cache.quantize_kv(kf), kv_cache.quantize_kv(vf)
+        caches = [k, v, ks, vs]
+        stale = ((k, 127), (v, -128), (ks, float("nan")),
+                 (vs, float("nan")))
+    else:
+        caches = [kf.to(torch.bfloat16), vf.to(torch.bfloat16)]
+        stale = ((caches[0], float("nan")), (caches[1], float("nan")))
+    for x, val in stale:
+        for b in range(B):
+            x[slots[b], lens[b]:] = val
+    return caches, lengths, slots
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("qdtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_window_matches_plain(dev, quant, qdtype, window):
+    """Kernels 5 and 6 with a window, float16 and bfloat16 queries, at
+    lengths window - 1, window and window + 1 over Smax = 2048: the splits
+    cover the live band (from 64 floor((len - window) / 64)), NaN rows
+    past each length are never read, a split with no live key weighs 0;
+    the single-pass and the split plain versions agree, two calls are
+    bit-equal, and a window >= Smax is the windowless call bit for bit."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(500 + window % 997 + 7 * quant)
+    caches, lengths, slots = _window_slot_case(g, dev, quant, window)
+    q = _decode_q(g, dev, len(lengths), 8).to(qdtype)
+    kernel = flash_decode_quant if quant else flash_decode
+    plain = flash_decode_quant_plain if quant else flash_decode_plain
+    key = str(qdtype).split(".")[-1] + ("" if window >= 2048 else " window")
+    before = kernel.variant_launches.get(key, 0)
+    out = kernel(q, *caches, lengths, slots, window=window)
+    ref = plain(q, *caches, lengths, slots, window)
+    scales = dict(k_scale=caches[2], v_scale=caches[3]) if quant else {}
+    split = flash_decode_split_plain(
+        q, caches[0], caches[1], lengths, slots, window=window,
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+        **scales)
+    torch.cuda.synchronize()
+    assert kernel.variant_launches[key] == before + 1
+    assert out.dtype == qdtype and torch.isfinite(out).all()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))   # length 0
+    tol = BF16_DECODE_TOL if qdtype == torch.bfloat16 else DECODE_TOL
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (out.float() - split.float()).abs().max().item() <= tol
+    assert _decode_err(out, ref) <= 1.0
+    assert _decode_err(out, split) <= 1.0
+    assert torch.equal(out, kernel(q, *caches, lengths, slots,
+                                   window=window))
+    if window >= 2048:
+        assert torch.equal(out, kernel(q, *caches, lengths, slots))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_paged_bf16_query(dev, quant):
+    """Kernels 7 and 8 on bfloat16 queries (no window: a windowed paged
+    decode takes the masked gather, as in the JAX package)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(600 + quant)
+    B = len(LENGTHS)
+    k, v, ks, vs, tables, lengths = _pool(g, dev, B, 16, 2, quant)
+    q = _decode_q(g, dev, B, 8).to(torch.bfloat16)
+    pools = (k, v, ks, vs) if quant else (k, v)
+    kernel = flash_decode_paged_quant if quant else flash_decode_paged
+    plain = flash_decode_paged_quant_plain if quant \
+        else flash_decode_paged_plain
+    before = kernel.launches
+    out = kernel(q, *pools, tables, lengths)
+    ref = plain(q, *pools, tables, lengths)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_DECODE_TOL
+    assert _decode_err(out, ref) <= 1.0
+    gathers = kv_cache.decode_attention_paged.window_gathers
+    windowed = (kv_cache.decode_attention_paged_quant if quant
+                else kv_cache.decode_attention_paged)(
+        q, *pools, tables, lengths, num_heads=8, window=64)
+    assert kernel.launches == before + 1      # the gather, not the kernel
+    assert torch.equal(windowed, plain(q, *pools, tables, lengths, 64))
+    assert quant or kv_cache.decode_attention_paged.window_gathers \
+        == gathers + 1

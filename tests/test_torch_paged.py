@@ -29,6 +29,7 @@ from bitblas_tpu.serving.engine import Request as JaxRequest
 
 from bitblas_tpu_torch.convert import from_jax_state
 from bitblas_tpu_torch.kernels.flash import (flash_decode_paged,
+                                             flash_decode_paged_plain,
                                              flash_decode_paged_quant)
 from bitblas_tpu_torch.models.quant_llama import LlamaConfig, QuantLlama
 from bitblas_tpu_torch.serving import kv_cache as pkv
@@ -188,10 +189,16 @@ def test_paged_routing_on_the_cpu():
                                         num_heads=4, use_flash=False)
     assert flash_decode_paged.launches == before
     assert torch.equal(got, gather)
-    with pytest.raises(NotImplementedError):
-        pkv.decode_attention_paged(*t, torch.from_numpy(tables),
-                                   torch.from_numpy(lengths), num_heads=4,
-                                   window=8)
+    # a window takes the table gather masked to it, as in JAX (its paged
+    # kernels have no window), and is counted
+    gathers = pkv.decode_attention_paged.window_gathers
+    windowed = pkv.decode_attention_paged(*t, torch.from_numpy(tables),
+                                          torch.from_numpy(lengths),
+                                          num_heads=4, window=8)
+    assert pkv.decode_attention_paged.window_gathers == gathers + 1
+    assert flash_decode_paged.launches == before
+    assert torch.equal(windowed, flash_decode_paged_plain(
+        *t, torch.from_numpy(tables), torch.from_numpy(lengths), window=8))
 
 
 @pytest.mark.parametrize("quant", [False, True])

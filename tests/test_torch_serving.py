@@ -273,10 +273,14 @@ def test_generate_matches_the_engine(pair):
     assert req.out_tokens == list(solo[7:])
 
 
-@pytest.mark.parametrize("kw", [{"prefill_chunk": 16}, {"kv_ring": True}])
+@pytest.mark.parametrize("kw", [{"kv_ring": True, "prefill_chunk": 16},
+                                {"kv_ring": True}])
 def test_unported_engine_options_raise(pair, kw):
+    """The ring cache needs a sliding window (this fixture has none) and
+    chunked prefill, as JAX's engine checks (prefill_chunk and kv_ring
+    themselves are ported: tests/test_torch_chunk_ring.py)."""
     _, _, pm, _, _ = pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="sliding_window"):
         ContinuousBatchingEngine(pm, num_slots=1, max_seq_len=32, **kw)
 
 
