@@ -8,7 +8,8 @@ the sources (kernels/build.py). Layout:
     <db>/<target>/<sha256(repr(config))[:32]>/
         config.json   -- dataclass fields of the operator config
         mapping.json  -- operator / config / hint class names
-        hints.json    -- {m_bucket: TileHint dict}, tuned buckets only
+        hints.json    -- {m_bucket: TileHint dict}, tuned buckets only (a
+                         FlashAtten: {0: FlashHint dict})
 
 `<db>` defaults to common.default_database_path(), the port's own
 location. Every file is written to a temporary name and renamed, so a
@@ -71,9 +72,11 @@ def _config_to_json(config) -> dict:
 def _classes() -> Dict[str, type]:
     """Reflection registry for mapping.json (imported here: the models
     import this module)."""
+    from ..ops.flashatten import FlashAtten, FlashAttenConfig
     from ..ops.matmul import Matmul
     from ..ops.matmul_config import MatmulConfig
-    return {"Matmul": Matmul, "MatmulConfig": MatmulConfig}
+    return {"Matmul": Matmul, "MatmulConfig": MatmulConfig,
+            "FlashAtten": FlashAtten, "FlashAttenConfig": FlashAttenConfig}
 
 
 class OperatorCache:
@@ -115,7 +118,7 @@ class OperatorCache:
             _atomic_write_json(os.path.join(d, "mapping.json"), {
                 "operator": type(op).__name__,
                 "config": type(config).__name__,
-                "hint": "TileHint"})
+                "hint": getattr(op, "HINT_CLASS", "TileHint")})
             tuned = {str(m): h.to_dict() for m, h in op.tuned_hints.items()}
             with open(os.path.join(d, ".lock"), "w") as lf:
                 fcntl.flock(lf, fcntl.LOCK_EX)

@@ -84,6 +84,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 4-D tensor map.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // wgmma shared-memory descriptor of a K-major (or one-atom MN-major) tile
@@ -183,6 +195,23 @@ inline bool make_map_2d_sw(EncodeTiled encode, CUtensorMap* map,
   if (box_bytes != 32 && box_bytes != 64 && box_bytes != 128) return false;
   return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
                 elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An N-D tensor (dims[0] innermost, `strides` in bytes of dims 1..N-1,
+// each a multiple of 16) in boxes of `box` elements, the innermost 128
+// bytes wide, 128-byte swizzle; reads past any edge are zero-filled (and
+// still count toward the barrier's bytes).
+inline bool make_map_nd_sw128(EncodeTiled encode, CUtensorMap* map,
+                              const void* ptr, CUtensorMapDataType type,
+                              int rank, const cuuint64_t* dims,
+                              const cuuint64_t* strides,
+                              const cuuint32_t* box) {
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -3,9 +3,11 @@ bitblas_tpu/kernels/flash.py: make_flash_attention, make_flash_decode,
 make_flash_decode_quant, make_flash_decode_paged and
 make_flash_decode_paged_quant).
 
-* `flash_attention_fwd` -- causal prefill over Q [B, S, H, D] and K/V
-  [B, S, Hkv, D], all float16 or all bfloat16, with an optional sliding
-  window (csrc/flash_attention.cu).
+* `flash_attention_fwd` -- prefill over Q [B, S, H, D] and K/V [B, S,
+  Hkv, D] (or K^T [B, D, Hkv, S]: trans_k, JAX's "ntn"), causal or dense,
+  any S, all float16, bfloat16 or float32, out in float16, bfloat16 or
+  float32, with an optional sliding window (csrc/flash_attention.cuh: one
+  source a head dim of `HEAD_DIMS`; csrc/flash_attention_f32.cu).
 * `flash_decode` -- one query token per sequence against the slot cache
   [rows, Smax, Hkv, D] bfloat16 through `slots` and `lengths`, with an
   optional sliding window (csrc/flash_decode.cu).
@@ -17,8 +19,8 @@ make_flash_decode_paged_quant).
   (csrc/flash_decode_paged{,_quant}.cu).
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain PyTorch
-version (`*_plain`) on CPU tensors. Queries (and outputs) are float16 or
-bfloat16, as the JAX kernels take any query type and an out_dtype. The
+version (`*_plain`) on CPU tensors. Decode queries (and outputs) are
+float16 or bfloat16, as the JAX kernels take any query type. The
 plain decode versions take any head dim and GQA group; the decode
 kernels take head dims 128 and 256 (`DECODE_HEAD_DIMS`) and any group
 (above 8 in chunks of 8 query heads), and the two float decode kernels
@@ -30,8 +32,8 @@ sizes only) and merge the chunks' partials in the same launch;
 tests. A sliding window (HF convention: prefill row i attends keys (i -
 window, i]; the decode query at position len - 1 attends [max(len -
 window, 0), len)) runs in kernels 4, 5 and 6, as in the JAX package; the
-paged kernels have none there either. ``trans_k`` and ``partial_stats``
-are not ported yet.
+paged kernels have none there either. ``partial_stats`` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -41,13 +43,24 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build, scratch
 
 LOG2E = 1.4426950408889634
-HEAD_DIM = 128      # the prefill kernel's head dim
+# the prefill kernel's head dims, one csrc source each (csrc/
+# flash_attention.cuh); the float32 kernel takes any D <= 256, D % 4 == 0
+HEAD_DIMS = (64, 96, 100, 128, 256)
+_PREFILL_SOURCES = {64: "flash_attention_d64", 96: "flash_attention_d96",
+                    100: "flash_attention_d100", 128: "flash_attention",
+                    256: "flash_attention_d256"}
+F32_MAX_HEAD_DIM = 256
+# (block_q, block_kv), FlashHint's: 64 q rows a block, 64- or 128-key tiles
+PREFILL_TILES = ((64, 64), (64, 128))
+# the head dims that build 128-key tiles (csrc/flash_attention.cuh kKv128)
+KV128_HEAD_DIMS = (64,)
+PREFILL_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
 DECODE_HEAD_DIMS = (128, 256)   # the decode kernels' head dims
-BLOCK = 64          # prefill q/kv tile: S must be a multiple
 MAX_GROUP = 8       # query rows a decode block holds: larger groups chunk
 MAX_GRID_Y = 65535  # Hkv * ceil(group / MAX_GROUP) rides the grid's y axis
 DECODE_TILE = 64    # keys a decode tile; a split's chunk is a multiple
@@ -55,9 +68,14 @@ H100_SMS = 132      # SMs of an H100 SXM, the split planner's default
 SPLIT_BLOCKS_PER_SM = 2   # the planner's target: B * Hkv * splits >= 2 SMs
 MAX_SPLITS = 1024   # the kernels' merge holds at most this many weights
 
-# prefill: Q, K, V, O, then B, S, H, Hkv, D, bf16, window
-_PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+# prefill: Q, K, V, O, then B, S, H, Hkv, D, bf16, out code, causal,
+# trans_k, block_kv, window (float32: no bf16 flag, no block_kv)
+_PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
     + [ctypes.c_float, ctypes.c_void_p]
+_PREFILL_F32_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_OUT_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
+QUERY_DTYPES = (torch.float16, torch.bfloat16)   # the decode kernels' q
 # decode entry points: q, caches (scales), index, lengths, out, the split
 # scratch and counters, then ints (sizes, chunk, splits, head dim, for the
 # float caches whether they are float16, whether q is bfloat16, for the
@@ -70,7 +88,6 @@ _DECODE_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_void_p]
 _DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
-QUERY_DTYPES = (torch.float16, torch.bfloat16)
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device,
@@ -98,78 +115,205 @@ def _check_window(window: Optional[int]) -> None:
                          f"{window!r}")
 
 
-def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
-                          V: torch.Tensor,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Plain causal attention with the kernel's arithmetic: Q folded into
-    the base-2 domain and rounded to Q's dtype, f32 scores and softmax,
-    output cast back to Q's dtype. With a `window`, row i attends keys
-    (i - window, i] (every row keeps its own key)."""
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def prefill_refusal(S: int, H: int, Hkv: int, D: int, dtype: torch.dtype,
+                    *, causal: bool = True, trans_k: bool = False,
+                    window: Optional[int] = None) -> Optional[str]:
+    """Why kernel 4 does not take this shape, or None where it does."""
+    if window is not None and not causal:
+        return "a sliding window requires causal=True"
+    if dtype == torch.float32:
+        if D % 4 or not 4 <= D <= F32_MAX_HEAD_DIM:
+            return (f"float32 takes head dims D % 4 == 0 up to "
+                    f"{F32_MAX_HEAD_DIM}")
+    elif D not in HEAD_DIMS:
+        return f"head dims {HEAD_DIMS}"
+    elif (H * D * 2) % 16 or (Hkv * D * 2) % 16:
+        # TMA's rows of heads * D elements need a 16-byte stride
+        return (f"a row of heads * D 2-byte elements must be a multiple "
+                f"of 16 bytes (D = {D} needs an even H and Hkv)")
+    elif trans_k and (S * 2) % 16:
+        return "trans_k takes S % 8 == 0 (a key row of 16-byte multiples)"
+    return None
+
+
+def check_prefill(B: int, S: int, H: int, Hkv: int, D: int,
+                  dtype: torch.dtype, out_dtype: torch.dtype, *,
+                  causal: bool = True, trans_k: bool = False,
+                  window: Optional[int] = None, tile=None):
+    """Raise on what kernel 4 does not take, on every device (the plain
+    version takes the same shapes): ValueError on sizes or types no
+    attention has, NotImplementedError with `prefill_refusal`'s reason.
+    Returns the (block_q, block_kv) tile a launch runs: `tile`, or the
+    default of tuner/curated's flash_block_hint for (S, D, causal)."""
     _check_window(window)
+    shape = (f"B={B} S={S} H={H} Hkv={Hkv} D={D} {_name(dtype)} -> "
+             f"{_name(out_dtype)}, causal={causal}, trans_k={trans_k}")
+    if min(B, S, H, Hkv) < 1 or H % Hkv:
+        raise ValueError(f"flash_attention_fwd: sizes must be positive "
+                         f"and H a multiple of Hkv ({shape})")
+    if dtype not in PREFILL_DTYPES or out_dtype not in PREFILL_DTYPES:
+        raise ValueError(f"flash_attention_fwd: operands and output are "
+                         f"float16, bfloat16 or float32 ({shape})")
+    why = prefill_refusal(S, H, Hkv, D, dtype, causal=causal,
+                          trans_k=trans_k, window=window)
+    if why is not None:
+        raise NotImplementedError(f"flash_attention_fwd: {why} ({shape})")
+    if tile is None:
+        from ..tuner.curated import flash_block_hint
+        tile = flash_block_hint(S, D, causal)
+        if dtype == torch.float32:     # one tile, whatever the hint
+            tile = PREFILL_TILES[0]
+    tile = tuple(int(x) for x in tile)
+    if tile not in prefill_tiles(D, dtype):
+        raise ValueError(f"flash_attention_fwd: tile {tile} is not one of "
+                         f"{prefill_tiles(D, dtype)} ({shape})")
+    return tile
+
+
+def prefill_tiles(D: int, dtype: torch.dtype = torch.float16):
+    """The (block_q, block_kv) tiles of kernel 4's instances at head dim D:
+    128-key tiles at `KV128_HEAD_DIMS` only; the float32 kernel has one
+    fixed tile, which `PREFILL_TILES[0]` names."""
+    if dtype != torch.float32 and D in KV128_HEAD_DIMS:
+        return PREFILL_TILES
+    return PREFILL_TILES[:1]
+
+
+def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
+                          V: torch.Tensor, window: Optional[int] = None, *,
+                          causal: bool = True, trans_k: bool = False,
+                          out_dtype: Optional[torch.dtype] = None,
+                          tile=None) -> torch.Tensor:
+    """Plain attention with the kernel's arithmetic: Q folded into the
+    base-2 domain and rounded to Q's dtype, f32 scores and softmax, output
+    cast to `out_dtype` (Q's by default). K is [B, S, Hkv, D], or K^T [B,
+    D, Hkv, S] with `trans_k`. Keys run to the tile's multiple of S as
+    the kernel's do: keys >= S are masked and their V rows zeroed
+    (flash.py:44-47). `causal`: row i attends keys <= i; with a `window`
+    keys (i - window, i] (every row keeps its own key)."""
+    _check_window(window)
+    if trans_k:
+        K = K.permute(0, 3, 2, 1)
     B, S, H, D = Q.shape
     group = H // K.shape[2]
+    block_kv = (tile or PREFILL_TILES[0])[1]
+    pad = -S % block_kv
     q = (Q.float() * (LOG2E / math.sqrt(D))).to(Q.dtype).float()
-    k = K.float().repeat_interleave(group, dim=2)
-    v = V.float().repeat_interleave(group, dim=2)
+    k = F.pad(K.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(group, 2)
+    v = F.pad(V.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(group, 2)
+    key = torch.arange(S + pad, device=Q.device)
+    live = key < S
+    v = torch.where(live[None, :, None, None], v,
+                    torch.zeros((), device=v.device))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    keep = torch.ones(S, S, dtype=torch.bool, device=Q.device).tril()
+    keep = live[None].expand(S, S + pad)
+    row = torch.arange(S, device=Q.device)[:, None]
+    if causal:
+        keep = keep & (key[None] <= row)
     if window is not None:
-        keep = keep.triu(1 - window)
+        keep = keep & (key[None] > row - window)
     s = s.masked_fill(~keep, float("-inf"))
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bhqk,bkhd->bqhd", p, v) \
         / p.sum(dim=-1).permute(0, 2, 1)[..., None]
-    return out.to(Q.dtype)
+    return out.to(out_dtype or Q.dtype)
 
 
 def _variant(dtype: torch.dtype, window: Optional[int]) -> str:
-    """A launch's variant as `variant_launches` counts it: "float16",
-    "bfloat16 window", ..."""
-    return str(dtype).split(".")[-1] + ("" if window is None else " window")
+    """A decode launch's variant as `variant_launches` counts it:
+    "float16", "bfloat16 window", ..."""
+    return _name(dtype) + ("" if window is None else " window")
 
 
-def _count(wrapper, dtype: torch.dtype, window: Optional[int]) -> None:
+def prefill_variant(dtype: torch.dtype, D: int, *, causal: bool = True,
+                    trans_k: bool = False, window: Optional[int] = None,
+                    out_dtype: Optional[torch.dtype] = None,
+                    block_kv: int = 64) -> str:
+    """A prefill launch's variant as `variant_launches` counts it: the
+    operand type, then what differs from the causal D = 128 launch on
+    64-key tiles: "d100" (head dim), "nc" (not causal), "ntn" (K^T),
+    "window", "out float32" (the output type), "kv128" (the tile), e.g.
+    "float16 d100", "bfloat16 window", "float32 d64 nc ntn out float16"."""
+    parts = [_name(dtype)]
+    if D != 128:
+        parts.append(f"d{D}")
+    if not causal:
+        parts.append("nc")
+    if trans_k:
+        parts.append("ntn")
+    if window is not None:
+        parts.append("window")
+    if out_dtype is not None and out_dtype != dtype:
+        parts.append(f"out {_name(out_dtype)}")
+    if block_kv != 64 and dtype != torch.float32:
+        parts.append(f"kv{block_kv}")
+    return " ".join(parts)
+
+
+def _count(wrapper, key: str) -> None:
     wrapper.launches += 1
-    key = _variant(dtype, window)
     wrapper.variant_launches[key] = wrapper.variant_launches.get(key, 0) + 1
 
 
 def flash_attention_fwd(Q: torch.Tensor, K: torch.Tensor,
-                        V: torch.Tensor,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """Causal attention, [B, S, H, D] out in Q's type (float16 or
-    bfloat16; K and V the same). `window`: None, or row i attends keys
-    (i - window, i]; a window >= S is no window."""
-    if Q.dim() != 4:
-        raise ValueError(f"Q must be [B, S, H, D], got {tuple(Q.shape)}")
-    _check_window(window)
+                        V: torch.Tensor, window: Optional[int] = None, *,
+                        causal: bool = True, trans_k: bool = False,
+                        out_dtype: Optional[torch.dtype] = None,
+                        tile=None) -> torch.Tensor:
+    """Attention, Q [B, S, H, D] x K [B, S, Hkv, D] (K^T [B, D, Hkv, S]
+    with `trans_k`) x V [B, S, Hkv, D] -> [B, S, H, D] in `out_dtype`
+    (Q's type by default). Q, K and V are all float16, bfloat16 or
+    float32; outputs float16, bfloat16 or float32; head dims `HEAD_DIMS`
+    (float32: any D % 4 == 0 up to 256); any S >= 1. `causal` (default)
+    or dense; with causality a `window`: row i attends keys (i - window,
+    i], and a window >= S is no window. `tile`: a FlashHint's (block_q,
+    block_kv), one of `prefill_tiles(D)`; None takes tuner/curated's
+    flash_block_hint. What the kernel does not take raises, with the
+    shape (`check_prefill`), on the CPU too."""
+    if Q.dim() != 4 or K.dim() != 4:
+        raise ValueError(f"Q and K must be 4-D, got {tuple(Q.shape)}, "
+                         f"{tuple(K.shape)}")
     B, S, H, D = Q.shape
-    Hkv = K.shape[2] if K.dim() == 4 else 0
-    if D != HEAD_DIM or S % BLOCK or Hkv < 1 or H % Hkv:
-        raise NotImplementedError(
-            f"flash_attention_fwd takes head_dim {HEAD_DIM}, S % {BLOCK} "
-            f"== 0 and H % Hkv == 0 (got D={D}, S={S}, H={H}, Hkv={Hkv})")
-    if Q.dtype not in QUERY_DTYPES:
-        raise ValueError(f"Q: float16 or bfloat16, got {Q.dtype}")
+    Hkv = K.shape[2]
+    out_dtype = out_dtype or Q.dtype
+    tile = check_prefill(B, S, H, Hkv, D, Q.dtype, out_dtype, causal=causal,
+                         trans_k=trans_k, window=window, tile=tile)
     _require(Q, "Q", Q.dtype, (B, S, H, D), Q.device)
-    _require(K, "K", Q.dtype, (B, S, Hkv, D), Q.device)
+    _require(K, "K", Q.dtype, (B, D, Hkv, S) if trans_k else (B, S, Hkv, D),
+             Q.device)
     _require(V, "V", Q.dtype, (B, S, Hkv, D), Q.device)
     if window is not None and window >= S:
         window = None
     if Q.device.type == "cpu":
-        return flash_attention_plain(Q, K, V, window)
+        return flash_attention_plain(Q, K, V, window, causal=causal,
+                                     trans_k=trans_k, out_dtype=out_dtype,
+                                     tile=tile)
     if Q.device.type != "cuda":
         raise ValueError(f"unsupported device {Q.device}")
-    out = torch.empty_like(Q)
-    fn = build.entry("flash_attention", "flash_attention_fwd",
-                     _PREFILL_ARGS)
+    out = torch.empty((B, S, H, D), dtype=out_dtype, device=Q.device)
+    ptrs = (Q.data_ptr(), K.data_ptr(), V.data_ptr(), out.data_ptr())
+    scale = LOG2E / math.sqrt(D)
     with torch.cuda.device(Q.device):
-        err = fn(Q.data_ptr(), K.data_ptr(), V.data_ptr(), out.data_ptr(),
-                 B, S, H, Hkv, D, int(Q.dtype == torch.bfloat16),
-                 window or 0, LOG2E / math.sqrt(D),
-                 torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if Q.dtype == torch.float32:
+            fn = build.entry("flash_attention_f32", "flash_attention_f32",
+                             _PREFILL_F32_ARGS)
+            err = fn(*ptrs, B, S, H, Hkv, D, _OUT_CODES[out_dtype],
+                     int(causal), int(trans_k), window or 0, scale, stream)
+        else:
+            fn = build.entry(_PREFILL_SOURCES[D], f"flash_attention_fwd_d{D}",
+                             _PREFILL_ARGS)
+            err = fn(*ptrs, B, S, H, Hkv, D, int(Q.dtype == torch.bfloat16),
+                     _OUT_CODES[out_dtype], int(causal), int(trans_k),
+                     tile[1], window or 0, scale, stream)
     build.check(err, "flash_attention_fwd")
-    _count(flash_attention_fwd, Q.dtype, window)
+    _count(flash_attention_fwd, prefill_variant(
+        Q.dtype, D, causal=causal, trans_k=trans_k, window=window,
+        out_dtype=out_dtype, block_kv=tile[1]))
     return out
 
 
@@ -490,7 +634,7 @@ def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
                  1.0 / math.sqrt(D),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, symbol)
-    _count(wrapper, q.dtype, window)
+    _count(wrapper, _variant(q.dtype, window))
     return out
 
 

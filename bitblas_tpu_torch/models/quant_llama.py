@@ -30,10 +30,12 @@ import torch
 from torch import nn
 
 from ..common import resolve_device
-from ..kernels.flash import HEAD_DIM, flash_attention_fwd
+from ..kernels.flash import (check_prefill, flash_attention_fwd,
+                             prefill_refusal)
 from ..ops.matmul import Matmul
 from ..ops.matmul_config import MatmulConfig
 from ..ops.weight_transform import scale_dtype
+from ..quantization.formats import as_torch_dtype
 
 
 @dataclass
@@ -245,6 +247,10 @@ class DecoderServingMixin:
     forward, bucketed prefill and single-token decode against the slot
     cache or the paged cache, float or int8."""
 
+    # prefill calls whose prompt the flash rule takes but whose shape kernel
+    # 4 refuses, so they ran the plain masked softmax (make_prefill)
+    plain_prefills = 0
+
     def forward(self, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
@@ -256,16 +262,36 @@ class DecoderServingMixin:
         """Returns fn(x [1, S, hidden], positions) -> (hidden, ks, vs),
         ks/vs per-layer rope-applied K/V [S, Hkv, D]. Prompts of 256+
         tokens in 128-multiples attend through the flash kernel (the JAX
-        threshold), a sliding window included (its banded walk); shorter
-        ones and head dims the kernel does not take keep the plain masked
-        softmax."""
+        rule), at any head dim it takes, a sliding window included (its
+        banded walk), on the tile of tuner/curated's flash_block_hint,
+        out in the model's act_dtype; shorter prompts and head dims the
+        kernel does not take keep the plain masked softmax; a prompt the
+        rule sends to the kernel but whose shape the kernel refuses
+        (`kernels.flash.prefill_refusal`) counts in
+        `DecoderServingMixin.plain_prefills` at each call."""
         cfg = self.cfg
         flash = None
-        if (seq_len >= 256 and seq_len % 128 == 0
-                and cfg.head_dim == HEAD_DIM):
-            flash = flash_attention_fwd
+        refused = False
+        if seq_len >= 256 and seq_len % 128 == 0:
+            out_dtype = as_torch_dtype(cfg.act_dtype)
+            refused = prefill_refusal(
+                seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                out_dtype, window=cfg.sliding_window) is not None
+            if not refused:
+                # tuner/curated's flash_block_hint for the shape
+                tile = check_prefill(1, seq_len, cfg.num_heads,
+                                     cfg.num_kv_heads, cfg.head_dim,
+                                     out_dtype, out_dtype,
+                                     window=cfg.sliding_window)
+
+                def flash(q, k, v, *window):
+                    return flash_attention_fwd(q, k, v, *window,
+                                               out_dtype=out_dtype,
+                                               tile=tile)
 
         def prefill(x, positions):
+            if refused:
+                DecoderServingMixin.plain_prefills += 1
             ks, vs = [], []
             for layer in self.layers:
                 x, k, v = layer_forward(layer, x, positions, flash=flash,

@@ -8,7 +8,12 @@ from .arch import (  # noqa: F401
     auto_detect_target,
     get_arch,
 )
-from .hint import HINT_CLASSES, MATERIALIZE, TileHint  # noqa: F401
+from .hint import (  # noqa: F401
+    HINT_CLASSES,
+    MATERIALIZE,
+    FlashHint,
+    TileHint,
+)
 from .space import (  # noqa: F401
     MATERIALIZE_MIN_M,
     default_hint,

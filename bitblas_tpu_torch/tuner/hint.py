@@ -1,5 +1,6 @@
-"""TileHint: what a tuning hint fixes for one Matmul launch (counterpart
-of bitblas_tpu/tuner/hint.py).
+"""TileHint: what a tuning hint fixes for one Matmul launch, and
+FlashHint, the tile of one FlashAtten (counterpart of
+bitblas_tpu/tuner/hint.py).
 
 A hint names the plan of one M bucket (`decode_mode`):
 
@@ -76,6 +77,34 @@ class TileHint:
 # The materialize plan has no tile of its own: one canonical hint.
 MATERIALIZE = TileHint("materialize", 0, 0, 0, 0)
 
+@dataclass(frozen=True)
+class FlashHint:
+    """The tile of kernel 4 (kernels/flash.py flash_attention_fwd): on
+    Hopper `block_q` is the q rows a block (64: one consumer warpgroup)
+    and `block_kv` the keys a KV tile (64 or 128;
+    kernels.flash.prefill_tiles). The JAX hint's Mosaic field `diag_sub`
+    (the TPU's diagonal sub-chunking) has no Hopper counterpart and is
+    not carried over; the defaults are the port's, not the TPU's."""
+    block_q: int = 64
+    block_kv: int = 64
+
+    @property
+    def tile(self):
+        return (self.block_q, self.block_kv)
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FlashHint":
+        names = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    def short_name(self) -> str:
+        return f"fa{self.block_q}x{self.block_kv}"
+
+
 # Reflection registry for the hint database (cache/__init__.py stores the
-# hint class name in mapping.json).
-HINT_CLASSES = {"TileHint": TileHint}
+# hint class name in mapping.json, so each operator family round-trips
+# its own record type).
+HINT_CLASSES = {"TileHint": TileHint, "FlashHint": FlashHint}

@@ -10,6 +10,10 @@
     python3 chip_smoke.py --int-formats       # only the int_formats phase
     python3 chip_smoke.py --mistral           # only the Mistral-7B-v0.1
                                               # phases (bf16, the window)
+    python3 chip_smoke.py --bitnet-3b         # only flashatten and the
+                                              # BitNet b1.58-3B phases
+    python3 chip_smoke.py --bitnet-3b-readings  # the readings the 3B
+                                              # reference's limits rest on
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -74,6 +78,21 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                - 1, window and window + 1 over Smax = 8192, splits that
                hold no live key; each against its plain version (and the
                split one), two calls bit-equal.
+3b. flashatten -- kernel 4 through ops/flashatten.FlashAtten, every
+               configuration JAX's flash kernel takes: head dims 64 / 96 /
+               100 / 128 / 256, causal and dense, nnn and ntn (K^T), S =
+               160 (ragged) / 512 / 2048, float16, bfloat16, float32 and
+               float16 with a float32 Out_dtype, B = 1, H = Hkv = 32; each
+               against its plain version element by element (one ulp of
+               the coarser of operand and output type of |ref| plus four
+               of the row's rms), kernel_ms at the default tile, each
+               tile's ms, plain_ms, SDPA's ms on the same operands (the
+               library yardstick), stream_ms and the bound; the launches
+               counted per variant (flashatten_launches in the kernels
+               line, apart from the serve phases' launches);
+               hardware_aware_finetune's winner against the default on
+               three configurations at head dim 64 (the one that builds
+               both tiles); a tuned operator through the hint database.
 3b'. formats -- kernels 1 and 2 for the 21 other (A, W) pairs with
                float16 / bfloat16 activations (uint1/2/4, int1/2/4/8, nf4,
                fp4_e2m1, e4m3, e5m2; ops/matmul_config.FLOAT_PAIRS): a
@@ -132,7 +151,7 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                QuantLinear.repack_from_gptq_v2; forwards at M = 1 / 16 /
                256 / 1024 against the plain version; a checkpoint round
                trip bit for bit and a JAX-stamped checkpoint refused.
-4. reference -- a 2-layer model at Llama-2-7B widths: prefill (flash) and
+4. reference -- a 1-layer model at Llama-2-7B widths: prefill (flash) and
                teacher-forced decode steps on the card against the same
                weights on the CPU plain path; then TokenContinuousBatching-
                Engine(num_slots=4) on both, bf16 and int8 KV, four greedy
@@ -161,6 +180,16 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                windowless bf16 model on the paged engine (kernels 7 / 8 on
                bf16 queries); logits within MISTRAL_REF_TOL of the
                largest.
+4c. reference_bitnet_3b -- 2 BitNet layers at b1.58-3B's widths (head
+               dim 100), card against CPU: each BitLinear bit for bit at
+               M = 4 and 512, prefill in buckets 256 and 512 (kernel 4 at
+               D = 100 on the card) and teacher-forced decode steps (the
+               plain D = 100 decode attention on both, as in JAX), hidden
+               states within BITNET_3B_HIDDEN of the largest, the
+               prefill's after the first layer within
+               BITNET_3B_LAYER1_RMS (rms), logits within the BitNet
+               limits, tokens equal wherever the CPU's top-2 margin
+               exceeds the limit; then the token engine.
 5. serve    -- 32-layer W4A16 Llama-2-7B widths (random weights from a
                seeded generator on the card) behind an LMHead (vocab 32000),
                four greedy requests (prompts 200/300/450/500, 32 new tokens)
@@ -187,6 +216,12 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                serve_mistral_ring  prefill_chunk = 256, kv_ring (4352
                                 ring rows a slot); the attends are torch
                                 ops, counted (ring_attends);
+               serve_bitnet_3b  all 26 BitNet b1.58-3B layers (hidden
+                                3200, intermediate 8640, head dim 100,
+                                vocab 32002), prompts of 200 / 450 / 1000
+                                / 1900 tokens (buckets 256 ... 2048, every
+                                one through kernel 4 at D = 100), bf16
+                                slot cache of 4 x 2048 rows;
                serve_bitnet     32 BitNet b1.58 W2A8 layers at Llama-3-8B
                                 widths behind an LMHead of vocab 128256,
                                 TokenContinuousBatchingEngine, bf16 KV, on
@@ -1833,11 +1868,14 @@ def _card_and_cpu(torch, make, seed: int):
 
 
 def check_reference(torch):
-    """2 layers at full width: the card's path vs the plain CPU path on
+    """One layer at full width: the card's path vs the plain CPU path on
     the same weights (prefill at bucket 512 -> flash and the materialize
-    route; 4 decode steps)."""
+    route; 4 decode steps), then the token and paged engines. One layer
+    keeps the run within its time (the CPU side is its cost): the walk
+    over several layers' cache rows is held by the 2-layer references of
+    the GPTQ import, BitNet and Mistral (token and paged engines)."""
     from bitblas_tpu_torch.models.quant_llama import QuantLlama
-    cfg = llama2_7b(2)
+    cfg = llama2_7b(1)
     gpu, cpu = _card_and_cpu(
         torch, lambda **kw: QuantLlama(cfg, **kw), seed=11)
     reference_steps(torch, cfg, gpu, cpu, "reference")
@@ -1864,6 +1902,23 @@ BITNET_LOGIT_RMS = 0.030
 BITNET_LOGIT_MAX = 0.036
 BITNET_ENGINE_MAX = 0.055
 BITNET_MIN_DECIDED = (20, 3)
+# reference_bitnet_3b's limit on hidden states relative to the largest,
+# from `python3 chip_smoke.py --bitnet-3b-readings` (2 layers at b1.58-3B's
+# widths, seeds 41-43; NVIDIA H100 80GB HBM3, 700 W): the card against the
+# CPU reads at most 0.0236 (prefill and decode hidden states), the CPU
+# against itself with the plain masked softmax 0.0216; 0.03 sits above
+# both. After 2 layers the bfloat16 glue-fault controls read 0.019-0.032
+# max and 0.021-0.027 rms, inside or just past the card's spread: neither
+# this limit nor the BitNet logit limits above reject them. After the
+# first layer they stand apart, so BITNET_3B_LAYER1_RMS holds the
+# prefill's hidden states there: rms error over rms, at reference_bitnet_3b's
+# own inputs and two other weight seeds (S = 256 and 512), the card
+# against the CPU <= 0.0098 (0.0096 / 0.0090 at the reference's inputs),
+# the CPU's own floor <= 0.0092, the controls >= 0.0126 (each BitLinear's
+# output rounded to bfloat16) and >= 0.0160 (activations rounded to
+# bfloat16 before their quantization).
+BITNET_3B_HIDDEN = 0.03
+BITNET_3B_LAYER1_RMS = 0.011
 
 
 def check_bitnet_reference(torch, counters):
@@ -2036,20 +2091,25 @@ def reference_steps(torch, cfg, gpu, cpu, phase: str, heads=None,
             twin = layer_forward(layer, twin, torch.arange(x.shape[1])[None])
         errs["cpu_floor_prefill_logits"] = _gap(
             head.logits(twin[0, -64:].float()), ref["prefill"])
-    emit({"phase": phase, "layers": 2, "prompt": x.shape[1],
+    emit({"phase": phase, "layers": cfg.num_layers, "prompt": x.shape[1],
           "decode_steps": 4, "rel_tol": rel_tol,
           **({"rms_rel_tol": BITNET_LOGIT_RMS} if heads else {}), **errs})
 
 
-def bitnet_readings(torch, seeds=(21, 22, 23, 24, 25)) -> None:
-    """The readings the BitNet limits are set from, one line per seed (the
-    model's weights and the input): the card against the CPU, the CPU
-    against itself with the plain masked softmax, and two glue faults on
-    the CPU against the CPU -- activations rounded to bfloat16 before
-    their int8 quantization, and each BitLinear's output rounded to
-    bfloat16 -- each as max and rms error relative to the CPU's logits;
-    the CPU's top-2 margins relative to its largest logit (teacher-forced
-    rows, and the token engine's steps up to each request's first split)."""
+def bitnet_readings(torch, cfg=None, seeds=(21, 22, 23, 24, 25),
+                    inputs=None) -> None:
+    """The readings the BitNet limits are set from, one line per seed and
+    input (the model's weights; `cfg` 2 layers at Llama-3-8B widths by
+    default; `inputs` (input seed, S) pairs, by default the weights' seed
+    at S = 512): the card against the CPU, the CPU against itself with the
+    plain masked softmax, and two glue faults on the CPU against the CPU
+    -- activations rounded to bfloat16 before their int8 quantization,
+    and each BitLinear's output rounded to bfloat16 -- each as max and rms
+    error relative to the CPU's logits and hidden states (the prefill's
+    after the first layer too: `layer1_hidden`); the CPU's top-2 margins
+    relative to its largest logit (teacher-forced rows, and the token
+    engine's steps up to each request's first split, at the first
+    input)."""
     import contextlib
 
     from bitblas_tpu_torch.models import bitnet as bn
@@ -2072,39 +2132,72 @@ def bitnet_readings(torch, seeds=(21, 22, 23, 24, 25)) -> None:
                          lambda self, x: forward(self, x)
                          .to(torch.bfloat16).to(x.dtype)),
     }
-    cfg = bitnet_llama3_8b(2)
+    cfg = cfg or bitnet_llama3_8b(2)
     heads = _reference_heads(torch, cfg)
     head = heads["cpu"]
+
+    def hidden_and_logits(model, x, dev):
+        pre, dec = _run_steps(torch, cfg, model, x, dev)
+        return ({"prefill": pre, "decode": dec,
+                 "layer1": _layer1_hidden(torch, model, x, dev)},
+                {"prefill": head.logits(pre[-64:]),
+                 "decode": head.logits(dec)})
+
     for seed in seeds:
-        t0 = time.perf_counter()
         gpu, cpu = _card_and_cpu(
             torch, lambda **kw: bn.BitNetLlama(cfg, **kw), seed=seed)
-        x = _reference_input(torch, cfg, seed=seed)
-        ref = _bitnet_logits(torch, cfg, cpu, x, "cpu", head)
-        runs = {"card": _bitnet_logits(torch, cfg, gpu, x, "cuda", head)}
-        for name, (obj, attr, value) in controls.items():
-            with patched(obj, attr, value):
-                runs[name] = _bitnet_logits(torch, cfg, cpu, x, "cpu", head)
-        row = {"phase": "bitnet_readings", "seed": seed}
-        for name, logits in runs.items():
-            row[name] = {k: _gap(logits[k], ref[k]) for k in ref}
-        twin = x
-        for layer in cpu.layers:
-            twin = layer_forward(layer, twin, torch.arange(x.shape[1])[None])
-        row["cpu_floor"] = {"prefill": _gap(
-            head.logits(twin[0, -64:].float()), ref["prefill"])}
-        margins = torch.cat([
-            _decided(ref[k], ref[k], float("inf"))[1] / ref[k].abs().max()
-            for k in ref])
-        row["margins_rel"] = sorted(round(m, 5) for m in margins.tolist())
-        eng = compare_engines(torch, cfg, gpu, cpu, tag="_bitnet",
-                              heads=heads, rel_tol=1.0)
-        row["engine"] = {"max_logit_rel_err": eng["max_logit_rel_err"],
-                         "margins_rel": eng["margins_rel"]}
-        row["seconds"] = time.perf_counter() - t0
-        emit(row)
+        for i, (input_seed, S) in enumerate(inputs or ((seed, 512),)):
+            t0 = time.perf_counter()
+            x = _reference_input(torch, cfg, seed=input_seed, S=S)
+            ref_h, ref = hidden_and_logits(cpu, x, "cpu")
+            runs = {"card": hidden_and_logits(gpu, x, "cuda")}
+            for name, (obj, attr, value) in controls.items():
+                with patched(obj, attr, value):
+                    runs[name] = hidden_and_logits(cpu, x, "cpu")
+            row = {"phase": "bitnet_readings", "seed": seed,
+                   "input_seed": input_seed, "prompt": S,
+                   "hidden": cfg.hidden_size, "head_dim": cfg.head_dim}
+            for name, (hid, logits) in runs.items():
+                row[name] = {**{k: _gap(logits[k], ref[k]) for k in ref},
+                             **{f"{k}_hidden": _gap(hid[k], ref_h[k])
+                                for k in ref_h}}
+            pos = torch.arange(S)[None]
+            twin = layer_forward(cpu.layers[0], x, pos)
+            layer1 = twin[0].float()
+            for layer in cpu.layers[1:]:
+                twin = layer_forward(layer, twin, pos)
+            row["cpu_floor"] = {"prefill": _gap(
+                head.logits(twin[0, -64:].float()), ref["prefill"]),
+                "prefill_hidden": _gap(twin[0].float(), ref_h["prefill"]),
+                "layer1_hidden": _gap(layer1, ref_h["layer1"])}
+            margins = torch.cat([
+                _decided(ref[k], ref[k], float("inf"))[1] / ref[k].abs().max()
+                for k in ref])
+            row["margins_rel"] = sorted(round(m, 5) for m in margins.tolist())
+            if i == 0:
+                eng = compare_engines(torch, cfg, gpu, cpu, tag="_bitnet",
+                                      heads=heads, rel_tol=1.0)
+                row["engine"] = {
+                    "max_logit_rel_err": eng["max_logit_rel_err"],
+                    "margins_rel": eng["margins_rel"]}
+            row["seconds"] = time.perf_counter() - t0
+            emit(row)
         del gpu, cpu
         torch.cuda.empty_cache()
+
+
+def _layer1_hidden(torch, model, x, dev: str):
+    """The prefill's hidden states [S, hidden] after the model's first
+    layer alone, in float32 on the CPU."""
+    layers = model.layers
+    model.layers = layers[:1]
+    try:
+        S = x.shape[1]
+        hid, _, _ = model.make_prefill(S)(x.to(dev),
+                                          torch.arange(S)[None].to(dev))
+    finally:
+        model.layers = layers
+    return hid[0].float().cpu()
 
 
 def _reference_heads(torch, cfg):
@@ -2206,7 +2299,7 @@ def compare_engines(torch, cfg, gpu, cpu, kv_quant: bool = False,
             hidden_err = max(hidden_err, err)
     row = {"phase": "reference_engine" + ("_kv_quant" if kv_quant else "")
            + tag,
-           "layers": 2, "num_slots": 4, **(engine_kw or {}),
+           "layers": cfg.num_layers, "num_slots": 4, **(engine_kw or {}),
            "prompts": [len(p) for p in prompts], "max_new": list(budgets),
            "rel_tol": rel_tol, "tokens_equal": same,
            "tokens_decided": decided, "max_logit_abs_err": logit_err,
@@ -2285,7 +2378,8 @@ def compare_paged(torch, cfg, gpu, cpu, kv_quant: bool,
         same.append([int(a.argmax()) for a in lc[uid]]
                     == [int(b.argmax()) for b in lp[uid]])
     emit({"phase": "reference_paged" + ("_quant" if kv_quant else "") + tag,
-          "layers": 2, "num_slots": 4, "block_size": 16, "rel_tol": rel_tol,
+          "layers": cfg.num_layers, "num_slots": 4, "block_size": 16,
+          "rel_tol": rel_tol,
           "prompts": [len(p) for p in prompts], "max_new": list(budgets),
           "steps": len(tc), "prefix_hits": hc, "tables_equal": True,
           "tokens_equal": same, "max_logit_abs_err": logit_err})
@@ -2524,6 +2618,8 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     rings = [getattr(kv_cache, n) for n in RING_ATTENDS]
     for fn in rings:
         fn.calls = 0
+    from bitblas_tpu_torch.models.quant_llama import DecoderServingMixin
+    DecoderServingMixin.plain_prefills = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = submit()
@@ -2565,6 +2661,11 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
     if min(launches.get(k, 0) for k in expect) <= 0:
         raise AssertionError(f"{phase}: a kernel was not launched: "
                              f"{launches}")
+    if DecoderServingMixin.plain_prefills:
+        raise AssertionError(
+            f"{phase}: {DecoderServingMixin.plain_prefills} prefills that "
+            f"JAX's rule runs through kernel 4 took the plain masked "
+            f"softmax (a shape the kernel refuses)")
     if kw.get("kv_ring") and eng.caches_k.shape[2] != ctx.get(
             "ring_rows", eng.caches_k.shape[2]):
         raise AssertionError(f"{phase}: ring of {eng.caches_k.shape[2]} "
@@ -2593,6 +2694,7 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
            "prefill_tok_s": sum(a for _, a in adm)
            / max(sum(dt - step_s for dt, _ in adm), 1e-9),
            "wall_s": wall, "launches": launches, **route_row,
+           "plain_prefills": DecoderServingMixin.plain_prefills,
            "peak_mem_gb": peak / 2 ** 30, "kv_bytes": kv_bytes,
            "weight_bytes": ctx["weight_bytes"]}
     if kind == "token":
@@ -2603,7 +2705,10 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
             raise AssertionError(f"{phase}: no prefix hit")
     emit(row)
     if kind == "token":
-        profile_decode(torch, eng, ctx["prompts"], phase)
+        profile_decode(torch, eng, ctx["prompts"], phase, {
+            "serve_kernel4_variant_launches": {
+                k.split(" ", 1)[1]: n for k, n in launches.items()
+                if k.startswith("flash_attention_fwd ")}})
     del eng
     torch.cuda.empty_cache()
     return row
@@ -2749,10 +2854,12 @@ def bitnet_tuned_ab(torch, counters, rounds: int = 2):
                           "prefill_tok_s")}})
 
 
-def profile_decode(torch, eng, prompts, phase: str, steps: int = 5):
+def profile_decode(torch, eng, prompts, phase: str, extra=None,
+                   steps: int = 5):
     """Where a decode step's time goes: torch.profiler over a few decode
     steps at 4 active slots, after the timed run (the profiler slows the
-    host, so the busy share it reports is a lower bound)."""
+    host, so the busy share it reports is a lower bound). `extra` joins
+    the row (the serve run's kernel 4 launches by variant)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2779,7 +2886,339 @@ def profile_decode(torch, eng, prompts, phase: str, steps: int = 5):
           "device_busy_share": device_us / wall_us if kernels else None,
           "kernel_launches_per_step": sum(c for *_, c in kernels) / steps,
           "top_kernels_ms_per_step": {name[:70]: t / steps / 1e3
-                                      for name, t, _ in top}})
+                                      for name, t, _ in top},
+          **(extra or {})})
+
+
+# -- kernel 4's configurations (FlashAtten) and BitNet b1.58-3B ------------
+
+FA_DIMS = (64, 96, 100, 128, 256)
+FA_SEQS = (160, 512, 2048)     # 160: a ragged S (64-key tiles + 32)
+# (operand type, Out_dtype): each operand type, and a float32 output of
+# float16 operands
+FA_TYPES = (("float16", "float16"), ("bfloat16", "bfloat16"),
+            ("float32", "float32"), ("float16", "float32"))
+FA_HEADS = 32       # B = 1, H = Hkv = 32: BitNet b1.58-3B's (and
+                    # Llama-2-7B's) heads
+FA_TUNED = ((64, 2048, True, "nnn", "float16"),
+            (64, 512, True, "nnn", "bfloat16"),
+            (64, 2048, False, "ntn", "float16"))
+
+
+def fa_ulp(torch, dtype, out) -> float:
+    """The element-wise limit's unit for kernel 4 against its plain
+    version: the coarser of the operands' type (the kernel rounds P to
+    it) and the output's (one rounding); float32 operands: 2^-18 (the
+    FFMA kernel and the plain version sum in other orders)."""
+    from bitblas_tpu_torch.testing import ATTN_ULP
+    return max(ATTN_ULP.get(d, 2.0 ** -18) for d in (dtype, out))
+
+
+def fa_bound(torch, B, S, H, Hkv, D, dtype, out, causal):
+    """Kernel 4's bound: Q, K and V read once and O written once, and the
+    products 4 B H D (the keys the rows attend: S (S + 1) / 2 causal, S^2
+    dense) over the tensor-core rate (float16 / bfloat16) or the FFMA
+    rate (float32)."""
+    e_in = torch.tensor([], dtype=dtype).element_size()
+    e_out = torch.tensor([], dtype=out).element_size()
+    nbytes = B * S * D * ((H + 2 * Hkv) * e_in + H * e_out)
+    keys = S * (S + 1) // 2 if causal else S * S
+    peak = F32_FLOPS_PER_S if dtype == torch.float32 else F16_FLOPS_PER_S
+    return nbytes, bound(nbytes, 4.0 * B * H * D * keys, peak)
+
+
+def check_flashatten(torch, flush):
+    """Kernel 4 through ops/flashatten.FlashAtten on the card, every
+    configuration JAX's flash kernel takes: head dims 64 / 96 / 100 / 128 /
+    256, causal and dense, nnn and ntn, S = 160 / 512 / 2048, float16,
+    bfloat16, float32 and float16 with a float32 Out_dtype (B = 1, H = Hkv
+    = 32, K amplified 3x). Each row: the operator's output against the
+    plain version (testing.attention_err: one `fa_ulp` of |ref| plus 4
+    of the row's rms), kernel_ms at the default tile (tuner/curated), each
+    tile's ms (16-bit), plain_ms, SDPA's ms on the same operands (K^T
+    transposed beforehand; the library yardstick, never called by the
+    port), stream_ms and the bound. The launch counters are set to 0
+    first and read after each configuration's one forward (the phase's
+    launches, kept apart from the serve phases'). Then
+    hardware_aware_finetune on three configurations at head dim 64, the
+    one with two tiles (the winner against the default), and one tuned
+    operator through the hint database."""
+    from bitblas_tpu_torch.cache import OperatorCache
+    from bitblas_tpu_torch.kernels.flash import (flash_attention_fwd,
+                                                 flash_attention_plain,
+                                                 prefill_tiles)
+    from bitblas_tpu_torch.ops import FlashAtten, FlashAttenConfig
+    from bitblas_tpu_torch.testing import attention_err
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    t0 = time.perf_counter()
+    B = 1
+    H = Hkv = FA_HEADS
+    launches = {}
+    rows = []
+    for D in FA_DIMS:
+        for causal in (True, False):
+            for layout in ("nnn", "ntn"):
+                for S in FA_SEQS:
+                    for dtype, out in FA_TYPES:
+                        dt, ot = getattr(torch, dtype), getattr(torch, out)
+                        cfg = FlashAttenConfig(
+                            batch=B, heads=H, seq_len=S, dim=D,
+                            Q_dtype=dtype, Out_dtype=out, layout=layout,
+                            is_causal=causal)
+                        op = FlashAtten(cfg, device="cuda")
+                        Q = torch.randn((B, S, H, D), generator=gen,
+                                        device="cuda").to(dt)
+                        K = (torch.randn((B, S, Hkv, D), generator=gen,
+                                         device="cuda") * 3).to(dt)
+                        V = torch.randn((B, S, Hkv, D), generator=gen,
+                                        device="cuda").to(dt)
+                        Kin = K.permute(0, 3, 2, 1).contiguous() \
+                            if op.trans_k else K
+                        flash_attention_fwd.launches = 0
+                        flash_attention_fwd.variant_launches.clear()
+                        got = op.forward(Q, Kin, V)
+                        torch.cuda.synchronize()
+                        for key, n in flash_attention_fwd.variant_launches \
+                                .items():
+                            launches[key] = launches.get(key, 0) + n
+                        n = flash_attention_fwd.launches
+                        if n != 1:
+                            raise AssertionError(f"flashatten {cfg}: {n} "
+                                                 f"launches of kernel 4")
+                        tile = (op.block_q, op.block_kv)
+                        kw = dict(causal=causal, trans_k=op.trans_k,
+                                  out_dtype=ot, tile=tile)
+                        ref = flash_attention_plain(Q, Kin, V, **kw)
+                        u = fa_ulp(torch, dt, ot)
+                        ratio = attention_err(got, ref, u, 4 * u)
+                        err = (got.float() - ref.float()).abs().max().item()
+                        if not (ratio <= 1.0
+                                and torch.isfinite(got).all().item()):
+                            raise AssertionError(
+                                f"flashatten D={D} S={S} causal={causal} "
+                                f"{layout} {dtype} -> {out}: {ratio} of "
+                                f"its limit (max abs err {err})")
+                        nbytes, (b_ms, b_by) = fa_bound(
+                            torch, B, S, H, Hkv, D, dt, ot, causal)
+                        qt, kt, vt = (x.transpose(1, 2).contiguous()
+                                      for x in (Q, K, V))
+                        row = {
+                            "phase": "flashatten", "D": D, "S": S,
+                            "causal": causal, "layout": layout,
+                            "dtype": dtype, "out": out, "B": B, "H": H,
+                            "Hkv": Hkv, "tile": list(tile),
+                            "max_abs_err": err, "err_over_tol": ratio,
+                            "ulp": u, "elementwise": "ulp |ref| + 4 ulp "
+                            "rms(row)",
+                            "kernel_ms": time_ms(torch, lambda: op.forward(
+                                Q, Kin, V), 20, flush),
+                            "plain_ms": time_ms(
+                                torch, lambda: flash_attention_plain(
+                                    Q, Kin, V, **kw), 3, flush),
+                            "library_ms": time_ms(
+                                torch, lambda: F.scaled_dot_product_attention(
+                                    qt, kt, vt, is_causal=causal), 10, flush),
+                            "stream_ms": time_ms(torch, _stream(torch, nbytes),
+                                                 20, flush),
+                            "bound_ms": b_ms, "bound_by": b_by}
+                        if dt != torch.float32:
+                            row["tile_ms"] = {
+                                f"{t[0]}x{t[1]}": time_ms(
+                                    torch, lambda t=t: flash_attention_fwd(
+                                        Q, Kin, V, **{**kw, "tile": t}), 20,
+                                    flush)
+                                for t in prefill_tiles(D, dt)}
+                        emit(row)
+                        rows.append(row)
+                        del Q, K, V, Kin, got, ref, qt, kt, vt
+    torch.cuda.empty_cache()
+    # the tuned rows: hardware_aware_finetune's winner against the default
+    tuned = []
+    for D, S, causal, layout, dtype in FA_TUNED:
+        cfg = FlashAttenConfig(batch=B, heads=H, seq_len=S, dim=D,
+                               Q_dtype=dtype, Out_dtype=dtype, layout=layout,
+                               is_causal=causal)
+        default = FlashAtten(cfg, device="cuda")
+        op = FlashAtten(cfg, device="cuda", enable_tuning=True)
+        times = {f"{t[0]}x{t[1]}": s * 1e3
+                 for t, s in op.tune_results.items()}
+        row = {"phase": "flashatten_tuned", "D": D, "S": S, "causal": causal,
+               "layout": layout, "dtype": dtype, "H": H,
+               "winner": op.hints[0].short_name(),
+               "winner_ms": op.tune_results[(op.block_q, op.block_kv)] * 1e3,
+               "default": default.hints[0].short_name(),
+               "default_ms": op.tune_results[(default.block_q,
+                                              default.block_kv)] * 1e3,
+               "candidates_ms": times}
+        emit(row)
+        tuned.append((cfg, op))
+    # a tuned operator through the hint database: hints equal, unpinned,
+    # the same output bit for bit
+    db = tempfile.mkdtemp(prefix="bitblas_tpu_torch_db_")
+    try:
+        cfg, op = tuned[0]
+        cache = OperatorCache()
+        cache.add(cfg, op)
+        cache.save_into_database(db)
+        back = OperatorCache()
+        if back.load_from_database(db) != 1:
+            raise AssertionError("flashatten: the tuned operator did not "
+                                 "load from the database")
+        again = back.get(cfg)
+        args = op._example_args()
+        if not (again.hints == op.hints and not again.tuned_hints
+                and torch.equal(again.forward(*args), op.forward(*args))):
+            raise AssertionError("flashatten: the reloaded operator differs")
+    finally:
+        shutil.rmtree(db)
+    emit({"phase": "flashatten_summary", "configs": len(rows),
+          "worst_err_over_tol": max(r["err_over_tol"] for r in rows),
+          "launches": launches, "database_round_trip": True,
+          "seconds": time.perf_counter() - t0})
+    return rows, launches
+
+
+def bitnet_b158_3b(num_layers: int):
+    from bitblas_tpu_torch.models.quant_llama import LlamaConfig
+    # 1bitLLM/bitnet_b1_58-3B config.json widths: hidden 3200,
+    # intermediate 8640, 26 layers, 32 heads and KV heads (head dim 100),
+    # vocab 32002, rope_theta 10000, rms_norm_eps 1e-5, 2048 positions;
+    # every projection a ternary W2A8 BitLinear
+    return LlamaConfig(hidden_size=3200, intermediate_size=8640,
+                       num_heads=32, num_kv_heads=32, num_layers=num_layers,
+                       vocab_size=32002, rope_theta=10000.0,
+                       rms_norm_eps=1e-5)
+
+
+D100 = "flash_attention_fwd float16 d100"   # kernel 4 at head dim 100
+BITNET_3B_PROMPTS = (200, 450, 1000, 1900)  # buckets 256 / 512 / 1024 / 2048
+BITNET_3B_MAX_SEQ = 2048
+BITNET_3B_PHASE = ("serve_bitnet_3b", "token", {},
+                   ("dequant_matmul_i2", DECODE["int2"], TILED["int2"],
+                    "weight_decode_int8", D100))
+
+
+def check_reference_bitnet_3b(torch, counters):
+    """2 BitNet layers at b1.58-3B's widths, card against the same weights
+    on the CPU: prefill in buckets 256 and 512 (kernel 4 at head dim 100
+    on the card, its plain version on the CPU), then teacher-forced decode
+    steps (the plain length-masked attention at D = 100 on both, as in
+    JAX), and the token engine with four greedy requests. Hidden states
+    are held to BITNET_3B_HIDDEN of the largest, the prefill's after the
+    first layer to BITNET_3B_LAYER1_RMS (rms; the number that rejects the
+    bfloat16 glue faults), logits to the BitNet limits, tokens equal
+    wherever the CPU's top-2 margin exceeds the limit (as
+    check_bitnet_reference)."""
+    from bitblas_tpu_torch.kernels.flash import flash_attention_fwd
+    from bitblas_tpu_torch.models.bitnet import BitNetLlama
+    t0 = time.perf_counter()
+    cfg = bitnet_b158_3b(2)
+    gpu, cpu = _card_and_cpu(
+        torch, lambda **kw: BitNetLlama(cfg, opt_m=BITNET_BUCKETS, **kw),
+        seed=41)
+    heads = _reference_heads(torch, cfg)
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "variant_launches"):
+            c.variant_launches.clear()
+    bitlinear_exact(torch, gpu, cpu)
+    head = heads["cpu"]
+    for S in (256, 512):
+        x = _reference_input(torch, cfg, S=S)
+        card = _run_steps(torch, cfg, gpu, x, "cuda")
+        ref = _run_steps(torch, cfg, cpu, x, "cpu")
+        row = {"phase": "reference_bitnet_3b", "layers": 2, "prompt": S,
+               "decode_steps": 4, "hidden_tol": BITNET_3B_HIDDEN,
+               "layer1_rms_tol": BITNET_3B_LAYER1_RMS,
+               "rel_tol": BITNET_LOGIT_MAX, "rms_rel_tol": BITNET_LOGIT_RMS}
+        decided = 0
+        for i, key in enumerate(("prefill", "decode")):
+            a, b = card[i], ref[i]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"reference_bitnet_3b: non-finite "
+                                     f"{key} hidden on the card")
+            row[key + "_hidden"] = _gap(a, b)
+            la, lb = (head.logits(t[-64:] if key == "prefill" else t)
+                      for t in (a, b))
+            row[key + "_logits"] = _gap(la, lb)
+            n, _ = _decided(la, lb, BITNET_LOGIT_MAX * lb.abs().max().item())
+            decided += n
+        row["tokens_decided"] = decided
+        row["layer1_hidden"] = _gap(_layer1_hidden(torch, gpu, x, "cuda"),
+                                    _layer1_hidden(torch, cpu, x, "cpu"))
+        row["d100_launches"] = flash_attention_fwd.variant_launches.get(
+            "float16 d100", 0)
+        emit(row)
+        bad = [k for k in ("prefill_hidden", "decode_hidden")
+               if row[k]["max_rel_err"] > BITNET_3B_HIDDEN] + [
+            "layer1_hidden"] * (row["layer1_hidden"]["rms_rel_err"]
+                                > BITNET_3B_LAYER1_RMS) + [
+            k for k in ("prefill_logits", "decode_logits")
+            if row[k]["max_rel_err"] > BITNET_LOGIT_MAX
+            or row[k]["rms_rel_err"] > BITNET_LOGIT_RMS]
+        if bad:
+            raise AssertionError(f"reference_bitnet_3b S={S}: {bad} over "
+                                 f"their limits: {row}")
+    if flash_attention_fwd.variant_launches.get("float16 d100", 0) <= 0:
+        raise AssertionError("reference_bitnet_3b: kernel 4 at head dim 100 "
+                             "did not launch")
+    compare_engines(torch, cfg, gpu, cpu, tag="_bitnet_3b", heads=heads,
+                    rel_tol=BITNET_ENGINE_MAX,
+                    min_decided=BITNET_MIN_DECIDED[1])
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "reference_bitnet_3b_summary", "layers": 2,
+          "reduced": {"layers": "26 -> 2: a CPU plain reference"},
+          "seconds": time.perf_counter() - t0})
+
+
+def bitnet_3b_serving_model(torch):
+    """All 26 layers of BitNet b1.58-3B (W2A8, random ternary weights
+    drawn on the card from a seed), an LMHead of vocab 32002, four
+    prompts of 200 / 450 / 1000 / 1900 tokens (buckets 256 / 512 / 1024
+    / 2048, every one through kernel 4 at head dim 100), max_seq_len
+    2048: a bf16 slot cache of 4 x 2048 rows."""
+    import numpy as np
+    from bitblas_tpu_torch.models.bitnet import BitNetLlama
+    from bitblas_tpu_torch.models.hf_import import LMHead
+
+    t0 = time.perf_counter()
+    cfg = bitnet_b158_3b(26)
+    model = BitNetLlama(cfg, opt_m=BITNET_BUCKETS, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    V, Hd = cfg.vocab_size, cfg.hidden_size
+    head = LMHead(
+        embed=(torch.randn((V, Hd), generator=gen, device="cuda") * 0.05
+               ).half(),
+        final_norm=torch.ones(Hd, device="cuda"),
+        lm_head=torch.randn((V, Hd), generator=gen, device="cuda") * 0.05,
+        norm_eps=cfg.rms_norm_eps, device="cuda")
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, n).astype(np.int32)
+               for n in BITNET_3B_PROMPTS]
+    packed = sum(t.numel() * t.element_size()
+                 for n, t in model.named_buffers()
+                 if "qweight" in n or n.endswith(".sw"))
+    return {"cfg": cfg, "model": model, "head": head, "prompts": prompts,
+            "pair": [], "init_s": time.perf_counter() - t0,
+            "name": "BitNet b1.58-3B widths, W2A8", "weight_bytes": packed,
+            "max_seq_len": BITNET_3B_MAX_SEQ}
+
+
+def bitnet_3b_phases(torch, counters, routes=None):
+    """reference_bitnet_3b, then serve_bitnet_3b (its launches)."""
+    check_reference_bitnet_3b(torch, counters)
+    ctx = bitnet_3b_serving_model(torch)
+    routes = routes or RouteRecorder()
+    with routes:
+        row = serve(torch, ctx, counters, *BITNET_3B_PHASE, routes=routes)
+    del ctx
+    torch.cuda.empty_cache()
+    return row
 
 
 # -- the formats phase: kernels 1 and 2 for every other weight format with
@@ -3845,6 +4284,68 @@ def gptq_serving_model(torch):
             "weight_bytes": packed}
 
 
+def kernel_entry(name, src, rep, rows, row, shape, launches) -> dict:
+    """One kernel of the `kernels` line: its launches on the main path,
+    the worst error of its rows, the times and bound of its row."""
+    return {
+        "name": name, "route": "cuda",
+        "source": f"bitblas_tpu_torch/csrc/{src}",
+        "replaces": f"bitblas_tpu/kernels/{rep}",
+        "launches": launches.get(name, 0),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "shape": shape,
+        **{k: row[k] for k in ("gather_ms", "stream_ms", "tile_32x64_ms",
+                               "tile_ms") if k in row}}
+
+
+# kernel 4's configurations in the kernels line: (D, causal, layout,
+# operand type, Out_dtype), each at S = 2048 (D = 100 at 512 too)
+FA_SUMMARY = ((100, True, "nnn", "float16", "float16"),
+              (64, True, "nnn", "float16", "float16"),
+              (96, True, "nnn", "float16", "float16"),
+              (256, True, "nnn", "float16", "float16"),
+              (128, False, "nnn", "float16", "float16"),
+              (128, True, "ntn", "float16", "float16"),
+              (100, False, "ntn", "bfloat16", "bfloat16"),
+              (128, True, "nnn", "float32", "float32"),
+              (128, True, "nnn", "float16", "float32"))
+
+
+def flash_summary(fa_rows):
+    """The kernels line's rows of kernel 4's configurations, named by the
+    launch variant their default tile counts under."""
+    import torch
+    from bitblas_tpu_torch.kernels.flash import prefill_variant
+    out = []
+    for D, causal, layout, dtype, o in FA_SUMMARY:
+        rows = [r for r in fa_rows if (r["D"], r["causal"], r["layout"],
+                                       r["dtype"], r["out"])
+                == (D, causal, layout, dtype, o)]
+        row = next(r for r in rows if r["S"] == 2048)
+        name = "flash_attention_fwd " + prefill_variant(
+            getattr(torch, dtype), D, causal=causal,
+            trans_k=layout == "ntn", out_dtype=getattr(torch, o),
+            block_kv=row["tile"][1])
+        src = ("flash_attention_f32.cu" if dtype == "float32" else
+               "flash_attention.cu" if D == 128 else
+               f"flash_attention_d{D}.cu")
+        out.append((name, src, "flash.py:106", rows, row,
+                    f"B=1 H=Hkv=32 S=2048 D={D} {layout} "
+                    f"{'causal' if causal else 'dense'} {dtype} -> {o}"))
+    return out
+
+
+def flashatten_counts(fa_rows, fa_launches):
+    """{kernels-line name: {"flashatten_launches": n}} for kernel 4's
+    configuration rows: the flashatten phase's launches of that variant,
+    kept apart from the serve phases' `launches`."""
+    prefix = "flash_attention_fwd "
+    return {e[0]: {"flashatten_launches": fa_launches.get(
+        e[0][len(prefix):], 0)} for e in flash_summary(fa_rows)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3876,7 +4377,8 @@ def main() -> int:
 
     mode = sys.argv[1:]
     if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"],
-                    ["--formats"], ["--int-formats"], ["--mistral"]):
+                    ["--formats"], ["--int-formats"], ["--mistral"],
+                    ["--bitnet-3b"], ["--bitnet-3b-readings"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -3889,6 +4391,12 @@ def main() -> int:
           "ptxas": ptxas})
     if mode == ["--bitnet-readings"]:
         bitnet_readings(torch)
+        return 0
+    if mode == ["--bitnet-3b-readings"]:
+        # reference_bitnet_3b's inputs (seed 4, buckets 256 and 512), on
+        # its weights (seed 41) and two others
+        bitnet_readings(torch, bitnet_b158_3b(2), seeds=(41, 42, 43),
+                        inputs=((4, 256), (4, 512)))
         return 0
     counters = (dequant_matmul_u4, dequant_matmul_i2,
                 materialize.weight_decode_u4, materialize.weight_decode_int8,
@@ -3911,6 +4419,15 @@ def main() -> int:
     floor_ms = time_ms(torch, one.zero_, 20)
     emit({"phase": "timer_floor", "one_element_fill_ms": floor_ms})
     flush = True
+    # wall seconds of each group of phases, since the previous lap (the
+    # "seconds" line before the kernels line)
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
     if mode == ["--formats"]:
         check_formats(torch, flush, floor_ms)
         return 0
@@ -3919,6 +4436,14 @@ def main() -> int:
         return 0
     if mode == ["--mistral"]:
         mistral_phases(torch, counters, flush)
+        return 0
+    if mode == ["--bitnet-3b"]:
+        fa_rows, fa_launches = check_flashatten(torch, flush)
+        row = bitnet_3b_phases(torch, counters)
+        fa_counts = flashatten_counts(fa_rows, fa_launches)
+        emit({"kernels": [{**kernel_entry(*e, row["launches"]),
+                           **fa_counts[e[0]]}
+                          for e in flash_summary(fa_rows)]})
         return 0
     dq = check_dequant(torch, flush)
     di2 = check_dequant_i2(torch, flush)
@@ -3936,12 +4461,18 @@ def main() -> int:
                                     qdtype=torch.bfloat16)
     fpq_b = check_flash_decode_paged(torch, flush, quant=True,
                                      qdtype=torch.bfloat16)
+    lap("kernels")
     route_table(torch, flush)
     dense = check_dense(torch, flush)
     check_edges(torch)
     check_window_edges(torch)
+    lap("route_dense_edges")
+    fa_rows, fa_launches = check_flashatten(torch, flush)
+    lap("flashatten")
     fmt_rows, fmt_launches = check_formats(torch, flush, floor_ms)
+    lap("formats")
     int_rows, int_launches = check_int_formats(torch, flush, floor_ms)
+    lap("int_formats")
     # the layers of the GPTQ phases keep their hint database in a
     # temporary directory (never the user's), and their operators leave
     # the global cache when the phases end
@@ -3951,11 +4482,18 @@ def main() -> int:
     os.environ[DATABASE_PATH_ENV] = gptq_db
     check_gptq_golden(torch)
     check_linear(torch)
+    lap("gptq_golden_linear")
     global_operator_cache.clear()
     check_reference(torch)
+    lap("reference")
     check_gptq_reference(torch)
+    lap("reference_gptq")
     check_bitnet_reference(torch, counters)
+    lap("reference_bitnet")
     ref_mistral = check_reference_mistral(torch, counters)
+    lap("reference_mistral")
+    check_reference_bitnet_3b(torch, counters)
+    lap("reference_bitnet_3b")
 
     launches = {c.__name__: 0 for c in counters}
     launches.update({name: 0 for name in (*DECODE.values(),
@@ -3985,12 +4523,20 @@ def main() -> int:
     del ctx
     shutil.rmtree(gptq_db)
     torch.cuda.empty_cache()
+    lap("serve_llama_gptq")
     ctx = mistral_serving_model(torch)
     for phase in MISTRAL_PHASES:
         with routes:
             run(ctx, phase, routes)
     del ctx
     torch.cuda.empty_cache()
+    lap("serve_mistral")
+    ctx = bitnet_3b_serving_model(torch)
+    with routes:
+        run(ctx, BITNET_3B_PHASE, routes)
+    del ctx
+    torch.cuda.empty_cache()
+    lap("serve_bitnet_3b")
     # the bfloat16 model's kernel 1 / 2 launches, under the names of the
     # formats phase's rows for uint4 x bfloat16 (added to its counts)
     for kind in ("decode", "tiled"):
@@ -4027,6 +4573,8 @@ def main() -> int:
               "serve_bitnet_tuned": tuned_row[key]}
         for key in ("decode_tok_s", "prefill_tok_s", "decode_step_ms",
                     "routes", "hints")}})
+    lap("serve_bitnet_tune")
+    emit({"phase": "seconds", **laps})
 
     def pick(rows, **where):
         return next(r for r in rows
@@ -4164,25 +4712,20 @@ def main() -> int:
                            else f", M={rows[0]['M']}")))
     for key, n in int_launches.items():
         launches[key] = launches.get(key, 0) + n
+    # kernel 4's configurations: launches of the serve phases (head dim
+    # 100: serve_bitnet_3b; 0 where no served model runs one), the
+    # flashatten phase's apart (flashatten_launches)
+    summary += flash_summary(fa_rows)
+    fa_counts = flashatten_counts(fa_rows, fa_launches)
     # kernel 1's wrappers: their decode and tiled instances' launches apart
     split_counts = {
         wrapper: {"decode_launches": launches[DECODE[fmt]],
                   "tiled_launches": launches[TILED[fmt]]}
         for fmt, wrapper in (("uint4", "dequant_matmul_u4"),
                              ("int2", "dequant_matmul_i2"))}
-    kernels = [{
-        "name": name, "route": "cuda",
-        "source": f"bitblas_tpu_torch/csrc/{src}",
-        "replaces": f"bitblas_tpu/kernels/{rep}",
-        "launches": launches.get(name, 0),
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"], "shape": shape,
-        **{k: row[k] for k in ("gather_ms", "stream_ms", "tile_32x64_ms")
-           if k in row},
-        **split_counts.get(name, {})}
-        for name, src, rep, rows, row, shape in summary]
+    kernels = [{**kernel_entry(name, src, rep, rows, row, shape, launches),
+                **split_counts.get(name, {}), **fa_counts.get(name, {})}
+               for name, src, rep, rows, row, shape in summary]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,7 @@ GEMM) of an earlier checkout of bitblas_tpu_torch against this one, on one
 NVIDIA GPU, in turns (earlier, this, this, earlier) within one process.
 
     python3 scripts/torch_ab_kernels.py --parent DIR [--only-parent]
-                            [--kernels all|tiled|i2decode|flash_decode]
+                [--kernels all|tiled|i2decode|flash_decode|flash_prefill]
 
 DIR holds an earlier tree's `bitblas_tpu_torch` package (for example
 `git archive <commit> bitblas_tpu_torch | tar -x -C DIR`, DIR a
@@ -34,6 +34,11 @@ its dense hint (`tuner.default_hint`). Rows:
   (torch.matmul on the pre-decoded f16 weight, torch._int_mm on the
   pre-decoded int8 weight);
 * `dense_matmul` (kernel 9) at M = 16 / 256 / 4096, N = K = 4096;
+* `flash_attention_fwd` (kernel 4, windowless, causal, D = 128, each
+  tree's default tile; `--kernels flash_prefill` alone): float16 and
+  bfloat16 at B = 1, H = 32, Hkv = 32 and 8, S = 512 and 2048
+  (chip_smoke.py's prefill rows, Llama-2-7B's and Mistral-7B-v0.1's
+  heads), each tree's output against this tree's plain version;
 * `flash_decode` / `flash_decode_quant` (kernels 5 and 6, windowless,
   float16 queries; `--kernels flash_decode` alone): the slot cache (bf16
   or int8 + f32 scales) at B = 4, H = 32, Hkv = 32 and 8, D = 128, Smax
@@ -42,7 +47,7 @@ its dense hint (`tuner.default_hint`). Rows:
 
 `--kernels tiled` keeps only the tiled rows, `--kernels i2decode` only
 the int2 decode rows, `--kernels flash_decode` only the decode attention
-rows; `--only-parent` times the
+rows, `--kernels flash_prefill` only kernel 4's; `--only-parent` times the
 earlier tree alone (this tree's kernels are neither built nor run). Each
 time is this tree's `utils.timing.measure_kernel` (median of 20
 CUDA-event launches, L2 flushed by a read before each). A one-element
@@ -82,7 +87,8 @@ def main() -> int:
     ap.add_argument("--only-parent", action="store_true",
                     help="time the earlier tree alone")
     ap.add_argument("--kernels", choices=("all", "tiled", "i2decode",
-                                          "flash_decode"), default="all")
+                                          "flash_decode", "flash_prefill"),
+                    default="all")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -124,6 +130,8 @@ def main() -> int:
     for t in trees.values():
         t["build"].build(["flash_decode", "flash_decode_quant"]
                          if args.kernels == "flash_decode" else
+                         ["flash_attention"]
+                         if args.kernels == "flash_prefill" else
                          ["dequant_matmul", "dequant_matmul_i2",
                           "dense_matmul"])
     warm = torch.randn((8192, 8192), device="cuda").half()
@@ -136,6 +144,9 @@ def main() -> int:
     plain = next(iter(trees.values()))["dq"]
     if args.kernels == "flash_decode":
         flash_decode_rows(torch, trees, gen, turns, emit)
+        return 0
+    if args.kernels == "flash_prefill":
+        flash_prefill_rows(torch, trees, gen, turns, emit)
         return 0
     if args.kernels in ("all", "i2decode"):
         i2_decode_rows(torch, trees, plain, gen, ms, turns, emit)
@@ -325,6 +336,33 @@ def tiled_rows(torch, trees, plain, gen, ms, turns, emit):
                 del buf
             del qw, Wd
 
+
+
+def flash_prefill_rows(torch, trees, gen, turns, emit):
+    """Kernel 4 without a window (see the module docstring)."""
+    this = trees.get("this", trees["earlier"])["flash"]
+    B, H, D = 1, 32, 128
+    for dtype in (torch.float16, torch.bfloat16):
+        for S in (512, 2048):
+            for Hkv in (32, 8):
+                Q = torch.randn((B, S, H, D), generator=gen,
+                                device="cuda").to(dtype)
+                K, V = (torch.randn((B, S, Hkv, D), generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                ref = this.flash_attention_plain(Q, K, V)
+                fns, row = {}, {"row": "flash_attention_fwd",
+                                "dtype": str(dtype).split(".")[-1], "B": B,
+                                "H": H, "Hkv": Hkv, "S": S, "D": D}
+                for key, t in trees.items():
+                    fns[key] = (lambda fn=t["flash"].flash_attention_fwd:
+                                fn(Q, K, V))
+                    out = fns[key]()
+                    torch.cuda.synchronize()
+                    row[f"{key}_max_abs_err"] = (
+                        out.float() - ref.float()).abs().max().item()
+                emit({**row, "ms_earlier_this_this_earlier": turns(fns)})
+                del Q, K, V, ref
 
 
 DECODE_LENGTHS = (1, 37, 513, 1024)

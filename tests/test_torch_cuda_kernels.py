@@ -42,7 +42,10 @@ is all masked; a window >= S bit-equal to none), the slot decode kernels
 at Smax = 2048 with float16 and bfloat16 queries and lengths around the
 window (against the single-pass and the split plain versions), the paged
 kernels on bfloat16 queries and a windowed paged decode through the
-masked gather.
+masked gather. Kernel 4 at every head dim it takes (64, 96, 100, 128,
+256) over nine cases: causal and dense, K^T, a ragged S over two
+sequences, a window, float32 operands, outputs in another type, both KV
+tiles (two calls bit-equal, one launch a call).
 """
 
 import math
@@ -64,7 +67,8 @@ from bitblas_tpu_torch.kernels.flash import (
     flash_attention_fwd, flash_attention_plain, flash_decode,
     flash_decode_paged, flash_decode_paged_plain, flash_decode_paged_quant,
     flash_decode_paged_quant_plain, flash_decode_plain, flash_decode_quant,
-    flash_decode_quant_plain, flash_decode_split_plain, plan_splits)
+    flash_decode_quant_plain, flash_decode_split_plain, plan_splits,
+    prefill_tiles)
 from bitblas_tpu_torch.ops.matmul import Matmul
 from bitblas_tpu_torch.ops.matmul_config import FLOAT_PAIRS, MatmulConfig
 from bitblas_tpu_torch.serving import kv_cache
@@ -1600,3 +1604,58 @@ def test_flash_decode_paged_bf16_query(dev, quant):
     assert torch.equal(windowed, plain(q, *pools, tables, lengths, 64))
     assert quant or kv_cache.decode_attention_paged.window_gathers \
         == gathers + 1
+
+
+# Kernel 4's configuration surface: every head dim, both KV tiles, the
+# dense walk, K^T, a ragged S over two sequences (rows past S come from
+# TMA's zero fill, not the next sequence), float32 operands (the FFMA
+# kernel) and outputs in another type. (D, S, H, Hkv, causal, trans_k,
+# window, dtype, out, block_kv); a block_kv the head dim does not build
+# (128 keys outside head dim 64) takes 64.
+FA_CASES = [
+    (160, 4, 2, True, False, None, "float16", None, 64),
+    (160, 4, 2, False, False, None, "bfloat16", None, 128),
+    (256, 2, 2, True, True, None, "float16", None, 128),
+    (200, 4, 4, False, True, None, "bfloat16", None, 64),
+    (256, 4, 2, True, False, 65, "bfloat16", None, 128),
+    (512, 2, 2, True, False, None, "float16", "float32", 64),
+    (96, 4, 2, False, False, None, "float16", "bfloat16", 128),
+    (161, 2, 1, False, True, None, "float32", None, 64),
+    (100, 4, 2, True, False, 33, "float32", "bfloat16", 64),
+]
+
+
+def _fa_ulp(dtype, out):
+    """The element-wise limit's unit: the coarser of the operands' type
+    (the kernel rounds P to it) and the output's; float32 operands sum
+    in other orders: 2^-18."""
+    return max(ATTN_ULP.get(d, 2.0 ** -18) for d in (dtype, out))
+
+
+@pytest.mark.parametrize("case", FA_CASES,
+                         ids=lambda c: "-".join(str(x) for x in c))
+@pytest.mark.parametrize("D", [64, 96, 100, 128, 256])
+def test_flash_attention_configs_match_plain(dev, D, case):
+    S, H, Hkv, causal, trans_k, window, dtype, out, bkv = case
+    if (H * D * 2) % 16 and dtype != "float32":
+        H, Hkv = 2 * H, 2 * Hkv           # D = 100 takes even head counts
+    dt, ot = getattr(torch, dtype), getattr(torch, out or dtype)
+    tile = (64, bkv) if (64, bkv) in prefill_tiles(D, dt) else (64, 64)
+    g = torch.Generator(device=dev)
+    g.manual_seed(D * 1000 + S)
+    B = 2
+    Q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+    K = (torch.randn((B, S, Hkv, D), generator=g, device=dev) * 3).to(dt)
+    V = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dt)
+    if trans_k:
+        K = K.permute(0, 3, 2, 1).contiguous()
+    kw = dict(causal=causal, trans_k=trans_k, out_dtype=ot, tile=tile)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(Q, K, V, window, **kw)
+    ref = flash_attention_plain(Q, K, V, window, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == ot and torch.isfinite(got).all()
+    u = _fa_ulp(dt, ot)
+    assert attention_err(got, ref, u, 4 * u) <= 1.0
+    assert torch.equal(got, flash_attention_fwd(Q, K, V, window, **kw))

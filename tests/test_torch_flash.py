@@ -99,12 +99,19 @@ def test_flash_decode_plain_nan_stale_rows_and_zero_length():
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take():
-    x = torch.zeros((1, 96, 2, D), dtype=torch.float16)
-    with pytest.raises(NotImplementedError):      # S % 64
-        flash_attention_fwd(x, x[:, :, :1], x[:, :, :1])
-    y = torch.zeros((1, 128, 2, 64), dtype=torch.float16)
+    # the prefill kernel takes any S, head dims 64 / 96 / 100 / 128 / 256
+    # (tests/test_torch_flashatten.py); it refuses other head dims, a key
+    # row of K^T that TMA cannot address (S % 8) and a window without
+    # causality, on the CPU as on the card
+    x = torch.zeros((1, 96, 2, 80), dtype=torch.float16)
     with pytest.raises(NotImplementedError):      # head dim
-        flash_attention_fwd(y, y, y)
+        flash_attention_fwd(x, x, x)
+    y = torch.zeros((1, 100, 2, 64), dtype=torch.float16)
+    with pytest.raises(NotImplementedError):      # K^T rows, S % 8
+        flash_attention_fwd(y, y.permute(0, 3, 2, 1).contiguous(), y,
+                            trans_k=True)
+    with pytest.raises(NotImplementedError):      # window, not causal
+        flash_attention_fwd(y, y, y, 8, causal=False)
     q = torch.zeros((2, 4, D), dtype=torch.float16)
     cache = torch.zeros((2, 16, 2, D), dtype=torch.float32)
     idx = torch.zeros(2, dtype=torch.int32)

@@ -37,6 +37,18 @@ from bitblas_tpu_torch.serving.engine import (PagedContinuousBatchingEngine,
                                               Request)
 from bitblas_tpu_torch.testing import assert_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this file. The tier-1 command runs
+    six workers on eight cores, and torch's eight-thread pool then spins
+    against the other workers: this file's small CPU ops took several
+    times their time alone there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 H = 256
 CFG = dict(hidden_size=H, intermediate_size=512, num_heads=2,
            num_kv_heads=1, num_layers=2, vocab_size=64, group_size=128)

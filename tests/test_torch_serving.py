@@ -44,6 +44,18 @@ from bitblas_tpu_torch.serving.engine import (ContinuousBatchingEngine,
                                               TokenContinuousBatchingEngine)
 from bitblas_tpu_torch.testing import assert_close
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this file. The tier-1 command runs
+    six workers on eight cores, and torch's eight-thread pool then spins
+    against the other workers: this file's small CPU ops took several
+    times their time alone there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 V, H = 64, 256
 CFG = dict(hidden_size=H, intermediate_size=512, num_heads=2,
            num_kv_heads=1, num_layers=2, vocab_size=V, group_size=128)
@@ -99,9 +111,9 @@ def test_prefill_logits_and_decode_steps_match(pair, monkeypatch):
     calls = []
     flash = pql.flash_attention_fwd
 
-    def counting_flash(q, k, v):
+    def counting_flash(q, k, v, *a, **kw):
         calls.append(q.shape)
-        return flash(q, k, v)
+        return flash(q, k, v, *a, **kw)
 
     monkeypatch.setattr(pql, "flash_attention_fwd", counting_flash)
     S, bucket = 200, 256
