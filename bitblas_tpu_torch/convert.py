@@ -12,6 +12,13 @@ applies the Hopper K-packing. Scales and zeros go from [K/g, 1, N_pad]
 float32 to [K/g, N] float16 (the JAX package upcast them from float16,
 so the downcast is exact).
 
+`from_jax_mixtral_state` does it for ``bitblas_tpu.models.QuantMixtral``
+({"layer_<i>": {q / k / v / o bundles, "router" [H, E],
+"expert_<e>.<gate|up|down>.<qweight|scales|zeros>", the norms}}): the
+attention and every expert projection through the same per-projection
+conversion, the router as float32 [H, E], under the port's names
+(``layers.<i>.moe.expert_<e>.<proj>.<tensor>``, ``layers.<i>.moe.router``).
+
 `from_jax_bitnet_state` does the same for ``bitblas_tpu.models.BitNetLlama``
 ({"layer_<i>": {"<proj>.qweight" [K, N_pad/4] int8, "<proj>.sw" scalar,
 "attn_norm", "mlp_norm"}}): per projection it undoes the XOR 0x80 storage,
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from .models.quant_llama import _PROJS, LlamaConfig, _dim
+from .models.quant_moe import EXPERT_PROJS
 from .quantization import packing
 
 
@@ -73,6 +81,49 @@ def from_jax_state(jax_state_np: Dict[str, Dict[str, np.ndarray]],
         for norm in ("attn_norm", "mlp_norm"):
             out[base + norm] = torch.tensor(
                 np.asarray(layer[norm], np.float32))
+    return out
+
+
+def from_jax_moe_state(layer: Dict[str, np.ndarray], cfg
+                       ) -> Dict[str, torch.Tensor]:
+    """One JAX layer's routed FFN ({"router", "expert_<e>.<proj>.<...>"})
+    -> the port QuantMoELayer's state dict; `cfg` a MoEConfig or a
+    MixtralConfig."""
+    out = {"router": torch.tensor(np.asarray(layer["router"], np.float32))}
+    for e in range(cfg.n_experts):
+        for name, _, kout in EXPERT_PROJS:
+            key = f"expert_{e}.{name}"
+            w, s, z = _projection(np.asarray(layer[f"{key}.qweight"]),
+                                  np.asarray(layer[f"{key}.scales"]),
+                                  np.asarray(layer[f"{key}.zeros"]),
+                                  getattr(cfg, kout))
+            out[f"{key}.qweight"] = w
+            out[f"{key}.scales"] = s
+            out[f"{key}.zeros"] = z
+    return out
+
+
+def from_jax_mixtral_state(jax_state_np: Dict[str, Dict[str, np.ndarray]],
+                           cfg) -> Dict[str, torch.Tensor]:
+    """JAX QuantMixtral state (numpy) -> port QuantMixtral state dict;
+    `cfg` the MixtralConfig."""
+    out = {}
+    for i in range(cfg.num_layers):
+        layer = jax_state_np[f"layer_{i}"]
+        base = f"layers.{i}."
+        for name, _, kout in _PROJS[:4]:
+            w, s, z = _projection(np.asarray(layer[f"{name}.qweight"]),
+                                  np.asarray(layer[f"{name}.scales"]),
+                                  np.asarray(layer[f"{name}.zeros"]),
+                                  _dim(cfg, kout))
+            out[base + f"{name}_qweight"] = w
+            out[base + f"{name}_scales"] = s
+            out[base + f"{name}_zeros"] = z
+        for norm in ("attn_norm", "mlp_norm"):
+            out[base + norm] = torch.tensor(
+                np.asarray(layer[norm], np.float32))
+        for key, t in from_jax_moe_state(layer, cfg).items():
+            out[base + "moe." + key] = t
     return out
 
 

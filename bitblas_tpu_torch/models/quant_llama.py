@@ -115,7 +115,11 @@ class QuantLlamaLayer(nn.Module):
     Random init draws from a seeded torch.Generator on the layer's device:
     uniform uint4 codes (every 32-bit pattern is eight of them), zero
     point 8 and small scales, which keep the random residual stream
-    contractive as the JAX fixture's do."""
+    contractive as the JAX fixture's do. `PROJS` lists the projections
+    built, (name, K dim, N dim): a subclass with its own MLP block
+    (models/quant_moe.QuantMixtralLayer) keeps q/k/v/o only."""
+
+    PROJS = _PROJS
 
     def __init__(self, cfg: LlamaConfig, seed: int = 0, device="cuda",
                  enable_tuning: bool = False,
@@ -126,7 +130,7 @@ class QuantLlamaLayer(nn.Module):
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         self.ops: Dict[str, Matmul] = {}
-        for name, kin, kout in _PROJS:
+        for name, kin, kout in self.PROJS:
             K, N = _dim(cfg, kin), _dim(cfg, kout)
             mcfg = MatmulConfig(M=None if opt_m is None else list(opt_m),
                                 N=N, K=K, A_dtype=cfg.act_dtype,
@@ -194,6 +198,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
 
 
 def _layer_mlp(layer: QuantLlamaLayer, h: torch.Tensor) -> torch.Tensor:
+    """The decoder's MLP block, h [..., hidden] -> [..., hidden]. A layer
+    with an `mlp_forward` (the routed MoE FFN of
+    models/quant_moe.QuantMixtralLayer) owns the whole block and takes h
+    as [tokens, hidden]; a Llama layer runs the SwiGLU projections."""
+    if hasattr(layer, "mlp_forward"):
+        lead = h.shape[:-1]
+        return layer.mlp_forward(h.reshape(-1, h.shape[-1])).reshape(
+            *lead, -1)
     gate = layer.proj("gate", h)
     up = layer.proj("up", h)
     act = (torch.nn.functional.silu(gate.float()) * up.float()).to(h.dtype)

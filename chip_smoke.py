@@ -14,6 +14,8 @@
                                               # BitNet b1.58-3B phases
     python3 chip_smoke.py --bitnet-3b-readings  # the readings the 3B
                                               # reference's limits rest on
+    python3 chip_smoke.py --mixtral           # only the Mixtral-8x7B
+                                              # phases (the routed MoE FFN)
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -63,6 +65,13 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                band: 4 H D sum_i min(i + 1, window) products for prefill,
                min(len, window) keys a sequence for decode; the library
                call is SDPA with the band as a boolean mask.
+               Kernel 1 uint4 x f16 g128 at Mixtral-8x7B's expert shapes
+               (N x K = 14336 x 4096 and 4096 x 14336): M = 8 (the decode
+               capacity, split-K decode instance) and 256 (tiled), as
+               above; the materialize plan at M = 2048 (kernel 2 bit-equal
+               to its plain decode, timed on its own; the product
+               bit-equal to cuBLAS's on that weight, within one ulp or
+               4e-3 of the largest output of the plain version).
 3b. edges   -- untimed: kernel 9 at every tile, type and M tail; kernel
                1's decode instances at M = 1 / 3 / 8 / 16 over a ragged N
                (int2 also over a K tail of 64);
@@ -170,7 +179,8 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                within the limit of the CPU's best. reference_gptq: 2
                layers imported from an AutoGPTQ state dict (g = 64) on the
                card and on the CPU, prefill and decode steps as above.
-4b. reference_mistral -- 2 layers at Mistral-7B-v0.1's widths, bf16,
+4b. reference_mistral -- 1 layer (2 until PR 14, cut for the run's
+               time) at Mistral-7B-v0.1's widths, bf16,
                the window reduced to 256 (a CPU plain reference over
                prompts past 4096 keys costs too much), card against the
                CPU: prefill in bucket 512 and teacher-forced decode steps,
@@ -190,6 +200,14 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                BITNET_3B_LAYER1_RMS (rms), logits within the BitNet
                limits, tokens equal wherever the CPU's top-2 margin
                exceeds the limit; then the token engine.
+4d. reference_mixtral -- 1 layer at Mixtral-8x7B's widths (8 experts
+               top-2), imported from a synthetic AutoGPTQ v1 state dict on
+               the card and on the CPU at capacity factor 4 (no drops):
+               prefill in bucket 512 and teacher-forced decode steps, then
+               the token engine (buckets 256 / 512), card against CPU at
+               the f16 tolerances, the CPU replaying the card's expert
+               choices (RouteReplay); route flips counted, each one's CPU
+               top-k margin under MIXTRAL_FLIP_MARGIN.
 5. serve    -- 32-layer W4A16 Llama-2-7B widths (random weights from a
                seeded generator on the card) behind an LMHead (vocab 32000),
                four greedy requests (prompts 200/300/450/500, 32 new tokens)
@@ -222,6 +240,13 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                                 / 1900 tokens (buckets 256 ... 2048, every
                                 one through kernel 4 at D = 100), bf16
                                 slot cache of 4 x 2048 rows;
+               serve_mixtral    32 Mixtral-8x7B-v0.1 layers (W4 g128,
+                                f16, 8 experts top-2, capacity factor 2;
+                                24,670,896,128 packed bytes), Mistral's
+                                four prompts, max_seq_len 8192, token
+                                engine, bf16 KV: every expert at M = 8 on
+                                the decode instance, prefill capacities
+                                512-4096 on the materialize plan;
                serve_bitnet     32 BitNet b1.58 W2A8 layers at Llama-3-8B
                                 widths behind an LMHead of vocab 128256,
                                 TokenContinuousBatchingEngine, bf16 KV, on
@@ -315,23 +340,26 @@ def f16_ulps(torch, got, want) -> float:
     return ((got.double() - w).abs() / unit).max().item()
 
 
-def check_dequant(torch, flush):
-    """Kernel 1 uint4 x f16 at Llama-2-7B's W4A16 shapes, M = 1 / 4 / 16
-    (the split-K decode instance: within one f16 ulp of each output of the
-    split-then-merge plain version, `f16_ulps`) and 32 / 64 / 128 / 256 /
-    512 (the default wgmma + TMA tile, 64 tokens x 128 weight rows: it
-    decodes the plain version's f16 weights bit for bit, so within one f16
-    ulp of each output of the single-pass plain version), on the default
-    tile of each M; every row two calls bit-equal and within 4e-3 of the
-    largest output of the single-pass plain version."""
+def check_dequant(torch, flush, shapes=((4096, 4096), (11008, 4096),
+                                        (4096, 11008)),
+                  ms=(1, 4, 16, 32, 64, 128, 256, 512), seed=1, extra=None):
+    """Kernel 1 uint4 x f16 at Llama-2-7B's W4A16 shapes (or `shapes`), M
+    = 1 / 4 / 16 (the split-K decode instance: within one f16 ulp of each
+    output of the split-then-merge plain version, `f16_ulps`) and 32 / 64
+    / 128 / 256 / 512 (the default wgmma + TMA tile, 64 tokens x 128
+    weight rows: it decodes the plain version's f16 weights bit for bit,
+    so within one f16 ulp of each output of the single-pass plain
+    version), on the default tile of each M; every row two calls
+    bit-equal and within 4e-3 of the largest output of the single-pass
+    plain version. `extra` joins each row."""
     from bitblas_tpu_torch.kernels.dequant_matmul import (
         default_tile, dequant_matmul_u4, dequant_matmul_u4_plain,
         dequant_matmul_u4_split_plain, dequantize_hopper, plan_splits_k)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
+    gen.manual_seed(seed)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for (N, K) in ((4096, 4096), (11008, 4096), (4096, 11008)):
+    for (N, K) in shapes:
         G = K // 128
         qw = torch.randint(-2 ** 31, 2 ** 31, (N, K // 8), generator=gen,
                            device="cuda", dtype=torch.int64).to(torch.int32)
@@ -340,7 +368,7 @@ def check_dequant(torch, flush):
         zr = torch.randint(0, 16, (G, N), generator=gen,
                            device="cuda").half()
         Wd = dequantize_hopper(qw, sc, zr)
-        for M in (1, 4, 16, 32, 64, 128, 256, 512):
+        for M in ms:
             A = torch.randn((M, K), generator=gen, device="cuda").half()
             out = dequant_matmul_u4(A, qw, sc, zr)
             ref = dequant_matmul_u4_plain(A, qw, sc, zr)
@@ -376,7 +404,7 @@ def check_dequant(torch, flush):
             b_ms, b_by = bound(nbytes, 2.0 * M * N * K)
             row = {
                 "phase": "kernels", "kernel": "dequant_matmul_u4",
-                "M": M, "N": N, "K": K,
+                "M": M, "N": N, "K": K, **(extra or {}),
                 "tile": list(default_tile("uint4", M)),
                 "splits": plan_splits_k(M, N, K, sms) if M <= 16 else None,
                 "max_abs_err": err,
@@ -1653,35 +1681,45 @@ def mistral_7b(num_layers: int, window=MISTRAL_WINDOW):
 
 class CpuWeightMemo:
     """While installed, the plain versions' dense weight of a CPU
-    projection (`dequantize_fmt_hopper`, the same function and the same
-    bits) is decoded once and kept, so the CPU reference does not decode
-    every weight again at every step. Card tensors pass through."""
+    projection (`dequantize_fmt_hopper`, and uint4 x f16's
+    `dequantize_hopper`: the same functions and the same bits) is decoded
+    once and kept, so the CPU reference does not decode every weight
+    again at every step. Card tensors pass through."""
+
+    NAMES = ("dequantize_fmt_hopper", "dequantize_hopper")
 
     def __init__(self):
         from bitblas_tpu_torch.kernels import dequant_matmul, materialize
         self.mods = (dequant_matmul, materialize)
-        self.orig = dequant_matmul.dequantize_fmt_hopper
+        self.orig = {n: getattr(dequant_matmul, n) for n in self.NAMES}
         self.memo = {}
 
     def __enter__(self):
-        orig, memo = self.orig, self.memo
+        memo = self.memo
 
-        def cached(qweight, *args, **kw):
-            if qweight.device.type != "cpu" or kw:
-                return orig(qweight, *args, **kw)
-            key = (qweight.data_ptr(), *(a.data_ptr() if hasattr(
-                a, "data_ptr") else a for a in args))
-            if key not in memo:
-                memo[key] = orig(qweight, *args)
-            return memo[key]
+        def cached(name, orig):
+            def fn(qweight, *args, **kw):
+                if qweight.device.type != "cpu" or kw:
+                    return orig(qweight, *args, **kw)
+                key = (name, qweight.data_ptr(), *(a.data_ptr() if hasattr(
+                    a, "data_ptr") else a for a in args))
+                if key not in memo:
+                    memo[key] = orig(qweight, *args)
+                return memo[key]
+            return fn
 
-        for m in self.mods:
-            m.dequantize_fmt_hopper = cached
+        for name, orig in self.orig.items():
+            fn = cached(name, orig)
+            for m in self.mods:
+                if hasattr(m, name):
+                    setattr(m, name, fn)
         return self
 
     def __exit__(self, *exc):
-        for m in self.mods:
-            m.dequantize_fmt_hopper = self.orig
+        for name, orig in self.orig.items():
+            for m in self.mods:
+                if hasattr(m, name):
+                    setattr(m, name, orig)
         self.memo.clear()
 
 
@@ -1692,11 +1730,14 @@ class CpuWeightMemo:
 # bfloat16 roundings; the float16 reference holds 2e-2 at 2^-11).
 MISTRAL_REF_TOL = 3e-2
 REFERENCE_WINDOW = 256       # the reference's window (reduced from 4096)
+# the reference's depth: 1 (2 until the Mixtral phases joined the run,
+# whose time its CPU side, ~70 s a layer, then pushed towards the limit)
+MISTRAL_REF_LAYERS = 1
 
 
 def check_reference_mistral(torch, counters):
-    """2 layers at Mistral-7B-v0.1's widths, bfloat16, the window reduced
-    to 256 (the CPU plain reference over prompts past 4096 keys costs too
+    """MISTRAL_REF_LAYERS at Mistral-7B-v0.1's widths, bfloat16, the
+    window reduced to 256 (the CPU plain reference over prompts past 4096 keys costs too
     much), card against the same weights on the CPU plain path: prefill
     in bucket 512 (the banded flash kernel) and teacher-forced decode
     steps; the token engine on bf16 and int8 KV; the paged engine on bf16
@@ -1715,7 +1756,7 @@ def check_reference_mistral(torch, counters):
     gathers = (kv_cache.decode_attention_paged.window_gathers,
                kv_cache.decode_attention_paged_quant.window_gathers)
     t0 = time.perf_counter()
-    cfg = mistral_7b(2, window=REFERENCE_WINDOW)
+    cfg = mistral_7b(MISTRAL_REF_LAYERS, window=REFERENCE_WINDOW)
     # one memo a CPU model: a later model's buffers may reuse the freed
     # addresses of an earlier one's
     with CpuWeightMemo():
@@ -1754,7 +1795,7 @@ def check_reference_mistral(torch, counters):
             .window_gathers - gathers[0],
             "paged_quant window gathers": kv_cache
             .decode_attention_paged_quant.window_gathers - gathers[1]}
-    nw = mistral_7b(2, window=None)
+    nw = mistral_7b(MISTRAL_REF_LAYERS, window=None)
     with CpuWeightMemo():
         gpu, cpu = _card_and_cpu(
             torch, lambda **kw: QuantLlama(nw, **kw), seed=33)
@@ -1769,11 +1810,12 @@ def check_reference_mistral(torch, counters):
     if min(windowed.values()) <= 0:
         raise AssertionError(f"reference_mistral: a route was not taken: "
                              f"{windowed}")
-    emit({"phase": "reference_mistral_routes", "layers": 2,
+    emit({"phase": "reference_mistral_routes", "layers": MISTRAL_REF_LAYERS,
           "window": REFERENCE_WINDOW, "reduced": {
               "window": f"{MISTRAL_WINDOW} -> {REFERENCE_WINDOW}: the CPU "
                         f"plain reference over prompts past 4096 keys "
-                        f"costs too much", "layers": "32 -> 2"},
+                        f"costs too much",
+              "layers": f"32 -> {MISTRAL_REF_LAYERS}"},
           "launches": windowed, "seconds": time.perf_counter() - t0})
     return windowed
 
@@ -2507,26 +2549,34 @@ class RouteRecorder:
         self.cls, self.orig = Matmul, Matmul.forward
         self.calls = {}
         self.by_hint = {}
+        self.shapes = {}
 
     def __enter__(self):
         from bitblas_tpu_torch.kernels.dequant_matmul import (FUSED_TILES,
                                                               is_tiled,
                                                               spec_format)
         orig, calls, by_hint = self.orig, self.calls, self.by_hint
+        shapes = self.shapes
 
         def recording(op, A, W, *args, **kw):
             m = A.numel() // A.shape[-1]
             hint = op.hint_for(m)
             fmt = spec_format(op._spec)
             keys = [f"{fmt} {hint.decode_mode}"]
+            kind = hint.decode_mode
             if hint.decode_mode == "fused":
                 if is_tiled(fmt, hint.tile):
                     keys.append(f"{fmt} tiled")
+                    kind = "tiled"
                 elif tuple(hint.tile) == FUSED_TILES[fmt][0]:
                     keys.append(f"{fmt} decode")
+                    kind = "decode"
                 keys.append(f"{fmt} fused M{'>' if m > 16 else '<='}16")
             for key in keys:
                 calls[key] = calls.get(key, 0) + 1
+            # the calls by plan and (N, K): "uint4 decode 14336x4096", ...
+            key = f"{fmt} {kind} {op.config.N}x{op.config.K}"
+            shapes[key] = shapes.get(key, 0) + 1
             by_hint[hint.short_name()] = by_hint.get(hint.short_name(),
                                                      0) + 1
             return orig(op, A, W, *args, **kw)
@@ -2540,6 +2590,7 @@ class RouteRecorder:
     def reset(self):
         self.calls.clear()
         self.by_hint.clear()
+        self.shapes.clear()
 
     def check(self, phase, launches, untuned: bool):
         c = self.calls
@@ -2562,7 +2613,8 @@ class RouteRecorder:
             raise AssertionError(f"{phase}: decode / tiled launches {got} "
                                  f"differ from the fused calls with M <= 16 "
                                  f"/ M > 16 {self.calls}")
-        return {"routes": dict(self.calls), "hints": dict(self.by_hint)}
+        return {"routes": dict(self.calls), "hints": dict(self.by_hint),
+                "shapes": dict(self.shapes)}
 
 
 def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None):
@@ -3219,6 +3271,393 @@ def bitnet_3b_phases(torch, counters, routes=None):
     del ctx
     torch.cuda.empty_cache()
     return row
+
+
+# -- Mixtral-8x7B: the routed MoE FFN (models/quant_moe) ---------------------
+
+# Kernel 1 at the experts' shapes (N, K): gate / up, down
+MIXTRAL_EXPERT_SHAPES = ((14336, 4096), (4096, 14336))
+# an expert's M: the capacity of a 4-slot decode step (moe_capacity's floor
+# of 8: the split-K decode instance), a prefill capacity on the tiled
+# instance (bucket 256 at capacity factor 4, reference_mixtral's engine)
+# and one on the materialize plan (bucket 4096 at factor 2, serve_mixtral)
+MIXTRAL_KERNEL_MS = (8, 256)
+MIXTRAL_MATERIALIZE_M = 2048
+# mistralai/Mixtral-8x7B-v0.1 config.json
+MIXTRAL_8X7B_HF = {"hidden_size": 4096, "intermediate_size": 14336,
+                   "num_attention_heads": 32, "num_key_value_heads": 8,
+                   "num_hidden_layers": 32, "vocab_size": 32000,
+                   "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+                   "num_local_experts": 8, "num_experts_per_tok": 2,
+                   "sliding_window": None, "model_type": "mixtral"}
+# the packed bytes of the 32-layer model: 8 experts x 3 projections x 32
+# layers x 31,195,136 (14336 x 4096 / 2 words, 2 x 32 x 14336 x 2 scales
+# and zeros) + 32 x 22,282,240 (q / k / v / o)
+MIXTRAL_WEIGHT_BYTES = 8 * 3 * 32 * 31195136 + 32 * 22282240
+
+
+def mixtral_8x7b(num_layers: int, capacity_factor: float = 2.0):
+    """Mixtral-8x7B-v0.1's published widths (no sliding window), uint4
+    GPTQ group 128 with original zeros under float16 activations (the
+    TheBloke/Mixtral-8x7B-v0.1-GPTQ layout), the import's capacity factor
+    2.0."""
+    from bitblas_tpu_torch.models.hf_import_mixtral import (
+        mixtral_config_from_hf)
+    return mixtral_config_from_hf(
+        dict(MIXTRAL_8X7B_HF, num_hidden_layers=num_layers),
+        capacity_factor=capacity_factor)
+
+
+def check_dequant_mixtral(torch, flush):
+    """Kernel 1 uint4 x f16 g128 at the experts' shapes, M = 8 (the split-K
+    decode instance) and 256 (the default tiled instance), as
+    check_dequant holds it; then the materialize plan at M = 2048: kernel
+    2's weight bit-equal to its plain decode (a row of its own, timed
+    against its byte bound), the plan's product bit-equal to cuBLAS's on
+    that weight and within one f16 ulp, or 4e-3 of the largest output, of
+    the float32 plain version (cuBLAS's sums over K = 14336 stray past one
+    ulp). Returns (kernel 1's rows, kernel 2's rows)."""
+    from bitblas_tpu_torch.kernels.dequant_matmul import (
+        dequant_matmul_u4_plain)
+    from bitblas_tpu_torch.kernels.materialize import (
+        materialize_matmul, weight_decode_u4, weight_decode_u4_plain)
+    from bitblas_tpu_torch.kernels.spec import KernelSpec
+    from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
+    k1 = check_dequant(torch, flush, shapes=MIXTRAL_EXPERT_SHAPES,
+                       ms=MIXTRAL_KERNEL_MS, seed=61,
+                       extra={"model": "Mixtral-8x7B experts"})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(62)
+    M = MIXTRAL_MATERIALIZE_M
+    k2 = []
+    for (N, K) in MIXTRAL_EXPERT_SHAPES:
+        G = K // 128
+        qw = _words(torch, gen, (N, K // 8))
+        sc = (torch.rand((G, N), generator=gen, device="cuda") * 0.01
+              + 0.005).half()
+        zr = torch.randint(0, 16, (G, N), generator=gen, device="cuda").half()
+        A = torch.randn((M, K), generator=gen, device="cuda").half()
+        wbytes = N * K / 2 + 2 * G * N * 2
+        nbytes = wbytes + N * K * 2
+        b_ms, b_by = bound(nbytes, 0.0)
+        Wp = weight_decode_u4_plain(qw, sc, zr)
+        k2.append(_exact_row(
+            torch, "weight_decode_u4", weight_decode_u4(qw, sc, zr), Wp,
+            {"N": N, "K": K, "out": "float16", "model": "Mixtral-8x7B "
+             "experts", "bound_ms": b_ms, "bound_by": b_by},
+            {"kernel_ms": (lambda: weight_decode_u4(qw, sc, zr), 20),
+             "plain_ms": (lambda: weight_decode_u4_plain(qw, sc, zr), 3),
+             "library_ms": (None, 0),
+             "stream_ms": (_stream(torch, nbytes), 20)}, flush))
+        spec = KernelSpec.from_config(MatmulConfig(N=N, K=K, **W4A16), M)
+        out = materialize_matmul(spec, A, qw, sc, zr)
+        lib = torch.matmul(A, Wp.T)
+        ref = dequant_matmul_u4_plain(A, qw, sc, zr)
+        torch.cuda.synchronize()
+        ulps = f16_ulps(torch, out, ref)
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if not (torch.equal(out, lib) and torch.isfinite(out).all().item()
+                and (ulps <= 1 or err <= 4e-3 * scale)):
+            raise AssertionError(f"materialize M={M} N={N} K={K}: {ulps} "
+                                 f"ulps, err {err} (largest {scale}), "
+                                 f"cuBLAS-equal {torch.equal(out, lib)}")
+        b_ms, b_by = bound(M * K * 2 + wbytes + M * N * 2, 2.0 * M * N * K)
+        row = {"phase": "kernels", "kernel": "materialize_u4", "M": M,
+               "N": N, "K": K, "model": "Mixtral-8x7B experts",
+               "ulps": ulps, "max_abs_err": err,
+               "max_rel_err": err / max(scale, 1e-30),
+               "route_ms": time_ms(torch, lambda: materialize_matmul(
+                   spec, A, qw, sc, zr), 20, flush),
+               "plain_ms": time_ms(torch, lambda: dequant_matmul_u4_plain(
+                   A, qw, sc, zr), 3, flush),
+               "library_ms": time_ms(torch, lambda: torch.matmul(A, Wp.T),
+                                     20, flush),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+    return k1, k2
+
+
+MIXTRAL_REF_LAYERS = 1
+# The reference's capacity factor: n_experts / top_k, so an expert's buffer
+# holds every token and neither side drops one (the import's 2.0 can drop,
+# and a route that flips on one side would then move other tokens' slots)
+MIXTRAL_REF_FACTOR = 4.0
+# A route flips where the CPU's k-th and (k+1)-th router probabilities lie
+# closer than the card's and the CPU's probabilities differ; each flip's
+# CPU margin between those two must lie under this: 2.5x the largest
+# card-CPU probability gap read on an H100 (7.9e-4, reference_mixtral's
+# engine run; one flip there, at a margin of 8.1e-8)
+MIXTRAL_FLIP_MARGIN = 2e-3
+
+
+def mixtral_gptq_state(torch, num_layers: int, seed: int):
+    """An AutoGPTQ v1 (desc_act=False) Mixtral state dict at the published
+    widths, drawn on the card from `seed`: random qweight words (every
+    code occurs), zero point 8 (v1 stores 7), the attention's scales 0.001
+    +- 0.0002 and the experts' |N(0, 1)| * 0.004 + 0.004 (the JAX
+    fixtures'), a router [8, 4096] of N(0, 1) * 0.05, unit norms,
+    embedding and lm_head * 0.05."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    H, I, E = 4096, 14336, 8
+    projs = [(f"self_attn.{n}_proj", H, N, False) for n, N in
+             (("q", H), ("k", 1024), ("v", 1024), ("o", H))]
+    projs += [(f"block_sparse_moe.experts.{e}.{w}", K, N, True)
+              for e in range(E) for w, K, N in (("w1", H, I), ("w3", H, I),
+                                                ("w2", I, H))]
+    state = {}
+    for i in range(num_layers):
+        base = f"model.layers.{i}"
+        for name, K, N, expert in projs:
+            key = f"{base}.{name}"
+            state[f"{key}.qweight"] = _words(torch, gen, (K // 8, N))
+            state[f"{key}.qzeros"] = torch.full(
+                (K // 128, N // 8), 0x77777777, dtype=torch.int32,
+                device="cuda")
+            s = torch.randn((K // 128, N), generator=gen, device="cuda")
+            s = s.abs() * 0.004 + 0.004 if expert else s * 0.0002 + 0.001
+            state[f"{key}.scales"] = s.half()
+        state[f"{base}.block_sparse_moe.gate.weight"] = (torch.randn(
+            (E, H), generator=gen, device="cuda") * 0.05).half()
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            state[f"{base}.{norm}.weight"] = torch.ones(H, device="cuda")
+    state["model.embed_tokens.weight"] = (torch.randn(
+        (32000, H), generator=gen, device="cuda") * 0.05).half()
+    state["model.norm.weight"] = torch.ones(H, device="cuda")
+    state["lm_head.weight"] = torch.randn((32000, H), generator=gen,
+                                          device="cuda") * 0.05
+    return state
+
+
+class RouteReplay:
+    """While installed, the routed FFN's top-k (models/quant_moe
+    .top_k_gates) records each card call's experts and router
+    probabilities, and each CPU call, in the same order, takes the card's
+    experts (its gates from its own probabilities): both sides then route
+    every token alike, so hidden states and logits compare on every
+    token. A flip is a row whose own CPU top-k differs from the card's;
+    each keeps the CPU's margin between its k-th and (k+1)-th
+    probability."""
+
+    def __init__(self):
+        from bitblas_tpu_torch.models import quant_moe
+        self.mod, self.orig = quant_moe, quant_moe.top_k_gates
+        self.card, self.margins = [], []
+        self.cpu_calls = self.rows = 0
+        self.prob_gap = 0.0
+
+    def __enter__(self):
+        import torch
+        orig = self.orig
+
+        def replay(logits, top_k):
+            gates, experts = orig(logits, top_k)
+            probs = torch.softmax(logits.float(), dim=-1)
+            if logits.device.type != "cpu":
+                self.card.append((experts.cpu(), probs.cpu()))
+                return gates, experts
+            card_e, card_p = self.card[self.cpu_calls]
+            self.cpu_calls += 1
+            if card_e.shape != experts.shape:
+                raise AssertionError(f"route call {self.cpu_calls}: card "
+                                     f"{tuple(card_e.shape)}, CPU "
+                                     f"{tuple(experts.shape)}")
+            self.rows += experts.shape[0]
+            self.prob_gap = max(self.prob_gap,
+                                (card_p - probs).abs().max().item())
+            flip = (card_e.sort(-1).values
+                    != experts.sort(-1).values).any(-1)
+            if flip.any():
+                top = probs.sort(-1, descending=True).values
+                self.margins += (top[:, top_k - 1] - top[:, top_k])[
+                    flip].tolist()
+            g = probs.gather(1, card_e)
+            return g / g.sum(-1, keepdim=True), card_e
+
+        self.mod.top_k_gates = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.top_k_gates = self.orig
+
+    def take(self) -> dict:
+        """The readings since the last take: calls, rows, flips and their
+        margins, the largest |card - CPU| router probability; fails on a
+        flip whose margin is not under MIXTRAL_FLIP_MARGIN or on a card
+        call the CPU did not replay."""
+        if self.cpu_calls != len(self.card):
+            raise AssertionError(f"{len(self.card)} card route calls, "
+                                 f"{self.cpu_calls} replayed")
+        out = {"route_calls": self.cpu_calls, "routed_rows": self.rows,
+               "route_flips": len(self.margins),
+               "flip_cpu_margins": sorted(self.margins),
+               "max_router_prob_gap": self.prob_gap}
+        if any(m >= MIXTRAL_FLIP_MARGIN for m in self.margins):
+            raise AssertionError(f"a route flipped at a CPU top-k margin "
+                                 f">= {MIXTRAL_FLIP_MARGIN}: {out}")
+        self.card, self.margins = [], []
+        self.cpu_calls = self.rows = 0
+        self.prob_gap = 0.0
+        return out
+
+
+def check_reference_mixtral(torch):
+    """Mixtral-8x7B's widths, one layer (depth cut: the CPU plain
+    reference), imported from a synthetic AutoGPTQ v1 state dict through
+    load_quant_mixtral_from_hf_gptq on the card and on the CPU, capacity
+    factor MIXTRAL_REF_FACTOR (no token can drop): one sequence (prefill
+    in bucket 512, the experts on the materialize plan; 4 teacher-forced
+    decode steps on the decode instance) and the token engine (prompts in
+    buckets 256 and 512: the experts on the tiled instance and the
+    materialize plan), card against CPU at reference_steps' and
+    compare_engines' tolerances, the CPU replaying the card's routes
+    (RouteReplay: route flips counted, each under MIXTRAL_FLIP_MARGIN)."""
+    from bitblas_tpu_torch.models.hf_import_mixtral import (
+        load_quant_mixtral_from_hf_gptq)
+    t0 = time.perf_counter()
+    hf = dict(MIXTRAL_8X7B_HF, num_hidden_layers=MIXTRAL_REF_LAYERS)
+    state = mixtral_gptq_state(torch, MIXTRAL_REF_LAYERS, seed=51)
+    kw = dict(capacity_factor=MIXTRAL_REF_FACTOR)
+    gpu, gh = load_quant_mixtral_from_hf_gptq(state, hf, device="cuda",
+                                              **kw)
+    cpu, ch = load_quant_mixtral_from_hf_gptq(
+        {k: v.cpu() for k, v in state.items()}, hf, device="cpu", **kw)
+    del state
+    torch.cuda.empty_cache()
+    routes = {}
+    with CpuWeightMemo(), RouteReplay() as replay:
+        reference_steps(torch, gpu.cfg, gpu, cpu, "reference_mixtral")
+        routes["sequence"] = replay.take()
+        compare_engines(torch, gpu.cfg, gpu, cpu, tag="_mixtral",
+                        heads={"cuda": gh, "cpu": ch})
+        routes["engine"] = replay.take()
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "reference_mixtral_routes", "layers": MIXTRAL_REF_LAYERS,
+          "capacity_factor": MIXTRAL_REF_FACTOR,
+          "flip_margin_limit": MIXTRAL_FLIP_MARGIN, **routes,
+          "reduced": {"layers": f"32 -> {MIXTRAL_REF_LAYERS}: the CPU plain "
+                                f"reference (5.6 GB of decoded float32 "
+                                f"expert weights a layer)",
+                      "capacity_factor": f"2.0 -> {MIXTRAL_REF_FACTOR}: no "
+                                         f"drops on either side"},
+          "seconds": time.perf_counter() - t0})
+    return routes
+
+
+def mixtral_serving_model(torch):
+    """32 layers at Mixtral-8x7B-v0.1's widths, W4 g128 original zeros,
+    float16 activations, 8 experts top-2 at capacity factor 2.0, random
+    weights drawn on the card from a seed, an LMHead of vocab 32000,
+    Mistral's four prompts (1000 / 3000 / 4500 / 6000 tokens), max_seq_len
+    8192."""
+    import numpy as np
+    from bitblas_tpu_torch.models.hf_import import LMHead
+    from bitblas_tpu_torch.models.quant_moe import QuantMixtral
+
+    from bitblas_tpu_torch.models.quant_llama import layer_forward
+
+    t0 = time.perf_counter()
+    cfg = mixtral_8x7b(32)
+    model = QuantMixtral(cfg, device="cuda", seed=0)
+    # JAX's expert fixture scales (|N(0, 1)| * 0.004 + 0.004) grow the
+    # float16 residual stream ~10^3-fold a layer at hidden 4096
+    # (reference_mixtral's one layer takes inputs of |x| < 2.5 to ~700),
+    # past float16's range within three layers: the served experts take
+    # the attention's contractive scales, N(0, 1) * 0.0002 + 0.001
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    with torch.no_grad():
+        for layer in model.layers:
+            for name in ("gate", "up", "down"):
+                sc = getattr(layer.moe, f"{name}_scales")
+                sc.copy_(torch.randn(sc.shape, generator=gen, device="cuda")
+                         * 0.0002 + 0.001)
+    gen.manual_seed(5)
+    V, Hd = cfg.vocab_size, cfg.hidden_size
+    head = LMHead(
+        embed=(torch.randn((V, Hd), generator=gen, device="cuda") * 0.05
+               ).half(),
+        final_norm=torch.ones(Hd, device="cuda"),
+        lm_head=torch.randn((V, Hd), generator=gen, device="cuda") * 0.05,
+        norm_eps=cfg.rms_norm_eps, device="cuda")
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, n).astype(np.int32)
+               for n in MISTRAL_PROMPTS]
+    packed = sum(t.numel() * t.element_size()
+                 for n, t in model.named_buffers() if "qweight" in n or
+                 "scales" in n or "zeros" in n)
+    if packed != MIXTRAL_WEIGHT_BYTES:
+        raise AssertionError(f"serve_mixtral: {packed} packed weight bytes, "
+                             f"reckoned {MIXTRAL_WEIGHT_BYTES}")
+    init_s = time.perf_counter() - t0
+    # the residual stream through the 32 layers stays finite in float16:
+    # the largest |hidden| after each layer on a 64-token prompt
+    x = head.embed_tokens(prompts[0][:64])[None]
+    pos = torch.arange(64, device="cuda")[None]
+    absmax = []
+    for layer in model.layers:
+        x = layer_forward(layer, x, pos)
+        absmax.append(x.float().abs().max().item())
+    emit({"phase": "mixtral_residual", "tokens": 64,
+          "absmax_by_layer": absmax})
+    if not all(math.isfinite(a) for a in absmax):
+        raise AssertionError(f"serve_mixtral: the residual stream overflows "
+                             f"float16: {absmax}")
+    return {"cfg": cfg, "model": model, "head": head, "prompts": prompts,
+            "pair": [], "init_s": init_s,
+            "name": "Mixtral-8x7B-v0.1 widths, W4 g128, f16, 8 experts "
+                    "top-2, capacity factor 2.0",
+            "weight_bytes": packed, "max_seq_len": MISTRAL_MAX_SEQ}
+
+
+# decode steps run every expert at M = 8 (the decode instance), prefill
+# buckets 1024 / 4096 / 8192 at capacities 512 / 2048 / 4096 (the
+# materialize plan); attention kernels 4 and 5 at f16, no window
+MIXTRAL_PHASE = ("serve_mixtral", "token", {},
+                 ("dequant_matmul_u4", DECODE["uint4"], "weight_decode_u4",
+                  "flash_attention_fwd", "flash_decode"))
+
+
+def mixtral_entries(k1, k2, shapes):
+    """The kernels line's rows of the experts' shapes: kernel 1's decode
+    and tiled instances and kernel 2, and their launches in serve_mixtral
+    at that (N, K) (`shapes`: RouteRecorder's counts by plan and shape),
+    as (entries, {name: launches})."""
+    out, launches = [], {}
+    for N, K in MIXTRAL_EXPERT_SHAPES:
+        for kind, M, src in (("decode", 8, "dequant_matmul.cu"),
+                             ("tiled", 256, "dequant_wgmma.cuh")):
+            rows = [r for r in k1 if (r["N"], r["K"], r["M"]) == (N, K, M)]
+            name = f"dequant_matmul_u4 {kind} {N}x{K}"
+            out.append((name, src, "dequant_matmul.py:231", rows, rows[0],
+                        f"M={M} N={N} K={K} uint4 x f16 g128, Mixtral-8x7B "
+                        f"expert"))
+            launches[name] = shapes.get(f"uint4 {kind} {N}x{K}", 0)
+        rows = [r for r in k2 if (r["N"], r["K"]) == (N, K)]
+        name = f"weight_decode_u4 {N}x{K}"
+        out.append((name, "weight_decode.cu", "materialize.py:227", rows,
+                    rows[0], f"N={N} K={K} uint4 -> f16 g128, Mixtral-8x7B "
+                    f"expert"))
+        launches[name] = shapes.get(f"uint4 materialize {N}x{K}", 0)
+    return out, launches
+
+
+def mixtral_phases(torch, counters, flush, routes=None):
+    """`--mixtral` (and the full run's pieces): kernel 1 and 2 at the
+    experts' shapes, reference_mixtral, serve_mixtral. Returns (kernel 1
+    rows, kernel 2 rows, serve_mixtral's row)."""
+    k1, k2 = check_dequant_mixtral(torch, flush)
+    check_reference_mixtral(torch)
+    routes = routes or RouteRecorder()
+    ctx = mixtral_serving_model(torch)
+    with routes:
+        row = serve(torch, ctx, counters, *MIXTRAL_PHASE, routes=routes)
+    del ctx
+    torch.cuda.empty_cache()
+    return k1, k2, row
 
 
 # -- the formats phase: kernels 1 and 2 for every other weight format with
@@ -4378,7 +4817,8 @@ def main() -> int:
     mode = sys.argv[1:]
     if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"],
                     ["--formats"], ["--int-formats"], ["--mistral"],
-                    ["--bitnet-3b"], ["--bitnet-3b-readings"]):
+                    ["--bitnet-3b"], ["--bitnet-3b-readings"],
+                    ["--mixtral"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -4437,6 +4877,11 @@ def main() -> int:
     if mode == ["--mistral"]:
         mistral_phases(torch, counters, flush)
         return 0
+    if mode == ["--mixtral"]:
+        k1, k2, row = mixtral_phases(torch, counters, flush)
+        entries, counts = mixtral_entries(k1, k2, row["shapes"])
+        emit({"kernels": [kernel_entry(*e, counts) for e in entries]})
+        return 0
     if mode == ["--bitnet-3b"]:
         fa_rows, fa_launches = check_flashatten(torch, flush)
         row = bitnet_3b_phases(torch, counters)
@@ -4461,6 +4906,7 @@ def main() -> int:
                                     qdtype=torch.bfloat16)
     fpq_b = check_flash_decode_paged(torch, flush, quant=True,
                                      qdtype=torch.bfloat16)
+    mix_k1, mix_k2 = check_dequant_mixtral(torch, flush)
     lap("kernels")
     route_table(torch, flush)
     dense = check_dense(torch, flush)
@@ -4494,6 +4940,8 @@ def main() -> int:
     lap("reference_mistral")
     check_reference_bitnet_3b(torch, counters)
     lap("reference_bitnet_3b")
+    check_reference_mixtral(torch)
+    lap("reference_mixtral")
 
     launches = {c.__name__: 0 for c in counters}
     launches.update({name: 0 for name in (*DECODE.values(),
@@ -4537,6 +4985,12 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     lap("serve_bitnet_3b")
+    ctx = mixtral_serving_model(torch)
+    with routes:
+        mix_row = run(ctx, MIXTRAL_PHASE, routes)
+    del ctx
+    torch.cuda.empty_cache()
+    lap("serve_mixtral")
     # the bfloat16 model's kernel 1 / 2 launches, under the names of the
     # formats phase's rows for uint4 x bfloat16 (added to its counts)
     for kind in ("decode", "tiled"):
@@ -4712,6 +5166,11 @@ def main() -> int:
                            else f", M={rows[0]['M']}")))
     for key, n in int_launches.items():
         launches[key] = launches.get(key, 0) + n
+    # kernel 1 and kernel 2 at Mixtral-8x7B's expert shapes, with
+    # serve_mixtral's launches at those shapes
+    entries, counts = mixtral_entries(mix_k1, mix_k2, mix_row["shapes"])
+    summary += entries
+    launches.update(counts)
     # kernel 4's configurations: launches of the serve phases (head dim
     # 100: serve_bitnet_3b; 0 where no served model runs one), the
     # flashatten phase's apart (flashatten_launches)

@@ -42,7 +42,10 @@ SMS = 132
 CFG = dict(N=256, K=512, A_dtype="float16", W_dtype="uint4",
            with_scaling=True, with_zeros=True, zeros_mode="original",
            group_size=128, out_dtype="float16")
-W4A16_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))   # (N, K)
+# (N, K): Llama-2-7B's projections, then Mixtral-8x7B's experts (gate / up,
+# down)
+W4A16_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008), (14336, 4096),
+                (4096, 14336))
 # BitNet's W2A8 projections at Llama-3-8B widths: gate/up, down, q/o, k/v
 W2A8_SHAPES = ((14336, 4096), (4096, 14336), (4096, 4096), (1024, 4096))
 I2_CFG = dict(N=256, K=512, A_dtype="int8", W_dtype="int2",

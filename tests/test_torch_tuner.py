@@ -46,8 +46,11 @@ FORMATS = {"uint4": U4, "int2": I2}
 UNTUNED_SMALL = {"uint4": (16, 128, 128, 4), "int2": (16, 128, 256, 4)}
 UNTUNED_LARGE = {"uint4": (64, 128, 256, 4), "int2": (64, 128, 512, 2)}
 # The N of the models' projections (Llama-2-7B: 4096, 11008; Llama-3-8B
-# widths, BitNet: 4096, 1024, 14336).
+# widths, BitNet: 4096, 1024, 14336; Mixtral-8x7B's uint4 experts: 14336,
+# 4096).
 MODEL_N = (4096, 11008, 14336, 1024)
+# Mixtral-8x7B's expert projections (N, K): gate / up, down
+MIXTRAL_EXPERTS = ((14336, 4096), (4096, 14336))
 
 
 def _untuned_hint(fmt, m):
@@ -125,6 +128,23 @@ def test_every_fused_instance_fits_and_tiles_the_models_n(fmt):
                      (128, 64, 512, 3), (128, 128, 512, 2))}
     assert FUSED_TILES[fmt][1:] == want[fmt]
     assert FUSED_TILES[fmt][2] == UNTUNED_LARGE[fmt]
+
+
+@pytest.mark.parametrize("N,K", MIXTRAL_EXPERTS)
+def test_uint4_instances_tile_mixtral_experts(N, K):
+    """Every uint4 instance's block_n (the decode instance's too) divides
+    Mixtral-8x7B's expert N, so each stays in the tuner's space there; an
+    expert at the decode capacity (8) takes the split-K decode instance,
+    at a prefill capacity of 256 the default tiled instance, from 512
+    the materialize plan."""
+    for tile in FUSED_TILES["uint4"]:
+        assert N % tile[1] == 0 and 14336 % tile[1] == 0, tile
+    for m, want in ((8, TileHint("fused", *UNTUNED_SMALL["uint4"])),
+                    (256, TileHint("fused", *UNTUNED_LARGE["uint4"])),
+                    (512, MATERIALIZE), (2048, MATERIALIZE)):
+        spec = _spec("uint4", m, N, K)
+        assert default_hint(spec, H100_SXM) == want, m
+        assert want in enumerate_hints(spec, H100_SXM) or want is MATERIALIZE
 
 
 @pytest.mark.parametrize("m", [1, 16, 256, 512])
