@@ -27,15 +27,14 @@ import dataclasses
 import fcntl
 import hashlib
 import json
-import logging
 import os
 import threading
 from typing import Dict, Optional
 
-from ..common import default_database_path
+from ..common import default_database_path, get_logger
 from ..tuner import HINT_CLASSES, auto_detect_target, get_arch
 
-logger = logging.getLogger("bitblas_tpu_torch")
+logger = get_logger()
 
 
 def get_database_path() -> str:

@@ -15,21 +15,20 @@ the codes of k = 8 j + i at bits 4 i: exactly the Hopper layout's word
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..cache import get_database_path, global_operator_cache
-from ..common import resolve_device
+from ..common import get_logger, resolve_device
 from ..ops import weight_transform as wt
 from ..ops.matmul import Matmul
 from ..ops.matmul_config import MatmulConfig
 from ..quantization import packing
 from ..tuner import auto_detect_target
 
-logger = logging.getLogger("bitblas_tpu_torch")
+logger = get_logger()
 
 
 def as_tensor(x, device=None) -> torch.Tensor:

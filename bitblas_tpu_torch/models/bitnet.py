@@ -15,8 +15,11 @@ the hint database (cache.load_global_ops_cache) route them all.
 BitLinear, served by the decoder mixin of models/quant_llama.py and so
 by every engine.
 
-The training side (`bitlinear_train_forward`, the straight-through
-estimator) is not ported yet.
+The training side is the straight-through QAT forward: `ste` and
+`bitlinear_train_forward` fake-quantize activations and weights, take
+the dense product in float32 (torch.matmul: no kernel is involved, as
+JAX's is a plain XLA dot) and let autograd pass the gradient straight
+through the rounding.
 """
 
 from __future__ import annotations
@@ -85,6 +88,22 @@ def activation_quant_int8(x: torch.Tensor):
                                  min=1e-5))
     q = torch.clamp(torch.round(xf * s), -128, 127).to(torch.int8)
     return q, s
+
+
+def ste(x: torch.Tensor, quantized: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the value of `quantized`, the gradient
+    of `x`."""
+    return x + (quantized - x).detach()
+
+
+def bitlinear_train_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """QAT forward: x [..., K] and w [N, K] fake-quantized through `ste`,
+    their product summed in float32 and cast to x's type. The operands
+    are float32 before the product, so no reduced-precision reduction of
+    cuBLAS applies."""
+    xq = ste(x, activation_quant(x))
+    wq = ste(w, weight_quant(w))
+    return torch.matmul(xq.float(), wq.float().T).to(x.dtype)
 
 
 class BitLinearInference(nn.Module):

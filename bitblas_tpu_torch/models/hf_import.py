@@ -15,18 +15,17 @@ evaluates any tokens->logits callable.
 
 from __future__ import annotations
 
-import logging
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..common import resolve_device
+from ..common import get_logger, resolve_device
 from ..graph import as_tensor, repack_gptq_layer
 from .quant_llama import LlamaConfig, QuantLlama, rmsnorm
 
-logger = logging.getLogger("bitblas_tpu_torch")
+logger = get_logger()
 
 # HF projection name -> the port's projection name
 _HF_PROJS = (

@@ -14,17 +14,16 @@ Hopper layout with torch ops on the model's device
 
 from __future__ import annotations
 
-import logging
 from typing import Mapping, Tuple
 
 import torch
 
-from ..common import resolve_device
+from ..common import get_logger, resolve_device
 from ..graph import as_tensor, repack_gptq_layer
 from .hf_import import LMHead, _check_g_idx, rope_scaling_from_hf
 from .quant_moe import MixtralConfig, QuantMixtral
 
-logger = logging.getLogger("bitblas_tpu_torch")
+logger = get_logger()
 
 _ATTN = (("self_attn.q_proj", "q"), ("self_attn.k_proj", "k"),
          ("self_attn.v_proj", "v"), ("self_attn.o_proj", "o"))

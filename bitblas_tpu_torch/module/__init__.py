@@ -18,14 +18,13 @@ type), ``bias`` [1, N] float32.
 
 from __future__ import annotations
 
-import logging
 from typing import List, Optional, Union
 
 import torch
 from torch import nn
 
 from ..cache import get_database_path, global_operator_cache
-from ..common import resolve_device
+from ..common import get_logger, resolve_device
 from ..graph import as_tensor, repack_gptq_layer
 from ..ops import weight_transform as wt
 from ..ops.matmul import Matmul
@@ -34,7 +33,7 @@ from ..quantization import packing
 from ..quantization.formats import as_torch_dtype
 from ..tuner import auto_detect_target
 
-logger = logging.getLogger("bitblas_tpu_torch")
+logger = get_logger()
 
 
 def unpack_qweight(qweight, bits: int) -> torch.Tensor:

@@ -17,7 +17,6 @@ configuration: one the kernel does not take raises at construction.
 
 from __future__ import annotations
 
-import logging
 import math
 from dataclasses import dataclass
 from typing import Literal, Optional
@@ -25,14 +24,14 @@ from typing import Literal, Optional
 import numpy as np
 import torch
 
-from ..common import resolve_device
+from ..common import get_logger, resolve_device
 from ..kernels.flash import check_prefill, flash_attention_fwd, prefill_tiles
 from ..quantization.formats import as_torch_dtype
 from ..tuner import FlashHint, auto_detect_target, get_arch
 from ..utils.timing import measure_kernel
 from .matmul_config import OperatorConfig
 
-logger = logging.getLogger("bitblas_tpu_torch")
+logger = get_logger()
 
 FLASH_SUPPORTED_DTYPES = ("float16", "bfloat16", "float32")
 

@@ -22,17 +22,16 @@ them never re-persists them as its own measurements.
 from __future__ import annotations
 
 import bisect
-import logging
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
-from ..common import resolve_device
+from ..common import get_logger, resolve_device
 from ..kernels.spec import KernelSpec
 from ..tuner import (TileDevice, TileHint, TuneResult, auto_detect_target,
                      default_hint, fast_tune, get_arch, roofline_seconds)
 from ..utils.timing import measure_kernel
 from .matmul_config import OperatorConfig
 
-logger = logging.getLogger("bitblas_tpu_torch")
+logger = get_logger()
 
 # hint_for keeps the default hint of each M it has seen (a decode step
 # asks for the same few M hundreds of times); at most this many

@@ -1,1 +1,2 @@
-"""Utilities: on-card timing (utils/timing.py)."""
+"""Utilities: on-card timing (utils/timing.py) and profiling
+(utils/profiling.py)."""

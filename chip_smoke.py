@@ -16,6 +16,10 @@
                                               # reference's limits rest on
     python3 chip_smoke.py --mixtral           # only the Mixtral-8x7B
                                               # phases (the routed MoE FFN)
+    python3 chip_smoke.py --quantize          # only the model tools'
+                                              # phases (GPTQ / RTN from
+                                              # float weights, speculation,
+                                              # BitNet's QAT forward)
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -278,6 +282,51 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                the operators loaded from that database; the GEMM kernels'
                launches must equal the routes its Matmul calls took (as in
                every serve phase), beside serve_bitnet's metrics.
+
+8. the model tools (after the kernels phase; `--quantize` runs them
+   alone, after the kernels phase's rows of kernels 1, 2, 4 and 5):
+   quantize_llama    float16 weights at Llama-2-7B's widths, 32 layers,
+                     drawn on the card (N(0, 0.02), embedding and lm_head
+                     N(0, 0.05), norms 1), quantized by GPTQ (uint4 g128,
+                     2 x 512 calibration tokens, sequential, q / k / v and
+                     gate / up swept as stacked rows) through
+                     models/quantize_hf on the card: seconds a layer and
+                     in all, the packed bytes (serve's 3,440,377,856),
+                     GPTQ's objective against RTN's for every projection
+                     of layers 0 and 31 (not worse), layer 0's q through
+                     kernel 2 and kernel 1 on one-hot rows bit-equal to
+                     the QuantizedWeight with float16 scales; then RTN of
+                     the same weights;
+   serve_quantized   the GPTQ model served as `serve`;
+   speculative       the GPTQ model as target, drafts (a) itself and (b)
+                     the RTN model: `generate` (timed) on a 256-token
+                     prompt, 64 new tokens; cached speculation at gamma 4
+                     (timed) and uncached (16 tokens), tokens equal to
+                     generate's up to the first position whose
+                     teacher-forced top-2 margin is under SPEC_FLIP_MARGIN
+                     (at least SPEC_MIN_DECIDED; the card's change of
+                     that top-2 gap between generate's decode_step path
+                     and decode_chunk's, the verify's, under the limit),
+                     draft (a) accepting every proposal there; a seeded
+                     sampled run repeated; kernels 1, 4 and 5 must
+                     launch;
+   quantize_mixtral  one layer at Mixtral-8x7B's widths, GPTQ with
+                     routed calibration; one expert kept from every
+                     top-2 (a -10 router weight on a channel every
+                     embedding holds at ZERO_CHANNEL_VALUE, 2.0) must be
+                     RTN's bit for bit,
+                     every expert with traffic not worse than RTN;
+   reference_quantize  one Llama-2-7B-width layer quantized on the card
+                     and on the CPU: RTN bit-equal, the graphed sweep
+                     bit-equal to the eager one, the card's sweep on the
+                     CPU's weights and Hessians bit-equal to the CPU's
+                     codes, scales and zeros, the layer objective within
+                     QUANT_REF_OBJECTIVE of the CPU's; reported: the share
+                     of equal codes by projection, the Hessians' gap, and
+                     the sweep on float32-rounded H and on a float32 U;
+   bitnet_train      bitlinear_train_forward at 14336 x 4096, 256 rows,
+                     forward and backward against the CPU's float64
+                     truth.
 
 Then the kernel summary line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -3660,6 +3709,735 @@ def mixtral_phases(torch, counters, flush, routes=None):
     return k1, k2, row
 
 
+# -- the model tools: float checkpoints quantized on the card (GPTQ / RTN),
+# speculative decoding, BitNet's QAT forward --------------------------------
+
+# meta-llama/Llama-2-7b-hf config.json
+LLAMA2_7B_HF = {"hidden_size": 4096, "intermediate_size": 11008,
+                "num_attention_heads": 32, "num_key_value_heads": 32,
+                "num_hidden_layers": 32, "vocab_size": 32000,
+                "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+                "model_type": "llama"}
+# the packed bytes of 32 uint4 g128 layers at Llama-2-7B's widths: serve's
+LLAMA_WEIGHT_BYTES = 3440377856
+QUANT_CALIB = (2, 512)       # calibration sequences x tokens
+QUANT_SAMPLE_LAYERS = (0, 31)  # layers whose projections are held to RTN
+# reference_quantize: one layer's GPTQ card against CPU. The card's sweep
+# run on the CPU's own weights and Hessians must give the CPU's codes,
+# scales and zeros bit for bit (the sweep alone, apart from calibration).
+# The layer objective (tr(E H E^T) summed over its seven projections, each
+# side on its own calibration) within this relative gap of the CPU's: read
+# 5.5e-4 on an NVIDIA H100 80GB HBM3 at 700 W, where GPTQ sits at 0.1 of
+# RTN's. The phase also reports the card's sweep on the CPU's Hessians
+# rounded to float32 (how far a float32-sized change of H moves the codes
+# and the objective) and with U = chol(H^-1)^T rounded to float32 (a
+# planted precision fault).
+QUANT_REF_OBJECTIVE = 1e-3
+SPEC_PROMPT = 256            # bucket 256: the prompt prefills through kernel 4
+SPEC_NEW = 64
+SPEC_NEW_RTN = 16            # draft (b): the RTN model (low acceptance)
+SPEC_NEW_UNCACHED = 16
+SPEC_GAMMA = 4
+# speculative: speculation's greedy tokens equal `generate`'s up to the
+# first difference, which must fall at a position where the top-2 margin
+# of the logits generate decided by is under this limit (a near tie the
+# card's arithmetic can flip); so must every position where draft (a),
+# the target itself, loses a proposal. The card's change of that top-2 gap
+# between generate's path (decode_step, kernel 5) and decode_chunk's at M
+# = gamma + 1 (the verify's: torch attention) read 0.086 on an NVIDIA H100
+# 80GB HBM3 at 700 W, and 0.106 between the full forward and decode_chunk
+# (an earlier form of the check). The limit sits at ~2.9x the reading the
+# run takes and ~2.4x the larger one; each run's reading must stay under
+# it.
+# At least SPEC_MIN_DECIDED tokens above the limit are compared.
+SPEC_FLIP_MARGIN = 0.25
+SPEC_MIN_DECIDED = 16
+# quantize_mixtral: the expert kept out of every top-2 by a -10 router
+# weight on channel 0, which every embedding holds at this value
+ZERO_EXPERT = 3
+ZERO_CHANNEL_VALUE = 2.0
+
+
+def float_llama_state(torch, hf: dict, seed: int, experts: bool = False):
+    """A float16 HF-layout state dict drawn on the card, as JAX's
+    tests/test_quantize.py fixture draws it: projections N(0, 0.02),
+    embedding and lm_head N(0, 0.05), norms of 1; with `experts` a
+    Mixtral layer's router [E, H] N(0, 0.05) and experts w1 / w3 / w2."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    kv = hf["num_key_value_heads"] * H // hf["num_attention_heads"]
+
+    def w(n, k, scale=0.02):
+        return (torch.randn((n, k), generator=gen, device="cuda")
+                * scale).half()
+
+    state = {"model.embed_tokens.weight": w(V, H, 0.05),
+             "model.norm.weight": torch.ones(H, device="cuda").half(),
+             "lm_head.weight": w(V, H, 0.05)}
+    for i in range(hf["num_hidden_layers"]):
+        b = f"model.layers.{i}"
+        state[f"{b}.self_attn.q_proj.weight"] = w(H, H)
+        state[f"{b}.self_attn.k_proj.weight"] = w(kv, H)
+        state[f"{b}.self_attn.v_proj.weight"] = w(kv, H)
+        state[f"{b}.self_attn.o_proj.weight"] = w(H, H)
+        if experts:
+            E = hf["num_local_experts"]
+            state[f"{b}.block_sparse_moe.gate.weight"] = w(E, H, 0.05)
+            for e in range(E):
+                x = f"{b}.block_sparse_moe.experts.{e}"
+                state[f"{x}.w1.weight"] = w(I, H)
+                state[f"{x}.w3.weight"] = w(I, H)
+                state[f"{x}.w2.weight"] = w(H, I)
+        else:
+            state[f"{b}.mlp.gate_proj.weight"] = w(I, H)
+            state[f"{b}.mlp.up_proj.weight"] = w(I, H)
+            state[f"{b}.mlp.down_proj.weight"] = w(H, I)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            state[f"{b}.{norm}.weight"] = torch.ones(H, device="cuda").half()
+    return state
+
+
+class QuantRecorder:
+    """While installed, each quantization call of the quantizers
+    (models/quantize_hf's quant function: {name: weight} and a Hessian or
+    None) whose index is in `keep` (all when None) keeps {name: (float
+    weight, Hessian, QuantizedWeight)}; each layer's log line, after a
+    device sync, stamps the end of its seconds."""
+
+    def __init__(self, keep=None):
+        from bitblas_tpu_torch.models import quantize_hf
+        self.mod, self.orig = quantize_hf, quantize_hf._make_quant
+        self.keep, self.calls, self.index = keep, [], 0
+        self.stamps = []
+
+    def __enter__(self):
+        import logging
+        import torch
+        from bitblas_tpu_torch.common import get_logger
+        orig, rec = self.orig, self
+
+        def make(*args):
+            quant = orig(*args)
+
+            def recording(weights, hess):
+                out = quant(weights, hess)
+                if rec.keep is None or rec.index in rec.keep:
+                    rec.calls.append({n: (weights[n], hess, out[n])
+                                      for n in weights})
+                rec.index += 1
+                return out
+            return recording
+
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: (torch.cuda.synchronize(),
+                                       self.stamps.append(time.perf_counter()))
+        self.logger, self.level = get_logger(), get_logger().level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        self.mod._make_quant = make
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._make_quant = self.orig
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def layer_seconds(self):
+        t = [self.t0] + self.stamps
+        return [b - a for a, b in zip(t, t[1:])]
+
+
+def objective(torch, w, hess, dq) -> float:
+    """GPTQ's objective tr((W - W^) H (W - W^)^T), float64."""
+    e = (w.double() - dq.double())
+    return float(((e @ hess.double()) * e).sum())
+
+
+def hold_to_rtn(torch, calls, phase: str) -> dict:
+    """Each recorded projection quantized against a Hessian: GPTQ's
+    objective and RTN's of the same float weight on that Hessian; GPTQ
+    must not be worse. {name or "name#i": (gptq, rtn)}."""
+    from bitblas_tpu_torch.quantization.gptq import rtn_quantize
+    out = {}
+    for i, call in enumerate(calls):
+        for name, (w, hess, qw) in call.items():
+            if hess is None:
+                continue
+            rtn = rtn_quantize(w, 4, qw.group_size)
+            g, r = (objective(torch, w, hess, q.dequantize())
+                    for q in (qw, rtn))
+            out[f"{name}#{i}"] = {"gptq": g, "rtn": r, "ratio": g / r}
+            if not g <= r:
+                raise AssertionError(f"{phase} {name}#{i}: GPTQ's objective "
+                                     f"{g} exceeds RTN's {r}")
+    return out
+
+
+def _f16_dequant(torch, qw):
+    """A QuantizedWeight's [N, K] weight with float16 scales and zeros,
+    rounded once to float16: what the kernels decode."""
+    g = qw.group_size
+    s = qw.scales.half().float().repeat_interleave(g, dim=1)
+    z = qw.zeros.half().float().repeat_interleave(g, dim=1)
+    return ((qw.codes.float() - z) * s).half()
+
+
+def check_quant_wiring(torch, layer, name: str, qw) -> dict:
+    """One projection's packed buffers decoded by kernel 2 and read back
+    through kernel 1 on one-hot rows (the tiled instance at M = 256 over
+    every column, the decode instance at M = 16 on a sample): bit-equal to
+    the QuantizedWeight with float16 scales."""
+    from bitblas_tpu_torch.kernels.dequant_matmul import dequant_matmul_u4
+    from bitblas_tpu_torch.kernels.materialize import weight_decode_u4
+    want = _f16_dequant(torch, qw)
+    qw_, sc, zr = (getattr(layer, f"{name}_{t}")
+                   for t in ("qweight", "scales", "zeros"))
+    N, K = want.shape
+    if not torch.equal(weight_decode_u4(qw_, sc, zr), want):
+        raise AssertionError(f"quantize_llama {name}: kernel 2's weight "
+                             f"differs from the QuantizedWeight's")
+    eye = torch.eye(K, dtype=torch.float16, device="cuda")
+    for o in range(0, K, 256):
+        if not torch.equal(dequant_matmul_u4(eye[o:o + 256], qw_, sc, zr),
+                           want[:, o:o + 256].T):
+            raise AssertionError(f"quantize_llama {name}: kernel 1's "
+                                 f"one-hot rows {o}.. differ (M = 256)")
+    A, ks = _onehot(torch, 16, K, torch.float16)
+    if not torch.equal(dequant_matmul_u4(A, qw_, sc, zr), want[:, ks].T):
+        raise AssertionError(f"quantize_llama {name}: kernel 1's one-hot "
+                             f"rows differ (M = 16)")
+    return {"projection": name, "N": N, "K": K, "kernel2": "bit-equal",
+            "kernel1_M256_every_column": "bit-equal",
+            "kernel1_M16_sample": "bit-equal"}
+
+
+def _calib_tokens(V: int, seed: int):
+    import numpy as np
+    return np.random.default_rng(seed).integers(0, V, QUANT_CALIB)
+
+
+def _packed_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for n, t in model.named_buffers()
+               if n.endswith(("qweight", "scales", "zeros")))
+
+
+def quantize_llama(torch):
+    """quantize_llama: 32 layers at Llama-2-7B's widths, float16 weights
+    drawn on the card, GPTQ uint4 g128 with QUANT_CALIB calibration
+    tokens (seconds a layer and in all), the packed bytes, GPTQ's
+    objective against RTN's for every projection of QUANT_SAMPLE_LAYERS,
+    one projection's wiring through kernels 1 and 2; then RTN of the same
+    weights (speculative's draft b). Returns (GPTQ model, head, RTN
+    model, RTN head, GPTQ seconds)."""
+    from bitblas_tpu_torch.models.quantize_hf import (
+        quantize_llama_from_hf_fp16)
+    hf = LLAMA2_7B_HF
+    state = float_llama_state(torch, hf, seed=71)
+    torch.cuda.synchronize()
+    calib = _calib_tokens(hf["vocab_size"], 72)
+    keep = {4 * li + j for li in QUANT_SAMPLE_LAYERS for j in range(4)}
+    torch.cuda.reset_peak_memory_stats()
+    with QuantRecorder(keep) as rec:
+        model, head = quantize_llama_from_hf_fp16(
+            state, hf, method="gptq", calib_tokens=calib, device="cuda")
+        torch.cuda.synchronize()
+    total_s = time.perf_counter() - rec.t0
+    per_layer = rec.layer_seconds()
+    packed = _packed_bytes(model)
+    if packed != LLAMA_WEIGHT_BYTES:
+        raise AssertionError(f"quantize_llama: {packed} packed bytes, "
+                             f"serve's {LLAMA_WEIGHT_BYTES}")
+    objectives = hold_to_rtn(torch, rec.calls, "quantize_llama")
+    wiring = check_quant_wiring(torch, model.layers[0], "q",
+                                rec.calls[0]["q"][2])
+    peak = torch.cuda.max_memory_allocated()
+    rec.calls.clear()
+    t0 = time.perf_counter()
+    rtn, rtn_head = quantize_llama_from_hf_fp16(state, hf, method="rtn",
+                                                device="cuda")
+    torch.cuda.synchronize()
+    rtn_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    emit({"phase": "quantize_llama", "model": "Llama-2-7B widths, float16 "
+          "N(0, 0.02) -> GPTQ uint4 g128", "layers": hf["num_hidden_layers"],
+          "calib_tokens": list(QUANT_CALIB), "seconds": total_s,
+          "seconds_per_layer": per_layer,
+          "mean_layer_s": sum(per_layer) / len(per_layer),
+          "rtn_seconds": rtn_s, "packed_bytes": packed,
+          "peak_mem_gb": peak / 2 ** 30,
+          "sample_layers": list(QUANT_SAMPLE_LAYERS),
+          "objective_gptq_vs_rtn": objectives,
+          "worst_ratio": max(o["ratio"] for o in objectives.values()),
+          "wiring": wiring})
+    return model, head, rtn, rtn_head, total_s
+
+
+def _split_rows(call, qw):
+    """{name: (codes, scales, zeros)} of a stacked sweep `qw` over the
+    rows of a recorded call's projections, in the call's order."""
+    out, r0 = {}, 0
+    for name, (w, _, _) in call.items():
+        rows = slice(r0, r0 + w.shape[0])
+        out[name] = (qw.codes[rows], qw.scales[rows], qw.zeros[rows])
+        r0 = rows.stop
+    return out
+
+
+def sweep_witness(torch, calls) -> dict:
+    """The card's GPTQ on each recorded CPU call's own weights and Hessian
+    (q / k / v and gate / up stacked, as the quantizer sweeps them): the
+    codes, scales and zeros that differ from the CPU's; then the same on
+    the Hessian rounded to float32, and with U rounded to float32 (a
+    planted precision fault): each projection's share of equal codes, the
+    largest step, and the layer objective's relative gap from the CPU's
+    (on the CPU's Hessians)."""
+    from bitblas_tpu_torch.quantization import gptq
+    inverse = gptq._inverse_factor
+    out = {"same": {}, "f32_hessian": {}, "f32_u": {}}
+    obj = {k: 0.0 for k in ("cpu", "f32_hessian", "f32_u")}
+    for call in calls:
+        names = list(call)
+        h = call[names[0]][1].cuda()
+        w = torch.cat([call[n][0] for n in names]).cuda()
+        for tag, hh in (("same", h), ("f32_hessian", h.float().double()),
+                        ("f32_u", h)):
+            if tag == "f32_u":
+                gptq._inverse_factor = lambda H, p: inverse(H, p).float(
+                    ).double()
+            try:
+                qw = gptq.gptq_quantize(w, hh, 4, 128)
+            finally:
+                gptq._inverse_factor = inverse
+            for n, (c, sc, zr) in _split_rows(call, qw).items():
+                want = call[n][2]
+                d = (c.cpu().long() - want.codes.long()).abs()
+                if tag == "same":
+                    out[tag][n] = {
+                        "codes_differ": int((d != 0).sum()),
+                        "scales_differ": int((sc.cpu() != want.scales).sum()),
+                        "zeros_differ": int((zr.cpu() != want.zeros).sum())}
+                    continue
+                out[tag][n] = {"equal_share": (d == 0).float().mean().item(),
+                               "max_step": int(d.max())}
+                got = gptq.QuantizedWeight(c, sc, zr, 4, 128).dequantize()
+                obj[tag] += objective(torch, call[n][0].cuda(), h, got)
+                if tag == "f32_hessian":
+                    obj["cpu"] += objective(torch, call[n][0].cuda(), h,
+                                            want.dequantize().cuda())
+        del h, w
+    for tag in ("f32_hessian", "f32_u"):
+        out[tag]["objective_rel_gap"] = abs(obj[tag] - obj["cpu"]) / obj[
+            "cpu"]
+    return out
+
+
+def check_reference_quantize(torch):
+    """reference_quantize: one layer at Llama-2-7B's widths quantized on
+    the card and on the CPU from the same float16 weights and calibration
+    tokens. RTN's packed buffers bit-equal; GPTQ on the card through the
+    captured graph bit-equal to the card's eager sweep; the card's sweep on
+    the CPU's recorded weights and Hessians bit-equal to the CPU's codes,
+    scales and zeros (`sweep_witness`); the layer objective (tr(E H E^T)
+    over the seven projections, each on its own side's Hessian) within
+    QUANT_REF_OBJECTIVE of the CPU's. Reported beside them: each
+    projection's share of equal codes card against CPU, the largest
+    relative gap between the two sides' Hessians, and the witness's
+    readings on float32-rounded Hessians and a float32 U. The row is
+    emitted before any check fails."""
+    from bitblas_tpu_torch.models.quantize_hf import (
+        quantize_llama_from_hf_fp16)
+    from bitblas_tpu_torch.quantization import gptq, packing
+    t0 = time.perf_counter()
+    hf = dict(LLAMA2_7B_HF, num_hidden_layers=1)
+    state = float_llama_state(torch, hf, seed=73)
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    calib = _calib_tokens(hf["vocab_size"], 74)
+    models, objectives, seconds, calls = {}, {}, {}, {}
+    takes = gptq._GraphedSweep.takes
+    for method, run, st in (("rtn", "cuda", state), ("rtn", "cpu", cpu_state),
+                            ("gptq", "cuda", state),
+                            ("gptq", "cuda_eager", state),
+                            ("gptq", "cpu", cpu_state)):
+        if run == "cuda_eager":
+            gptq._GraphedSweep.takes = staticmethod(lambda *a: False)
+        ts = time.perf_counter()
+        try:
+            with QuantRecorder() as rec:
+                m, _ = quantize_llama_from_hf_fp16(
+                    st, hf, method=method, calib_tokens=calib,
+                    device="cpu" if run == "cpu" else "cuda")
+        finally:
+            gptq._GraphedSweep.takes = takes
+        seconds[f"{method}_{run}"] = time.perf_counter() - ts
+        models[method, run] = {k: v.cpu() for k, v in m.state_dict().items()}
+        if method == "gptq":     # each projection's, on the card, float64
+            objectives[run] = {n: objective(torch, w.cuda(), h.cuda(),
+                                            q.dequantize().cuda())
+                               for call in rec.calls
+                               for n, (w, h, q) in call.items()}
+            if run != "cuda_eager":
+                calls[run] = rec.calls
+        del m, rec
+    del state
+    torch.cuda.empty_cache()
+    ts = time.perf_counter()
+    witness = sweep_witness(torch, calls["cpu"])
+    seconds["witness"] = time.perf_counter() - ts
+    hess_gap = {}
+    for card, cpu in zip(calls["cuda"], calls["cpu"]):
+        hc, hp = (next(iter(c.values()))[1].cpu() for c in (card, cpu))
+        hess_gap["/".join(cpu)] = ((hc - hp).abs().max()
+                                   / hp.abs().max()).item()
+    del calls
+    torch.cuda.empty_cache()
+    failed = []
+    card, cpu = models["rtn", "cuda"], models["rtn", "cpu"]
+    if any(not torch.equal(card[k], cpu[k]) for k in cpu):
+        failed.append("RTN buffers differ card against CPU")
+    graphed, eager = models["gptq", "cuda"], models["gptq", "cuda_eager"]
+    if any(not torch.equal(graphed[k], eager[k]) for k in eager):
+        failed.append("the graphed sweep differs from the eager one")
+    if any(v for r in witness["same"].values() for v in r.values()):
+        failed.append("the card's sweep on the CPU's Hessians differs from "
+                      "the CPU's")
+    card, cpu = models["gptq", "cuda"], models["gptq", "cpu"]
+    codes = {}
+    for k in cpu:
+        if k.endswith("qweight"):
+            d = (packing.unpack_k(card[k], 4).long()
+                 - packing.unpack_k(cpu[k], 4).long()).abs()
+            codes[k.split(".")[2].split("_")[0]] = {
+                "equal_share": (d == 0).float().mean().item(),
+                "one_step": int((d == 1).sum()),
+                "more": int((d > 1).sum()), "max_step": int(d.max())}
+    total = {r: sum(o.values()) for r, o in objectives.items()}
+    gap = abs(total["cuda"] - total["cpu"]) / total["cpu"]
+    if gap > QUANT_REF_OBJECTIVE:
+        failed.append(f"layer objective {gap} from the CPU's > "
+                      f"{QUANT_REF_OBJECTIVE}")
+    emit({"phase": "reference_quantize", "layers": 1,
+          "rtn_buffers_equal": "RTN buffers differ" not in str(failed),
+          "graphed_equals_eager": "graphed" not in str(failed),
+          "witness_same_hessian": witness["same"],
+          "witness_f32_hessian": witness["f32_hessian"],
+          "witness_f32_u": witness["f32_u"],
+          "hessian_rel_gap": hess_gap,
+          "gptq_codes": codes, "objective": objectives,
+          "layer_objective": total, "objective_rel_gap": gap,
+          "objective_tol": QUANT_REF_OBJECTIVE, "seconds": seconds,
+          "wall_s": time.perf_counter() - t0, "failed": failed})
+    if failed:
+        raise AssertionError(f"reference_quantize: {failed}")
+
+
+def check_quantize_mixtral(torch):
+    """quantize_mixtral: one layer at Mixtral-8x7B-v0.1's widths, GPTQ
+    with routed calibration on the card. Expert ZERO_EXPERT is kept out of
+    every top-2: every embedding holds ZERO_CHANNEL_VALUE in channel 0,
+    which q / k / v do not read and o does not write, so every token's
+    normalized MLP input is positive there; the router's column 0 is 0
+    but for that expert's -10, the lowest logit for every token by far.
+    It, and any other expert the quantizer's warnings name, must be RTN's
+    bit for bit; every expert with traffic not worse than RTN on its own
+    Hessian; the quantized layer's output finite."""
+    import logging
+    import numpy as np
+    from bitblas_tpu_torch.common import get_logger
+    from bitblas_tpu_torch.models.hf_import import QuantLlamaLM
+    from bitblas_tpu_torch.models.quantize_hf import (
+        quantize_mixtral_from_hf_fp16)
+    from bitblas_tpu_torch.quantization.gptq import rtn_quantize
+    hf = dict(MIXTRAL_8X7B_HF, num_hidden_layers=1)
+    state = float_llama_state(torch, hf, seed=75, experts=True)
+    state["model.embed_tokens.weight"][:, 0] = ZERO_CHANNEL_VALUE
+    for p in ("q", "k", "v"):
+        state[f"model.layers.0.self_attn.{p}_proj.weight"][:, 0] = 0.0
+    state["model.layers.0.self_attn.o_proj.weight"][0] = 0.0
+    router = state["model.layers.0.block_sparse_moe.gate.weight"]
+    router[:, 0] = 0.0
+    router[ZERO_EXPERT, 0] = -10.0
+    calib = _calib_tokens(hf["vocab_size"], 76)
+    warned = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda r: warned.append(r.getMessage())
+    get_logger().addHandler(handler)
+    try:
+        with QuantRecorder() as rec:
+            model, head = quantize_mixtral_from_hf_fp16(
+                state, hf, method="gptq", calib_tokens=calib, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        get_logger().removeHandler(handler)
+    seconds = time.perf_counter() - rec.t0
+    idle = sorted({int(m.split("expert ")[1].split()[0]) for m in warned})
+    if ZERO_EXPERT not in idle or len(warned) != 2 * len(idle):
+        raise AssertionError(f"quantize_mixtral: warnings {warned}")
+    moe = model.layers[0].moe
+    for e in idle:
+        for hfn, name in (("w1", "gate"), ("w3", "up"), ("w2", "down")):
+            w = state[f"model.layers.0.block_sparse_moe.experts.{e}."
+                      f"{hfn}.weight"].float()
+            qw = rtn_quantize(w, 4, 128)
+            packed = moe.ops[name].transform_weight(
+                qw.codes.to(torch.int8), scale=qw.scales.half(),
+                zeros=qw.zeros.half())
+            if not all(torch.equal(a, b) for a, b in
+                       zip(moe.expert(name, e), packed)):
+                raise AssertionError(f"quantize_mixtral: expert {e} {name} "
+                                     f"(no traffic) is not RTN's")
+    experts = [c for c in rec.calls if set(c) <= {"gate", "up", "down"}]
+    objectives = hold_to_rtn(torch, experts, "quantize_mixtral")
+    toks = np.random.default_rng(77).integers(0, hf["vocab_size"], (1, 64))
+    logits = QuantLlamaLM(model, head)(torch.from_numpy(toks))
+    if not torch.isfinite(logits).all():
+        raise AssertionError("quantize_mixtral: non-finite logits")
+    emit({"phase": "quantize_mixtral", "layers": 1, "experts": 8,
+          "calib_tokens": list(QUANT_CALIB), "seconds": seconds,
+          "zero_traffic_expert": ZERO_EXPERT, "experts_without_traffic":
+          idle, "without_traffic": "RTN bit-equal",
+          "expert_objectives": objectives,
+          "worst_ratio": max(o["ratio"] for o in objectives.values()),
+          "logits_absmax": logits.abs().max().item()})
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def generate_logits(torch, lm, tokens, S: int):
+    """The logits `QuantLlamaLM.generate` decides each new token of
+    `tokens` [S + n] by (the prefill's last row, then one decode_step a
+    token over the float16 slot cache `_CachedLM` fills as generate does),
+    teacher-forced: [n, V] float32 on the CPU."""
+    from bitblas_tpu_torch.models.speculative import _CachedLM
+    model, head = lm.model, lm.head
+    dev = model.device
+    n = len(tokens) - S
+    hidden, _, _ = model.make_prefill(S)(head.embed_tokens(tokens[:S])[None],
+                                         torch.arange(S, device=dev)[None])
+    rows = [head.logits(hidden[:, -1:])[0, -1]]
+    cache = _CachedLM(lm, list(tokens[:S]), S + n)
+    ck, cv = cache.ck, cache.cv
+    for i in range(n - 1):
+        lengths = torch.tensor([S + i], dtype=torch.int32, device=dev)
+        hidden, ck, cv = model.decode_step(
+            head.embed_tokens([[int(tokens[S + i])]]), ck, cv, cache.slots,
+            lengths)
+        rows.append(head.logits(hidden)[0, -1])
+    return torch.stack(rows).float().cpu()
+
+
+def speculative_phase(torch, counters, lm, draft_b, gen_prompt_seed=78):
+    """speculative: the 32-layer GPTQ target, draft (a) the target itself,
+    draft (b) the RTN model of the same float weights. `generate`'s greedy
+    tokens (timed) are the reference, and the logits it decided them by
+    (`generate_logits`) give each position's top-2 margin: speculation's
+    tokens must equal the reference up to the first difference, which
+    must fall where the margin is under SPEC_FLIP_MARGIN (as must every
+    proposal draft (a) loses), with at least SPEC_MIN_DECIDED tokens above
+    the limit compared. The card's reading: the change of that top-2 gap
+    between `generate`'s logits and decode_chunk's at M = gamma + 1 (the
+    verify's path), under the limit. Cached speculation at gamma =
+    SPEC_GAMMA (timed): draft (a) over SPEC_NEW tokens, draft (b) over
+    SPEC_NEW_RTN; uncached with draft (a) over SPEC_NEW_UNCACHED; a
+    sampled run (draft a) twice. The row is emitted before any check
+    fails. Returns the launch counts of the whole phase."""
+    import numpy as np
+    from bitblas_tpu_torch.models import speculative as spec
+    V = lm.model.cfg.vocab_size
+    prompt = np.random.default_rng(gen_prompt_seed).integers(
+        0, V, SPEC_PROMPT).astype(np.int32)
+    u4 = next(c for c in counters if c.__name__ == "dequant_matmul_u4")
+    for c in counters:
+        c.launches = 0
+    u4.decode_launches = u4.tiled_launches = 0
+    failed = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    S = SPEC_PROMPT
+    ref, gen_s = timed(lambda: lm.generate(prompt, SPEC_NEW))
+    logits = generate_logits(torch, lm, ref, S)
+    top = logits.topk(2, dim=-1)
+    if not torch.equal(top.indices[:, 0], torch.from_numpy(ref[S:]).long()):
+        failed.append("generate_logits' argmax is not generate's stream")
+    margin = top.values[:, 0] - top.values[:, 1]
+    # decode_chunk over the reference, gamma + 1 tokens a call as a verify
+    cached = spec._CachedLM(lm, list(ref[:S]), S + SPEC_NEW)
+    rows = []
+    for p0 in range(S - 1, S + SPEC_NEW - 1, SPEC_GAMMA + 1):
+        seq = list(ref[:min(p0 + SPEC_GAMMA + 1, S + SPEC_NEW - 1)])
+        rows.append(cached.logits_after(seq, len(seq) - p0))
+    del cached
+    chunk = torch.from_numpy(np.concatenate(rows))
+    a, b = top.indices[:, :1], top.indices[:, 1:]
+    reading = ((chunk.gather(1, a) - chunk.gather(1, b))
+               - (logits.gather(1, a) - logits.gather(1, b))).abs().max()
+    reading = reading.item()
+    if not reading < SPEC_FLIP_MARGIN:
+        failed.append(f"the card's top-2 gap change {reading} is not under "
+                      f"{SPEC_FLIP_MARGIN}")
+
+    def held(tag, out, new):
+        """out's new tokens against generate's: equal up to the first
+        difference, which must fall where the margin is under the limit;
+        the number of tokens compared before it whose margin exceeds the
+        limit."""
+        diff = np.flatnonzero(out[S:S + new] != ref[S:S + new])
+        first = int(diff[0]) if diff.size else new
+        if first < new and margin[first] > SPEC_FLIP_MARGIN:
+            failed.append(f"{tag}: token {first} differs from generate's at "
+                          f"a margin of {margin[first].item()}")
+        return first, int((margin[:first] > SPEC_FLIP_MARGIN).sum())
+
+    runs = {}
+    for tag, draft, new in (("a_self", lm, SPEC_NEW),
+                            ("b_rtn", draft_b, SPEC_NEW_RTN),
+                            ("uncached_a_self", lm, SPEC_NEW_UNCACHED)):
+        fn = (spec.speculative_generate if tag.startswith("uncached")
+              else spec.speculative_generate_cached)
+        (out, st), sec = timed(lambda: fn(lm, draft, prompt, new,
+                                          gamma=SPEC_GAMMA,
+                                          return_stats=True))
+        first, decided = held(tag, out, new)
+        # where draft (a), the target itself, lost a proposal: the margin
+        # there must be under the limit too
+        done, rejected = 0, []
+        for r in st.rounds if draft is lm else ():
+            if r < min(SPEC_GAMMA + 1, new - done):
+                rejected.append(done + r - 1)
+            done += r
+        if any(margin[i] > SPEC_FLIP_MARGIN for i in rejected):
+            failed.append(f"{tag}: the target rejected its own proposal "
+                          f"where the margin exceeds the limit: {rejected}")
+        runs[tag] = {"tokens_s": new / sec, "seconds": sec,
+                     "new_tokens": new,
+                     "acceptance_rate": st.acceptance_rate,
+                     "target_calls": st.target_calls,
+                     "draft_calls": st.draft_calls, "rounds": st.rounds,
+                     "first_difference": first, "decided_compared": decided,
+                     "rejected_at": rejected}
+    if runs["a_self"]["decided_compared"] < SPEC_MIN_DECIDED:
+        failed.append(f"{runs['a_self']['decided_compared']} decided tokens "
+                      f"compared < {SPEC_MIN_DECIDED}")
+    sampled = [spec.speculative_generate_cached(
+        lm, lm, prompt, 32, gamma=SPEC_GAMMA, temperature=0.8, seed=11)
+        for _ in range(2)]
+    if not np.array_equal(*sampled):
+        failed.append("a seeded sampled run did not repeat")
+    launches = {c.__name__: c.launches for c in counters}
+    launches[DECODE["uint4"]] = u4.decode_launches
+    launches[TILED["uint4"]] = u4.tiled_launches
+    for k in ("flash_attention_fwd", "flash_decode", DECODE["uint4"]):
+        if launches[k] <= 0:
+            failed.append(f"{k} was not launched")
+    emit({"phase": "speculative", "prompt": S, "new_tokens": SPEC_NEW,
+          "gamma": SPEC_GAMMA, "generate_tokens_s": SPEC_NEW / gen_s,
+          "generate_seconds": gen_s, "flip_margin": SPEC_FLIP_MARGIN,
+          "top2_gap_reading": reading,
+          "max_logit_gap": (chunk - logits).abs().max().item(),
+          "logits_absmax": logits.abs().max().item(),
+          "margins": [round(m, 4) for m in margin.tolist()],
+          **runs, "sampled_repeated": bool(np.array_equal(*sampled)),
+          "launches": launches, "failed": failed})
+    if failed:
+        raise AssertionError(f"speculative: {failed}")
+    return launches
+
+
+def check_bitnet_train(torch):
+    """bitnet_train: bitlinear_train_forward at N x K = 14336 x 4096, 256
+    rows, forward and backward on the card (autograd through the STE)
+    against the CPU's float64 truth on the card's fake-quantized operands:
+    the output and both gradients within 1e-5 of their largest value; the
+    card's fake-quantized weight against the CPU's."""
+    from bitblas_tpu_torch.models.bitnet import (activation_quant,
+                                                 bitlinear_train_forward,
+                                                 weight_quant)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(79)
+    M, N, K = 256, 14336, 4096
+    x = torch.randn((M, K), generator=gen, device="cuda").requires_grad_()
+    w = torch.randn((N, K), generator=gen, device="cuda").requires_grad_()
+    out = bitlinear_train_forward(x, w)
+    (out ** 2).sum().backward()
+    xq = activation_quant(x.detach()).cpu().double()
+    wq = weight_quant(w.detach()).cpu().double()
+    o64 = xq @ wq.T
+    go = 2.0 * o64
+    truth = {"out": o64, "grad_w": go.T @ xq, "grad_x": go @ wq}
+    got = {"out": out.detach(), "grad_w": w.grad, "grad_x": x.grad}
+    errs = {}
+    for k, t in truth.items():
+        errs[k] = ((got[k].cpu().double() - t).abs().max()
+                   / t.abs().max()).item()
+        if not errs[k] <= 1e-5:
+            raise AssertionError(f"bitnet_train {k}: {errs[k]} of the "
+                                 f"largest > 1e-5")
+    wq_gap = (weight_quant(w.detach().cpu()).double() - wq).abs().max()
+
+    def step():
+        w.grad = x.grad = None
+        (bitlinear_train_forward(x, w) ** 2).sum().backward()
+
+    emit({"phase": "bitnet_train", "M": M, "N": N, "K": K,
+          "rel_err": errs, "tol": 1e-5,
+          "weight_quant_card_vs_cpu_max": wq_gap.item(),
+          "fwd_bwd_ms": time_ms(torch, step, 10, flush=False)})
+
+
+def model_tools_phases(torch, counters):
+    """The model tools' phases (`--quantize`, and the full run): returns
+    (the launches of serve_quantized and speculative, {phase: seconds})."""
+    import numpy as np
+    laps, t = {}, time.perf_counter()
+    model, head, rtn, rtn_head, quant_s = quantize_llama(torch)
+    laps["quantize_llama"] = time.perf_counter() - t
+    rng = np.random.default_rng(0)
+    V = model.cfg.vocab_size
+    ctx = {"cfg": model.cfg, "model": model, "head": head,
+           "prompts": [rng.integers(0, V, n).astype(np.int32)
+                       for n in (200, 300, 450, 500)],
+           "pair": [], "init_s": quant_s, "weight_bytes": _packed_bytes(model),
+           "name": "Llama-2-7B widths, GPTQ uint4 g128 quantized on the card"}
+    t = time.perf_counter()
+    routes = RouteRecorder()
+    with routes:
+        row = serve(torch, ctx, counters, *QUANT_PHASE, routes=routes)
+    launches = dict(row["launches"])
+    laps["serve_quantized"] = time.perf_counter() - t
+    t = time.perf_counter()
+    from bitblas_tpu_torch.models.hf_import import QuantLlamaLM
+    spec = speculative_phase(torch, counters, QuantLlamaLM(model, head),
+                             QuantLlamaLM(rtn, rtn_head))
+    for k, n in spec.items():
+        launches[k] = launches.get(k, 0) + n
+    laps["speculative"] = time.perf_counter() - t
+    del ctx, model, head, rtn, rtn_head
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    check_quantize_mixtral(torch)
+    laps["quantize_mixtral"] = time.perf_counter() - t
+    t = time.perf_counter()
+    check_reference_quantize(torch)
+    laps["reference_quantize"] = time.perf_counter() - t
+    t = time.perf_counter()
+    check_bitnet_train(torch)
+    laps["bitnet_train"] = time.perf_counter() - t
+    return launches, laps
+
+
+# the GPTQ model quantized on the card, served as `serve`
+QUANT_PHASE = ("serve_quantized", "token", {}, LLAMA + ("flash_decode",))
+
+
 # -- the formats phase: kernels 1 and 2 for every other weight format with
 # float16 / bfloat16 activations, through module.Linear and QuantLinear --
 
@@ -4785,6 +5563,32 @@ def flashatten_counts(fa_rows, fa_launches):
         e[0][len(prefix):], 0)} for e in flash_summary(fa_rows)}
 
 
+def pick(rows, **where):
+    """The first row whose fields hold the given values."""
+    return next(r for r in rows if all(r[k] == v for k, v in where.items()))
+
+
+def llama_entries(dq, wd_u4, fa, fd):
+    """The kernels line's entries of the uint4 Llama path (kernel 1's
+    decode and tiled uint4 instances, kernel 2, kernels 4 and 5), each
+    with its rows of the kernels phase: `--quantize`'s line, and the first
+    entries of the full run's."""
+    return [
+        ("dequant_matmul_u4", "dequant_matmul.cu", "dequant_matmul.py:231",
+         [r for r in dq if r["M"] <= 16], pick(dq, M=4, N=11008, K=4096),
+         "M=4 N=11008 K=4096"),
+        (TILED["uint4"], "dequant_wgmma.cuh", "dequant_matmul.py:231",
+         [r for r in dq if r["M"] > 16], pick(dq, M=256, N=11008, K=4096),
+         "M=256 N=11008 K=4096 uint4 x f16, 64 x 128 tile"),
+        ("weight_decode_u4", "weight_decode.cu", "materialize.py:227",
+         wd_u4, pick(wd_u4, N=11008, K=4096), "N=11008 K=4096 uint4 -> f16"),
+        ("flash_attention_fwd", "flash_attention.cu", "flash.py:106",
+         fa, pick(fa, S=512, Hkv=32), "B=1 H=32 S=512 D=128 causal"),
+        ("flash_decode", "flash_decode.cu", "flash.py:456", fd,
+         pick(fd, Hkv=32), "B=4 H=32 Smax=1024 lengths 1/37/513/1024"),
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -4818,7 +5622,7 @@ def main() -> int:
     if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"],
                     ["--formats"], ["--int-formats"], ["--mistral"],
                     ["--bitnet-3b"], ["--bitnet-3b-readings"],
-                    ["--mixtral"]):
+                    ["--mixtral"], ["--quantize"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -4882,6 +5686,20 @@ def main() -> int:
         entries, counts = mixtral_entries(k1, k2, row["shapes"])
         emit({"kernels": [kernel_entry(*e, counts) for e in entries]})
         return 0
+    if mode == ["--quantize"]:
+        rows = (check_dequant(torch, flush), check_weight_decode(torch,
+                                                                 flush)[0],
+                check_flash_attention(torch, flush),
+                check_flash_decode(torch, flush))
+        tools, laps = model_tools_phases(torch, counters)
+        emit({"phase": "seconds", **laps})
+        emit({"kernels": [kernel_entry(*e, tools)
+                          for e in llama_entries(*rows)]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if mode == ["--bitnet-3b"]:
         fa_rows, fa_launches = check_flashatten(torch, flush)
         row = bitnet_3b_phases(torch, counters)
@@ -4908,6 +5726,10 @@ def main() -> int:
                                      qdtype=torch.bfloat16)
     mix_k1, mix_k2 = check_dequant_mixtral(torch, flush)
     lap("kernels")
+    # the model tools' phases (their launches join the serve phases')
+    tools, tool_laps = model_tools_phases(torch, counters)
+    laps.update(tool_laps)
+    last[0] = time.perf_counter()
     route_table(torch, flush)
     dense = check_dense(torch, flush)
     check_edges(torch)
@@ -4991,6 +5813,8 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     lap("serve_mixtral")
+    for name, n in tools.items():
+        launches[name] = launches.get(name, 0) + n
     # the bfloat16 model's kernel 1 / 2 launches, under the names of the
     # formats phase's rows for uint4 x bfloat16 (added to its counts)
     for kind in ("decode", "tiled"):
@@ -5030,35 +5854,21 @@ def main() -> int:
     lap("serve_bitnet_tune")
     emit({"phase": "seconds", **laps})
 
-    def pick(rows, **where):
-        return next(r for r in rows
-                    if all(r[k] == v for k, v in where.items()))
-
     lens = "lengths 1/37/513/1024"
-    dq_decode = [r for r in dq if r["M"] <= 16]
     di2_decode = [r for r in di2 if r["M"] <= 16]
+    # the Llama path's kernels (kernel 1's uint4 decode and tiled
+    # instances, launched by one wrapper and counted apart, kernel 2,
+    # kernels 4 and 5), then the rest
     summary = [
-        ("dequant_matmul_u4", "dequant_matmul.cu", "dequant_matmul.py:231",
-         dq_decode, pick(dq, M=4, N=11008, K=4096), "M=4 N=11008 K=4096"),
-        # kernel 1's wgmma + TMA tiled instances, launched by the same two
-        # wrappers, counted apart (tiled_launches)
-        (TILED["uint4"], "dequant_wgmma.cuh", "dequant_matmul.py:231",
-         [r for r in dq if r["M"] > 16], pick(dq, M=256, N=11008, K=4096),
-         "M=256 N=11008 K=4096 uint4 x f16, 64 x 128 tile"),
+        *llama_entries(dq, wd_u4, fa, fd),
         ("dequant_matmul_i2", "dequant_matmul_i2.cu",
          "dequant_matmul.py:231", di2_decode,
          pick(di2, M=4, N=14336, K=4096), "M=4 N=14336 K=4096 int2 x int8"),
         (TILED["int2"], "dequant_wgmma.cuh", "dequant_matmul.py:231",
          [r for r in di2 if r["M"] > 16], pick(di2, M=256, N=14336, K=4096),
          "M=256 N=14336 K=4096 int2 x int8, 64 x 128 tile"),
-        ("weight_decode_u4", "weight_decode.cu", "materialize.py:227",
-         wd_u4, pick(wd_u4, N=11008, K=4096), "N=11008 K=4096 uint4 -> f16"),
         ("weight_decode_int8", "weight_decode_int8.cu", "materialize.py:398",
          wd_i8, pick(wd_i8, N=14336, K=4096), "N=14336 K=4096 int2 -> int8"),
-        ("flash_attention_fwd", "flash_attention.cu", "flash.py:106",
-         fa, pick(fa, S=512, Hkv=32), "B=1 H=32 S=512 D=128 causal"),
-        ("flash_decode", "flash_decode.cu", "flash.py:456",
-         fd, pick(fd, Hkv=32), f"B=4 H=32 Smax=1024 {lens}"),
         ("flash_decode_quant", "flash_decode_quant.cu", "flash.py:648",
          [fq], fq, f"B=4 H=32 Smax=1024 int8 {lens}"),
         ("flash_decode_paged", "flash_decode_paged.cu", "flash.py:874",
