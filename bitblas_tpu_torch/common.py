@@ -23,6 +23,8 @@ import sys
 
 import torch
 
+__version__ = "0.1.0"
+
 DATABASE_PATH_ENV = "BITBLAS_TPU_TORCH_CACHE_PATH"
 
 

@@ -92,7 +92,7 @@ def dense_matmul_plain(A: torch.Tensor, W: torch.Tensor,
     for int8 (float32 while provably exact, else float64), then the
     cast."""
     if A.dtype == torch.float32:
-        with _full_f32():
+        with full_f32():
             return matmul_dense_reference(A, W, out_dtype)
     return matmul_dense_reference(A, W, out_dtype)
 
@@ -170,15 +170,19 @@ def make_dense_matmul_pallas(spec: KernelSpec, hint: TileHint):
 
 
 @contextlib.contextmanager
-def _full_f32():
-    """cuBLAS float32 products without TF32 for the block, whatever the
-    process set; the setting is restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+def full_f32():
+    """cuBLAS float32 products and cuDNN float32 convolutions without TF32
+    for the block, whatever the process set; the settings are restored
+    after."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def dense_product(A: torch.Tensor, W_nk: torch.Tensor,
@@ -195,7 +199,7 @@ def dense_product(A: torch.Tensor, W_nk: torch.Tensor,
         out = torch._int_mm(A, W_nk.T)[:M]
         return numerics.saturate_cast(out, out_dtype)
     if A.dtype == torch.float32 and precision == "highest":
-        with _full_f32():
+        with full_f32():
             out = torch.matmul(A, W_nk.T)
     else:
         out = torch.matmul(A, W_nk.T)

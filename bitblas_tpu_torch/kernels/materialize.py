@@ -272,6 +272,24 @@ weight_decode_int8.launches = 0
 weight_decode_int8.variant_launches = {}
 
 
+def decode_weight(spec: KernelSpec, qweight: torch.Tensor, scales=None,
+                  zeros=None) -> torch.Tensor:
+    """The plan's first pass, the dense [N, K] weight: int8 codes (kernel
+    3) for integer activations, else the weight in A's type (kernel 2:
+    `weight_decode_u4` for GPTQ's uint4 x float16, `weight_decode_fmt` for
+    every other format)."""
+    if not supports_materialize_spec(spec):
+        raise ValueError(f"materialize plan unsupported for {spec}")
+    if spec.is_int_activation:
+        return weight_decode_int8(qweight, spec.bits, spec.family)
+    mode = "rescale" if spec.zeros_mode == "rescale" else "original"
+    if spec_format(spec) in FMT_FORMATS:
+        return weight_decode_fmt(qweight, spec.w_dtype, spec.a_dtype,
+                                 scales, zeros, spec.group_size, mode)
+    return weight_decode_u4(qweight, scales, zeros, group=spec.group_size,
+                            zeros_mode=mode)
+
+
 def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
                        qweight: torch.Tensor, scales=None,
                        zeros=None, bias=None) -> torch.Tensor:
@@ -282,29 +300,20 @@ def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
     and every other format with float activations (the weight in A's type;
     out in A's type or float32); a float32 bias added to the product
     before the cast, which saturates for an int8 output."""
-    if not supports_materialize_spec(spec):
-        raise ValueError(f"materialize plan unsupported for {spec}")
     out_dtype = as_torch_dtype(spec.out_dtype)
-    mode = "rescale" if spec.zeros_mode == "rescale" else "original"
     precision = "default"
+    W = decode_weight(spec, qweight, scales, zeros)
     if spec.is_int_activation:
-        out = dense_product(A, weight_decode_int8(qweight, spec.bits,
-                                                  spec.family), torch.int32)
+        out = dense_product(A, W, torch.int32)
         if scales is not None:   # per channel: [1, N]
             out = out.float() * scales.reshape(1, -1).float()
         if bias is not None:
             out = out.float() + bias.reshape(1, -1).float()
         return numerics.saturate_cast(out, out_dtype)
-    if spec_format(spec) in FMT_FORMATS:
-        W = weight_decode_fmt(qweight, spec.w_dtype, spec.a_dtype, scales,
-                              zeros, spec.group_size, mode)
-        if out_dtype == torch.float32:
-            # a float16 / bfloat16 product would round its sums to A's
-            # type first: the float32 product of the float32 copies
-            A, W, precision = A.float(), W.float(), "highest"
-    else:
-        W = weight_decode_u4(qweight, scales, zeros, group=spec.group_size,
-                             zeros_mode=mode)
+    if out_dtype == torch.float32 and W.dtype != torch.float32:
+        # a float16 / bfloat16 product would round its sums to A's type
+        # first: the float32 product of the float32 copies
+        A, W, precision = A.float(), W.float(), "highest"
     if bias is None:
         return dense_product(A, W, out_dtype, precision)
     out = dense_product(A, W, torch.float32, precision) \

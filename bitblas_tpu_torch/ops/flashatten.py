@@ -30,6 +30,7 @@ from ..quantization.formats import as_torch_dtype
 from ..tuner import FlashHint, auto_detect_target, get_arch
 from ..utils.timing import measure_kernel
 from .matmul_config import OperatorConfig
+from .operator import BaseKernelNameGenerator
 
 logger = get_logger()
 
@@ -71,15 +72,10 @@ class FlashAttenConfig(OperatorConfig):
                              f"{self.layout!r}")
 
 
-class FlashAttenKernelNameGenerator:
+class FlashAttenKernelNameGenerator(BaseKernelNameGenerator):
     """Kernel naming for logs and cache keys (the JAX generator's names)."""
 
     KERNEL_PREFIX = "flashatten"
-
-    def __init__(self, config: FlashAttenConfig):
-        if not self.is_valid_config(config):
-            raise ValueError(f"not a FlashAttenConfig: {config!r}")
-        self.config = config
 
     def is_valid_config(self, config) -> bool:
         return isinstance(config, FlashAttenConfig)

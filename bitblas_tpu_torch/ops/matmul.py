@@ -49,8 +49,52 @@ from ..kernels.spec import KernelSpec
 from ..quantization.formats import as_torch_dtype
 from ..tuner.hint import TileHint
 from .matmul_config import MatmulConfig
-from .operator import Operator
+from .operator import BaseKernelNameGenerator, Operator
 from . import weight_transform as wt
+
+
+class MatmulKernelNameGenerator(BaseKernelNameGenerator):
+    """Readable kernel names for logs and cache keys: JAX's
+    ``matmul_m16n512k512_f16xu4_`` prefix, then the port's tile: ``t``,
+    the hint's block_m x block_n x block_k (and stages), its plan
+    ("fused", "dense"; "t_materialize" for the two-pass plan)."""
+
+    KERNEL_PREFIX = "matmul"
+
+    SHORT = {"float32": "f32", "float16": "f16", "bfloat16": "bf16"}
+
+    @classmethod
+    def simplify_dtype(cls, dtype: str) -> str:
+        if dtype in cls.SHORT:
+            return cls.SHORT[dtype]
+        if dtype.startswith("int"):
+            return f"i{dtype[3:]}"
+        if dtype.startswith("uint"):
+            return f"u{dtype[4:]}"
+        return dtype
+
+    def is_valid_config(self, config) -> bool:
+        return isinstance(config, MatmulConfig)
+
+    @staticmethod
+    def tile_name(hint: TileHint) -> str:
+        if hint.decode_mode == "materialize":
+            return "t_materialize"
+        s = f"t{hint.block_m}x{hint.block_n}x{hint.block_k}"
+        if hint.decode_mode == "fused":
+            s += f"s{hint.stages}"
+        s += f"_{hint.decode_mode}"
+        return s if hint.precision == "default" else f"{s}_{hint.precision}"
+
+    def generate(self, hint=None) -> str:
+        c = self.config
+        shape = f"n{c.N}k{c.K}"
+        if isinstance(c.M, int):
+            shape = f"m{c.M}" + shape
+        precision = (f"{self.simplify_dtype(c.A_dtype)}"
+                     f"x{self.simplify_dtype(c.W_dtype)}")
+        return "_".join([self.KERNEL_PREFIX, shape, precision,
+                         self.tile_name(hint) if hint else "default"])
 
 
 def _to_tensor(x) -> torch.Tensor:
@@ -76,6 +120,7 @@ class Matmul(Operator):
                  from_database: bool = False):
         self._spec = KernelSpec.from_config(config, config.m_buckets[0])
         super().__init__(name, config, device)
+        self.kernel_name_generator = MatmulKernelNameGenerator(config)
         if not from_database:
             self._build_default_module()
             if enable_tuning:
@@ -171,6 +216,11 @@ class Matmul(Operator):
                 self.device)))
         return result[0] if len(result) == 1 else result
 
+    def transform_input(self, A):
+        """The identity: no activation is permuted at run time (JAX's
+        parity stub for the reference API)."""
+        return A
+
     # -- forward ------------------------------------------------------------
     def _run(self, hint: TileHint, A: torch.Tensor, W: torch.Tensor,
              scale=None, zeros=None, bias=None) -> torch.Tensor:
@@ -226,6 +276,25 @@ class Matmul(Operator):
 
     def __call__(self, *args, **kwargs):
         return self.forward(*args, **kwargs)
+
+    # -- the configuration's fields (JAX's accessors) -----------------------
+    M = property(lambda self: self.config.M)
+    N = property(lambda self: self.config.N)
+    K = property(lambda self: self.config.K)
+    A_dtype = property(lambda self: self.config.A_dtype)
+    W_dtype = property(lambda self: self.config.W_dtype)
+    out_dtype = property(lambda self: self.config.out_dtype)
+    accum_dtype = property(lambda self: self.config.accum_dtype)
+    storage_dtype = property(lambda self: self.config.storage_dtype)
+    with_scaling = property(lambda self: self.config.with_scaling)
+    with_zeros = property(lambda self: self.config.with_zeros)
+    group_size = property(lambda self: self.config.effective_group_size)
+    fast_decoding = property(lambda self: self.config.fast_decoding)
+    with_bias = property(lambda self: self.config.with_bias)
+    zeros_mode = property(lambda self: self.config.zeros_mode)
+    source_format = property(lambda self: self.config.source_format)
+    bit = property(lambda self: self.config.bit)
+    layout = property(lambda self: self.config.layout)
 
 
 def _random(shape, dtype: torch.dtype, gen: torch.Generator,

@@ -38,6 +38,25 @@ logger = get_logger()
 _DEFAULTS_KEPT = 4096
 
 
+class BaseKernelNameGenerator:
+    """Kernel names for logs and cache keys (JAX's generator interface):
+    `generate(hint)` names the configuration and the hint's plan."""
+
+    KERNEL_PREFIX = "kernel"
+
+    def __init__(self, config: OperatorConfig):
+        if not self.is_valid_config(config):
+            raise ValueError(f"{type(self).__name__} does not name "
+                             f"{config!r}")
+        self.config = config
+
+    def is_valid_config(self, config: OperatorConfig) -> bool:
+        raise NotImplementedError
+
+    def generate(self, hint=None) -> str:
+        raise NotImplementedError
+
+
 class Operator:
     """Holds one hint per dynamic-M bucket."""
 
@@ -139,6 +158,14 @@ class Operator:
             if len(self._defaults) < _DEFAULTS_KEPT:
                 self._defaults[m] = hint
         return hint
+
+    def kernel_for(self, m: int, jitted: bool = True) -> Callable:
+        """fn(*args) launching what a call with M = m launches: the plan
+        and tile of `hint_for(m)`, its bucket's hint where one is
+        installed. There is nothing compiled to hold (the kernels are
+        built once a process), so `jitted` changes nothing."""
+        del jitted
+        return self._build_kernel(self._make_spec(m), self.hint_for(m))
 
     @property
     def hints(self) -> Dict[int, TileHint]:

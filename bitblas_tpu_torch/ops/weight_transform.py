@@ -37,6 +37,19 @@ class DeviceWeights:
     zeros: Optional[torch.Tensor] = None   # [K/g, N] A's type
     bias: Optional[torch.Tensor] = None    # [1, N] float32
 
+    def args(self):
+        """The operands a forward takes after A, those present, in order."""
+        return [t for t in (self.qweight, self.scales, self.zeros, self.bias)
+                if t is not None]
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A tensor of `x` (a tensor, numpy array or nested list), moved to
+    `device` where one is given."""
+    t = x if isinstance(x, torch.Tensor) else \
+        torch.as_tensor(np.ascontiguousarray(x))
+    return t if device is None else t.to(device)
+
 
 def scale_dtype(config: MatmulConfig) -> torch.dtype:
     """The type of the device scales and zeros: A's (float16 or bfloat16;

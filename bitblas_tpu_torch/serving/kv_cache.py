@@ -450,6 +450,12 @@ class BlockAllocator:
     def alloc(self) -> Optional[int]:
         return self.free.pop() if self.free else None
 
+    def alloc_many(self, n: int) -> Optional[list]:
+        """n blocks, or None (and none taken) when fewer are free."""
+        if len(self.free) < n:
+            return None
+        return [self.free.pop() for _ in range(n)]
+
     def release(self, blocks) -> None:
         self.free.extend(int(b) for b in blocks)
 

@@ -2,7 +2,8 @@
 
 `random_reference_operands` draws from numpy with the same generator calls
 as the JAX package, so both packages get identical reference-layout
-inputs from one seed. `assert_close` bounds the share of elements outside
+inputs from one seed. `main()` runs the calling test file under pytest.
+`assert_close` bounds the share of elements outside
 the tolerance, as the JAX helper does; `out_ulps` measures a kernel's
 distance from its plain version in ulps of the output type, and
 `attention_err` an attention output's, element by element, with a floor
@@ -11,7 +12,9 @@ per output row.
 
 from __future__ import annotations
 
+import inspect
 import math
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
@@ -20,6 +23,13 @@ import torch
 
 from ..ops.matmul_config import MatmulConfig
 from ..quantization import packing
+
+
+def main():
+    """Run the calling test file under pytest and exit with its code."""
+    import pytest
+    caller = inspect.getframeinfo(sys._getframe(1)).filename
+    sys.exit(pytest.main([caller]))
 
 
 def _numpy(x) -> np.ndarray:

@@ -8,6 +8,9 @@
                                               # serve_bitnet_tuned, in turns
     python3 chip_smoke.py --formats           # only the formats phase
     python3 chip_smoke.py --int-formats       # only the int_formats phase
+    python3 chip_smoke.py --ops               # only the ops phase (Conv2D,
+                                              # QuantConv2D, split-K,
+                                              # BatchMatmul, the permutes)
     python3 chip_smoke.py --mistral           # only the Mistral-7B-v0.1
                                               # phases (bf16, the window)
     python3 chip_smoke.py --bitnet-3b         # only flashatten and the
@@ -154,6 +157,24 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                plain and library (torch._int_mm on pre-decoded codes);
                the route table of each per-channel layer. `--int-formats`
                runs this phase alone.
+3b'''. ops -- the operator surface at full width (check_ops): at
+               ResNet-50's residual-stage convolutions (CONV_SHAPES,
+               batch 32) a dense Conv2D (cuDNN), QuantConv2D uint4 g128
+               with a bias on the materialize route (kernel 2) and the
+               fused one (im2col patches into kernel 1's tiled
+               instance), and with int8 activations, uint4 per channel,
+               on both (kernel 3 and the exact int32 convolution; kernel
+               1's integer instance); MatmulWithSplitK at Llama-2-7B's
+               projections (M = 1 / 4 / 16, k_split 2 and 4; kernel 1's
+               decode instance a shard) beside Matmul; BatchMatmul f16 and
+               int8 at the attention product (32 heads, M = N = 512, K =
+               128); QuantCompress, LOP3Permutate and LadderPermutate at
+               11008 x 4096. The main path counted (kernels 1-3 must
+               launch), each op against its plain version on the card
+               (the limits OPS_*), timed rows with bounds, kernel 2's
+               share of the materialize route, and measure_chained
+               beside measure_kernel(flush=False) on kernel 1's decode
+               instance. `--ops` runs this phase alone.
 3c. gptq_golden -- the committed AutoGPTQ golden (g = 64) repacked, v1
                and v2, into module.Linear (zeros mode quantized) and
                QuantLinear on the card: dequantized weights bit-equal, the
@@ -5501,6 +5522,601 @@ def gptq_serving_model(torch):
             "weight_bytes": packed}
 
 
+# -- the ops phase (the operator surface at full width) ----------------------
+#
+# ResNet-50's residual-stage convolutions, the shapes the JAX package's
+# scripts/tpu_conv_bench.py:22-28 measures: (C, H = W, F, K, S, P), batch 32
+CONV_SHAPES = ((128, 28, 128, 3, 1, 1), (256, 14, 256, 3, 1, 1),
+               (1024, 14, 256, 1, 1, 0), (512, 7, 512, 3, 1, 1))
+CONV_BATCH = 32
+CONV_GROUP = 128
+# MatmulWithSplitK at Llama-2-7B's projections (N, K), uint4 g128 with
+# zeros; k_split 2 and 4 where K / k_split stays a multiple of 128
+SPLITK_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
+SPLITK_MS = (1, 4, 16)
+# BatchMatmul at Llama-2-7B's attention product: 32 heads, M = N = 512,
+# K = 128 (head dim)
+BMM_SHAPE = (32, 512, 512, 128)
+# the permutes' weight: Llama-2-7B's gate / up projection (N, K)
+PERMUTE_SHAPE = (11008, 4096)
+PERMUTE_CHECK_ROWS = 512      # rows held against the CPU op
+# Limits, in float16 ulps of each output plus SPLIT_ULP_FLOOR of the
+# largest (f16_ulps). A cuDNN float16 convolution against the float32
+# convolution of the same values: one rounding each of float32 sums in
+# other orders, so within one ulp where both sums sit on one side of a
+# rounding boundary and two where they straddle it: OPS_CONV_ULPS = 2
+# (0.99 read at every shape on an H100 at 700 W). The materialize route
+# rounds the convolution to float16, adds the float32 bias and rounds
+# again (the port's materialize plan does the same after its library
+# product): its distance from the plain version's single rounding is held
+# in units of one ulp of the unbiased convolution plus one of the output,
+# at most OPS_MATERIALIZE_RATIO (0.94-0.96 read; in plain ulps 13.5 at the
+# first shape, where a bias cancels the convolution to near zero). Kernel
+# 1's fused outputs against their plain version: one ulp, as the formats
+# phase holds them (0.991 read).
+OPS_CONV_ULPS = 2.0
+OPS_MATERIALIZE_RATIO = 2.0
+OPS_FUSED_ULPS = 1.0
+
+
+def _conv_plain(torch, x, w_oihw, c, bias=None):
+    """The plain convolution on the card: float32 sums of the float32
+    copies (TF32 off), the bias added in float32, one rounding to float16;
+    NHWC in and out."""
+    import torch.nn.functional as F
+    from bitblas_tpu_torch.kernels.dense import full_f32
+    with full_f32():
+        out = F.conv2d(x.permute(0, 3, 1, 2).float(), w_oihw.float(),
+                       stride=c.S, padding=c.P, dilation=c.D)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1).float()
+    return out.permute(0, 2, 3, 1).half()
+
+
+def _conv_case(torch, gen, shape):
+    """One ResNet-50 shape: its operators (dense Conv2D f16; QuantConv2D
+    uint4 g128 with a bias on both routes; int8 activations, uint4 per
+    channel, on both routes), operands and packed filters."""
+    from bitblas_tpu_torch import (Conv2D, Conv2DConfig, QuantConv2D,
+                                   QuantConv2DConfig)
+    C, H, F_, K, S, P = shape
+    g = dict(N=CONV_BATCH, C=C, H=H, W=H, F=F_, K=K, S=S, P=P)
+    kdim = C * K * K
+    case = {"shape": shape, "g": g, "kdim": kdim}
+    case["x"] = torch.randn((CONV_BATCH, H, H, C), generator=gen,
+                            device="cuda").half()
+    case["xi"] = torch.randint(-64, 64, (CONV_BATCH, H, H, C), generator=gen,
+                               device="cuda", dtype=torch.int8)
+    case["w"] = (torch.randn((K, K, C, F_), generator=gen, device="cuda")
+                 / math.sqrt(kdim)).half()
+    codes = torch.randint(0, 16, (K, K, C, F_), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    scale_g = (torch.rand((F_, kdim // CONV_GROUP), generator=gen,
+                          device="cuda") * 0.01 + 0.005).half()
+    scale_c = (torch.rand((F_, 1), generator=gen, device="cuda") * 0.01
+               + 0.005).half()
+    bias = torch.randn(F_, generator=gen, device="cuda")
+    case["dense"] = Conv2D(Conv2DConfig(**g))
+    q = dict(g, W_dtype="uint4", group_size=CONV_GROUP, with_scaling=True)
+    qi = dict(g, W_dtype="uint4", group_size=-1, with_scaling=True,
+              in_dtype="int8", accum_dtype="int32", out_dtype="float32")
+    for route in ("materialize", "fused"):
+        case[route] = QuantConv2D(QuantConv2DConfig(**q, route=route))
+        case[f"int_{route}"] = QuantConv2D(QuantConv2DConfig(**qi,
+                                                             route=route))
+        if case[route].route != route or case[f"int_{route}"].route != route:
+            raise AssertionError(f"ops: QuantConv2D took another route "
+                                 f"than {route} at {shape}")
+    for fused in ("fused", "int_fused"):
+        if case[fused].matmul.hint_for(case[fused].m).decode_mode != "fused":
+            raise AssertionError(f"ops: {fused} at {shape} is not pinned to "
+                                 f"kernel 1")
+    case["W"], case["S"], case["B"] = case["materialize"].transform_weight(
+        codes, scale=scale_g, bias=bias)
+    case["Wi"], case["Si"] = case["int_materialize"].transform_weight(
+        codes, scale=scale_c)
+    return case
+
+
+def _conv_run(case, kind):
+    """One forward of the case's operator `kind` through its public API."""
+    if kind == "dense":
+        return case["dense"](case["x"], case["w"])
+    if kind in ("materialize", "fused"):
+        return case[kind](case["x"], case["W"], scale=case["S"],
+                          bias=case["B"])
+    return case[kind](case["xi"], case["Wi"], scale=case["Si"])
+
+
+def _splitk_cases(torch, gen):
+    """MatmulWithSplitK beside Matmul at Llama-2-7B's projection shapes,
+    uint4 g128 with zeros (GPTQ's layout)."""
+    from bitblas_tpu_torch import (Matmul, MatmulConfig,
+                                   MatmulConfigWithSplitK, MatmulWithSplitK)
+    cases = []
+    for N, K in SPLITK_SHAPES:
+        codes = torch.randint(0, 16, (N, K), generator=gen, device="cuda",
+                              dtype=torch.uint8)
+        groups = (N, K // CONV_GROUP)
+        scales = (torch.rand(groups, generator=gen, device="cuda") * 0.01
+                  + 0.005).half()
+        zeros = torch.randint(0, 16, groups, generator=gen,
+                              device="cuda").half()
+        kw = dict(M=SPLITK_MS, N=N, K=K, A_dtype="float16", W_dtype="uint4",
+                  with_scaling=True, with_zeros=True, group_size=CONV_GROUP)
+        full = Matmul(MatmulConfig(**kw), enable_tuning=False)
+        case = {"N": N, "K": K, "full": full,
+                "packed": full.transform_weight(codes, scale=scales,
+                                                zeros=zeros),
+                "A": {m: torch.randn((m, K), generator=gen,
+                                     device="cuda").half()
+                      for m in SPLITK_MS}, "split": {}}
+        for ks in (2, 4):
+            if (K // ks) % CONV_GROUP:
+                continue
+            op = MatmulWithSplitK(MatmulConfigWithSplitK(**kw, k_split=ks),
+                                  enable_tuning=False)
+            case["split"][ks] = (op, op.transform_weight(
+                codes, scale=scales, zeros=zeros))
+        cases.append(case)
+    return cases
+
+
+def _f16_ulp(torch, x):
+    e = torch.frexp(x.double().abs().clamp_min(2.0 ** -14))[1] - 1
+    return torch.exp2(e.double() - 10)
+
+
+def _splitk_check(torch, op, packed, A, got):
+    """A split-K output against the sum of its shards' plain versions (the
+    decode instance's split arithmetic, `dequant_matmul_u4_split_plain`),
+    summed in float32 and rounded: each shard of the kernel lies within one
+    f16 ulp of its plain shard, so the two sums differ by at most those
+    ulps and one of the output (plus SPLIT_ULP_FLOOR of the largest).
+    Returns (the largest ratio to that bound, max abs error)."""
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    W, S, Z = packed
+    kk = op.shard_k
+    gk = kk // CONV_GROUP
+    parts = [dq.dequant_matmul_u4_split_plain(
+        A[:, s * kk:(s + 1) * kk].contiguous(), W[s],
+        S[s * gk:(s + 1) * gk], Z[s * gk:(s + 1) * gk])
+        for s in range(op.k_split)]
+    ref = sum(p.float() for p in parts).half()
+    unit = sum(_f16_ulp(torch, p) for p in parts) + _f16_ulp(torch, ref) \
+        + SPLIT_ULP_FLOOR * ref.double().abs().max()
+    err = (got.double() - ref.double()).abs()
+    return (err / unit).max().item(), err.max().item()
+
+
+def check_ops(torch, flush):
+    """The ops phase: the operator surface at full width on the card.
+
+    First the main path alone, through the operators' public calls, with
+    the launch counters of kernels 1-3 set to 0 just before and read just
+    after: at each ResNet-50 shape (CONV_SHAPES, batch 32) a dense Conv2D
+    (f16), QuantConv2D uint4 g128 with a bias on the materialize route
+    (kernel 2, weight_decode_fmt) and the fused one (kernel 1's tiled
+    instance, dequant_matmul_fmt), and with int8 activations (uint4 per
+    channel) on both (kernel 3, weight_decode_int8; dequant_matmul_int);
+    MatmulWithSplitK at Llama-2-7B's projections, M = 1 / 4 / 16, k_split
+    2 and 4 (kernel 1's decode instance a shard); BatchMatmul f16 and
+    int8 at the attention product; QuantCompress, LOP3Permutate (and its
+    inverse) and LadderPermutate at 11008 x 4096. Every kernel of that
+    path must have launched.
+
+    Then, outside that count, each op against its plain PyTorch version
+    on the card: the dense convolution and the materialize route against
+    the float32 convolution (OPS_CONV_ULPS / OPS_MATERIALIZE_RATIO), kernel
+    2's filter bit-equal to its plain decode; the fused route within
+    OPS_FUSED_ULPS of kernel 1's plain version; the int8 materialize route
+    bit-equal to the exact integer convolution times the scales, kernel
+    3's codes bit-equal; the int8 fused route within one ulp of its plain
+    version or nearer the float64 truth (`_int_close`); split-K within the
+    shards' roundings of its plain shards (`_splitk_check`); BatchMatmul
+    f16 within one ulp of float32 sums, int8 bit-equal; the permutes'
+    first PERMUTE_CHECK_ROWS rows bit-equal to the same op on the CPU,
+    LOP3's inverse the identity on the card.
+
+    Then the timed rows (measure_kernel, 20 launches, L2 flushed): per
+    conv shape the dense, materialize and fused ms (and the int8 routes'),
+    kernel 2's ms and its share of the materialize route, each against
+    its bound (bytes over 3.35 TB/s: x, the filter as stored, the output;
+    operations 2 N Ho Wo F C K K over 989 TFLOP/s f16 or 1979 TOP/s int8);
+    kernels 1-3 alone at those shapes with their plain and library ms;
+    split-K beside Matmul, with launches a call; BatchMatmul; and
+    measure_chained beside measure_kernel(flush=False) for kernel 1's
+    decode instance (M = 4, N = 11008, K = 4096). Returns (rows, launches
+    by kernels-line name)."""
+    import torch.nn.functional as F
+    from bitblas_tpu_torch import (BatchMatmul, BatchMatmulConfig,
+                                   LadderPermutate, LadderPermutateConfig,
+                                   LOP3Permutate, LOP3PermutateConfig,
+                                   QuantCompress, QuantCompressConfig)
+    from bitblas_tpu_torch.kernels import dequant_matmul as dq
+    from bitblas_tpu_torch.kernels import materialize as mz
+    from bitblas_tpu_torch.ops.batch_matmul import batch_matmul_plain
+    from bitblas_tpu_torch.ops.conv2d import conv_patches
+    from bitblas_tpu_torch.testing import out_ulps
+    from bitblas_tpu_torch.utils.timing import (make_chained,
+                                                measure_chained,
+                                                measure_kernel)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    t0 = time.perf_counter()
+    convs = [_conv_case(torch, gen, s) for s in CONV_SHAPES]
+    splitk = _splitk_cases(torch, gen)
+    B, M, N, K = BMM_SHAPE
+    bmm = {}
+    for dtype, out in (("float16", "float16"), ("int8", "int32")):
+        op = BatchMatmul(BatchMatmulConfig(
+            Batch=B, M=M, N=N, K=K, A_dtype=dtype, W_dtype=dtype,
+            out_dtype=out,
+            accum_dtype="int32" if dtype == "int8" else "float32"))
+        if dtype == "int8":
+            a = torch.randint(-128, 128, (B, M, K), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            w = torch.randint(-128, 128, (B, N, K), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        else:
+            a = torch.randn((B, M, K), generator=gen, device="cuda").half()
+            w = torch.randn((B, N, K), generator=gen, device="cuda").half()
+        bmm[dtype] = (op, a, w)
+    PN, PK = PERMUTE_SHAPE
+    pcodes = torch.randint(0, 16, PERMUTE_SHAPE, generator=gen,
+                           device="cuda", dtype=torch.int8)
+    perm_ops = {
+        "quant_compress": lambda dev, m=PN: QuantCompress(
+            QuantCompressConfig(M=m, N=PK, dequantize_bits=4), device=dev),
+        "lop3": lambda dev, m=PN: LOP3Permutate(
+            LOP3PermutateConfig(M=m, N=PK, dequantize_bits=4), device=dev),
+        "ladder": lambda dev, m=PN: LadderPermutate(
+            LadderPermutateConfig(M=m, N=PK, dequantize_bits=4), device=dev)}
+    perms = {k: f("cuda") for k, f in perm_ops.items()}
+    build_s = time.perf_counter() - t0
+
+    # the main path, counted
+    u4, fk, ik = dq.dequant_matmul_u4, dq.dequant_matmul_fmt, \
+        dq.dequant_matmul_int
+    wdf, wd8, wdu = mz.weight_decode_fmt, mz.weight_decode_int8, \
+        mz.weight_decode_u4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in (u4, fk, ik, wdf, wd8, wdu):
+        c.launches = 0
+        for attr in ("variant_launches", "format_launches"):
+            if hasattr(c, attr):
+                getattr(c, attr).clear()
+    for c in (u4, fk, ik):
+        c.decode_launches = c.tiled_launches = 0
+    kinds = ("dense", "materialize", "fused", "int_materialize", "int_fused")
+    outs = {(i, kind): _conv_run(case, kind)
+            for i, case in enumerate(convs) for kind in kinds}
+    souts = {}
+    for i, case in enumerate(splitk):
+        for ks, (op, (W, S, Z)) in case["split"].items():
+            for m, A in case["A"].items():
+                souts[(i, ks, m)] = op(A, W, scale=S, zeros=Z)
+    bouts = {d: op(a, w) for d, (op, a, w) in bmm.items()}
+    packed4 = perms["quant_compress"](pcodes)
+    pouts = {"quant_compress": packed4,
+             "lop3": perms["lop3"](packed4),
+             "ladder": perms["ladder"](pcodes)}
+    pouts["lop3_inverse"] = perms["lop3"].inverse(pouts["lop3"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {
+        "dequant_matmul_u4": u4.launches,
+        DECODE["uint4"]: u4.decode_launches,
+        "dequant_matmul_fmt tiled uint4xfloat16": sum(
+            n for k, n in fk.variant_launches.items()
+            if k.startswith("uint4xfloat16 tiled")),
+        "weight_decode_fmt uint4xfloat16":
+            wdf.format_launches.get("uint4xfloat16", 0),
+        "dequant_matmul_int tiled uint4xint8": sum(
+            n for k, n in ik.variant_launches.items()
+            if k.startswith("uint4xint8 tiled")),
+        "weight_decode_int8 uint4": wd8.variant_launches.get("uint4", 0)}
+    missing = sorted(k for k, n in launches.items() if n <= 0)
+    if missing:
+        raise AssertionError(f"ops: not launched on the main path: "
+                             f"{missing}")
+    emit({"phase": "ops_main_path", "build_s": build_s, "main_s": main_s,
+          "launches": launches,
+          "variant_launches": {"dequant_matmul_u4": dict(u4.variant_launches),
+                               "dequant_matmul_fmt": dict(
+                                   fk.variant_launches),
+                               "dequant_matmul_int": dict(
+                                   ik.variant_launches)}})
+
+    # each op against its plain version on the card
+    t0 = time.perf_counter()
+    rows = {"conv": [], "kernels": [], "splitk": [], "bmm": [],
+            "permute": {}}
+    bad = []
+    for i, case in enumerate(convs):
+        c, g, kdim = case["fused"].config, case["g"], case["kdim"]
+        C, H, F_, Kk, S_, P = case["shape"]
+        for kind in kinds:
+            out = outs[(i, kind)]
+            ho, wo = c.out_hw
+            want_shape = (CONV_BATCH, ho, wo, F_)
+            if tuple(out.shape) != want_shape or \
+                    not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"ops: {kind} at {case['shape']}: "
+                                     f"{tuple(out.shape)}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+        x, W, Sc, Bi = case["x"], case["W"], case["S"], case["B"]
+        read = {}
+        ref = _conv_plain(torch, x, case["w"].permute(3, 2, 0, 1), c)
+        read["dense_ulps"] = f16_ulps(torch, outs[(i, "dense")], ref)
+        wplain = mz.weight_decode_fmt_plain(W, "uint4", "float16", Sc, None,
+                                            CONV_GROUP)
+        wcard = mz.weight_decode_fmt(W, "uint4", "float16", Sc, None,
+                                     CONV_GROUP)
+        read["kernel2_bit_equal"] = bool(torch.equal(wcard, wplain))
+        w_oihw = wplain.reshape(F_, C, Kk, Kk)
+        ref = _conv_plain(torch, x, w_oihw, c, Bi)
+        unit = _f16_ulp(torch, _conv_plain(torch, x, w_oihw, c)) \
+            + _f16_ulp(torch, ref) + SPLIT_ULP_FLOOR * ref.double().abs().max()
+        out_m = outs[(i, "materialize")]
+        read["materialize_ratio"] = ((out_m.double() - ref.double()).abs()
+                                     / unit).max().item()
+        read["materialize_ulps"] = f16_ulps(torch, out_m, ref)
+        patches = conv_patches(x, c).contiguous()
+        ref = dq.dequant_matmul_fmt_plain(patches, W, "uint4", Sc, None,
+                                          CONV_GROUP, bias=Bi)
+        read["fused_ulps"] = f16_ulps(
+            torch, outs[(i, "fused")].reshape(-1, F_), ref)
+        read["fused_max_abs_err"] = (outs[(i, "fused")].reshape(-1, F_)
+                                     .float() - ref.float()).abs().max() \
+            .item()
+        Wi, Si = case["Wi"], case["Si"]
+        codes_plain = mz.weight_decode_int8_plain(Wi, 4, "uint")
+        read["kernel3_bit_equal"] = bool(torch.equal(
+            mz.weight_decode_int8(Wi, 4, "uint"), codes_plain))
+        pi = conv_patches(case["xi"], c).contiguous()
+        exact = pi.double() @ codes_plain.double().T      # exact sums
+        ref_i = (exact.float() * Si.reshape(1, -1).float())
+        read["int_materialize_bit_equal"] = bool(torch.equal(
+            outs[(i, "int_materialize")].reshape(-1, F_), ref_i))
+        truth = exact * Si.reshape(1, -1).double()
+        ref_f = dq.dequant_matmul_int_plain(pi, Wi, "uint4", Si, None, -1)
+        close = _int_close(torch, outs[(i, "int_fused")].reshape(-1, F_),
+                           ref_f, truth)
+        read["int_fused"] = close
+        read["int_fused_max_abs_err"] = (outs[(i, "int_fused")]
+                                         .reshape(-1, F_).double()
+                                         - truth).abs().max().item()
+        ok = (read["dense_ulps"] <= OPS_CONV_ULPS
+              and read["materialize_ratio"] <= OPS_MATERIALIZE_RATIO
+              and read["fused_ulps"] <= OPS_FUSED_ULPS
+              and read["kernel2_bit_equal"] and read["kernel3_bit_equal"]
+              and read["int_materialize_bit_equal"] and close["ok"])
+        emit({"phase": "ops_conv_check", "shape": case["shape"], **read})
+        if not ok:
+            bad.append((case["shape"], read))
+        case["read"], case["patches"], case["pi"] = read, patches, pi
+        case["wcard"], case["codes_plain"] = wcard, codes_plain
+    for i, case in enumerate(splitk):
+        for ks, (op, packed) in case["split"].items():
+            for m, A in case["A"].items():
+                ratio, err = _splitk_check(torch, op, packed, A,
+                                           souts[(i, ks, m)])
+                full = case["full"](A, case["packed"][0],
+                                    scale=case["packed"][1],
+                                    zeros=case["packed"][2])
+                vs_full = f16_ulps(torch, souts[(i, ks, m)], full)
+                rows["splitk"].append({
+                    "N": case["N"], "K": case["K"], "M": m, "k_split": ks,
+                    "bound_ratio": ratio, "max_abs_err": err,
+                    "ulps_vs_matmul": vs_full})
+                if not ratio <= 1.0:
+                    bad.append((case["N"], case["K"], m, ks, ratio))
+    for dtype, (op, a, w) in bmm.items():
+        ref = batch_matmul_plain(a, w, "nt", bouts[dtype].dtype)
+        if dtype == "int8":
+            good = bool(torch.equal(bouts[dtype], ref))
+            reading = {"bit_equal": good}
+        else:
+            reading = {"ulps": out_ulps(bouts[dtype], ref)}
+            good = reading["ulps"] <= 1.0
+        rows["bmm"].append({"dtype": dtype, **reading})
+        if not good:
+            bad.append((dtype, reading))
+    r = PERMUTE_CHECK_ROWS
+    cpu = {k: f("cpu", r) for k, f in perm_ops.items()}
+    for name, got, x in (("quant_compress", pouts["quant_compress"], pcodes),
+                         ("lop3", pouts["lop3"], packed4),
+                         ("ladder", pouts["ladder"], pcodes)):
+        # rows are independent: the first r against the CPU op on them
+        rows["permute"][name] = bool(torch.equal(
+            got[:r].cpu(), cpu[name](x[:r].cpu())))
+    rows["permute"]["lop3_inverse_identity"] = bool(torch.equal(
+        pouts["lop3_inverse"], packed4))
+    emit({"phase": "ops_check", "seconds": time.perf_counter() - t0,
+          "splitk": rows["splitk"], "bmm": rows["bmm"],
+          "permute": rows["permute"]})
+    if bad or not all(rows["permute"].values()):
+        raise AssertionError(f"ops: disagree with their plain versions: "
+                             f"{bad}, permutes {rows['permute']}")
+
+    # timed rows
+    t0 = time.perf_counter()
+    for i, case in enumerate(convs):
+        c, kdim = case["fused"].config, case["kdim"]
+        C, H, F_, Kk, S_, P = case["shape"]
+        ho, wo = c.out_hw
+        M_ = CONV_BATCH * ho * wo
+        x_bytes, out_bytes = CONV_BATCH * H * H * C, M_ * F_
+        flops = 2 * M_ * F_ * kdim
+        packed_bytes = F_ * kdim // 2
+        scale_bytes = 2 * F_ * kdim // CONV_GROUP
+        row = {"shape": case["shape"], "M": M_, "K": kdim, "N": F_}
+        for kind in kinds:
+            row[f"{kind}_ms"] = time_ms(
+                torch, lambda k=kind: _conv_run(case, k), 20, flush)
+        dense_b = bound(2 * x_bytes + 2 * F_ * kdim + 2 * out_bytes, flops)
+        quant_b = bound(2 * x_bytes + packed_bytes + scale_bytes + 4 * F_
+                        + 2 * out_bytes, flops)
+        int_b = bound(x_bytes + packed_bytes + 2 * F_ + 4 * out_bytes,
+                      flops, INT8_OPS_PER_S)
+        row.update({"dense_bound_ms": dense_b[0],
+                    "dense_bound_by": dense_b[1],
+                    "quant_bound_ms": quant_b[0],
+                    "quant_bound_by": quant_b[1],
+                    "int_bound_ms": int_b[0], "int_bound_by": int_b[1]})
+        W, Sc, Bi, Wi, Si = (case[k] for k in ("W", "S", "B", "Wi", "Si"))
+        patches, pi = case["patches"], case["pi"]
+        k1 = case["fused"].matmul.kernel_for(M_)
+        k1i = case["int_fused"].matmul.kernel_for(M_)
+        read = case["read"]
+        k2_b = bound(packed_bytes + scale_bytes + 2 * F_ * kdim, 0)
+        k3_b = bound(packed_bytes + F_ * kdim, 0)
+        k1_b = bound(2 * M_ * kdim + packed_bytes + scale_bytes + 4 * F_
+                     + 2 * out_bytes, flops)
+        k1i_b = bound(M_ * kdim + packed_bytes + 2 * F_ + 4 * out_bytes,
+                      flops, INT8_OPS_PER_S)
+        wdec, cdec = case["wcard"], case["codes_plain"].contiguous()
+        krows = [
+            ("weight_decode_fmt uint4xfloat16",
+             lambda: mz.weight_decode_fmt(W, "uint4", "float16", Sc, None,
+                                          CONV_GROUP),
+             lambda: mz.weight_decode_fmt_plain(W, "uint4", "float16", Sc,
+                                                None, CONV_GROUP),
+             None, k2_b, 0.0),
+            ("dequant_matmul_fmt tiled uint4xfloat16",
+             lambda: k1(patches, W, Sc, Bi),
+             lambda: dq.dequant_matmul_fmt_plain(patches, W, "uint4", Sc,
+                                                 None, CONV_GROUP, bias=Bi),
+             lambda: torch.matmul(patches, wdec.T), k1_b,
+             read["fused_max_abs_err"]),
+            ("weight_decode_int8 uint4",
+             lambda: mz.weight_decode_int8(Wi, 4, "uint"),
+             lambda: mz.weight_decode_int8_plain(Wi, 4, "uint"), None,
+             k3_b, 0.0),
+            ("dequant_matmul_int tiled uint4xint8",
+             lambda: k1i(pi, Wi, Si, None),
+             lambda: dq.dequant_matmul_int_plain(pi, Wi, "uint4", Si, None,
+                                                 -1),
+             lambda: torch._int_mm(pi, cdec.T), k1i_b,
+             read["int_fused_max_abs_err"])]
+        for name, fn, plain, lib, (b_ms, b_by), err in krows:
+            rows["kernels"].append({
+                "name": name, "shape": case["shape"], "M": M_, "N": F_,
+                "K": kdim, "kernel_ms": time_ms(torch, fn, 20, flush),
+                "plain_ms": time_ms(torch, plain, 20, flush),
+                "library_ms": (None if lib is None
+                               else time_ms(torch, lib, 20, flush)),
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
+        k2_ms = rows["kernels"][-4]["kernel_ms"]
+        row["kernel2_ms"] = k2_ms
+        row["kernel2_share_of_materialize"] = k2_ms / row["materialize_ms"]
+        row["kernel3_share_of_int_materialize"] = \
+            rows["kernels"][-2]["kernel_ms"] / row["int_materialize_ms"]
+        rows["conv"].append(row)
+        emit({"phase": "ops_conv", **row})
+    for i, case in enumerate(splitk):
+        W, S, Z = case["packed"]
+        for m, A in case["A"].items():
+            mm_ms = time_ms(torch, lambda: case["full"](A, W, scale=S,
+                                                        zeros=Z), 20, flush)
+            for ks, (op, (Ws, Ss, Zs)) in case["split"].items():
+                r_ = next(r for r in rows["splitk"] if (
+                    r["N"], r["K"], r["M"], r["k_split"])
+                    == (case["N"], case["K"], m, ks))
+                r_.update({
+                    "splitk_ms": time_ms(torch, lambda: op(
+                        A, Ws, scale=Ss, zeros=Zs), 20, flush),
+                    "matmul_ms": mm_ms, "launches_per_call": ks,
+                    "matmul_launches_per_call": 1})
+    emit({"phase": "ops_splitk", "rows": rows["splitk"]})
+    # kernel 1's decode instance at a split-K shard (M = 4, 11008 x 2048),
+    # the kernels line's row of the ops phase's dequant_matmul_u4 launches
+    case = splitk[1]
+    op, (Ws, Ss, Zs) = case["split"][2]
+    A = case["A"][4][:, :op.shard_k].contiguous()
+    gk = op.shard_k // CONV_GROUP
+    sargs = (A, Ws[0], Ss[:gk], Zs[:gk])
+    got = dq.dequant_matmul_u4(*sargs, tile=dq.U4_DECODE_TILE)
+    ref = dq.dequant_matmul_u4_split_plain(*sargs)
+    wdec = dq.dequantize_hopper(Ws[0], Ss[:gk], Zs[:gk])
+    Nn, Kk = case["N"], op.shard_k
+    b_ms, b_by = bound(2 * 4 * Kk + Nn * Kk // 2 + 4 * Nn * Kk // CONV_GROUP
+                       + 2 * 4 * Nn, 2 * 4 * Nn * Kk)
+    rows["shard"] = {
+        "name": "dequant_matmul_u4", "M": 4, "N": Nn, "K": Kk,
+        "ulps": f16_ulps(torch, got, ref),
+        "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+        "kernel_ms": time_ms(torch, lambda: dq.dequant_matmul_u4(
+            *sargs, tile=dq.U4_DECODE_TILE), 20, flush),
+        "plain_ms": time_ms(torch, lambda: dq.dequant_matmul_u4_plain(
+            *sargs), 20, flush),
+        "library_ms": time_ms(torch, lambda: torch.matmul(A, wdec.T), 20,
+                              flush),
+        "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "ops_kernels", "rows": rows["kernels"],
+          "shard": rows["shard"]})
+    if not rows["shard"]["ulps"] <= 1.0:
+        raise AssertionError(f"ops: split-K shard: {rows['shard']}")
+    for dtype, (op, a, w) in bmm.items():
+        r_ = next(r for r in rows["bmm"] if r["dtype"] == dtype)
+        isz = 1 if dtype == "int8" else 2
+        osz = 4 if dtype == "int8" else 2
+        b_ms, b_by = bound(isz * B * (M + N) * K + osz * B * M * N,
+                           2 * B * M * N * K,
+                           INT8_OPS_PER_S if dtype == "int8"
+                           else F16_FLOPS_PER_S)
+        r_.update({"ms": time_ms(torch, lambda: op(a, w), 20, flush),
+                   "plain_ms": time_ms(torch, lambda: batch_matmul_plain(
+                       a, w, "nt", bouts[dtype].dtype), 20, flush),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "shape": BMM_SHAPE})
+    emit({"phase": "ops_bmm", "rows": rows["bmm"]})
+    # the chained timer beside measure_kernel on kernel 1's decode instance
+    case = splitk[1]
+    W, S, Z = case["packed"]
+    A4 = case["A"][4]
+
+    def decode():
+        return dq.dequant_matmul_u4(A4, W, S, Z, tile=dq.U4_DECODE_TILE)
+
+    rows["chained"] = {
+        "M": 4, "N": case["N"], "K": case["K"],
+        "chained_ms": measure_chained(make_chained(decode, ())) * 1e3,
+        "unflushed_ms": measure_kernel(decode, (), flush=False) * 1e3,
+        "flushed_ms": time_ms(torch, decode, 20, True)}
+    emit({"phase": "ops_chained", **rows["chained"],
+          "seconds": time.perf_counter() - t0})
+    return rows, launches
+
+
+def ops_entries(rows):
+    """The kernels line's entries of the ops phase: kernels 1-3 at the
+    first ResNet-50 shape (every shape's rows in `max_abs_err`), kernel 1's
+    decode instance at a split-K shard."""
+    out = []
+    for name, src, rep in (
+            ("dequant_matmul_fmt tiled uint4xfloat16", "dequant_wgmma.cuh",
+             "dequant_matmul.py:231"),
+            ("weight_decode_fmt uint4xfloat16", "dequant_fmt_uint_f16.cu",
+             "materialize.py:227"),
+            ("dequant_matmul_int tiled uint4xint8", "dequant_wgmma.cuh",
+             "dequant_matmul.py:231"),
+            ("weight_decode_int8 uint4", "weight_decode_int8.cu",
+             "materialize.py:398")):
+        krows = [r for r in rows["kernels"] if r["name"] == name]
+        r = krows[0]
+        out.append((name, src, rep, krows, r,
+                    f"ResNet-50 conv {r['shape']} batch {CONV_BATCH}: "
+                    f"M={r['M']} N={r['N']} K={r['K']}"))
+    s = rows["shard"]
+    out.append(("dequant_matmul_u4", "dequant_matmul.cu",
+                "dequant_matmul.py:231", [s], s,
+                f"split-K shard M=4 N={s['N']} K={s['K']} uint4 g128"))
+    return out
+
+
 def kernel_entry(name, src, rep, rows, row, shape, launches) -> dict:
     """One kernel of the `kernels` line: its launches on the main path,
     the worst error of its rows, the times and bound of its row."""
@@ -5622,7 +6238,7 @@ def main() -> int:
     if mode not in ([], ["--bitnet-readings"], ["--bitnet-tuned-ab"],
                     ["--formats"], ["--int-formats"], ["--mistral"],
                     ["--bitnet-3b"], ["--bitnet-3b-readings"],
-                    ["--mixtral"], ["--quantize"]):
+                    ["--mixtral"], ["--quantize"], ["--ops"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -5700,6 +6316,15 @@ def main() -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if mode == ["--ops"]:
+        rows, launches = check_ops(torch, flush)
+        emit({"kernels": [kernel_entry(*e, launches)
+                          for e in ops_entries(rows)]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if mode == ["--bitnet-3b"]:
         fa_rows, fa_launches = check_flashatten(torch, flush)
         row = bitnet_3b_phases(torch, counters)
@@ -5741,6 +6366,8 @@ def main() -> int:
     lap("formats")
     int_rows, int_launches = check_int_formats(torch, flush, floor_ms)
     lap("int_formats")
+    ops_rows, ops_launches = check_ops(torch, flush)
+    lap("ops")
     # the layers of the GPTQ phases keep their hint database in a
     # temporary directory (never the user's), and their operators leave
     # the global cache when the phases end
@@ -5986,6 +6613,13 @@ def main() -> int:
     # flashatten phase's apart (flashatten_launches)
     summary += flash_summary(fa_rows)
     fa_counts = flashatten_counts(fa_rows, fa_launches)
+    # the ops phase: kernels 1-3 under the operator surface (their
+    # launches join the rows of the same names; kernel 3 at uint4 has a
+    # row of its own, at the first ResNet-50 shape)
+    for key, n in ops_launches.items():
+        launches[key] = launches.get(key, 0) + n
+    summary += [e for e in ops_entries(ops_rows)
+                if e[0] == "weight_decode_int8 uint4"]
     # kernel 1's wrappers: their decode and tiled instances' launches apart
     split_counts = {
         wrapper: {"decode_launches": launches[DECODE[fmt]],

@@ -307,6 +307,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bitblas_tpu' or m.startswith('bitblas_tpu.')]\n"
         "assert not bad, bad\n"
+        "new = ['ops.' + m for m in ('matmul_splitk', 'batch_matmul',"
+        " 'conv2d', 'ladder_permutate', 'lop3_permutate',"
+        " 'quant_compress')] + ['utils.timing']\n"
+        "missing = [m for m in new if 'bitblas_tpu_torch.' + m"
+        " not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('bitblas_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
