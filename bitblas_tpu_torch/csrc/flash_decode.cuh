@@ -13,6 +13,12 @@
 //   window  0, or the sliding window W >= 1 of the slot cache kernels:
 //          the query at position len - 1 attends keys [max(len - W, 0),
 //          len) (the JAX package's convention, kv_cache.py:805-808)
+//   ml     nullptr, or the partial_stats outputs [2, B, H] f32: then out
+//          is f32 [B, H, D] and holds the unnormalised accumulator, ml[0]
+//          the max logit in the natural-log domain and ml[1] the sum of
+//          the exponentials (the JAX kernels' partial_stats triple,
+//          flash.py:476-483); a sequence of length 0 writes acc 0, m
+//          -1e30 ln 2 and l 0, so a cross-shard merge weighs it 0
 //   part   f32 scratch [B, Hkv, splits, group, D + 2] (unnormalised
 //          accumulator, then m and l), allocated by the wrapper; unused
 //          when splits == 1
@@ -104,6 +110,8 @@ constexpr int LPK = 32 / KW;    // lanes of a key in the score phase (4)
 constexpr int kMaxSplits = 1024; // the merge's weights fit the ring
 constexpr int kMaxG = 8;         // query rows a block: larger groups chunk
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float kEmptyM = -1e30f;   // base-2 m of a shard with no live key
 
 // Stored K/V -> floats: a 16-byte chunk (score phase) and the 4 values of
 // one lane (PV phase).
@@ -242,7 +250,8 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ vsc,
                   const int* __restrict__ index,
                   const int* __restrict__ lengths, Q* __restrict__ out,
-                  float* __restrict__ part, int* __restrict__ count, int H,
+                  float* __restrict__ ml, float* __restrict__ part,
+                  int* __restrict__ count, int H,
                   int Hkv, int span, int max_blocks, int chunk, int window,
                   float scale) {
   using C = Codes<T>;
@@ -275,11 +284,25 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned band = (unsigned)(len - lo);
   const int base = lo / TK * TK;
   const int start = base + split * chunk;
-  Q* ob = out + ((size_t)b * H + h0) * D;
+  // Row gq's output at dim d from its merged state: the normalised
+  // output in q's type, or (partial_stats, ml != nullptr) the f32
+  // accumulator and, once a row, m in the natural-log domain and l.
+  auto emit = [&](int gq, int d, float o, float M, float lsum) {
+    const size_t row = (size_t)b * H + h0 + gq;
+    if (ml == nullptr) {
+      out[row * D + d] = q_from<Q>(o / fmaxf(lsum, 1e-30f));
+      return;
+    }
+    reinterpret_cast<float*>(out)[row * D + d] = o;
+    if (d == 0) {
+      ml[row] = (M == -INFINITY ? kEmptyM : M) * LN2;
+      ml[(size_t)gridDim.z * H + row] = lsum;
+    }
+  };
   if (start >= len) {
     if (len <= 0 && split == 0)   // no live key: the output is 0
       for (int i = tid; i < rows * D; i += kThreads)
-        ob[i] = q_from<Q>(0.f);
+        emit(i / D, i % D, 0.f, -INFINITY, 0.f);
     return;
   }
   const int end = min(start + chunk, len);
@@ -496,7 +519,7 @@ __global__ void __launch_bounds__(kThreads)
       lsum += wt * lw[w * G + gq];
     }
     if (nlive == 1) {
-      ob[gq * D + d] = q_from<Q>(o / fmaxf(lsum, 1e-30f));
+      emit(gq, d, o, M, lsum);
     } else {
       mine[gq * (D + 2) + d] = o;
       if (d == 0) {
@@ -528,6 +551,7 @@ __global__ void __launch_bounds__(kThreads)
   // weighs 0.
   float* wts = red;
   float* lsm = wts + G * nlive;
+  float* msm = lsm + G;
   if (warp < rows) {
     const int gq = warp;
     float M = -INFINITY;
@@ -549,7 +573,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1)
       lsum += __shfl_xor_sync(0xffffffffu, lsum, w);
-    if (lane == 0) lsm[gq] = fmaxf(lsum, 1e-30f);
+    if (lane == 0) {
+      lsm[gq] = lsum;
+      msm[gq] = M;
+    }
   }
   __syncthreads();
   for (int gq = g0; gq < rows; gq += kThreads / D) {
@@ -558,14 +585,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
     for (int sp = 0; sp < nlive; ++sp)
       o += wts[gq * nlive + sp] * __ldcg(pd + sp * part_stride);
-    ob[gq * D + d] = q_from<Q>(o / lsm[gq]);
+    emit(gq, d, o, msm[gq], lsm[gq]);
   }
 }
 
 // The launch's arguments past the grid, passed down unchanged.
 struct Args {
   const void *q, *k, *v, *k_scale, *v_scale, *index, *lengths;
-  void *out, *part, *count;
+  void *out, *ml, *part, *count;
   int H, Hkv, span, max_blocks, chunk, window;
   float scale;
 };
@@ -582,7 +609,7 @@ inline cudaError_t launch_g(dim3 grid, cudaStream_t st, const Args& a) {
       static_cast<const T*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.index),
       static_cast<const int*>(a.lengths), static_cast<Q*>(a.out),
-      static_cast<float*>(a.part), static_cast<int*>(a.count), a.H, a.Hkv,
+      static_cast<float*>(a.ml), static_cast<float*>(a.part), static_cast<int*>(a.count), a.H, a.Hkv,
       a.span, a.max_blocks, a.chunk, a.window, a.scale);
   return cudaGetLastError();
 }
@@ -601,12 +628,14 @@ inline cudaError_t launch_d(int group, dim3 grid, cudaStream_t st,
 // block rounded up to 1, 2, 4 or 8, the head dim 128 or 256 and q and out
 // bfloat16 (q_bf16) or float16. `part` holds B * H * splits * (D + 2)
 // floats and `count` B * Hkv * hchunks ints when splits > 1. `window` is
-// 0 or >= 1, and 0 for the block pool.
+// 0 or >= 1, and 0 for the block pool. `ml` non-null asks for the
+// partial_stats outputs (out f32 [B, H, D], ml f32 [2, B, H]; slot cache,
+// no window).
 template <typename T, bool kPaged>
 inline int launch(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
                   const void* index, const void* lengths, void* out,
-                  void* part, void* count, int B, int H, int Hkv, int span,
+                  void* ml, void* part, void* count, int B, int H, int Hkv, int span,
                   int max_blocks, int chunk, int splits, int head_dim,
                   int q_bf16, int window, float scale, void* stream) {
   if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
@@ -616,15 +645,15 @@ inline int launch(const void* q, const void* k, const void* v,
       (long long)Hkv * hchunks > 65535 || span < 1 ||
       (kPaged && max_blocks < 1) || chunk < TK || chunk % TK != 0 ||
       splits < 1 || splits > kMaxSplits || window < 0 ||
-      (kPaged && window != 0) ||
+      (kPaged && window != 0) || (ml != nullptr && (kPaged || window)) ||
       (splits > 1 && (part == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(splits, Hkv * hchunks, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = group < kMaxG ? group : kMaxG;
-  const Args a{q,   k,   v,          k_scale, v_scale, index,  lengths,
-               out, part, count,     H,       Hkv,     span,   max_blocks,
-               chunk, window, scale};
+  const Args a{q,     k,     v,      k_scale, v_scale,    index,
+               lengths, out, ml,     part,    count,      H,
+               Hkv,   span,  max_blocks, chunk, window,  scale};
   if (head_dim == 128)
     return (int)(q_bf16 ? launch_d<T, __nv_bfloat16, kPaged, 128>(rows, grid,
                                                                   st, a)

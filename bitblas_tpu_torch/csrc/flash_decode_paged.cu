@@ -34,11 +34,11 @@ extern "C" int flash_decode_paged(const void* q, const void* k_pool,
                                   void* stream) {
   if (kv_f16)
     return bbt::decode::launch<half, true>(
-        q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, part,
-        count, B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim,
-        q_bf16, 0, scale, stream);
+        q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, nullptr,
+        part, count, B, H, Hkv, block_size, max_blocks, chunk, splits,
+        head_dim, q_bf16, 0, scale, stream);
   return bbt::decode::launch<__nv_bfloat16, true>(
-      q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, part, count,
-      B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim, q_bf16, 0,
-      scale, stream);
+      q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, nullptr,
+      part, count, B, H, Hkv, block_size, max_blocks, chunk, splits,
+      head_dim, q_bf16, 0, scale, stream);
 }

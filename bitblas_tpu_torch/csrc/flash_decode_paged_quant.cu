@@ -28,7 +28,7 @@ extern "C" int flash_decode_paged_quant(
     int Hkv, int block_size, int max_blocks, int chunk, int splits,
     int head_dim, int q_bf16, float scale, void* stream) {
   return bbt::decode::launch<int8_t, true>(
-      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part, count,
-      B, H, Hkv, block_size, max_blocks, chunk, splits, head_dim, q_bf16, 0,
-      scale, stream);
+      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, nullptr,
+      part, count, B, H, Hkv, block_size, max_blocks, chunk, splits,
+      head_dim, q_bf16, 0, scale, stream);
 }

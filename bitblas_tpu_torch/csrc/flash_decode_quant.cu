@@ -10,8 +10,9 @@
 //   window   0, or the sliding window: keys [max(len - window, 0), len)
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_decode_quant
-// (pallas_call at :813) with partial_stats=False, with or without a
-// window (flash.py:652, :695-752). Scales
+// (pallas_call at :813), with or without a window (flash.py:652,
+// :695-752), and with partial_stats=True (flash_decode_quant_partial
+// below). Scales
 // apply to the dot results as there: the K scale multiplies each logit
 // before the running max, the V scale folds into the softmax weight
 // before the PV product. The scales are read as stored; the TPU wrapper's
@@ -34,7 +35,24 @@ extern "C" int flash_decode_quant(const void* q, const void* k_cache,
                                   int head_dim, int q_bf16, int window,
                                   float scale, void* stream) {
   return bbt::decode::launch<int8_t, false>(
-      q, k_cache, v_cache, k_scale, v_scale, slots, lengths, out, part, count,
-      B, H, Hkv, Smax, 1, chunk, splits, head_dim, q_bf16, window, scale,
+      q, k_cache, v_cache, k_scale, v_scale, slots, lengths, out, nullptr,
+      part, count, B, H, Hkv, Smax, 1, chunk, splits, head_dim, q_bf16,
+      window, scale, stream);
+}
+
+// flash_decode_quant_partial: partial_stats mode (JAX
+// make_flash_decode_quant(partial_stats=True), flash.py:651, :667, :774):
+// no window, shard-local `lengths`, acc [B, H, D] f32 and ml [2, B, H]
+// as flash_decode_partial's. The V scales are folded into the weights of
+// acc and not into l, as in JAX's kernel.
+extern "C" int flash_decode_quant_partial(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* slots,
+    const void* lengths, void* acc, void* ml, void* part, void* count, int B,
+    int H, int Hkv, int Smax, int chunk, int splits, int head_dim,
+    int q_bf16, float scale, void* stream) {
+  return bbt::decode::launch<int8_t, false>(
+      q, k_cache, v_cache, k_scale, v_scale, slots, lengths, acc, ml, part,
+      count, B, H, Hkv, Smax, 1, chunk, splits, head_dim, q_bf16, 0, scale,
       stream);
 }

@@ -32,8 +32,19 @@ sizes only) and merge the chunks' partials in the same launch;
 tests. A sliding window (HF convention: prefill row i attends keys (i -
 window, i]; the decode query at position len - 1 attends [max(len -
 window, 0), len)) runs in kernels 4, 5 and 6, as in the JAX package; the
-paged kernels have none there either. ``partial_stats`` is not ported
-yet.
+paged kernels have none there either.
+
+`flash_decode` and `flash_decode_quant` take ``partial_stats=True`` (the
+JAX kernels' option, flash.py:476-483): they then return the merged
+online-softmax state of the sequence's keys, (acc [B, H, D] f32
+unnormalised, m [B, H] f32 in the natural-log domain, l [B, H] f32), for
+context parallelism's log-sum-exp merge across sequence shards
+(serving/kv_cache.py's *_partial attends). `lengths` are then the valid
+keys of this shard; a length of 0 gives acc 0, m = -1e30 ln 2 and l 0, so
+the merge weighs the shard 0. No window, as JAX's context parallelism
+takes none. On the card they launch the same kernels through their own
+entry points (`flash_decode_partial`, `flash_decode_quant_partial`, each
+counting its launches); `flash_decode_partial_plain` is the plain version.
 """
 
 from __future__ import annotations
@@ -84,6 +95,14 @@ _DECODE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_void_p]
 _DECODE_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
+# partial_stats: the slot entry points with acc and ml in place of out and
+# no window
+_DECODE_PARTIAL_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_DECODE_QUANT_PARTIAL_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
+    + [ctypes.c_float, ctypes.c_void_p]
+LN2 = 0.6931471805599453
+EMPTY_M = -1e30     # a shard with no live key: m = EMPTY_M * ln 2
 _DECODE_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_void_p]
 _DECODE_PAGED_QUANT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
@@ -455,12 +474,14 @@ def _split_partials_plain(q, k, v, valid, chunk, k_scale=None,
     return acc, m, l
 
 
-def _merge_partials_plain(acc, m, l, lengths, chunk):
+def _merge_partials_plain(acc, m, l, lengths, chunk, stats: bool = False):
     """The kernels' merge: the live splits of each (sequence, KV head)
     (s * chunk < length, the length counted from the splits' base) by
     log-sum-exp in split order; a split whose keys are all masked (m =
     -inf) weighs 0, and a sequence of length 0 gives 0. -> [B, H, D]
-    f32."""
+    f32, or with `stats` the partial_stats triple (acc unnormalised
+    [B, H, D], m [B, H] in the natural-log domain, EMPTY_M ln 2 where no
+    key is live, l [B, H])."""
     B, Hkv, splits, group, D = acc.shape
     live = (torch.arange(splits, device=acc.device)[None] * chunk
             < lengths[:, None].long())                      # [B, splits]
@@ -468,10 +489,16 @@ def _merge_partials_plain(acc, m, l, lengths, chunk):
     zero = torch.zeros((), device=acc.device)
     M = torch.where(live, m, torch.full((), float("-inf"),
                                         device=acc.device)).amax(dim=2)
-    M = torch.where(torch.isfinite(M), M, zero)
+    finite = torch.isfinite(M)
+    M = torch.where(finite, M, zero)
     w = torch.where(live, torch.exp2(m - M[:, :, None]), zero)
     o = (w[..., None] * acc).sum(dim=2)
     lsum = (w * l).sum(dim=2)
+    if stats:
+        m_ln = torch.where(finite, M, torch.full((), EMPTY_M,
+                                                 device=M.device)) * LN2
+        return (o.reshape(B, Hkv * group, D), m_ln.reshape(B, Hkv * group),
+                lsum.reshape(B, Hkv * group))
     return (o / lsum.clamp_min(1e-30)[..., None]).reshape(B, Hkv * group, D)
 
 
@@ -542,6 +569,25 @@ def flash_decode_quant_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return _attend_plain(q, k, v, valid, ks, vs)
 
 
+def flash_decode_partial_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, lengths: torch.Tensor,
+                               slots: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None):
+    """Plain partial_stats decode over the slot cache (bf16, or int8 with
+    its scales: kernels `flash_decode_partial` / `flash_decode_quant_partial`):
+    the keys below each (shard-local) length as one chunk of the kernels'
+    arithmetic, merged without the final division -> (acc [B, H, D], m
+    [B, H] natural-log domain, l [B, H]), all f32."""
+    scales = tuple(x for x in (k_scale, v_scale) if x is not None)
+    rows = _slot_rows(slots, lengths, k_cache, v_cache, *scales)
+    ks, vs = rows[2:4] if scales else (None, None)
+    span = k_cache.shape[1]
+    acc, m, l = _split_partials_plain(q, rows[0], rows[1], rows[-1], span,
+                                      ks, vs)
+    return _merge_partials_plain(acc, m, l, lengths, span, stats=True)
+
+
 def flash_decode_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, tables: torch.Tensor,
                              lengths: torch.Tensor,
@@ -609,33 +655,41 @@ def _split_scratch(q: torch.Tensor, B: int, H: int, Hkv: int, span: int):
 
 def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
             tensors, ints, span: int, kv_f16=None,
-            window: Optional[int] = None, slot: bool = True
-            ) -> torch.Tensor:
-    """Launch csrc/<symbol>.cu's entry point on q's device: pointers of q
-    and `tensors`, the output, the split scratch and counters, then the
-    ints, the split plan for the `span` the splits cover, the head dim,
-    for the float kernels whether the cache is float16, whether q is
-    bfloat16, for the slot kernels the window (0 for none), 1/sqrt(D) and
-    the stream. One launch a call."""
+            window: Optional[int] = None, slot: bool = True,
+            source: Optional[str] = None, stats: bool = False):
+    """Launch the entry point `symbol` of csrc/<source or symbol>.cu on
+    q's device: pointers of q and `tensors`, the output (with `stats` the
+    f32 accumulator and the [2, B, H] m / l buffer), the split scratch and
+    counters, then the ints, the split plan for the `span` the splits
+    cover, the head dim, for the float kernels whether the cache is
+    float16, whether q is bfloat16, for the slot kernels the window (0 for
+    none; none with `stats`), 1/sqrt(D) and the stream. One launch a
+    call. Returns the output, or with `stats` (acc, m, l)."""
     B, H, Hkv = ints[:3]
     D = q.shape[-1]
     _check_decode(symbol, B, H, Hkv, D)
-    out = torch.empty_like(q)
-    fn = build.entry(symbol, symbol, argtypes)
+    if stats:
+        out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+        ml = torch.empty((2, B, H), dtype=torch.float32, device=q.device)
+        outs = (out.data_ptr(), ml.data_ptr())
+    else:
+        out = torch.empty_like(q)
+        outs = (out.data_ptr(),)
+    fn = build.entry(source or symbol, symbol, argtypes)
     with torch.cuda.device(q.device):
         chunk, splits, part, count = _split_scratch(q, B, H, Hkv, span)
-        err = fn(q.data_ptr(), *(t.data_ptr() for t in tensors),
-                 out.data_ptr(), part.data_ptr() if part is not None else 0,
+        err = fn(q.data_ptr(), *(t.data_ptr() for t in tensors), *outs,
+                 part.data_ptr() if part is not None else 0,
                  count.data_ptr() if count is not None else 0, *ints,
                  chunk, splits, D,
                  *(() if kv_f16 is None else (int(kv_f16),)),
                  int(q.dtype == torch.bfloat16),
-                 *((window or 0,) if slot else ()),
+                 *((window or 0,) if slot and not stats else ()),
                  1.0 / math.sqrt(D),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, symbol)
     _count(wrapper, _variant(q.dtype, window))
-    return out
+    return (out, ml[0], ml[1]) if stats else out
 
 
 def _float_cache(name: str, k: torch.Tensor, v: torch.Tensor, dev):
@@ -667,15 +721,26 @@ def _slot_window(window: Optional[int], Smax: int) -> Optional[int]:
     return None if window is None or window >= Smax else window
 
 
+def _no_stats_window(window: Optional[int]) -> None:
+    if window is not None:
+        raise ValueError("partial_stats takes no window (context "
+                         "parallelism refuses sliding windows)")
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor,
                  slots: torch.Tensor,
-                 window: Optional[int] = None) -> torch.Tensor:
+                 window: Optional[int] = None, *,
+                 partial_stats: bool = False):
     """q [B, H, D] f16 or bf16 against caches [rows, Smax, Hkv, D] bf16 or
     f16 through slots/lengths [B] int32 -> [B, H, D] in q's type. With a
     `window` the query at position len - 1 attends keys [max(len - window,
     0), len), and the splits cover min(Smax, window + 64) keys a
-    sequence."""
+    sequence. partial_stats=True returns (acc, m, l) instead (the module
+    docstring; `flash_decode_partial`)."""
+    if partial_stats:
+        _no_stats_window(window)
+        return flash_decode_partial(q, k_cache, v_cache, lengths, slots)
     B, H, Hkv, D = _decode_shape(q, k_cache, "flash_decode")
     rows, Smax = k_cache.shape[:2]
     dev = q.device
@@ -697,16 +762,38 @@ flash_decode.launches = 0
 flash_decode.variant_launches = {}
 
 
-def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
-                       v_cache: torch.Tensor, k_scale: torch.Tensor,
-                       v_scale: torch.Tensor, lengths: torch.Tensor,
-                       slots: torch.Tensor,
-                       window: Optional[int] = None) -> torch.Tensor:
-    """q [B, H, D] f16 or bf16 against int8 caches [rows, Smax, Hkv, D]
-    with f32 scales [rows, Smax, Hkv] through slots/lengths [B] int32
-    -> [B, H, D] in q's type; `window` as flash_decode's."""
-    B, H, Hkv, D = _decode_shape(q, k_cache, "flash_decode_quant")
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor,
+                         slots: torch.Tensor):
+    """flash_decode in partial_stats mode: q [B, H, D] f16 or bf16, the
+    bf16 or f16 slot cache, slots / shard-local lengths [B] int32 -> (acc
+    [B, H, D], m [B, H], l [B, H]) f32 (kernel 5's
+    `flash_decode_partial` entry point; the plain version on the CPU)."""
+    B, H, Hkv, D = _decode_shape(q, k_cache, "flash_decode_partial")
     rows, Smax = k_cache.shape[:2]
+    dev = q.device
+    _query(q, (B, H, D))
+    _float_cache("flash_decode_partial", k_cache, v_cache, dev)
+    _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
+    _require(slots, "slots", torch.int32, (B,), dev, align=4)
+    if _device(q) == "cpu":
+        return flash_decode_partial_plain(q, k_cache, v_cache, lengths,
+                                          slots)
+    return _launch(flash_decode_partial, "flash_decode_partial",
+                   _DECODE_PARTIAL_ARGS, q,
+                   (k_cache, v_cache, slots, lengths), (B, H, Hkv, Smax),
+                   Smax, kv_f16=k_cache.dtype == torch.float16,
+                   source="flash_decode", stats=True)
+
+
+flash_decode_partial.launches = 0
+flash_decode_partial.variant_launches = {}
+
+
+def _quant_cache(name: str, q, k_cache, v_cache, k_scale, v_scale,
+                 lengths, slots):
+    """(B, H, Hkv, D) after checking the int8 slot cache's operands."""
+    B, H, Hkv, D = _decode_shape(q, k_cache, name)
     dev = q.device
     _query(q, (B, H, D))
     _require(k_cache, "k_cache", torch.int8, k_cache.shape, dev)
@@ -717,6 +804,26 @@ def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
              align=4)
     _require(lengths, "lengths", torch.int32, (B,), dev, align=4)
     _require(slots, "slots", torch.int32, (B,), dev, align=4)
+    return B, H, Hkv, D
+
+
+def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, k_scale: torch.Tensor,
+                       v_scale: torch.Tensor, lengths: torch.Tensor,
+                       slots: torch.Tensor,
+                       window: Optional[int] = None, *,
+                       partial_stats: bool = False):
+    """q [B, H, D] f16 or bf16 against int8 caches [rows, Smax, Hkv, D]
+    with f32 scales [rows, Smax, Hkv] through slots/lengths [B] int32
+    -> [B, H, D] in q's type; `window` as flash_decode's;
+    partial_stats=True returns (acc, m, l) (`flash_decode_quant_partial`)."""
+    if partial_stats:
+        _no_stats_window(window)
+        return flash_decode_quant_partial(q, k_cache, v_cache, k_scale,
+                                          v_scale, lengths, slots)
+    B, H, Hkv, D = _quant_cache("flash_decode_quant", q, k_cache, v_cache,
+                                k_scale, v_scale, lengths, slots)
+    Smax = k_cache.shape[1]
     window = _slot_window(window, Smax)
     if _device(q) == "cpu":
         return flash_decode_quant_plain(q, k_cache, v_cache, k_scale,
@@ -730,6 +837,31 @@ def flash_decode_quant(q: torch.Tensor, k_cache: torch.Tensor,
 
 flash_decode_quant.launches = 0
 flash_decode_quant.variant_launches = {}
+
+
+def flash_decode_quant_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, lengths: torch.Tensor,
+                               slots: torch.Tensor):
+    """flash_decode_quant in partial_stats mode: the int8 slot cache and
+    its scales, shard-local lengths -> (acc, m, l) f32 (kernel 6's
+    `flash_decode_quant_partial` entry point; the plain version on the
+    CPU). The V scales weigh acc, not l, as in JAX's kernel."""
+    B, H, Hkv, D = _quant_cache("flash_decode_quant_partial", q, k_cache,
+                                v_cache, k_scale, v_scale, lengths, slots)
+    Smax = k_cache.shape[1]
+    if _device(q) == "cpu":
+        return flash_decode_partial_plain(q, k_cache, v_cache, lengths,
+                                          slots, k_scale, v_scale)
+    return _launch(flash_decode_quant_partial, "flash_decode_quant_partial",
+                   _DECODE_QUANT_PARTIAL_ARGS, q,
+                   (k_cache, v_cache, k_scale, v_scale, slots, lengths),
+                   (B, H, Hkv, Smax), Smax, source="flash_decode_quant",
+                   stats=True)
+
+
+flash_decode_quant_partial.launches = 0
+flash_decode_quant_partial.variant_launches = {}
 
 
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,

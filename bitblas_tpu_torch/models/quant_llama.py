@@ -212,6 +212,56 @@ def _layer_mlp(layer: QuantLlamaLayer, h: torch.Tensor) -> torch.Tensor:
     return layer.proj("down", act)
 
 
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     flash=None, window: Optional[int] = None,
+                     dtype=None) -> torch.Tensor:
+    """In-context causal attention, q [B, S, H, D], k/v [B, S, Hkv, D] ->
+    [B, S, H, D]: through `flash` (fn(q, k, v[, window]), the prefill
+    kernel) where given, else the plain masked softmax in float32, out in
+    `dtype` (q's by default). With a `window` query i attends keys
+    (i - window, i]."""
+    if flash is not None:
+        qkv = (q.contiguous(), k.contiguous(), v.contiguous())
+        return flash(*qkv) if window is None else flash(*qkv, window)
+    S, H, D = q.shape[1:]
+    group = H // k.shape[2]
+    k_ = k.repeat_interleave(group, dim=2).float()
+    v_ = v.repeat_interleave(group, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_) / math.sqrt(D)
+    qi = torch.arange(S, device=q.device)[:, None]
+    kj = torch.arange(S, device=q.device)[None, :]
+    keep = qi >= kj
+    if window is not None:
+        keep = keep & (kj > qi - window)
+    s = s.masked_fill(~keep, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v_).to(dtype or q.dtype)
+
+
+def prefill_flash(cfg: LlamaConfig, seq_len: int, num_heads: int,
+                  num_kv_heads: int):
+    """(flash, refused) of a prefill at `seq_len` over `num_heads` /
+    `num_kv_heads` heads: prompts of 256+ tokens in 128-multiples attend
+    through the flash kernel (the JAX rule), on the tile of tuner/curated's
+    flash_block_hint, out in act_dtype; `flash` is None for the others,
+    and `refused` says the rule took the prompt but kernel 4 refuses its
+    shape (`kernels.flash.prefill_refusal`)."""
+    if not (seq_len >= 256 and seq_len % 128 == 0):
+        return None, False
+    out_dtype = as_torch_dtype(cfg.act_dtype)
+    if prefill_refusal(seq_len, num_heads, num_kv_heads, cfg.head_dim,
+                       out_dtype, window=cfg.sliding_window) is not None:
+        return None, True
+    tile = check_prefill(1, seq_len, num_heads, num_kv_heads, cfg.head_dim,
+                         out_dtype, out_dtype, window=cfg.sliding_window)
+
+    def flash(q, k, v, *window):
+        return flash_attention_fwd(q, k, v, *window, out_dtype=out_dtype,
+                                   tile=tile)
+
+    return flash, False
+
+
 def layer_forward(layer: QuantLlamaLayer, x: torch.Tensor,
                   positions: torch.Tensor, *, flash=None,
                   return_kv: bool = False, window: Optional[int] = None):
@@ -228,23 +278,8 @@ def layer_forward(layer: QuantLlamaLayer, x: torch.Tensor,
     v = layer.proj("v", h).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     q = rope(q, positions, cfg.rope_arg)
     k = rope(k, positions, cfg.rope_arg)
-    if flash is not None:
-        qkv = (q.contiguous(), k.contiguous(), v.contiguous())
-        attn = flash(*qkv) if window is None else flash(*qkv, window)
-    else:
-        group = cfg.num_heads // cfg.num_kv_heads
-        k_ = k.repeat_interleave(group, dim=2).float()
-        v_ = v.repeat_interleave(group, dim=2).float()
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_) \
-            / math.sqrt(cfg.head_dim)
-        qi = torch.arange(S, device=x.device)[:, None]
-        kj = torch.arange(S, device=x.device)[None, :]
-        keep = qi >= kj
-        if window is not None:
-            keep = keep & (kj > qi - window)
-        s = s.masked_fill(~keep, -1e30)
-        p = torch.softmax(s, dim=-1)
-        attn = torch.einsum("bhqk,bkhd->bqhd", p, v_).to(x.dtype)
+    attn = causal_attention(q, k, v, flash=flash, window=window,
+                            dtype=x.dtype)
     attn = attn.reshape(B, S, cfg.hidden_size)
     x = x + layer.proj("o", attn)
     h = rmsnorm(x, layer.mlp_norm, cfg.rms_norm_eps)
@@ -282,24 +317,8 @@ class DecoderServingMixin:
         (`kernels.flash.prefill_refusal`) counts in
         `DecoderServingMixin.plain_prefills` at each call."""
         cfg = self.cfg
-        flash = None
-        refused = False
-        if seq_len >= 256 and seq_len % 128 == 0:
-            out_dtype = as_torch_dtype(cfg.act_dtype)
-            refused = prefill_refusal(
-                seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                out_dtype, window=cfg.sliding_window) is not None
-            if not refused:
-                # tuner/curated's flash_block_hint for the shape
-                tile = check_prefill(1, seq_len, cfg.num_heads,
-                                     cfg.num_kv_heads, cfg.head_dim,
-                                     out_dtype, out_dtype,
-                                     window=cfg.sliding_window)
-
-                def flash(q, k, v, *window):
-                    return flash_attention_fwd(q, k, v, *window,
-                                               out_dtype=out_dtype,
-                                               tile=tile)
+        flash, refused = prefill_flash(cfg, seq_len, cfg.num_heads,
+                                       cfg.num_kv_heads)
 
         def prefill(x, positions):
             if refused:

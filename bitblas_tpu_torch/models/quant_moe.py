@@ -344,8 +344,11 @@ class QuantMixtralLayer(QuantLlamaLayer):
                                  device=self.attn_norm.device,
                                  enable_tuning=enable_tuning)
 
+    # parallel/moe.expert_parallel_mixtral sets an EPQuantMoELayer here
+    moe_ep = None
+
     def mlp_forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.moe(h)
+        return (self.moe_ep or self.moe)(h)
 
 
 class QuantMixtral(DecoderServingMixin, nn.Module):

@@ -1,13 +1,20 @@
 """Continuous-batching decode engines (counterpart of
 bitblas_tpu/serving/engine.py: Request, SlotAllocator,
 ContinuousBatchingEngine, PagedContinuousBatchingEngine, TokenRequest,
-TokenContinuousBatchingEngine).
+TokenContinuousBatchingEngine, DataParallelEngineGroup).
 
 * ContinuousBatchingEngine: a fixed pool of `num_slots` sequence slots
   backed by the slot KV cache, bfloat16 or, with `kv_quant=True`, int8
   codes + f32 per-(token, head) scales; the token engine inherits both.
 * PagedContinuousBatchingEngine: hidden-state requests over a block pool
   (float or int8) with prefix caching; memory follows live tokens.
+* DataParallelEngineGroup: a host router over replica engines.
+
+A tensor-parallel model (parallel/serving.TPQuantLlama) is served by one
+engine a rank, each driving the same schedule: the engine allocates only
+the cache shape the model gives (`kv_cache_shape`: the rank's KV heads,
+and under context parallelism its rows of the sequence) and writes a
+prompt's K/V rows of its own sequence shard (`seq_shard`).
 
 Caches are updated in place; scheduling is host-side; each `step()` runs
 one decode step for every slot (inactive slots are masked by their
@@ -55,6 +62,17 @@ class SlotAllocator:
 def _bucket(S: int) -> int:
     """The power-of-two prefill length that holds S tokens."""
     return 1 << (max(S - 1, 0)).bit_length() if S > 1 else 1
+
+
+def _kv_shape(model, lead: int, rows: int, paged: bool = False):
+    """The cache shape this engine holds: the model's `kv_cache_shape`
+    where it has one (a tensor-parallel rank's share), else [L, lead,
+    rows, Hkv, D]."""
+    shape = getattr(model, "kv_cache_shape", None)
+    if shape is not None:
+        return shape(lead, rows, paged=paged)
+    c = model.cfg
+    return (c.num_layers, lead, rows, c.num_kv_heads, c.head_dim)
 
 
 def _init_caches(engine, kv_shape, kv_quant: bool) -> None:
@@ -166,8 +184,10 @@ class ContinuousBatchingEngine:
         self.pending: List[Request] = []
         self.finished: List[Request] = []
         c = self.cfg
-        _init_caches(self, (c.num_layers, num_slots, cache_rows,
-                            c.num_kv_heads, c.head_dim), kv_quant)
+        _init_caches(self, _kv_shape(model, num_slots, cache_rows), kv_quant)
+        # the global positions this engine's cache rows hold
+        shard = getattr(model, "seq_shard", None)
+        self._rows = shard(cache_rows) if shard else (0, cache_rows)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.last_hidden = torch.zeros((num_slots, c.hidden_size),
                                        dtype=torch.float16,
@@ -200,10 +220,15 @@ class ContinuousBatchingEngine:
         S = req.prompt.shape[0]
         bucket = min(_bucket(S), self.max_seq_len)
         hidden, ks, vs = _run_prefill(self, req.prompt, bucket)
-        # The whole bucket is written; rows past S are pad K/V that the
-        # length-masked decode never reads and later appends overwrite.
-        _write_rows(self, torch.stack(ks), torch.stack(vs),
-                    (slice(None), req.slot, slice(0, bucket)))
+        # The whole bucket is written (the rows of it this cache holds);
+        # rows past S are pad K/V that the length-masked decode never
+        # reads and later appends overwrite.
+        lo, hi = self._rows
+        top = min(hi, bucket)
+        if top > lo:
+            _write_rows(self, torch.stack(ks)[:, lo:top],
+                        torch.stack(vs)[:, lo:top],
+                        (slice(None), req.slot, slice(0, top - lo)))
         self.lengths[req.slot] = S
         self.last_hidden[req.slot] = hidden[0, S - 1].to(
             self.last_hidden.dtype)
@@ -322,8 +347,8 @@ class PagedContinuousBatchingEngine:
         self.pending: List[Request] = []
         self.finished: List[Request] = []
         c = self.cfg
-        _init_caches(self, (c.num_layers, num_blocks, block_size,
-                            c.num_kv_heads, c.head_dim), kv_quant)
+        _init_caches(self, _kv_shape(model, num_blocks, block_size,
+                                     paged=True), kv_quant)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.tables = np.zeros((num_slots, max_blocks_per_slot), np.int32)
         self.slot_blocks: Dict[int, List[int]] = {}
@@ -505,6 +530,50 @@ class PagedContinuousBatchingEngine:
         for _ in range(max_steps):
             self._admit()
             if not self.active and not self.pending:
+                break
+            self.step()
+        return self.finished
+
+
+class DataParallelEngineGroup:
+    """Continuous batching across replicas: each replica is an engine over
+    its own model (a card, or a tensor-parallel group), with its caches
+    kept to itself, so the only traffic between replicas is requests in
+    and results out, on the host. The group admits each request to the
+    least-loaded replica, steps every replica a tick and gathers the
+    completions. Any engine above serves (slot or paged, float or int8,
+    single-device or tensor-parallel)."""
+
+    def __init__(self, engines):
+        if not engines:
+            raise ValueError("need at least one replica engine")
+        self.engines = list(engines)
+
+    def _load(self, eng) -> int:
+        return len(eng.active) + len(eng.pending)
+
+    def submit(self, req: Request):
+        min(self.engines, key=self._load).submit(req)
+
+    def submit_tokens(self, uid: int, tokens, **kw) -> "TokenRequest":
+        """Route a token request to the least-loaded replica (replicas
+        must be TokenContinuousBatchingEngines)."""
+        return min(self.engines, key=self._load).submit_tokens(uid, tokens,
+                                                               **kw)
+
+    def step(self) -> int:
+        return sum(eng.step() for eng in self.engines)
+
+    @property
+    def finished(self) -> List[Request]:
+        out = []
+        for eng in self.engines:
+            out.extend(eng.finished)
+        return out
+
+    def run_to_completion(self, max_steps: int = 10_000) -> List[Request]:
+        for _ in range(max_steps):
+            if not any(eng.active or eng.pending for eng in self.engines):
                 break
             self.step()
         return self.finished

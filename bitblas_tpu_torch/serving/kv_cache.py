@@ -668,3 +668,233 @@ def ring_chunk_attention_quant(q: torch.Tensor, cache_k: torch.Tensor,
 for _fn in (ring_decode_attention, ring_decode_attention_quant,
             ring_chunk_attention, ring_chunk_attention_quant):
     _fn.calls = 0
+
+
+# -- context parallelism: sequence shards of the slot cache --------------------
+#
+# Under context parallelism (parallel/serving.TPQuantLlama) each rank of a
+# cp group holds one sequence shard of every slot: global positions
+# [c * local_len, (c + 1) * local_len) of shard c. The appends write only
+# the positions the shard owns; the *_partial attends return the
+# online-softmax state over the shard's live keys, (acc [..., H, D] f32
+# unnormalised, m [..., H] f32 in the natural-log domain, l [..., H] f32),
+# which the cp group merges by log-sum-exp: with m* = max_c m_c and w_c =
+# exp(m_c - m*), out = sum_c w_c acc_c / sum_c w_c l_c. A shard with no live
+# key for a sequence weighs exp(-1e30 - m*) = 0. The decode partials run
+# kernels 5 and 6 in partial_stats mode at lane-aligned head dims (the JAX
+# package's rule, kv_cache.py:658-666, :744-752), else plain torch ops as
+# JAX's are XLA; the chunk partials are plain torch ops, as JAX's are.
+
+
+def shard_kv_cache(cache: Dict[str, torch.Tensor], index: int, n: int,
+                   dim: int = 3) -> Dict[str, torch.Tensor]:
+    """Rank `index` of `n`'s slice of a cache dict (k / v and, int8, their
+    scales) along `dim` (3: the kv-head axis, as JAX's P(None, None, None,
+    axis, None); 2: the sequence axis of a cp shard); `lengths` stays
+    whole."""
+    out = {}
+    for name, t in cache.items():
+        if name == "lengths":
+            out[name] = t
+            continue
+        w = t.shape[dim] // n
+        out[name] = t.narrow(dim, index * w, w).contiguous()
+    return out
+
+
+def _owned(positions: torch.Tensor, cp_index: int, local_len: int):
+    """(owned mask, local positions) of global positions on shard
+    cp_index."""
+    p_loc = positions.long() - cp_index * local_len
+    return (p_loc >= 0) & (p_loc < local_len), p_loc
+
+
+def append_token_cp(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                    slots: torch.Tensor, positions: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, *,
+                    cp_index: int, local_len: int):
+    """Decode append onto a sequence shard, in place: cache_k/v [slots,
+    local_len, Hkv, D]; positions [B] global; only the tokens this shard
+    owns are written (each global position is stored once across the cp
+    group)."""
+    own, p_loc = _owned(positions, cp_index, local_len)
+    b = own.nonzero(as_tuple=True)[0]
+    s = slots.long()[b]
+    cache_k[s, p_loc[b]] = k_new[b].to(cache_k.dtype)
+    cache_v[s, p_loc[b]] = v_new[b].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def append_chunk_cp(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                    slots: torch.Tensor, starts: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor, *,
+                    cp_index: int, local_len: int):
+    """T-token append onto a sequence shard, in place: token i of request
+    b lands at global position starts[b] + i where this shard owns it (a
+    chunk may straddle the shard boundary); k/v_new [B, T, Hkv, D]."""
+    sb, pos = _chunk_index(slots, starts, k_new.shape[1])
+    own, p_loc = _owned(pos, cp_index, local_len)
+    bi, ti = own.nonzero(as_tuple=True)
+    cache_k[sb[bi, 0], p_loc[bi, ti]] = k_new[bi, ti].to(cache_k.dtype)
+    cache_v[sb[bi, 0], p_loc[bi, ti]] = v_new[bi, ti].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def append_token_quant_cp(cache_k, cache_v, scale_k, scale_v,
+                          slots: torch.Tensor, positions: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor, *,
+                          cp_index: int, local_len: int):
+    """Quantized twin of append_token_cp: codes and scales land on the
+    owning shard only."""
+    own, p_loc = _owned(positions, cp_index, local_len)
+    b = own.nonzero(as_tuple=True)[0]
+    s = slots.long()[b]
+    for codes, scales, x in ((cache_k, scale_k, k_new),
+                             (cache_v, scale_v, v_new)):
+        codes[s, p_loc[b]], scales[s, p_loc[b]] = quantize_kv(x[b])
+    return cache_k, cache_v, scale_k, scale_v
+
+
+def append_chunk_quant_cp(cache_k, cache_v, scale_k, scale_v,
+                          slots: torch.Tensor, starts: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor, *,
+                          cp_index: int, local_len: int):
+    """Quantized twin of append_chunk_cp."""
+    sb, pos = _chunk_index(slots, starts, k_new.shape[1])
+    own, p_loc = _owned(pos, cp_index, local_len)
+    bi, ti = own.nonzero(as_tuple=True)
+    at = (sb[bi, 0], p_loc[bi, ti])
+    for codes, scales, x in ((cache_k, scale_k, k_new),
+                             (cache_v, scale_v, v_new)):
+        codes[at], scales[at] = quantize_kv(x[bi, ti])
+    return cache_k, cache_v, scale_k, scale_v
+
+
+def _partial_softmax(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
+                     vsc=None, chunk: bool = False):
+    """JAX's XLA partial (kv_cache.py:604-760): logits s masked to -1e30,
+    the local max m, p = exp(s - m), l = sum p, acc = (p, times the V
+    scales where given, zero where masked) V. s [B, Hkv, g, (T,) L]."""
+    s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if vsc is not None:
+        p = torch.where(mask, p * vsc, torch.zeros((), device=s.device))
+    eq = "bhgtl,blhd->bthgd" if chunk else "bhgl,blhd->bhgd"
+    return torch.einsum(eq, p, v.float()), m, l
+
+
+def _partial_out(acc, m, l, chunk: bool):
+    """[B, (T,) H, D] / [B, (T,) H] from the [B, Hkv, g, ...] partials."""
+    if chunk:
+        B, T, Hkv, g, D = acc.shape
+        perm = (0, 3, 1, 2, 4)
+        return (acc.reshape(B, T, Hkv * g, D),
+                m.permute(*perm).reshape(B, T, Hkv * g),
+                l.permute(*perm).reshape(B, T, Hkv * g))
+    B, Hkv, g, D = acc.shape
+    return (acc.reshape(B, Hkv * g, D), m.reshape(B, Hkv * g),
+            l.reshape(B, Hkv * g))
+
+
+def _gathered(slots, *caches):
+    s = slots.long()
+    return [None if c is None else c[s] for c in caches]
+
+
+def decode_attention_partial(q: torch.Tensor, cache_k: torch.Tensor,
+                             cache_v: torch.Tensor, slots: torch.Tensor,
+                             lengths_local: torch.Tensor, *, num_heads: int,
+                             use_flash: Optional[bool] = None):
+    """Single-token attention state over ONE sequence shard: q [B, H, D];
+    cache_k/v [slots, local_len, Hkv, D]; lengths_local [B] valid keys in
+    this shard (the global length clipped to its range) -> (acc [B, H, D],
+    m [B, H], l [B, H]) for the log-sum-exp merge (section comment).
+    Lane-aligned head dims take kernel 5 in partial_stats mode
+    (length-proportional shard reads); others the plain softmax."""
+    B, H, D = q.shape
+    if use_flash is None:
+        use_flash = D % 128 == 0
+    if use_flash:
+        lengths_local, slots = _int32(lengths_local, slots)
+        return flash_decode(q, cache_k, cache_v, lengths_local, slots,
+                            partial_stats=True)
+    k, v = _gathered(slots, cache_k, cache_v)
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,blhd->bhgl", qf, k.float()) / math.sqrt(D)
+    mask = (torch.arange(k.shape[1], device=q.device)[None]
+            < lengths_local.long()[:, None])[:, None, None, :]
+    return _partial_out(*_partial_softmax(s, mask, v), chunk=False)
+
+
+def decode_attention_quant_partial(q: torch.Tensor, cache_k: torch.Tensor,
+                                   cache_v: torch.Tensor,
+                                   scale_k: torch.Tensor,
+                                   scale_v: torch.Tensor,
+                                   slots: torch.Tensor,
+                                   lengths_local: torch.Tensor, *,
+                                   num_heads: int,
+                                   use_flash: Optional[bool] = None):
+    """int8 twin of decode_attention_partial: the K scales on the logits
+    before the local max, the V scales in the weights of acc (not in l).
+    Lane-aligned head dims take kernel 6 in partial_stats mode."""
+    B, H, D = q.shape
+    if use_flash is None:
+        use_flash = D % 128 == 0
+    if use_flash:
+        lengths_local, slots = _int32(lengths_local, slots)
+        return flash_decode_quant(q, cache_k, cache_v, scale_k, scale_v,
+                                  lengths_local, slots, partial_stats=True)
+    k, v, ks, vs = _gathered(slots, cache_k, cache_v, scale_k, scale_v)
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,blhd->bhgl", qf, k.float())
+    s = s * ks.float().permute(0, 2, 1)[:, :, None, :] / math.sqrt(D)
+    mask = (torch.arange(k.shape[1], device=q.device)[None]
+            < lengths_local.long()[:, None])[:, None, None, :]
+    return _partial_out(*_partial_softmax(
+        s, mask, v, vs.float().permute(0, 2, 1)[:, :, None, :]), chunk=False)
+
+
+def _chunk_partial_mask(limits_local: torch.Tensor, L: int) -> torch.Tensor:
+    pos = torch.arange(L, device=limits_local.device)[None, None, :]
+    return (pos < limits_local.long()[:, :, None])[:, None, None]
+
+
+def chunk_attention_partial(q: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor, slots: torch.Tensor,
+                            limits_local: torch.Tensor, *, num_heads: int):
+    """T-token causal attention state over ONE sequence shard:
+    limits_local [B, T] = each query's valid positions in this shard (its
+    global causal limit starts[b] + i + 1 clipped to the shard's range) ->
+    (acc [B, T, H, D], m [B, T, H], l [B, T, H])."""
+    B, T, H, D = q.shape
+    k, v = _gathered(slots, cache_k, cache_v)
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, T, Hkv, H // Hkv, D)
+    s = torch.einsum("bthgd,blhd->bhgtl", qf, k.float()) / math.sqrt(D)
+    mask = _chunk_partial_mask(limits_local, k.shape[1])
+    return _partial_out(*_partial_softmax(s, mask, v, chunk=True),
+                        chunk=True)
+
+
+def chunk_attention_quant_partial(q: torch.Tensor, cache_k: torch.Tensor,
+                                  cache_v: torch.Tensor,
+                                  scale_k: torch.Tensor,
+                                  scale_v: torch.Tensor, slots: torch.Tensor,
+                                  limits_local: torch.Tensor, *,
+                                  num_heads: int):
+    """int8 twin of chunk_attention_partial (the scale factorisation of
+    chunk_attention_quant)."""
+    B, T, H, D = q.shape
+    k, v, ks, vs = _gathered(slots, cache_k, cache_v, scale_k, scale_v)
+    Hkv = k.shape[2]
+    qf = q.float().reshape(B, T, Hkv, H // Hkv, D)
+    s = torch.einsum("bthgd,blhd->bhgtl", qf, k.float()) / math.sqrt(D)
+    s = s * ks.float().permute(0, 2, 1)[:, :, None, None, :]
+    mask = _chunk_partial_mask(limits_local, k.shape[1])
+    return _partial_out(*_partial_softmax(
+        s, mask, v, vs.float().permute(0, 2, 1)[:, :, None, None, :],
+        chunk=True), chunk=True)

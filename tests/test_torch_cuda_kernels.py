@@ -1659,3 +1659,40 @@ def test_flash_attention_configs_match_plain(dev, D, case):
     u = _fa_ulp(dt, ot)
     assert attention_err(got, ref, u, 4 * u) <= 1.0
     assert torch.equal(got, flash_attention_fwd(Q, K, V, window, **kw))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_partial_stats_kernels_match_plain(dev, quant):
+    """Kernels 5 and 6 in partial_stats mode against their plain version
+    (span 2048: several splits a sequence, merged in the launch; an empty
+    sequence gives m = -1e30 ln 2, l = 0): m to 1e-3, acc and l to 1e-4 of
+    their largest value (the same f32 arithmetic regrouped by split)."""
+    from bitblas_tpu_torch.kernels.flash import (EMPTY_M, LN2,
+                                                 flash_decode_partial_plain)
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, H, Hkv, D, Smax = 4, 8, 2, 128, 2048
+    q = torch.randn((B, H, D), generator=g, device=dev).half()
+    k = (20 * torch.randn((B, Smax, Hkv, D), generator=g,
+                          device=dev)).to(torch.bfloat16)
+    v = torch.randn((B, Smax, Hkv, D), generator=g,
+                    device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([0, 1, 1500, 2048], dtype=torch.int32, device=dev)
+    slots = torch.tensor([3, 1, 0, 2], dtype=torch.int32, device=dev)
+    if quant:
+        kq, ks = kv_cache.quantize_kv(k.float())
+        vq, vs = kv_cache.quantize_kv(v.float())
+        got = flash_decode_quant(q, kq, vq, ks, vs, lengths, slots,
+                                 partial_stats=True)
+        want = flash_decode_partial_plain(q, kq, vq, lengths, slots, ks, vs)
+    else:
+        got = flash_decode(q, k, v, lengths, slots, partial_stats=True)
+        want = flash_decode_partial_plain(q, k, v, lengths, slots)
+    torch.cuda.synchronize()
+    for name, a, b, lim in (("m", got[1], want[1], 1e-3),
+                            ("l", got[2], want[2], 1e-4),
+                            ("acc", got[0], want[0], 1e-4)):
+        tol = lim if name == "m" else lim * b.abs().max().item()
+        err = (a - b).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    assert torch.all(got[1][0] == torch.tensor(EMPTY_M, device=dev) * LN2)
+    assert torch.all(got[2][0] == 0) and torch.all(got[0][0] == 0)

@@ -309,7 +309,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "new = ['ops.' + m for m in ('matmul_splitk', 'batch_matmul',"
         " 'conv2d', 'ladder_permutate', 'lop3_permutate',"
-        " 'quant_compress')] + ['utils.timing']\n"
+        " 'quant_compress')] + ['utils.timing', 'parallel',"
+        " 'parallel.layers', 'parallel.serving', 'parallel.moe',"
+        " 'parallel.pipeline', 'testing.dist', 'testing.ranks']\n"
         "missing = [m for m in new if 'bitblas_tpu_torch.' + m"
         " not in sys.modules]\n"
         "assert not missing, missing\n"

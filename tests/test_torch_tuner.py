@@ -48,7 +48,11 @@ UNTUNED_LARGE = {"uint4": (64, 128, 256, 4), "int2": (64, 128, 512, 2)}
 # The N of the models' projections (Llama-2-7B: 4096, 11008; Llama-3-8B
 # widths, BitNet: 4096, 1024, 14336; Mixtral-8x7B's uint4 experts: 14336,
 # 4096).
-MODEL_N = (4096, 11008, 14336, 1024)
+# the N of every projection the models run: Llama-2-7B, Llama-3-8B /
+# BitNet, and the rank-local N of Llama-3-70B at tp 2 (parallel/serving:
+# the fused q/k/v, (32 + 2 * 4) heads * 128 = 5120, and the fused gate /
+# up, 2 * 14336 = 28672; its o and down keep N = 8192)
+MODEL_N = (4096, 11008, 14336, 1024, 5120, 28672, 8192)
 # Mixtral-8x7B's expert projections (N, K): gate / up, down
 MIXTRAL_EXPERTS = ((14336, 4096), (4096, 14336))
 
