@@ -12,10 +12,11 @@ activation through numpy on the host; this one stays on the card).
 `post_init()` rebuilds the device operands from the buffers: call it
 after `load_state_dict`, as AutoGPTQ's post-init contract asks. Bits 1,
 2 and 4 run (uint1 / uint2 / uint4 with GPTQ-style scales and zeros),
-with float16 activations, bfloat16 ones (A_dtype="bfloat16", the scales
-and zeros then in bfloat16 on the card) or int8 ones (A_dtype="int8", as
-JAX builds it: the activations taken to int8 (a float input truncated),
-the output int8, saturating, then taken to the input's type).
+under any A_dtype JAX's QuantLinear takes: float16, bfloat16 (the scales
+and zeros then in bfloat16 on the card), int8 (as JAX builds it: the
+activations taken to int8 (a float input truncated), the output int8,
+saturating, then taken to the input's type), float32 and the others
+(the general instance of kernel 1, ops/matmul_config.py).
 """
 
 from __future__ import annotations

@@ -48,7 +48,9 @@ SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
            # kernel 1 for int8 activations (csrc/dequant_int.cuh), a
            # source for each weight format
            "dequant_int_u1", "dequant_int_u2", "dequant_int_u4",
-           "dequant_int_i1", "dequant_int_i2", "dequant_int_i4")
+           "dequant_int_i1", "dequant_int_i2", "dequant_int_i4",
+           # kernels 1-3's general instance: every other configuration
+           "dequant_general")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, object] = {}

@@ -1,11 +1,17 @@
 """Dense (native-compute) matmul paths (counterpart of
 bitblas_tpu/kernels/dense.py).
 
-* `make_dense_matmul` -- the counterpart of JAX's XLA dot: every reference
-  layout, float32 accumulation for float operands and int32 for int8. On
-  the card it is cuBLAS, through `torch.matmul` (float16 / bfloat16 /
-  float32) or `torch._int_mm` (int8): JAX computes this product outside
-  Pallas, so it stays a library call. cuBLAS may reduce split-K partial
+* `make_dense_matmul` -- the counterpart of JAX's XLA dot, for every
+  native pair (`native_product`): every reference layout, float32
+  accumulation for float operands (float64 for float64), int32 for
+  integer ones, then JAX's astype to out_dtype and the bias in that type.
+  On the card float16 / bfloat16 into their own type and float32 are
+  cuBLAS (`torch.matmul`), int8 `torch._int_mm`, uint8 `torch._int_mm`
+  on the operands shifted to int8 (`uint8_mm`), float64 DGEMM: JAX
+  computes this product outside Pallas, so a library call may stay;
+  float16 / bfloat16 into another type and the fp8 pairs take kernel 9's
+  float32 accumulators (`f16_sums`, fp8 upcast exactly to float16,
+  `fp8_sums`). cuBLAS may reduce split-K partial
   sums of a float16 product in float16
   (`torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction`,
   left as the process has it), so the route is held to a tolerance against
@@ -18,8 +24,9 @@ bitblas_tpu/kernels/dense.py).
   K % block_k == 0 required, M padded up to block_m (rows past M are
   masked, which gives the same rows). float16, bfloat16 and int8 run on
   wgmma + TMA (4-stage ring), a hint of the 16-row tile on the 64 x 128
-  tile; float32 on FFMA at every tile. As in JAX, no part of the program calls it; the
-  tuner's tests and chip_smoke.py do.
+  tile; float32 on FFMA at every tile. As in JAX, `make_dense_matmul_pallas`
+  has no caller in the program (the tuner's tests and chip_smoke.py call
+  it); the dense route calls kernel 9 through `f16_sums`.
 * `dense_matmul` / `dense_matmul_plain` -- kernel 9's wrapper (a launch
   counter, the kernel on a CUDA tensor, the plain version on a CPU one)
   and its plain version.
@@ -61,6 +68,9 @@ OUT_DTYPES = {torch.float16: (torch.float16, torch.bfloat16, torch.float32),
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # torch._int_mm takes M > 16 rows; smaller M is padded with zero rows
 _INT_MM_MIN_M = 17
+_FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+_NAME = {torch.float16: "float16", torch.bfloat16: "bfloat16",
+         torch.float32: "float32", torch.float64: "float64"}
 
 
 def launched_tile(a_dtype: torch.dtype, tile):
@@ -142,10 +152,15 @@ def dense_matmul(A: torch.Tensor, W: torch.Tensor, out_dtype: torch.dtype,
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, "dense_matmul")
     dense_matmul.launches += 1
+    key = f"{_NAME.get(A.dtype, 'int8')}->{_NAME.get(out_dtype, 'int32')}"
+    counts = dense_matmul.variant_launches
+    counts[key] = counts.get(key, 0) + 1
     return out
 
 
 dense_matmul.launches = 0
+# launches by operand and output type ("float16->float32", ...)
+dense_matmul.variant_launches = {}
 
 
 def make_dense_matmul_pallas(spec: KernelSpec, hint: TileHint):
@@ -185,19 +200,147 @@ def full_f32():
          torch.backends.cudnn.allow_tf32) = prev
 
 
+def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """t [r, c] with zero rows and columns up to [rows, cols] (float8
+    through its bytes: +0 is the zero byte)."""
+    r, c = t.shape
+    if (r, c) == (rows, cols):
+        return t.contiguous()
+    if t.dtype in _FLOAT8:
+        return _pad2(t.view(torch.uint8), rows, cols).view(t.dtype)
+    return torch.nn.functional.pad(t, (0, cols - c, 0, rows - r))
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int_mm(A: torch.Tensor, W_nk: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of int8 A [M, K] . W_nk^T through
+    `torch._int_mm`, its operands padded with zeros to what it takes (M
+    past 16, K and N multiples of 8) and the result sliced back."""
+    M, K = A.shape
+    N = W_nk.shape[0]
+    Mp, Kp, Np = max(M, _INT_MM_MIN_M), _up(K, 8), _up(N, 8)
+    out = torch._int_mm(_pad2(A, Mp, Kp), _pad2(W_nk, Np, Kp).T)
+    return out[:M, :N]
+
+
+def uint8_mm(A: torch.Tensor, W_nk: torch.Tensor) -> torch.Tensor:
+    """The exact (wrapping) int32 sums of uint8 A . W_nk^T over int8
+    operands a = A - 128, w = W - 128: sum A W = sum a w + 128 sum a +
+    128 sum w + 128^2 K (`int_mm` for the first term)."""
+    a = (A.to(torch.int16) - 128).to(torch.int8)
+    w = (W_nk.to(torch.int16) - 128).to(torch.int8)
+    K = A.shape[1]
+    return (int_mm(a, w) + 128 * a.sum(1, keepdim=True, dtype=torch.int32)
+            + 128 * w.sum(1, dtype=torch.int32)[None] + 128 * 128 * K)
+
+
+def f16_sums(A: torch.Tensor, W_nk: torch.Tensor) -> torch.Tensor:
+    """The float32 sums of float16 or bfloat16 A . W_nk^T through kernel
+    9 (its 64 x 128 tile writes float32 from wgmma's float32
+    accumulators), N and K padded with zeros to its tile."""
+    M, K = A.shape
+    N = W_nk.shape[0]
+    tile = DENSE_TILES[1]
+    Kp, Np = _up(K, tile[2]), _up(N, tile[1])
+    out = dense_matmul(_pad2(A, M, Kp), _pad2(W_nk, Np, Kp), torch.float32,
+                       tile)
+    return out[:, :N]
+
+
+def fp8_sums(A: torch.Tensor, W_nk: torch.Tensor) -> torch.Tensor:
+    """The float32 sums of float8 A . W_nk^T (either type on either side):
+    both upcast exactly to float16 (every e4m3 and e5m2 value is one),
+    then kernel 9 (`f16_sums`). `torch._scaled_mm` (`scaled_mm_sums`) is
+    not used here: even with `use_fast_accum=False` its sums strayed ~1e-4
+    of the output from float32 sums of the same products on an H100
+    (tests/test_torch_cuda_general.py), where JAX's dot sums in
+    float32."""
+    return f16_sums(A.to(torch.float16), W_nk.to(torch.float16))
+
+
+def scaled_mm_sums(A: torch.Tensor, W_nk: torch.Tensor) -> torch.Tensor:
+    """cuBLASLt's float8 product of the same operands (`torch._scaled_mm`,
+    unit scales, `use_fast_accum=False`, operands padded to multiples of
+    16, W column-major; e5m2 x e5m2 it refuses): the library row of the
+    fp8 pairs, timed beside `fp8_sums`, used nowhere in the port."""
+    M, K = A.shape
+    N = W_nk.shape[0]
+    one = torch.ones((), dtype=torch.float32, device=A.device)
+    out = torch._scaled_mm(_pad2(A, _up(M, 16), _up(K, 16)),
+                           _pad2(W_nk, _up(N, 16), _up(K, 16)).T,
+                           scale_a=one, scale_b=one,
+                           out_dtype=torch.float32, use_fast_accum=False)
+    if isinstance(out, tuple):   # older PyTorch: (out, amax)
+        out = out[0]
+    return out[:M, :N]
+
+
+def native_product(A: torch.Tensor, W_nk: torch.Tensor, out_name: str,
+                   precision: str = "default") -> torch.Tensor:
+    """The dense route's product of a native pair, as JAX's Matmul computes
+    it (an XLA dot, then astype): A [M, K] . W_nk^T (any strides) summed in
+    int32 (int8, int4 / uint4 in int8, uint8), float32 or float64, then
+    converted to `out_name` (numerics.convert: float sums truncate and
+    saturate into an integer type, integer sums wrap); float16 and
+    bfloat16 operands with an output of their own type take cuBLAS's
+    product in that type."""
+    name = _NAME.get(A.dtype)
+    if A.device.type == "cpu":
+        if not (A.is_floating_point() or W_nk.is_floating_point()):
+            return numerics.convert(matmul_dense_reference(
+                A.to(torch.int32), W_nk.to(torch.int32), torch.int32),
+                out_name)
+        wide = torch.float64 if A.dtype == torch.float64 else torch.float32
+        with full_f32():
+            out = torch.matmul(numerics.to_float(A).to(wide),
+                               numerics.to_float(W_nk).to(wide).T)
+        return numerics.convert(out, out_name)
+    if A.dtype in (torch.float16, torch.bfloat16):
+        if out_name == name:
+            return torch.matmul(A, W_nk.T)
+        sums = f16_sums(A, W_nk)
+    elif A.dtype == torch.int8:
+        sums = int_mm(A, W_nk)
+    elif A.dtype == torch.uint8:
+        sums = uint8_mm(A, W_nk)
+    elif A.dtype in _FLOAT8:
+        sums = fp8_sums(A, W_nk)
+    elif A.dtype == torch.float32 and precision == "highest":
+        with full_f32():
+            sums = torch.matmul(A, W_nk.T)
+    elif not A.is_floating_point():   # int16 / int32 / int64 storage
+        sums = torch.matmul(A.double(), W_nk.double().T)
+    else:   # float32, float64 (cuBLAS SGEMM / DGEMM)
+        sums = torch.matmul(A, W_nk.T)
+    return numerics.convert(sums, out_name)
+
+
+def add_bias(out: torch.Tensor, bias: torch.Tensor,
+             out_name: str) -> torch.Tensor:
+    """out + bias in the output type, as JAX's dense Matmul adds it after
+    the cast (bias.astype(out.dtype), then one add in that type: rounded
+    for a float type, wrapping for an integer one)."""
+    if out.dtype in (torch.float16, torch.bfloat16, torch.float32,
+                     torch.float64):
+        return out + bias.reshape(1, -1).to(out.dtype)
+    b = numerics.convert(bias.reshape(1, -1), out_name)
+    wide = torch.float64 if out.is_floating_point() else torch.int64
+    return numerics.convert(numerics.to_float(out).to(wide)
+                            + numerics.to_float(b).to(wide), out_name)
+
+
 def dense_product(A: torch.Tensor, W_nk: torch.Tensor,
                   out_dtype: torch.dtype,
                   precision: str = "default") -> torch.Tensor:
     """A [M, K] . W_nk^T (W_nk [N, K], any strides) cast to out_dtype: the
-    library product of the dense route and of the materialize plan."""
+    library product of the materialize plan."""
     if A.device.type == "cpu":
         return matmul_dense_reference(A, W_nk, out_dtype)
     if A.dtype == torch.int8:
-        M = A.shape[0]
-        if M < _INT_MM_MIN_M:   # exact: the zero rows are sliced off
-            A = torch.nn.functional.pad(A, (0, 0, 0, _INT_MM_MIN_M - M))
-        out = torch._int_mm(A, W_nk.T)[:M]
-        return numerics.saturate_cast(out, out_dtype)
+        return numerics.saturate_cast(int_mm(A, W_nk), out_dtype)
     if A.dtype == torch.float32 and precision == "highest":
         with full_f32():
             out = torch.matmul(A, W_nk.T)
@@ -215,15 +358,14 @@ def make_dense_matmul(spec: KernelSpec, hint: TileHint, *,
     (when the spec has one) added in the output type after the cast."""
     if layout not in ("nn", "nt", "tn", "tt"):
         raise ValueError(f"unknown layout {layout!r}")
-    out_dtype = as_torch_dtype(spec.out_dtype)
 
     def fn(A, W, scales=None, zeros=None, bias=None):
         del scales, zeros
         A2 = A if layout[0] == "n" else A.T
         W_nk = W if layout[1] == "t" else W.T
-        out = dense_product(A2, W_nk, out_dtype, hint.precision)
+        out = native_product(A2, W_nk, spec.out_dtype, hint.precision)
         if spec.with_bias and bias is not None:
-            out = out + bias.to(out.dtype)
+            out = add_bias(out, bias, spec.out_dtype)
         return out
 
     return fn

@@ -36,6 +36,10 @@ ported configuration, with the Hopper layout of quantization/packing.py:
   version is JAX's oracle: exact int32 sums unscaled, else the float32
   product of the float32 weight (w - z) s.
 * The tiled paths: csrc/dequant_wgmma.cuh.
+* Every configuration none of these take (ops/matmul_config.specialized:
+  other activation types, wide weights, K off 128, other groups and
+  outputs, zeros on nf4 / fp4 / fp8, zeros without scales): kernel 1's
+  general instance, kernels/general.py (`spec_format` "general").
 
 Each kernel is compiled for a small fixed set of tile instances
 (`FUSED_TILES`, (block_m, block_n, block_k, stages)); the caller names one
@@ -84,11 +88,12 @@ import ctypes
 
 import torch
 
-from ..ops.matmul_config import FLOAT_PAIRS, INT_PAIRS
+from ..ops.matmul_config import FLOAT_PAIRS, INT_PAIRS, specialized_pair
 from ..ops.reference import expand_groups, matmul_dense_reference
 from ..quantization import numerics, packing
 from ..quantization.formats import as_torch_dtype, source_format_and_bits
 from . import build, scratch
+from .general import GENERAL_TILE
 
 GROUP = 128          # the step of the uint4 decode instance, JAX's default
 # groups the uint4 kernels take besides 128, the multiples of 256 that
@@ -157,7 +162,13 @@ def fused_format(W_dtype: str, A_dtype: str, out_dtype=None, scaled=None,
 
 
 def spec_format(spec) -> str:
-    """fused_format of a KernelSpec (kernels/spec.py)."""
+    """fused_format of a KernelSpec (kernels/spec.py); "general" for a
+    configuration the specialized kernels do not take
+    (ops/matmul_config.specialized_pair: kernels/general.py runs it)."""
+    if not spec.native and not specialized_pair(
+            spec.a_dtype, spec.w_dtype, spec.out_dtype, spec.k, spec.n,
+            spec.group_size, spec.with_scaling, spec.with_zeros):
+        return "general"
     return fused_format(spec.w_dtype, spec.a_dtype, spec.out_dtype,
                         spec.with_scaling, spec.with_zeros, spec.with_bias)
 
@@ -187,6 +198,9 @@ for _fmt in INT_FORMATS:
     FUSED_TILES[_fmt] = (
         fmt_decode_tile(source_format_and_bits(split_format(_fmt)[0])[1]),
         INT_TILED_TILE)
+# The general instance (kernels/general.py, csrc/dequant_general.cu): one
+# tile, 32 tokens x 64 weight rows, K in steps of 32.
+FUSED_TILES["general"] = (GENERAL_TILE,)
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
 # The decode instances: 128 weight rows a block, A tiles of 16 rows, at
@@ -206,7 +220,7 @@ def default_tile(fmt: str, m: int):
     where the weight bytes bound the kernel, the 64-token x 128-row wgmma
     tile above."""
     tiles = FUSED_TILES[fmt]
-    if m <= 16:
+    if m <= 16 or fmt == "general":
         return tiles[0]
     return tiles[1] if fmt in FMT_FORMATS + INT_FORMATS else tiles[2]
 
@@ -285,6 +299,8 @@ def fused_smem_bytes(fmt: str, tile, group: int = GROUP) -> int:
     size, A over 8 steps of 256 (16 rows), A's 16 row sums and the
     per-thread ring of two 16-byte weight chunks a stage."""
     bm, bn, bk, stages = tile
+    if fmt == "general":   # static: A's and the weight's tiles, float64
+        return bk * (bm + 1) * 8 + bk * (bn + 1) * 8
     if fmt in INT_FORMATS:
         bits = source_format_and_bits(split_format(fmt)[0])[1]
         if is_tiled(fmt, tile):   # a slot's 512 of K is 64 bits bytes a

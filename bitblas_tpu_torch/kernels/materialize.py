@@ -28,6 +28,12 @@ from M = 512, or in a bucket whose measured winner it is
   most per-channel scales (`supports_materialize_spec`): the int32
   product then taken to float32 times the float16 scale of each column;
   forcing the plan on a grouped or zero-point configuration raises.
+* `weight_decode_general` (kernels/general.py) -- kernels 2 and 3's
+  general instance, for every configuration the specialized kernels do
+  not take (`spec_format` "general"): the weight in the decode type with
+  its scales (integer activations: the codes in A's type, the
+  per-channel scales applied to the sums), then float32 / float64 sums
+  on cuBLAS with TF32 off, or exact integer sums.
 * `materialize_matmul` -- decode, then the dense product
   (kernels/dense.dense_product): on the card `torch.matmul` (float16 in
   and out) or `torch._int_mm` (int8 in, int32 out). JAX computes both
@@ -59,12 +65,14 @@ import torch
 
 from ..ops.reference import expand_groups
 from ..quantization import numerics, packing
+from ..ops.reference import decode_type, finish_sums, sums
 from ..quantization.formats import as_torch_dtype, source_format_and_bits
 from . import build
-from .dense import dense_product
+from .dense import dense_product, full_f32
 from .dequant_matmul import (FMT_FORMATS, GROUP, ZEROS_MODES,
                              dequantize_fmt_hopper, dequantize_hopper,
                              fmt_entry, spec_format)
+from .general import weight_decode_general
 from .spec import KernelSpec
 
 _ARGTYPES_U4 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -280,6 +288,15 @@ def decode_weight(spec: KernelSpec, qweight: torch.Tensor, scales=None,
     every other format)."""
     if not supports_materialize_spec(spec):
         raise ValueError(f"materialize plan unsupported for {spec}")
+    if spec_format(spec) == "general":
+        if spec.is_int_activation:   # the codes in A's integer type
+            return weight_decode_general(qweight, spec.w_dtype, spec.k,
+                                         spec.a_dtype)
+        decode = decode_type(spec.a_dtype,
+                             spec.with_scaling or spec.with_zeros)
+        return weight_decode_general(qweight, spec.w_dtype, spec.k, decode,
+                                     scales, zeros, spec.group_size,
+                                     spec.zeros_mode)
     if spec.is_int_activation:
         return weight_decode_int8(qweight, spec.bits, spec.family)
     mode = "rescale" if spec.zeros_mode == "rescale" else "original"
@@ -300,16 +317,22 @@ def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
     and every other format with float activations (the weight in A's type;
     out in A's type or float32); a float32 bias added to the product
     before the cast, which saturates for an int8 output."""
+    general = spec_format(spec) == "general"
     out_dtype = as_torch_dtype(spec.out_dtype)
     precision = "default"
     W = decode_weight(spec, qweight, scales, zeros)
     if spec.is_int_activation:
-        out = dense_product(A, W, torch.int32)
+        if A.dtype == W.dtype == torch.int8:
+            out = dense_product(A, W, torch.int32)
+        else:   # uint8: exact within 2^53
+            out = torch.matmul(A.double(), W.double().T).to(torch.int32)
         if scales is not None:   # per channel: [1, N]
             out = out.float() * scales.reshape(1, -1).float()
         if bias is not None:
             out = out.float() + bias.reshape(1, -1).float()
-        return numerics.saturate_cast(out, out_dtype)
+        return numerics.cast_output(out, spec.out_dtype)
+    if general:
+        return _general_product(spec, A, W, bias)
     if out_dtype == torch.float32 and W.dtype != torch.float32:
         # a float16 / bfloat16 product would round its sums to A's type
         # first: the float32 product of the float32 copies
@@ -319,3 +342,16 @@ def materialize_matmul(spec: KernelSpec, A: torch.Tensor,
     out = dense_product(A, W, torch.float32, precision) \
         + bias.reshape(1, -1).float()
     return out.to(out_dtype)
+
+
+def _general_product(spec: KernelSpec, A: torch.Tensor, W: torch.Tensor,
+                     bias) -> torch.Tensor:
+    """The plan's second pass for the general instance's configurations
+    with float activations: the sums of A and the decoded weight on
+    float32 (float64 for float64 activations) copies, cuBLAS with TF32
+    off, then the bias and the oracle's cast (ops/reference.
+    finish_sums)."""
+    with full_f32():
+        out = sums(A, W, "float64" if spec.a_dtype == "float64"
+                   else "float32")
+    return finish_sums(out, bias, spec.out_dtype)

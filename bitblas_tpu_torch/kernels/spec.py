@@ -2,8 +2,9 @@
 (counterpart of bitblas_tpu/kernels/spec.py, same fields).
 
 On Hopper the device layout needs no N padding (the kernel masks the
-ragged N tile): the packed weight is the K-packed ``[N, K*bits/32]``
-int32 of quantization/packing.py. `w_dtype` names the weight format of
+ragged N tile): the packed weight is the K-packed ``[N, ceil(K*bits/32)]``
+int32 of quantization/packing.py, or for wide int / uint weights the
+``[N, K]`` int16 / int32 words. `w_dtype` names the weight format of
 (family, bits); nf4's table is quantization/formats.nf4_lut (the kernels
 keep its float16 / bfloat16 bits in csrc/decode_formats.cuh).
 """
@@ -72,5 +73,6 @@ class KernelSpec:
 
     @property
     def packed_shape(self):
-        """Device weight shape: [N, K*bits/storage_bits] (K-packed)."""
-        return (self.n, self.k // self.elems_per_word)
+        """Device weight shape: [N, ceil(K*bits/storage_bits)] (K-packed;
+        wide weights [N, K] words)."""
+        return (self.n, -(-self.k // self.elems_per_word))

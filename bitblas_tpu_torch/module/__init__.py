@@ -6,14 +6,15 @@ An `nn.Module` on an explicit device (default "cuda"): it builds a
 dynamic-M Matmul through the global operator cache (loading the hint
 database first, tuning and saving when asked), owns the device-layout
 buffers, and repacks AutoGPTQ v1 / GPTQModel v2 checkpoints (the v1
-qzeros off-by-one included) with torch ops on its device. Any ported
-W_dtype runs (ops/matmul_config.PORTED: every quantized format with
-float16 or bfloat16 activations, uint1/2/4 and int1/2/4 with int8
-activations, the native pairs). Buffers: ``qweight`` [N, K*bits/32]
-int32 (or ``weight`` [N, K] for a native A_dtype == W_dtype layer),
-``scales`` and ``zeros`` [K/g, N] in A's type (float16 for integer
-activations; quantized zeros are kept unpacked, as integers of that
-type), ``bias`` [1, N] float32.
+qzeros off-by-one included) with torch ops on its device. Every
+(A_dtype, W_dtype) pair JAX's Linear takes runs (ops/matmul_config.py).
+Buffers: ``qweight`` [N, ceil(K*bits/32)] int32 (wide int / uint
+weights: [N, K] int16 / int32 words), or ``weight`` [N, K] in W's type
+for a native pair; ``scales`` and ``zeros`` [K/g, N] in the scales' type
+(wt.scale_dtype: A's for the specialized kernels, float16 for their int8
+activations, else the decode type; quantized zeros are kept unpacked, as
+values of that type, or int32 for the general instance), ``bias`` [1, N]
+float32.
 """
 
 from __future__ import annotations
@@ -104,29 +105,32 @@ class Linear(nn.Module):
         self.source_format = self.bitblas_matmul.config.source_format
 
         cfg = self.bitblas_matmul.config
-        if self.is_consistent:
+        self.native = cfg.is_native_compute()
+        if self.native:
             self.register_buffer("weight", torch.zeros(
                 (out_features, in_features),
-                dtype=as_torch_dtype(A_dtype), device=dev))
+                dtype=as_torch_dtype(W_dtype), device=dev))
             self.register_buffer("qweight", None)
         else:
             self.register_buffer("qweight", torch.zeros(
                 self.bitblas_matmul.retrieve_weight_shape(),
-                dtype=torch.int32, device=dev))
+                dtype=torch.int16 if cfg.bit == 16 else torch.int32,
+                device=dev))
             self.register_buffer("weight", None)
         groups = (in_features // self.group_size, out_features)
         sdt = wt.scale_dtype(cfg)
+        zdt = torch.int32 if wt.general_quantized_zeros(cfg) else sdt
         self.register_buffer("scales", torch.ones(
             groups, dtype=sdt, device=dev) if cfg.with_scaling else None)
         self.register_buffer("zeros", torch.zeros(
-            groups, dtype=sdt, device=dev) if cfg.with_zeros else None)
+            groups, dtype=zdt, device=dev) if cfg.with_zeros else None)
         self.register_buffer("bias", torch.zeros(
             (1, out_features), dtype=torch.float32, device=dev)
             if bias else None)
 
     @property
     def device(self) -> torch.device:
-        return (self.weight if self.is_consistent else self.qweight).device
+        return (self.weight if self.native else self.qweight).device
 
     # -- operator cache -----------------------------------------------------
     @staticmethod
@@ -160,7 +164,7 @@ class Linear(nn.Module):
     # -- forward --------------------------------------------------------------
     def forward(self, A) -> torch.Tensor:
         """A [..., in_features] on the layer's device -> [..., out]."""
-        W = self.weight if self.is_consistent else self.qweight
+        W = self.weight if self.native else self.qweight
         A = as_tensor(A, W.device)
         return self.bitblas_matmul.forward(A, W, scale=self.scales,
                                            zeros=self.zeros, bias=self.bias)
@@ -173,11 +177,12 @@ class Linear(nn.Module):
         native layer) with scales [out, in/g], zeros [out, in/g]
         (quantized mode: packed [in/g, out*bits/8] int8) and bias [out]."""
         dev, cfg = self.device, self.bitblas_matmul.config
-        if self.is_consistent:
-            self.weight = as_tensor(weight, dev).to(
-                as_torch_dtype(cfg.W_dtype)).contiguous()
+        # the Matmul moves it to the device, reads float8 codes as bytes
+        # and keeps a native weight's values (converted to W's type)
+        if self.native:
+            self.weight = self.bitblas_matmul.transform_weight(
+                weight).contiguous()
         else:
-            # the Matmul moves it to the device and reads float8 as bytes
             self.qweight = self.bitblas_matmul.transform_weight(weight)
         if scales is not None:
             self.scales = wt.scales_to_device(as_tensor(scales, dev),

@@ -6,8 +6,10 @@ Pallas kernel, so a library call is its counterpart: `torch.bmm` for
 float operands (float16 / bfloat16 sums in float32 inside cuBLAS, one
 rounding to the output; another output type takes the float32 product of
 float32 copies, TF32 off), and for int8 `torch._int_mm` on each batch
-slice (`kernels/dense.dense_product`, exact int32 sums: `torch.bmm` takes
-no int8 on CUDA). The result is cast to out_dtype as JAX casts it. On
+slice (`kernels/dense.native_product`, exact int32 sums: `torch.bmm`
+takes no int8 on CUDA; uint8, float8, float64 and the wider integers
+through the same product, each batch slice). The result is cast to
+out_dtype as JAX casts it. On
 the CPU the plain version runs (`batch_matmul_plain`: float32 sums, or
 integer sums exact in a wider float), as on the card in the tests.
 """
@@ -20,8 +22,9 @@ from typing import Any, Optional
 import torch
 
 from ..common import resolve_device
-from ..kernels.dense import dense_product, full_f32
+from ..kernels.dense import full_f32, native_product
 from .reference import matmul_dense_reference
+from ..quantization import numerics
 from ..quantization.formats import as_torch_dtype
 from .matmul_config import OperatorConfig
 from .weight_transform import as_tensor
@@ -94,10 +97,14 @@ class BatchMatmul:
         if self.device.type == "cpu":
             return batch_matmul_plain(a, w, c.layout, self.out_dtype)
         w_nk = _rows_nk(w, c.layout)
-        if not a.is_floating_point():
-            return torch.stack([
-                dense_product(a[b], w_nk[b].contiguous(), torch.int32)
-                for b in range(c.Batch)]).to(self.out_dtype)
+        if self.dtype not in (torch.float16, torch.bfloat16, torch.float32):
+            # int8 / uint8 (exact int32 sums), float64, float8, the wider
+            # integers: each batch through the dense route's product
+            acc = "int32" if c.A_dtype in ("int8", "uint8") else \
+                "float64" if c.A_dtype == "float64" else "float32"
+            return numerics.convert(torch.stack([
+                native_product(a[b], w_nk[b].contiguous(), acc)
+                for b in range(c.Batch)]), c.out_dtype)
         if self.out_dtype == self.dtype:
             return torch.bmm(a, w_nk.transpose(1, 2))
         with full_f32():

@@ -25,6 +25,10 @@ takes the hint of its M (ops/operator.py):
   layout, bias added in the output type. ``t*`` layouts take A as
   [K, M], as JAX does.
 
+Activations of another type than A_dtype are converted to it first
+(numerics.convert, XLA's conversion), as JAX's kernel casts its A
+block.
+
 Untuned, that is the fused kernel below M = 512 and the materialize plan
 from it (tuner/space.default_hint). With `enable_tuning` (the default) an
 operator on the card measures each bucket's candidates when it is built;
@@ -44,12 +48,15 @@ from ..kernels.dequant_matmul import (FMT_FORMATS, INT_FORMATS,
                                       dequant_matmul_fmt, dequant_matmul_i2,
                                       dequant_matmul_int, dequant_matmul_u4,
                                       spec_format)
+from ..kernels.general import dequant_matmul_general
 from ..kernels.materialize import materialize_matmul
 from ..kernels.spec import KernelSpec
-from ..quantization.formats import as_torch_dtype
+from ..quantization import numerics
+from ..quantization.formats import TORCH_DTYPES, as_torch_dtype
 from ..tuner.hint import TileHint
 from .matmul_config import MatmulConfig
 from .operator import BaseKernelNameGenerator, Operator
+from .reference import decode_name
 from . import weight_transform as wt
 
 
@@ -108,6 +115,17 @@ def _to_tensor(x) -> torch.Tensor:
     return torch.as_tensor(a)
 
 
+def _float8_kind(x):
+    """The torch float8 type of a float8 tensor or ml_dtypes array, or
+    None."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype if x.dtype in _FLOAT8 else None
+    name = str(np.asarray(x).dtype)
+    return {"float8_e4m3fn": torch.float8_e4m3fn,
+            "float8_e5m2": torch.float8_e5m2}.get(name)
+
+
+_FLOAT8_NAMES = ("e4m3_float8", "e5m2_float8")
 _FLOAT8 = tuple(getattr(torch, n) for n in (
     "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz", "float8_e5m2fnuz")
     if hasattr(torch, n))
@@ -152,8 +170,8 @@ class Matmul(Operator):
     def _example_input(self, m: int) -> torch.Tensor:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(m)
-        return _random((m, self.config.K), as_torch_dtype(
-            self.config.A_dtype), gen, self.device)
+        return _random((m, self.config.K), self.config.A_dtype, gen,
+                       self.device)
 
     def _example_weights(self):
         """Seeded random device-layout operands: every code of the packed
@@ -162,23 +180,28 @@ class Matmul(Operator):
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
         if cfg.is_native_compute():
-            out = [_random(self.retrieve_weight_shape(),
-                           as_torch_dtype(cfg.W_dtype), gen, dev)]
+            out = [_random(self.retrieve_weight_shape(), cfg.W_dtype, gen,
+                           dev)]
         else:
-            out = [torch.randint(-2 ** 31, 2 ** 31,
+            wbits = 16 if cfg.bit == 16 else 32
+            out = [torch.randint(-2 ** (wbits - 1), 2 ** (wbits - 1),
                                  self.retrieve_weight_shape(), generator=gen,
                                  device=dev, dtype=torch.int64)
-                   .to(torch.int32)]
+                   .to(getattr(torch, f"int{wbits}"))]
             groups = (cfg.K // cfg.effective_group_size, cfg.N)
             sdt = wt.scale_dtype(cfg)
             if cfg.with_scaling:
                 out.append((torch.rand(groups, generator=gen, device=dev)
                             * 0.01 + 0.005).to(sdt))
             if cfg.with_zeros:
-                z = torch.randint(0, 1 << cfg.bit, groups, generator=gen,
-                                  device=dev).to(sdt)
-                if cfg.zeros_mode == "rescale":   # z * s, as GPTQ's
-                    z = (z * out[-1]).to(sdt)
+                z = torch.randint(0, 1 << min(cfg.bit, 8), groups,
+                                  generator=gen, device=dev)
+                if wt.general_quantized_zeros(cfg):
+                    z = z.to(torch.int32)
+                else:
+                    z = z.to(sdt)
+                if cfg.zeros_mode == "rescale" and cfg.with_scaling:
+                    z = (z.float() * out[-1].float()).to(sdt)   # z s, GPTQ's
                 out.append(z)
         if cfg.with_bias:
             out.append(torch.randn((1, cfg.N), generator=gen, device=dev))
@@ -200,7 +223,17 @@ class Matmul(Operator):
         cfg = self.config
         w = _to_tensor(weight).to(self.device)
         if cfg.is_native_compute():
-            result = [w.to(as_torch_dtype(cfg.W_dtype))]
+            # a float8 weight keeps its own float8 type, as JAX's dot takes
+            # the weight it is given (an fp8 pair takes either type); any
+            # other is converted to W_dtype
+            kind = _float8_kind(weight)
+            if kind is not None:
+                w = w.view(kind)
+            elif w.dtype != TORCH_DTYPES[cfg.W_dtype]:
+                w = numerics.convert(w, cfg.W_dtype)
+            if cfg.W_dtype not in _FLOAT8_NAMES and w.dtype in _FLOAT8:
+                w = numerics.convert(w, cfg.W_dtype)
+            result = [w]
         elif cfg.source_format == "int" and cfg.bit < 8:
             result = [wt.signed_weight_to_device(cfg, w)]
         else:   # codes, int8 values, fp8 bytes: their low bits packed
@@ -232,8 +265,13 @@ class Matmul(Operator):
                 A, W, bias=bias)
         if hint.decode_mode == "materialize":
             return materialize_matmul(self._spec, A, W, scale, zeros, bias)
-        mode = "rescale" if cfg.zeros_mode == "rescale" else "original"
         fmt = spec_format(self._spec)
+        if fmt == "general":
+            return dequant_matmul_general(
+                A, W, cfg.W_dtype, cfg.A_dtype, decode_name(cfg), scale,
+                zeros, cfg.effective_group_size, zeros_mode=cfg.zeros_mode,
+                bias=bias, out_dtype=cfg.out_dtype, tile=hint.tile)
+        mode = "rescale" if cfg.zeros_mode == "rescale" else "original"
         if fmt in FMT_FORMATS + INT_FORMATS:
             run = dequant_matmul_fmt if fmt in FMT_FORMATS \
                 else dequant_matmul_int
@@ -254,20 +292,20 @@ class Matmul(Operator):
         or bfloat16 activations takes a float A of any type, cast to
         A_dtype."""
         cfg = self.config
-        if (cfg.with_scaling and scale is None) or \
-                (cfg.with_zeros and zeros is None):
+        if not cfg.is_native_compute() and (
+                (cfg.with_scaling and scale is None)
+                or (cfg.with_zeros and zeros is None)):
             raise ValueError("this configuration needs scale and zeros")
         if cfg.layout[0] == "t":
             A = A.T
         adt = as_torch_dtype(cfg.A_dtype)
-        if (A.dtype != adt and A.is_floating_point()
-                and adt in (torch.float16, torch.bfloat16)
-                and not cfg.is_native_compute()):
-            # a float activation of another type (a bfloat16 model's
-            # float16 inputs or float32 residual stream) takes the
-            # configured type first, as JAX's kernel casts its A block to
-            # the mma type
-            A = A.to(adt)
+        if A.dtype != adt and (A.is_floating_point() or not
+                               cfg.is_native_compute()):
+            # an activation of another type (a bfloat16 model's float16
+            # inputs or float32 residual stream) takes the configured type
+            # first, as JAX's kernel casts its A block to the mma type
+            A = A.to(adt) if adt in (torch.float16, torch.bfloat16) \
+                else numerics.convert(A, cfg.A_dtype)
         lead = A.shape[:-1]
         A2 = A.reshape(-1, cfg.K).contiguous()
         out = self._run(self.hint_for(A2.shape[0]), A2, W, scale, zeros,
@@ -297,10 +335,14 @@ class Matmul(Operator):
     layout = property(lambda self: self.config.layout)
 
 
-def _random(shape, dtype: torch.dtype, gen: torch.Generator,
+def _random(shape, name: str, gen: torch.Generator,
             device) -> torch.Tensor:
-    """Standard normal floats, or int8 codes over the whole range."""
+    """Standard normal floats, or integer values over the dense type
+    `name`'s range up to int8's, in name's storage."""
+    dtype = as_torch_dtype(name)
     if dtype.is_floating_point:
-        return torch.randn(shape, generator=gen, device=device).to(dtype)
-    return torch.randint(-128, 128, shape, generator=gen, device=device,
-                         dtype=torch.int64).to(dtype)
+        return numerics.convert(torch.randn(shape, generator=gen,
+                                            device=device), name)
+    return numerics.convert(torch.randint(-128, 128, shape, generator=gen,
+                                          device=device, dtype=torch.int64),
+                            name)

@@ -1,84 +1,53 @@
 """MatmulConfig: the frozen dataclass that specifies a matmul operator
 (counterpart of bitblas_tpu/ops/matmul_config.py, same fields).
 
-The port runs these configurations (`PORTED`), all layout "nt" but the
-native ones: every quantized weight format with float16 or bfloat16
-activations (`FLOAT_PAIRS` and uint4 x float16, GPTQ's W4A16 among them:
-uint1/2/4, int1/2/4/8, nf4, fp4_e2m1, e4m3 and e5m2 weights; scales in
-groups of 32, 64 or 128, every multiple of 256 that divides K, or per
-channel (-1), or none; zeros for the uint family only, in zeros_mode
-"original", "rescale" or "quantized", and only with scales; a bias or
-none; the output in A's type or float32, float32 accumulation); the
-integer column (`INT_PAIRS`: int8 activations with uint1/2/4 and int1/2/4
-weights, the BitNet W2A8 linear of models/bitnet.py among them: scales
-in the same groups or none, zeros for the uint family with scales, a
-bias or none, the output float32, float16, int32 (unscaled only: the
-exact sums) or int8 (saturating: rounded half to even, then clamped),
-int32 or float32 accumulation named, the kernels summing each group in
-int32 either way); and the native dense configurations, A_dtype ==
-W_dtype in float16, bfloat16, float32 (out_dtype the same) or int8, int4
-and uint4 (out_dtype int32 or float32; 4-bit operands held in int8), in
-every layout, with or without bias. A native configuration accumulates
-in float32 for float operands and in int32 for integer ones whatever
-`accum_dtype` says, as the JAX dense kernel does, and the field is
-legalized to that type. Every other configuration raises
-NotImplementedError, but zeros on int weights raise ValueError, as in JAX
-(the bias of the int family is their zero point); the JAX legalization
-rules then fill the derived fields (`fast_decoding` for sub-byte int /
-uint weights under float activations; the storage is the port's Hopper
-layout, int32 words, or the weight's own type for native compute). `M`
-gives the operator's M buckets (ops/operator.py). The repr holds field
-values only, so it is the same in every process: the hint database keys on
-it (cache/__init__.py)."""
+The port takes every configuration the JAX package's Matmul runs, and
+raises the JAX error class where JAX raises (at construction, where JAX
+may raise later, at its build or its first call):
+
+* ValueError: N or K missing; a name outside the dtype map; A or the
+  output a packed format (nf4, fp4_e2m1, int1/2, uint1/2: they have no
+  dense type, JAX's `as_jax_dtype`); a quantized configuration in a
+  layout other than "nt"; zeros on int weights (their bias is their zero
+  point); a group size that does not divide K; a float16, bfloat16 or
+  float32 weight under other activations (JAX's decode has no such
+  family);
+* KeyError: a float64 weight under other activations (JAX's dtype
+  table).
+
+Native configurations (A_dtype and W_dtype a pair of
+formats.NATIVE_COMPUTE_PATTERNS) take every layout and drop scales and
+zeros, as JAX's XLA dot does; they accumulate in float32 for float
+operands (float64 for float64), in int32 for integer ones, whatever
+`accum_dtype` says, and the field is legalized to that type. Every other
+configuration decodes its weight (ops/reference.py has the rules): the
+kernels of `FLOAT_PAIRS`, `INT_PAIRS`, GPTQ's uint4 x float16 and BitNet's
+int2 x int8 take the configurations `specialized` names, the general
+instance (kernels/general.dequant_matmul_general) every other.
+The JAX legalization rules then fill the derived fields (`fast_decoding`
+for sub-byte int / uint weights under float activations; the storage is
+the port's Hopper layout: the weight's own type for native compute,
+natural-width int16 / int32 words for wide int / uint weights, else
+K-packed int32 words). `M` gives the operator's M buckets
+(ops/operator.py). The repr holds field values only, so it is the same in
+every process: the hint database keys on it (cache/__init__.py)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Literal, Optional, Tuple, Union
 
-from ..quantization.formats import (DTYPE_MAP, is_native_compute,
+from ..quantization.formats import (DTYPE_MAP, TORCH_DTYPES,
+                                   is_native_compute,
                                    source_format_and_bits)
 from .common import OptimizeStrategy, TransformKind
 
 DEFAULT_OPT_M_DECODE = (1, 16, 32, 64, 128, 256, 512, 1024)
 DEFAULT_OPT_M_BATCHED = (16, 32, 64, 128, 256, 512, 1024)
 
-
-class OneOf(tuple):
-    """The values a field of PORTED may take."""
-
-
-def gptq_group(config) -> bool:
-    """GPTQ's group sizes at this K: -1 (per channel), 32, 64, 128, or a
-    multiple of 256 that divides K (the kernels' steps and slots never
-    straddle a group)."""
-    g = config.group_size
-    return g in (-1, 32, 64, 128) or (g > 0 and g % 256 == 0
-                                      and config.K % g == 0)
-
-
-gptq_group.describe = "-1, 32, 64, 128 or a multiple of 256 that divides K"
-
-
-# The legal configurations: field -> the value each takes (a OneOf: any
-# of its values; a function of the config: where it returns True).
-# Quantized configurations are "nt"; native ones take every layout and bias
-# (those two fields are not listed for them).
-_DENSE = {"group_size": -1, "with_scaling": False, "with_zeros": False,
-          "zeros_mode": "original"}
-
-
-def zeros_need_scaling(config) -> bool:
-    """Zeros apply only together with scales (JAX's dequantize_weight
-    reads them under with_scaling)."""
-    return config.with_scaling or not config.with_zeros
-
-
-zeros_need_scaling.describe = "False unless with_scaling"
-
-# The weight formats the port runs with each float activation besides
-# uint4 x float16 (GPTQ's, which has kernels of its own): (A_dtype,
-# W_dtype) pairs.
+# The weight formats the specialized kernels of float activations take
+# besides uint4 x float16 (GPTQ's, which has kernels of its own): (A_dtype,
+# W_dtype) pairs (csrc/dequant_formats.cuh).
 FLOAT_PAIRS = tuple(
     [("float16", w) for w in ("uint2", "uint1", "int4", "int2", "int1",
                               "int8", "nf4", "fp4_e2m1", "e4m3_float8",
@@ -86,94 +55,73 @@ FLOAT_PAIRS = tuple(
     + [("bfloat16", w) for w in ("uint4", "int4", "nf4", "fp4_e2m1",
                                  "e4m3_float8", "int8", "uint2", "int2",
                                  "uint1", "int1", "e5m2_float8")])
-# The integer column: int8 activations with sub-byte int / uint weights.
+# The integer column: int8 activations with sub-byte int / uint weights
+# (csrc/dequant_int.cuh).
 INT_PAIRS = tuple(("int8", w) for w in ("uint1", "uint2", "uint4", "int1",
                                         "int2", "int4"))
 
 
-def _float_pair(a: str, w: str) -> dict:
-    family = DTYPE_MAP[w][0]
-    return dict(A_dtype=a, W_dtype=w, out_dtype=OneOf((a, "float32")),
-                accum_dtype="float32", group_size=gptq_group,
-                with_scaling=OneOf((False, True)),
-                with_zeros=(OneOf((False, True)) if family == "uint"
-                            else False),
-                layout="nt",
-                zeros_mode=OneOf(("original", "rescale", "quantized")),
-                with_bias=OneOf((False, True)),
-                zeros_with_scaling=zeros_need_scaling)
+def group_ok(g: int, K: int) -> bool:
+    """The group sizes the specialized kernels take at this K: -1 or K
+    (per channel), 32, 64, 128, or a multiple of 256 that divides K (their
+    steps and slots never straddle a group)."""
+    return g in (-1, 32, 64, 128, K) or (g > 0 and g % 256 == 0
+                                         and K % g == 0)
 
 
-def int32_out_unscaled(config) -> bool:
-    """An int32 output holds the exact sums: unscaled only (JAX's
-    OUT_MATRIX)."""
-    return config.out_dtype != "int32" or not config.with_scaling
+def specialized_pair(a_dtype: str, w_dtype: str, out_dtype: str, K: int,
+                     N: int, group: int, scaled: bool, zeros: bool) -> bool:
+    """Whether a quantized configuration runs on the specialized kernels
+    (FLOAT_PAIRS and uint4 x float16 through dequant_matmul_fmt / _u4,
+    INT_PAIRS through dequant_matmul_int / _i2) rather than the general
+    instance: K a multiple of 128 and N of 8, a group of `group_ok`, zeros
+    (uint only) with scales, in mode original, rescale or quantized
+    (unpacked to original-mode zeros: (q - z) s is the same value for the
+    uint family), and an output those kernels write (A's type or float32;
+    for int8 activations float32, float16, int8, or int32 unscaled)."""
+    pair = (a_dtype, w_dtype)
+    if K % 128 or N % 8 or not group_ok(group, K) or (zeros and not (
+            scaled and w_dtype.startswith("uint"))):
+        return False
+    if pair in FLOAT_PAIRS or pair == ("float16", "uint4"):
+        return out_dtype in (a_dtype, "float32")
+    if pair in INT_PAIRS:
+        return out_dtype in ("float32", "float16", "int8") or (
+            out_dtype == "int32" and not scaled)
+    return False
 
 
-int32_out_unscaled.describe = "int32 only without scales"
+def specialized(config) -> bool:
+    """`specialized_pair` of a quantized MatmulConfig."""
+    return not config.is_native_compute() and specialized_pair(
+        config.A_dtype, config.W_dtype, config.out_dtype, config.K,
+        config.N, config.group_size, config.with_scaling, config.with_zeros)
 
 
-def _int_pair(w: str) -> dict:
-    family = DTYPE_MAP[w][0]
-    return dict(A_dtype="int8", W_dtype=w,
-                out_dtype=OneOf(("float32", "float16", "int32", "int8")),
-                accum_dtype=OneOf(("int32", "float32")),
-                group_size=gptq_group, with_scaling=OneOf((False, True)),
-                with_zeros=(OneOf((False, True)) if family == "uint"
-                            else False),
-                layout="nt",
-                zeros_mode=OneOf(("original", "rescale", "quantized")),
-                with_bias=OneOf((False, True)),
-                zeros_with_scaling=zeros_need_scaling,
-                int32_out=int32_out_unscaled)
-
-
-PORTED = (
-    _float_pair("float16", "uint4"),
-    *(_int_pair(w) for _, w in INT_PAIRS),
-    *(dict(A_dtype=dt, W_dtype=dt, out_dtype=dt, accum_dtype="float32",
-           **_DENSE) for dt in ("float16", "bfloat16", "float32")),
-    *(dict(A_dtype=dt, W_dtype=dt, out_dtype=out, accum_dtype="int32",
-           **_DENSE) for dt in ("int8", "int4", "uint4")
-      for out in ("int32", "float32")),
-    *(_float_pair(a, w) for a, w in FLOAT_PAIRS),
-)
-
-
-def _allows(cfg, name: str, want) -> bool:
-    if callable(want):
-        return want(cfg)
-    if isinstance(want, OneOf):
-        return getattr(cfg, name) in want
-    return getattr(cfg, name) == want
-
-
-def _describe(want) -> str:
-    if callable(want):
-        return want.describe
-    if isinstance(want, OneOf):
-        return "one of " + ", ".join(repr(v) for v in want)
-    return repr(want)
-
-
-def _check_ported(cfg) -> None:
-    """Raise NotImplementedError unless `cfg` is one of PORTED, naming the
-    first field that differs from the ported configuration nearest to it
-    (same A_dtype and W_dtype, else same A_dtype)."""
-    if any(all(_allows(cfg, k, v) for k, v in p.items()) for p in PORTED):
+def _check_jax_refusals(cfg) -> None:
+    """Raise what the JAX package raises for `cfg` (see the module
+    docstring)."""
+    for name in ("A_dtype", "out_dtype"):
+        if getattr(cfg, name) not in TORCH_DTYPES:
+            raise ValueError(f"{getattr(cfg, name)} has no dense type; it "
+                             f"is always packed ({name})")
+    family, bits = source_format_and_bits(cfg.W_dtype)
+    if family == "int" and cfg.with_zeros:
+        raise ValueError("with_zeros is unsupported for signed int weights "
+                         "(constant zero point is implied)")
+    if cfg.is_native_compute():
         return
-    near = next((p for p in PORTED if (p["A_dtype"], p["W_dtype"])
-                 == (cfg.A_dtype, cfg.W_dtype)), None) \
-        or next((p for p in PORTED if p["A_dtype"] == cfg.A_dtype),
-                PORTED[0])
-    name, want = next((k, v) for k, v in near.items()
-                      if not _allows(cfg, k, v))
-    got = getattr(cfg, name) if hasattr(cfg, name) else \
-        (cfg.with_scaling, cfg.with_zeros)
-    raise NotImplementedError(
-        f"bitblas_tpu_torch runs {name} = {_describe(want)} only with "
-        f"A_dtype={near['A_dtype']!r}, W_dtype={near['W_dtype']!r} so far "
-        f"(got {got!r} in A_dtype={cfg.A_dtype!r}, W_dtype={cfg.W_dtype!r})")
+    if cfg.layout != "nt":
+        raise ValueError(
+            f"quantized-weight matmul supports layout 'nt' only (packed "
+            f"[N, K] weights), got {cfg.layout!r}")
+    if family in ("fp", "bf") and bits > 8:
+        if bits == 64:
+            raise KeyError(bits)
+        raise ValueError(f"unsupported 8-bit family {family}")
+    g = cfg.effective_group_size
+    if g < 1 or cfg.K % g:
+        raise ValueError(f"K={cfg.K} not a multiple of group_size={g}")
 
 
 @dataclass(frozen=True)
@@ -226,7 +174,7 @@ class MatmulConfig(OperatorConfig):
         if isinstance(self.M, list):
             object.__setattr__(self, "M", tuple(self.M))
 
-        # JAX legalization of unset fields, then the ported check
+        # JAX legalization of unset fields, then JAX's refusals
         if self.zeros_mode is None:
             object.__setattr__(self, "zeros_mode", "original")
         if self.group_size is None:
@@ -235,28 +183,20 @@ class MatmulConfig(OperatorConfig):
             if getattr(self, name) is None:
                 object.__setattr__(self, name, False)
         native = self.is_native_compute()
+        _check_jax_refusals(self)
+        family, bits = source_format_and_bits(self.W_dtype)
         if native:
             object.__setattr__(self, "accum_dtype",
-                               "int32" if self.A_dtype in ("int8", "int4",
-                                                           "uint4")
+                               "int32" if family in ("int", "uint")
+                               else "float64" if bits == 64
                                else "float32")
-        family, bits = source_format_and_bits(self.W_dtype)
-        if (family == "int" and self.with_zeros
-                and (self.A_dtype, self.W_dtype) in FLOAT_PAIRS
-                + INT_PAIRS):
-            # JAX's rule: the int family's bias is its zero point
-            raise ValueError(
-                "with_zeros is unsupported for signed int weights "
-                "(constant zero point is implied)")
-        _check_ported(self)
-        if self.group_size > 0 and self.K % self.group_size:
-            raise ValueError(f"K={self.K} not a multiple of group_size="
-                             f"{self.group_size}")
         # The Hopper layout: K-packed int32 words (quantization/packing.py),
-        # or the weight in its own dtype for native compute (JAX rule); no
-        # runtime activation transform.
+        # natural-width words for wide int / uint weights, or the weight in
+        # its own dtype for native compute (JAX's rules); no runtime
+        # activation transform.
         object.__setattr__(self, "storage_dtype",
-                           self.W_dtype if native else "int32")
+                           self.W_dtype if native else f"int{bits}"
+                           if bits > 8 else "int32")
         object.__setattr__(self, "propagate_a", TransformKind.NonTransform)
         object.__setattr__(self, "propagate_b", TransformKind.NonTransform)
         if self.fast_decoding is None:

@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 
 from ..kernels.spec import KernelSpec
-from ..quantization.formats import as_torch_dtype
+from ..quantization import numerics, packing
 from .matmul import Matmul
 from .matmul_config import MatmulConfig
 
@@ -63,15 +63,22 @@ class MatmulWithSplitK(Matmul):
         return dataclasses.replace(self._spec, m=m, k=self.shard_k)
 
     def retrieve_weight_shape(self) -> Tuple[int, ...]:
-        n, words = self._spec.packed_shape
-        return (self.k_split, n, words // self.k_split)
+        return (self.k_split, *self._make_spec(1).packed_shape)
 
     def shard_weight(self, qweight: torch.Tensor) -> torch.Tensor:
-        """Matmul's [N, K*bits/32] words (a native weight: its [N, K] or
-        [K, N]) -> [k_split, N, K*bits/32 / k_split], shard-major."""
+        """Matmul's [N, ceil(K*bits/32)] words (wide weights and a native
+        weight: their [N, K] or [K, N]) -> [k_split, N, words of a shard],
+        shard-major; a shard that ends inside a word is repacked from its
+        codes."""
+        cfg = self.config
         n, words = qweight.shape
-        return qweight.reshape(n, self.k_split, words // self.k_split) \
-            .transpose(0, 1).contiguous()
+        if cfg.is_native_compute() or cfg.bit > 8 \
+                or (self.shard_k * cfg.bit) % 32 == 0:
+            return qweight.reshape(n, self.k_split, words // self.k_split) \
+                .transpose(0, 1).contiguous()
+        codes = packing.unpack_k(qweight, cfg.bit)[:, :cfg.K]
+        return torch.stack([packing.pack_k(c, cfg.bit) for c in
+                            codes.split(self.shard_k, dim=1)])
 
     def transform_weight(self, weight, scale=None, zeros=None, bias=None):
         """Matmul.transform_weight with the packed weight shard-major."""
@@ -92,4 +99,4 @@ class MatmulWithSplitK(Matmul):
                 None if zeros is None else zeros[s * gk:(s + 1) * gk],
                 bias if s == 0 else None).float()
             total = part if total is None else total + part
-        return total.to(as_torch_dtype(self.config.out_dtype))
+        return numerics.convert(total, self.config.out_dtype)

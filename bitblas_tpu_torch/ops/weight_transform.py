@@ -25,8 +25,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..quantization import packing
-from .matmul_config import MatmulConfig
+from ..quantization import numerics, packing
+from ..quantization.formats import as_torch_dtype
+from .matmul_config import MatmulConfig, specialized
+from .reference import decode_name
 
 
 @dataclass
@@ -52,21 +54,44 @@ def as_tensor(x, device=None) -> torch.Tensor:
 
 
 def scale_dtype(config: MatmulConfig) -> torch.dtype:
-    """The type of the device scales and zeros: A's (float16 or bfloat16;
-    float16 for integer activations, which take none here)."""
+    """The type of the device scales and zeros: for the specialized kernels
+    A's (float16 or bfloat16; float16 for int8 activations); for the
+    general instance the decode type's (ops/reference.decode_name: JAX
+    casts them to it)."""
+    if not specialized(config):
+        return as_torch_dtype(decode_name(config))
     return torch.bfloat16 if config.A_dtype == "bfloat16" else torch.float16
+
+
+def general_quantized_zeros(config: MatmulConfig) -> bool:
+    """Whether the device zeros are the int32 values of quantized zeros
+    (the general instance: JAX subtracts them from the fields before the
+    decode type, which for nf4 / fp / fp8 formats is not the original
+    mode's value)."""
+    return config.zeros_mode == "quantized" and not specialized(config)
 
 
 def unpacked_weight_to_device(config: MatmulConfig,
                               w_fields_nk) -> torch.Tensor:
-    """[N, K] unsigned fields -> [N, K*bits/32] int32 K-packed words."""
-    codes = torch.as_tensor(np.asarray(w_fields_nk)
-                            if not isinstance(w_fields_nk, torch.Tensor)
-                            else w_fields_nk)
+    """[N, K] unsigned fields -> [N, ceil(K*bits/32)] int32 K-packed words;
+    wide int / uint values -> [N, K] int16 / int32 words (uint values
+    wrapped into the signed container, as JAX stores them)."""
+    codes = w_fields_nk if isinstance(w_fields_nk, torch.Tensor) else \
+        as_tensor(_signed_view(np.asarray(w_fields_nk)))
     if tuple(codes.shape) != (config.N, config.K):
         raise ValueError(f"weight shape {tuple(codes.shape)} != "
                          f"(N, K) = {(config.N, config.K)}")
+    if config.bit > 8:
+        return numerics.convert(codes.to(torch.int64),
+                                f"int{config.bit}").contiguous()
     return packing.pack_k(codes, config.bit)
+
+
+def _signed_view(a: np.ndarray) -> np.ndarray:
+    """uint16 / uint32 arrays as the signed type of their width (torch
+    computes little with its unsigned types)."""
+    return a.view(f"int{a.dtype.itemsize * 8}") if a.dtype.kind == "u" \
+        and a.dtype.itemsize > 1 else a
 
 
 def signed_weight_to_device(config: MatmulConfig,
@@ -82,8 +107,10 @@ def signed_weight_to_device(config: MatmulConfig,
 def reference_weight_to_device(config: MatmulConfig,
                                qweight: np.ndarray) -> torch.Tensor:
     """Reference packed qweight [N, K*bits/8] int8 (8-bit formats: [N, K],
-    one byte a code) -> device layout."""
+    one byte a code; wide formats [N, K] words) -> device layout."""
     q = np.asarray(qweight)
+    if config.bit > 8:
+        return unpacked_weight_to_device(config, q)
     if config.bit == 8:
         return unpacked_weight_to_device(config, q.view(np.uint8))
     fields = packing.general_decompress(q.view(np.int8), config.bit,
@@ -94,7 +121,10 @@ def reference_weight_to_device(config: MatmulConfig,
 def device_weight_to_reference(config: MatmulConfig,
                                qweight: torch.Tensor) -> np.ndarray:
     """Inverse of reference_weight_to_device."""
-    codes = packing.unpack_k(qweight.cpu(), config.bit).numpy()
+    if config.bit > 8:
+        return qweight.cpu().numpy()
+    codes = packing.unpack_k(qweight.cpu(), config.bit)[:, :config.K] \
+        .numpy()
     if config.bit == 8:
         return codes.view(np.int8)
     return packing.general_compress(codes, config.bit)
@@ -102,11 +132,18 @@ def device_weight_to_reference(config: MatmulConfig,
 
 def scales_to_device(scales_ngk,
                      dtype: torch.dtype = torch.float16) -> torch.Tensor:
-    """[N, K/g] -> [K/g, N] in `dtype` (A's type), contiguous."""
+    """[N, K/g] -> [K/g, N] in `dtype` (the scales' type), contiguous;
+    into a float8 type as XLA converts (numerics.convert)."""
     t = torch.as_tensor(np.asarray(scales_ngk)
                         if not isinstance(scales_ngk, torch.Tensor)
                         else scales_ngk)
+    if dtype in _FLOAT8_NAMES:
+        return numerics.convert(t, _FLOAT8_NAMES[dtype]).T.contiguous()
     return t.to(dtype).T.contiguous()
+
+
+_FLOAT8_NAMES = {torch.float8_e4m3fn: "e4m3_float8",
+                 torch.float8_e5m2: "e5m2_float8"}
 
 
 def scales_from_device(scales_gn: torch.Tensor) -> np.ndarray:
@@ -116,12 +153,18 @@ def scales_from_device(scales_gn: torch.Tensor) -> np.ndarray:
 
 def qzeros_to_device(config: MatmulConfig, qzeros) -> torch.Tensor:
     """Reference quantized zeros [K/g, N*bits/8] int8 (packed along N,
-    LSB first) -> their integer values as [K/g, N] zeros in A's type, on
-    the tensor's device."""
+    LSB first) -> their integer values as [K/g, N] zeros in the scales'
+    type (the general instance: int32), on the tensor's device."""
     q = qzeros if isinstance(qzeros, torch.Tensor) \
         else torch.as_tensor(np.asarray(qzeros))
+    if config.bit > 8:
+        raise ValueError(f"quantized zeros of {config.W_dtype} weights "
+                         f"(packed in bytes, as JAX packs them, a field "
+                         f"holds 8 bits at most)")
     fields = packing.decompress(q.to(torch.int8), config.bit)
-    return fields[:, :config.N].to(scale_dtype(config)).contiguous()
+    dt = torch.int32 if general_quantized_zeros(config) \
+        else scale_dtype(config)
+    return fields[:, :config.N].to(dt).contiguous()
 
 
 def zeros_to_device(config: MatmulConfig, zeros) -> torch.Tensor:

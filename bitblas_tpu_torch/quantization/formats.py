@@ -5,11 +5,13 @@ Every weight dtype is a ``(source_format, bits)`` pair, as in the
 reference's ``BITBLAS_TRICK_DTYPE_MAP``. The whole map is kept so that a
 config naming a format this port does not run yet fails with
 NotImplementedError (ops/matmul_config.py) rather than "unknown dtype";
-the kernels of this package run uint1/2/4, int1/2/4/8, nf4, fp4_e2m1 and
-fp8 e4m3 / e5m2 weights with float16 or bfloat16 activations, uint1/2/4
-and int1/2/4 weights with int8 activations, and the dense route the
-native pairs float16, bfloat16, float32, int8, int4 and uint4 (4-bit
-operands held in int8, as the JAX package holds them).
+every pair the JAX package runs runs here too (ops/matmul_config.py).
+
+`TORCH_DTYPES` gives each name with a dense type the torch type that
+holds its values: its own, or for the types torch computes little with
+the next wider signed one (int4 / uint4 in int8, as the JAX package holds
+them; uint16 in int32, uint32 in int64). `convert` (quantization/
+numerics.py) gives XLA's conversion into a name, on that storage.
 """
 
 from __future__ import annotations
@@ -53,10 +55,22 @@ TORCH_DTYPES = {
     "int16": torch.int16,
     "int8": torch.int8,
     "uint8": torch.uint8,
-    # 4-bit activations of the native pairs, one value an int8
+    "e4m3_float8": torch.float8_e4m3fn,
+    "e5m2_float8": torch.float8_e5m2,
+    # 4-bit values one an int8 (as the JAX package holds 4-bit
+    # activations); unsigned 16- and 32-bit values in the next wider
+    # signed type
     "int4": torch.int8,
     "uint4": torch.int8,
+    "uint16": torch.int32,
+    "uint32": torch.int64,
 }
+# The integer names with a dense type: (bits, signed).
+INT_TYPES = {"int4": (4, True), "uint4": (4, False), "int8": (8, True),
+             "uint8": (8, False), "int16": (16, True),
+             "uint16": (16, False), "int32": (32, True),
+             "uint32": (32, False)}
+FLOAT8 = ("e4m3_float8", "e5m2_float8")
 
 
 # (A_dtype, W_dtype) pairs computed densely without a dequantize stage
@@ -85,6 +99,18 @@ def source_format_and_bits(W_dtype: str) -> Tuple[str, int]:
     if W_dtype not in DTYPE_MAP:
         raise ValueError(f"Unsupported weight dtype: {W_dtype}")
     return DTYPE_MAP[W_dtype]
+
+
+def is_float_name(name: str) -> bool:
+    """Whether the dense type `name` is a float type (float64 ... e5m2)."""
+    return name in TORCH_DTYPES and name not in INT_TYPES
+
+
+def int_range(name: str) -> Tuple[int, int]:
+    """The least and greatest value of the integer name `name`."""
+    bits, signed = INT_TYPES[name]
+    return (-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed \
+        else (0, (1 << bits) - 1)
 
 
 def as_torch_dtype(name: str) -> torch.dtype:

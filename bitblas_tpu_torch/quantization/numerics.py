@@ -24,7 +24,8 @@ from typing import Optional
 
 import torch
 
-from .formats import nf4_lut
+from .formats import (FLOAT8, INT_TYPES, NF4_TABLE, as_torch_dtype,
+                      int_range, nf4_lut)
 
 
 def unpack_fields(packed: torch.Tensor, bits: int, *, axis: int = -1,
@@ -227,3 +228,120 @@ def saturate(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
 
 def saturate_cast(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     return saturate(x, out_dtype).to(out_dtype)
+
+
+# -- conversions and decodes into any dense type (the general route) --------
+
+def convert(x: torch.Tensor, name: str) -> torch.Tensor:
+    """XLA's conversion of `x` into the dense type `name` (JAX's astype),
+    held in name's torch storage (formats.TORCH_DTYPES). Into a float
+    type: rounded to nearest even; past the type's largest value to inf,
+    but e4m3 to NaN (it has no inf: above 464, as ml_dtypes and XLA round,
+    where torch would saturate). Into an integer type: a float truncated
+    toward zero, NaN to 0, clamped to the type's range; an integer wrapped
+    to the type's bits (two's complement)."""
+    dt = as_torch_dtype(name)
+    if name in INT_TYPES:
+        bits, signed = INT_TYPES[name]
+        if x.is_floating_point():
+            lo, hi = int_range(name)
+            v = torch.nan_to_num(x.double().trunc(), nan=0.0, posinf=hi,
+                                 neginf=lo).clamp(lo, hi).to(torch.int64)
+        else:
+            v = x.to(torch.int64) & ((1 << bits) - 1)
+            if signed:
+                v = torch.where(v >= 1 << (bits - 1), v - (1 << bits), v)
+        return v.to(dt)
+    if name == "e4m3_float8":
+        f = x.double() if not x.is_floating_point() else x
+        f = f.float() if f.dtype in (torch.float16, torch.bfloat16,
+                                     torch.float8_e4m3fn,
+                                     torch.float8_e5m2) else f
+        b = f.to(dt).view(torch.uint8)
+        over = ~torch.isfinite(f) | (f.abs() > 464)
+        return torch.where(over, torch.full_like(b, 0x7F),
+                           b).view(dt)
+    if x.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        x = x.float()
+    return x.to(dt)
+
+
+def to_float(x: torch.Tensor) -> torch.Tensor:
+    """A dense value tensor in float32 (float64 stays float64): exact for
+    every float type of 32 bits or fewer and every integer within 2^24."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def fields_of(codes: torch.Tensor, family: str, bits: int) -> torch.Tensor:
+    """Stored codes (unsigned, as `unpack_fields` or packing.unpack_k give
+    them; a wide weight's words) -> the int64 fields the JAX oracle
+    decodes: 8-bit and wide int weights their signed values, wide uint
+    weights their unsigned ones, every other code as it is."""
+    c = codes.to(torch.int64)
+    if family == "int" and bits >= 8:
+        return convert(c, f"int{bits}").to(torch.int64)
+    if bits >= 8:
+        return c & ((1 << bits) - 1)
+    return c
+
+
+def decode_to(fields: torch.Tensor, family: str, bits: int,
+              name: str) -> torch.Tensor:
+    """int64 fields (`fields_of`) -> values in the dense type `name`, as
+    the JAX oracle decodes them (`dequantize_weight`): uint and wide int
+    fields converted, sub-byte int fields less 2^(bits-1) converted, fp4,
+    e4m3 and e5m2 decoded to float16 by the reference's formulas and then
+    converted, nf4 the float32 table converted; so an integer `name`
+    truncates (and saturates) the float formats, and wraps nf4's -1 into
+    an unsigned type, as JAX's host-side table does."""
+    if family == "uint" or (family == "int" and bits >= 8):
+        return convert(fields, name)
+    if family == "int":
+        return convert(fields - (1 << (bits - 1)), name)
+    if family == "fp" and bits == 4:
+        return convert(decode_fp4_field(fields, torch.float16), name)
+    if family == "fp_e4m3":
+        return convert(decode_f8e4m3_byte(fields, torch.float16), name)
+    if family == "fp_e5m2":
+        return convert(decode_f8e5m2_byte(fields, torch.float16), name)
+    if family == "nf":
+        # JAX's table is NF4_TABLE converted on the host (numpy): into an
+        # integer type truncated and wrapped (-1.0 into uint8 is 255)
+        table = torch.from_numpy(NF4_TABLE).to(fields.device)
+        if name in INT_TYPES:
+            table = table.trunc().long()
+        return convert(table[fields], name)
+    raise ValueError(f"Unsupported source format {family}{bits}")
+
+
+def scale_in(w: torch.Tensor, scale, zeros, zeros_mode: str,
+             name: str) -> torch.Tensor:
+    """`apply_scaling` with every op rounded to the float type `name`, as
+    JAX computes it in the weight's type (float8 types: each op in
+    float32, then converted)."""
+    if name not in FLOAT8:
+        return apply_scaling(w, scale, zeros, zeros_mode)
+    f = lambda t: None if t is None else t.float()   # noqa: E731
+    r = lambda t: convert(t, name).float()           # noqa: E731
+    w, scale, zeros = f(w), f(scale), f(zeros)
+    if scale is None:
+        out = w
+    elif zeros is None or zeros_mode == "quantized":
+        out = r(w * scale)
+    elif zeros_mode == "original":
+        out = r(r(w - zeros) * scale)
+    else:
+        out = r(r(w * scale) - zeros)
+    return convert(out, name)
+
+
+def cast_output(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The JAX oracle's cast of the sums to out_dtype `name`
+    (`cast_output`): integer types narrower than 32 bits saturate (a float
+    rounded half to even, then clamped), then `convert`."""
+    if name in INT_TYPES and INT_TYPES[name][0] < 32:
+        lo, hi = int_range(name)
+        if x.is_floating_point():
+            x = torch.round(x)
+        x = torch.clamp(x, lo, hi)
+    return convert(x, name)

@@ -262,14 +262,16 @@ def bias_signed_weight(weight: torch.Tensor, bits: int) -> torch.Tensor:
 
 def pack_k(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """Codes [N, K] (any integer dtype; the low `bits` bits are kept) ->
-    [N, K*bits/32] int32 K-packed words, LSB first, on the codes' device:
-    word ``[n, j]`` holds ``(n, k = e*j + i)`` at bits ``[bits*i,
-    bits*(i+1))``, e = 32 / bits."""
+    [N, ceil(K*bits/32)] int32 K-packed words, LSB first, on the codes'
+    device: word ``[n, j]`` holds ``(n, k = e*j + i)`` at bits ``[bits*i,
+    bits*(i+1))``, e = 32 / bits; a K off a multiple of e fills the last
+    word with zero codes."""
     e = 32 // bits
     N, K = codes.shape
+    c = codes.to(torch.int64) & ((1 << bits) - 1)
     if K % e:
-        raise ValueError(f"K={K} not divisible by {e}")
-    c = (codes.to(torch.int64) & ((1 << bits) - 1)).reshape(N, K // e, e)
+        c = torch.nn.functional.pad(c, (0, e - K % e))
+    c = c.reshape(N, -1, e)
     shifts = torch.arange(e, device=codes.device, dtype=torch.int64) * bits
     words = (c << shifts).sum(dim=-1)
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)

@@ -10,7 +10,8 @@ the plan at M = 256 in both formats and, for int2 x int8, up to M =
 2048; for uint4 x f16 the plan wins from M = 512. The port offers the
 plan from the 256 bucket and the measured tuner decides. A native spec
 has one "dense" hint, as in JAX, where hints do not change the dense
-product.
+product. A configuration of kernel 1's general instance ("general") has
+its one tile and, where JAX's rule allows it, the materialize plan.
 
 `default_hint` is the untuned choice and reproduces the routing the port
 had before it had a tuner: the fused kernel below M = 512 with

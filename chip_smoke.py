@@ -7220,6 +7220,493 @@ def parallel_phases(torch, flush):
     return kernels, laps, summary
 
 
+# -- slice 18: every Matmul configuration JAX runs (the configs phase) --------
+
+CONFIG_SHAPE = (11008, 4096)        # Llama-2-7B MLP (N, K)
+CONFIG_FP8_SHAPE = (14336, 4096)    # Llama-3-8B MLP (N, K): fp8 W8A8 too
+CONFIG_MS = (4, 256)
+CONFIG_MATERIALIZE_M = 512          # the untuned materialize plan's bound
+CONFIG_GROUP = 128
+FP64_FLOPS_PER_S = 67e12            # float64 tensor core, data sheet
+FP8_FLOPS_PER_S = 1979e12           # dense fp8 tensor core, data sheet
+# A class's limit against its plain version: an integer output equal; a
+# float one within one ulp of the output type at each value plus
+# CONFIG_SUM_FLOOR of sum_k |a_k w_k| at that output (the two sum the same
+# products in another order, or in float32 where the plain version takes
+# float64: 2^-16 covers float32 sums over K = 4096 with room).
+CONFIG_SUM_FLOOR = 2.0 ** -16
+CONFIG_LAYERS = (   # (name, Linear keyword arguments, materialize at 512)
+    ("float16 -> float32", dict(A_dtype="float16", W_dtype="float16",
+                                out_dtype="float32"), False),
+    ("bfloat16 -> float32", dict(A_dtype="bfloat16", W_dtype="bfloat16",
+                                 out_dtype="float32"), False),
+    ("e4m3 x e4m3", dict(A_dtype="e4m3_float8", W_dtype="e4m3_float8",
+                         out_dtype="float16"), False),
+    ("e5m2 x e5m2", dict(A_dtype="e5m2_float8", W_dtype="e5m2_float8",
+                         out_dtype="float16"), False),
+    ("e4m3 x e5m2", dict(A_dtype="e4m3_float8", W_dtype="e5m2_float8",
+                         out_dtype="float16"), False),
+    ("e5m2 x e4m3", dict(A_dtype="e5m2_float8", W_dtype="e4m3_float8",
+                         out_dtype="float16"), False),
+    ("uint8 x uint8", dict(A_dtype="uint8", W_dtype="uint8",
+                           out_dtype="int32"), False),
+    ("float64 x float64", dict(A_dtype="float64", W_dtype="float64",
+                               out_dtype="float64"), False),
+    ("uint16 x float16 g128 bias", dict(
+        A_dtype="float16", W_dtype="uint16", with_scaling=True,
+        group_size=CONFIG_GROUP, out_dtype="float16", bias=True), True),
+    ("int16 x float16", dict(A_dtype="float16", W_dtype="int16",
+                             out_dtype="float32"), False),
+    ("uint32 x bfloat16 g128", dict(
+        A_dtype="bfloat16", W_dtype="uint32", with_scaling=True,
+        group_size=CONFIG_GROUP, out_dtype="bfloat16"), False),
+    ("int32 x float16 g128", dict(
+        A_dtype="float16", W_dtype="int32", with_scaling=True,
+        group_size=CONFIG_GROUP, out_dtype="float16"), False),
+    ("uint8 x int8", dict(A_dtype="int8", W_dtype="uint8",
+                          out_dtype="int32"), False),
+    ("nf4 x int8", dict(A_dtype="int8", W_dtype="nf4", out_dtype="int32"),
+     False),
+    ("fp4_e2m1 x int8", dict(A_dtype="int8", W_dtype="fp4_e2m1",
+                             out_dtype="int32"), False),
+    ("e4m3 x int8", dict(A_dtype="int8", W_dtype="e4m3_float8",
+                         out_dtype="float32"), False),
+    ("e5m2 x int8", dict(A_dtype="int8", W_dtype="e5m2_float8",
+                         out_dtype="float32"), False),
+    ("int8 x int8 g128 bias", dict(
+        A_dtype="int8", W_dtype="int8", with_scaling=True,
+        group_size=CONFIG_GROUP, out_dtype="float32", bias=True), False),
+    ("uint4 x float32 g128 zeros", dict(
+        A_dtype="float32", W_dtype="uint4", with_scaling=True,
+        with_zeros=True, zeros_mode="original", group_size=CONFIG_GROUP,
+        out_dtype="float32"), True),
+    ("nf4 x float16 g128 zeros", dict(
+        A_dtype="float16", W_dtype="nf4", with_scaling=True,
+        with_zeros=True, zeros_mode="original", group_size=CONFIG_GROUP,
+        out_dtype="float16"), False),
+    ("fp4_e2m1 x bfloat16 g128 zeros rescale", dict(
+        A_dtype="bfloat16", W_dtype="fp4_e2m1", with_scaling=True,
+        with_zeros=True, zeros_mode="rescale", group_size=CONFIG_GROUP,
+        out_dtype="bfloat16"), False),
+    ("e4m3 x float16 g128 quantized zeros", dict(
+        A_dtype="float16", W_dtype="e4m3_float8", with_scaling=True,
+        with_zeros=True, zeros_mode="quantized", group_size=CONFIG_GROUP,
+        out_dtype="float16"), False),
+)
+# JAX's C = 32 QuantConv2D (tests/test_matmul_operator.py:137-228): K =
+# 288, off 128, on both routes: uint4 per channel under float16, and under
+# int8 activations
+CONFIG_CONV = dict(N=2, C=32, H=8, W=8, F=64, K=3, S=1, P=1)
+
+
+def _config_values(torch, gen, name, shape):
+    """Dense values of the dense type `name` on the card: standard normal
+    floats, small integers (within 8, unsigned within 16)."""
+    from bitblas_tpu_torch.quantization import numerics
+    from bitblas_tpu_torch.quantization.formats import INT_TYPES
+    if name in INT_TYPES:
+        lo, hi = (0, 16) if name.startswith("u") else (-8, 8)
+        return numerics.convert(torch.randint(lo, hi, shape, generator=gen,
+                                              device="cuda"), name)
+    return numerics.convert(torch.randn(shape, generator=gen,
+                                        device="cuda"), name)
+
+
+def _config_layer(torch, gen, kw, N, K):
+    """A module.Linear of one class at [K -> N], untuned, with its weight
+    (every code; wide values within 2048; e5m2 codes kept finite), scales,
+    zeros (quantized: packed along N) and bias loaded on the card."""
+    from bitblas_tpu_torch.module import Linear
+    from bitblas_tpu_torch.quantization import packing
+    from bitblas_tpu_torch.quantization.formats import source_format_and_bits
+    kw = dict(kw)
+    bias = kw.pop("bias", False)
+    lin = Linear(K, N, bias=bias, opt_M=list(CONFIG_MS),
+                 enable_tuning=False, device="cuda", **kw)
+    cfg = lin.bitblas_matmul.config
+    family, bits = source_format_and_bits(cfg.W_dtype)
+    G = K // CONFIG_GROUP
+    extra = {}
+    if cfg.is_native_compute():
+        weight = _config_values(torch, gen, cfg.W_dtype, (N, K))
+    elif bits > 8:
+        lo = -1024 if family == "int" else 0
+        weight = torch.randint(lo, lo + 2048, (N, K), generator=gen,
+                               device="cuda")
+    else:
+        weight = torch.randint(0, 1 << bits, (N, K), generator=gen,
+                               device="cuda")
+        if family == "fp_e5m2":
+            weight = torch.where((weight & 0x7C) == 0x7C, weight & 0xBF,
+                                 weight)
+        if family == "int":
+            weight = weight - (1 << (bits - 1)) if bits < 8 else \
+                weight.to(torch.uint8).view(torch.int8)
+    if cfg.with_scaling:
+        extra["scales"] = torch.rand((N, G), generator=gen,
+                                     device="cuda") * 0.01 + 0.005
+    if cfg.with_zeros:
+        z = torch.randint(0, 1 << min(bits, 4), (G, N) if cfg.zeros_mode
+                          == "quantized" else (N, G), generator=gen,
+                          device="cuda")
+        extra["zeros"] = packing.compress(z, min(bits, 8)) if bits < 8 \
+            and cfg.zeros_mode == "quantized" else (
+                z.to(torch.uint8).view(torch.int8)
+                if cfg.zeros_mode == "quantized" else z.float())
+    if bias:
+        extra["bias"] = torch.randn(N, generator=gen, device="cuda")
+    lin.load_and_transform_weight(weight, **extra)
+    return lin
+
+
+def _config_plain(torch, lin, A):
+    """The plain version of a Linear's forward on the card: the general
+    instance's (`dequant_matmul_general_plain`) for a quantized class, and
+    for a native one the float64 product of the same values (exact for the
+    integer pairs), cast as the dense route casts."""
+    from bitblas_tpu_torch.kernels.dense import add_bias
+    from bitblas_tpu_torch.kernels.general import \
+        dequant_matmul_general_plain
+    from bitblas_tpu_torch.ops.reference import decode_name
+    from bitblas_tpu_torch.quantization import numerics
+    cfg = lin.bitblas_matmul.config
+    if cfg.is_native_compute():
+        out = numerics.convert(torch.matmul(
+            numerics.to_float(A).double(),
+            numerics.to_float(lin.weight).double().T), cfg.out_dtype)
+        return out if lin.bias is None else add_bias(out, lin.bias,
+                                                     cfg.out_dtype)
+    return dequant_matmul_general_plain(
+        A, lin.qweight, cfg.W_dtype, cfg.A_dtype, decode_name(cfg),
+        lin.scales, lin.zeros, cfg.effective_group_size, cfg.zeros_mode,
+        lin.bias, cfg.out_dtype)
+
+
+def _config_scale(torch, lin, A):
+    """sum_k |a_k w_k| of each output: the float64 product of |A| and the
+    magnitudes of the decoded weight (a native weight as it is)."""
+    from bitblas_tpu_torch.kernels.general import decode_general
+    from bitblas_tpu_torch.ops.reference import decode_name
+    from bitblas_tpu_torch.quantization import numerics
+    cfg = lin.bitblas_matmul.config
+    W = lin.weight if cfg.is_native_compute() else decode_general(
+        lin.qweight, cfg.W_dtype, cfg.K, decode_name(cfg), lin.scales,
+        lin.zeros, cfg.effective_group_size, cfg.zeros_mode)
+    return torch.matmul(numerics.to_float(A).double().abs(),
+                        numerics.to_float(W).double().abs().T)
+
+
+CONFIG_MANTISSA = {"float16": 11, "bfloat16": 8, "float32": 24,
+                   "float64": 53}
+# the native pairs the dense route takes through kernel 9 (float32 sums of
+# float16 / bfloat16 operands; fp8 upcast to float16); int8, uint8 and
+# float64 stay library products (torch._int_mm, DGEMM)
+KERNEL9_ACTS = ("float16", "bfloat16", "e4m3_float8", "e5m2_float8")
+
+
+def config_err(torch, got, want, out_name, scale) -> float:
+    """|got - want| in units of (one ulp of out_name at |want| +
+    CONFIG_SUM_FLOOR * scale): at most 1 when within the limit; an integer
+    output's largest |got - want| itself (0 when equal). NaN / inf must sit
+    where want's are (else inf)."""
+    from bitblas_tpu_torch.quantization import numerics
+    g = numerics.to_float(got).double()
+    w = numerics.to_float(want).double()
+    if out_name not in CONFIG_MANTISSA:
+        return (g - w).abs().max().item()
+    fin = torch.isfinite(w)
+    if not (torch.equal(fin, torch.isfinite(g))
+            and torch.equal(g[~fin].nan_to_num(), w[~fin].nan_to_num())):
+        return math.inf
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1]
+                      - CONFIG_MANTISSA[out_name])
+    unit = ulp + CONFIG_SUM_FLOOR * scale
+    return ((g - w).abs()[fin] / unit[fin]).max().item()
+
+
+def _config_row(torch, name, lin, A, M, N, K, out, want, scale, flush,
+                floor_ms):
+    """One timed row of a class at M: the route's time (the Linear's
+    forward, one launch of its kernel or library call plus the cast), the
+    plain version's, the library call's, the bound and the error."""
+    from bitblas_tpu_torch.kernels import dense
+    from bitblas_tpu_torch.quantization import numerics
+    from bitblas_tpu_torch.quantization.formats import (as_torch_dtype,
+                                                        source_format_and_bits)
+    cfg = lin.bitblas_matmul.config
+    adt = as_torch_dtype(cfg.A_dtype)
+    bits = source_format_and_bits(cfg.W_dtype)[1]
+    native = cfg.is_native_compute()
+    wbytes = N * K * (as_torch_dtype(cfg.W_dtype).itemsize if native
+                      else bits / 8)
+    if cfg.with_scaling:
+        wbytes += (K // CONFIG_GROUP) * N * lin.scales.element_size() * (
+            1 + int(cfg.with_zeros))
+    nbytes = M * K * adt.itemsize + wbytes + out.numel() * out.element_size()
+    peak = (FP8_FLOPS_PER_S if "float8" in cfg.A_dtype
+            else INT8_OPS_PER_S if cfg.A_dtype in ("int8", "uint8")
+            else FP64_FLOPS_PER_S if cfg.A_dtype == "float64"
+            else F32_FLOPS_PER_S if cfg.A_dtype == "float32"
+            else F16_FLOPS_PER_S)
+    bms, by = bound(nbytes, 2.0 * M * N * K, peak)
+    if native and "float8" in cfg.A_dtype and not (
+            cfg.A_dtype == cfg.W_dtype == "e5m2_float8"):
+        # cuBLASLt's fp8 product (which refuses e5m2 x e5m2)
+        library = (lambda: dense.scaled_mm_sums(A, lin.weight))
+    elif native and cfg.A_dtype == "uint8":
+        a8 = (A.to(torch.int16) - 128).to(torch.int8)
+        w8 = (lin.weight.to(torch.int16) - 128).to(torch.int8)
+        library = (lambda: dense.int_mm(a8, w8))
+    elif native:
+        wide = torch.float64 if cfg.A_dtype == "float64" else torch.float32
+        Af, Wf = numerics.to_float(A).to(wide), numerics.to_float(
+            lin.weight).to(wide)
+
+        def library():
+            with dense.full_f32():
+                return torch.matmul(Af, Wf.T)
+    else:   # the library product of the decoded weight (never called)
+        from bitblas_tpu_torch.kernels.general import decode_general
+        from bitblas_tpu_torch.ops.reference import decode_name
+        Wd = numerics.to_float(decode_general(
+            lin.qweight, cfg.W_dtype, K, decode_name(cfg), lin.scales,
+            lin.zeros, cfg.effective_group_size, cfg.zeros_mode))
+        Af = numerics.to_float(A)
+
+        def library():
+            with dense.full_f32():
+                return torch.matmul(Af, Wd.T)
+    err = config_err(torch, out, want, cfg.out_dtype, scale)
+    row = {"class": name, "a_dtype": cfg.A_dtype, "M": M, "N": N, "K": K,
+           "route": lin.bitblas_matmul.hint_for(M).decode_mode,
+           "kernel_ms": time_ms(torch, lambda: lin(A), 10, flush),
+           "plain_ms": time_ms(torch, lambda: _config_plain(torch, lin, A),
+                               3, flush),
+           "library_ms": time_ms(torch, library, 10, flush),
+           "bound_ms": bms, "bound_by": by, "stream_ms": None,
+           "floor_ms": floor_ms, "max_abs_err": (
+               numerics.to_float(out).double()
+               - numerics.to_float(want).double()).abs().nan_to_num()
+           .max().item(), "err_units": err}
+    return row
+
+
+def check_configs(torch, flush, floor_ms):
+    """The configs phase (slice 18): each class the port added through
+    module.Linear at Llama-2-7B's MLP shape (N = 11008, K = 4096; M = 4 and
+    256, two classes also at M = 512, the materialize plan), fp8 W8A8 also
+    at Llama-3-8B's (14336 x 4096), and JAX's C = 32 QuantConv2D (K = 288)
+    on both routes under float16 and int8 activations. First the main
+    path alone: the launch counters of kernel 1's and kernels 2-3's general
+    instances and of kernel 9 set to 0, every forward run, the counters
+    read: each must have launched (kernel 9 for the float16 / bfloat16 ->
+    float32 and fp8 classes). Then, outside that count, each output
+    against its plain version on the card (`config_err` at most 1: integer
+    outputs equal), the conv outputs against the CPU's QuantConv2D (the
+    plain versions) at JAX's limits (float16 rtol 2e-2, atol 0.2; int8
+    rtol = atol = 1e-3), a second call bit-equal, kernel 2's general
+    decode bit-equal to its plain version, and the timed rows (route,
+    plain, library: torch.matmul on the decoded weight, torch._scaled_mm
+    for e4m3 / cross fp8 pairs, torch._int_mm for uint8; the bound:
+    operand and output bytes over 3.35 TB/s, 2 M N K over the operand
+    type's peak)."""
+    from bitblas_tpu_torch import QuantConv2D, QuantConv2DConfig
+    from bitblas_tpu_torch.kernels import dense
+    from bitblas_tpu_torch.kernels.general import (
+        decode_general, dequant_matmul_general, weight_decode_general)
+    from bitblas_tpu_torch.ops.reference import decode_name
+    from bitblas_tpu_torch.quantization import numerics
+    counters = (dequant_matmul_general, weight_decode_general,
+                dense.dense_matmul)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    t0 = time.perf_counter()
+    layers = []
+    for name, kw, mat in CONFIG_LAYERS:
+        N, K = CONFIG_SHAPE
+        layers.append((name, _config_layer(torch, gen, kw, N, K), N, K,
+                       CONFIG_MS + ((CONFIG_MATERIALIZE_M,) if mat else ())))
+    N8, K8 = CONFIG_FP8_SHAPE
+    layers.append(("e4m3 x e4m3 (Llama-3-8B)", _config_layer(
+        torch, gen, CONFIG_LAYERS[2][1], N8, K8), N8, K8, CONFIG_MS))
+    inputs = {}
+    for name, lin, N, K, ms in layers:
+        for M in ms:
+            inputs[(name, M)] = _config_values(
+                torch, gen, lin.bitblas_matmul.config.A_dtype, (M, K))
+    conv = {}
+    for tag, q in (("float16", dict(W_dtype="uint4", group_size=-1,
+                                    with_scaling=True)),
+                   ("int8", dict(W_dtype="uint4", group_size=-1,
+                                 with_scaling=True, in_dtype="int8",
+                                 accum_dtype="int32",
+                                 out_dtype="float32"))):
+        for route in ("fused", "materialize"):
+            kw = dict(CONFIG_CONV, **q, route=route)
+            conv[(tag, route)] = (QuantConv2D(QuantConv2DConfig(**kw)),
+                                  QuantConv2D(QuantConv2DConfig(**kw),
+                                              device="cpu"))
+    c = CONFIG_CONV
+    codes = torch.randint(0, 16, (c["K"], c["K"], c["C"], c["F"]),
+                          generator=gen, device="cuda", dtype=torch.uint8)
+    cscale = (torch.rand((c["F"], 1), generator=gen, device="cuda") * 0.1
+              + 0.01)
+    cx = {"float16": torch.randn((c["N"], c["H"], c["W"], c["C"]),
+                                 generator=gen, device="cuda").half(),
+          "int8": torch.randint(-100, 100, (c["N"], c["H"], c["W"], c["C"]),
+                                generator=gen, device="cuda",
+                                dtype=torch.int8)}
+    packed = {key: ops[0].transform_weight(
+        codes, scale=cscale.half() if key[0] == "float16" else cscale)
+        for key, ops in conv.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the main path alone, its launches counted
+    _reset(counters)
+    outs = {}
+    for name, lin, N, K, ms in layers:
+        for M in ms:
+            outs[(name, M)] = lin(inputs[(name, M)])
+    conv_out = {key: ops[0](cx[key[0]], *packed[key])
+                for key, ops in conv.items()}
+    torch.cuda.synchronize()
+    launches = {
+        "dequant_matmul_general": dequant_matmul_general.launches,
+        "weight_decode_general": weight_decode_general.launches,
+        **{f"dense_matmul {k}": n
+           for k, n in dense.dense_matmul.variant_launches.items()},
+        "general_variants": dict(dequant_matmul_general.variant_launches),
+        "decode_variants": dict(weight_decode_general.variant_launches)}
+    for key in ("dequant_matmul_general", "weight_decode_general",
+                "dense_matmul float16->float32",
+                "dense_matmul bfloat16->float32"):
+        if not launches.get(key):
+            raise AssertionError(f"configs: {key} never launched on the "
+                                 f"main path ({launches})")
+    want_routes = {"fused", "dense", "materialize"}
+    for name, lin, N, K, ms in layers:
+        for M in ms:
+            mode = lin.bitblas_matmul.hint_for(M).decode_mode
+            if mode not in want_routes or (mode == "materialize") != (
+                    M >= CONFIG_MATERIALIZE_M):
+                raise AssertionError(f"configs: {name} at M={M} took the "
+                                     f"{mode} route")
+
+    # outside the count: every output against its plain version
+    rows, worst = [], {}
+    for name, lin, N, K, ms in layers:
+        cfg = lin.bitblas_matmul.config
+        for M in ms:
+            A, out = inputs[(name, M)], outs[(name, M)]
+            want = _config_plain(torch, lin, A)
+            scale = _config_scale(torch, lin, A)
+            err = config_err(torch, out, want, cfg.out_dtype, scale)
+            limit = 1.0 if cfg.out_dtype in CONFIG_MANTISSA else 0.0
+            if not err <= limit:
+                raise AssertionError(f"configs: {name} at M={M} is "
+                                     f"{err} units from its plain version")
+            again = lin(A)
+            if not torch.equal(numerics.to_float(again).nan_to_num(),
+                               numerics.to_float(out).nan_to_num()):
+                raise AssertionError(f"configs: {name} at M={M}: two calls "
+                                     f"differ")
+            worst[f"{name} M={M}"] = err
+            if M in CONFIG_MS:
+                rows.append(_config_row(torch, name, lin, A, M, N, K, out,
+                                        want, scale, flush, floor_ms))
+                rows[-1]["kernel"] = (
+                    "dequant_matmul_general" if not cfg.is_native_compute()
+                    else "dense_matmul" if cfg.A_dtype in KERNEL9_ACTS
+                    else "library")
+        if CONFIG_MATERIALIZE_M in ms:
+            # kernel 2's general instance alone: bit-equal, timed
+            dn = decode_name(cfg)
+            args = (lin.qweight, cfg.W_dtype, K, dn, lin.scales, lin.zeros,
+                    cfg.effective_group_size, cfg.zeros_mode)
+            got = weight_decode_general(*args)
+            want = decode_general(*args)
+            same = torch.equal(numerics.to_float(got).nan_to_num(),
+                               numerics.to_float(want).nan_to_num())
+            if not same:
+                raise AssertionError(f"configs: weight_decode_general "
+                                     f"{name} differs from its plain version")
+            nbytes = lin.qweight.numel() * lin.qweight.element_size() + (
+                lin.scales.numel() * lin.scales.element_size() * (
+                    1 + int(cfg.with_zeros))) + got.numel() * \
+                got.element_size()
+            bms, by = bound(nbytes, 0.0)
+            rows.append({
+                "class": name, "kernel": "weight_decode_general", "M": None,
+                "N": N, "K": K, "route": "materialize",
+                "kernel_ms": time_ms(torch, lambda: weight_decode_general(
+                    *args), 10, flush),
+                "plain_ms": time_ms(torch, lambda: decode_general(*args), 3,
+                                    flush),
+                "library_ms": None, "bound_ms": bms, "bound_by": by,
+                "floor_ms": floor_ms, "max_abs_err": 0.0})
+    for key, (op, cpu_op) in conv.items():
+        tag, route = key
+        got = conv_out[key]
+        want = cpu_op(cx[tag].cpu(), *[t.cpu() for t in packed[key]])
+        rtol, atol = (2e-2, 0.2) if tag == "float16" else (1e-3, 1e-3)
+        bad = ((got.cpu().float() - want.float()).abs()
+               > atol + rtol * want.float().abs()).sum().item()
+        if bad:
+            raise AssertionError(f"configs: C = 32 QuantConv2D {tag} "
+                                 f"{route}: {bad} outputs off the CPU's")
+        ms = time_ms(torch, lambda: op(cx[tag], *packed[key]), 10, flush)
+        rows.append({"class": f"QuantConv2D C=32 uint4 per channel x {tag}",
+                     "kernel": "dequant_matmul_general" if route == "fused"
+                     else "weight_decode_general", "route": route,
+                     "M": op.m, "N": c["F"], "K": c["C"] * 9,
+                     "kernel_ms": ms, "plain_ms": None, "library_ms": None,
+                     "bound_ms": None, "bound_by": None,
+                     "floor_ms": floor_ms, "max_abs_err": (
+                         got.cpu().float() - want.float()).abs().max()
+                     .item()})
+    for r in rows:
+        emit({"phase": "configs", **r})
+    emit({"phase": "configs_summary", "setup_s": setup_s,
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "worst_units": worst})
+    return rows, launches
+
+
+def configs_entries(rows):
+    """The kernels line's entries of the configs phase: kernel 1's general
+    instance (wide uint16 x float16 g128 at M = 4 as its row; every class's
+    rows in max_abs_err), kernels 2-3's general instance, and kernel 9's
+    float32 outputs of float16 / bfloat16 (and, upcast, fp8) operands."""
+    def of(kernel, **where):
+        krows = [r for r in rows if r["kernel"] == kernel]
+        return krows, pick(krows, **where)
+    out = []
+    krows, r = of("dequant_matmul_general",
+                  **{"class": "uint16 x float16 g128 bias", "M": 4})
+    out.append(("dequant_matmul_general", "dequant_general.cu",
+                "dequant_matmul.py:231", krows, r,
+                "M=4 N=11008 K=4096 uint16 x f16, g128, bias"))
+    krows, r = of("weight_decode_general",
+                  **{"class": "uint16 x float16 g128 bias"})
+    out.append(("weight_decode_general", "dequant_general.cu",
+                "materialize.py:227", krows, r,
+                "N=11008 K=4096 uint16 -> f16, g128 (kernel 3's int8 "
+                "target too)"))
+    for key, cls, acts in (
+            ("float16->float32", "float16 -> float32",
+             ("float16", "e4m3_float8", "e5m2_float8")),
+            ("bfloat16->float32", "bfloat16 -> float32", ("bfloat16",))):
+        krows = [x for x in rows if x["kernel"] == "dense_matmul"
+                 and x["a_dtype"] in acts]
+        r = pick(krows, **{"class": cls, "M": 256})
+        out.append((f"dense_matmul {key}", "dense_matmul.cu", "dense.py:73",
+                    krows, r, f"M=256 N=11008 K=4096 {cls}"
+                    + (" (and the fp8 pairs, upcast)"
+                       if key.startswith("float16") else "")))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7254,7 +7741,7 @@ def main() -> int:
                     ["--formats"], ["--int-formats"], ["--mistral"],
                     ["--bitnet-3b"], ["--bitnet-3b-readings"],
                     ["--mixtral"], ["--quantize"], ["--ops"],
-                    ["--parallel"]):
+                    ["--parallel"], ["--configs"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -7336,6 +7823,15 @@ def main() -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if mode == ["--configs"]:
+        rows, launches = check_configs(torch, flush, floor_ms)
+        emit({"kernels": [kernel_entry(*e, launches)
+                          for e in configs_entries(rows)]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if mode == ["--ops"]:
         rows, launches = check_ops(torch, flush)
         emit({"kernels": [kernel_entry(*e, launches)
@@ -7388,6 +7884,8 @@ def main() -> int:
     lap("int_formats")
     ops_rows, ops_launches = check_ops(torch, flush)
     lap("ops")
+    cfg_rows, cfg_launches = check_configs(torch, flush, floor_ms)
+    lap("configs")
     # slice 17's phases (the world of two ranks needs the card's memory
     # free of this process's models: none is held here)
     torch.cuda.empty_cache()
@@ -7646,6 +8144,13 @@ def main() -> int:
         launches[key] = launches.get(key, 0) + n
     summary += [e for e in ops_entries(ops_rows)
                 if e[0] == "weight_decode_int8 uint4"]
+    # the configs phase (slice 18): kernel 1's and kernels 2-3's general
+    # instances and kernel 9's float32 outputs, with that phase's
+    # launches (no serve phase runs them)
+    summary += configs_entries(cfg_rows)
+    for key, n in cfg_launches.items():
+        if isinstance(n, int):
+            launches[key] = launches.get(key, 0) + n
     # kernel 1's wrappers: their decode and tiled instances' launches apart
     split_counts = {
         wrapper: {"decode_launches": launches[DECODE[fmt]],

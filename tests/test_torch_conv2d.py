@@ -1,6 +1,8 @@
 """Conv2D and QuantConv2D against the JAX package, on the CPU (shaped like
 tests/test_matmul_operator.py:126-228; C = 128, so that the contraction
-C*KH*KW is a multiple of 128, as kernels 1 and 2 take it).
+C*KH*KW is a multiple of 128, as the specialized kernels 1 and 2 take
+it; and JAX's own C = 32 shapes, a contraction of 288, which the general
+instance of kernels 1-3 takes, on both routes).
 
 Tolerances:
 - float16 outputs against JAX: rtol 2e-2, atol 0.2 (JAX's own for its
@@ -47,6 +49,10 @@ GEOMS = {   # (N, C, H, W, F, K, S, P, D)
     "3x3": (2, 128, 6, 6, 64, 3, 1, 1, 1),
     "1x1_s2": (2, 128, 7, 7, 32, 1, 2, 0, 1),
     "3x3_s2_d2": (1, 128, 9, 9, 32, 3, 2, 2, 2),
+    # JAX's QuantConv2D shapes (tests/test_matmul_operator.py:137-228):
+    # C = 32 under a 3 x 3 filter, K = 288
+    "3x3_c32": (2, 32, 8, 8, 64, 3, 1, 1, 1),
+    "3x3_c32_n1": (1, 32, 8, 8, 64, 3, 1, 1, 1),
 }
 
 
@@ -328,3 +334,45 @@ def test_unknown_route_and_missing_scales():
     with pytest.raises(ValueError):
         op.forward(np.zeros((1, 5, 5, 128), np.float16), W,
                    scale=torch.ones(9, 64))
+
+
+@pytest.mark.parametrize("route", ["fused", "materialize"])
+def test_quant_c32_float16_matches_jax(route):
+    """JAX's C = 32 QuantConv2D (uint4, per-channel scales, float16; its
+    tests/test_matmul_operator.py:137-192) on both routes: the contraction
+    K = 288 is off 128, so kernel 1's and kernel 2's general instance run
+    it (their plain versions here), against JAX's same route."""
+    g = _geom("3x3_c32")
+    op, jop = _quant_ops(g, "u4_per_channel", route)
+    assert op.route == jop.route == route
+    assert dq.spec_format(op.spec) == "general"
+    w, extra = _quant_operands(g, "u4_per_channel", 11)
+    x = _x(g, 12)
+    got = _forward(op, torch.from_numpy(x), op.transform_weight(w, **extra),
+                   list(extra))
+    want = _forward(jop, jnp.asarray(x), jop.transform_weight(w, **extra),
+                    list(extra))
+    assert got.dtype == torch.float16 and tuple(got.shape) == want.shape
+    assert_close(got, np.asarray(want, np.float32), rtol=2e-2, atol=0.2)
+
+
+@pytest.mark.parametrize("route", ["fused", "materialize"])
+def test_quant_c32_int8_matches_jax(route):
+    """JAX's C = 32 int8-activation QuantConv2D (uint4 per channel, scales
+    float32, out float32; its tests/test_matmul_operator.py:195-220) on
+    both routes against JAX's same route, at JAX's limits (rtol and atol
+    1e-3)."""
+    g = _geom("3x3_c32_n1")
+    extra_kw = dict(in_dtype="int8", accum_dtype="int32",
+                    out_dtype="float32")
+    op, jop = _quant_ops(g, "u4_per_channel", route, **extra_kw)
+    assert op.route == jop.route == route
+    w, extra = _quant_operands(g, "u4_per_channel", 13)
+    extra["scale"] = extra["scale"].astype(np.float32)
+    x = _x(g, 14, int8=True)
+    got = _forward(op, torch.from_numpy(x), op.transform_weight(w, **extra),
+                   list(extra))
+    want = _forward(jop, jnp.asarray(x), jop.transform_weight(w, **extra),
+                    list(extra))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert_close(got, np.asarray(want, np.float32), rtol=1e-3, atol=1e-3)

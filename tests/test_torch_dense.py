@@ -39,6 +39,8 @@ from bitblas_tpu_torch.testing import assert_close
 from bitblas_tpu_torch.testing import random_reference_operands
 from bitblas_tpu_torch.tuner import CPU, TileHint, default_hint
 
+from torch_jax_parity import agrees, as_f64, operands, oracle, port_forward
+
 OUT = {"float16": "float16", "bfloat16": "bfloat16", "float32": "float32",
        "int8": "int32"}
 TOL = {"float16": dict(rtol=2e-3, atol=1e-3),
@@ -192,15 +194,19 @@ def test_native_default_hint_is_dense(dtype):
 
 def test_native_config_legalizes_accumulation():
     """The dense route accumulates in int32 for int8 and float32 for
-    floats whatever accum_dtype says; the config records that type, and
-    out_dtypes the port does not run raise."""
+    floats whatever accum_dtype says; the config records that type. Every
+    output type JAX takes runs (a bfloat16 pair into float16), and scales
+    on a native pair are dropped, as JAX's XLA dot drops them (ROADMAP
+    §3): both against JAX's oracle."""
     cfg = MatmulConfig(N=128, K=256, A_dtype="int8", W_dtype="int8",
                        out_dtype="int32", accum_dtype="float32")
     assert cfg.accum_dtype == "int32" and cfg.storage_dtype == "int8"
     assert cfg.is_native_compute() and not cfg.fast_decoding
-    with pytest.raises(NotImplementedError):
-        MatmulConfig(N=128, K=256, A_dtype="bfloat16", W_dtype="bfloat16",
-                     out_dtype="float16")
-    with pytest.raises(NotImplementedError):
-        MatmulConfig(N=128, K=256, A_dtype="float16", W_dtype="float16",
-                     group_size=128, with_scaling=True)
+    for kw in (dict(A_dtype="bfloat16", W_dtype="bfloat16",
+                    out_dtype="float16"),
+               dict(A_dtype="float16", W_dtype="float16", group_size=128,
+                    with_scaling=True)):
+        kw = dict(M=4, N=128, K=256, **kw)
+        ops = operands(kw)
+        got = port_forward(MatmulConfig(**kw), ops["A"], ops["qweight"])
+        assert agrees(as_f64(got), oracle(kw, ops))

@@ -39,6 +39,7 @@ from bitblas_tpu_torch.integration.pytorch import QuantLinear
 from bitblas_tpu_torch.kernels import dequant_matmul as dq
 from bitblas_tpu_torch.kernels import materialize as mz
 from bitblas_tpu_torch.module import Linear
+from bitblas_tpu_torch.ops.matmul import Matmul
 from bitblas_tpu_torch.ops import weight_transform as wt
 from bitblas_tpu_torch.ops.matmul_config import FLOAT_PAIRS, MatmulConfig
 from bitblas_tpu_torch.quantization import numerics, packing
@@ -147,33 +148,60 @@ def test_config_legalizes_as_jax(a_dtype, w_dtype):
         assert (cfg.bit, cfg.source_format) == (jc.bit, jc.source_format)
         assert cfg.storage_dtype == "int32"      # the Hopper layout
     zeros = dict(base, with_scaling=True, with_zeros=True, group_size=64)
-    if family == "uint":
-        for mode in ("original", "rescale", "quantized"):
-            MatmulConfig(zeros_mode=mode, **zeros)
-        with pytest.raises(NotImplementedError, match="with_scaling"):
-            MatmulConfig(**dict(zeros, with_scaling=False))
-    elif family == "int":
+    if family == "int":
         for cls in (MatmulConfig, JaxMatmulConfig):   # both refuse
             with pytest.raises(ValueError, match="zero point"):
                 cls(**zeros)
-    else:       # legal in JAX, not ported
-        JaxMatmulConfig(**zeros)
-        with pytest.raises(NotImplementedError, match="with_zeros"):
-            MatmulConfig(**zeros)
-    for bad in (dict(group_size=16, with_scaling=True),
-                dict(out_dtype="int8"), dict(layout="nn"),
-                dict(accum_dtype="float16")):
-        with pytest.raises(NotImplementedError):
-            MatmulConfig(**dict(base, **bad))
+    else:   # legal in both, every mode, with scales or without
+        for mode in ("original", "rescale", "quantized"):
+            for scaled in (True, False):
+                kw = dict(zeros, zeros_mode=mode, with_scaling=scaled)
+                JaxMatmulConfig(**kw)
+                MatmulConfig(**kw)
+    # JAX takes group 16 and an int8 output, and accum_dtype changes
+    # nothing; a quantized "nn" layout is JAX's ValueError
+    for ok in (dict(group_size=16, with_scaling=True),
+               dict(out_dtype="int8"), dict(accum_dtype="float16")):
+        JaxMatmulConfig(**dict(base, **ok))
+        MatmulConfig(**dict(base, **ok))
+    for cls in (MatmulConfig, JaxMatmulConfig):
+        with pytest.raises(ValueError, match="layout"):
+            cls(**dict(base, layout="nn"))
 
 
 @pytest.mark.parametrize("a_dtype,w_dtype", [
     ("bfloat16", "int16"), ("int8", "uint8"), ("int8", "nf4"),
     ("float16", "int16"), ("e4m3_float8", "e5m2_float8")])
 def test_outside_the_slice_is_refused_by_name(a_dtype, w_dtype):
-    JaxMatmulConfig(N=64, K=256, A_dtype=a_dtype, W_dtype=w_dtype)
-    with pytest.raises(NotImplementedError, match=w_dtype):
-        MatmulConfig(N=64, K=256, A_dtype=a_dtype, W_dtype=w_dtype)
+    """Pairs the specialized kernels do not take (these were refused by
+    name before the general instance): now they run, as in JAX, against
+    JAX's oracle on the same operands."""
+    kw = dict(M=4, N=64, K=256, A_dtype=a_dtype, W_dtype=w_dtype,
+              out_dtype="float32")
+    jc, cfg = JaxMatmulConfig(**kw), MatmulConfig(**kw)
+    ops = jtesting.random_reference_operands(jc, 4, seed=0)
+    want = np.asarray(jref.matmul_reference(
+        jc, jnp.asarray(ops.A), jnp.asarray(ops.qweight)))
+    op = Matmul(cfg, device="cpu", enable_tuning=False)
+    if cfg.is_native_compute():
+        got = op.forward(_torch_operand(ops.A),
+                         op.transform_weight(_torch_operand(ops.qweight)))
+    else:
+        got = op.forward(_torch_operand(ops.A), wt.reference_weight_to_device(
+            cfg, ops.qweight))
+    assert_close(got, want, rtol=1e-3, atol=1e-3 * np.abs(want).max(),
+                 max_mismatched_ratio=0.0)
+
+
+def _torch_operand(a):
+    """A numpy operand (ml_dtypes bfloat16 / float8 included) as torch."""
+    a = np.asarray(a)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).bfloat16()
+    if str(a.dtype) in ("float8_e4m3fn", "float8_e5m2"):
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            getattr(torch, str(a.dtype)))
+    return torch.from_numpy(a.copy())
 
 
 # One configuration of each family for JAX's Pallas kernel: scaled where

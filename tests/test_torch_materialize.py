@@ -49,6 +49,9 @@ from bitblas_tpu_torch.quantization import packing as ppack
 from bitblas_tpu_torch.testing import assert_close
 from bitblas_tpu_torch.tuner import TileHint
 
+from torch_jax_parity import agrees, as_f64, jax_refusal, operands, oracle, \
+    port_forward
+
 N, K = 256, 512
 U4 = dict(N=N, K=K, A_dtype="float16", W_dtype="uint4", with_scaling=True,
           with_zeros=True, zeros_mode="original", group_size=128,
@@ -243,8 +246,18 @@ def test_w2a8_config_is_legal_and_legalized():
     ("group_size", 48), ("out_dtype", "bfloat16"), ("W_dtype", "nf4"),
     ("layout", "nn"), ("accum_dtype", "float16")])
 def test_w2a8_config_rejects_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError):
-        MatmulConfig(**dict(I2, **{field: value}))
+    """One field away from BitNet's W2A8 configuration: the port raises the
+    class JAX raises (a group that does not divide K, a quantized "nn"
+    layout) and runs the rest against JAX's oracle, as JAX runs them."""
+    kw = dict(I2, M=4, **{field: value})
+    cls = jax_refusal(kw)
+    if cls is not None:
+        with pytest.raises(cls):
+            MatmulConfig(**kw)
+        return
+    ops = operands(kw)
+    got = port_forward(MatmulConfig(**kw), ops["A"], ops["qweight"])
+    assert agrees(as_f64(got), oracle(kw, ops))
 
 
 @pytest.mark.parametrize("bits", [2, 4])

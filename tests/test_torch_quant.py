@@ -23,6 +23,9 @@ from bitblas_tpu_torch.kernels.dequant_matmul import dequantize_hopper
 from bitblas_tpu_torch.ops import reference as pref
 from bitblas_tpu_torch.ops import weight_transform as pwt
 from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
+
+from torch_jax_parity import agrees, as_f64, jax_refusal, operands, oracle, \
+    port_forward
 from bitblas_tpu_torch.quantization import numerics as pnum
 from bitblas_tpu_torch.quantization import packing as ppack
 
@@ -121,6 +124,16 @@ def test_unpack_nslot_reads_the_jax_device_layout():
     ("A_dtype", "uint8"), ("W_dtype", "int16"), ("group_size", 96),
     ("out_dtype", "int8"), ("with_scaling", False), ("layout", "nn")])
 def test_config_rejects_what_is_not_ported(field, value):
-    kw = dict(CFG, **{field: value})
-    with pytest.raises(NotImplementedError):
-        MatmulConfig(**kw)
+    """One field away from GPTQ's W4A16 configuration: the port raises the
+    class JAX raises (a quantized "nn" layout; zeros on the int16 weight)
+    and runs the rest against JAX's oracle, as JAX runs them."""
+    kw = dict(CFG, M=4, **{field: value})
+    cls = jax_refusal(kw)
+    if cls is not None:
+        with pytest.raises(cls):
+            MatmulConfig(**kw)
+        return
+    ops = operands(kw)
+    got = port_forward(MatmulConfig(**kw), ops["A"], ops["qweight"],
+                       ops["scales"], ops["zeros"], ops["qzeros"])
+    assert agrees(as_f64(got), oracle(kw, ops))
