@@ -10,9 +10,11 @@
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_attention (pallas_call
 // at :393 for the causal walk and :415 for the dense one): every head dim
-// it takes here (64, 96, 100, 128, 256; it zero-pads D % 128 != 0 on the
-// host, :122-148, which this kernel does not), causal and not, trans_k,
-// a ragged seq_len (its kv_len mask, :44-47) and an out_dtype.
+// it takes here (64, 80, 96, 100, 128, 256; it zero-pads D % 128 != 0 on
+// the host, :122-148, which this kernel does not), causal and not,
+// trans_k, a ragged seq_len (its kv_len mask, :44-47) and an out_dtype.
+// The configurations TMA cannot address and the other head dims run
+// flash_attention_general.cu.
 //
 // What bounds it on the H100: at the main path's prompts (B = 1, H = 32,
 // S = 256 ... 2048, D = 100 or 128) the causal half of the 4*B*H*S^2*D

@@ -1,6 +1,6 @@
 // flash_attention_f32: kernel 4 for float32 operands, Q [B, S, H, D] x K
 // [B, S, Hkv, D] (or K^T [B, D, Hkv, S]) x V [B, S, Hkv, D] -> O [B, S, H,
-// D] in float16, bfloat16 or float32; any D <= 256 with D % 4 == 0, any S
+// D] in float16, bfloat16 or float32; any D up to kMaxHeadDim (768), any S
 // >= 1, GQA, causal (with an optional window) or dense.
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_attention (pallas_call
@@ -14,17 +14,22 @@
 // FFMA kernel, as kernel 9's float32 path is; its time is written down,
 // not judged (no model serves float32 attention).
 //
-// Design: one block of 128 threads per (32 q rows, batch * head), 4
-// threads a row (adjacent lanes: the row's max and sum take two shuffles).
-// K and V tiles of 32 keys are read into shared memory by all threads
+// Design: one block of 128 threads per (32 q rows, batch * head, chunk of
+// 4 DC output columns), 4 threads a row (adjacent lanes: the row's max and
+// sum take two shuffles). K tiles of 32 keys (the whole head dim) and the
+// chunk's columns of V are read into shared memory by all threads
 // (coalesced along D, or along the keys for K^T), keys past S as zeros;
 // each thread scores 8 keys of its row against the scaled Q row in shared
 // memory (each Q element read once for the 8), writes its weights to a
 // [32 x 32] P tile, and accumulates the row's output columns c = quarter
 // + 4 i (DC of them) over the tile's keys (each weight read once for
-// them). The walk and the masks are kernel 4's: causal tiles 0 .. the q
-// tile's last row (from the band's first tile with a window, a max of
-// -inf taken as 0 in the exponents), dense every tile, keys >= S masked.
+// them). Up to D = 256 one chunk holds every column; past it the chunks
+// are 128 columns (grid z), each computing the same scores again, so that
+// a thread holds 32 sums at any D and Q and a K tile of the whole head
+// dim fit shared memory (212 KB at D = 768). The walk and the masks are
+// kernel 4's: causal tiles 0 .. the q tile's last row (from the band's
+// first tile with a window, a max of -inf taken as 0 in the exponents),
+// dense every tile, keys >= S masked.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -35,11 +40,13 @@ namespace {
 
 constexpr int BQ = 32, BK = 32, kThreads = 128;
 constexpr int kOutF16 = 0, kOutBF16 = 1, kOutF32 = 2;
+constexpr int kMaxHeadDim = 768;   // kernels/flash.py GENERAL_MAX_HEAD_DIM
 
-int smem_bytes(int D) {
-  // Q and K rows padded by one float (no bank conflicts across rows), V,
-  // and the P tile (33 floats a row)
-  return (2 * BQ * (D + 1) + BK * D + BQ * (BK + 1)) * 4;
+// DC: output columns a thread holds (a chunk of 4 DC columns a block).
+int smem_bytes(int D, int DC) {
+  // Q and K rows padded by one float (no bank conflicts across rows), the
+  // chunk's V columns, and the P tile (33 floats a row)
+  return (2 * BQ * (D + 1) + BK * 4 * DC + BQ * (BK + 1)) * 4;
 }
 
 __device__ __forceinline__ void store1(void* O, size_t idx, float x,
@@ -52,19 +59,19 @@ __device__ __forceinline__ void store1(void* O, size_t idx, float x,
     static_cast<half*>(O)[idx] = __float2half_rn(x);
 }
 
-// DC: output columns a thread holds (D <= 4 DC).
 template <int DC>
 __global__ void __launch_bounds__(kThreads)
     f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                const float* __restrict__ V, void* __restrict__ O, int S,
                int H, int Hkv, int D, int causal, int trans_k, int window,
                int out_code, float qscale) {
+  constexpr int NC = 4 * DC;        // the block's output columns
   extern __shared__ float smem[];
   const int DQ = D + 1;
   float* qs = smem;                 // [BQ][D + 1]
   float* ks = qs + BQ * DQ;         // [BK][D + 1]
-  float* vs = ks + BK * DQ;         // [BK][D]
-  float* ps = vs + BK * D;          // [BQ][BK + 1]
+  float* vs = ks + BK * DQ;         // [BK][NC]: the chunk's columns
+  float* ps = vs + BK * NC;         // [BQ][BK + 1]
 
   const int tid = threadIdx.x;
   const int r = tid / 4, quarter = tid % 4;
@@ -74,6 +81,8 @@ __global__ void __launch_bounds__(kThreads)
   const int hk = h / (H / Hkv);
   const int q0 = qt * BQ;
   const int row = q0 + r;
+  const int dc0 = blockIdx.z * NC;            // the chunk's first column
+  const int ncol = min(NC, D - dc0);
   const int hi = causal ? (q0 + BQ - 1) / BK : (S + BK - 1) / BK - 1;
   const int lo = causal && window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
 
@@ -108,11 +117,12 @@ __global__ void __launch_bounds__(kThreads)
                     : K[(((size_t)b * S + key) * Hkv + hk) * D + d];
       ks[j * DQ + d] = x;
     }
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int j = i / D, d = i % D;
+    for (int i = tid; i < BK * NC; i += kThreads) {
+      const int j = i / NC, c = i % NC;
       const int key = kb + j;
-      vs[j * D + d] =
-          key < S ? V[(((size_t)b * S + key) * Hkv + hk) * D + d] : 0.f;
+      vs[i] = key < S && c < ncol
+                  ? V[(((size_t)b * S + key) * Hkv + hk) * D + dc0 + c]
+                  : 0.f;
     }
     __syncthreads();
 
@@ -152,38 +162,37 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();   // the row's four threads wrote its P row
 #pragma unroll
     for (int c = 0; c < DC; ++c) o[c] *= alpha;
-    // each weight read once for the thread's DC columns; a column >= D
-    // reads the next V row (or the P tile past the last): its sum is never
-    // stored
+    // each weight read once for the thread's DC columns
     for (int j = 0; j < BK; ++j) {
       const float p = ps[r * (BK + 1) + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        o[c] = fmaf(p, vs[j * D + quarter + 4 * c], o[c]);
+        o[c] = fmaf(p, vs[j * NC + quarter + 4 * c], o[c]);
     }
   }
 
   if (row < S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    const size_t base = (((size_t)b * S + row) * H + h) * D;
+    const size_t base = (((size_t)b * S + row) * H + h) * D + dc0;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = quarter + 4 * c;
-      if (col < D) store1(O, base + col, o[c] * inv, out_code);
+      if (col < ncol) store1(O, base + col, o[c] * inv, out_code);
     }
   }
 }
 
+// `most`: the instance's largest head dim.
 template <int DC>
 int launch(const void* Q, const void* K, const void* V, void* O, int B,
            int S, int H, int Hkv, int D, int causal, int trans_k, int window,
-           int out_code, float qscale, cudaStream_t stream) {
+           int out_code, float qscale, int most, cudaStream_t stream) {
   static bool smem_set[bbt::kMaxDevices];
-  const int smem = smem_bytes(4 * DC);   // the instance's largest D
-  cudaError_t err = bbt::set_max_smem_once(f32_kernel<DC>, smem, smem_set);
+  cudaError_t err = bbt::set_max_smem_once(
+      f32_kernel<DC>, smem_bytes(most, DC), smem_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  f32_kernel<DC><<<grid, kThreads, smem_bytes(D), stream>>>(
+  const dim3 grid(B * H, (S + BQ - 1) / BQ, (D + 4 * DC - 1) / (4 * DC));
+  f32_kernel<DC><<<grid, kThreads, smem_bytes(D, DC), stream>>>(
       static_cast<const float*>(Q), static_cast<const float*>(K),
       static_cast<const float*>(V), O, S, H, Hkv, D, causal, trans_k, window,
       out_code, qscale);
@@ -200,18 +209,19 @@ extern "C" int flash_attention_f32(const void* Q, const void* K,
                                    int causal, int trans_k, int window,
                                    float qscale, void* stream) {
   const int D = head_dim;
-  if (D < 4 || D > 256 || D % 4 != 0 || S < 1 || B < 1 || Hkv < 1 ||
+  if (D < 1 || D > kMaxHeadDim || S < 1 || B < 1 || Hkv < 1 ||
       H % Hkv != 0 || (S + BQ - 1) / BQ > 65535 || window < 0 ||
       (window && !causal) || out_code < kOutF16 || out_code > kOutF32)
     return (int)cudaErrorInvalidValue;
   if (window >= S) window = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one chunk up to D = 256; past it chunks of 128 columns (DC = 32)
   if (D <= 64)
     return launch<16>(Q, K, V, O, B, S, H, Hkv, D, causal, trans_k, window,
-                      out_code, qscale, st);
-  if (D <= 128)
+                      out_code, qscale, 64, st);
+  if (D <= 128 || D > 256)
     return launch<32>(Q, K, V, O, B, S, H, Hkv, D, causal, trans_k, window,
-                      out_code, qscale, st);
+                      out_code, qscale, kMaxHeadDim, st);
   return launch<64>(Q, K, V, O, B, S, H, Hkv, D, causal, trans_k, window,
-                    out_code, qscale, st);
+                    out_code, qscale, 256, st);
 }

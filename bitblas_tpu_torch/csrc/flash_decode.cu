@@ -1,7 +1,7 @@
 // flash_decode: one query token per sequence against the bf16 or f16 slot
 // cache.
-//   q      [B, H, D]             float16 or bfloat16 (q_bf16; D = 128
-//                                or 256)
+//   q      [B, H, D]             float16 or bfloat16 (q_bf16; D %
+//                                128 == 0, up to 1024)
 //   k, v   [rows, Smax, Hkv, D]  bfloat16 (the engines' cache dtype) or
 //                                float16 (QuantLlamaLM.generate keeps the
 //                                hidden dtype); kv_f16 says which

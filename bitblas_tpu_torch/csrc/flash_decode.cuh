@@ -1,7 +1,8 @@
 // The decode-attention kernel shared by flash_decode{,_quant,_paged,
 // _paged_quant}.cu: one query token per sequence against a KV cache.
 //
-//   q      [B, H, D]  float16 or bfloat16 (D = 128 or 256)
+//   q      [B, H, D]  float16 or bfloat16 (D % 128 == 0, up to
+//          kMaxHeadDim = 1024)
 //   K, V   bfloat16, float16 or int8 codes, rows of [Hkv, D], held either as
 //          the slot cache [rows, Smax, Hkv, D] (row of key t of sequence b:
 //          slots[b] * Smax + t) or as the block pool [blocks, bs, Hkv, D]
@@ -90,6 +91,21 @@
 // own counter. The head dim D (128 or 256) is a template parameter: at
 // D = 256 a lane accumulates 8 dims, and the 3-stage bf16/f16 ring takes
 // 193 KB (one block an SM).
+// Head dims above 256 (D % 128 == 0 up to kMaxHeadDim, the wide
+// instances, kWide): a 64-key tile of K at D = 512 is 64 KB in bf16, so
+// neither the ring nor a lane's accumulators (G x D / 32 floats) could
+// hold a whole head. The head's output columns are cut into slices of 128
+// on the grid's y axis (blockIdx.y = (hk * hchunks + chunk) * slices +
+// slice), and a block is the D = 128 kernel for its slice: the ring holds
+// only the slice's V columns (and the scales), a lane accumulates 4 dims,
+// and one instance (8 query rows a block) serves every group, which keeps
+// the build short. The scores need all of D: each block reads its keys' K rows straight
+// from device memory (16-byte loads, the four lanes of a key on adjacent
+// chunks; rows outside [lo, len) are not read and score -inf), against
+// the query rows in shared memory ([G][D] f32, 32 KB at G = 8, D = 1024).
+// Every slice computes the same scores, m and l; each keeps its own
+// partials and counter, so the slices merge independently. The slices
+// read K D / 128 times (L2 serves most of it) and V once.
 // Each entry point launches on the caller's stream and returns the
 // launch's cudaError_t.
 #pragma once
@@ -199,14 +215,20 @@ struct Codes<int8_t> {
   }
 };
 
-template <typename T, int D>
+constexpr int kMaxHeadDim = 1024;   // kernels/flash.py DECODE_MAX_HEAD_DIM
+constexpr int kSlice = 128;          // a wide instance's output columns
+
+// D: the columns a block's V tile and accumulators hold (the head dim, or
+// kSlice in a wide instance, whose ring holds no K tile).
+template <typename T, int D, bool kWide = false>
 struct Layout {
   static constexpr int kRowBytes = D * (int)sizeof(T);   // 128 ... 512
   static constexpr int kChunks = kRowBytes / 16;         // 8 ... 32
   static constexpr int kTileBytes = TK * kRowBytes;
+  static constexpr int kKTileBytes = kWide ? 0 : kTileBytes;
   static constexpr int kStages = Codes<T>::kStages;
   // the ring: per stage the K tile, the V tile, K scales, V scales
-  static constexpr int kStageBytes = 2 * kTileBytes + 2 * TK * 4;
+  static constexpr int kStageBytes = kKTileBytes + kTileBytes + 2 * TK * 4;
   static constexpr int kRingBytes = kStages * kStageBytes;
   // Physical 16-byte chunk of logical chunk c of row r: c ^ (LPK r mod
   // chunks). The LPK lanes of a key read chunks LPK j + part, and the two
@@ -217,12 +239,12 @@ struct Layout {
   }
 };
 
-// Dynamic shared memory: the ring, the query rows [G][D] f32, the weights
-// of each warp [warps][G][KW]. After the walk the ring holds the warps'
-// partials, then the split weights of the merge.
-template <int G, int D>
-constexpr int smem_bytes(int ring) {
-  return ring + G * D * 4 + kWarps * G * KW * 4;
+// Dynamic shared memory: the ring, the query rows [G][DK] f32 (DK the
+// head dim), the weights of each warp [warps][G][KW]. After the walk the
+// ring holds the warps' partials, then the split weights of the merge.
+template <int G>
+constexpr int smem_bytes(int ring, int DK) {
+  return ring + G * DK * 4 + kWarps * G * KW * 4;
 }
 
 // index: slots [B] (slot cache) or tables [B, max_blocks] (block pool);
@@ -243,7 +265,7 @@ __device__ __forceinline__ __nv_bfloat16 q_from<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, typename Q, bool kPaged, int G, int D>
+template <typename T, typename Q, bool kPaged, int G, int D, bool kWide>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const Q* __restrict__ q, const T* __restrict__ kc,
                   const T* __restrict__ vc, const float* __restrict__ ksc,
@@ -253,22 +275,28 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ ml, float* __restrict__ part,
                   int* __restrict__ count, int H,
                   int Hkv, int span, int max_blocks, int chunk, int window,
-                  float scale) {
+                  int head_dim, float scale) {
   using C = Codes<T>;
-  using L = Layout<T, D>;
+  using L = Layout<T, D, kWide>;
   constexpr int VEC = C::N;
   constexpr int DPL = D / 32;             // dims a lane accumulates
   constexpr int S = L::kStages;
   constexpr int CPL = L::kChunks / LPK;   // K chunks a lane dots
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;                                 // [S][stage]
-  float* qs = reinterpret_cast<float*>(smem + L::kRingBytes);  // [G][D]
-  float* ps = qs + G * D;                                // [warps][G][KW]
+  // the head dim (a wide instance's is a runtime multiple of its slice)
+  // and the block's slice of it
+  const int DK = kWide ? head_dim : D;
+  const int nsl = kWide ? head_dim / D : 1;
+  const int sl = kWide ? (int)blockIdx.y % nsl : 0;
+  float* qs = reinterpret_cast<float*>(smem + L::kRingBytes);  // [G][DK]
+  float* ps = qs + G * DK;                               // [warps][G][KW]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int split = blockIdx.x, b = blockIdx.z;
-  const int hchunks = gridDim.y / Hkv;
-  const int hk = blockIdx.y / hchunks, hc = blockIdx.y % hchunks;
+  const int hchunks = gridDim.y / (Hkv * nsl);
+  const int hy = (int)blockIdx.y / nsl;
+  const int hk = hy / hchunks, hc = hy % hchunks;
   const int splits = gridDim.x;
   const int group = H / Hkv;
   const int rows = min(G, group - hc * G);   // query rows of this block
@@ -289,12 +317,13 @@ __global__ void __launch_bounds__(kThreads)
   // accumulator and, once a row, m in the natural-log domain and l.
   auto emit = [&](int gq, int d, float o, float M, float lsum) {
     const size_t row = (size_t)b * H + h0 + gq;
+    const size_t at = row * DK + sl * D + d;
     if (ml == nullptr) {
-      out[row * D + d] = q_from<Q>(o / fmaxf(lsum, 1e-30f));
+      out[at] = q_from<Q>(o / fmaxf(lsum, 1e-30f));
       return;
     }
-    reinterpret_cast<float*>(out)[row * D + d] = o;
-    if (d == 0) {
+    reinterpret_cast<float*>(out)[at] = o;
+    if (d == 0 && sl == 0) {
       ml[row] = (M == -INFINITY ? kEmptyM : M) * LN2;
       ml[(size_t)gridDim.z * H + row] = lsum;
     }
@@ -307,7 +336,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int end = min(start + chunk, len);
   const int ntiles = (end - start + TK - 1) / TK;
-  const size_t key_stride = (size_t)Hkv * D;
+  const size_t key_stride = (size_t)Hkv * DK;
   // Cache row of key t; only called for t < len.
   auto row_of = [&](int t) -> size_t {
     if constexpr (kPaged)
@@ -319,7 +348,7 @@ __global__ void __launch_bounds__(kThreads)
   // [lo, len) are zero-filled and not read.
   auto load_tile = [&](int i, int st) {
     unsigned char* kt = ring + st * L::kStageBytes;
-    unsigned char* vt = kt + L::kTileBytes;
+    unsigned char* vt = kt + L::kKTileBytes;
     float* kst = reinterpret_cast<float*>(vt + L::kTileBytes);
     float* vst = kst + TK;
     const int t0 = start + i * TK;
@@ -328,12 +357,14 @@ __global__ void __launch_bounds__(kThreads)
       const int idx = tid + j * kThreads;
       const int r = idx / L::kChunks, c = idx % L::kChunks;
       const bool live = (unsigned)(t0 + r - lo) < band;
-      const size_t off = live ? row_of(t0 + r) * key_stride + hk * D : 0;
+      const size_t off = live ? row_of(t0 + r) * key_stride + hk * DK : 0;
       const int dst = r * L::kRowBytes + L::swz(r, c) * 16;
-      cp_async16(kt + dst, reinterpret_cast<const unsigned char*>(kc + off)
-                               + c * 16, live);
-      cp_async16(vt + dst, reinterpret_cast<const unsigned char*>(vc + off)
-                               + c * 16, live);
+      if constexpr (!kWide)
+        cp_async16(kt + dst, reinterpret_cast<const unsigned char*>(kc + off)
+                                 + c * 16, live);
+      cp_async16(vt + dst, reinterpret_cast<const unsigned char*>(
+                               vc + off + (live ? sl * D : 0)) + c * 16,
+                 live);
     }
     if constexpr (C::kScaled) {
       if (tid < 2 * TK) {
@@ -351,8 +382,8 @@ __global__ void __launch_bounds__(kThreads)
     if (i < ntiles) load_tile(i, i);
     cp_async_commit();
   }
-  for (int i = tid; i < rows * D; i += kThreads)
-    qs[i] = q_float(q[((size_t)b * H + h0) * D + i]) * (scale * LOG2E);
+  for (int i = tid; i < rows * DK; i += kThreads)
+    qs[i] = q_float(q[((size_t)b * H + h0) * DK + i]) * (scale * LOG2E);
 
   // Per warp: running max m (base 2) and sum l of each query row
   // (replicated in every lane), the lane's accumulator over dims
@@ -375,7 +406,7 @@ __global__ void __launch_bounds__(kThreads)
     if (i + S - 1 < ntiles) load_tile(i + S - 1, (i + S - 1) % S);
     cp_async_commit();
     const unsigned char* kt = ring + (i % S) * L::kStageBytes;
-    const unsigned char* vt = kt + L::kTileBytes;
+    const unsigned char* vt = kt + L::kKTileBytes;
     const float* kst = reinterpret_cast<const float*>(vt + L::kTileBytes);
     const float* vst = kst + TK;
     const int kabs = start + i * TK + key;
@@ -385,17 +416,15 @@ __global__ void __launch_bounds__(kThreads)
     float s0[G], s1[G];
 #pragma unroll
     for (int gq = 0; gq < G; ++gq) s0[gq] = s1[gq] = 0.f;
-    const unsigned char* krow = kt + key * L::kRowBytes;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = LPK * j + pl;
+    // the dot of the lane's 16-byte chunk c of the key's K row with the
+    // query rows' values c * VEC ...
+    auto dot = [&](const uint4& raw, int c) {
       float kf[VEC];
-      C::to_float(*reinterpret_cast<const uint4*>(krow + L::swz(key, c) * 16),
-                  kf);
+      C::to_float(raw, kf);
 #pragma unroll
       for (int gq = 0; gq < G; ++gq) {
         if (gq >= rows) break;
-        const float4* qv = reinterpret_cast<const float4*>(qs + gq * D +
+        const float4* qv = reinterpret_cast<const float4*>(qs + gq * DK +
                                                            c * VEC);
 #pragma unroll
         for (int e4 = 0; e4 < VEC / 4; ++e4) {
@@ -404,6 +433,23 @@ __global__ void __launch_bounds__(kThreads)
           acc_s += kf[4 * e4] * qq.x + kf[4 * e4 + 1] * qq.y +
                    kf[4 * e4 + 2] * qq.z + kf[4 * e4 + 3] * qq.w;
         }
+      }
+    };
+    if constexpr (kWide) {
+      // the whole K row from device memory (a live key's only)
+      if (live) {
+        const uint4* krow = reinterpret_cast<const uint4*>(
+            kc + row_of(kabs) * key_stride + hk * DK);
+        const int nchunks = DK * (int)sizeof(T) / 16;
+#pragma unroll 4
+        for (int c = pl; c < nchunks; c += LPK) dot(__ldg(krow + c), c);
+      }
+    } else {
+      const unsigned char* krow = kt + key * L::kRowBytes;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int c = LPK * j + pl;
+        dot(*reinterpret_cast<const uint4*>(krow + L::swz(key, c) * 16), c);
       }
     }
     float ksc_k = 1.f, vsc_k = 1.f;
@@ -500,9 +546,11 @@ __global__ void __launch_bounds__(kThreads)
   const int nlive = min((len - base + chunk - 1) / chunk, splits);
   // partial of (b, hk, split): [group][D + 2]; this block's rows start at
   // hc * G
+  // (KV head, slice) pairs: a wide instance's slices merge apart
+  const size_t hv = (size_t)b * Hkv * nsl + (size_t)hk * nsl + sl;
   const size_t part_stride = (size_t)group * (D + 2);
-  float* mine = part + (((size_t)b * Hkv + hk) * splits + split) *
-                           part_stride + (size_t)hc * G * (D + 2);
+  float* mine = part + (hv * splits + split) * part_stride +
+                (size_t)hc * G * (D + 2);
   for (int gq = g0; gq < rows; gq += kThreads / D) {
     float M = -INFINITY;
 #pragma unroll
@@ -536,14 +584,14 @@ __global__ void __launch_bounds__(kThreads)
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* cnt = count + ((size_t)b * Hkv + hk) * hchunks + hc;
+    int* cnt = count + (((size_t)b * Hkv + hk) * hchunks + hc) * nsl + sl;
     last = atomicAdd(cnt, 1) == nlive - 1;
     if (last) *cnt = 0;   // ready for the next launch
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* p0 = part + ((size_t)b * Hkv + hk) * splits * part_stride +
+  const float* p0 = part + hv * splits * part_stride +
                     (size_t)hc * G * (D + 2);
   // Warp gq: the row's max M over the splits and the weights
   // exp2(m_s - M) into shared memory ([G][nlive], over the ring), then
@@ -593,41 +641,50 @@ __global__ void __launch_bounds__(kThreads)
 struct Args {
   const void *q, *k, *v, *k_scale, *v_scale, *index, *lengths;
   void *out, *ml, *part, *count;
-  int H, Hkv, span, max_blocks, chunk, window;
+  int H, Hkv, span, max_blocks, chunk, window, head_dim;
   float scale;
 };
 
-template <typename T, typename Q, bool kPaged, int G, int D>
+template <typename T, typename Q, bool kPaged, int G, int D, bool kWide>
 inline cudaError_t launch_g(dim3 grid, cudaStream_t st, const Args& a) {
-  constexpr int bytes = smem_bytes<G, D>(Layout<T, D>::kRingBytes);
+  using L = Layout<T, D, kWide>;
+  // after the walk the ring holds the warps' partials, then the merge's
+  // split weights
+  static_assert(L::kRingBytes >= kWarps * G * D * 4 + 2 * kWarps * G * 4 &&
+                    L::kRingBytes >= G * kMaxSplits * 4 + 2 * G * 4,
+                "the merges fit the ring");
+  constexpr int most = smem_bytes<G>(L::kRingBytes, kWide ? kMaxHeadDim : D);
+  const int bytes = smem_bytes<G>(L::kRingBytes, a.head_dim);
   static bool smem_set[kMaxDevices];
-  cudaError_t e =
-      set_max_smem_once(decode_kernel<T, Q, kPaged, G, D>, bytes, smem_set);
+  cudaError_t e = set_max_smem_once(decode_kernel<T, Q, kPaged, G, D, kWide>,
+                                    most, smem_set);
   if (e != cudaSuccess) return e;
-  decode_kernel<T, Q, kPaged, G, D><<<grid, kThreads, bytes, st>>>(
+  decode_kernel<T, Q, kPaged, G, D, kWide><<<grid, kThreads, bytes, st>>>(
       static_cast<const Q*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.index),
       static_cast<const int*>(a.lengths), static_cast<Q*>(a.out),
       static_cast<float*>(a.ml), static_cast<float*>(a.part), static_cast<int*>(a.count), a.H, a.Hkv,
-      a.span, a.max_blocks, a.chunk, a.window, a.scale);
+      a.span, a.max_blocks, a.chunk, a.window, a.head_dim, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T, typename Q, bool kPaged, int D>
 inline cudaError_t launch_d(int group, dim3 grid, cudaStream_t st,
                             const Args& a) {
-  if (group == 1) return launch_g<T, Q, kPaged, 1, D>(grid, st, a);
-  if (group == 2) return launch_g<T, Q, kPaged, 2, D>(grid, st, a);
-  if (group <= 4) return launch_g<T, Q, kPaged, 4, D>(grid, st, a);
-  return launch_g<T, Q, kPaged, kMaxG, D>(grid, st, a);
+  if (group == 1) return launch_g<T, Q, kPaged, 1, D, false>(grid, st, a);
+  if (group == 2) return launch_g<T, Q, kPaged, 2, D, false>(grid, st, a);
+  if (group <= 4) return launch_g<T, Q, kPaged, 4, D, false>(grid, st, a);
+  return launch_g<T, Q, kPaged, kMaxG, D, false>(grid, st, a);
 }
 
 // Checks the shapes the kernel takes and launches it over (splits,
-// Hkv * hchunks, B) blocks, hchunks = ceil(group / 8), with the rows of a
-// block rounded up to 1, 2, 4 or 8, the head dim 128 or 256 and q and out
-// bfloat16 (q_bf16) or float16. `part` holds B * H * splits * (D + 2)
-// floats and `count` B * Hkv * hchunks ints when splits > 1. `window` is
+// Hkv * hchunks * slices, B) blocks, hchunks = ceil(group / 8), slices =
+// D / 128 above D = 256 (else 1), with the rows of a block rounded up to
+// 1, 2, 4 or 8, the head dim D % 128 == 0 up to kMaxHeadDim and q and out
+// bfloat16 (q_bf16) or float16. `part` holds B * H * splits * (D + 2 *
+// slices) floats and `count` B * Hkv * hchunks * slices ints when splits >
+// 1. `window` is
 // 0 or >= 1, and 0 for the block pool. `ml` non-null asks for the
 // partial_stats outputs (out f32 [B, H, D], ml f32 [2, B, H]; slot cache,
 // no window).
@@ -641,19 +698,29 @@ inline int launch(const void* q, const void* k, const void* v,
   if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int group = H / Hkv;
   const int hchunks = (group + kMaxG - 1) / kMaxG;
-  if ((head_dim != 128 && head_dim != 256) || B < 1 || B > 65535 ||
-      (long long)Hkv * hchunks > 65535 || span < 1 ||
+  const bool wide = head_dim > 256;
+  const int slices = wide ? head_dim / kSlice : 1;
+  if (head_dim < 128 || head_dim % 128 != 0 || head_dim > kMaxHeadDim ||
+      B < 1 || B > 65535 || (long long)Hkv * hchunks * slices > 65535 ||
+      span < 1 ||
       (kPaged && max_blocks < 1) || chunk < TK || chunk % TK != 0 ||
       splits < 1 || splits > kMaxSplits || window < 0 ||
       (kPaged && window != 0) || (ml != nullptr && (kPaged || window)) ||
       (splits > 1 && (part == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(splits, Hkv * hchunks, B);
+  const dim3 grid(splits, Hkv * hchunks * slices, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = group < kMaxG ? group : kMaxG;
   const Args a{q,     k,     v,      k_scale, v_scale,    index,
                lengths, out, ml,     part,    count,      H,
-               Hkv,   span,  max_blocks, chunk, window,  scale};
+               Hkv,   span,  max_blocks, chunk, window,  head_dim, scale};
+  // the wide instances hold 8 query rows a block whatever the group (a
+  // lane's accumulators are 4 dims a row): one instance a query type
+  if (wide)
+    return (int)(q_bf16 ? launch_g<T, __nv_bfloat16, kPaged, kMaxG, kSlice,
+                                   true>(grid, st, a)
+                        : launch_g<T, half, kPaged, kMaxG, kSlice, true>(
+                              grid, st, a));
   if (head_dim == 128)
     return (int)(q_bf16 ? launch_d<T, __nv_bfloat16, kPaged, 128>(rows, grid,
                                                                   st, a)

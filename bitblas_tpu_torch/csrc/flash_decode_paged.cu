@@ -1,7 +1,7 @@
 // flash_decode_paged: one query token per sequence against the bf16 or
 // f16 block pool.
-//   q       [B, H, D]                  float16 or bfloat16 (q_bf16; D =
-//                                      128 or 256)
+//   q       [B, H, D]                  float16 or bfloat16 (q_bf16; D %
+//                                      128 == 0, up to 1024)
 //   k, v    [num_blocks, bs, Hkv, D]   bfloat16 or float16 (kv_f16)
 //   tables  [B, max_blocks] int32: page j of sequence b (keys
 //           [j * bs, (j + 1) * bs)) lives in block tables[b, j]

@@ -1,7 +1,7 @@
 // flash_decode_paged_quant: one query token per sequence against the
 // int8 block pool.
-//   q        [B, H, D]                 float16 or bfloat16 (q_bf16; D =
-//                                      128 or 256)
+//   q        [B, H, D]                 float16 or bfloat16 (q_bf16; D %
+//                                      128 == 0, up to 1024)
 //   k, v     [num_blocks, bs, Hkv, D]  int8 codes
 //   k_scale, v_scale [num_blocks, bs, Hkv] float32
 //   tables   [B, max_blocks] int32, lengths [B] int32

@@ -1,7 +1,7 @@
 // flash_decode_quant: one query token per sequence against the int8 slot
 // cache.
-//   q        [B, H, D]             float16 or bfloat16 (q_bf16; D = 128
-//                                  or 256)
+//   q        [B, H, D]             float16 or bfloat16 (q_bf16; D %
+//                                  128 == 0, up to 1024)
 //   k, v     [rows, Smax, Hkv, D]  int8 codes
 //   k_scale, v_scale [rows, Smax, Hkv] float32 (x ~= code * scale, one
 //            symmetric scale per token and KV head)

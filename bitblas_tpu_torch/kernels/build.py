@@ -33,10 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
            "weight_decode_int8", "flash_attention", "flash_decode",
-           # kernel 4 at its other head dims and for float32 operands
-           "flash_attention_d64", "flash_attention_d96",
-           "flash_attention_d100", "flash_attention_d256",
-           "flash_attention_f32",
+           # kernel 4 at its other head dims, for float32 operands, and its
+           # general instance (every configuration the others do not take)
+           "flash_attention_d64", "flash_attention_d80",
+           "flash_attention_d96", "flash_attention_d100",
+           "flash_attention_d256", "flash_attention_f32",
+           "flash_attention_general",
            "flash_decode_quant", "flash_decode_paged",
            "flash_decode_paged_quant", "dense_matmul",
            # kernels 1 and 2 for the other formats with float activations

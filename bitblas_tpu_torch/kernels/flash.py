@@ -6,8 +6,12 @@ make_flash_decode_paged_quant).
 * `flash_attention_fwd` -- prefill over Q [B, S, H, D] and K/V [B, S,
   Hkv, D] (or K^T [B, D, Hkv, S]: trans_k, JAX's "ntn"), causal or dense,
   any S, all float16, bfloat16 or float32, out in float16, bfloat16 or
-  float32, with an optional sliding window (csrc/flash_attention.cuh: one
-  source a head dim of `HEAD_DIMS`; csrc/flash_attention_f32.cu).
+  float32, with an optional sliding window, at any head dim up to
+  `GENERAL_MAX_HEAD_DIM`. A fixed rule on the shape (`prefill_instance`)
+  picks the instance: csrc/flash_attention.cuh (wgmma + TMA, one source a
+  head dim of `HEAD_DIMS`) where TMA can address the rows,
+  csrc/flash_attention_general.cu for the other 16-bit shapes, and
+  csrc/flash_attention_f32.cu for float32.
 * `flash_decode` -- one query token per sequence against the slot cache
   [rows, Smax, Hkv, D] bfloat16 through `slots` and `lengths`, with an
   optional sliding window (csrc/flash_decode.cu).
@@ -22,9 +26,11 @@ Each wrapper runs its CUDA kernel on CUDA tensors and its plain PyTorch
 version (`*_plain`) on CPU tensors. Decode queries (and outputs) are
 float16 or bfloat16, as the JAX kernels take any query type. The
 plain decode versions take any head dim and GQA group; the decode
-kernels take head dims 128 and 256 (`DECODE_HEAD_DIMS`) and any group
-(above 8 in chunks of 8 query heads), and the two float decode kernels
-bfloat16 or float16 caches. On the card
+kernels take head dims D % 128 == 0 up to `DECODE_MAX_HEAD_DIM` (128 and
+256 on instances of their own, `DECODE_HEAD_DIMS`; above 256 the wide
+instances, in slices of 128 output columns) and any group (above 8 in
+chunks of 8 query heads), and the two float decode kernels bfloat16 or
+float16 caches. On the card
 a shape no kernel instance takes raises. The decode kernels split each
 sequence's keys into chunks across blocks (`plan_splits`, from static
 sizes only) and merge the chunks' partials in the same launch;
@@ -59,19 +65,27 @@ import torch.nn.functional as F
 from . import build, scratch
 
 LOG2E = 1.4426950408889634
-# the prefill kernel's head dims, one csrc source each (csrc/
-# flash_attention.cuh); the float32 kernel takes any D <= 256, D % 4 == 0
-HEAD_DIMS = (64, 96, 100, 128, 256)
-_PREFILL_SOURCES = {64: "flash_attention_d64", 96: "flash_attention_d96",
-                    100: "flash_attention_d100", 128: "flash_attention",
-                    256: "flash_attention_d256"}
-F32_MAX_HEAD_DIM = 256
+# the wgmma prefill instances' head dims, one csrc source each (csrc/
+# flash_attention.cuh); the general instance and the float32 FFMA kernel
+# take any D up to GENERAL_MAX_HEAD_DIM
+HEAD_DIMS = (64, 80, 96, 100, 128, 256)
+_PREFILL_SOURCES = {64: "flash_attention_d64", 80: "flash_attention_d80",
+                    96: "flash_attention_d96", 100: "flash_attention_d100",
+                    128: "flash_attention", 256: "flash_attention_d256"}
+# csrc/flash_attention_general.cu's and flash_attention_f32.cu's
+# kMaxHeadDim: Q and one K tile of the whole head dim fill a block's
+# shared memory there
+GENERAL_MAX_HEAD_DIM = 768
 # (block_q, block_kv), FlashHint's: 64 q rows a block, 64- or 128-key tiles
 PREFILL_TILES = ((64, 64), (64, 128))
 # the head dims that build 128-key tiles (csrc/flash_attention.cuh kKv128)
 KV128_HEAD_DIMS = (64,)
 PREFILL_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
-DECODE_HEAD_DIMS = (128, 256)   # the decode kernels' head dims
+DECODE_HEAD_DIMS = (128, 256)   # the decode head dims with own instances
+# the decode kernels take D % 128 == 0 up to this (csrc/flash_decode.cuh
+# kMaxHeadDim); above 256 in slices of DECODE_SLICE output columns
+DECODE_MAX_HEAD_DIM = 1024
+DECODE_SLICE = 128
 MAX_GROUP = 8       # query rows a decode block holds: larger groups chunk
 MAX_GRID_Y = 65535  # Hkv * ceil(group / MAX_GROUP) rides the grid's y axis
 DECODE_TILE = 64    # keys a decode tile; a split's chunk is a multiple
@@ -84,6 +98,10 @@ MAX_SPLITS = 1024   # the kernels' merge holds at most this many weights
 _PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
     + [ctypes.c_float, ctypes.c_void_p]
 _PREFILL_F32_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+    + [ctypes.c_float, ctypes.c_void_p]
+# the general instance: Q, K, V, O, then B, S, H, Hkv, D, bf16, out code,
+# causal, trans_k, window
+_PREFILL_GENERAL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_void_p]
 _OUT_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 QUERY_DTYPES = (torch.float16, torch.bfloat16)   # the decode kernels' q
@@ -138,24 +156,37 @@ def _name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def prefill_instance(S: int, H: int, Hkv: int, D: int, dtype: torch.dtype,
+                     *, trans_k: bool = False) -> str:
+    """The instance of kernel 4 that runs a shape, by a fixed rule:
+    "f32" (csrc/flash_attention_f32.cu) for float32; "wgmma"
+    (csrc/flash_attention.cuh) at the 16-bit head dims of `HEAD_DIMS`
+    where TMA can address the tensors -- rows of heads * D 2-byte elements
+    a multiple of 16 bytes (D % 8 == 4 needs an even H and Hkv) and, with
+    trans_k, key rows of S % 8 == 0; "general"
+    (csrc/flash_attention_general.cu) for the other 16-bit shapes. The
+    general and float32 kernels take head dims up to
+    `GENERAL_MAX_HEAD_DIM`."""
+    if dtype == torch.float32:
+        return "f32"
+    if D in HEAD_DIMS and (H * D * 2) % 16 == 0 and (Hkv * D * 2) % 16 == 0 \
+            and not (trans_k and S % 8):
+        return "wgmma"
+    return "general"
+
+
 def prefill_refusal(S: int, H: int, Hkv: int, D: int, dtype: torch.dtype,
                     *, causal: bool = True, trans_k: bool = False,
                     window: Optional[int] = None) -> Optional[str]:
-    """Why kernel 4 does not take this shape, or None where it does."""
+    """Why kernel 4 does not take this shape, or None where it does: what
+    JAX's make_flash_attention refuses (a window without causality), and
+    head dims past the general and float32 kernels' shared memory."""
     if window is not None and not causal:
         return "a sliding window requires causal=True"
-    if dtype == torch.float32:
-        if D % 4 or not 4 <= D <= F32_MAX_HEAD_DIM:
-            return (f"float32 takes head dims D % 4 == 0 up to "
-                    f"{F32_MAX_HEAD_DIM}")
-    elif D not in HEAD_DIMS:
-        return f"head dims {HEAD_DIMS}"
-    elif (H * D * 2) % 16 or (Hkv * D * 2) % 16:
-        # TMA's rows of heads * D elements need a 16-byte stride
-        return (f"a row of heads * D 2-byte elements must be a multiple "
-                f"of 16 bytes (D = {D} needs an even H and Hkv)")
-    elif trans_k and (S * 2) % 16:
-        return "trans_k takes S % 8 == 0 (a key row of 16-byte multiples)"
+    if D > GENERAL_MAX_HEAD_DIM:
+        return (f"head dims up to {GENERAL_MAX_HEAD_DIM} (the cap of the "
+                f"general and float32 instances: Q and a K tile of the "
+                f"whole head dim in shared memory)")
     return None
 
 
@@ -171,7 +202,7 @@ def check_prefill(B: int, S: int, H: int, Hkv: int, D: int,
     _check_window(window)
     shape = (f"B={B} S={S} H={H} Hkv={Hkv} D={D} {_name(dtype)} -> "
              f"{_name(out_dtype)}, causal={causal}, trans_k={trans_k}")
-    if min(B, S, H, Hkv) < 1 or H % Hkv:
+    if min(B, S, H, Hkv, D) < 1 or H % Hkv:
         raise ValueError(f"flash_attention_fwd: sizes must be positive "
                          f"and H a multiple of Hkv ({shape})")
     if dtype not in PREFILL_DTYPES or out_dtype not in PREFILL_DTYPES:
@@ -181,23 +212,29 @@ def check_prefill(B: int, S: int, H: int, Hkv: int, D: int,
                           trans_k=trans_k, window=window)
     if why is not None:
         raise NotImplementedError(f"flash_attention_fwd: {why} ({shape})")
+    instance = prefill_instance(S, H, Hkv, D, dtype, trans_k=trans_k)
+    tiles = prefill_tiles(D, dtype, instance)
     if tile is None:
         from ..tuner.curated import flash_block_hint
         tile = flash_block_hint(S, D, causal)
-        if dtype == torch.float32:     # one tile, whatever the hint
-            tile = PREFILL_TILES[0]
+        if tile not in tiles:     # one tile, whatever the hint
+            tile = tiles[0]
     tile = tuple(int(x) for x in tile)
-    if tile not in prefill_tiles(D, dtype):
+    if tile not in tiles:
         raise ValueError(f"flash_attention_fwd: tile {tile} is not one of "
-                         f"{prefill_tiles(D, dtype)} ({shape})")
+                         f"{tiles} ({shape})")
     return tile
 
 
-def prefill_tiles(D: int, dtype: torch.dtype = torch.float16):
-    """The (block_q, block_kv) tiles of kernel 4's instances at head dim D:
-    128-key tiles at `KV128_HEAD_DIMS` only; the float32 kernel has one
-    fixed tile, which `PREFILL_TILES[0]` names."""
-    if dtype != torch.float32 and D in KV128_HEAD_DIMS:
+def prefill_tiles(D: int, dtype: torch.dtype = torch.float16,
+                  instance: str = "wgmma"):
+    """The (block_q, block_kv) tiles of kernel 4's `instance`
+    (`prefill_instance`) at head dim D: 128-key tiles on the wgmma
+    instances at `KV128_HEAD_DIMS` only; the float32 kernel and the general
+    instance have one fixed tile, which `PREFILL_TILES[0]` names (the
+    general instance's 64 q rows and 64-key tiles)."""
+    if instance == "wgmma" and dtype != torch.float32 \
+            and D in KV128_HEAD_DIMS:
         return PREFILL_TILES
     return PREFILL_TILES[:1]
 
@@ -242,22 +279,28 @@ def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
     return out.to(out_dtype or Q.dtype)
 
 
-def _variant(dtype: torch.dtype, window: Optional[int]) -> str:
-    """A decode launch's variant as `variant_launches` counts it:
-    "float16", "bfloat16 window", ..."""
-    return _name(dtype) + ("" if window is None else " window")
+def _variant(dtype: torch.dtype, window: Optional[int], D: int = 128) -> str:
+    """A decode launch's variant as `variant_launches` counts it: the query
+    type, the head dim where it is not 128, then the window: "float16",
+    "bfloat16 window", "float16 d512", ..."""
+    return _name(dtype) + ("" if D == 128 else f" d{D}") \
+        + ("" if window is None else " window")
 
 
 def prefill_variant(dtype: torch.dtype, D: int, *, causal: bool = True,
                     trans_k: bool = False, window: Optional[int] = None,
                     out_dtype: Optional[torch.dtype] = None,
-                    block_kv: int = 64) -> str:
+                    block_kv: int = 64, general: bool = False) -> str:
     """A prefill launch's variant as `variant_launches` counts it: the
-    operand type, then what differs from the causal D = 128 launch on
-    64-key tiles: "d100" (head dim), "nc" (not causal), "ntn" (K^T),
-    "window", "out float32" (the output type), "kv128" (the tile), e.g.
-    "float16 d100", "bfloat16 window", "float32 d64 nc ntn out float16"."""
+    operand type, then what differs from the causal D = 128 launch of the
+    wgmma instance on 64-key tiles: "general" (the general instance),
+    "d100" (head dim), "nc" (not causal), "ntn" (K^T), "window", "out
+    float32" (the output type), "kv128" (the tile), e.g. "float16 d100",
+    "bfloat16 d80 window", "float16 general d512", "float32 d64 nc ntn out
+    float16"."""
     parts = [_name(dtype)]
+    if general:
+        parts.append("general")
     if D != 128:
         parts.append(f"d{D}")
     if not causal:
@@ -286,12 +329,13 @@ def flash_attention_fwd(Q: torch.Tensor, K: torch.Tensor,
     """Attention, Q [B, S, H, D] x K [B, S, Hkv, D] (K^T [B, D, Hkv, S]
     with `trans_k`) x V [B, S, Hkv, D] -> [B, S, H, D] in `out_dtype`
     (Q's type by default). Q, K and V are all float16, bfloat16 or
-    float32; outputs float16, bfloat16 or float32; head dims `HEAD_DIMS`
-    (float32: any D % 4 == 0 up to 256); any S >= 1. `causal` (default)
-    or dense; with causality a `window`: row i attends keys (i - window,
-    i], and a window >= S is no window. `tile`: a FlashHint's (block_q,
-    block_kv), one of `prefill_tiles(D)`; None takes tuner/curated's
-    flash_block_hint. What the kernel does not take raises, with the
+    float32; outputs float16, bfloat16 or float32; any head dim up to
+    `GENERAL_MAX_HEAD_DIM`, on the instance `prefill_instance` names; any
+    S >= 1. `causal` (default) or dense; with causality a `window`: row i
+    attends keys (i - window, i], and a window >= S is no window. `tile`:
+    a FlashHint's (block_q, block_kv), one of the instance's
+    `prefill_tiles`; None takes tuner/curated's flash_block_hint where the
+    instance has that tile. What kernel 4 does not take raises, with the
     shape (`check_prefill`), on the CPU too."""
     if Q.dim() != 4 or K.dim() != 4:
         raise ValueError(f"Q and K must be 4-D, got {tuple(Q.shape)}, "
@@ -316,9 +360,16 @@ def flash_attention_fwd(Q: torch.Tensor, K: torch.Tensor,
     out = torch.empty((B, S, H, D), dtype=out_dtype, device=Q.device)
     ptrs = (Q.data_ptr(), K.data_ptr(), V.data_ptr(), out.data_ptr())
     scale = LOG2E / math.sqrt(D)
+    instance = prefill_instance(S, H, Hkv, D, Q.dtype, trans_k=trans_k)
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if Q.dtype == torch.float32:
+        if instance == "general":
+            fn = build.entry("flash_attention_general",
+                             "flash_attention_general", _PREFILL_GENERAL_ARGS)
+            err = fn(*ptrs, B, S, H, Hkv, D, int(Q.dtype == torch.bfloat16),
+                     _OUT_CODES[out_dtype], int(causal), int(trans_k),
+                     window or 0, scale, stream)
+        elif instance == "f32":
             fn = build.entry("flash_attention_f32", "flash_attention_f32",
                              _PREFILL_F32_ARGS)
             err = fn(*ptrs, B, S, H, Hkv, D, _OUT_CODES[out_dtype],
@@ -332,7 +383,8 @@ def flash_attention_fwd(Q: torch.Tensor, K: torch.Tensor,
     build.check(err, "flash_attention_fwd")
     _count(flash_attention_fwd, prefill_variant(
         Q.dtype, D, causal=causal, trans_k=trans_k, window=window,
-        out_dtype=out_dtype, block_kv=tile[1]))
+        out_dtype=out_dtype, block_kv=tile[1],
+        general=instance == "general"))
     return out
 
 
@@ -627,30 +679,43 @@ def _decode_shape(q: torch.Tensor, kv: torch.Tensor, name: str):
     return B, H, kv.shape[2], D
 
 
+def decode_slices(D: int) -> int:
+    """The output-column slices of a decode launch at head dim D: D / 128
+    on the wide instances (D > 256), else 1 (csrc/flash_decode.cuh)."""
+    return D // DECODE_SLICE if D > DECODE_HEAD_DIMS[-1] else 1
+
+
 def _check_decode(name: str, B: int, H: int, Hkv: int, D: int):
-    """Raises on a shape no instance of the decode kernels takes: head
-    dims other than DECODE_HEAD_DIMS, or a grid past CUDA's limits."""
+    """Raises NotImplementedError on a shape no instance of the decode
+    kernels takes: head dims other than D % 128 == 0 up to
+    DECODE_MAX_HEAD_DIM (JAX's kernels assert D % 128 == 0), or a grid past
+    CUDA's limits."""
     hchunks = -(-(H // Hkv) // MAX_GROUP)
-    if D not in DECODE_HEAD_DIMS or B > MAX_GRID_Y \
-            or Hkv * hchunks > MAX_GRID_Y:
+    if D % DECODE_SLICE or not 0 < D <= DECODE_MAX_HEAD_DIM \
+            or B > MAX_GRID_Y \
+            or Hkv * hchunks * decode_slices(D) > MAX_GRID_Y:
         raise NotImplementedError(
             f"{name}: no kernel instance takes B={B}, H={H}, Hkv={Hkv}, "
-            f"D={D} (head dims {DECODE_HEAD_DIMS}, B and "
-            f"Hkv * ceil(group / {MAX_GROUP}) up to {MAX_GRID_Y})")
+            f"D={D} (head dims D % {DECODE_SLICE} == 0 up to "
+            f"{DECODE_MAX_HEAD_DIM}, B and Hkv * ceil(group / {MAX_GROUP}) * "
+            f"slices up to {MAX_GRID_Y})")
 
 
 def _split_scratch(q: torch.Tensor, B: int, H: int, Hkv: int, span: int):
     """(chunk, splits, part, count) for a decode launch on q's device: the
     plan from static sizes, the partials' f32 scratch (allocated only when
-    a sequence can span several splits) and the counters, one per
-    sequence, KV head and chunk of query heads (kernels/scratch.py)."""
+    a sequence can span several splits; m and l once a slice) and the
+    counters, one per sequence, KV head, chunk of query heads and slice
+    (kernels/scratch.py)."""
     chunk, splits = plan_splits(span, B, Hkv, scratch.sm_count(q.device))
     if splits == 1:
         return chunk, splits, None, None
     D = q.shape[-1]
-    part = scratch.partials(q.device, B * H * splits * (D + 2))
+    slices = decode_slices(D)
+    part = scratch.partials(q.device, B * H * splits * (D + 2 * slices))
     hchunks = -(-(H // Hkv) // MAX_GROUP)
-    return chunk, splits, part, scratch.counters(q.device, B * Hkv * hchunks)
+    return chunk, splits, part, scratch.counters(
+        q.device, B * Hkv * hchunks * slices)
 
 
 def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
@@ -688,7 +753,7 @@ def _launch(wrapper, symbol: str, argtypes, q: torch.Tensor,
                  1.0 / math.sqrt(D),
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, symbol)
-    _count(wrapper, _variant(q.dtype, window))
+    _count(wrapper, _variant(q.dtype, window, D))
     return (out, ml[0], ml[1]) if stats else out
 
 

@@ -242,10 +242,13 @@ def prefill_flash(cfg: LlamaConfig, seq_len: int, num_heads: int,
                   num_kv_heads: int):
     """(flash, refused) of a prefill at `seq_len` over `num_heads` /
     `num_kv_heads` heads: prompts of 256+ tokens in 128-multiples attend
-    through the flash kernel (the JAX rule), on the tile of tuner/curated's
+    through the flash kernel at any head dim (the JAX rule,
+    bitblas_tpu/models/quant_llama.py:309-326), on the instance
+    `kernels.flash.prefill_instance` names and the tile of tuner/curated's
     flash_block_hint, out in act_dtype; `flash` is None for the others,
     and `refused` says the rule took the prompt but kernel 4 refuses its
-    shape (`kernels.flash.prefill_refusal`)."""
+    shape (`kernels.flash.prefill_refusal`: a head dim past the general
+    instance's cap, which JAX's kernel would still take)."""
     if not (seq_len >= 256 and seq_len % 128 == 0):
         return None, False
     out_dtype = as_torch_dtype(cfg.act_dtype)
@@ -295,7 +298,8 @@ class DecoderServingMixin:
     cache or the paged cache, float or int8."""
 
     # prefill calls whose prompt the flash rule takes but whose shape kernel
-    # 4 refuses, so they ran the plain masked softmax (make_prefill)
+    # 4 refuses (a head dim past GENERAL_MAX_HEAD_DIM), so they ran the
+    # plain masked softmax where JAX's model runs its kernel (make_prefill)
     plain_prefills = 0
 
     def forward(self, x: torch.Tensor,
@@ -309,12 +313,12 @@ class DecoderServingMixin:
         """Returns fn(x [1, S, hidden], positions) -> (hidden, ks, vs),
         ks/vs per-layer rope-applied K/V [S, Hkv, D]. Prompts of 256+
         tokens in 128-multiples attend through the flash kernel (the JAX
-        rule), at any head dim it takes, a sliding window included (its
-        banded walk), on the tile of tuner/curated's flash_block_hint,
-        out in the model's act_dtype; shorter prompts and head dims the
-        kernel does not take keep the plain masked softmax; a prompt the
-        rule sends to the kernel but whose shape the kernel refuses
-        (`kernels.flash.prefill_refusal`) counts in
+        rule) at any head dim, a sliding window included (its banded
+        walk), on the tile of tuner/curated's flash_block_hint, out in the
+        model's act_dtype; shorter prompts keep the plain masked softmax,
+        as JAX's do; a prompt the rule sends to the kernel but whose shape
+        the kernel refuses (`kernels.flash.prefill_refusal`: a head dim
+        past the general instance's cap) counts in
         `DecoderServingMixin.plain_prefills` at each call."""
         cfg = self.cfg
         flash, refused = prefill_flash(cfg, seq_len, cfg.num_heads,

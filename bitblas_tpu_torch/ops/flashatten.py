@@ -11,8 +11,12 @@ speaks the hint database's protocol (hints / tuned_hints / apply_hints),
 so a tuned tile persists through cache/__init__.py like a Matmul's.
 
 Unlike the JAX operator, which logs a warning and serves its XLA oracle
-when its kernel cannot tile a shape, this one runs its kernel for every
-configuration: one the kernel does not take raises at construction.
+when its kernel cannot tile a shape (trans_k with S % 128 != 0), this
+one runs kernel 4 for every configuration JAX's builds: the general
+instance takes the shapes the specialized ones do not
+(`kernels.flash.prefill_instance`). Only a head dim past the general
+instance's cap (`kernels.flash.GENERAL_MAX_HEAD_DIM`) raises, at
+construction.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import numpy as np
 import torch
 
 from ..common import get_logger, resolve_device
-from ..kernels.flash import check_prefill, flash_attention_fwd, prefill_tiles
+from ..kernels.flash import (check_prefill, flash_attention_fwd,
+                             prefill_instance, prefill_tiles)
 from ..quantization.formats import as_torch_dtype
 from ..tuner import FlashHint, auto_detect_target, get_arch
 from ..utils.timing import measure_kernel
@@ -124,8 +129,11 @@ class FlashAtten:
 
     @property
     def candidates(self):
-        """The tiles the kernel's instances take at this head dim."""
-        return prefill_tiles(self.config.dim, self.dtype)
+        """The tiles of the kernel 4 instance that runs this config."""
+        c = self.config
+        return prefill_tiles(c.dim, self.dtype, prefill_instance(
+            c.seq_len, c.heads, c.kv_heads, c.dim, self.dtype,
+            trans_k=self.trans_k))
 
     # -- the hint database's protocol (the Operator's duck type) ------------
     @property

@@ -103,8 +103,9 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     With a lane-aligned head dim (D % 128 == 0, the JAX package's rule) it
     runs the flash-decode wrapper straight out of the slot cache, reading
     only rows below each length (any GQA group; on the card the kernel
-    takes D = 128 and 256 and raises on other such head dims); other head
-    dims take the plain length-masked decode. With a `window` the query at
+    takes every such head dim up to `kernels.flash.DECODE_MAX_HEAD_DIM`,
+    1024, and raises above it); other head dims take the plain
+    length-masked decode, as JAX's XLA path does. With a `window` the query at
     position lengths - 1 attends keys [max(lengths - window, 0),
     lengths), through the same kernel."""
     lengths, slots = _int32(lengths, slots)
@@ -395,8 +396,8 @@ def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
 
     use_flash=None runs the paged kernel's wrapper when q is on the card
     and the head dim is lane-aligned (D % 128 == 0, as the slot route;
-    any GQA group; the kernel takes D = 128 and 256 and raises on other
-    such head dims), and the plain table gather otherwise; False always
+    any GQA group; the kernel takes every such head dim up to 1024 and
+    raises above it), and the plain table gather otherwise; False always
     takes the gather (the same function); True the kernel's wrapper.
 
     A `window` always takes the table gather, masked to the window: this

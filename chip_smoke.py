@@ -26,6 +26,10 @@
     python3 chip_smoke.py --parallel          # only the multi-GPU phases
                                               # (TP / EP / pipeline / cp,
                                               # the DP router)
+    python3 chip_smoke.py --danube            # only the slice-19 phases
+                                              # (kernel 4's d80 and general
+                                              # instances, kernels 5-8 at
+                                              # D = 512, H2O-Danube-1.8B)
 
 Phases, one JSON line each (a failure in any phase raises and exits
 non-zero; on a host without CUDA it exits 2 and prints no result):
@@ -112,10 +116,12 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
                - 1, window and window + 1 over Smax = 8192, splits that
                hold no live key; each against its plain version (and the
                split one), two calls bit-equal.
-3b. flashatten -- kernel 4 through ops/flashatten.FlashAtten, every
-               configuration JAX's flash kernel takes: head dims 64 / 96 /
-               100 / 128 / 256, causal and dense, nnn and ntn (K^T), S =
-               160 (ragged) / 512 / 2048, float16, bfloat16, float32 and
+3b. flashatten -- kernel 4 through ops/flashatten.FlashAtten, a grid of
+               the configurations JAX's flash kernel takes: head dims 64 /
+               80 / 96 / 100 / 128 / 256 (wgmma) and 160 (general), causal
+               and dense, nnn and ntn (K^T), S = 2048 (D = 128: the kernels
+               line's four) and 160 (ragged, D = 80 / 160), float16,
+               bfloat16, float32 and
                float16 with a float32 Out_dtype, B = 1, H = Hkv = 32; each
                against its plain version element by element (one ulp of
                the coarser of operand and output type of |ref| plus four
@@ -366,6 +372,35 @@ non-zero; on a host without CUDA it exits 2 and prints no result):
    bitnet_train      bitlinear_train_forward at 14336 x 4096, 256 rows,
                      forward and backward against the CPU's float64
                      truth.
+
+9. slice 19 (`--danube` runs them alone):
+   slice19_prefill  kernel 4's d80 instance at H2O-Danube-1.8B's longest
+                    bucket (B = 1, H = 32, Hkv = 8, bf16, window 4096, S =
+                    8192), its general instance at what only it takes: f16
+                    causal D = 512 (H = 8), bf16 D = 160, D = 100 over 25
+                    heads, K^T at S = 2047, and the float32 kernel at D = 6
+                    and 288 (S = 2048); each against its plain version (K
+                    amplified 3x,
+                    one ulp of |ref| plus 4 of the row's rms), the row's
+                    launch counted, timed beside SDPA;
+   slice19_decode   kernels 5-8 at D = 512 (B = 4, H = 16, Hkv = 4, Smax
+                    4096, lengths 1 / 37 / 2049 / 4096, K amplified 20x),
+                    the slot kernels also with a window of 1024, kernels
+                    5-6's partial_stats outputs;
+   reference_danube one Danube layer (window 256) card against the CPU's
+                    plain route, prefill (the d80 kernel) and 4 decode
+                    steps, held at the first layer's DANUBE_LAYER1_TOL;
+   engine_d512      a 2-layer model at head dim 512 on the token and paged
+                    engines, bf16 and int8 caches, card against CPU (logits
+                    within 2e-2); kernel 4's general d512 and kernels 5-8
+                    at d512 must launch;
+   serve_danube     24 layers at H2O-Danube-1.8B's widths (W4 g128 under
+                    bf16, window 4096), Mistral's prompts, the token engine
+                    with a bf16 cache of 4 x 8192 rows; kernel 4's d80
+                    instance (windowed and not), kernel 1's uint4 x bf16
+                    instances and kernel 2 must launch, no prefill may take
+                    the plain softmax; the plain D = 80 decode attention's
+                    calls (JAX's XLA route) are counted.
 
 Then the kernel summary line, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
@@ -2006,15 +2041,18 @@ def check_reference(torch):
     the GPTQ import, BitNet and Mistral (token and paged engines)."""
     from bitblas_tpu_torch.models.quant_llama import QuantLlama
     cfg = llama2_7b(1)
-    gpu, cpu = _card_and_cpu(
-        torch, lambda **kw: QuantLlama(cfg, **kw), seed=11)
-    reference_steps(torch, cfg, gpu, cpu, "reference")
-    compare_engines(torch, cfg, gpu, cpu)
-    compare_engines(torch, cfg, gpu, cpu, kv_quant=True)
-    compare_paged(torch, cfg, gpu, cpu, kv_quant=False)
-    compare_paged(torch, cfg, gpu, cpu, kv_quant=True)
-    del gpu, cpu
-    torch.cuda.empty_cache()
+    # the CPU decodes each projection's weight once (CpuWeightMemo), not at
+    # every call: most of this phase's time before it was kept
+    with CpuWeightMemo():
+        gpu, cpu = _card_and_cpu(
+            torch, lambda **kw: QuantLlama(cfg, **kw), seed=11)
+        reference_steps(torch, cfg, gpu, cpu, "reference")
+        compare_engines(torch, cfg, gpu, cpu)
+        compare_engines(torch, cfg, gpu, cpu, kv_quant=True)
+        compare_paged(torch, cfg, gpu, cpu, kv_quant=False)
+        compare_paged(torch, cfg, gpu, cpu, kv_quant=True)
+        del gpu, cpu
+        torch.cuda.empty_cache()
 
 
 # The BitNet reference's limits on logits relative to the largest, fixed
@@ -2767,6 +2805,8 @@ def serve(torch, ctx, counters, phase, kind, kw, expect, routes=None,
         fn.calls = 0
     from bitblas_tpu_torch.models.quant_llama import DecoderServingMixin
     DecoderServingMixin.plain_prefills = 0
+    if "reset" in ctx:      # the context's own counters (its "stats")
+        ctx["reset"]()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = submit()
@@ -3041,7 +3081,9 @@ def profile_decode(torch, eng, prompts, phase: str, extra=None,
 
 # -- kernel 4's configurations (FlashAtten) and BitNet b1.58-3B ------------
 
-FA_DIMS = (64, 96, 100, 128, 256)
+# 80: the d80 wgmma instance (H2O-Danube-1.8B's head dim); 160: the
+# general instance (a head dim no wgmma instance takes)
+FA_DIMS = (64, 80, 96, 100, 128, 160, 256)
 # 2048: the timed rows, every configuration; 160: a ragged S (64-key
 # tiles + 32), float16 operands only. S = 512 and the ragged S of the
 # other types were cut (240 -> 100 configurations) to pay for the
@@ -3050,6 +3092,11 @@ FA_DIMS = (64, 96, 100, 128, 256)
 # (tests/test_torch_cuda_kernels.py).
 FA_SEQS = (160, 2048)
 FA_RAGGED_TYPES = (("float16", "float16"),)
+# PR 19 added head dims 80 and 160 and paid for them here: the ragged S
+# runs at those two only (the card tests hold every head dim at ragged S),
+# and head dim 128, which the kernels phase and every serve phase time,
+# keeps the configurations of the kernels line (FA_SUMMARY)
+FA_RAGGED_DIMS = (80, 160)
 # (operand type, Out_dtype): each operand type, and a float32 output of
 # float16 operands
 FA_TYPES = (("float16", "float16"), ("bfloat16", "bfloat16"),
@@ -3084,12 +3131,16 @@ def fa_bound(torch, B, S, H, Hkv, D, dtype, out, causal):
 
 
 def check_flashatten(torch, flush):
-    """Kernel 4 through ops/flashatten.FlashAtten on the card, every
-    configuration JAX's flash kernel takes: head dims 64 / 96 / 100 / 128 /
-    256, causal and dense, nnn and ntn, S = 2048 in float16, bfloat16,
-    float32 and float16 with a float32 Out_dtype, S = 160 (ragged) in
-    float16 (B = 1, H = Hkv
-    = 32, K amplified 3x). Each row: the operator's output against the
+    """Kernel 4 through ops/flashatten.FlashAtten on the card, at a grid of
+    the configurations JAX's flash kernel takes (the rest -- odd head
+    counts at D % 8 == 4, K^T at S % 8 != 0, float32 past D = 256, head
+    dims to the general instance's cap -- are check_slice19_prefill's rows
+    and tests/test_torch_cuda_kernels.py's): head dims 64 / 80 / 96 / 100 /
+    128 / 256 on the wgmma instances and 160 on the general one, causal and
+    dense, nnn and ntn, S = 2048 in float16, bfloat16, float32 and float16
+    with a float32 Out_dtype (head dim 128: FA_SUMMARY's four), S = 160
+    (ragged) in float16 at head dims 80 and 160 (B = 1, H = Hkv = 32, K
+    amplified 3x). Each row: the operator's output against the
     plain version (testing.attention_err: one `fa_ulp` of |ref| plus 4
     of the row's rms), kernel_ms at the default tile (tuner/curated), each
     tile's ms (16-bit), plain_ms, SDPA's ms on the same operands (K^T
@@ -3102,8 +3153,7 @@ def check_flashatten(torch, flush):
     operator through the hint database."""
     from bitblas_tpu_torch.cache import OperatorCache
     from bitblas_tpu_torch.kernels.flash import (flash_attention_fwd,
-                                                 flash_attention_plain,
-                                                 prefill_tiles)
+                                                 flash_attention_plain)
     from bitblas_tpu_torch.ops import FlashAtten, FlashAttenConfig
     from bitblas_tpu_torch.testing import attention_err
     F = torch.nn.functional
@@ -3119,7 +3169,11 @@ def check_flashatten(torch, flush):
             for layout in ("nnn", "ntn"):
                 for S in FA_SEQS:
                     for dtype, out in FA_TYPES:
-                        if S != 2048 and (dtype, out) not in FA_RAGGED_TYPES:
+                        if S != 2048 and ((dtype, out) not in FA_RAGGED_TYPES
+                                          or D not in FA_RAGGED_DIMS):
+                            continue
+                        if D == 128 and (D, causal, layout, dtype, out) \
+                                not in FA_SUMMARY:
                             continue
                         dt, ot = getattr(torch, dtype), getattr(torch, out)
                         cfg = FlashAttenConfig(
@@ -3188,7 +3242,7 @@ def check_flashatten(torch, flush):
                                     torch, lambda t=t: flash_attention_fwd(
                                         Q, Kin, V, **{**kw, "tile": t}), 20,
                                     flush)
-                                for t in prefill_tiles(D, dt)}
+                                for t in op.candidates}
                         emit(row)
                         rows.append(row)
                         del Q, K, V, Kin, got, ref, qt, kt, vt
@@ -5553,7 +5607,8 @@ def check_gptq_reference(torch):
     cpu, _ = load_quant_llama_from_hf_gptq(
         {k: v.cpu() for k, v in state.items()}, hf, group_size=GPTQ_GROUP,
         device="cpu")
-    reference_steps(torch, gpu.cfg, gpu, cpu, "reference_gptq")
+    with CpuWeightMemo():
+        reference_steps(torch, gpu.cfg, gpu, cpu, "reference_gptq")
     del gpu, cpu, state
     torch.cuda.empty_cache()
 
@@ -6209,6 +6264,8 @@ def kernel_entry(name, src, rep, rows, row, shape, launches) -> dict:
 # operand type, Out_dtype), each at S = 2048 (D = 100 at 512 too)
 FA_SUMMARY = ((100, True, "nnn", "float16", "float16"),
               (64, True, "nnn", "float16", "float16"),
+              (80, True, "nnn", "float16", "float16"),
+              (160, True, "nnn", "float16", "float16"),
               (96, True, "nnn", "float16", "float16"),
               (256, True, "nnn", "float16", "float16"),
               (128, False, "nnn", "float16", "float16"),
@@ -6222,18 +6279,23 @@ def flash_summary(fa_rows):
     """The kernels line's rows of kernel 4's configurations, named by the
     launch variant their default tile counts under."""
     import torch
-    from bitblas_tpu_torch.kernels.flash import prefill_variant
+    from bitblas_tpu_torch.kernels.flash import (prefill_instance,
+                                                 prefill_variant)
     out = []
     for D, causal, layout, dtype, o in FA_SUMMARY:
         rows = [r for r in fa_rows if (r["D"], r["causal"], r["layout"],
                                        r["dtype"], r["out"])
                 == (D, causal, layout, dtype, o)]
         row = next(r for r in rows if r["S"] == 2048)
+        instance = prefill_instance(2048, FA_HEADS, FA_HEADS, D,
+                                    getattr(torch, dtype),
+                                    trans_k=layout == "ntn")
         name = "flash_attention_fwd " + prefill_variant(
             getattr(torch, dtype), D, causal=causal,
             trans_k=layout == "ntn", out_dtype=getattr(torch, o),
-            block_kv=row["tile"][1])
-        src = ("flash_attention_f32.cu" if dtype == "float32" else
+            block_kv=row["tile"][1], general=instance == "general")
+        src = ("flash_attention_general.cu" if instance == "general" else
+               "flash_attention_f32.cu" if instance == "f32" else
                "flash_attention.cu" if D == 128 else
                f"flash_attention_d{D}.cu")
         out.append((name, src, "flash.py:106", rows, row,
@@ -7707,6 +7769,564 @@ def configs_entries(rows):
     return out
 
 
+# -- slice 19: kernel 4 at every head dim and stride, kernels 5-8 above D =
+# 256, H2O-Danube-1.8B (head dim 80) ----------------------------------------
+
+DANUBE_WINDOW = 4096         # h2oai/h2o-danube-1.8b-base's sliding_window
+DANUBE_LAYERS = 24
+# the reference's depth: one layer, held at the first layer's hidden state
+# (ROADMAP "Weak limits after two layers"); its window reduced as
+# reference_mistral's (REFERENCE_WINDOW), so the 512-token input crosses it
+DANUBE_REF_LAYERS = 1
+# The first layer's limit, on what the layer adds to the residual stream
+# (hidden state less input, at the prefill's 512 rows and the 4 decode
+# steps), relative to its largest value: the hidden state itself is
+# mostly the input, which the float32 residual carries exactly, so a limit
+# on it lets a faulty layer through. bfloat16 projections round their
+# outputs to 2^-8, and the card's sums (split-K, cuBLAS on the decoded
+# weight, the d80 kernel's bfloat16 P) flip a few of those roundings.
+# Readings (NVIDIA H100 80GB HBM3, 700 W): 1.76e-3 at the prefill, 4.12e-3
+# over the decode steps; the limit, 1e-2, is 2.5 bfloat16 roundings.
+DANUBE_LAYER1_TOL = 1e-2
+# kernel 4's rows of the slice: (name, dtype, S, H, Hkv, D, causal, trans_k,
+# window). d80: Danube's longest bucket; the general instance: a wide head
+# (512), a head dim outside the wgmma instances (160), odd heads at D %
+# 8 == 4 (100 x 25 heads), K^T at S % 8 != 0 (2047); the float32 kernel
+# at the head dims it takes since this slice: D % 4 != 0 (6), past 256
+# (288, in 128-column chunks)
+SLICE19_PREFILL = (
+    ("d80", "bfloat16", 8192, 32, 8, 80, True, False, DANUBE_WINDOW),
+    ("d512", "float16", 2048, 8, 8, 512, True, False, None),
+    ("d160", "bfloat16", 2048, 8, 8, 160, True, False, None),
+    ("d100 x 25 heads", "float16", 2048, 25, 25, 100, True, False, None),
+    ("ntn S=2047", "float16", 2047, 8, 8, 128, True, True, None),
+    ("f32 d6", "float32", 2048, 8, 8, 6, True, False, None),
+    ("f32 d288", "float32", 2048, 8, 8, 288, True, False, None),
+)
+# kernels 5-8 at head dim 512: B = 4, H = 16, Hkv = 4 (group 4), Smax 4096
+D512_DECODE = dict(B=4, H=16, Hkv=4, D=512, Smax=4096)
+D512_LENGTHS = (1, 37, 2049, 4096)
+D512_WINDOW = 1024
+D512_DECODE_TOL = 1e-2       # K amplified 20x: tests/test_torch_cuda_kernels
+# The D = 512 engine: 2 layers, hidden 2048 = 4 heads x 512, 2 KV heads,
+# W4A16 g128 (a shape no public checkpoint JAX's loader takes has: it
+# drives kernels 4-8's wide instances through the engines)
+D512_ENGINE = dict(hidden_size=2048, intermediate_size=5632, num_heads=4,
+                   num_kv_heads=2, num_layers=2, vocab_size=32000,
+                   group_size=128)
+
+
+def danube_1_8b(num_layers: int, window=DANUBE_WINDOW):
+    from bitblas_tpu_torch.models.quant_llama import LlamaConfig
+    # h2oai/h2o-danube-1.8b-base config.json (arXiv:2401.16818, Table 1):
+    # hidden 2560, intermediate 6912, 32 heads of 80, 8 KV heads, vocab
+    # 32000, sliding_window 4096, rope_theta 10000, rms_norm_eps 1e-5,
+    # torch_dtype bfloat16; uint4 GPTQ g128, original zeros (Mistral's
+    # layout), bfloat16 activations
+    return LlamaConfig(hidden_size=2560, intermediate_size=6912,
+                       num_heads=32, num_kv_heads=8, num_layers=num_layers,
+                       vocab_size=32000, group_size=128,
+                       act_dtype="bfloat16", rope_theta=10000.0,
+                       sliding_window=window, rms_norm_eps=1e-5)
+
+
+def _variant_count(torch, wrapper, variant: str, fn):
+    """Run fn() with the wrapper's counters at 0 and return (fn's result,
+    the launches of `variant` it made)."""
+    wrapper.launches = 0
+    wrapper.variant_launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, wrapper.variant_launches.get(variant, 0)
+
+
+def check_slice19_prefill(torch, flush):
+    """Kernel 4's d80 instance at Danube's longest bucket and its general
+    instance at the configurations only it takes (SLICE19_PREFILL),
+    against the plain version (testing.attention_err: one fa_ulp of |ref|
+    plus 4 of the row's rms; K amplified 3x, as check_flashatten). The
+    row's launch counter (its variant's) must move; the bound counts the
+    band's products (4 B H D sum_i min(i + 1, window)) and the bytes (Q,
+    K, V read once, O written once); SDPA on K / V expanded to every head
+    (K^T transposed beforehand, the band as a boolean mask) is the
+    yardstick."""
+    from bitblas_tpu_torch.kernels.flash import (flash_attention_fwd,
+                                                 flash_attention_plain,
+                                                 prefill_instance,
+                                                 prefill_variant)
+    from bitblas_tpu_torch.testing import attention_err
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    rows = []
+    B = 1
+    for tag, dtype, S, H, Hkv, D, causal, trans_k, window in SLICE19_PREFILL:
+        dt = getattr(torch, dtype)
+        instance = prefill_instance(S, H, Hkv, D, dt, trans_k=trans_k)
+        want = ("wgmma" if tag == "d80" else
+                "f32" if dt == torch.float32 else "general")
+        if instance != want:
+            raise AssertionError(f"slice19 {tag}: routed to the {instance} "
+                                 f"instance, not {want}")
+        general = instance == "general"
+        variant = prefill_variant(dt, D, causal=causal, trans_k=trans_k,
+                                  window=window, general=general)
+        Q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+        K = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+             * 3).to(dt)
+        V = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
+        Kin = K.permute(0, 3, 2, 1).contiguous() if trans_k else K
+        kw = dict(causal=causal, trans_k=trans_k)
+        out, n = _variant_count(torch, flash_attention_fwd, variant, lambda: (
+            flash_attention_fwd(Q, Kin, V, window, **kw)))
+        if n != 1:
+            raise AssertionError(f"slice19 {tag}: {n} launches of "
+                                 f"flash_attention_fwd {variant}")
+        ref = flash_attention_plain(Q, Kin, V, window, **kw)
+        torch.cuda.synchronize()
+        u = fa_ulp(torch, dt, dt)
+        ratio = attention_err(out, ref, u, 4 * u)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (ratio <= 1.0 and torch.isfinite(out).all().item()):
+            raise AssertionError(f"slice19 {tag}: {ratio} of its limit "
+                                 f"(max abs err {err})")
+        del ref
+        qt = Q.transpose(1, 2).contiguous()
+        kt, vt = (x.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  .contiguous() for x in (K, V))
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal)
+        else:
+            mask = band_mask(torch, S, window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        e = Q.element_size()
+        nbytes = B * S * D * (2 * H + 2 * Hkv) * e
+        keys = band_keys(S, window) if causal else S * S
+        peak = F32_FLOPS_PER_S if dt == torch.float32 else F16_FLOPS_PER_S
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * D * keys, peak)
+        row = {"phase": "slice19_prefill", "kernel": "flash_attention_fwd",
+               "variant": variant, "tag": tag, "dtype": dtype, "B": B,
+               "S": S, "H": H, "Hkv": Hkv, "D": D, "causal": causal,
+               "trans_k": trans_k, "window": window, "row_launches": n,
+               "max_abs_err": err,
+               "max_rel_err": err / out.float().abs().max().item(),
+               "err_over_tol": ratio, "ulp": u, "elementwise": PREFILL_TOL,
+               "kernel_ms": time_ms(torch, lambda: flash_attention_fwd(
+                   Q, Kin, V, window, **kw), 20, flush),
+               "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+                   Q, Kin, V, window, **kw), 3, flush),
+               "library_ms": time_ms(torch, lib, 10, flush),
+               "stream_ms": time_ms(torch, _stream(torch, nbytes), 20, flush),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.append(row)
+        del Q, K, V, Kin, out, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _d512_caches(torch, gen, quant: bool, paged: bool):
+    """Kernels 5-8's operands at D512_DECODE over D512_LENGTHS: the bf16
+    cache (K amplified 20x) or its int8 codes and scales, as a slot cache
+    of 6 rows (slots 5 / 0 / 3 / 1) or a pool of 16-row blocks through
+    permuted tables; rows past each length NaN (int8: extreme codes, NaN
+    scales). Returns (caches, index, lengths, dequantized K, V gathered
+    [B, Smax, Hkv, D] for the yardstick)."""
+    from bitblas_tpu_torch.serving.kv_cache import quantize_kv
+    c = D512_DECODE
+    B, Hkv, D, Smax = c["B"], c["Hkv"], c["D"], c["Smax"]
+    lengths = torch.tensor(D512_LENGTHS, dtype=torch.int32, device="cuda")
+    if paged:
+        bs, MB = 16, Smax // 16
+        blocks = 1 + B * MB
+        perm = torch.randperm(blocks - 1, generator=gen, device="cuda") + 1
+        index = perm.reshape(B, MB).to(torch.int32)
+        shape = (blocks, bs, Hkv, D)
+    else:
+        index = torch.tensor([5, 0, 3, 1], dtype=torch.int32, device="cuda")
+        shape = (6, Smax, Hkv, D)
+    kf = torch.randn(shape, generator=gen, device="cuda") * 20
+    vf = torch.randn(shape, generator=gen, device="cuda")
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kf), quantize_kv(vf)
+        caches = (kc, vc, ks, vs)
+        stale = ((kc, 127), (vc, -128), (ks, float("nan")),
+                 (vs, float("nan")))
+        kd, vd = kc.float() * ks[..., None], vc.float() * vs[..., None]
+    else:
+        kc, vc = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        caches = (kc, vc)
+        stale = ((kc, float("nan")), (vc, float("nan")))
+        kd, vd = kc, vc
+    del kf, vf
+    if paged:
+        gather = (lambda x: x[index.long()].reshape(B, Smax, *x.shape[2:]))
+        kg, vg = gather(kd), gather(vd)
+        for x, val in stale:
+            rows = x[index.long()].reshape(B, Smax, *x.shape[2:])
+            for b in range(B):
+                rows[b, D512_LENGTHS[b]:] = val
+            x[index.long()] = rows.reshape(B, Smax // 16, 16, *x.shape[2:])
+    else:
+        kg, vg = kd[index.long()], vd[index.long()]
+        for x, val in stale:
+            for b in range(B):
+                x[index[b], D512_LENGTHS[b]:] = val
+    return caches, index, lengths, kg, vg
+
+
+def check_slice19_decode(torch, flush):
+    """Kernels 5-8 at head dim 512 (the wide instances: slices of 128
+    output columns), float16 queries over bf16 or int8 caches, lengths
+    1 / 37 / 2049 / 4096 over Smax 4096; the slot kernels also with a
+    window of 1024, and 5-6's partial_stats outputs (m to 1e-3, acc and l
+    to 1e-4 of their largest). Each output against its plain version
+    within D512_DECODE_TOL (K amplified 20x), the row's launch counter
+    moved. The bound counts the live keys' bytes (min(len, window) a
+    sequence); the yardstick is SDPA over the gathered caches with the
+    length (and window) as a boolean mask."""
+    from bitblas_tpu_torch.kernels import flash
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(512)
+    c = D512_DECODE
+    B, H, Hkv, D, Smax = c["B"], c["H"], c["Hkv"], c["D"], c["Smax"]
+    q = torch.randn((B, H, D), generator=gen, device="cuda").half()
+    rows = []
+    for quant, paged in ((False, False), (True, False), (False, True),
+                         (True, True)):
+        caches, index, lengths, kg, vg = _d512_caches(torch, gen, quant,
+                                                      paged)
+        name = ("flash_decode" + ("_paged" if paged else "")
+                + ("_quant" if quant else ""))
+        kernel = getattr(flash, name)
+        plain = getattr(flash, name + "_plain")
+        args = ((q, *caches, index, lengths) if paged
+                else (q, *caches, lengths, index))
+        kgx, vgx = (x.float().nan_to_num().transpose(1, 2).half()
+                    .repeat_interleave(H // Hkv, dim=1) for x in (kg, vg))
+        per_key = Hkv * (2 * D * (1 if quant else 2) + (8 if quant else 0))
+        for window in ((None,) if paged else (None, D512_WINDOW)):
+            variant = "float16 d512" + ("" if window is None else " window")
+            call = ((lambda: kernel(*args)) if window is None
+                    else (lambda w=window: kernel(*args, window=w)))
+            out, n = _variant_count(torch, kernel, variant, call)
+            ref = plain(*args, *(() if window is None else (window,)))
+            err = (out.float() - ref.float()).abs().max().item()
+            if not (n == 1 and err <= D512_DECODE_TOL
+                    and torch.isfinite(out).all().item()):
+                raise AssertionError(f"{name} {variant}: {n} launches, max "
+                                     f"abs err {err}")
+            pos = torch.arange(Smax, device="cuda")[None]
+            live = pos < lengths[:, None].long()
+            if window is not None:
+                live = live & (pos >= lengths[:, None].long() - window)
+            mask = live[:, None, None, :]
+            keys = sum(min(n_, window or n_) for n_ in D512_LENGTHS)
+            nbytes = keys * per_key + 2 * B * H * D * 2
+            b_ms, b_by = bound(nbytes, 4.0 * keys * H * D)
+            row = {"phase": "slice19_decode", "kernel": name,
+                   "variant": variant, "B": B, "H": H, "Hkv": Hkv, "D": D,
+                   "Smax": Smax, "lengths": list(D512_LENGTHS),
+                   "window": window, "row_launches": n, "max_abs_err": err,
+                   "max_rel_err": err / ref.float().abs().max().item(),
+                   "tol": D512_DECODE_TOL,
+                   "kernel_ms": time_ms(torch, call, 20, flush),
+                   "plain_ms": time_ms(torch, lambda: plain(
+                       *args, *(() if window is None else (window,))), 5,
+                       flush),
+                   "library_ms": time_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           q[:, :, None], kgx, vgx, attn_mask=mask), 20,
+                       flush),
+                   "stream_ms": time_ms(torch, _stream(torch, nbytes), 20,
+                                        flush),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+        if not paged:   # kernels 5 / 6's partial_stats outputs
+            pname = name + "_partial"
+            pk = getattr(flash, pname)
+            got, n = _variant_count(
+                torch, pk, "float16 d512",
+                lambda: kernel(*args, partial_stats=True))
+            want = flash.flash_decode_partial_plain(
+                q, caches[0], caches[1], lengths, index, *caches[2:])
+            errs = {}
+            for key, a, b, lim in (("m", got[1], want[1], 1e-3),
+                                   ("l", got[2], want[2], 1e-4),
+                                   ("acc", got[0], want[0], 1e-4)):
+                tol = lim if key == "m" else lim * b.abs().max().item()
+                errs[key] = (a - b).abs().max().item()
+                if not errs[key] <= tol:
+                    raise AssertionError(f"{pname} d512 {key}: "
+                                         f"{errs[key]} > {tol}")
+            if n != 1:
+                raise AssertionError(f"{pname} d512: {n} launches")
+            keys = sum(D512_LENGTHS)
+            full = (torch.arange(Smax, device="cuda")[None]
+                    < lengths[:, None].long())[:, None, None, :]
+            nbytes = keys * per_key + B * H * (D + 2) * 4 + B * H * D * 2
+            b_ms, b_by = bound(nbytes, 4.0 * keys * H * D)
+            row = {"phase": "slice19_decode", "kernel": pname,
+                   "variant": "float16 d512", "B": B, "H": H, "Hkv": Hkv,
+                   "D": D, "Smax": Smax, "lengths": list(D512_LENGTHS),
+                   "row_launches": n, "max_abs_err": errs["acc"],
+                   "errors": errs,
+                   "kernel_ms": time_ms(torch, lambda: kernel(
+                       *args, partial_stats=True), 20, flush),
+                   "plain_ms": time_ms(
+                       torch, lambda: flash.flash_decode_partial_plain(
+                           q, caches[0], caches[1], lengths, index,
+                           *caches[2:]), 5, flush),
+                   "library_ms": time_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           q[:, :, None], kgx, vgx, attn_mask=full), 20,
+                       flush),
+                   "stream_ms": time_ms(torch, _stream(torch, nbytes), 20,
+                                        flush),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            rows.append(row)
+        del caches, kg, vg, kgx, vgx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_reference_danube(torch, counters):
+    """DANUBE_REF_LAYERS layer at H2O-Danube-1.8B's widths (bfloat16, the
+    window reduced to REFERENCE_WINDOW), the card's route -- kernel 1's
+    uint4 x bf16 instances, kernel 4's d80 instance over the banded walk
+    -- against the plain route on the CPU on the same weights: the
+    512-token prefill and 4 teacher-forced decode steps (head dim 80: the
+    plain decode attention, JAX's XLA route, on both). Hidden states are
+    held within MISTRAL_REF_TOL of the largest, and what the first layer
+    adds to them within DANUBE_LAYER1_TOL of its largest."""
+    from bitblas_tpu_torch.kernels import flash
+    from bitblas_tpu_torch.models.quant_llama import QuantLlama
+    t0 = time.perf_counter()
+    cfg = danube_1_8b(DANUBE_REF_LAYERS, window=REFERENCE_WINDOW)
+    row = {"phase": "reference_danube", "layers": DANUBE_REF_LAYERS,
+           "prompt": 512, "decode_steps": 4, "hidden_tol": MISTRAL_REF_TOL,
+           "layer1_tol": DANUBE_LAYER1_TOL}
+    with CpuWeightMemo():
+        gpu, cpu = _card_and_cpu(
+            torch, lambda **kw: QuantLlama(cfg, **kw), seed=51)
+        _reset(counters)
+        x = _reference_input(torch, cfg)
+        card, ref = (_run_steps(torch, cfg, model, x, dev)
+                     for dev, model in (("cuda", gpu), ("cpu", cpu)))
+        d80 = flash.flash_attention_fwd.variant_launches.get(
+            "bfloat16 d80 window", 0)
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    xf = x[0].float()
+    inputs = (xf, torch.stack([xf[-1], *xf[:4]]))   # each row's input
+    bad = []
+    for i, key in enumerate(("prefill", "decode")):
+        a, b = card[i], ref[i]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"reference_danube: non-finite {key} "
+                                 f"hidden on the card")
+        row[key + "_hidden"] = _gap(a, b)
+        row[key + "_layer1_update"] = _gap(a - inputs[i], b - inputs[i])
+        bad += [key + "_hidden"] * (row[key + "_hidden"]["max_rel_err"]
+                                    > MISTRAL_REF_TOL)
+        bad += [key + "_layer1_update"] * (
+            row[key + "_layer1_update"]["max_rel_err"] > DANUBE_LAYER1_TOL)
+    row.update({"d80_launches": d80, "window": REFERENCE_WINDOW,
+                "reduced": {"window": f"{DANUBE_WINDOW} -> "
+                                      f"{REFERENCE_WINDOW}: the 512-token "
+                                      f"input crosses it",
+                            "layers": f"{DANUBE_LAYERS} -> "
+                                      f"{DANUBE_REF_LAYERS}"},
+                "seconds": time.perf_counter() - t0})
+    emit(row)
+    if bad:
+        raise AssertionError(f"reference_danube: {bad} over their limits")
+    if d80 <= 0:
+        raise AssertionError("reference_danube: kernel 4's d80 instance "
+                             "was not launched")
+
+
+def check_engine_d512(torch, counters):
+    """A 2-layer model at head dim 512 (D512_ENGINE, float16 activations)
+    on the token engine (bf16 and int8 caches) and the paged engine (bf16
+    and int8 pools), card against the CPU's plain route on the same
+    weights (compare_engines / compare_paged: logits within 2e-2 of the
+    largest, the serve references' limit). The counters are set to 0
+    before and read after: kernel 4's general instance at d512 (the
+    prompts' prefill) and kernels 5-8 at d512 must have launched. Returns
+    the launches under the kernels line's names."""
+    from bitblas_tpu_torch.kernels import flash
+    from bitblas_tpu_torch.models.quant_llama import LlamaConfig, QuantLlama
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(**D512_ENGINE)
+    with CpuWeightMemo():
+        gpu, cpu = _card_and_cpu(
+            torch, lambda **kw: QuantLlama(cfg, **kw), seed=61)
+        _reset(counters)
+        for quant in (False, True):
+            compare_engines(torch, cfg, gpu, cpu, kv_quant=quant,
+                            tag="_d512")
+            compare_paged(torch, cfg, gpu, cpu, kv_quant=quant,
+                          tag="_d512")
+        torch.cuda.synchronize()
+        launches = {"flash_attention_fwd float16 general d512":
+                    flash.flash_attention_fwd.variant_launches.get(
+                        "float16 general d512", 0)}
+        for name in ("flash_decode", "flash_decode_quant",
+                     "flash_decode_paged", "flash_decode_paged_quant"):
+            launches[f"{name} float16 d512"] = getattr(
+                flash, name).variant_launches.get("float16 d512", 0)
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"engine_d512: a kernel was not launched: "
+                             f"{launches}")
+    emit({"phase": "engine_d512", "config": D512_ENGINE,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+class PlainDecodeCount:
+    """The plain decode attention's calls (`kv_cache.flash_decode_plain`,
+    the slot cache's route at a head dim D % 128 != 0, JAX's XLA path):
+    serve's `reset` and `stats` hooks of a context."""
+
+    def __init__(self):
+        from bitblas_tpu_torch.serving import kv_cache
+        self.mod, self.orig, self.calls = kv_cache, kv_cache.flash_decode_plain, 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+
+        kv_cache.flash_decode_plain = counted
+
+    def reset(self):
+        self.calls = 0
+
+    def stats(self):
+        return {"plain_decode_attention_calls": self.calls,
+                "plain_decode_attention": "head dim 80: JAX's XLA route "
+                                          "(kv_cache.py:795-812)"}
+
+    def close(self):
+        self.mod.flash_decode_plain = self.orig
+
+
+DANUBE_PHASE = ("serve_danube", "token", {},
+                MISTRAL_GEMMS + ("flash_attention_fwd bfloat16 d80",
+                                 "flash_attention_fwd bfloat16 d80 window"))
+
+
+def danube_serving_model(torch):
+    """24 layers at H2O-Danube-1.8B's widths, W4 g128 original zeros,
+    bfloat16 activations, window 4096, random weights drawn on the card
+    from a seed, an LMHead of vocab 32000, Mistral's four prompts (1000 /
+    3000 / 4500 / 6000: two decode past the window; buckets 4096 and below
+    are shorter than the window, 8192 runs the banded walk), max_seq_len
+    8192 (a bf16 slot cache of 4 x 8192 rows)."""
+    import numpy as np
+    from bitblas_tpu_torch.models.hf_import import LMHead
+    from bitblas_tpu_torch.models.quant_llama import QuantLlama
+
+    t0 = time.perf_counter()
+    cfg = danube_1_8b(DANUBE_LAYERS)
+    model = QuantLlama(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    V, Hd = cfg.vocab_size, cfg.hidden_size
+    head = LMHead(
+        embed=(torch.randn((V, Hd), generator=gen, device="cuda") * 0.05
+               ).half(),
+        final_norm=torch.ones(Hd, device="cuda"),
+        lm_head=torch.randn((V, Hd), generator=gen, device="cuda") * 0.05,
+        norm_eps=cfg.rms_norm_eps, device="cuda")
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, n).astype(np.int32)
+               for n in MISTRAL_PROMPTS]
+    packed = sum(t.numel() * t.element_size()
+                 for n, t in model.named_buffers() if "qweight" in n or
+                 "scales" in n or "zeros" in n)
+    plain = PlainDecodeCount()
+    return {"cfg": cfg, "model": model, "head": head, "prompts": prompts,
+            "pair": [], "init_s": time.perf_counter() - t0,
+            "name": "H2O-Danube-1.8B widths, W4 g128, bf16, window 4096",
+            "weight_bytes": packed, "max_seq_len": MISTRAL_MAX_SEQ,
+            "reset": plain.reset, "stats": plain.stats, "close": plain.close}
+
+
+def serve_danube(torch, counters, routes, run=None):
+    """serve_danube (24 layers) through `run` (the full run's launch
+    accumulator) or serve. The plain D = 80 decode attention's calls are
+    the phase's stats; kernel 4 must not refuse a prompt."""
+    ctx = danube_serving_model(torch)
+    try:
+        with routes:
+            row = (run(ctx, DANUBE_PHASE, routes) if run is not None
+                   else serve(torch, ctx, counters, *DANUBE_PHASE,
+                              routes=routes))
+    finally:
+        ctx["close"]()
+    if row["plain_decode_attention_calls"] <= 0 or row["plain_prefills"]:
+        raise AssertionError(f"serve_danube: routes {row['launches']}")
+    del ctx
+    torch.cuda.empty_cache()
+    return row
+
+
+def slice19_entries(prefill, decode):
+    """The kernels line's entries of the slice's rows (kernel 4's d80 and
+    general instance, kernels 5-8 at d512), named by their launch
+    variants."""
+    out = []
+    for row in prefill:
+        src = ("flash_attention_d80.cu" if row["tag"] == "d80" else
+               "flash_attention_f32.cu" if row["dtype"] == "float32" else
+               "flash_attention_general.cu")
+        out.append((f"flash_attention_fwd {row['variant']}", src,
+                    "flash.py:106", [row], row,
+                    f"B=1 H={row['H']} Hkv={row['Hkv']} S={row['S']} "
+                    f"D={row['D']} {row['dtype']}"
+                    + (" K^T" if row["trans_k"] else "")
+                    + ("" if row["window"] is None
+                       else f" window {row['window']}")))
+    reps = {"flash_decode": ("flash_decode.cu", "flash.py:456"),
+            "flash_decode_quant": ("flash_decode_quant.cu", "flash.py:648"),
+            "flash_decode_paged": ("flash_decode_paged.cu", "flash.py:874"),
+            "flash_decode_paged_quant": ("flash_decode_paged_quant.cu",
+                                         "flash.py:1020"),
+            "flash_decode_partial": ("flash_decode.cu", "flash.py:456"),
+            "flash_decode_quant_partial": ("flash_decode_quant.cu",
+                                           "flash.py:648")}
+    for row in decode:
+        src, rep = reps[row["kernel"]]
+        out.append((f"{row['kernel']} {row['variant']}", src, rep, [row],
+                    row, f"B=4 H=16 Hkv=4 D=512 Smax=4096 lengths "
+                    f"1/37/2049/4096" + ("" if row.get("window") is None
+                                        else f" window {row['window']}")))
+    return out
+
+
+def danube_phases(torch, counters, flush):
+    """`--danube`: the slice alone: kernel 4's d80 and general rows,
+    kernels 5-8 at d512, reference_danube, the D = 512 engine and
+    serve_danube. Returns its kernels-line entries and launches."""
+    prefill = check_slice19_prefill(torch, flush)
+    decode = check_slice19_decode(torch, flush)
+    check_reference_danube(torch, counters)
+    launches = dict(check_engine_d512(torch, counters))
+    row = serve_danube(torch, counters, RouteRecorder())
+    for name, n in row["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    return slice19_entries(prefill, decode), launches
+
+
 def main() -> int:
     try:
         import torch
@@ -7741,7 +8361,7 @@ def main() -> int:
                     ["--formats"], ["--int-formats"], ["--mistral"],
                     ["--bitnet-3b"], ["--bitnet-3b-readings"],
                     ["--mixtral"], ["--quantize"], ["--ops"],
-                    ["--parallel"], ["--configs"]):
+                    ["--parallel"], ["--configs"], ["--danube"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -7841,6 +8461,14 @@ def main() -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if mode == ["--danube"]:
+        entries, launches = danube_phases(torch, counters, flush)
+        emit({"kernels": [kernel_entry(*e, launches) for e in entries]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if mode == ["--bitnet-3b"]:
         fa_rows, fa_launches = check_flashatten(torch, flush)
         row = bitnet_3b_phases(torch, counters)
@@ -7866,6 +8494,8 @@ def main() -> int:
     fpq_b = check_flash_decode_paged(torch, flush, quant=True,
                                      qdtype=torch.bfloat16)
     mix_k1, mix_k2 = check_dequant_mixtral(torch, flush)
+    s19_prefill = check_slice19_prefill(torch, flush)
+    s19_decode = check_slice19_decode(torch, flush)
     lap("kernels")
     # the model tools' phases (their launches join the serve phases')
     tools, tool_laps = model_tools_phases(torch, counters)
@@ -7915,6 +8545,10 @@ def main() -> int:
     lap("reference_bitnet_3b")
     check_reference_mixtral(torch)
     lap("reference_mixtral")
+    check_reference_danube(torch, counters)
+    lap("reference_danube")
+    d512_launches = check_engine_d512(torch, counters)
+    lap("engine_d512")
 
     launches = {c.__name__: 0 for c in counters}
     launches.update({name: 0 for name in (*DECODE.values(),
@@ -7924,6 +8558,9 @@ def main() -> int:
     for name in ("flash_decode_paged bfloat16",
                  "flash_decode_paged_quant bfloat16"):
         launches[name] = ref_mistral[name]
+    # kernel 4's general instance and kernels 5-8 at head dim 512: the D =
+    # 512 engine's launches (no served model has such a head dim)
+    launches.update(d512_launches)
 
     def run(ctx, phase, routes=None):
         row = serve(torch, ctx, counters, *phase, routes=routes)
@@ -7952,6 +8589,8 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     lap("serve_mistral")
+    serve_danube(torch, counters, routes, run)
+    lap("serve_danube")
     ctx = bitnet_3b_serving_model(torch)
     with routes:
         run(ctx, BITNET_3B_PHASE, routes)
@@ -8148,6 +8787,8 @@ def main() -> int:
     # instances and kernel 9's float32 outputs, with that phase's
     # launches (no serve phase runs them)
     summary += configs_entries(cfg_rows)
+    # slice 19: kernel 4's d80 and general instances, kernels 5-8 at d512
+    summary += slice19_entries(s19_prefill, s19_decode)
     for key, n in cfg_launches.items():
         if isinstance(n, int):
             launches[key] = launches.get(key, 0) + n

@@ -185,9 +185,10 @@ class _NoLayers(pql.DecoderServingMixin):
 
 @pytest.mark.parametrize("D,heads,S,refused", [
     (100, 16, 256, False),     # the 3B-like model: kernel 4
-    (100, 15, 256, True),      # odd heads at D % 8 == 4: no TMA row
-    (80, 16, 256, True),       # a head dim kernel 4 does not take
+    (100, 15, 256, False),     # odd heads at D % 8 == 4: the general one
+    (80, 16, 256, False),      # Danube's head dim: its wgmma instance
     (80, 16, 200, False),      # a short prompt: JAX's rule, not a refusal
+    (800, 2, 256, True),       # past the general instance's cap
 ])
 def test_make_prefill_counts_what_kernel_4_refuses(D, heads, S, refused):
     """A prompt JAX's rule sends to the flash kernel but whose shape

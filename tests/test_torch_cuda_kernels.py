@@ -42,10 +42,16 @@ is all masked; a window >= S bit-equal to none), the slot decode kernels
 at Smax = 2048 with float16 and bfloat16 queries and lengths around the
 window (against the single-pass and the split plain versions), the paged
 kernels on bfloat16 queries and a windowed paged decode through the
-masked gather. Kernel 4 at every head dim it takes (64, 96, 100, 128,
-256) over nine cases: causal and dense, K^T, a ragged S over two
-sequences, a window, float32 operands, outputs in another type, both KV
-tiles (two calls bit-equal, one launch a call).
+masked gather. Kernel 4 at every head dim of its wgmma instances (64,
+80, 96, 100, 128, 256) over nine cases: causal and dense, K^T, a ragged S
+over two sequences, a window, float32 operands, outputs in another type,
+both KV tiles (two calls bit-equal, one launch a call); its general
+instance at head dims 16 ... 768 (the cap), odd head counts at D % 8 ==
+4, K^T at S % 8 != 0, the float32 kernel at D = 6 / 288 / 768, and
+neighbour heads of
+Inf that must not reach a head's output (d80 and general). Kernels 5-8
+at head dims 384, 512 and 1024 (the wide instances: slices of 128
+columns), with a window and in partial_stats mode.
 """
 
 import math
@@ -885,14 +891,17 @@ def _wide_decode_args(g, dev, kind, D, H, Hkv, dtype):
 @pytest.mark.parametrize("D,H,Hkv,dtype", [
     (256, 8, 2, torch.bfloat16), (128, 16, 1, torch.bfloat16),
     (128, 24, 2, torch.bfloat16), (256, 16, 1, torch.bfloat16),
-    (128, 8, 2, torch.float16), (256, 16, 1, torch.float16)])
+    (128, 8, 2, torch.float16), (256, 16, 1, torch.float16),
+    (512, 16, 4, torch.bfloat16), (384, 8, 2, torch.float16),
+    (1024, 12, 1, torch.bfloat16)])
 @pytest.mark.parametrize("kind", ["slot", "slot_quant", "paged",
                                   "paged_quant"])
 def test_flash_decode_wide_shapes(dev, kind, D, H, Hkv, dtype):
     """The decode kernels at head dim 256, at GQA groups 16 and 12 (chunks
     of 8 query heads on the grid) and on float16 caches (the int8 kernels
-    take their codes whatever `dtype` says): one launch a call, against
-    the plain version, two calls bit-equal."""
+    take their codes whatever `dtype` says), and at head dims 384, 512 and
+    1024 (the wide instances): one launch a call, against the plain
+    version, two calls bit-equal."""
     g = torch.Generator(device=dev)
     g.manual_seed(D + H * 3 + Hkv + (dtype == torch.float16))
     wrapper, plain, args = _wide_decode_args(g, dev, kind, D, H, Hkv, dtype)
@@ -905,8 +914,8 @@ def test_flash_decode_wide_shapes(dev, kind, D, H, Hkv, dtype):
 def test_decode_attention_routes_wide_shapes_to_the_kernels(dev):
     """decode_attention and decode_attention_paged at D = 256 and group 16
     run their kernels on the card (no quiet fallback); a lane-aligned
-    head dim no kernel takes (D = 384) raises on the slot and the paged
-    routes alike."""
+    head dim past the kernels' cap (D = 1152) raises on the slot and the
+    paged routes alike."""
     g = torch.Generator(device=dev)
     wrapper, plain, args = _wide_decode_args(g, dev, "slot", 256, 16, 1,
                                              torch.bfloat16)
@@ -921,18 +930,18 @@ def test_decode_attention_routes_wide_shapes_to_the_kernels(dev):
     out = kv_cache.decode_attention_paged(q, k, v, tables, lengths,
                                           num_heads=16)
     _check_decode(out, plain(*args), flash_decode_paged, before)
-    wide = torch.zeros((2, 4, 384), dtype=torch.float16, device=dev)
-    cache = torch.zeros((2, 16, 2, 384), dtype=torch.bfloat16, device=dev)
-    codes = torch.zeros((2, 16, 2, 384), dtype=torch.int8, device=dev)
+    wide = torch.zeros((2, 4, 1152), dtype=torch.float16, device=dev)
+    cache = torch.zeros((2, 16, 2, 1152), dtype=torch.bfloat16, device=dev)
+    codes = torch.zeros((2, 16, 2, 1152), dtype=torch.int8, device=dev)
     scales = torch.ones((2, 16, 2), dtype=torch.float32, device=dev)
     idx = torch.zeros(2, dtype=torch.int32, device=dev)
     tables = torch.zeros((2, 1), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="D=384"):
+    with pytest.raises(NotImplementedError, match="D=1152"):
         kv_cache.decode_attention(wide, cache, cache, idx, idx, num_heads=4)
-    with pytest.raises(NotImplementedError, match="D=384"):
+    with pytest.raises(NotImplementedError, match="D=1152"):
         kv_cache.decode_attention_paged(wide, cache, cache, tables, idx,
                                         num_heads=4)
-    with pytest.raises(NotImplementedError, match="D=384"):
+    with pytest.raises(NotImplementedError, match="D=1152"):
         kv_cache.decode_attention_paged_quant(wide, codes, codes, scales,
                                               scales, tables, idx,
                                               num_heads=4)
@@ -1634,7 +1643,7 @@ def _fa_ulp(dtype, out):
 
 @pytest.mark.parametrize("case", FA_CASES,
                          ids=lambda c: "-".join(str(x) for x in c))
-@pytest.mark.parametrize("D", [64, 96, 100, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 96, 100, 128, 256])
 def test_flash_attention_configs_match_plain(dev, D, case):
     S, H, Hkv, causal, trans_k, window, dtype, out, bkv = case
     if (H * D * 2) % 16 and dtype != "float32":
@@ -1696,3 +1705,145 @@ def test_partial_stats_kernels_match_plain(dev, quant):
         assert err <= tol, (name, err, tol)
     assert torch.all(got[1][0] == torch.tensor(EMPTY_M, device=dev) * LN2)
     assert torch.all(got[2][0] == 0) and torch.all(got[0][0] == 0)
+
+
+# Kernel 4's general instance: (D, S, H, Hkv, causal, trans_k, window,
+# dtype, out). Head dims outside the wgmma instances up to the cap, odd
+# head counts at D % 8 == 4, K^T at S % 8 != 0, a window and GQA.
+GENERAL_CASES = [
+    (16, 200, 4, 2, True, False, None, "float16", None),
+    (48, 130, 3, 3, False, False, None, "bfloat16", "float32"),
+    (160, 300, 4, 2, True, False, 70, "bfloat16", None),
+    (384, 257, 2, 1, True, False, None, "float16", None),
+    (512, 256, 4, 2, False, True, None, "bfloat16", None),
+    (768, 130, 2, 2, True, False, None, "float16", "bfloat16"),
+    (100, 192, 3, 3, True, False, None, "float16", None),
+    (100, 161, 5, 1, False, True, None, "bfloat16", None),
+    (128, 161, 4, 2, True, True, None, "float16", None),
+    # the float32 kernel at the head dims it takes since the general one:
+    # D % 4 != 0, past 256 (128-column chunks), up to the cap
+    (6, 200, 2, 1, True, False, 33, "float32", None),
+    (288, 130, 2, 2, False, True, None, "float32", "float16"),
+    (768, 100, 2, 1, True, False, None, "float32", None),
+]
+
+
+@pytest.mark.parametrize("case", GENERAL_CASES,
+                         ids=lambda c: "-".join(str(x) for x in c))
+def test_flash_attention_general_matches_plain(dev, case):
+    from bitblas_tpu_torch.kernels.flash import prefill_instance
+    D, S, H, Hkv, causal, trans_k, window, dtype, out = case
+    dt, ot = getattr(torch, dtype), getattr(torch, out or dtype)
+    instance = "f32" if dtype == "float32" else "general"
+    assert prefill_instance(S, H, Hkv, D, dt, trans_k=trans_k) == instance
+    g = torch.Generator(device=dev)
+    g.manual_seed(D * 1000 + S)
+    B = 2
+    Q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+    K = (torch.randn((B, S, Hkv, D), generator=g, device=dev) * 3).to(dt)
+    V = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dt)
+    if trans_k:
+        K = K.permute(0, 3, 2, 1).contiguous()
+    kw = dict(causal=causal, trans_k=trans_k, out_dtype=ot)
+    before = flash_attention_fwd.launches
+    variants = dict(flash_attention_fwd.variant_launches)
+    got = flash_attention_fwd(Q, K, V, window, **kw)
+    ref = flash_attention_plain(Q, K, V, window, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    new = {k for k, n in flash_attention_fwd.variant_launches.items()
+           if n != variants.get(k, 0)}
+    assert len(new) == 1 and (" general" in new.pop()) == (
+        instance == "general")
+    assert got.dtype == ot and torch.isfinite(got).all()
+    u = _fa_ulp(dt, ot)
+    assert attention_err(got, ref, u, 4 * u) <= 1.0
+    assert torch.equal(got, flash_attention_fwd(Q, K, V, window, **kw))
+
+
+@pytest.mark.parametrize("D,H,Hkv,trans_k", [(80, 4, 2, False),
+                                             (80, 6, 3, True),
+                                             (100, 3, 3, False),
+                                             (160, 4, 2, False)])
+def test_flash_attention_neighbour_heads_do_not_leak(dev, D, H, Hkv,
+                                                     trans_k):
+    """The wgmma boxes read the next head's columns (and TMA's zeros past
+    the last head); only Q's zeroed columns and the clipped store keep
+    them out. With the last KV head's K and V all Inf, every query head
+    of the other KV heads matches the plain version on finite data; and
+    the last head itself, where the boxes run past the row, is held on
+    data whose first head is Inf instead."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(D + H)
+    S, group = 256, H // Hkv
+    Q = torch.randn((1, S, H, D), generator=g, device=dev).to(dt)
+    K = (torch.randn((1, S, Hkv, D), generator=g, device=dev) * 3).to(dt)
+    V = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(dt)
+    u = _fa_ulp(dt, dt)
+    for bad, keep in ((Hkv - 1, slice(0, (Hkv - 1) * group)),
+                      (0, slice(group, H))):
+        Kb, Vb = K.clone(), V.clone()
+        Kb[:, :, bad] = float("inf")
+        Vb[:, :, bad] = float("inf")
+        Kin = Kb.permute(0, 3, 2, 1).contiguous() if trans_k else Kb
+        got = flash_attention_fwd(Q, Kin, Vb, 64, trans_k=trans_k)
+        ref = flash_attention_plain(
+            Q, K.permute(0, 3, 2, 1).contiguous() if trans_k else K, V, 64,
+            trans_k=trans_k)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got[:, :, keep]).all()
+        assert attention_err(got[:, :, keep].contiguous(),
+                             ref[:, :, keep].contiguous(), u, 4 * u) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["slot", "slot_quant"])
+@pytest.mark.parametrize("D", [384, 512])
+def test_flash_decode_wide_window_and_partials(dev, kind, D):
+    """The slot kernels' wide instances with a window of 64 (the splits
+    start at each sequence's band), and in partial_stats mode (m to 1e-3,
+    acc and l to 1e-4 of their largest), against the plain versions."""
+    from bitblas_tpu_torch.kernels.flash import flash_decode_partial_plain
+    g = torch.Generator(device=dev)
+    g.manual_seed(D + len(kind))
+    wrapper, plain, args = _wide_decode_args(g, dev, kind, D, 8, 2,
+                                             torch.bfloat16)
+    before = wrapper.launches
+    out = wrapper(*args, window=64)
+    ref = plain(*args, 64)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= DECODE_TOL
+    q, *caches, lengths, slots = args
+    got = wrapper(*args, partial_stats=True)
+    scales = tuple(caches[2:])
+    want = flash_decode_partial_plain(q, caches[0], caches[1], lengths,
+                                      slots, *scales)
+    torch.cuda.synchronize()
+    for name, a, b, lim in (("m", got[1], want[1], 1e-3),
+                            ("l", got[2], want[2], 1e-4),
+                            ("acc", got[0], want[0], 1e-4)):
+        tol = lim if name == "m" else lim * b.abs().max().item()
+        assert (a - b).abs().max().item() <= tol, name
+
+
+def test_flashatten_tunes_the_new_instances(dev):
+    """FlashAtten's hardware_aware_finetune on the d80 instance and on the
+    general instance (K^T at S % 8 != 0): each has one tile, which it
+    times and pins; the forward matches the plain version."""
+    from bitblas_tpu_torch.ops import FlashAtten, FlashAttenConfig
+    for cfg in (dict(batch=1, heads=4, kv_heads=2, seq_len=256, dim=80,
+                     is_causal=True, Q_dtype="bfloat16",
+                     Out_dtype="bfloat16"),
+                dict(batch=1, heads=4, seq_len=201, dim=64, layout="ntn")):
+        op = FlashAtten(FlashAttenConfig(**cfg), device="cuda",
+                        enable_tuning=True)
+        assert list(op.tune_results) == list(op.candidates) == [(64, 64)]
+        assert op.tuned_hints
+        Q, K, V = op._example_args()
+        got = op(Q, K, V)
+        ref = flash_attention_plain(Q, K, V, causal=op.config.is_causal,
+                                    trans_k=op.trans_k)
+        torch.cuda.synchronize()
+        u = _fa_ulp(op.dtype, op.out_dtype)
+        assert attention_err(got, ref, u, 4 * u) <= 1.0

@@ -174,11 +174,13 @@ def test_decode_entry_points_serve_what_jax_serves(kind, D, H, Hkv):
 
 def test_kernel_only_limits_raise_with_the_shapes():
     """On the card a head dim no kernel instance takes raises (never a
-    quiet fallback); groups of any size are taken."""
+    quiet fallback); groups of any size are taken, and every head dim
+    D % 128 == 0 up to the cap."""
     flash._check_decode("flash_decode", 4, 64, 1, 128)      # group 64
     flash._check_decode("flash_decode", 4, 16, 1, 256)
-    with pytest.raises(NotImplementedError, match="D=384"):
-        flash._check_decode("flash_decode", 4, 8, 2, 384)
+    flash._check_decode("flash_decode", 4, 8, 2, 384)
+    with pytest.raises(NotImplementedError, match="D=1152"):
+        flash._check_decode("flash_decode", 4, 8, 2, 1152)
     flash._check_decode("flash_decode", 1, 12 * 5000, 5000, 128)  # 2 chunks
     with pytest.raises(NotImplementedError, match="Hkv=40000"):
         flash._check_decode("flash_decode", 1, 12 * 40000, 40000, 128)

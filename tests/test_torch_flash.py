@@ -19,7 +19,8 @@ import jax.numpy as jnp
 
 from bitblas_tpu.kernels.flash import make_flash_attention, make_flash_decode
 
-from bitblas_tpu_torch.kernels.flash import (flash_attention_fwd,
+from bitblas_tpu_torch.kernels.flash import (GENERAL_MAX_HEAD_DIM,
+                                             flash_attention_fwd,
                                              flash_decode, flash_decode_plain)
 from bitblas_tpu_torch.testing import assert_close
 
@@ -99,17 +100,17 @@ def test_flash_decode_plain_nan_stale_rows_and_zero_length():
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take():
-    # the prefill kernel takes any S, head dims 64 / 96 / 100 / 128 / 256
-    # (tests/test_torch_flashatten.py); it refuses other head dims, a key
-    # row of K^T that TMA cannot address (S % 8) and a window without
-    # causality, on the CPU as on the card
-    x = torch.zeros((1, 96, 2, 80), dtype=torch.float16)
+    # the prefill kernel takes any S and any head dim up to its general
+    # instance's cap (tests/test_torch_flash_dims.py), K^T at any S; it
+    # refuses a head dim past the cap and a window without causality
+    # (JAX's refusal), on the CPU as on the card
+    x = torch.zeros((1, 96, 2, GENERAL_MAX_HEAD_DIM + 8),
+                    dtype=torch.float16)
     with pytest.raises(NotImplementedError):      # head dim
         flash_attention_fwd(x, x, x)
     y = torch.zeros((1, 100, 2, 64), dtype=torch.float16)
-    with pytest.raises(NotImplementedError):      # K^T rows, S % 8
-        flash_attention_fwd(y, y.permute(0, 3, 2, 1).contiguous(), y,
-                            trans_k=True)
+    assert flash_attention_fwd(y, y.permute(0, 3, 2, 1).contiguous(), y,
+                               trans_k=True).shape == y.shape   # S % 8
     with pytest.raises(NotImplementedError):      # window, not causal
         flash_attention_fwd(y, y, y, 8, causal=False)
     q = torch.zeros((2, 4, D), dtype=torch.float16)

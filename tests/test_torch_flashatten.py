@@ -36,7 +36,8 @@ from bitblas_tpu.ops.flashatten import FlashAttenConfig as JaxFlashAttenConfig
 from bitblas_tpu.tuner.hint import FlashHint as JaxFlashHint
 
 from bitblas_tpu_torch.cache import OperatorCache
-from bitblas_tpu_torch.kernels.flash import (HEAD_DIMS, check_prefill,
+from bitblas_tpu_torch.kernels.flash import (GENERAL_MAX_HEAD_DIM,
+                                             HEAD_DIMS, check_prefill,
                                              flash_attention_fwd,
                                              flash_attention_plain,
                                              prefill_refusal, prefill_tiles,
@@ -143,10 +144,13 @@ def test_plain_version_masks_keys_past_s_and_zeroes_their_v():
 
 
 def test_refusals_name_the_shape():
+    """Kernel 4 refuses what JAX's refuses (a window without causality)
+    and head dims past its general instance's cap; the shapes TMA cannot
+    address run the general instance."""
     f16 = torch.float16
-    for args, kw in (((1, 64, 2, 2, 80, f16, f16), {}),        # head dim
-                     ((1, 64, 1, 1, 100, f16, f16), {}),       # odd heads
-                     ((1, 161, 2, 2, 64, f16, f16), {"trans_k": True}),
+    cap = GENERAL_MAX_HEAD_DIM
+    for args, kw in (((1, 64, 2, 2, cap + 16, f16, f16), {}),  # head dim
+                     ((1, 64, 1, 1, cap + 4, torch.float32, f16), {}),
                      ((1, 64, 2, 2, 64, f16, f16),
                       {"causal": False, "window": 16})):
         with pytest.raises(NotImplementedError,
@@ -157,19 +161,25 @@ def test_refusals_name_the_shape():
     assert prefill_refusal(64, 2, 2, 100, f16) is None
     assert prefill_refusal(161, 1, 1, 100, torch.float32,
                            trans_k=True) is None
+    # once refused, now the general instance's (one 64-key tile)
+    for args, kw in (((1, 64, 2, 2, 80, f16, f16), {}),
+                     ((1, 64, 1, 1, 100, f16, f16), {}),
+                     ((1, 161, 2, 2, 64, f16, f16), {"trans_k": True})):
+        assert prefill_refusal(*args[1:6], **kw) is None
+        assert check_prefill(*args, **kw) == (64, 64)
     # 128-key tiles are built at head dim 64 alone
     for D in (96, 100, 128, 256):
         with pytest.raises(ValueError, match="tile"):
             check_prefill(1, 64, 2, 2, D, f16, f16, tile=(64, 128))
     assert check_prefill(1, 64, 2, 2, 64, f16, f16, tile=(64, 128)) \
         == (64, 128)
-    # float32 runs the FFMA kernel: any D % 4 == 0 up to 256, any S
+    # float32 runs the FFMA kernel: any D up to the cap, any S
     assert check_prefill(1, 161, 1, 1, 100, torch.float32, f16,
                          trans_k=True) == (64, 64)
     assert prefill_tiles(256) == prefill_tiles(100) == ((64, 64),)
     assert prefill_tiles(64) == ((64, 64), (64, 128))
     assert prefill_tiles(64, torch.float32) == ((64, 64),)
-    assert set(HEAD_DIMS) == {64, 96, 100, 128, 256}
+    assert set(HEAD_DIMS) == {64, 80, 96, 100, 128, 256}
     assert prefill_variant(torch.float16, 100) == "float16 d100"
     assert prefill_variant(torch.bfloat16, 128, window=4096) == \
         "bfloat16 window"
@@ -215,9 +225,13 @@ def test_flashatten_matches_jax(cfg):
 
 def test_flashatten_refuses_what_the_kernel_does_not_take():
     """JAX's operator serves its XLA oracle where its kernel cannot tile
-    a shape; the port's raises at construction instead."""
+    a shape; the port's runs kernel 4's general instance there, and
+    raises at construction only past that instance's head-dim cap."""
+    FlashAtten(FlashAttenConfig(batch=1, heads=2, seq_len=64, dim=80),
+               device="cpu")
     with pytest.raises(NotImplementedError, match="head dims"):
-        FlashAtten(FlashAttenConfig(batch=1, heads=2, seq_len=64, dim=80),
+        FlashAtten(FlashAttenConfig(batch=1, heads=2, seq_len=64,
+                                    dim=GENERAL_MAX_HEAD_DIM + 128),
                    device="cpu")
     with pytest.raises(NotImplementedError, match="one type"):
         FlashAtten(FlashAttenConfig(batch=1, heads=2, seq_len=64, dim=64,
