@@ -117,6 +117,18 @@ __device__ __forceinline__ void mma_16832_s8(int* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four 8 x 8 tiles of 16-bit elements (or 8 x 16 bytes) from shared
+// memory: lane l gives the address of a row of tile l / 8; register i of
+// every lane holds (row lane / 4, elements 2 (lane % 4) ..) of tile i, the
+// layout of mma.sync's A and B fragments.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
 // Four biased int2 fields (the low byte of x, LSB first) -> four int8
 // values field - 2, one per byte. Each byte of f | 0x80 is >= 0x80, so
 // subtracting 2 from every byte borrows nothing, and XOR 0x80 takes the

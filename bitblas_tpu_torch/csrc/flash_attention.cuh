@@ -13,7 +13,8 @@
 // it takes here (64, 80, 96, 100, 128, 256; it zero-pads D % 128 != 0 on
 // the host, :122-148, which this kernel does not), causal and not,
 // trans_k, a ragged seq_len (its kv_len mask, :44-47) and an out_dtype.
-// The configurations TMA cannot address and the other head dims run
+// The configurations TMA cannot address run here behind kernels/flash.py's
+// layout pass (rows padded to 16 bytes); the other head dims run
 // flash_attention_general.cu.
 //
 // What bounds it on the H100: at the main path's prompts (B = 1, H = 32,
@@ -353,7 +354,7 @@ __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, void* __restrict__ O,
-               int S, int H, int Hkv, int window, int out_code,
+               int S, int H, int Hkv, int window, int out_code, int hs,
                float qscale) {
   using Sh = Shape<D, BKV>;
   constexpr int NH = Sh::NH, NB = Sh::kBoxes;
@@ -380,8 +381,9 @@ __global__ void __launch_bounds__(kThreads)
   const int lo = kCausal && window > 0 ? max(0, (q0 - window + 1) / BKV) : 0;
   const int nkv = hi + 1 - lo;
   // where each head's columns start in its tiles (Shape::kShift): Q's, V's
-  // and K's (K^T's rows are D itself)
-  const int sq = (h * D) % 8, sv = (hk * D) % 8, sk = kTransK ? 0 : sv;
+  // and K's (K^T's rows are D itself). Head h's columns start at h * hs of
+  // a token row: hs = D, or more where the layout pass padded each head.
+  const int sq = (h * hs) % 8, sv = (hk * hs) % 8, sk = kTransK ? 0 : sv;
 
   if (tid == 0) {
     mbar_init(&bars->q, 1);
@@ -398,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
       mbar_expect_tx(&bars->q, Sh::kQBytes);
 #pragma unroll
       for (int bx = 0; bx < NB; ++bx)
-        tma_load_3d(qs + bx * BQ * kRow, &tq, &bars->q, h * D - sq + 64 * bx,
+        tma_load_3d(qs + bx * BQ * kRow, &tq, &bars->q, h * hs - sq + 64 * bx,
                     q0, b);
       constexpr uint32_t k_bytes = kTransK ? NH * Sh::kKTBox : Sh::kTile;
       for (int j = 0; j < nkv; ++j) {
@@ -420,11 +422,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int bx = 0; bx < NB; ++bx)
             tma_load_3d(kst + bx * Sh::kBox, &tk, full,
-                        hk * D - sk + 64 * bx, row, b);
+                        hk * hs - sk + 64 * bx, row, b);
         }
 #pragma unroll
         for (int bx = 0; bx < NB; ++bx)
-          tma_load_3d(vst + bx * Sh::kBox, &tv, full, hk * D - sv + 64 * bx,
+          tma_load_3d(vst + bx * Sh::kBox, &tv, full, hk * hs - sv + 64 * bx,
                       row, b);
       }
     }
@@ -617,14 +619,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Q, K (nnn) and V as [B, S, heads * D] in boxes of 64 columns x `rows`
-// rows; K^T (ntn) as [B, D, Hkv, S] in boxes of 64 keys x 16 KS rows of D.
+// rows, a token row `pitch` elements apart (heads * D, or more where the
+// layout pass of kernels/flash.py padded the rows to 16 bytes); K^T (ntn)
+// as [B, D, Hkv, S] in boxes of 64 keys x 16 KS rows of D, a key row
+// `pitch` (S or more) elements apart.
 template <typename T>
 bool map_rows(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
-              int S, int heads, int D, int rows) {
+              int S, int heads, int D, int rows, int pitch) {
   const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 2,
+                                 (cuuint64_t)S * pitch * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   return make_map_nd_sw128(encode, map, ptr, Elem<T>::kMap, 3, dims,
                            strides, box);
@@ -632,11 +637,12 @@ bool map_rows(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
 
 template <typename T>
 bool map_kt(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
-            int S, int Hkv, int D, int d_rows) {
+            int S, int Hkv, int D, int d_rows, int pitch) {
   const cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)Hkv, (cuuint64_t)D,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)S * 2, (cuuint64_t)Hkv * S * 2,
-                                 (cuuint64_t)D * Hkv * S * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)pitch * 2,
+                                 (cuuint64_t)Hkv * pitch * 2,
+                                 (cuuint64_t)D * Hkv * pitch * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)d_rows, 1};
   return make_map_nd_sw128(encode, map, ptr, Elem<T>::kMap, 4, dims,
                            strides, box);
@@ -644,18 +650,18 @@ bool map_kt(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
 
 template <typename T, int D, int BKV, bool kCausal, bool kTransK>
 int launch(const void* Q, const void* K, const void* V, void* O, int B,
-           int S, int H, int Hkv, int window, int out_code, float qscale,
-           cudaStream_t stream) {
+           int S, int H, int Hkv, int window, int out_code, const int* pitch,
+           int hs, float qscale, cudaStream_t stream) {
   using Sh = Shape<D, BKV>;
   static_assert(Sh::kSmem <= kMaxSmem, "the tile fits a block's smem");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
-  const bool kt_ok = kTransK ? map_kt<T>(encode, &tk, K, B, S, Hkv, D,
-                                         Sh::KS * 16)
-                             : map_rows<T>(encode, &tk, K, B, S, Hkv, D, BKV);
-  if (!map_rows<T>(encode, &tq, Q, B, S, H, D, BQ) || !kt_ok ||
-      !map_rows<T>(encode, &tv, V, B, S, Hkv, D, BKV))
+  const bool kt_ok =
+      kTransK ? map_kt<T>(encode, &tk, K, B, S, Hkv, D, Sh::KS * 16, pitch[1])
+              : map_rows<T>(encode, &tk, K, B, S, Hkv, hs, BKV, pitch[1]);
+  if (!map_rows<T>(encode, &tq, Q, B, S, H, hs, BQ, pitch[0]) || !kt_ok ||
+      !map_rows<T>(encode, &tv, V, B, S, Hkv, hs, BKV, pitch[2]))
     return (int)cudaErrorInvalidValue;
   static bool smem_set[kMaxDevices];
   cudaError_t err = set_max_smem_once(fwd_kernel<T, D, BKV, kCausal, kTransK>,
@@ -664,7 +670,7 @@ int launch(const void* Q, const void* K, const void* V, void* O, int B,
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   fwd_kernel<T, D, BKV, kCausal, kTransK>
       <<<grid, kThreads, Sh::kSmem, stream>>>(tq, tk, tv, O, S, H, Hkv,
-                                              window, out_code, qscale);
+                                              window, out_code, hs, qscale);
   return (int)cudaGetLastError();
 }
 
@@ -672,18 +678,19 @@ int launch(const void* Q, const void* K, const void* V, void* O, int B,
 template <typename T, int D, int BKV>
 int launch_walk(const void* Q, const void* K, const void* V, void* O, int B,
                 int S, int H, int Hkv, int causal, int trans_k, int window,
-                int out_code, float qscale, cudaStream_t stream) {
+                int out_code, const int* pitch, int hs, float qscale,
+                cudaStream_t stream) {
   if (causal && trans_k)
     return launch<T, D, BKV, true, true>(Q, K, V, O, B, S, H, Hkv, window,
-                                         out_code, qscale, stream);
+                                         out_code, pitch, hs, qscale, stream);
   if (causal)
     return launch<T, D, BKV, true, false>(Q, K, V, O, B, S, H, Hkv, window,
-                                          out_code, qscale, stream);
+                                          out_code, pitch, hs, qscale, stream);
   if (trans_k)
     return launch<T, D, BKV, false, true>(Q, K, V, O, B, S, H, Hkv, 0,
-                                          out_code, qscale, stream);
+                                          out_code, pitch, hs, qscale, stream);
   return launch<T, D, BKV, false, false>(Q, K, V, O, B, S, H, Hkv, 0,
-                                         out_code, qscale, stream);
+                                         out_code, pitch, hs, qscale, stream);
 }
 
 // The head dims that build 128-key tiles (see Design).
@@ -693,42 +700,52 @@ constexpr bool kKv128 = D == 64;
 template <typename T, int D>
 int launch_tile(const void* Q, const void* K, const void* V, void* O, int B,
                 int S, int H, int Hkv, int causal, int trans_k, int block_kv,
-                int window, int out_code, float qscale, cudaStream_t stream) {
+                int window, int out_code, const int* pitch, int hs,
+                float qscale, cudaStream_t stream) {
   if (block_kv == 64)
     return launch_walk<T, D, 64>(Q, K, V, O, B, S, H, Hkv, causal, trans_k,
-                                 window, out_code, qscale, stream);
+                                 window, out_code, pitch, hs, qscale, stream);
   // kernels/flash.py prefill_tiles names the same instances
   if constexpr (kKv128<D>) {
     if (block_kv == 128)
       return launch_walk<T, D, 128>(Q, K, V, O, B, S, H, Hkv, causal,
-                                    trans_k, window, out_code, qscale,
-                                    stream);
+                                    trans_k, window, out_code, pitch, hs,
+                                    qscale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The entry points' body: bf16 says Q, K and V are bfloat16 (else
 // float16); out_code the output type; window 0 for none (causal only), a
-// window >= S is none. What TMA cannot address is refused: a row stride
-// (heads * D * 2 bytes) or, with trans_k, a key stride (S * 2) that is not
-// a multiple of 16.
+// window >= S is none. q_pitch, k_pitch and v_pitch: the elements between
+// two token rows of Q, K and V (heads * D as they come; K^T: between two
+// key rows, S as it comes), each at least that; head_stride: the columns
+// between two heads of a row (D, or a multiple of 8 past D where the
+// layout pass zero-padded each head). What TMA cannot address is refused:
+// a pitch of 2-byte elements that is not a multiple of 16 bytes.
 template <int D>
 int run(const void* Q, const void* K, const void* V, void* O, int B, int S,
         int H, int Hkv, int head_dim, int bf16, int out_code, int causal,
-        int trans_k, int block_kv, int window, float qscale, void* stream) {
+        int trans_k, int block_kv, int window, int q_pitch, int k_pitch,
+        int v_pitch, int head_stride, float qscale, void* stream) {
+  const int pitch[3] = {q_pitch, k_pitch, v_pitch};
+  const int hs = head_stride;
   if (head_dim != D || S < 1 || B < 1 || Hkv < 1 || H % Hkv != 0 ||
       (S + BQ - 1) / BQ > 65535 || window < 0 || (window && !causal) ||
-      out_code < kOutF16 || out_code > kOutF32 || (H * D * 2) % 16 != 0 ||
-      (Hkv * D * 2) % 16 != 0 || (trans_k && (S * 2) % 16 != 0))
+      out_code < kOutF16 || out_code > kOutF32 || q_pitch < H * hs ||
+      k_pitch < (trans_k ? S : Hkv * hs) || v_pitch < Hkv * hs ||
+      (q_pitch * 2) % 16 != 0 || (k_pitch * 2) % 16 != 0 ||
+      (v_pitch * 2) % 16 != 0 || hs < D || (hs != D && hs % 8 != 0))
     return (int)cudaErrorInvalidValue;
   if (window >= S) window = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_tile<__nv_bfloat16, D>(Q, K, V, O, B, S, H, Hkv, causal,
                                          trans_k, block_kv, window, out_code,
-                                         qscale, st);
+                                         pitch, hs, qscale, st);
   return launch_tile<half, D>(Q, K, V, O, B, S, H, Hkv, causal, trans_k,
-                              block_kv, window, out_code, qscale, st);
+                              block_kv, window, out_code, pitch, hs, qscale,
+                              st);
 }
 
 }  // namespace fa
@@ -736,13 +753,15 @@ int run(const void* Q, const void* K, const void* V, void* O, int B, int S,
 
 // One C entry point a head dim: flash_attention_fwd_d<D>(Q, K, V, O, B, S,
 // H, Hkv, head_dim, bf16, out_code, causal, trans_k, block_kv, window,
-// qscale, stream).
+// q_pitch, k_pitch, v_pitch, head_stride, qscale, stream).
 #define BBT_FLASH_ENTRY(D)                                                   \
   extern "C" int flash_attention_fwd_d##D(                                   \
       const void* Q, const void* K, const void* V, void* O, int B, int S,    \
       int H, int Hkv, int head_dim, int bf16, int out_code, int causal,      \
-      int trans_k, int block_kv, int window, float qscale, void* stream) {   \
+      int trans_k, int block_kv, int window, int q_pitch, int k_pitch,       \
+      int v_pitch, int head_stride, float qscale, void* stream) {            \
     return bbt::fa::run<D>(Q, K, V, O, B, S, H, Hkv, head_dim, bf16,        \
                            out_code, causal, trans_k, block_kv, window,      \
-                           qscale, stream);                                  \
+                           q_pitch, k_pitch, v_pitch, head_stride, qscale,   \
+                           stream);                                          \
   }

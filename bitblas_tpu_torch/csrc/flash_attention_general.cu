@@ -1,404 +1,466 @@
-// flash_attention_general: kernel 4's general instance, for every
-// configuration that no specialized instance takes: Q [B, S, H, D] x K
-// [B, S, Hkv, D] (or K^T [B, D, Hkv, S]) x V [B, S, Hkv, D] -> O [B, S, H,
-// D] in float16, bfloat16 or float32, for float16 / bfloat16 operands at
-// any head dim up to kMaxHeadDim: head dims outside flash_attention.cuh's
-// instances (16, 32, 48, 112, 160, 384, 512, ...), D % 8 == 4 with an odd
-// H or Hkv, whose rows TMA cannot address, and trans_k with S % 8 != 0,
-// whose key stride TMA cannot address; causal (with an optional sliding
-// window) or dense, GQA, any S >= 1. float32 operands run
-// flash_attention_f32.cu at every head dim.
+// flash_attention_general: kernel 4's general instance, for the 16-bit
+// head dims that no instance of flash_attention.cuh takes: Q [B, S, H, D]
+// x K [B, S, Hkv, D] x V [B, S, Hkv, D] -> O [B, S, H, d_out] in float16,
+// bfloat16 or float32, for float16 / bfloat16 operands at any head dim D
+// up to kMaxHeadDim with D % 16 == 0; causal (with an optional sliding
+// window) or dense, GQA, any S >= 1. kernels/flash.py's layout pass
+// hands it that form: a head dim off 16 zero-padded to the next multiple
+// of 16 (d_out keeps the true D, and qscale 1/sqrt of it) and K^T
+// transposed into K's layout. float32 operands run flash_attention_f32.cu.
 //
 // Replaces bitblas_tpu/kernels/flash.py:make_flash_attention (pallas_call
-// at :393 and :415) for those configurations: JAX takes any D (its
-// zero-pad shim rounds D up to a multiple of 128 when H or Hkv > 1 and
-// keeps 1/sqrt of the true D, :122-150), and its FlashAtten serves a K^T
-// layout its kernel cannot tile through its oracle (ops/flashatten.py:
-// 138-147). The arithmetic is kernel 4's: Q is scaled by log2(e)/sqrt(D)
-// in float32 and rounded to Q's type (the fold of flash.py:437-441), the
-// scores and the online softmax are float32, 16-bit P is rounded to Q's
-// type before P V as in the wgmma instances, and keys >= S are masked
-// and their V rows zeroed (flash.py:44-47).
+// at :393 and :415) for those head dims: JAX takes any D (its zero-pad
+// shim rounds D up to a multiple of 128 when H or Hkv > 1 and keeps
+// 1/sqrt of the true D, :122-150). The arithmetic is the wgmma instances':
+// Q is scaled by log2(e)/sqrt(D) in float32 and rounded to Q's type (the
+// fold of flash.py:437-441), the scores and the online softmax are
+// float32, P is rounded to Q's type before P V, and keys >= S are masked
+// and their V rows read as zeros (flash.py:44-47).
 //
 // What bounds it on the H100: the products, 4*B*H*S^2*D FLOPs (half with
 // causality; 4 H D sum_i min(i + 1, window) with a window) over the
-// tensor cores' 989 TFLOP/s, or below S ~ 1,000 the bytes (Q, K, V read
-// once, O written once). This instance
-// is the simple one that any stride and any D take; the main path's
-// shapes run the wgmma + TMA instances, and its time is written down.
+// tensor cores' 989 TFLOP/s, or at short S the bytes (Q, K, V read once,
+// O written once).
 //
-// Design (gen16_kernel). One block of 4 warps per (64 q rows,
-// batch * head, 128 output columns): warp w owns rows 16 w .. 16 w + 15.
-//   - Plain loads into shared memory, so any stride, any head offset and
-//     any D work: 16-byte chunks at D % 8 == 0 (rows start on 16-byte
-//     multiples there), else one element at a time. Q once (scaled and
-//     rounded, columns past D and rows past S zero), then per tile of 64
-//     keys K (from K or K^T) and the block's 128 columns of V, transposed
-//     so that P V reads its B fragments as pairs of keys; keys past S
-//     zero. Rows are padded to 16 columns plus 8 elements (16 bytes),
-//     which keeps the mma.sync fragment reads free of bank conflicts.
-//   - S = Q K^T by mma.sync m16n8k16 over D in steps of 16 (f32 sums); the
-//     causal, window and key >= S masks on every visited tile; the online
-//     softmax in registers, a max of -inf taken as 0 in the exponents (a
-//     window can mask a row's whole first tile: no exp2(-inf + inf) NaN,
-//     the trap of flash.py:186-192); P rounded to Q's type is the A
-//     fragment of the next mma as it stands (the FlashAttention-2 layout).
-//   - O (64 x 128 f32: 64 registers a thread) += P V, 16 keys a step.
-//   - D is walked in chunks of 128 output columns, one chunk a block
-//     (grid z): a wide head's accumulator never has to sit in registers
-//     whole; each chunk computes the same scores again (so a head dim of
-//     512 takes 4x the QK^T products of one pass).
-//   - The walk is the wgmma instances': causal tiles lo .. hi (hi the tile
-//     of the q tile's last row, lo the first tile of the band with a
-//     window), dense every tile, longest walks first.
-// Shared memory sets the cap: Q and one K tile hold the whole head dim
-// (at D = 768, 2 x 64 x 776 x 2 bytes + V's 18 KB, 217 KB of 227). Above
-// it the entry point refuses and kernels/flash.py raises
-// NotImplementedError naming the cap.
+// Design (gen_kernel: the FlashAttention-3 form of flash_attention.cuh
+// with the head dim split over warpgroups). One block per (64 q rows,
+// batch * head): NW consumer warpgroups (NW = ceil(D / 256): 1, 2 or 3)
+// and a producer warp. The head dim is cut into 64-column boxes (128
+// bytes, the 128-byte swizzle's width); warpgroup w owns boxes w, w + NW,
+// w + 2 NW, ... (at most 4: an O slab of up to 256 columns, 128 f32
+// registers a thread).
+//   - Q: TMA loads its boxes once; the consumers scale them in place
+//     (columns >= D, the next head's, become 0).
+//   - The ring: the producer keeps TMA loads of K and V boxes in flight,
+//     kStages stages on mbarriers; a stage holds one 64-key box of each
+//     warpgroup (K boxes of a key tile first, then its V boxes). Every
+//     warpgroup walks every stage in order and releases it (128 arrivals
+//     each), so no barrier phase is ever waited two ahead.
+//   - Scores once: each warpgroup sums its boxes' share of S = Q K^T
+//     (wgmma m64n64k16, both operands from shared memory, only the k16
+//     steps inside D); with NW > 1 the partial scores meet in shared
+//     memory and every warpgroup adds them in the same order, so all hold
+//     the same S. Then the masks and the online softmax in registers (a
+//     max of -inf taken as 0 in the exponents: a window can mask a row's
+//     whole first tile, the trap of flash.py:186-192).
+//   - O += P V: P (the scores rounded to pairs of Q's type) is wgmma's A
+//     fragment in registers; each of the warpgroup's V boxes is a
+//     transposed (MN-major) B through the descriptor's transpose bit: no
+//     transposing store anywhere.
+//   - The walk is the wgmma instances': causal tiles lo .. hi, dense every
+//     tile, longest walks first (the walk a run-time argument here: one
+//     instance a type and width, six in all).
+// Shared memory sets the cap: at D = 768 Q (96 KB), three stages of three
+// 8 KB boxes (72 KB) and the partial scores (48 KB) fill 217 KB of 227.
+// Above it kernels/flash.py raises NotImplementedError naming the cap.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+#include "flash_attention.cuh"
 
-#include "common.cuh"
+namespace bbt {
+namespace fag {
 
-namespace {
+using fa::BQ;
+using fa::Elem;
+using fa::kRow;
+using fa::store2;
 
 constexpr int kMaxHeadDim = 768;   // kernels/flash.py GENERAL_MAX_HEAD_DIM
-constexpr int kThreads = 128;
-constexpr int kOutF16 = 0, kOutBF16 = 1, kOutF32 = 2;
+constexpr int BKV = 64;            // keys a tile
+constexpr int kBox = BKV * kRow;   // one 64-key x 64-column box: 8 KB
 
-// q rows a block, keys a tile, output columns a block
-constexpr int BQ = 64, BK = 64, DC = 128;
-
-__host__ __device__ constexpr int round16(int d) { return (d + 15) / 16 * 16; }
-// the 16-bit tiles' row pitch (elements): 16-column steps plus 16 bytes
-__host__ __device__ constexpr int pitch16(int d) { return round16(d) + 8; }
-constexpr int kVPitch = BK + 8;   // V^T rows: 64 keys plus 16 bytes
-
-int smem16(int D) {
-  return (BQ + BK) * pitch16(D) * 2 + DC * kVPitch * 2;
-}
-
-template <typename T>
-struct Cvt;
-template <>
-struct Cvt<half> {
-  __device__ __forceinline__ static float to(half x) { return __half2float(x); }
-  __device__ __forceinline__ static half from(float x) {
-    return __float2half_rn(x);
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    const half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
-                                             const uint32_t* b) {
-    bbt::mma_16816(d, a, b);
-  }
-};
-template <>
-struct Cvt<__nv_bfloat16> {
-  __device__ __forceinline__ static float to(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  __device__ __forceinline__ static __nv_bfloat16 from(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&h);
-  }
-  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
-                                             const uint32_t* b) {
-    bbt::mma_16816_bf16(d, a, b);
+template <int NW>
+struct GShape {
+  static constexpr int kConsumers = NW * 128;
+  static constexpr int kThreads = kConsumers + 32;   // + the producer warp
+  static constexpr int kStages = NW == 1 ? 6 : NW == 2 ? 4 : 3;
+  static constexpr int kStageBytes = NW * kBox;
+  static constexpr int kXBytes = NW > 1 ? NW * BQ * BKV * 4 : 0;
+  static constexpr int kBarBytes = 256;
+  // dynamic shared memory at `boxes` 64-column boxes of D
+  static constexpr int smem(int boxes) {
+    return 1024 + boxes * BQ * kRow + kStages * kStageBytes + kXBytes +
+           kBarBytes;
   }
 };
 
-__device__ __forceinline__ void store1(void* O, size_t idx, float x,
-                                       int out_code) {
-  if (out_code == kOutF32)
-    static_cast<float*>(O)[idx] = x;
-  else if (out_code == kOutBF16)
-    static_cast<__nv_bfloat16*>(O)[idx] = __float2bfloat16_rn(x);
-  else
-    static_cast<half*>(O)[idx] = __float2half_rn(x);
+template <int NW>
+struct GBars {
+  uint64_t q;
+  uint64_t full[GShape<NW>::kStages], empty[GShape<NW>::kStages];
+};
+
+// Two adjacent outputs (d, d + 1 < d_out) at p; scalar stores when the row
+// of d_out elements may start off a pair.
+template <typename OT>
+__device__ __forceinline__ void store_pair(OT* p, float lo, float hi,
+                                           bool pairs, bool second) {
+  if (pairs) {
+    store2(p, lo, hi);
+  } else {
+    if constexpr (std::is_same<OT, float>::value) {
+      p[0] = lo;
+      if (second) p[1] = hi;
+    } else {
+      const uint32_t x = Elem<OT>::from2(lo, hi);
+      const OT* e = reinterpret_cast<const OT*>(&x);
+      p[0] = e[0];
+      if (second) p[1] = e[1];
+    }
+  }
 }
 
-// The causal walk's tiles lo .. hi of q tile qt (tiles of `bk` keys, q
-// tiles of `bq` rows); dense: every tile.
-__device__ __forceinline__ void walk(int qt, int bq, int bk, int S,
-                                     int causal, int window, int& lo,
-                                     int& hi) {
-  const int q0 = qt * bq;
-  hi = causal ? min((q0 + bq - 1) / bk, (S - 1) / bk) : (S - 1) / bk;
-  lo = causal && window > 0 ? max(0, (q0 - window + 1) / bk) : 0;
-}
+// D: the kernel's head dim (a multiple of 16, the tensors' own); d_out the
+// columns of O a head (<= D). window: 0 for none, else >= 1 (causal only).
+template <typename T, int NW>
+__global__ void __launch_bounds__(GShape<NW>::kThreads, 1)
+    gen_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, void* __restrict__ O,
+               int S, int H, int Hkv, int D, int d_out, int causal,
+               int window, int out_code, float qscale) {
+  using G = GShape<NW>;
+  constexpr int kStages = G::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int KB = (D + 63) / 64;            // boxes of the head dim
+  const int SPT = (KB + NW - 1) / NW;      // stages of a tile's K (or V)
+  unsigned char* qs = smem;                            // KB boxes of Q
+  unsigned char* ring = qs + KB * BQ * kRow;           // kStages stages
+  float* xs = reinterpret_cast<float*>(ring + kStages * G::kStageBytes);
+  GBars<NW>* bars = reinterpret_cast<GBars<NW>*>(
+      reinterpret_cast<unsigned char*>(xs) + G::kXBytes);
 
-__device__ __forceinline__ bool masked(int key, int row, int S, int causal,
-                                       int window) {
-  return key >= S || (causal && key > row) ||
-         (window > 0 && key <= row - window);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gen16_kernel(const T* __restrict__ Q, const T* __restrict__ K,
-                 const T* __restrict__ V, void* __restrict__ O, int S, int H,
-                 int Hkv, int D, int causal, int trans_k, int window,
-                 int out_code, float qscale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int P = pitch16(D), D16 = round16(D);
-  T* qs = reinterpret_cast<T*>(smem);   // [BQ][P]
-  T* ks = qs + BQ * P;                  // [BK][P]
-  T* vt = ks + BK * P;                  // [DC][kVPitch]: V^T of the chunk
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x;
   const int nq = (S + BQ - 1) / BQ;
   const int qt = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
   const int q0 = qt * BQ;
-  const int dc0 = blockIdx.z * DC;           // the block's first column
-  const int ncol = min(DC, D - dc0);         // its columns
-  int lo, hi;
-  walk(qt, BQ, BK, S, causal, window, lo, hi);
+  const int hi = causal ? (q0 + BQ - 1) / BKV : (S + BKV - 1) / BKV - 1;
+  const int lo = causal && window > 0 ? max(0, (q0 - window + 1) / BKV) : 0;
+  const int nkv = hi + 1 - lo;
 
-  // At D % 8 == 0 every head's row starts on a 16-byte multiple (the
-  // row stride heads * D * 2 bytes and the head's offset are multiples of
-  // 16), and Q, K and V move in 16-byte chunks of 8 elements; else one
-  // element at a time.
-  const bool vec = D % 8 == 0;
-  const int C8 = D16 / 8;   // 16-byte chunks of a tile row
-  // Q -> Q * log2(e)/sqrt(D) rounded to T; rows >= S and columns >= D 0
-  if (vec) {
-    for (int i = tid; i < BQ * C8; i += kThreads) {
-      const int r = i / C8, c = i % C8, row = q0 + r;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (row < S && c * 8 < D) {
-        x = *reinterpret_cast<const uint4*>(
-            Q + (((size_t)b * S + row) * H + h) * D + c * 8);
-        T* e = reinterpret_cast<T*>(&x);
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          e[k] = Cvt<T>::from(Cvt<T>::to(e[k]) * qscale);
+  if (tid == 0) {
+    mbar_init(&bars->q, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&bars->full[i], 1);
+      mbar_init(&bars->empty[i], G::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= G::kConsumers) {   // the producer warp: one thread issues
+    if (tid == G::kConsumers) {
+      mbar_expect_tx(&bars->q, KB * BQ * kRow);
+      for (int bx = 0; bx < KB; ++bx)
+        tma_load_3d(qs + bx * BQ * kRow, &tq, &bars->q, h * D + 64 * bx, q0,
+                    b);
+      int seq = 0;
+      for (int j = 0; j < nkv; ++j) {
+        const int row = (lo + j) * BKV;
+        for (int half = 0; half < 2; ++half) {
+          const CUtensorMap* map = half ? &tv : &tk;
+          for (int k = 0; k < SPT; ++k, ++seq) {
+            const int st = seq % kStages;
+            if (seq >= kStages)
+              mbar_wait(&bars->empty[st], (seq / kStages - 1) & 1);
+            const int nbox = min(NW, KB - k * NW);
+            mbar_expect_tx(&bars->full[st], nbox * kBox);
+            for (int w = 0; w < nbox; ++w)
+              tma_load_3d(ring + st * G::kStageBytes + w * kBox, map,
+                          &bars->full[st], hk * D + 64 * (k * NW + w), row,
+                          b);
+          }
+        }
       }
-      *reinterpret_cast<uint4*>(qs + r * P + c * 8) = x;
     }
-  } else {
-    for (int i = tid; i < BQ * D16; i += kThreads) {
-      const int r = i / D16, d = i % D16;
-      const int row = q0 + r;
-      float x = 0.f;
-      if (row < S && d < D)
-        x = Cvt<T>::to(Q[(((size_t)b * S + row) * H + h) * D + d]) * qscale;
-      qs[r * P + d] = Cvt<T>::from(x);
-    }
+    return;
   }
 
-  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
-  const T* qw = qs + warp * 16 * P;
-  float o[DC / 8][4];
-#pragma unroll
-  for (int n = 0; n < DC / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  const T zero = Cvt<T>::from(0.f);
+  // The consumers: warpgroup wg, its warp w4 owns q rows 16 w4 ..; a
+  // thread holds rows g and g + 8 of them (wgmma's accumulator layout).
+  const int wg = tid / 128, tw = tid % 128;
+  const int lane = tw % 32, g = lane >> 2, t = lane & 3;
+  const int r_lo = q0 + (tw / 32) * 16 + g, r_hi = r_lo + 8;
+  const int nb = (KB - wg + NW - 1) / NW;   // the warpgroup's boxes
 
-  for (int kt = lo; kt <= hi; ++kt) {
-    const int kb = kt * BK;
-    __syncthreads();   // the previous tile's K and V are read (Q written)
-    if (trans_k) {     // K^T [B, D, Hkv, S]: keys contiguous
-      for (int i = tid; i < BK * D16; i += kThreads) {
-        const int d = i / BK, j = i % BK, key = kb + j;
-        ks[j * P + d] = key < S && d < D
-                            ? K[(((size_t)b * D + d) * Hkv + hk) * S + key]
-                            : zero;
-      }
-    } else if (vec) {
-      for (int i = tid; i < BK * C8; i += kThreads) {
-        const int j = i / C8, c = i % C8, key = kb + j;
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);
-        if (key < S && c * 8 < D)
-          x = *reinterpret_cast<const uint4*>(
-              K + (((size_t)b * S + key) * Hkv + hk) * D + c * 8);
-        *reinterpret_cast<uint4*>(ks + j * P + c * 8) = x;
-      }
-    } else {
-      for (int i = tid; i < BK * D16; i += kThreads) {
-        const int j = i / D16, d = i % D16, key = kb + j;
-        ks[j * P + d] = key < S && d < D
-                            ? K[(((size_t)b * S + key) * Hkv + hk) * D + d]
-                            : zero;
-      }
-    }
-    if (vec) {         // 8 columns of one key a chunk, stored transposed
-      for (int i = tid; i < BK * (DC / 8); i += kThreads) {
-        const int j = i / (DC / 8), c = (i % (DC / 8)) * 8, key = kb + j;
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);
-        if (key < S && c < ncol)
-          x = *reinterpret_cast<const uint4*>(
-              V + (((size_t)b * S + key) * Hkv + hk) * D + dc0 + c);
-        const T* e = reinterpret_cast<const T*>(&x);
+  mbar_wait(&bars->q, 0);
+  {
+    // Q -> Q * log2(e)/sqrt(D), rounded to T, in place; columns >= D (the
+    // next head's, or zeros) -> 0. Chunk c of row r of a box sits at
+    // chunk c ^ (r % 8) (the 128-byte swizzle).
+    uint4* q4 = reinterpret_cast<uint4*>(qs);
+    for (int i = tid; i < KB * BQ * 8; i += G::kConsumers) {
+      uint4 x = q4[i];
+      uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+      const int within = i % (BQ * 8), r = within / 8;
+      const int col0 = (i / (BQ * 8)) * 64 + (((within % 8) ^ (r & 7)) * 8);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) vt[(c + k) * kVPitch + j] = e[k];
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = Elem<T>::to2(w[e]);
+        w[e] = col0 + 2 * e < D ? Elem<T>::from2(f.x * qscale, f.y * qscale)
+                                : 0u;
       }
-    } else {
-      for (int i = tid; i < BK * DC; i += kThreads) {
-        const int j = i / DC, c = i % DC, key = kb + j;
-        vt[c * kVPitch + j] =
-            key < S && c < ncol
-                ? V[(((size_t)b * S + key) * Hkv + hk) * D + dc0 + c]
-                : zero;
-      }
+      q4[i] = x;
     }
-    __syncthreads();
+    fence_proxy_async();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(G::kConsumers) : "memory");
+  }
+  const uint32_t q_addr = smem_u32(qs);
+  const uint32_t ring_addr = smem_u32(ring) + wg * kBox;
 
-    // S (16 rows x 64 keys a warp) = Q K^T, 8 key groups of 8
-    float s[BK / 8][4];
+  auto mask = [&](float (&s)[1][32], int kt) {
+    const int kb = kt * BKV;
+    const bool diag = causal && kb + BKV - 1 > q0;
+    const bool edge = causal && window > 0 && kb < q0 + BQ - window;
+    const bool tail = !causal && kb + BKV > S;
+    if (!diag && !edge && !tail) return;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    for (int k0 = 0; k0 < D16; k0 += 16) {
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qw + g * P + k0 + 2 * t);
-      a[1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * P + k0 + 2 * t);
-      a[2] = *reinterpret_cast<const uint32_t*>(qw + g * P + k0 + 8 + 2 * t);
-      a[3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * P + k0 + 8 +
-                                                2 * t);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const T* kr = ks + (n * 8 + g) * P + k0 + 2 * t;
-        const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                                *reinterpret_cast<const uint32_t*>(kr + 8)};
-        Cvt<T>::mma(s[n], a, bb);
-      }
-    }
-
-    // masks, then the online softmax of rows r_lo (s[n][0..1]) and r_hi
-    // (s[n][2..3])
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+    for (int n = 0; n < 8; ++n) {
       const int key = kb + n * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (masked(key + e, r_lo, S, causal, window)) s[n][e] = -INFINITY;
-        if (masked(key + e, r_hi, S, causal, window)) s[n][2 + e] = -INFINITY;
+      float* e = &s[0][4 * n];
+      if (diag) {
+        if (key > r_lo) e[0] = -INFINITY;
+        if (key + 1 > r_lo) e[1] = -INFINITY;
+        if (key > r_hi) e[2] = -INFINITY;
+        if (key + 1 > r_hi) e[3] = -INFINITY;
       }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+      if (edge) {
+        if (key <= r_lo - window) e[0] = -INFINITY;
+        if (key + 1 <= r_lo - window) e[1] = -INFINITY;
+        if (key <= r_hi - window) e[2] = -INFINITY;
+        if (key + 1 <= r_hi - window) e[3] = -INFINITY;
+      }
+      if (tail) {
+        if (key >= S) e[0] = e[2] = -INFINITY;
+        if (key + 1 >= S) e[1] = e[3] = -INFINITY;
+      }
     }
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, w));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, w));
-    }
-    const float mu_lo = mx_lo == -INFINITY ? 0.f : mx_lo;
-    const float mu_hi = mx_hi == -INFINITY ? 0.f : mx_hi;
-    const float alpha_lo = exp2f(m_lo - mu_lo), alpha_hi = exp2f(m_hi - mu_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mu_lo);
-      s[n][1] = exp2f(s[n][1] - mu_lo);
-      s[n][2] = exp2f(s[n][2] - mu_hi);
-      s[n][3] = exp2f(s[n][3] - mu_hi);
-      sum_lo += s[n][0] + s[n][1];
-      sum_hi += s[n][2] + s[n][3];
-    }
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {
-      sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, w);
-      sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, w);
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int n = 0; n < DC / 8; ++n) {
-      o[n][0] *= alpha_lo;
-      o[n][1] *= alpha_lo;
-      o[n][2] *= alpha_hi;
-      o[n][3] *= alpha_hi;
-    }
+  };
 
-    // O += P V, 16 keys a step: P's A fragment is the scores' layout
+  float o[4][32];   // the warpgroup's O slab, one box of 64 columns each
+  float s[1][32];
+  uint32_t p[1][16];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {
-          Cvt<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-          Cvt<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-          Cvt<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          Cvt<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+  for (int i = 0; i < 32; ++i) {
+    s[0][i] = 0.f;
 #pragma unroll
-      for (int n = 0; n < DC / 8; ++n) {
-        if (n * 8 >= ncol) break;   // the chunk's last columns (uniform)
-        const T* vr = vt + (n * 8 + g) * kVPitch + kk * 16 + 2 * t;
-        const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(vr),
-                                *reinterpret_cast<const uint32_t*>(vr + 8)};
-        Cvt<T>::mma(o[n], a, bb);
+    for (int k = 0; k < 4; ++k) o[k][i] = 0.f;
+  }
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  int seq = 0;
+
+  // A stage is released once the products reading it are done: the
+  // products of box k are issued before those of box k - 1 are waited for
+  // (wgmma_wait<1>), so two boxes' products are in flight at a time; a
+  // stage with no box of this warpgroup waits for all (its own boxes come
+  // first).
+  auto release = [&](int k, int st_prev) {
+    if (k < nb) wgmma_wait<1>();
+    else wgmma_wait<0>();
+    mbar_arrive(&bars->empty[st_prev]);
+  };
+
+  for (int j = 0; j < nkv; ++j) {
+    // this warpgroup's share of S = Q K^T: its K boxes, k16 steps in D
+    int st_prev = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k >= SPT) break;
+      const int st = seq % kStages;
+      mbar_wait(&bars->full[st], (seq / kStages) & 1);
+      if (k < nb) {
+        const int bx = k * NW + wg;
+        const int steps = min(4, (D - 64 * bx) / 16);
+        wgmma_fence();
+        for (int kk = 0; kk < steps; ++kk)
+          fa::wgmma_ss<T, false>(
+              s[0], desc_sw128(q_addr + bx * BQ * kRow + kk * 32),
+              desc_sw128(ring_addr + st * G::kStageBytes + kk * 32),
+              k > 0 || kk > 0);
+        wgmma_commit();
+      }
+      if (k > 0) release(k, st_prev);
+      st_prev = st;
+      ++seq;
+    }
+    wgmma_wait<0>();
+    fence_regs(s[0]);
+    mbar_arrive(&bars->empty[st_prev]);
+    if constexpr (NW > 1) {
+      // the partial scores meet in shared memory, [wg][chunk][thread]
+      float4* x4 = reinterpret_cast<float4*>(xs);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        x4[(wg * 8 + c) * 128 + tw] = make_float4(
+            s[0][4 * c], s[0][4 * c + 1], s[0][4 * c + 2], s[0][4 * c + 3]);
+      asm volatile("bar.sync 2, %0;\n" ::"n"(G::kConsumers) : "memory");
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float4 acc = x4[c * 128 + tw];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) {
+          const float4 y = x4[(w * 8 + c) * 128 + tw];
+          acc.x += y.x;
+          acc.y += y.y;
+          acc.z += y.z;
+          acc.w += y.w;
+        }
+        s[0][4 * c] = acc.x;
+        s[0][4 * c + 1] = acc.y;
+        s[0][4 * c + 2] = acc.z;
+        s[0][4 * c + 3] = acc.w;
+      }
+      // every warpgroup has read them before any writes the next tile's
+      asm volatile("bar.sync 2, %0;\n" ::"n"(G::kConsumers) : "memory");
+    }
+    mask(s, lo + j);
+    float alpha_lo, alpha_hi;
+    fa::softmax_tile<T, 1>(s, p, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[k][4 * n] *= alpha_lo;
+        o[k][4 * n + 1] *= alpha_lo;
+        o[k][4 * n + 2] *= alpha_hi;
+        o[k][4 * n + 3] *= alpha_hi;
       }
     }
+    // O += P V over the warpgroup's V boxes, 16 keys (2048 bytes) a step
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k >= SPT) break;
+      const int st = seq % kStages;
+      mbar_wait(&bars->full[st], (seq / kStages) & 1);
+      if (k < nb) {
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint32_t a[4] = {p[0][4 * ks], p[0][4 * ks + 1],
+                                 p[0][4 * ks + 2], p[0][4 * ks + 3]};
+          fa::wgmma_rs_t<T>(o[k], a,
+                            desc_sw128(ring_addr + st * G::kStageBytes +
+                                       ks * 2048));
+        }
+        wgmma_commit();
+      }
+      if (k > 0) release(k, st_prev);
+      st_prev = st;
+      ++seq;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) fence_regs(o[k]);
+    keep_regs(p[0]);
+    mbar_arrive(&bars->empty[st_prev]);
   }
 
   // every row attends at least one key (its own, or key 0): l > 0
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  const size_t q_row = (size_t)H * d_out;   // elements of O a token row
+  const size_t lo_idx = ((size_t)b * S + r_lo) * q_row + (size_t)h * d_out;
+  const size_t hi_idx = lo_idx + 8 * q_row;
+  const bool pairs = d_out % 2 == 0;
+  auto store = [&](auto* out) {   // in the output type, chosen once
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n) {
+    for (int k = 0; k < 4; ++k) {
+      if (k >= nb) break;
+      const int bx = k * NW + wg;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = n * 8 + 2 * t + e;
-      if (c >= ncol) continue;
-      const size_t col = (size_t)h * D + dc0 + c;
-      if (r_lo < S)
-        store1(O, ((size_t)b * S + r_lo) * H * D + col, o[n][e] * inv_lo,
-               out_code);
-      if (r_hi < S)
-        store1(O, ((size_t)b * S + r_hi) * H * D + col, o[n][2 + e] * inv_hi,
-               out_code);
+      for (int n = 0; n < 8; ++n) {
+        const int d = bx * 64 + n * 8 + 2 * t;
+        if (d >= d_out) continue;
+        const bool second = d + 1 < d_out;
+        if (r_lo < S)
+          store_pair(out + lo_idx + d, o[k][4 * n] * inv_lo,
+                     o[k][4 * n + 1] * inv_lo, pairs, second);
+        if (r_hi < S)
+          store_pair(out + hi_idx + d, o[k][4 * n + 2] * inv_hi,
+                     o[k][4 * n + 3] * inv_hi, pairs, second);
+      }
     }
-  }
+  };
+  if (out_code == fa::kOutF32)
+    store(static_cast<float*>(O));
+  else if (out_code == fa::kOutBF16)
+    store(static_cast<__nv_bfloat16*>(O));
+  else
+    store(static_cast<half*>(O));
 }
 
-template <typename T>
-int launch16(const void* Q, const void* K, const void* V, void* O, int B,
-             int S, int H, int Hkv, int D, int causal, int trans_k,
-             int window, int out_code, float qscale, cudaStream_t stream) {
-  static bool smem_set[bbt::kMaxDevices];
-  cudaError_t err = bbt::set_max_smem_once(gen16_kernel<T>,
-                                           smem16(kMaxHeadDim), smem_set);
+template <typename T, int NW>
+int launch(const void* Q, const void* K, const void* V, void* O, int B,
+           int S, int H, int Hkv, int D, int d_out, int causal, int window,
+           int out_code, const int* pitch, float qscale,
+           cudaStream_t stream) {
+  using G = GShape<NW>;
+  static_assert(G::smem(4 * NW) <= fa::kMaxSmem, "fits a block's smem");
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  if (!fa::map_rows<T>(encode, &tq, Q, B, S, H, D, BQ, pitch[0]) ||
+      !fa::map_rows<T>(encode, &tk, K, B, S, Hkv, D, BKV, pitch[1]) ||
+      !fa::map_rows<T>(encode, &tv, V, B, S, Hkv, D, BKV, pitch[2]))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set[kMaxDevices];
+  cudaError_t err =
+      set_max_smem_once(gen_kernel<T, NW>, G::smem(4 * NW), smem_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (S + BQ - 1) / BQ, (D + DC - 1) / DC);
-  gen16_kernel<T><<<grid, kThreads, smem16(D), stream>>>(
-      static_cast<const T*>(Q), static_cast<const T*>(K),
-      static_cast<const T*>(V), O, S, H, Hkv, D, causal, trans_k, window,
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  gen_kernel<T, NW><<<grid, G::kThreads, G::smem((D + 63) / 64), stream>>>(
+      tq, tk, tv, O, S, H, Hkv, D, d_out, causal, causal ? window : 0,
       out_code, qscale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+template <typename T>
+int launch_width(const void* Q, const void* K, const void* V, void* O,
+                 int B, int S, int H, int Hkv, int D, int d_out, int causal,
+                 int window, int out_code, const int* pitch, float qscale,
+                 cudaStream_t stream) {
+  if (D <= 256)
+    return launch<T, 1>(Q, K, V, O, B, S, H, Hkv, D, d_out, causal, window,
+                        out_code, pitch, qscale, stream);
+  if (D <= 512)
+    return launch<T, 2>(Q, K, V, O, B, S, H, Hkv, D, d_out, causal, window,
+                        out_code, pitch, qscale, stream);
+  return launch<T, 3>(Q, K, V, O, B, S, H, Hkv, D, d_out, causal, window,
+                      out_code, pitch, qscale, stream);
+}
 
-// dtype_code: Q, K and V float16 (0) or bfloat16 (1); out_code 0 float16,
-// 1 bfloat16, 2 float32; window 0 for none (causal only), a window >= S is
-// none. Head dims 1 .. kMaxHeadDim.
-extern "C" int flash_attention_general(const void* Q, const void* K,
-                                       const void* V, void* O, int B, int S,
-                                       int H, int Hkv, int head_dim,
-                                       int dtype_code, int out_code,
-                                       int causal, int trans_k, int window,
-                                       float qscale, void* stream) {
+}  // namespace fag
+}  // namespace bbt
+
+// head_dim: the tensors' head dim D (D % 16 == 0, up to kMaxHeadDim);
+// d_out: O's (the true head dim, <= D); bf16: Q, K and V bfloat16 (else
+// float16); out_code 0 float16, 1 bfloat16, 2 float32; window 0 for none
+// (causal only), a window >= S is none; q_pitch / k_pitch / v_pitch: the
+// elements between two token rows (heads * D or more, 16-byte multiples).
+extern "C" int flash_attention_general(
+    const void* Q, const void* K, const void* V, void* O, int B, int S,
+    int H, int Hkv, int head_dim, int d_out, int bf16, int out_code,
+    int causal, int window, int q_pitch, int k_pitch, int v_pitch,
+    float qscale, void* stream) {
   const int D = head_dim;
-  if (D < 1 || D > kMaxHeadDim || S < 1 || B < 1 || Hkv < 1 ||
-      H % Hkv != 0 || (S + BQ - 1) / BQ > 65535 || window < 0 ||
-      (window && !causal) || out_code < kOutF16 || out_code > kOutF32 ||
-      dtype_code < 0 || dtype_code > 1)
+  const int pitch[3] = {q_pitch, k_pitch, v_pitch};
+  if (D < 16 || D > bbt::fag::kMaxHeadDim || D % 16 != 0 || d_out < 1 ||
+      d_out > D || S < 1 || B < 1 || Hkv < 1 || H % Hkv != 0 ||
+      (S + bbt::fa::BQ - 1) / bbt::fa::BQ > 65535 || window < 0 ||
+      (window && !causal) || out_code < bbt::fa::kOutF16 ||
+      out_code > bbt::fa::kOutF32 || q_pitch < H * D || k_pitch < Hkv * D ||
+      v_pitch < Hkv * D || q_pitch % 8 || k_pitch % 8 || v_pitch % 8)
     return (int)cudaErrorInvalidValue;
   if (window >= S) window = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1)
-    return launch16<__nv_bfloat16>(Q, K, V, O, B, S, H, Hkv, D, causal,
-                                   trans_k, window, out_code, qscale, st);
-  return launch16<half>(Q, K, V, O, B, S, H, Hkv, D, causal, trans_k, window,
-                        out_code, qscale, st);
+  if (bf16)
+    return bbt::fag::launch_width<__nv_bfloat16>(
+        Q, K, V, O, B, S, H, Hkv, D, d_out, causal, window, out_code, pitch,
+        qscale, st);
+  return bbt::fag::launch_width<half>(Q, K, V, O, B, S, H, Hkv, D, d_out,
+                                      causal, window, out_code, pitch, qscale,
+                                      st);
 }

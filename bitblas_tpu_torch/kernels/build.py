@@ -52,7 +52,8 @@ SOURCES = ("dequant_matmul", "dequant_matmul_i2", "weight_decode",
            "dequant_int_u1", "dequant_int_u2", "dequant_int_u4",
            "dequant_int_i1", "dequant_int_i2", "dequant_int_i4",
            # kernels 1-3's general instance: every other configuration
-           "dequant_general")
+           # (the mma.sync units and the decode; the DMMA and FFMA units)
+           "dequant_general", "dequant_general_ffma")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, object] = {}

@@ -199,7 +199,7 @@ for _fmt in INT_FORMATS:
         fmt_decode_tile(source_format_and_bits(split_format(_fmt)[0])[1]),
         INT_TILED_TILE)
 # The general instance (kernels/general.py, csrc/dequant_general.cu): one
-# tile, 32 tokens x 64 weight rows, K in steps of 32.
+# tile, up to 512 tokens x 64 weight rows, K in steps of 32.
 FUSED_TILES["general"] = (GENERAL_TILE,)
 # Integer sums stay exact in float32 while |acc| <= K * 128 * 2 <= 2^24.
 I2_MAX_K = 1 << 16
@@ -299,8 +299,11 @@ def fused_smem_bytes(fmt: str, tile, group: int = GROUP) -> int:
     size, A over 8 steps of 256 (16 rows), A's 16 row sums and the
     per-thread ring of two 16-byte weight chunks a stage."""
     bm, bn, bk, stages = tile
-    if fmt == "general":   # static: A's and the weight's tiles, float64
-        return bk * (bm + 1) * 8 + bk * (bn + 1) * 8
+    if fmt == "general":   # the largest instance: float16 operands from
+        # one-byte A at 512 rows (the ring's A and 32-bit weight words, two
+        # operand tiles of each)
+        return stages * (bm * (bk + 16) + bn * bk * 4) \
+            + 2 * (bm + bn) * (bk + 8) * 2
     if fmt in INT_FORMATS:
         bits = source_format_and_bits(split_format(fmt)[0])[1]
         if is_tiled(fmt, tile):   # a slot's 512 of K is 64 bits bytes a

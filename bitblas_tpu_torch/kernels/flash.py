@@ -9,8 +9,11 @@ make_flash_decode_paged_quant).
   float32, with an optional sliding window, at any head dim up to
   `GENERAL_MAX_HEAD_DIM`. A fixed rule on the shape (`prefill_instance`)
   picks the instance: csrc/flash_attention.cuh (wgmma + TMA, one source a
-  head dim of `HEAD_DIMS`) where TMA can address the rows,
-  csrc/flash_attention_general.cu for the other 16-bit shapes, and
+  head dim of `HEAD_DIMS`) where TMA can address the rows, the same
+  instance behind a layout pass (`prefill_layout`: rows padded to 16
+  bytes, K^T's key rows too) where only a stride stops it,
+  csrc/flash_attention_general.cu (wgmma + TMA, the head dim split over
+  warpgroups) for the other 16-bit head dims, and
   csrc/flash_attention_f32.cu for float32.
 * `flash_decode` -- one query token per sequence against the slot cache
   [rows, Smax, Hkv, D] bfloat16 through `slots` and `lengths`, with an
@@ -94,15 +97,19 @@ SPLIT_BLOCKS_PER_SM = 2   # the planner's target: B * Hkv * splits >= 2 SMs
 MAX_SPLITS = 1024   # the kernels' merge holds at most this many weights
 
 # prefill: Q, K, V, O, then B, S, H, Hkv, D, bf16, out code, causal,
-# trans_k, block_kv, window (float32: no bf16 flag, no block_kv)
-_PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
+# trans_k, block_kv, window, the row pitches of Q, K (K^T: of its key rows)
+# and V, the head stride (float32: no bf16 flag, no block_kv, no pitches)
+_PREFILL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 \
     + [ctypes.c_float, ctypes.c_void_p]
 _PREFILL_F32_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
     + [ctypes.c_float, ctypes.c_void_p]
-# the general instance: Q, K, V, O, then B, S, H, Hkv, D, bf16, out code,
-# causal, trans_k, window
-_PREFILL_GENERAL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
+# the general instance: Q, K, V, O, then B, S, H, Hkv, the tensors' head
+# dim, O's, bf16, out code, causal, window, the three row pitches
+_PREFILL_GENERAL_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 \
     + [ctypes.c_float, ctypes.c_void_p]
+# the instances of kernel 4 (`prefill_instance`); "aligned" runs the
+# wgmma instances behind `prefill_layout`'s copy
+PREFILL_INSTANCES = ("wgmma", "aligned", "general", "f32")
 _OUT_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 QUERY_DTYPES = (torch.float16, torch.bfloat16)   # the decode kernels' q
 # decode entry points: q, caches (scales), index, lengths, out, the split
@@ -156,23 +163,94 @@ def _name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def _tma_rows(heads: int, D: int) -> bool:
+    """Whether TMA can address a token row of `heads` heads of D 2-byte
+    elements: a row stride that is a multiple of 16 bytes."""
+    return (heads * D * 2) % 16 == 0
+
+
 def prefill_instance(S: int, H: int, Hkv: int, D: int, dtype: torch.dtype,
                      *, trans_k: bool = False) -> str:
     """The instance of kernel 4 that runs a shape, by a fixed rule:
-    "f32" (csrc/flash_attention_f32.cu) for float32; "wgmma"
-    (csrc/flash_attention.cuh) at the 16-bit head dims of `HEAD_DIMS`
-    where TMA can address the tensors -- rows of heads * D 2-byte elements
-    a multiple of 16 bytes (D % 8 == 4 needs an even H and Hkv) and, with
-    trans_k, key rows of S % 8 == 0; "general"
-    (csrc/flash_attention_general.cu) for the other 16-bit shapes. The
-    general and float32 kernels take head dims up to
+    "f32" (csrc/flash_attention_f32.cu) for float32; at the 16-bit head
+    dims of `HEAD_DIMS`, "wgmma" (csrc/flash_attention.cuh) where TMA can
+    address the tensors as they are -- rows of heads * D 2-byte elements a
+    multiple of 16 bytes (D % 8 == 4 needs an even H and Hkv) and, with
+    trans_k, key rows of S % 8 == 0 -- else "aligned": the same instance
+    behind `prefill_layout`'s copy with its rows padded to 16 bytes; for
+    the other 16-bit head dims "general" (csrc/flash_attention_general.cu).
+    The general and float32 kernels take head dims up to
     `GENERAL_MAX_HEAD_DIM`."""
     if dtype == torch.float32:
         return "f32"
-    if D in HEAD_DIMS and (H * D * 2) % 16 == 0 and (Hkv * D * 2) % 16 == 0 \
-            and not (trans_k and S % 8):
-        return "wgmma"
+    if D in HEAD_DIMS:
+        if _tma_rows(H, D) and _tma_rows(Hkv, D) and not (trans_k and S % 8):
+            return "wgmma"
+        return "aligned"
     return "general"
+
+
+def _rows_into(x: torch.Tensor, D: int, pitch: int) -> torch.Tensor:
+    """x [B, S, n, d] as a [B, S, pitch] buffer holding each head's d
+    columns zero-padded to D (x itself where nothing changes)."""
+    B, S, n, d = x.shape
+    if d == D and pitch == n * D and x.is_contiguous():
+        return x
+    buf = x.new_zeros((B, S, pitch)) if d != D else \
+        x.new_empty((B, S, pitch))
+    buf[..., :n * D].view(B, S, n, D)[..., :d].copy_(x)
+    return buf
+
+
+def _pitch(n: int) -> int:
+    """A row of n 2-byte elements rounded up to 16 bytes."""
+    return -(-n // 8) * 8
+
+
+def prefill_layout(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor, *,
+                   trans_k: bool = False, instance: Optional[str] = None):
+    """The layout pass in front of the 16-bit instances (JAX's pad shim,
+    kernels/flash.py:122-150, does the same for its kernel): Q [B, S, H,
+    D], K [B, S, Hkv, D] (K^T [B, D, Hkv, S] with trans_k) and V ->
+    (q, k, v, Dk, hs, pitches, trans_k'): the tensors the instance reads
+    at its head dim Dk, each head hs >= Dk columns of a token row, the
+    rows' pitches in elements and whether k is K^T. "wgmma" takes the
+    tensors as they are; "aligned" copies only what TMA cannot address:
+    rows of odd head counts at D % 8 == 4 into rows padded to 16 bytes,
+    each head zero-padded to a multiple of 16 columns (so that the last
+    k16 step of QK^T reads zeros, not the next head), and K^T's key rows
+    to S % 8 == 0; "general" zero-pads the head dim to a multiple of 16 and takes K^T
+    transposed into K's layout. The scale stays 1/sqrt of the true D and
+    O keeps D columns: zero columns add nothing to q . k."""
+    B, S, H, D = Q.shape
+    Hkv = V.shape[2]
+    if instance is None:
+        instance = prefill_instance(S, H, Hkv, D, Q.dtype, trans_k=trans_k)
+    if instance == "aligned":
+        if _tma_rows(H, D) and _tma_rows(Hkv, D):
+            hs, q, v, pq, pv = D, Q, V, H * D, Hkv * D
+        else:
+            hs = -(-D // 16) * 16
+            pq, pv = _pitch(H * hs), _pitch(Hkv * hs)
+            q, v = _rows_into(Q, hs, pq), _rows_into(V, hs, pv)
+        if trans_k:
+            pk = _pitch(S)
+            k = K
+            if pk != S:
+                k = K.new_empty((B, D, Hkv, pk))
+                k[..., :S].copy_(K)
+        else:
+            pk = pv
+            k = K if hs == D else _rows_into(K, hs, pk)
+        return q, k, v, D, hs, (pq, pk, pv), trans_k
+    if instance == "general":
+        Dk = -(-D // 16) * 16
+        pq, pkv = _pitch(H * Dk), _pitch(Hkv * Dk)
+        Kr = K.permute(0, 3, 2, 1) if trans_k else K
+        return (_rows_into(Q, Dk, pq), _rows_into(Kr, Dk, pkv),
+                _rows_into(V, Dk, pkv), Dk, Dk, (pq, pkv, pkv), False)
+    return Q, K, V, D, D, (H * D, S if trans_k else Hkv * D, Hkv * D), \
+        trans_k
 
 
 def prefill_refusal(S: int, H: int, Hkv: int, D: int, dtype: torch.dtype,
@@ -230,11 +308,11 @@ def prefill_tiles(D: int, dtype: torch.dtype = torch.float16,
                   instance: str = "wgmma"):
     """The (block_q, block_kv) tiles of kernel 4's `instance`
     (`prefill_instance`) at head dim D: 128-key tiles on the wgmma
-    instances at `KV128_HEAD_DIMS` only; the float32 kernel and the general
-    instance have one fixed tile, which `PREFILL_TILES[0]` names (the
-    general instance's 64 q rows and 64-key tiles)."""
-    if instance == "wgmma" and dtype != torch.float32 \
-            and D in KV128_HEAD_DIMS:
+    instances (also behind the layout pass) at `KV128_HEAD_DIMS` only; the
+    float32 kernel and the general instance have one fixed tile, which
+    `PREFILL_TILES[0]` names (64 q rows and 64-key tiles)."""
+    if instance in ("wgmma", "aligned") \
+            and dtype != torch.float32 and D in KV128_HEAD_DIMS:
         return PREFILL_TILES
     return PREFILL_TILES[:1]
 
@@ -252,13 +330,21 @@ def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
     (flash.py:44-47). `causal`: row i attends keys <= i; with a `window`
     keys (i - window, i] (every row keeps its own key)."""
     _check_window(window)
+    return _attention_plain(Q, K, V, window, causal, trans_k, out_dtype,
+                            tile, Q.shape[3])
+
+
+def _attention_plain(Q, K, V, window, causal, trans_k, out_dtype, tile,
+                     true_d: int) -> torch.Tensor:
+    """`flash_attention_plain` with the scale of head dim `true_d` (the
+    layout pass's zero columns leave it at the true D's)."""
     if trans_k:
         K = K.permute(0, 3, 2, 1)
     B, S, H, D = Q.shape
     group = H // K.shape[2]
     block_kv = (tile or PREFILL_TILES[0])[1]
     pad = -S % block_kv
-    q = (Q.float() * (LOG2E / math.sqrt(D))).to(Q.dtype).float()
+    q = (Q.float() * (LOG2E / math.sqrt(true_d))).to(Q.dtype).float()
     k = F.pad(K.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(group, 2)
     v = F.pad(V.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(group, 2)
     key = torch.arange(S + pad, device=Q.device)
@@ -279,6 +365,30 @@ def flash_attention_plain(Q: torch.Tensor, K: torch.Tensor,
     return out.to(out_dtype or Q.dtype)
 
 
+def prefill_routed_plain(Q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
+                         window: Optional[int] = None, *, causal: bool = True,
+                         trans_k: bool = False,
+                         out_dtype: Optional[torch.dtype] = None, tile=None,
+                         instance: Optional[str] = None) -> torch.Tensor:
+    """The plain form of a 16-bit instance's route: `prefill_layout`'s
+    tensors (read back through their row pitches), attention at the
+    instance's head dim with the true D's scale
+    (`flash_attention_plain`'s arithmetic), then O's first D columns."""
+    _check_window(window)
+    B, S, H, D = Q.shape
+    Hkv = V.shape[2]
+    q, k, v, Dk, hs, (pq, pk, pv), tk = prefill_layout(
+        Q, K, V, trans_k=trans_k, instance=instance)
+
+    def rows(x, n, pitch):
+        return x.as_strided((B, S, n, Dk), (S * pitch, pitch, hs, 1))
+    q, v = rows(q, H, pq), rows(v, Hkv, pv)
+    k = k.as_strided((B, Dk, Hkv, S), (Dk * Hkv * pk, Hkv * pk, pk, 1)) \
+        if tk else rows(k, Hkv, pk)
+    out = _attention_plain(q, k, v, window, causal, tk, out_dtype, tile, D)
+    return out[..., :D].contiguous()
+
+
 def _variant(dtype: torch.dtype, window: Optional[int], D: int = 128) -> str:
     """A decode launch's variant as `variant_launches` counts it: the query
     type, the head dim where it is not 128, then the window: "float16",
@@ -290,17 +400,18 @@ def _variant(dtype: torch.dtype, window: Optional[int], D: int = 128) -> str:
 def prefill_variant(dtype: torch.dtype, D: int, *, causal: bool = True,
                     trans_k: bool = False, window: Optional[int] = None,
                     out_dtype: Optional[torch.dtype] = None,
-                    block_kv: int = 64, general: bool = False) -> str:
+                    block_kv: int = 64,
+                    instance: Optional[str] = None) -> str:
     """A prefill launch's variant as `variant_launches` counts it: the
     operand type, then what differs from the causal D = 128 launch of the
-    wgmma instance on 64-key tiles: "general" (the general instance),
-    "d100" (head dim), "nc" (not causal), "ntn" (K^T), "window", "out
-    float32" (the output type), "kv128" (the tile), e.g. "float16 d100",
-    "bfloat16 d80 window", "float16 general d512", "float32 d64 nc ntn out
-    float16"."""
+    wgmma instance on 64-key tiles: the instance where it is not "wgmma" or
+    "f32" ("aligned", "general"), "d100" (head dim), "nc" (not causal), "ntn" (K^T), "window",
+    "out float32" (the output type), "kv128" (the tile), e.g. "float16
+    d100", "bfloat16 d80 window", "float16 general d512", "float16 aligned
+    d128 ntn", "float32 d64 nc ntn out float16"."""
     parts = [_name(dtype)]
-    if general:
-        parts.append("general")
+    if instance not in (None, "wgmma", "f32"):
+        parts.append(instance)
     if D != 128:
         parts.append(f"d{D}")
     if not causal:
@@ -357,34 +468,55 @@ def flash_attention_fwd(Q: torch.Tensor, K: torch.Tensor,
                                      tile=tile)
     if Q.device.type != "cuda":
         raise ValueError(f"unsupported device {Q.device}")
-    out = torch.empty((B, S, H, D), dtype=out_dtype, device=Q.device)
-    ptrs = (Q.data_ptr(), K.data_ptr(), V.data_ptr(), out.data_ptr())
-    scale = LOG2E / math.sqrt(D)
     instance = prefill_instance(S, H, Hkv, D, Q.dtype, trans_k=trans_k)
+    out = _prefill_launch(Q, K, V, window, causal, trans_k, out_dtype, tile,
+                          instance)
+    _count(flash_attention_fwd, prefill_variant(
+        Q.dtype, D, causal=causal, trans_k=trans_k, window=window,
+        out_dtype=out_dtype, block_kv=tile[1], instance=instance))
+    return out
+
+
+def _prefill_launch(Q, K, V, window, causal, trans_k, out_dtype, tile,
+                    instance) -> torch.Tensor:
+    """One launch of kernel 4's `instance` on CUDA tensors (checked by
+    `flash_attention_fwd`), behind `prefill_layout` for the 16-bit ones."""
+    B, S, H, D = Q.shape
+    Hkv = V.shape[2]
+    out = torch.empty((B, S, H, D), dtype=out_dtype, device=Q.device)
+    scale = LOG2E / math.sqrt(D)
+    bf16 = int(Q.dtype == torch.bfloat16)
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        if instance == "f32":
+            fn = build.entry("flash_attention_f32", "flash_attention_f32",
+                             _PREFILL_F32_ARGS)
+            err = fn(Q.data_ptr(), K.data_ptr(), V.data_ptr(),
+                     out.data_ptr(), B, S, H, Hkv, D, _OUT_CODES[out_dtype],
+                     int(causal), int(trans_k), window or 0, scale, stream)
+            build.check(err, "flash_attention_fwd")
+            return out
+        q, k, v, Dk, hs, pitch, tk = prefill_layout(
+            Q, K, V, trans_k=trans_k, instance=instance)
         if instance == "general":
             fn = build.entry("flash_attention_general",
                              "flash_attention_general", _PREFILL_GENERAL_ARGS)
-            err = fn(*ptrs, B, S, H, Hkv, D, int(Q.dtype == torch.bfloat16),
-                     _OUT_CODES[out_dtype], int(causal), int(trans_k),
-                     window or 0, scale, stream)
-        elif instance == "f32":
-            fn = build.entry("flash_attention_f32", "flash_attention_f32",
-                             _PREFILL_F32_ARGS)
-            err = fn(*ptrs, B, S, H, Hkv, D, _OUT_CODES[out_dtype],
-                     int(causal), int(trans_k), window or 0, scale, stream)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B, S, H, Hkv, Dk, D, bf16,
+                     _OUT_CODES[out_dtype], int(causal), window or 0, *pitch,
+                     scale, stream)
         else:
-            fn = build.entry(_PREFILL_SOURCES[D], f"flash_attention_fwd_d{D}",
-                             _PREFILL_ARGS)
-            err = fn(*ptrs, B, S, H, Hkv, D, int(Q.dtype == torch.bfloat16),
-                     _OUT_CODES[out_dtype], int(causal), int(trans_k),
-                     tile[1], window or 0, scale, stream)
+            dst = out if Dk == D else torch.empty(
+                (B, S, H, Dk), dtype=out_dtype, device=Q.device)
+            fn = build.entry(_PREFILL_SOURCES[Dk],
+                             f"flash_attention_fwd_d{Dk}", _PREFILL_ARGS)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     dst.data_ptr(), B, S, H, Hkv, Dk, bf16,
+                     _OUT_CODES[out_dtype], int(causal), int(tk), tile[1],
+                     window or 0, *pitch, hs, scale, stream)
+            if dst is not out:
+                out.copy_(dst[..., :D])
     build.check(err, "flash_attention_fwd")
-    _count(flash_attention_fwd, prefill_variant(
-        Q.dtype, D, causal=causal, trans_k=trans_k, window=window,
-        out_dtype=out_dtype, block_kv=tile[1],
-        general=instance == "general"))
     return out
 
 

@@ -1,4 +1,5 @@
-"""The general instances of kernels 1-3 (csrc/dequant_general.cu): every
+"""The general instances of kernels 1-3 (csrc/dequant_general.cu and
+csrc/dequant_general_ffma.cu over csrc/dequant_general.cuh): every
 quantized configuration the JAX package runs that the specialized
 instances (kernels/dequant_matmul.py, kernels/materialize.py) do not
 take, with the JAX oracle's semantics (ops/reference.py).
@@ -15,6 +16,14 @@ take, with the JAX oracle's semantics (ops/reference.py).
   float64.
 * `weight_decode_general` -- kernels 2 and 3's general instance: the
   dense W_D [N, K] in D's storage.
+
+Kernel 1's general instance sums on the unit `general_unit` names, a
+fixed rule on (A's type, D, the sums' type) that takes the tensor cores
+only where they reproduce the oracle's sums up to their order: "f16"
+(mma.sync m16n8k16: float16, the fp8 types upcast exactly, 8-bit integers
+under float32 sums), "bf16", "s8" (m16n8k32 over int8 / uint8 / int4 /
+uint4, int32 sums), "f64" (DMMA) and "ffma" (float32 FMAs: float32 and the
+wide integer activations, and integer activations with a float32 decode).
 
 Both have plain versions (`decode_general`, the torch form of the
 oracle's decode, and `dequant_matmul_general_plain`) that the CPU runs
@@ -33,11 +42,22 @@ from ..ops.reference import expand_groups, finish_sums, sums, sums_type
 from ..quantization import numerics, packing
 from ..quantization.formats import (INT_TYPES, TORCH_DTYPES, as_torch_dtype,
                                     source_format_and_bits)
-from . import build
+from . import build, scratch
 
 SOURCE = "dequant_general"
-# (block_m, block_n, block_k, stages) of the one compiled tile
-GENERAL_TILE = (32, 64, 32, 1)
+# the DMMA and FFMA units' source (csrc/dequant_general_ffma.cu)
+SOURCE_FFMA = "dequant_general_ffma"
+# (block_m, block_n, block_k, stages): the most rows of M a block holds
+# (the launch takes 32 or this many on the tensor-core units; 32, 128 or
+# 256 on "ffma" and 32 or 128 on "f64" as M needs and shared memory
+# allows), 64 weight rows (32 on "f64"), steps of 32 of K, the ring's
+# stages
+GENERAL_TILE = (512, 64, 32, 4)
+# the sum units (csrc/dequant_general.cu UNIT_*)
+UNIT_CODE = {"f16": 0, "bf16": 1, "s8": 2, "f64": 3, "ffma": 4}
+_F16_EXACT = ("float16", "e4m3_float8", "e5m2_float8", "int8", "uint8",
+              "int4", "uint4")
+_BYTE_INTS = ("int8", "uint8", "int4", "uint4")
 # csrc/dequant_general.cu's codes
 TYPE_CODE = {"float16": 0, "bfloat16": 1, "float32": 2, "float64": 3,
              "e4m3_float8": 4, "e5m2_float8": 5, "int8": 6, "uint8": 7,
@@ -53,15 +73,72 @@ _TORCH_NAME = {torch.float16: "float16", torch.bfloat16: "bfloat16",
                torch.float32: "float32", torch.float64: "float64",
                torch.float8_e4m3fn: "e4m3_float8",
                torch.float8_e5m2: "e5m2_float8", torch.int32: "int32"}
+# A, its type, the weight words, family, bits, scales, their type, zeros,
+# their type, zeros mode, decode type, sums type, unit, out, M, N, K,
+# group, then the split of K's scratch (partials, their count, counters,
+# their count, SMs) and the stream
 _ARGTYPES_MATMUL = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# A block holds 64 weight rows (32 on "f64") and up to GENERAL_TILE[0]
+# rows of M, K in steps of 32; where such tiles are fewer than two an SM,
+# K is split over up to SPLIT_TARGET blocks an SM (at least
+# SPLIT_MIN_STEPS steps each), the partials merged in the launch
+SPLIT_TARGET = 3
+SPLIT_MIN_STEPS = 8
+
+
+def general_splits_bound(M: int, N: int, K: int, sms: int) -> int:
+    """The most splits of K the kernel takes at this shape (it picks its
+    own from its tile; this bounds the partials' room)."""
+    tiles = -(-N // 64) * -(-M // GENERAL_TILE[0])
+    if tiles >= 2 * sms:
+        return 1
+    steps = -(-K // GENERAL_TILE[2])
+    return max(1, min(-(-SPLIT_TARGET * sms // -(-N // 64)),
+                      steps // SPLIT_MIN_STEPS))
 _ARGTYPES_DECODE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def general_unit(a_dtype: str, decode: str, sums: str) -> str:
+    """The unit kernel 1's general instance sums on, by a fixed rule on A's
+    type, the decode type D and the sums' type (ops/reference.sums_type):
+    a tensor-core unit only where its products and sums are the oracle's
+    up to their order.
+
+    * int32 sums (A and D the same 8-bit-or-narrower integer type): "s8",
+      mma.sync m16n8k32 (wrapping int32 sums, JAX's int_path);
+    * float64 sums: "f64", DMMA;
+    * float32 sums of A and D both held exactly by float16 -- float16
+      itself, fp8 (an exact upcast, as kernel 9's fp8 pairs), 8-bit
+      integers with an integer D: "f16", mma.sync m16n8k16 into float32;
+      bfloat16 with D bfloat16: "bf16";
+    * every other float32 sum -- float32 activations, the wide integer
+      activations, integer activations with a float32 D -- "ffma": float32
+      FMAs on CUDA cores (TF32 would change the products)."""
+    if sums == "int32":
+        if a_dtype in _BYTE_INTS and decode == a_dtype:
+            return "s8"
+    elif sums == "float64":
+        if a_dtype == decode == "float64":
+            return "f64"
+    elif sums == "float32":
+        if a_dtype == decode == "bfloat16":
+            return "bf16"
+        if a_dtype == decode and a_dtype in _F16_EXACT:
+            return "f16"
+        if decode in ("float32",) + tuple(INT_TYPES) \
+                and a_dtype not in ("float16", "bfloat16", "float64"):
+            return "ffma"
+    raise ValueError(f"no sum unit for A {a_dtype}, decode {decode}, "
+                     f"{sums} sums")
 
 
 def _zeros_name(t: torch.Tensor) -> str:
@@ -238,18 +315,31 @@ def dequant_matmul_general(A: torch.Tensor, qweight: torch.Tensor,
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     acc = sums_type(a_dtype, w_dtype, decode)
+    unit = general_unit(a_dtype, decode, acc)
     totals = torch.empty((M, N), dtype=_ACC_DTYPE[acc], device=A.device)
     if M:
         family, bits = source_format_and_bits(w_dtype)
         A = A.contiguous()
+        sms = scratch.sm_count(A.device)
+        bound = general_splits_bound(M, N, K, sms)
+        part = count = None
+        if bound > 1:
+            part = scratch.partials(A.device, bound * M * N,
+                                    _ACC_DTYPE[acc])
+            count = scratch.counters(A.device, -(-N // 32) * -(-M // 32))
         with torch.cuda.device(A.device):
-            fn = build.entry(SOURCE, "dqg_matmul", _ARGTYPES_MATMUL)
+            fn = build.entry(SOURCE, "dqg_matmul", _ARGTYPES_MATMUL) \
+                if unit in ("f16", "bf16", "s8") else build.entry(
+                    SOURCE_FFMA, "dqg_matmul_ffma", _ARGTYPES_MATMUL)
             err = fn(A.data_ptr(), TYPE_CODE[a_dtype], qweight.data_ptr(),
                      FAMILY_CODE[family], bits, _ptr(scales), _code(scales),
                      _ptr(zeros), _code(zeros),
                      ZEROS_CODE[zeros_mode if zeros is not None else None],
-                     TYPE_CODE[decode], ACC_CODE[acc], totals.data_ptr(), M, N,
-                     K, g, torch.cuda.current_stream().cuda_stream)
+                     TYPE_CODE[decode], ACC_CODE[acc], UNIT_CODE[unit],
+                     totals.data_ptr(), M, N, K, g, _ptr(part),
+                     0 if part is None else part.numel(), _ptr(count),
+                     0 if count is None else count.numel(), sms,
+                     torch.cuda.current_stream().cuda_stream)
         build.check(err, f"dequant_matmul_general {w_dtype} x {a_dtype}")
         dequant_matmul_general.launches += 1
         key = general_variant(w_dtype, a_dtype, decode, scales is not None,

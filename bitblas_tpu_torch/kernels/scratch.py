@@ -1,7 +1,8 @@
 """Device scratch of the kernels that split a reduction across blocks and
 merge it inside the same launch (the split-KV decode kernels of
 kernels/flash.py, the split-K decode instances of kernel 1 in
-kernels/dequant_matmul.py).
+kernels/dequant_matmul.py and its general instance in
+kernels/general.py).
 
 Each such launch writes partials (float32; int32 for integer sums) to a
 scratch buffer and counts finished blocks in an int32 counter that the
@@ -54,6 +55,7 @@ def counters(device: torch.device, n: int) -> torch.Tensor:
 
 def partials(device: torch.device, numel: int,
              dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """A buffer of `numel` partial sums for one launch (float32, or int32
-    for kernel 1's int2 decode instance)."""
+    """A buffer of `numel` partial sums for one launch (float32; int32 for
+    kernel 1's int2 decode instance and integer sums, float64 for float64
+    sums)."""
     return torch.empty(numel, dtype=dtype, device=device)

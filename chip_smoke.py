@@ -6275,6 +6275,14 @@ FA_SUMMARY = ((100, True, "nnn", "float16", "float16"),
               (128, True, "nnn", "float16", "float32"))
 
 
+def prefill_source(instance: str, D: int) -> str:
+    """The csrc source of kernel 4's `instance` at head dim D (the aligned
+    route runs a wgmma instance behind kernels/flash.py's layout pass)."""
+    if instance in ("general", "f32"):
+        return f"flash_attention_{instance}.cu"
+    return "flash_attention.cu" if D == 128 else f"flash_attention_d{D}.cu"
+
+
 def flash_summary(fa_rows):
     """The kernels line's rows of kernel 4's configurations, named by the
     launch variant their default tile counts under."""
@@ -6293,11 +6301,8 @@ def flash_summary(fa_rows):
         name = "flash_attention_fwd " + prefill_variant(
             getattr(torch, dtype), D, causal=causal,
             trans_k=layout == "ntn", out_dtype=getattr(torch, o),
-            block_kv=row["tile"][1], general=instance == "general")
-        src = ("flash_attention_general.cu" if instance == "general" else
-               "flash_attention_f32.cu" if instance == "f32" else
-               "flash_attention.cu" if D == 128 else
-               f"flash_attention_d{D}.cu")
+            block_kv=row["tile"][1], instance=instance)
+        src = prefill_source(instance, D)
         out.append((name, src, "flash.py:106", rows, row,
                     f"B=1 H=Hkv=32 S=2048 D={D} {layout} "
                     f"{'causal' if causal else 'dense'} {dtype} -> {o}"))
@@ -7538,8 +7543,23 @@ def _config_row(torch, name, lin, A, M, N, K, out, want, scale, flush,
         def library():
             with dense.full_f32():
                 return torch.matmul(Af, Wd.T)
+    unit, own_ms = None, None
+    if not native:
+        from bitblas_tpu_torch.kernels.general import general_unit
+        from bitblas_tpu_torch.ops.reference import decode_name, sums_type
+        dn = decode_name(cfg)
+        unit = general_unit(cfg.A_dtype, dn, sums_type(cfg.A_dtype,
+                                                        cfg.W_dtype, dn))
+        if dn in ("float16", "bfloat16") and cfg.A_dtype == dn:
+            # a second yardstick in the 16-bit type itself: torch.matmul
+            # on the decoded weight (cuBLAS's f16 / bf16 GEMM)
+            W16 = decode_general(lin.qweight, cfg.W_dtype, K, dn,
+                                 lin.scales, lin.zeros,
+                                 cfg.effective_group_size, cfg.zeros_mode)
+            own_ms = time_ms(torch, lambda: torch.matmul(A, W16.T), 10, flush)
     err = config_err(torch, out, want, cfg.out_dtype, scale)
     row = {"class": name, "a_dtype": cfg.A_dtype, "M": M, "N": N, "K": K,
+           "unit": unit, "library_own_type_ms": own_ms,
            "route": lin.bitblas_matmul.hint_for(M).decode_mode,
            "kernel_ms": time_ms(torch, lambda: lin(A), 10, flush),
            "plain_ms": time_ms(torch, lambda: _config_plain(torch, lin, A),
@@ -7576,6 +7596,7 @@ def check_configs(torch, flush, floor_ms):
     from bitblas_tpu_torch.kernels import dense
     from bitblas_tpu_torch.kernels.general import (
         decode_general, dequant_matmul_general, weight_decode_general)
+    F = torch.nn.functional
     from bitblas_tpu_torch.ops.reference import decode_name
     from bitblas_tpu_torch.quantization import numerics
     counters = (dequant_matmul_general, weight_decode_general,
@@ -7718,12 +7739,32 @@ def check_configs(torch, flush, floor_ms):
             raise AssertionError(f"configs: C = 32 QuantConv2D {tag} "
                                  f"{route}: {bad} outputs off the CPU's")
         ms = time_ms(torch, lambda: op(cx[tag], *packed[key]), 10, flush)
+        # the bound of the convolution as the fused route's product: the
+        # input, the 4-bit filter and its scales read once, the output
+        # written once; 2 M N K over the activations' peak. The library
+        # call: cuDNN's float32 convolution (TF32 off) with the decoded
+        # filter, codes * scales
+        K = c["C"] * c["K"] * c["K"]
+        xb = cx[tag].element_size()
+        nbytes = (cx[tag].numel() * xb + K * c["F"] / 2
+                  + c["F"] * packed[key][1].element_size()
+                  + got.numel() * got.element_size())
+        bms, by = bound(nbytes, 2.0 * op.m * c["F"] * K,
+                        INT8_OPS_PER_S if tag == "int8" else F16_FLOPS_PER_S)
+        xf = cx[tag].float().permute(0, 3, 1, 2).contiguous()
+        wf = (codes.float() * cscale.float().reshape(1, 1, 1, -1)) \
+            .permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            with dense.full_f32():
+                return F.conv2d(xf, wf, stride=c["S"], padding=c["P"])
         rows.append({"class": f"QuantConv2D C=32 uint4 per channel x {tag}",
                      "kernel": "dequant_matmul_general" if route == "fused"
                      else "weight_decode_general", "route": route,
-                     "M": op.m, "N": c["F"], "K": c["C"] * 9,
-                     "kernel_ms": ms, "plain_ms": None, "library_ms": None,
-                     "bound_ms": None, "bound_by": None,
+                     "M": op.m, "N": c["F"], "K": K,
+                     "kernel_ms": ms, "plain_ms": None,
+                     "library_ms": time_ms(torch, library, 10, flush),
+                     "bound_ms": bms, "bound_by": by,
                      "floor_ms": floor_ms, "max_abs_err": (
                          got.cpu().float() - want.float()).abs().max()
                      .item()})
@@ -7789,19 +7830,22 @@ DANUBE_REF_LAYERS = 1
 # over the decode steps; the limit, 1e-2, is 2.5 bfloat16 roundings.
 DANUBE_LAYER1_TOL = 1e-2
 # kernel 4's rows of the slice: (name, dtype, S, H, Hkv, D, causal, trans_k,
-# window). d80: Danube's longest bucket; the general instance: a wide head
-# (512), a head dim outside the wgmma instances (160), odd heads at D %
-# 8 == 4 (100 x 25 heads), K^T at S % 8 != 0 (2047); the float32 kernel
-# at the head dims it takes since this slice: D % 4 != 0 (6), past 256
+# window, instance). d80: Danube's longest bucket; the general instance: a
+# wide head (512), a head dim outside the wgmma instances (160); the
+# aligned route (a wgmma instance behind the layout pass): odd heads at D
+# % 8 == 4 (100 x 25 heads), K^T at S % 8 != 0 (2047); the float32 kernel
+# at head dims off the 16-bit instances' grid: D % 4 != 0 (6), past 256
 # (288, in 128-column chunks)
 SLICE19_PREFILL = (
-    ("d80", "bfloat16", 8192, 32, 8, 80, True, False, DANUBE_WINDOW),
-    ("d512", "float16", 2048, 8, 8, 512, True, False, None),
-    ("d160", "bfloat16", 2048, 8, 8, 160, True, False, None),
-    ("d100 x 25 heads", "float16", 2048, 25, 25, 100, True, False, None),
-    ("ntn S=2047", "float16", 2047, 8, 8, 128, True, True, None),
-    ("f32 d6", "float32", 2048, 8, 8, 6, True, False, None),
-    ("f32 d288", "float32", 2048, 8, 8, 288, True, False, None),
+    ("d80", "bfloat16", 8192, 32, 8, 80, True, False, DANUBE_WINDOW,
+     "wgmma"),
+    ("d512", "float16", 2048, 8, 8, 512, True, False, None, "general"),
+    ("d160", "bfloat16", 2048, 8, 8, 160, True, False, None, "general"),
+    ("d100 x 25 heads", "float16", 2048, 25, 25, 100, True, False, None,
+     "aligned"),
+    ("ntn S=2047", "float16", 2047, 8, 8, 128, True, True, None, "aligned"),
+    ("f32 d6", "float32", 2048, 8, 8, 6, True, False, None, "f32"),
+    ("f32 d288", "float32", 2048, 8, 8, 288, True, False, None, "f32"),
 )
 # kernels 5-8 at head dim 512: B = 4, H = 16, Hkv = 4 (group 4), Smax 4096
 D512_DECODE = dict(B=4, H=16, Hkv=4, D=512, Smax=4096)
@@ -7860,17 +7904,15 @@ def check_slice19_prefill(torch, flush):
     gen.manual_seed(19)
     rows = []
     B = 1
-    for tag, dtype, S, H, Hkv, D, causal, trans_k, window in SLICE19_PREFILL:
+    for tag, dtype, S, H, Hkv, D, causal, trans_k, window, want in \
+            SLICE19_PREFILL:
         dt = getattr(torch, dtype)
         instance = prefill_instance(S, H, Hkv, D, dt, trans_k=trans_k)
-        want = ("wgmma" if tag == "d80" else
-                "f32" if dt == torch.float32 else "general")
         if instance != want:
             raise AssertionError(f"slice19 {tag}: routed to the {instance} "
                                  f"instance, not {want}")
-        general = instance == "general"
         variant = prefill_variant(dt, D, causal=causal, trans_k=trans_k,
-                                  window=window, general=general)
+                                  window=window, instance=instance)
         Q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
         K = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
              * 3).to(dt)
@@ -7919,7 +7961,7 @@ def check_slice19_prefill(torch, flush):
                    Q, Kin, V, window, **kw), 3, flush),
                "library_ms": time_ms(torch, lib, 10, flush),
                "stream_ms": time_ms(torch, _stream(torch, nbytes), 20, flush),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by, "instance": instance}
         emit(row)
         rows.append(row)
         del Q, K, V, Kin, out, qt, kt, vt
@@ -8286,9 +8328,7 @@ def slice19_entries(prefill, decode):
     variants."""
     out = []
     for row in prefill:
-        src = ("flash_attention_d80.cu" if row["tag"] == "d80" else
-               "flash_attention_f32.cu" if row["dtype"] == "float32" else
-               "flash_attention_general.cu")
+        src = prefill_source(row["instance"], row["D"])
         out.append((f"flash_attention_fwd {row['variant']}", src,
                     "flash.py:106", [row], row,
                     f"B=1 H={row['H']} Hkv={row['Hkv']} S={row['S']} "

@@ -28,8 +28,9 @@ import torch
 
 from bitblas_tpu_torch.kernels import dense as pdense
 from bitblas_tpu_torch.kernels.general import (
-    GENERAL_TILE, decode_general, dequant_matmul_general,
-    dequant_matmul_general_plain, weight_decode_general)
+    GENERAL_TILE, UNIT_CODE, decode_general, dequant_matmul_general,
+    dequant_matmul_general_plain, general_unit, weight_decode_general)
+from bitblas_tpu_torch.ops.reference import sums_type
 from bitblas_tpu_torch.ops.matmul import Matmul
 from bitblas_tpu_torch.ops.matmul_config import MatmulConfig
 from bitblas_tpu_torch.quantization import numerics, packing
@@ -174,7 +175,9 @@ def _activation(name, M, K, gen, device):
                                         device=device), name)
 
 
-@pytest.mark.parametrize("M", [1, 5, 33])
+# M of one block's instance (32, 128 rows), of the largest (512 rows on
+# the tensor-core units, 256 on FFMA) and past it (two blocks along M)
+@pytest.mark.parametrize("M", [1, 5, 33, 130, 520])
 @pytest.mark.parametrize("a,w,decode,scaled,zmode,out", CASES)
 def test_dequant_matmul_general_matches_plain(dev, M, a, w, decode, scaled,
                                               zmode, out):
@@ -200,6 +203,7 @@ def test_dequant_matmul_general_matches_plain(dev, M, a, w, decode, scaled,
                                  zmode or "original", bias, out,
                                  tile=GENERAL_TILE)
     assert dequant_matmul_general.launches == before + 1
+    assert general_unit(a, decode, sums_type(a, w, decode)) in UNIT_CODE
     cpu = lambda t: None if t is None else t.cpu()   # noqa: E731
     want = dequant_matmul_general_plain(A.cpu(), qw.cpu(), w, a, decode,
                                         cpu(s), cpu(z), group,

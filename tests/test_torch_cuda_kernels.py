@@ -1720,6 +1720,11 @@ GENERAL_CASES = [
     (100, 192, 3, 3, True, False, None, "float16", None),
     (100, 161, 5, 1, False, True, None, "bfloat16", None),
     (128, 161, 4, 2, True, True, None, "float16", None),
+    # the configurations of chip_smoke.py's slice19_prefill rows, S = 2048
+    (512, 2048, 8, 8, True, False, None, "float16", None),
+    (160, 2048, 8, 8, True, False, None, "bfloat16", None),
+    (100, 2048, 25, 25, True, False, None, "float16", None),
+    (128, 2047, 8, 8, True, True, None, "float16", None),
     # the float32 kernel at the head dims it takes since the general one:
     # D % 4 != 0, past 256 (128-column chunks), up to the cap
     (6, 200, 2, 1, True, False, 33, "float32", None),
@@ -1731,10 +1736,12 @@ GENERAL_CASES = [
 @pytest.mark.parametrize("case", GENERAL_CASES,
                          ids=lambda c: "-".join(str(x) for x in c))
 def test_flash_attention_general_matches_plain(dev, case):
-    from bitblas_tpu_torch.kernels.flash import prefill_instance
+    from bitblas_tpu_torch.kernels.flash import HEAD_DIMS, prefill_instance
     D, S, H, Hkv, causal, trans_k, window, dtype, out = case
     dt, ot = getattr(torch, dtype), getattr(torch, out or dtype)
-    instance = "f32" if dtype == "float32" else "general"
+    # the stride-only shapes take the layout pass into a wgmma instance
+    instance = "f32" if dtype == "float32" else "aligned" \
+        if D in HEAD_DIMS else "general"
     assert prefill_instance(S, H, Hkv, D, dt, trans_k=trans_k) == instance
     g = torch.Generator(device=dev)
     g.manual_seed(D * 1000 + S)
@@ -1753,8 +1760,8 @@ def test_flash_attention_general_matches_plain(dev, case):
     assert flash_attention_fwd.launches == before + 1
     new = {k for k, n in flash_attention_fwd.variant_launches.items()
            if n != variants.get(k, 0)}
-    assert len(new) == 1 and (" general" in new.pop()) == (
-        instance == "general")
+    assert len(new) == 1 and (f" {instance} " in new.pop() + " ") == (
+        instance != "f32")
     assert got.dtype == ot and torch.isfinite(got).all()
     u = _fa_ulp(dt, ot)
     assert attention_err(got, ref, u, 4 * u) <= 1.0

@@ -4,7 +4,8 @@ head dim above 256, against the JAX package on the CPU.
 - Kernel 4's plain version (`flash_attention_fwd` on CPU tensors) against
   JAX's `make_flash_attention` in interpret mode at head dims 32 / 80 /
   160 / 384, at D = 100 with three heads (a row of 200 x 3 bytes, which
-  TMA cannot address: the general instance), and in float32 at D = 6
+  TMA cannot address: the aligned route, the d100 instance behind the
+  layout pass), and in float32 at D = 6
   (the FFMA kernel, which takes every head dim).
   JAX pads D to a multiple of 128 and keeps 1/sqrt of the true D; the
   port's instances take D as it is.
@@ -97,7 +98,7 @@ PREFILL_CASES = [
     (80, 256, 4, 2, True, 64, "bfloat16", "wgmma"),
     (160, 128, 2, 2, False, None, "float16", "general"),
     (384, 128, 2, 1, True, None, "bfloat16", "general"),
-    (100, 128, 3, 3, True, None, "float16", "general"),
+    (100, 128, 3, 3, True, None, "float16", "aligned"),
     (6, 128, 2, 1, True, None, "float32", "f32"),
 ]
 
@@ -125,17 +126,17 @@ def test_prefill_plain_matches_jax(D, S, H, Hkv, causal, window, dtype,
 
 @pytest.mark.parametrize("S", [200, 201])
 def test_flashatten_trans_k_matches_jax(S):
-    """K^T at S = 200 (the wgmma instance's key rows) and 201 (the
-    general instance's): JAX's kernel cannot tile either, and its
-    operator serves its oracle; the port's runs kernel 4."""
+    """K^T at S = 200 (the wgmma instance's key rows) and 201 (the same
+    instance behind the layout pass's padded key rows): JAX's kernel
+    cannot tile either, and its operator serves its oracle; the port's
+    runs kernel 4."""
     cfg = dict(batch=1, heads=4, kv_heads=2, seq_len=S, dim=64,
                layout="ntn", is_causal=True)
     jop = JaxFlashAtten(JaxFlashAttenConfig(**cfg), enable_tuning=False)
     op = FlashAtten(FlashAttenConfig(**cfg), device="cpu")
     assert flash.prefill_instance(S, 4, 2, 64, torch.float16, trans_k=True) \
-        == ("wgmma" if S % 8 == 0 else "general")
-    assert op.candidates == (((64, 64), (64, 128)) if S % 8 == 0
-                             else ((64, 64),))
+        == ("wgmma" if S % 8 == 0 else "aligned")
+    assert op.candidates == ((64, 64), (64, 128))
     assert (op.block_q, op.block_kv) in op.candidates
     args = op._example_args()
     got = op.forward(*args)
@@ -226,7 +227,7 @@ def test_caps_raise_naming_them():
 def test_variants_name_the_new_instances():
     assert flash.prefill_variant(torch.bfloat16, 80, window=4096) == \
         "bfloat16 d80 window"
-    assert flash.prefill_variant(torch.float16, 512, general=True) == \
+    assert flash.prefill_variant(torch.float16, 512, instance="general") == \
         "float16 general d512"
     assert flash.prefill_variant(torch.float32, 6,
                                  out_dtype=torch.float16) == \
@@ -235,8 +236,8 @@ def test_variants_name_the_new_instances():
     for D, H, S, trans_k, want in ((80, 1, 64, False, "wgmma"),
                                    (80, 5, 64, False, "wgmma"),
                                    (100, 4, 64, False, "wgmma"),
-                                   (100, 5, 64, False, "general"),
-                                   (128, 4, 161, True, "general"),
+                                   (100, 5, 64, False, "aligned"),
+                                   (128, 4, 161, True, "aligned"),
                                    (128, 4, 161, False, "wgmma"),
                                    (512, 4, 64, False, "general")):
         assert flash.prefill_instance(S, H, H, D, torch.float16,
