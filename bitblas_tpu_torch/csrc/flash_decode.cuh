@@ -94,18 +94,29 @@
 // Head dims above 256 (D % 128 == 0 up to kMaxHeadDim, the wide
 // instances, kWide): a 64-key tile of K at D = 512 is 64 KB in bf16, so
 // neither the ring nor a lane's accumulators (G x D / 32 floats) could
-// hold a whole head. The head's output columns are cut into slices of 128
-// on the grid's y axis (blockIdx.y = (hk * hchunks + chunk) * slices +
-// slice), and a block is the D = 128 kernel for its slice: the ring holds
-// only the slice's V columns (and the scales), a lane accumulates 4 dims,
-// and one instance (8 query rows a block) serves every group, which keeps
-// the build short. The scores need all of D: each block reads its keys' K rows straight
-// from device memory (16-byte loads, the four lanes of a key on adjacent
-// chunks; rows outside [lo, len) are not read and score -inf), against
-// the query rows in shared memory ([G][D] f32, 32 KB at G = 8, D = 1024).
-// Every slice computes the same scores, m and l; each keeps its own
-// partials and counter, so the slices merge independently. The slices
-// read K D / 128 times (L2 serves most of it) and V once.
+// hold a whole head. The head is cut into slices of 128 columns, one block
+// a slice, and the D / 128 slices of one (sequence, KV head, group chunk,
+// split) run as one thread-block cluster of (1, D / 128, 1) blocks (the
+// slice is the fastest axis of blockIdx.y = (hk * hchunks + chunk) *
+// slices + slice, so the cluster's rank is the slice; D = 1024 makes 8,
+// the portable cluster size). Each block is the D = 128 kernel for its
+// slice: its ring streams its own 128 columns of K and V (and the
+// scales), swizzle and all, so K and V are read once. The scores need all
+// of D: each block dots its columns, writes the partial scores of the
+// tile ([64 keys][8 rows] f32, double-buffered) to its own shared memory,
+// and after one cluster barrier a tile (arrive.release / wait.acquire)
+// every block sums all slices' partials through distributed shared
+// memory in slice order 0 .. n-1. The blocks of a cluster then hold the
+// same scores, m and l bit for bit, and the score work is done once. The
+// second buffer lets a block write tile i + 1's partials while a slower
+// one still reads tile i's: no block passes barrier i + 1 before every
+// block has read tile i. int8's K scale multiplies the summed score. The
+// blocks of a cluster walk the same keys (start, length and tiles are
+// the cluster's), so they take the same path, early exit included; a
+// cluster barrier after the walk keeps a block from exiting while another
+// may still read its partials. Each slice keeps its own partials and
+// counter, so the split merge runs per slice as before. One instance (8
+// query rows a block) serves every group, which keeps the build short.
 // Each entry point launches on the caller's stream and returns the
 // launch's cudaError_t.
 #pragma once
@@ -217,18 +228,18 @@ struct Codes<int8_t> {
 
 constexpr int kMaxHeadDim = 1024;   // kernels/flash.py DECODE_MAX_HEAD_DIM
 constexpr int kSlice = 128;          // a wide instance's output columns
+constexpr int kMaxSlices = kMaxHeadDim / kSlice;   // a cluster's blocks
 
-// D: the columns a block's V tile and accumulators hold (the head dim, or
-// kSlice in a wide instance, whose ring holds no K tile).
-template <typename T, int D, bool kWide = false>
+// D: the columns a block's K and V tiles and accumulators hold (the head
+// dim, or kSlice in a wide instance).
+template <typename T, int D>
 struct Layout {
   static constexpr int kRowBytes = D * (int)sizeof(T);   // 128 ... 512
   static constexpr int kChunks = kRowBytes / 16;         // 8 ... 32
   static constexpr int kTileBytes = TK * kRowBytes;
-  static constexpr int kKTileBytes = kWide ? 0 : kTileBytes;
   static constexpr int kStages = Codes<T>::kStages;
   // the ring: per stage the K tile, the V tile, K scales, V scales
-  static constexpr int kStageBytes = kKTileBytes + kTileBytes + 2 * TK * 4;
+  static constexpr int kStageBytes = 2 * kTileBytes + 2 * TK * 4;
   static constexpr int kRingBytes = kStages * kStageBytes;
   // Physical 16-byte chunk of logical chunk c of row r: c ^ (LPK r mod
   // chunks). The LPK lanes of a key read chunks LPK j + part, and the two
@@ -239,12 +250,39 @@ struct Layout {
   }
 };
 
-// Dynamic shared memory: the ring, the query rows [G][DK] f32 (DK the
-// head dim), the weights of each warp [warps][G][KW]. After the walk the
-// ring holds the warps' partials, then the split weights of the merge.
-template <int G>
-constexpr int smem_bytes(int ring, int DK) {
-  return ring + G * DK * 4 + kWarps * G * KW * 4;
+// Dynamic shared memory: the ring, the block's query columns [G][D] f32,
+// the weights of each warp [warps][G][KW], and in a wide instance the
+// tile's partial scores [2][TK][G] f32 that the cluster reads. After the
+// walk the ring holds the warps' partials, then the split weights of the
+// merge.
+template <int G, int D, bool kWide>
+constexpr int smem_bytes(int ring) {
+  return ring + G * D * 4 + kWarps * G * KW * 4 + (kWide ? 2 * TK * G * 4 : 0);
+}
+
+// Distributed shared memory of a cluster (sm_90): the address of the same
+// shared variable in block `rank`, an 8-byte read there, and the cluster
+// barrier (release of this block's writes, acquire of the others').
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(s), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // index: slots [B] (slot cache) or tables [B, max_blocks] (block pool);
@@ -277,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
                   int Hkv, int span, int max_blocks, int chunk, int window,
                   int head_dim, float scale) {
   using C = Codes<T>;
-  using L = Layout<T, D, kWide>;
+  using L = Layout<T, D>;
   constexpr int VEC = C::N;
   constexpr int DPL = D / 32;             // dims a lane accumulates
   constexpr int S = L::kStages;
@@ -285,12 +323,13 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;                                 // [S][stage]
   // the head dim (a wide instance's is a runtime multiple of its slice)
-  // and the block's slice of it
+  // and the block's slice of it, which is its rank in the cluster
   const int DK = kWide ? head_dim : D;
   const int nsl = kWide ? head_dim / D : 1;
   const int sl = kWide ? (int)blockIdx.y % nsl : 0;
-  float* qs = reinterpret_cast<float*>(smem + L::kRingBytes);  // [G][DK]
-  float* ps = qs + G * DK;                               // [warps][G][KW]
+  float* qs = reinterpret_cast<float*>(smem + L::kRingBytes);  // [G][D]
+  float* ps = qs + G * D;                                // [warps][G][KW]
+  float* xs = ps + kWarps * G * KW;           // wide: [2][TK][G] partials
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int split = blockIdx.x, b = blockIdx.z;
@@ -348,7 +387,7 @@ __global__ void __launch_bounds__(kThreads)
   // [lo, len) are zero-filled and not read.
   auto load_tile = [&](int i, int st) {
     unsigned char* kt = ring + st * L::kStageBytes;
-    unsigned char* vt = kt + L::kKTileBytes;
+    unsigned char* vt = kt + L::kTileBytes;
     float* kst = reinterpret_cast<float*>(vt + L::kTileBytes);
     float* vst = kst + TK;
     const int t0 = start + i * TK;
@@ -357,13 +396,15 @@ __global__ void __launch_bounds__(kThreads)
       const int idx = tid + j * kThreads;
       const int r = idx / L::kChunks, c = idx % L::kChunks;
       const bool live = (unsigned)(t0 + r - lo) < band;
-      const size_t off = live ? row_of(t0 + r) * key_stride + hk * DK : 0;
+      // the block's columns of the key's row (its slice in a wide instance)
+      const size_t off =
+          live ? row_of(t0 + r) * key_stride + hk * DK + sl * D : 0;
       const int dst = r * L::kRowBytes + L::swz(r, c) * 16;
-      if constexpr (!kWide)
-        cp_async16(kt + dst, reinterpret_cast<const unsigned char*>(kc + off)
-                                 + c * 16, live);
-      cp_async16(vt + dst, reinterpret_cast<const unsigned char*>(
-                               vc + off + (live ? sl * D : 0)) + c * 16,
+      cp_async16(kt + dst,
+                 reinterpret_cast<const unsigned char*>(kc + off) + c * 16,
+                 live);
+      cp_async16(vt + dst,
+                 reinterpret_cast<const unsigned char*>(vc + off) + c * 16,
                  live);
     }
     if constexpr (C::kScaled) {
@@ -382,8 +423,9 @@ __global__ void __launch_bounds__(kThreads)
     if (i < ntiles) load_tile(i, i);
     cp_async_commit();
   }
-  for (int i = tid; i < rows * DK; i += kThreads)
-    qs[i] = q_float(q[((size_t)b * H + h0) * DK + i]) * (scale * LOG2E);
+  for (int i = tid; i < rows * D; i += kThreads)
+    qs[i] = q_float(q[((size_t)b * H + h0 + i / D) * DK + sl * D + i % D]) *
+            (scale * LOG2E);
 
   // Per warp: running max m (base 2) and sum l of each query row
   // (replicated in every lane), the lane's accumulator over dims
@@ -406,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
     if (i + S - 1 < ntiles) load_tile(i + S - 1, (i + S - 1) % S);
     cp_async_commit();
     const unsigned char* kt = ring + (i % S) * L::kStageBytes;
-    const unsigned char* vt = kt + L::kKTileBytes;
+    const unsigned char* vt = kt + L::kTileBytes;
     const float* kst = reinterpret_cast<const float*>(vt + L::kTileBytes);
     const float* vst = kst + TK;
     const int kabs = start + i * TK + key;
@@ -424,7 +466,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int gq = 0; gq < G; ++gq) {
         if (gq >= rows) break;
-        const float4* qv = reinterpret_cast<const float4*>(qs + gq * DK +
+        const float4* qv = reinterpret_cast<const float4*>(qs + gq * D +
                                                            c * VEC);
 #pragma unroll
         for (int e4 = 0; e4 < VEC / 4; ++e4) {
@@ -435,21 +477,50 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     };
-    if constexpr (kWide) {
-      // the whole K row from device memory (a live key's only)
-      if (live) {
-        const uint4* krow = reinterpret_cast<const uint4*>(
-            kc + row_of(kabs) * key_stride + hk * DK);
-        const int nchunks = DK * (int)sizeof(T) / 16;
-#pragma unroll 4
-        for (int c = pl; c < nchunks; c += LPK) dot(__ldg(krow + c), c);
-      }
-    } else {
-      const unsigned char* krow = kt + key * L::kRowBytes;
+    const unsigned char* krow = kt + key * L::kRowBytes;
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int c = LPK * j + pl;
-        dot(*reinterpret_cast<const uint4*>(krow + L::swz(key, c) * 16), c);
+    for (int j = 0; j < CPL; ++j) {
+      const int c = LPK * j + pl;
+      dot(*reinterpret_cast<const uint4*>(krow + L::swz(key, c) * 16), c);
+    }
+    // the key's dot over the block's columns, in every lane of the key
+    auto key_dot = [&](int gq) {
+      float sc = s0[gq] + s1[gq];
+#pragma unroll
+      for (int w = 1; w < LPK; w <<= 1)
+        sc += __shfl_xor_sync(0xffffffffu, sc, w);
+      return sc;
+    };
+    float sum[G];   // wide: the cluster's sum of the slices' dots
+    if constexpr (kWide) {
+      static_assert(G == 2 * LPK, "a lane of a key sums two rows");
+      float* mine = xs + ((i & 1) * TK + key) * G;
+#pragma unroll
+      for (int gq = 0; gq < G; ++gq) sum[gq] = gq < rows ? key_dot(gq) : 0.f;
+      if (pl == 0)
+#pragma unroll
+        for (int g4 = 0; g4 < G; g4 += 4)
+          *reinterpret_cast<float4*>(mine + g4) =
+              make_float4(sum[g4], sum[g4 + 1], sum[g4 + 2], sum[g4 + 3]);
+      cluster_sync();
+      // lane pl of the key sums rows 2 pl, 2 pl + 1 over the slices in
+      // slice order (every read in flight at once), then the key's lanes
+      // swap their sums
+      float2 x[kMaxSlices];
+#pragma unroll
+      for (int r = 0; r < kMaxSlices; ++r)
+        if (r < nsl) x[r] = ld_cluster2(cluster_addr(mine + 2 * pl, r));
+      float2 mine2 = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < kMaxSlices; ++r)
+        if (r < nsl) {
+          mine2.x += x[r].x;
+          mine2.y += x[r].y;
+        }
+#pragma unroll
+      for (int gq = 0; gq < G; ++gq) {
+        const float v = (gq & 1) ? mine2.y : mine2.x;
+        sum[gq] = __shfl_sync(0xffffffffu, v, (lane & ~(LPK - 1)) + gq / 2);
       }
     }
     float ksc_k = 1.f, vsc_k = 1.f;
@@ -461,10 +532,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int gq = 0; gq < G; ++gq) {
       if (gq >= rows) break;
-      float sc = s0[gq] + s1[gq];
-#pragma unroll
-      for (int w = 1; w < LPK; w <<= 1)
-        sc += __shfl_xor_sync(0xffffffffu, sc, w);
+      float sc;
+      if constexpr (kWide)
+        sc = sum[gq];
+      else
+        sc = key_dot(gq);
       sc = live ? sc * ksc_k : -INFINITY;
       float mx = sc;
 #pragma unroll
@@ -520,6 +592,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();   // pw is rewritten by the next tile
   }
 
+  // no block of the cluster exits while another may read its partials
+  if constexpr (kWide) cluster_sync();
   // Merge the warps (log-sum-exp) through the freed ring.
   cp_async_wait<0>();
   __syncthreads();
@@ -647,26 +721,40 @@ struct Args {
 
 template <typename T, typename Q, bool kPaged, int G, int D, bool kWide>
 inline cudaError_t launch_g(dim3 grid, cudaStream_t st, const Args& a) {
-  using L = Layout<T, D, kWide>;
+  using L = Layout<T, D>;
   // after the walk the ring holds the warps' partials, then the merge's
   // split weights
   static_assert(L::kRingBytes >= kWarps * G * D * 4 + 2 * kWarps * G * 4 &&
                     L::kRingBytes >= G * kMaxSplits * 4 + 2 * G * 4,
                 "the merges fit the ring");
-  constexpr int most = smem_bytes<G>(L::kRingBytes, kWide ? kMaxHeadDim : D);
-  const int bytes = smem_bytes<G>(L::kRingBytes, a.head_dim);
+  constexpr int bytes = smem_bytes<G, D, kWide>(L::kRingBytes);
   static bool smem_set[kMaxDevices];
-  cudaError_t e = set_max_smem_once(decode_kernel<T, Q, kPaged, G, D, kWide>,
-                                    most, smem_set);
+  auto* kernel = decode_kernel<T, Q, kPaged, G, D, kWide>;
+  cudaError_t e = set_max_smem_once(kernel, bytes, smem_set);
   if (e != cudaSuccess) return e;
-  decode_kernel<T, Q, kPaged, G, D, kWide><<<grid, kThreads, bytes, st>>>(
-      static_cast<const Q*>(a.q), static_cast<const T*>(a.k),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  // a wide instance's slices of one (sequence, KV head, chunk, split) are
+  // one cluster
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = a.head_dim / D;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = kWide ? 1 : 0;
+  e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const Q*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.index),
       static_cast<const int*>(a.lengths), static_cast<Q*>(a.out),
-      static_cast<float*>(a.ml), static_cast<float*>(a.part), static_cast<int*>(a.count), a.H, a.Hkv,
-      a.span, a.max_blocks, a.chunk, a.window, a.head_dim, a.scale);
-  return cudaGetLastError();
+      static_cast<float*>(a.ml), static_cast<float*>(a.part),
+      static_cast<int*>(a.count), a.H, a.Hkv, a.span, a.max_blocks, a.chunk,
+      a.window, a.head_dim, a.scale);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <typename T, typename Q, bool kPaged, int D>

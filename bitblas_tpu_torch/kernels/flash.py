@@ -69,15 +69,15 @@ from . import build, scratch
 
 LOG2E = 1.4426950408889634
 # the wgmma prefill instances' head dims, one csrc source each (csrc/
-# flash_attention.cuh); the general instance and the float32 FFMA kernel
-# take any D up to GENERAL_MAX_HEAD_DIM
+# flash_attention.cuh); the general instance and the float32 kernel (3xTF32
+# on the tensor cores) take any D up to GENERAL_MAX_HEAD_DIM
 HEAD_DIMS = (64, 80, 96, 100, 128, 256)
 _PREFILL_SOURCES = {64: "flash_attention_d64", 80: "flash_attention_d80",
                     96: "flash_attention_d96", 100: "flash_attention_d100",
                     128: "flash_attention", 256: "flash_attention_d256"}
 # csrc/flash_attention_general.cu's and flash_attention_f32.cu's
-# kMaxHeadDim: Q and one K tile of the whole head dim fill a block's
-# shared memory there
+# kMaxHeadDim: a tile of the whole head dim (Q, or K and V split into
+# their TF32 halves) fills a block's shared memory there
 GENERAL_MAX_HEAD_DIM = 768
 # (block_q, block_kv), FlashHint's: 64 q rows a block, 64- or 128-key tiles
 PREFILL_TILES = ((64, 64), (64, 128))
@@ -309,8 +309,8 @@ def prefill_tiles(D: int, dtype: torch.dtype = torch.float16,
     """The (block_q, block_kv) tiles of kernel 4's `instance`
     (`prefill_instance`) at head dim D: 128-key tiles on the wgmma
     instances (also behind the layout pass) at `KV128_HEAD_DIMS` only; the
-    float32 kernel and the general instance have one fixed tile, which
-    `PREFILL_TILES[0]` names (64 q rows and 64-key tiles)."""
+    float32 kernel and the general instance fix their tiles by head dim,
+    and `PREFILL_TILES[0]` stands for them."""
     if instance in ("wgmma", "aligned") \
             and dtype != torch.float32 and D in KV128_HEAD_DIMS:
         return PREFILL_TILES
@@ -617,11 +617,14 @@ def plan_splits(span: int, batch: int, kv_heads: int,
 
 
 def _split_partials_plain(q, k, v, valid, chunk, k_scale=None,
-                          v_scale=None):
+                          v_scale=None, slices: int = 1):
     """Each chunk's partial in the kernels' arithmetic: the unnormalised
     f32 accumulator acc [B, Hkv, splits, group, D], the base-2 max m and
     the sum l [B, Hkv, splits, group] (m = -inf, l = 0, acc = 0 for a chunk
-    with no live key). Arguments as `_attend_plain`'s."""
+    with no live key). Arguments as `_attend_plain`'s; with `slices` > 1
+    the scores are the wide instances' cluster sum: each slice of D /
+    slices columns dots its own columns, and the partial scores add up in
+    slice order."""
     B, H, D = q.shape
     L, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -637,8 +640,12 @@ def _split_partials_plain(q, k, v, valid, chunk, k_scale=None,
         v_scale = grow(v_scale) if v_scale is not None else None
     v = torch.where(valid[:, :, None, None], v.float(), zero)
     qf = q.float().reshape(B, Hkv, group, D) * (LOG2E / math.sqrt(D))
-    s = torch.einsum("bhgd,blhd->bhgl", qf,
-                     torch.where(valid[:, :, None, None], k.float(), zero))
+    kf = torch.where(valid[:, :, None, None], k.float(), zero)
+    w = D // slices
+    s = torch.einsum("bhgd,blhd->bhgl", qf[..., :w], kf[..., :w])
+    for sl in range(1, slices):
+        cols = slice(sl * w, (sl + 1) * w)
+        s = s + torch.einsum("bhgd,blhd->bhgl", qf[..., cols], kf[..., cols])
     if k_scale is not None:
         ks = torch.where(valid[..., None], k_scale.float(), zero)
         s = s * ks.permute(0, 2, 1)[:, :, None, :]
@@ -692,14 +699,18 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
                              k_scale: Optional[torch.Tensor] = None,
                              v_scale: Optional[torch.Tensor] = None,
                              window: Optional[int] = None,
-                             sms: int = H100_SMS) -> torch.Tensor:
+                             sms: int = H100_SMS, stats: bool = False):
     """The split-KV arithmetic of the decode kernels in plain PyTorch: the
     chunks `plan_splits` gives the span the splits cover (`decode_span`),
     each chunk's base-2 partial, then the merge. Slot cache (index = slots)
     or block pool (paged=True, index = tables), bf16 or int8 with scales;
     a `window` (slot cache only) offsets each sequence's splits to its
-    live band, as the kernels do. Only the tests call it; the wrappers take
-    the single-pass `*_plain` versions."""
+    live band, as the kernels do. Above head dim 256 the scores are the
+    wide instances' cluster walk: partial scores of each 128-column slice
+    summed in slice order, one softmax for all slices (`decode_slices`).
+    `stats` returns the partial_stats triple (acc, m, l) instead of the
+    output. Only the tests call it; the wrappers take the single-pass
+    `*_plain` versions."""
     _check_window(window)
     B, H, _ = q.shape
     Hkv = k.shape[2]
@@ -727,9 +738,10 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
     chunk, _ = plan_splits(span, B, Hkv, sms)
     kr, vr = rows[:2]
     ks, vs = rows[2:4] if k_scale is not None else (None, None)
-    acc, m, l = _split_partials_plain(q, kr, vr, rows[-1], chunk, ks, vs)
-    return _merge_partials_plain(acc, m, l, lengths - base,
-                                 chunk).to(q.dtype)
+    acc, m, l = _split_partials_plain(q, kr, vr, rows[-1], chunk, ks, vs,
+                                      decode_slices(q.shape[-1]))
+    out = _merge_partials_plain(acc, m, l, lengths - base, chunk, stats)
+    return out if stats else out.to(q.dtype)
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,

@@ -50,8 +50,10 @@ instance at head dims 16 ... 768 (the cap), odd head counts at D % 8 ==
 4, K^T at S % 8 != 0, the float32 kernel at D = 6 / 288 / 768, and
 neighbour heads of
 Inf that must not reach a head's output (d80 and general). Kernels 5-8
-at head dims 384, 512 and 1024 (the wide instances: slices of 128
-columns), with a window and in partial_stats mode.
+at head dims 384, 512 and 1024 (the wide instances: a cluster of 128-column
+slices), with a window and in partial_stats mode; the float32 kernel's
+3xTF32 products with K amplified 20x against a float64 truth, and a NaN
+in Q, K or V reaching its output where the plain version's has one.
 """
 
 import math
@@ -1854,3 +1856,64 @@ def test_flashatten_tunes_the_new_instances(dev):
         torch.cuda.synchronize()
         u = _fa_ulp(op.dtype, op.out_dtype)
         assert attention_err(got, ref, u, 4 * u) <= 1.0
+
+
+# The float32 kernel's 3xTF32 products at scores of a few hundred (K
+# amplified 20x), where a fault in P's fragment layout or a dropped product
+# term shows: held to 2e-5 of a float64 truth (the float32 limit of the
+# CPU tests against JAX, tests/test_torch_flash_f32x3.py). The float32
+# plain version strays past 2^-18 ulp of that truth at these scores, so
+# the truth and not the plain version is the reference here.
+F32_AMPLIFIED_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("trans_k", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [6, 128, 288])
+def test_flash_attention_f32_amplified_keys(dev, D, causal, trans_k):
+    from bitblas_tpu_torch.kernels.flash import LOG2E
+    g = torch.Generator(device=dev)
+    g.manual_seed(D * 4 + 2 * causal + trans_k)
+    S, H, Hkv = 200, 4, 2
+    Q = torch.randn((1, S, H, D), generator=g, device=dev)
+    K = torch.randn((1, S, Hkv, D), generator=g, device=dev) * 20
+    V = torch.randn((1, S, Hkv, D), generator=g, device=dev)
+    Kin = K.permute(0, 3, 2, 1).contiguous() if trans_k else K
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(Q, Kin, V, causal=causal, trans_k=trans_k)
+    q = Q.double() * (LOG2E / math.sqrt(D))
+    k, v = (x.double().repeat_interleave(H // Hkv, 2) for x in (K, V))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool, device=dev)
+                          .triu(1), float("-inf"))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    truth = torch.einsum("bhqk,bkhd->bqhd", p, v) \
+        / p.sum(-1).permute(0, 2, 1)[..., None]
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert (got.double() - truth).abs().max().item() <= F32_AMPLIFIED_ATOL
+
+
+# A NaN in Q (query row 70), K or V (key 0, which every query attends) of
+# one head, as CUDA's 0x7fffffff (what 0 / 0 gives) or -NaN (0xffffffff),
+# written on the card: the TF32 split must carry it to the output wherever
+# the plain version's output has one, and leave the rest as it was.
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, -1])
+@pytest.mark.parametrize("where", ["q", "k", "v"])
+@pytest.mark.parametrize("D", [128, 288])
+def test_flash_attention_f32_keeps_nan(dev, D, where, bits):
+    g = torch.Generator(device=dev)
+    g.manual_seed(D + len(where))
+    S, H, Hkv = 200, 4, 2
+    Q, K, V = (torch.randn((1, S, h, D), generator=g, device=dev)
+               for h in (H, Hkv, Hkv))
+    x = {"q": Q, "k": K, "v": V}[where]
+    x.view(torch.int32)[0, 70 if where == "q" else 0, 1, 5] = bits
+    assert torch.isnan(x).sum().item() == 1
+    got = flash_attention_fwd(Q, K, V, causal=True)
+    ref = flash_attention_plain(Q, K, V, causal=True)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert nan.any() and torch.equal(torch.isnan(got), nan)
+    assert (got[~nan] - ref[~nan]).abs().max().item() <= 1e-5
